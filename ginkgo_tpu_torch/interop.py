@@ -1,0 +1,47 @@
+"""Carry state across from the JAX package.
+
+These functions take the JAX package's arrays as numpy (``np.asarray`` of a
+``ginkgo_tpu`` object's fields) and build the port's objects from them, so
+both packages compute on identical operands.  Nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .base.matrix_data import MatrixData
+from .matrix.dia import Dia
+from .preconditioner.jacobi import Jacobi
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """numpy -> tensor; a bfloat16 array (ml_dtypes, as JAX hands it out)
+    is carried bit for bit."""
+    a = np.array(a)  # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(a.view(np.int16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def dia_from_arrays(diags, offsets, shape, *, device) -> Dia:
+    """A ``Dia`` from diagonals in the TPU lane frame ``(nd, R, 128)`` or
+    flat ``(nd, n)``: the frame is flattened and cut to the n rows."""
+    n = int(shape[0])
+    nd = len(offsets)
+    flat = np.asarray(diags).reshape(nd, -1)[:, :n]
+    return Dia(
+        diags=_tensor(flat, device),
+        offsets=tuple(int(o) for o in offsets),
+        shape=(n, int(shape[1])),
+    )
+
+
+def matrix_data_from_arrays(shape, rows, cols, values) -> MatrixData:
+    return MatrixData.from_coo(tuple(int(s) for s in shape), rows, cols, values)
+
+
+def jacobi_from_arrays(inv_diag, *, device) -> Jacobi:
+    inv = _tensor(inv_diag, device)
+    return Jacobi(inv_diag=inv, n=int(inv.shape[0]), max_block_size=1)
