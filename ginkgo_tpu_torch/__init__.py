@@ -7,8 +7,14 @@ hand-written CUDA kernel for ``sm_90a`` under ``csrc/``, built by ``nvcc``
 at first use (``_build.py``).  On a CPU tensor each kernel wrapper runs
 the kernel's plain PyTorch version instead.
 
-Ported so far (slice 1): 2-D Poisson ``MatrixData`` -> ``Dia`` -> ``Cg`` /
-``Fcg`` with Identity or scalar-Jacobi preconditioning.
+Ported so far:
+
+- slice 1: 2-D Poisson ``MatrixData`` -> ``Dia`` -> ``Cg`` / ``Fcg`` with
+  Identity or scalar-Jacobi preconditioning, one or up to 8 right-hand
+  sides in one fused kernel;
+- slice 2: unstructured matrices, ``MatrixData`` -> ``Csr`` (classical,
+  merge_path, sparselib and the PELL-plan "pallas" strategy) -> ``Pell``
+  -> ``Cg`` / ``Fcg``, fused or streaming.
 """
 
 __version__ = "0.1.0"
@@ -17,9 +23,11 @@ from . import stop
 from .base import exceptions, types
 from .base.linop import Combination, Composition, LinOp, Perturbation
 from .base.matrix_data import DeviceMatrixData, MatrixData
+from .matrix.csr import Csr
 from .matrix.dense import Dense
 from .matrix.dia import Dia
 from .matrix.diagonal import Diagonal, Identity
+from .matrix.pell import Pell
 from .preconditioner.jacobi import Jacobi
 from .solver.cg import Cg, Fcg
 from .solver.solver_base import SolveInfo
@@ -29,6 +37,7 @@ __all__ = [
     "Cg",
     "Combination",
     "Composition",
+    "Csr",
     "Dense",
     "DeviceMatrixData",
     "Dia",
@@ -38,6 +47,7 @@ __all__ = [
     "Jacobi",
     "LinOp",
     "MatrixData",
+    "Pell",
     "Perturbation",
     "SolveInfo",
     "exceptions",

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` is a self-contained translation unit with a plain C
 interface.  On first use it is compiled by ``nvcc`` into a shared library
 (``-gencode arch=compute_90a,code=sm_90a``, Hopper) and loaded with
-``ctypes``.  The library name carries a hash of the source and the flags,
+``ctypes``; :func:`build` compiles several sources at once, one ``nvcc``
+process each.  The library name carries a hash of the source and the flags,
 so an edited source rebuilds and a stale library is never loaded.  Builds
 land in ``build/kernels/`` at the repository root (listed in
 ``.gitignore``); a library is written under a temporary name and renamed
@@ -28,6 +29,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 #: the CUDA toolkit's conventional install prefix, searched last
 CUDA_DEFAULT_HOME = Path("/usr/local/cuda")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+#: every kernel library of the port, one ``csrc/<name>.cu`` each
+KERNELS = ("dia_spmv", "cg_fused", "pell_spmv", "pell_cg_fused")
 
 # -fmad=false: every multiply and add rounds on its own, as PyTorch's
 # elementwise ops do, so a kernel and its plain version differ only in the
@@ -78,33 +81,46 @@ def _source_hash(src: Path) -> str:
     return h.hexdigest()[:16]
 
 
+def build(names) -> dict[str, ctypes.CDLL]:
+    """Return the loaded libraries built from ``csrc/<name>.cu`` for each
+    name.  Every library without a build for its current source is
+    compiled first, all of them at once (one ``nvcc`` process each); the
+    call returns after every process it started has ended."""
+    names = list(dict.fromkeys(names))
+    outs = {name: BUILD_DIR / f"lib{name}-{_source_hash(CSRC / f'{name}.cu')}.so"
+            for name in names if name not in _LIBS}
+    missing = [name for name, out in outs.items() if not out.exists()]
+    procs = {}
+    if missing:
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        for name in missing:
+            tmp = outs[name].with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True),
+                           tmp, time.perf_counter())
+    records, errors = {}, []
+    for name, (proc, tmp, t0) in procs.items():
+        stdout, stderr = proc.communicate()
+        records[name] = {"seconds": time.perf_counter() - t0, "ptxas": stderr,
+                         "path": str(outs[name])}
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            errors.append(f"nvcc failed on {name}.cu (rc {proc.returncode}):\n"
+                          f"{stdout}\n{stderr}")
+        else:
+            os.replace(tmp, outs[name])
+    if errors:
+        raise KernelBuildError("\n".join(errors))
+    for name, out in outs.items():
+        _LIBS[name] = ctypes.CDLL(str(out))
+        BUILD_LOG[name] = records.get(name, {"seconds": 0.0, "ptxas": "", "path": str(out)})
+    return {name: _LIBS[name] for name in names}
+
+
 def load(name: str) -> ctypes.CDLL:
     """Return the loaded library built from ``csrc/<name>.cu``, compiling
     it first when no library for the current source exists."""
-    lib = _LIBS.get(name)
-    if lib is not None:
-        return lib
-    src = CSRC / f"{name}.cu"
-    out = BUILD_DIR / f"lib{name}-{_source_hash(src)}.so"
-    record = {"seconds": 0.0, "ptxas": "", "path": str(out)}
-    if not out.exists():
-        nvcc = find_nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        record["seconds"] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise KernelBuildError(
-                f"nvcc failed on {src.name} (rc {proc.returncode}):\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        record["ptxas"] = proc.stderr
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    _LIBS[name] = lib
-    BUILD_LOG[name] = record
-    return lib
-
+    return build([name])[name]

@@ -1,5 +1,5 @@
 // Whole-solve CG / FCG in one persistent cooperative kernel: kernel K4 of the
-// PyTorch port.
+// PyTorch port, and its k-RHS form K4m (below).
 //
 // Replaces ginkgo_tpu/ops/pallas_cg.py cg_vmem_solve (_cg_kernel): the whole
 // Krylov loop, the preconditioner (Identity or an inverse diagonal) and the
@@ -20,10 +20,8 @@
 // launches and host syncs.  Every row belongs to the same thread in every
 // pass, so x, r and q are only ever read back by the thread that wrote them;
 // p is read across rows by the SpMV and is loaded with __ldcg (L2, never a
-// stale L1 line).  Dot products are summed per thread in double, reduced
-// per block, and written as per-block partials; after the barrier every
-// block sums all partials in the same fixed order, so all blocks hold
-// bit-identical scalars and take the same branch of the loop condition.
+// stale L1 line).  The dot products follow coop.cuh: float64 per-block
+// partials that every block sums in the same fixed order.
 //
 // Semantics kept from _cg_kernel (ops/pallas_cg.py:96-221):
 //   - the monitor starts at +inf, so the first iteration always runs;
@@ -33,15 +31,9 @@
 //   - zero denominators give 0 (_sdiv);
 //   - converged = (mon <= tol_sq).
 
-#include <cooperative_groups.h>
-#include <math_constants.h>
-
-#include "common.cuh"
+#include "coop.cuh"
 
 namespace cg = cooperative_groups;
-
-#define GK_CG_THREADS 256
-#define GK_CG_WARPS (GK_CG_THREADS / 32)
 
 struct CgParams {
   const void* diags;
@@ -64,72 +56,27 @@ struct CgParams {
   int* conv_out;
 };
 
-__device__ __forceinline__ float gk_sdiv(float num, float den) {
-  return den != 0.f ? num / den : 0.f;
-}
-
-// Sum NV values over the block; the result is valid in thread 0.
-template <int NV>
-__device__ __forceinline__ void block_sum(double (&v)[NV],
-                                          double (&sh)[NV][GK_CG_WARPS]) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-#pragma unroll
-    for (int c = 0; c < NV; ++c) v[c] += __shfl_down_sync(0xffffffffu, v[c], o);
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int c = 0; c < NV; ++c) sh[c][warp] = v[c];
-  }
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int c = 0; c < NV; ++c) v[c] = lane < GK_CG_WARPS ? sh[c][lane] : 0.0;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-#pragma unroll
-      for (int c = 0; c < NV; ++c)
-        v[c] += __shfl_down_sync(0xffffffffu, v[c], o);
-    }
-  }
-  __syncthreads();
-}
-
-// Write this block's NV partial sums to part[blockIdx.x * NV + c].
-template <int NV>
-__device__ __forceinline__ void block_partial(double (&v)[NV], double* part,
-                                              double (&sh)[NV][GK_CG_WARPS]) {
-  block_sum<NV>(v, sh);
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int c = 0; c < NV; ++c) part[blockIdx.x * NV + c] = v[c];
-  }
-}
-
-// After a grid barrier: every block sums all partials in the same order.
-template <int NV>
-__device__ __forceinline__ void grid_total(const double* part, double (&tot)[NV],
-                                           double (&sh)[NV][GK_CG_WARPS],
-                                           double (&bc)[NV]) {
-  double v[NV];
-#pragma unroll
-  for (int c = 0; c < NV; ++c) v[c] = 0.0;
-  for (int b = threadIdx.x; b < (int)gridDim.x; b += blockDim.x) {
-#pragma unroll
-    for (int c = 0; c < NV; ++c) v[c] += __ldcg(part + b * NV + c);
-  }
-  block_sum<NV>(v, sh);
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int c = 0; c < NV; ++c) bc[c] = v[c];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int c = 0; c < NV; ++c) tot[c] = bc[c];
-  __syncthreads();
-}
+struct CgMultiParams {
+  const void* diags;
+  GkOffsets offs;
+  long long n;
+  const float* r0;      // (n, K) row-major
+  const float* x0;      // (n, K)
+  const float* minv;    // (n,) or nullptr: Identity
+  const float* tol_sq;  // (K,) per-column thresholds on the device
+  int max_iters;
+  int implicit;
+  int flexible;
+  float* x;
+  float* r;
+  float* p;
+  float* q;
+  double* part;  // 4 * K * gridDim.x per-block partial sums
+  int* it_out;
+  float* mon_out;  // (K,)
+  int* conv_out;   // (K,)
+  int* itc_out;    // (K,) iteration at which each column stopped
+};
 
 template <typename TD>
 __global__ void __launch_bounds__(GK_CG_THREADS)
@@ -239,30 +186,191 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
   }
 }
 
-template <typename TD>
-static int grid_blocks(int* blocks) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  int coop = 0, sms = 0, per_sm = 0;
-  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e != cudaSuccess) return (int)e;
-  if (!coop) return (int)cudaErrorNotSupported;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, cg_fused_kernel<TD>, GK_CG_THREADS, 0);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  *blocks = per_sm * sms;
-  return 0;
+// k-RHS CG / FCG with per-column stopping: kernel K4m.
+//
+// Replaces ginkgo_tpu/ops/pallas_cg.py cg_vmem_solve_multi
+// (_cg_multi_kernel, :257-424): K columns (2 <= K <= 8) solved together in
+// K4's three passes.  The vectors are (n, K) row-major, so each diagonal
+// value is read once per row for all K columns and a row's K entries are
+// one contiguous run.  Each column has its own rho, alpha and beta and its
+// own active flag (the reference's stopping-status byte): a stopped column
+// gets alpha = 0 (x += 0 p and r -= 0 q still run, as in the TPU kernel,
+// :351-358), its p stays frozen (:386-389), and it records the iteration
+// at which it stopped (itc).  The loop runs while it < max_iters and any
+// column is active; a column's stop test is !(mon_j <= tol_j), so a NaN
+// monitor stays active.  Bytes per iteration: (nd * sizeof(TD) + 44 K) n,
+// plus 12 n with an inverse diagonal.
+template <typename TD, int K>
+__global__ void __launch_bounds__(GK_CG_THREADS)
+    cg_fused_multi_kernel(const CgMultiParams P) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ double sh1[K][GK_CG_WARPS];
+  __shared__ double sh3[3 * K][GK_CG_WARPS];
+  __shared__ double bc1[K];
+  __shared__ double bc3[3 * K];
+
+  const TD* __restrict__ D = static_cast<const TD*>(P.diags);
+  const long long n = P.n;
+  const int nd = P.offs.nd;
+  const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  double* part1 = P.part;                  // [gridDim.x][K]   p.q
+  double* part3 = P.part + gridDim.x * K;  // [gridDim.x][3K]  rho, r.r, rho_t
+  float* __restrict__ x = P.x;
+  float* __restrict__ r = P.r;
+  float* p = P.p;
+  float* __restrict__ q = P.q;
+  const float* __restrict__ minv = P.minv;
+
+  double tot1[K];
+  double tot3[3 * K];
+  float rho[K], tol[K], mon[K];
+  bool act[K];
+  int itc[K];
+
+  // init: X = X0, R = R0, P = Z = M R; rho_c = r_c.z_c
+  {
+    double s[3 * K];
+#pragma unroll
+    for (int c = 0; c < 3 * K; ++c) s[c] = 0.0;
+    for (long long i = t0; i < n; i += stride) {
+      const float mi = minv ? minv[i] : 1.f;
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        const long long e = i * K + c;
+        const float ri = P.r0[e];
+        const float zi = minv ? mi * ri : ri;
+        x[e] = P.x0[e];
+        r[e] = ri;
+        p[e] = zi;
+        s[c] += (double)ri * zi;
+        s[K + c] += (double)ri * ri;
+      }
+    }
+    block_partial<3 * K>(s, part3, sh3);
+  }
+  grid.sync();
+  grid_total<3 * K>(part3, tot3, sh3, bc3);
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    rho[c] = (float)tot3[c];
+    tol[c] = P.tol_sq[c];
+    mon[c] = CUDART_INF_F;
+    act[c] = true;
+    itc[c] = 0;
+  }
+
+  int it = 0;
+  for (;;) {
+    bool any = false;
+#pragma unroll
+    for (int c = 0; c < K; ++c) any = any || act[c];
+    if (!(it < P.max_iters && any)) break;
+
+    // pass 1: Q = A P, each diagonal value read once for all K columns
+    {
+      double s[K];
+#pragma unroll
+      for (int c = 0; c < K; ++c) s[c] = 0.0;
+      for (long long i = t0; i < n; i += stride) {
+        float acc[K];
+#pragma unroll
+        for (int c = 0; c < K; ++c) acc[c] = 0.f;
+        for (int d = 0; d < nd; ++d) {
+          const long long j = i + P.offs.off[d];
+          if (j >= 0 && j < n) {
+            const float v = GkAcc<float>::load(D[d * n + i]);
+#pragma unroll
+            for (int c = 0; c < K; ++c) acc[c] += v * __ldcg(p + j * K + c);
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < K; ++c) {
+          q[i * K + c] = acc[c];
+          s[c] += (double)__ldcg(p + i * K + c) * acc[c];
+        }
+      }
+      block_partial<K>(s, part1, sh1);
+    }
+    grid.sync();
+    grid_total<K>(part1, tot1, sh1, bc1);
+    float alpha[K];
+#pragma unroll
+    for (int c = 0; c < K; ++c)
+      alpha[c] = act[c] ? gk_sdiv(rho[c], (float)tot1[c]) : 0.f;
+
+    // pass 2: X += alpha P, R -= alpha Q in every column
+    {
+      double s[3 * K];
+#pragma unroll
+      for (int c = 0; c < 3 * K; ++c) s[c] = 0.0;
+      for (long long i = t0; i < n; i += stride) {
+        const float mi = minv ? minv[i] : 1.f;
+#pragma unroll
+        for (int c = 0; c < K; ++c) {
+          const long long e = i * K + c;
+          const float pi = __ldcg(p + e);
+          x[e] = x[e] + alpha[c] * pi;
+          const float ro = r[e];
+          const float rn = ro - alpha[c] * q[e];
+          r[e] = rn;
+          const float zi = minv ? mi * rn : rn;
+          s[c] += (double)rn * zi;
+          s[K + c] += (double)rn * rn;
+          if (P.flexible) s[2 * K + c] += (double)(rn - ro) * zi;
+        }
+      }
+      block_partial<3 * K>(s, part3, sh3);
+    }
+    grid.sync();
+    grid_total<3 * K>(part3, tot3, sh3, bc3);
+    float beta[K];
+#pragma unroll
+    for (int c = 0; c < K; ++c)
+      beta[c] = gk_sdiv(P.flexible ? (float)tot3[2 * K + c] : (float)tot3[c],
+                        rho[c]);
+
+    // pass 3: P = Z + beta P in the active columns; stopped ones freeze
+    for (long long i = t0; i < n; i += stride) {
+      const float mi = minv ? minv[i] : 1.f;
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        if (act[c]) {
+          const long long e = i * K + c;
+          const float ri = r[e];
+          const float zi = minv ? mi * ri : ri;
+          p[e] = zi + beta[c] * __ldcg(p + e);
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      mon[c] = P.implicit ? fabsf(rho[c]) : (float)tot3[K + c];
+      if (act[c]) itc[c] = it + 1;
+      act[c] = act[c] && !(mon[c] <= tol[c]);
+      rho[c] = (float)tot3[c];
+    }
+    ++it;
+    grid.sync();
+  }
+
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *P.it_out = it;
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      P.mon_out[c] = mon[c];
+      P.conv_out[c] = (mon[c] <= tol[c]) ? 1 : 0;
+      P.itc_out[c] = itc[c];
+    }
+  }
 }
 
 // Number of blocks the cooperative grid will have (the wrapper sizes the
 // partial-sum scratch, 4 doubles per block, from it).
 extern "C" int cg_fused_grid(int d_dtype, int* blocks) {
-  if (d_dtype == GK_F32) return grid_blocks<float>(blocks);
-  if (d_dtype == GK_BF16) return grid_blocks<__nv_bfloat16>(blocks);
+  if (d_dtype == GK_F32) return gk_coop_blocks(cg_fused_kernel<float>, blocks);
+  if (d_dtype == GK_BF16)
+    return gk_coop_blocks(cg_fused_kernel<__nv_bfloat16>, blocks);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -295,19 +403,80 @@ extern "C" int cg_fused_solve(const void* diags, int d_dtype,
   P.it_out = it_out;
   P.mon_out = mon_out;
   P.conv_out = conv_out;
-  void* args[] = {&P};
-  cudaError_t e;
-  if (d_dtype == GK_F32) {
-    e = cudaLaunchCooperativeKernel((const void*)cg_fused_kernel<float>,
-                                    dim3(blocks), dim3(GK_CG_THREADS), args, 0,
-                                    (cudaStream_t)stream);
-  } else if (d_dtype == GK_BF16) {
-    e = cudaLaunchCooperativeKernel((const void*)cg_fused_kernel<__nv_bfloat16>,
-                                    dim3(blocks), dim3(GK_CG_THREADS), args, 0,
-                                    (cudaStream_t)stream);
-  } else {
-    return (int)cudaErrorInvalidValue;
+  if (d_dtype == GK_F32) return gk_coop_launch(cg_fused_kernel<float>, P, blocks, stream);
+  if (d_dtype == GK_BF16)
+    return gk_coop_launch(cg_fused_kernel<__nv_bfloat16>, P, blocks, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int K>
+static int multi_grid(int d_dtype, int* blocks) {
+  if (d_dtype == GK_F32) return gk_coop_blocks(cg_fused_multi_kernel<float, K>, blocks);
+  if (d_dtype == GK_BF16)
+    return gk_coop_blocks(cg_fused_multi_kernel<__nv_bfloat16, K>, blocks);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int K>
+static int multi_launch(int d_dtype, const CgMultiParams& P, int blocks,
+                        void* stream) {
+  if (d_dtype == GK_F32)
+    return gk_coop_launch(cg_fused_multi_kernel<float, K>, P, blocks, stream);
+  if (d_dtype == GK_BF16)
+    return gk_coop_launch(cg_fused_multi_kernel<__nv_bfloat16, K>, P, blocks,
+                          stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+#define GK_SWITCH_K(k, CALL_K)                   \
+  switch (k) {                                   \
+    case 2: return CALL_K(2);                    \
+    case 3: return CALL_K(3);                    \
+    case 4: return CALL_K(4);                    \
+    case 5: return CALL_K(5);                    \
+    case 6: return CALL_K(6);                    \
+    case 7: return CALL_K(7);                    \
+    case 8: return CALL_K(8);                    \
+    default: return (int)cudaErrorInvalidValue;  \
   }
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+
+// Blocks of K4m's cooperative grid for k columns (4 k doubles of partial
+// sums per block).
+extern "C" int cg_fused_multi_grid(int d_dtype, int k, int* blocks) {
+#define GK_GRID_K(K) multi_grid<K>(d_dtype, blocks)
+  GK_SWITCH_K(k, GK_GRID_K)
+#undef GK_GRID_K
+}
+
+extern "C" int cg_fused_multi_solve(
+    const void* diags, int d_dtype, const long long* offsets, int nd,
+    long long n, int k, const float* r0, const float* x0, const float* minv,
+    const float* tol_sq, int max_iters, int implicit, int flexible, float* x,
+    float* r, float* p, float* q, double* part, int blocks, int* it_out,
+    float* mon_out, int* conv_out, int* itc_out, void* stream) {
+  if (nd < 1 || nd > GK_MAX_DIAGS || blocks < 1) return (int)cudaErrorInvalidValue;
+  CgMultiParams P;
+  P.diags = diags;
+  P.offs.nd = nd;
+  for (int d = 0; d < nd; ++d) P.offs.off[d] = offsets[d];
+  P.n = n;
+  P.r0 = r0;
+  P.x0 = x0;
+  P.minv = minv;
+  P.tol_sq = tol_sq;
+  P.max_iters = max_iters;
+  P.implicit = implicit;
+  P.flexible = flexible;
+  P.x = x;
+  P.r = r;
+  P.p = p;
+  P.q = q;
+  P.part = part;
+  P.it_out = it_out;
+  P.mon_out = mon_out;
+  P.conv_out = conv_out;
+  P.itc_out = itc_out;
+#define GK_LAUNCH_K(K) multi_launch<K>(d_dtype, P, blocks, stream)
+  GK_SWITCH_K(k, GK_LAUNCH_K)
+#undef GK_LAUNCH_K
 }

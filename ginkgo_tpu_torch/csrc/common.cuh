@@ -8,8 +8,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-// dtype codes shared with the Python wrappers (ginkgo_tpu_torch/ops/dia.py DTYPE_CODE)
-enum GkDtype : int { GK_F32 = 0, GK_F64 = 1, GK_BF16 = 2 };
+// dtype codes shared with the Python wrappers (ginkgo_tpu_torch/ops/dia.py
+// DTYPE_CODE, ops/pell.py INDEX_CODE)
+enum GkDtype : int { GK_F32 = 0, GK_F64 = 1, GK_BF16 = 2, GK_I8 = 3, GK_I32 = 4 };
 
 // The DIA kernels take at most this many diagonals: the offsets travel by
 // value in the kernel's parameter block (matrix/dia.py suitable_for_dia caps
@@ -23,6 +24,7 @@ struct GkOffsets {
 
 // Value loads widened to the accumulation type.
 __device__ __forceinline__ float gk_to_float(float v) { return v; }
+__device__ __forceinline__ float gk_to_float(double v) { return (float)v; }
 __device__ __forceinline__ float gk_to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }

@@ -1,0 +1,120 @@
+// Helpers of the persistent cooperative whole-solve kernels (K4, K4m, K7).
+//
+// A solve runs in one cooperative launch whose grid is what the SMs hold at
+// once; passes are separated by cooperative_groups::this_grid().sync().  Dot
+// products are summed per thread in double, reduced per block and written
+// as per-block partials; after the barrier every block sums all partials in
+// the same fixed order, so all blocks hold bit-identical scalars and take
+// the same branch of the loop condition (a block that left the loop early
+// would deadlock the next barrier).
+#pragma once
+
+#include <cooperative_groups.h>
+#include <math_constants.h>
+
+#include "common.cuh"
+
+#define GK_CG_THREADS 256
+#define GK_CG_WARPS (GK_CG_THREADS / 32)
+
+// num/den with den == 0 mapping to 0 (pallas_cg._sdiv).
+__device__ __forceinline__ float gk_sdiv(float num, float den) {
+  return den != 0.f ? num / den : 0.f;
+}
+
+// Sum NV values over the block; the result is valid in thread 0.
+template <int NV>
+__device__ __forceinline__ void block_sum(double (&v)[NV],
+                                          double (&sh)[NV][GK_CG_WARPS]) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int c = 0; c < NV; ++c) v[c] += __shfl_down_sync(0xffffffffu, v[c], o);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int c = 0; c < NV; ++c) sh[c][warp] = v[c];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int c = 0; c < NV; ++c) v[c] = lane < GK_CG_WARPS ? sh[c][lane] : 0.0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int c = 0; c < NV; ++c)
+        v[c] += __shfl_down_sync(0xffffffffu, v[c], o);
+    }
+  }
+  __syncthreads();
+}
+
+// Write this block's NV partial sums to part[blockIdx.x * NV + c].
+template <int NV>
+__device__ __forceinline__ void block_partial(double (&v)[NV], double* part,
+                                              double (&sh)[NV][GK_CG_WARPS]) {
+  block_sum<NV>(v, sh);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int c = 0; c < NV; ++c) part[blockIdx.x * NV + c] = v[c];
+  }
+}
+
+// After a grid barrier: every block sums all partials in the same order.
+template <int NV>
+__device__ __forceinline__ void grid_total(const double* part, double (&tot)[NV],
+                                           double (&sh)[NV][GK_CG_WARPS],
+                                           double (&bc)[NV]) {
+  double v[NV];
+#pragma unroll
+  for (int c = 0; c < NV; ++c) v[c] = 0.0;
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += blockDim.x) {
+#pragma unroll
+    for (int c = 0; c < NV; ++c) v[c] += __ldcg(part + b * NV + c);
+  }
+  block_sum<NV>(v, sh);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int c = 0; c < NV; ++c) bc[c] = v[c];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < NV; ++c) tot[c] = bc[c];
+  __syncthreads();
+}
+
+// Blocks of a cooperative grid for `kernel`: co-resident blocks per SM
+// (occupancy at GK_CG_THREADS threads, no dynamic shared memory) times the
+// SM count.
+template <typename Kernel>
+static int gk_coop_blocks(Kernel kernel, int* blocks) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  int coop = 0, sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (!coop) return (int)cudaErrorNotSupported;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    GK_CG_THREADS, 0);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  *blocks = per_sm * sms;
+  return 0;
+}
+
+// Launch `kernel(params)` cooperatively on `blocks` blocks.
+template <typename Kernel, typename Params>
+static int gk_coop_launch(Kernel kernel, const Params& params, int blocks,
+                          void* stream) {
+  void* args[] = {const_cast<Params*>(&params)};
+  cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)kernel, dim3(blocks), dim3(GK_CG_THREADS), args, 0,
+      (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}

@@ -11,7 +11,10 @@ import numpy as np
 import torch
 
 from .base.matrix_data import MatrixData
+from .matrix.csr import Csr
 from .matrix.dia import Dia
+from .matrix.pell import Pell
+from .ops.pell import tile_ptr_from_steps
 from .preconditioner.jacobi import Jacobi
 
 
@@ -45,3 +48,35 @@ def matrix_data_from_arrays(shape, rows, cols, values) -> MatrixData:
 def jacobi_from_arrays(inv_diag, *, device) -> Jacobi:
     inv = _tensor(inv_diag, device)
     return Jacobi(inv_diag=inv, n=int(inv.shape[0]), max_block_size=1)
+
+
+def csr_from_arrays(row_ptrs, col_idxs, values, shape, *, device,
+                    strategy="auto") -> Csr:
+    """A ``Csr`` from a JAX Csr's row_ptrs / col_idxs / values."""
+    return Csr(
+        row_ptrs=_tensor(row_ptrs, device),
+        col_idxs=_tensor(col_idxs, device),
+        values=_tensor(values, device),
+        shape=tuple(int(s) for s in shape),
+        strategy=strategy,
+    )
+
+
+def pell_from_arrays(values, qidx, bases, tile_of_step, *, shape, n_steps,
+                     nnz, G, NT, NP, S, device) -> Pell:
+    """A ``Pell`` from a JAX PELL plan or Pell: its arrays, carried bit for
+    bit, and its geometry; ``tile_ptr`` is derived from the step -> tile
+    map."""
+    return Pell(
+        values=_tensor(values, device),
+        qidx=_tensor(qidx, device),
+        bases=_tensor(np.asarray(bases, np.int32), device),
+        tile_ptr=_tensor(tile_ptr_from_steps(tile_of_step, int(NT), int(G)), device),
+        shape=tuple(int(s) for s in shape),
+        n_steps=int(n_steps),
+        nnz=int(nnz),
+        G=int(G),
+        NT=int(NT),
+        NP=int(NP),
+        S=int(S),
+    )

@@ -1,5 +1,7 @@
+from .csr import Csr
 from .dense import Dense
 from .dia import Dia
 from .diagonal import Diagonal, Identity
+from .pell import Pell
 
-__all__ = ["Dense", "Dia", "Diagonal", "Identity"]
+__all__ = ["Csr", "Dense", "Dia", "Diagonal", "Identity", "Pell"]

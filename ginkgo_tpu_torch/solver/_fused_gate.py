@@ -1,19 +1,24 @@
-"""Gate for the whole-solve fused CG kernel on the GPU.
+"""Gates for the whole-solve fused CG kernels on the GPU.
 
-Counterpart of ``ginkgo_tpu/solver/_fused_gate.py``.  It looks only at the
-solve's structure, never at the device, so the CPU (where the kernel's
-plain version runs) and the card route a solve the same way.  A solve is
-accepted when all of these hold:
+Counterpart of ``ginkgo_tpu/solver/_fused_gate.py``.  The gates look only
+at the solve's structure, never at the device, so the CPU (where each
+kernel's plain version runs) and the card route a solve the same way.
+Every fused route needs:
 
-- the operator is a square ``Dia`` with 1 to 64 diagonals stored as
-  float32 or bfloat16;
-- the right-hand side is a single float32 column;
-- the preconditioner is Identity, Diagonal or scalar Jacobi;
-- ``analyze_simple_residual`` accepts the criterion;
-- the solver tracks no history.
+- float32 right-hand sides, one column (2 to 8 for the k-RHS kernel K4m);
+- an Identity, Diagonal or scalar-Jacobi preconditioner (block Jacobi
+  streams);
+- a criterion that ``analyze_simple_residual`` accepts;
+- no history tracking.
 
-The TPU gate's VMEM budget and environment flags have no counterpart: the
-GPU kernel keeps its state in device memory, so no size limit applies.
+``prepare_fused_dia`` adds a square ``Dia`` with 1 to 64 diagonals stored
+as float32 or bfloat16 (kernels K4, K4m); ``prepare_fused_pell`` a square
+``Pell`` with float32 or bfloat16 values and S = 8, the layout both
+packages' fused kernels are routed to (K7).
+
+The TPU gates' VMEM/SMEM budgets and environment flags have no
+counterpart: the GPU kernels keep their state in device memory, so no
+size limit applies.
 """
 
 from __future__ import annotations
@@ -22,31 +27,30 @@ import torch
 
 from ..matrix.dia import Dia
 from ..matrix.diagonal import Diagonal, Identity
+from ..matrix.pell import Pell
 from ..ops.cg import FUSED_DIAG_DTYPES
 from ..ops.dia import MAX_DIAGS
+from ..ops.pell_cg import FUSED_VALUE_DTYPES
 from ..preconditioner.jacobi import Jacobi
 from ..stop.criterion import analyze_simple_residual
 from .solver_base import extract_max_iters, norm2
 
+#: the slot layout the fused Pell kernel is routed to
+FUSED_PELL_S = 8
 
-def prepare_fused_dia(solver, b):
-    """Return None (the streaming loop runs) or a dict with what the fused
-    kernel needs: A, minv, tol/baseline/implicit/has_res, cap."""
-    A = solver.A
-    if not isinstance(A, Dia) or A.shape[0] != A.shape[1]:
-        return None
-    if not 1 <= A.num_diags <= MAX_DIAGS or A.dtype not in FUSED_DIAG_DTYPES:
-        return None
+
+def _prepare_common(solver, b, max_cols):
+    """Operator-independent checks; None or a partial ctx."""
     if getattr(solver, "track_history", False):
         return None
-    if b.shape[1] != 1 or b.dtype != torch.float32:
+    if not 1 <= b.shape[1] <= max_cols or b.dtype != torch.float32:
         return None
     M = solver.preconditioner
     if isinstance(M, Identity):
         minv = None
     elif isinstance(M, Diagonal):
         minv = M.values
-    elif isinstance(M, Jacobi):
+    elif isinstance(M, Jacobi) and M.max_block_size == 1 and M.inv_diag is not None:
         minv = M.inv_diag
     else:
         return None
@@ -55,7 +59,7 @@ def prepare_fused_dia(solver, b):
         return None
     tol, baseline, implicit, has_res = simple
     return {
-        "A": A,
+        "A": solver.A,
         "minv": minv,
         "tol": tol,
         "baseline": baseline,
@@ -65,16 +69,40 @@ def prepare_fused_dia(solver, b):
     }
 
 
+def prepare_fused_dia(solver, b, max_cols=1):
+    """None (another route runs) or a dict with what K4 (one column) or
+    K4m (``max_cols`` up to 8) needs: A, minv, tol/baseline/implicit/
+    has_res, cap."""
+    A = solver.A
+    if not isinstance(A, Dia) or A.shape[0] != A.shape[1]:
+        return None
+    if not 1 <= A.num_diags <= MAX_DIAGS or A.dtype not in FUSED_DIAG_DTYPES:
+        return None
+    return _prepare_common(solver, b, max_cols)
+
+
+def prepare_fused_pell(solver, b):
+    """None or the ctx K7 needs, for one column on a square Pell."""
+    A = solver.A
+    if not isinstance(A, Pell) or A.shape[0] != A.shape[1]:
+        return None
+    if A.dtype not in FUSED_VALUE_DTYPES or A.values.shape[0] == 0:
+        return None
+    if A.S != FUSED_PELL_S:
+        return None
+    return _prepare_common(solver, b, 1)
+
+
 def tol_sq_eff(ctx, b, r0):
-    """Squared absolute stop threshold, a float32 device scalar (negative:
-    no residual criterion, run to the cap)."""
-    dev = b.device
+    """Per-column squared absolute stop thresholds, (k,) float32 on the
+    device (negative: no residual criterion, run to the cap)."""
+    k, dev = b.shape[1], b.device
     if not ctx["has_res"]:
-        return torch.full((), -1.0, dtype=torch.float32, device=dev)
+        return torch.full((k,), -1.0, dtype=torch.float32, device=dev)
     if ctx["baseline"] == "absolute":
-        base = torch.ones((), dtype=torch.float32, device=dev)
+        base = torch.ones(k, dtype=torch.float32, device=dev)
     elif ctx["baseline"] == "initial_resnorm":
-        base = norm2(r0)[0].to(torch.float32)
+        base = norm2(r0).to(torch.float32)
     else:
-        base = norm2(b)[0].to(torch.float32)
-    return (torch.full((), ctx["tol"], dtype=torch.float32, device=dev) * base) ** 2
+        base = norm2(b).to(torch.float32)
+    return (torch.full((k,), ctx["tol"], dtype=torch.float32, device=dev) * base) ** 2

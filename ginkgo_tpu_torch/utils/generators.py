@@ -175,3 +175,23 @@ def poisson_3d(nx: int, ny: int | None = None, nz: int | None = None,
         np.concatenate(cols_l),
         np.concatenate(vals_l),
     ).sort_row_major()
+
+
+def local_scatter(n: int, per_row: int = 9, half_window: int = 256,
+                  seed: int = 11) -> MatrixData:
+    """Unstructured pattern with column locality and no stencil structure:
+    ``per_row`` random columns within ``half_window`` of each row, values
+    uniform in (-0.005, 0.005), plus a diagonal of 4.0 (float32,
+    duplicates summed).  The same pattern as the general-sparse rows of the
+    JAX package's ``bench.py`` (``_local_spd``), for the same seed."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n, dtype=np.int64), per_row)
+    cols = rows + rng.integers(-half_window, half_window + 1, size=rows.size)
+    np.clip(cols, 0, n - 1, out=cols)
+    vals = (rng.random(rows.size).astype(np.float32) - 0.5) * 1e-2
+    return MatrixData.from_coo(
+        (n, n),
+        np.concatenate([rows, np.arange(n)]),
+        np.concatenate([cols, np.arange(n)]),
+        np.concatenate([vals, np.full(n, 4.0, np.float32)]),
+    ).sum_duplicates()
