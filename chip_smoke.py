@@ -13,7 +13,12 @@ the port that users call:
   rows, about 21M nonzeros) -> ``Dia`` -> ``Cg``/``Fcg``;
 - path 2 (slice 2): the 7-point 3-D Poisson matrix on a 160^3 grid
   (4,096,000 rows, 28,518,400 nonzeros) handed over as a ``Csr`` ->
-  ``Pell`` -> ``Cg``/``Fcg``.
+  ``Pell`` -> ``Cg``/``Fcg``;
+- path 3 (slice 3): a locality-free SPD system, the JAX bench's power-law
+  pattern at 2^20 rows made symmetric (a shifted graph Laplacian L + I,
+  about 11.35M nonzeros), handed over as a ``Csr`` whose "auto" strategy
+  takes the WELL plan -> ``Cg``; ``choose_format`` -> ``Well`` at 2^17;
+  and a 32768^2 block-structured matrix -> ``choose_format`` -> ``Bell``.
 
 Phases, each of which raises on failure:
 
@@ -24,7 +29,7 @@ Phases, each of which raises on failure:
    K4 at 64^2 and 2048^2, the k-RHS whole-solve K4m at 64^2 and 2048^2,
    the PELL SpMV/SpMM K5/K6 on poisson_3d(160) (S = 8, float32 and
    bfloat16/int8) and on an unstructured local-scatter pattern of 2^20
-   rows (the "auto" plan and S = 8), the Pell whole-solve K7 at 24^3 and
+   rows (S = "auto" and S = 8), the Pell whole-solve K7 at 24^3 and
    160^3;
 3. main path 1: fused CG (K4) with float32 and bfloat16 diagonals and with
    Jacobi, the streaming CG route (K1), a 4-column solve (K4m) and an
@@ -35,7 +40,17 @@ Phases, each of which raises on failure:
    -> fused ``Cg`` (K7) with float32, bfloat16 and Jacobi, fused ``Fcg``,
    the streaming route on the Pell (K5) and a 4-column solve (K6), each
    checked against a float64 solve (K6 with float64 vectors);
-5. timings, printed and not checked: each kernel, its plain version and
+5. main path 3: ``Csr`` "auto" resolves to "pallas" and the plan cache
+   holds a ``Well``; ``Cg`` on the Csr (K8 through the plan cache, one
+   plan build), with scalar Jacobi, and a 4-column solve (K9), each
+   checked against a float64 solve (K9 with float64 vectors) and by its
+   backward error (K8/K9 with float64 vectors); ``choose_format`` at 2^17
+   returns a ``Well``, solved by ``Cg``; ``choose_format`` on the
+   block-structured matrix returns a ``Bell``, applied to one column (K10)
+   and four (K11) with float32 and bfloat16 panels and checked against a
+   float64 product; then K8-K11 against their plain versions on the plans
+   of the path (K8/K9 at the chosen T and at T = 1);
+6. timings, printed and not checked: each kernel, its plain version and
    the one PyTorch call that computes the same function, by the slope
    between two trip counts (CUDA events); CG time per iteration fused and
    streaming; bounds; the copy bandwidth.
@@ -63,6 +78,13 @@ SMALL = 64
 NSIDE3 = 160
 SMALL3 = 24
 SCATTER_ROWS = 1 << 20
+#: path 3: the power-law system at the size of the JAX package's
+#: multi-million-row WELL figure, and at the JAX bench's own size
+POWERLAW_ROWS = 1 << 20
+POWERLAW_SMALL = 1 << 17
+#: path 3: row blocks, rows per block, panels per block and column panels
+#: of the JAX package's BELL figure (32768^2, 7.55M nonzeros)
+BELL_BLOCKS = (2048, 16, 6, 256)
 TOL = 1e-6
 MAX_ITERS = 20000
 SEED = 2024
@@ -82,9 +104,16 @@ KERNEL_META = {
     "pell_spmm": ("ginkgo_tpu_torch/csrc/pell_spmv.cu", "ginkgo_tpu/ops/spmv_pallas.py:519"),
     "pell_cg_fused": ("ginkgo_tpu_torch/csrc/pell_cg_fused.cu",
                       "ginkgo_tpu/ops/pallas_pell_cg.py:261"),
+    "well_spmv": ("ginkgo_tpu_torch/csrc/well_spmv.cu", "ginkgo_tpu/ops/spmv_well.py:492"),
+    "well_spmm": ("ginkgo_tpu_torch/csrc/well_spmv.cu", "ginkgo_tpu/ops/spmv_well.py:681"),
+    # one CUDA kernel for both TPU sites (:221 x streamed, :183 x resident)
+    "bell_spmv": ("ginkgo_tpu_torch/csrc/bell_spmv.cu", "ginkgo_tpu/ops/pallas_bell.py:221"),
+    "bell_spmm": ("ginkgo_tpu_torch/csrc/bell_spmv.cu", "ginkgo_tpu/ops/pallas_bell.py:124"),
 }
 PATH1 = ("dia_spmv", "dia_spmv_advanced", "dia_spmm", "cg_fused", "cg_fused_multi")
 PATH2 = ("pell_spmv", "pell_spmm", "pell_cg_fused")
+PATH3 = ("well_spmv", "well_spmm", "bell_spmv", "bell_spmm")
+EPS32 = float(np.finfo(np.float32).eps)
 
 
 def check(cond, what):
@@ -210,15 +239,263 @@ def eig_rhs4(nside, dev):
                            device=dev)
 
 
+def powerlaw_laplacian(n, seed=23):
+    """The JAX bench's power-law pattern (``bench.py``, row_pell_powerlaw:
+    Zipf(2.1) out-degrees + 2 capped at 64, targets u^3 * n biased to low
+    ids) made symmetric, P + P^T, as a shifted graph Laplacian L + I: -1
+    off the diagonal, the row's off-diagonal count + 1 on it (SPD, float32).
+    Returns (shape, rows, cols, values)."""
+    rng = np.random.default_rng(seed)
+    deg = np.minimum(rng.zipf(2.1, size=n) + 2, 64)
+    rows = np.repeat(np.arange(n, dtype=np.int64), deg)
+    cols = np.minimum((rng.random(rows.size) ** 3.0 * n).astype(np.int64), n - 1)
+    off = rows != cols
+    key = np.unique(np.concatenate([rows[off] * n + cols[off], cols[off] * n + rows[off]]))
+    r, c = key // n, key % n
+    diag = np.bincount(r, minlength=n) + 1.0
+    return ((n, n), np.concatenate([r, np.arange(n)]), np.concatenate([c, np.arange(n)]),
+            np.concatenate([np.full(len(r), -1.0), diag]).astype(np.float32))
+
+
+def block_structured(NRB, BR, K, NPC, density=0.3, seed=7):
+    """The JAX bench's block-structured pattern (``bench.py``, row_bell):
+    each of NRB row blocks of BR rows fills K random 128-column panels of
+    NPC at the given density; float32 values uniform in (-0.005, 0.005).
+    Returns (shape, rows, cols, values)."""
+    rng = np.random.default_rng(seed)
+    rows_l, cols_l = [], []
+    for rb in range(NRB):
+        for pnl in rng.choice(NPC, size=K, replace=False):
+            rr, cc = np.nonzero(rng.random((BR, 128)) < density)
+            rows_l.append(rb * BR + rr)
+            cols_l.append(pnl * 128 + cc)
+    rows, cols = np.concatenate(rows_l), np.concatenate(cols_l)
+    vals = (rng.random(len(rows)).astype(np.float32) - 0.5) * 1e-2
+    return (NRB * BR, NPC * 128), rows, cols, vals
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def main_path3(gt, dev, rng, crit, n_big=POWERLAW_ROWS, n_small=POWERLAW_SMALL,
+               bell_blocks=BELL_BLOCKS):
+    """Main path 3 through the entry points a user calls; every check
+    raises.  Returns the operators that the kernel checks and the timings
+    reuse."""
+    from ginkgo_tpu_torch import stop
+    from ginkgo_tpu_torch.ops import bell as ops_bell
+    from ginkgo_tpu_torch.ops import pell as ops_pell
+    from ginkgo_tpu_torch.ops import well as ops_well
+
+    def f64_solve(A, rhs):
+        """The same system solved to 1e-10 in float64 (K8/K9 with float64
+        vectors on a float64 Well)."""
+        t0 = time.perf_counter()
+        X, info = gt.Cg.build(criteria=[stop.Iteration(max_iters=MAX_ITERS),
+                                        stop.ResidualNorm(tolerance=1e-10)]
+                              ).generate(A.astype(torch.float64)).solve(rhs.double())
+        _sync(dev)
+        check(bool(info.converged.all()), "path 3: float64 reference solve: not converged")
+        return X, {"f64_iterations": info.num_iterations,
+                   "f64_solve_s": round(time.perf_counter() - t0, 4)}
+
+    # 3a: the locality-free system, handed over as a Csr
+    t0 = time.perf_counter()
+    data = gt.MatrixData.from_coo(*powerlaw_laplacian(n_big)).sum_duplicates()
+    gen_s = time.perf_counter() - t0
+    n = data.shape[0]
+    t0 = time.perf_counter()
+    C = gt.Csr.from_matrix_data(data, device=dev)
+    _sync(dev)
+    csr_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    strategy = C._resolve_strategy()
+    resolve_s = time.perf_counter() - t0
+    check(strategy == "pallas", f"path 3: Csr 'auto' resolved to {strategy!r}, not 'pallas'")
+    norm_a = inf_norm(data)
+    # (L + I) 1 = 1: a right-hand side of ones is solved at once, so the
+    # one-column solves take the uniform column of the four
+    B = rhs4(n, rng, dev)
+    b = B[:, 1].contiguous()
+
+    builds, k8 = ops_pell.plan_for.builds, ops_well.well_spmv.launches
+    t0 = time.perf_counter()
+    x, info = gt.Cg.build(criteria=crit).generate(C).solve(b)
+    _sync(dev)
+    solve_s = time.perf_counter() - t0
+    k8 = ops_well.well_spmv.launches - k8
+    check(ops_pell.plan_for.builds == builds + 1, "path 3: Cg on the Csr did not build its plan once")
+    W = ops_pell.plan_for(C.row_ptrs, C.col_idxs, C.values, C.shape)
+    check(isinstance(W, gt.Well), f"path 3: the plan cache holds a {type(W).__name__}, not a Well")
+    check(k8 >= info.num_iterations, "path 3: Cg on the Csr did not run well_spmv once per iteration")
+    check(bool(info.converged.all()), "path 3: Cg on the Csr: not converged")
+    emit({"phase": "setup", "path": 3, "matrix": f"powerlaw_laplacian({n})", "rows": n,
+          "nnz": data.nnz, "max_row_nnz": int(np.bincount(data.rows, minlength=n).max()),
+          "norm_inf": norm_a, "generate_s": round(gen_s, 3), "csr_s": round(csr_s, 3),
+          "auto_resolve_s": round(resolve_s, 3), "strategy": strategy, "T": W.T, "G": W.G,
+          "NST": W.NST, "inflation": W.inflation, "cells": W.values.numel(),
+          "slots": W.values.shape[0], "max_supertile_slots": int(W.tile_ptr.diff().max()),
+          "plan_bytes": W.storage_bytes(), "csr_bytes_12_per_nnz": 12 * data.nnz})
+    X64, ref = f64_solve(W, B)
+    emit({"phase": "main_path", "path": 3, "route": "streaming", "case": "csr_f32",
+          "iterations": info.num_iterations, "well_spmv_launches": k8,
+          **accuracy(C, x, b, X64[:, 1], norm_a, "path 3: Cg on the Csr"),
+          "solve_s_with_plan_build": round(solve_s, 4), **ref})
+
+    t0 = time.perf_counter()
+    x, info = gt.Cg.build(criteria=crit, preconditioner=gt.Jacobi.build(max_block_size=1)
+                          ).generate(C).solve(b)
+    _sync(dev)
+    check(bool(info.converged.all()), "path 3: Cg with Jacobi on the Csr: not converged")
+    emit({"phase": "main_path", "path": 3, "route": "streaming", "case": "csr_f32_jacobi",
+          "iterations": info.num_iterations,
+          **accuracy(C, x, b, X64[:, 1], norm_a, "path 3: Cg with Jacobi on the Csr"),
+          "solve_s": round(time.perf_counter() - t0, 4)})
+
+    k9 = ops_well.well_spmm.launches
+    t0 = time.perf_counter()
+    X, minfo = gt.Cg.build(criteria=crit).generate(C).solve(B)
+    _sync(dev)
+    k9 = ops_well.well_spmm.launches - k9
+    check(k9 >= minfo.num_iterations, "path 3: the k=4 solve did not run well_spmm once per iteration")
+    check(bool(minfo.converged.all()), f"path 3: k=4 solve: converged {minfo.converged.tolist()}")
+    emit({"phase": "main_path", "path": 3, "route": "streaming", "case": "csr_f32_k4",
+          "iterations": minfo.num_iterations, "well_spmm_launches": k9,
+          **accuracy(C, X, B, X64, norm_a, "path 3: k=4 solve on the Csr"),
+          "solve_s": round(time.perf_counter() - t0, 4)})
+    del X64, X
+
+    # choose_format on the same pattern at the JAX bench's size
+    t0 = time.perf_counter()
+    data_s = gt.MatrixData.from_coo(*powerlaw_laplacian(n_small)).sum_duplicates()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Ws = gt.choose_format(data_s, device=dev)
+    _sync(dev)
+    choose_s = time.perf_counter() - t0
+    check(isinstance(Ws, gt.Well), f"path 3: choose_format({n_small}) gave a {type(Ws).__name__}")
+    bs = torch.as_tensor(rng.uniform(0.5, 1.5, n_small).astype(np.float32), device=dev)
+    x64, ref = f64_solve(Ws, bs)
+    t0 = time.perf_counter()
+    x, info = gt.Cg.build(criteria=crit).generate(Ws).solve(bs)
+    _sync(dev)
+    check(bool(info.converged.all()), "path 3: Cg on the Well: not converged")
+    emit({"phase": "main_path", "path": 3, "route": "streaming", "case": "choose_format_well",
+          "rows": n_small, "nnz": data_s.nnz, "generate_s": round(gen_s, 3),
+          "choose_format_s": round(choose_s, 3), "T": Ws.T, "G": Ws.G, "inflation": Ws.inflation,
+          "iterations": info.num_iterations,
+          **accuracy(Ws, x, bs, x64, inf_norm(data_s), "path 3: Cg on the Well"),
+          "solve_s": round(time.perf_counter() - t0, 4), **ref})
+
+    # 3b: the block-structured matrix
+    t0 = time.perf_counter()
+    data_b = gt.MatrixData.from_coo(*block_structured(*bell_blocks)).sum_duplicates()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Bop = gt.choose_format(data_b, device=dev)
+    _sync(dev)
+    choose_s = time.perf_counter() - t0
+    check(isinstance(Bop, gt.Bell), f"path 3: choose_format gave a {type(Bop).__name__}, not a Bell")
+    Cb = gt.Csr.from_matrix_data(data_b, device=dev)
+    m = data_b.shape[1]
+    xb = torch.as_tensor(rng.standard_normal(m).astype(np.float32), device=dev)
+    Xb = torch.as_tensor(rng.standard_normal((m, 4)).astype(np.float32), device=dev)
+    K = Bop.values.shape[1]
+    row = {"phase": "main_path", "path": 3, "case": "choose_format_bell",
+           "matrix": f"block_structured{bell_blocks}", "shape": list(data_b.shape),
+           "nnz": data_b.nnz, "generate_s": round(gen_s, 3), "choose_format_s": round(choose_s, 3),
+           "block_rows": Bop.block_rows, "K": K, "storage_inflation": Bop.storage_inflation()}
+    for label, Bv in (("f32", Bop), ("bf16", Bop.reduce_storage())):
+        # the float64 product of the same CSR with the values as the panels
+        # store them (a library call, as a check only)
+        vals = Cb.values.to(Bv.dtype).double()
+        lib64 = torch.sparse_csr_tensor(Cb.row_ptrs, Cb.col_idxs, vals, size=Cb.shape)
+        abs64 = torch.sparse_csr_tensor(Cb.row_ptrs, Cb.col_idxs, vals.abs(), size=Cb.shape)
+        k10, k11 = ops_bell.bell_spmv.launches, ops_bell.bell_spmm.launches
+        y, Y = Bv.apply(xb), Bv.apply(Xb)
+        _sync(dev)
+        check(ops_bell.bell_spmv.launches == k10 + 1 and ops_bell.bell_spmm.launches == k11 + 1,
+              f"path 3: Bell {label} apply did not run bell_spmv and bell_spmm")
+        for case, got, v in (("k1", y[:, None], xb[:, None]), ("k4", Y, Xb)):
+            want = lib64 @ v.double()
+            # a row's 128 * K float32 products and sums against the exact
+            # product: at most 128 * K * eps32 * (|A| |x|)
+            slack = 128 * K * EPS32 * (abs64 @ v.double().abs())
+            err = (got.double() - want).abs()
+            check(bool(torch.isfinite(got).all()) and bool((err <= slack).all()),
+                  f"path 3: Bell {label} {case} differs from the float64 product")
+            row[f"{label}_{case}_max_abs_err_vs_f64"] = float(err.max())
+            row[f"{label}_{case}_err_over_bound"] = float((err / slack.clamp_min(1e-300)).max())
+    emit(row)
+    return {"C": C, "W": W, "data": data, "b": b, "data_s": data_s, "Ws": Ws, "Bop": Bop,
+            "Cb": Cb}
+
+
+def check_path3_kernels(gt, dev, rng, p3, record_err):
+    """K8-K11 against their plain versions on the plans of path 3: K8/K9 at
+    the chosen T (2^20 rows, float32 and float64 vectors; 2^17 rows) and
+    at T = 1 (2^17 rows, forced), K10/K11 with float32 and bfloat16
+    panels.  Kernel and plain version sum in the same order: equal bit for
+    bit is expected, and 1e-5 (float32) or 1e-12 (float64) relative is
+    required."""
+    from ginkgo_tpu_torch.ops import bell as ops_bell
+    from ginkgo_tpu_torch.ops import well as ops_well
+
+    def pair_check(label, A, pairs, vec):
+        x = torch.as_tensor(rng.standard_normal(A.shape[1]), dtype=vec, device=dev)
+        X = torch.as_tensor(rng.standard_normal((A.shape[1], 4)), dtype=vec, device=dev)
+        tol = 1e-12 if vec == torch.float64 else 1e-5
+        row = {"phase": "kernel_check", "matrix": label, "values": str(A.dtype),
+               "vectors": str(vec)}
+        for (name, kern, plain), v in zip(pairs, (x, X)):
+            t0 = time.perf_counter()
+            got = kern(A, v)
+            _sync(dev)
+            k_s = time.perf_counter() - t0
+            want = plain(A, v)
+            err = record_err(name, got, want)
+            check(torch.allclose(got, want, rtol=tol, atol=tol),
+                  f"{name} differs from its plain version ({label}, {A.dtype}, {vec}): {err}")
+            row[name + "_max_abs_err"] = err
+            row[name + "_bit_equal"] = bool(torch.equal(got, want))
+            row[name + "_first_call_s"] = round(k_s, 4)
+        return row
+
+    well_pairs = (("well_spmv", ops_well.well_spmv, ops_well.well_spmv_reference),
+                  ("well_spmm", ops_well.well_spmm, ops_well.well_spmm_reference))
+    bell_pairs = (("bell_spmv", ops_bell.bell_spmv, ops_bell.bell_spmv_reference),
+                  ("bell_spmm", ops_bell.bell_spmm, ops_bell.bell_spmm_reference))
+    W, Ws = p3["W"], p3["Ws"]
+    t0 = time.perf_counter()
+    W1 = gt.Well.from_csr(gt.Csr.from_matrix_data(p3["data_s"], device=dev), T=1)
+    t1_s = time.perf_counter() - t0
+    for label, A, vec in ((f"powerlaw_laplacian({W.shape[0]}), T = {W.T}", W, torch.float32),
+                          (f"powerlaw_laplacian({W.shape[0]}), T = {W.T}", W, torch.float64),
+                          (f"powerlaw_laplacian({Ws.shape[0]}), T = {Ws.T}", Ws, torch.float32),
+                          (f"powerlaw_laplacian({W1.shape[0]}), T = 1", W1, torch.float32)):
+        row = pair_check(label, A, well_pairs, vec)
+        row.update({"T": A.T, "G": A.G, "inflation": A.inflation, "cells": A.values.numel()})
+        if A is W1:
+            row["plan_s"] = round(t1_s, 3)
+        emit(row)
+    del W1
+    for Bv in (p3["Bop"], p3["Bop"].reduce_storage()):
+        emit(pair_check(f"block_structured{BELL_BLOCKS}", Bv, bell_pairs, torch.float32))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check needs a GPU")
     import ginkgo_tpu_torch as gt
     from ginkgo_tpu_torch import _build, stop
+    from ginkgo_tpu_torch.ops import bell as ops_bell
     from ginkgo_tpu_torch.ops import cg as ops_cg
     from ginkgo_tpu_torch.ops import dia as ops_dia
     from ginkgo_tpu_torch.ops import pell as ops_pell
     from ginkgo_tpu_torch.ops import pell_cg as ops_pell_cg
+    from ginkgo_tpu_torch.ops import well as ops_well
 
     dev = torch.device(DEVICE, 0)
     torch.cuda.set_device(dev)
@@ -232,6 +509,10 @@ def main():
         "pell_spmv": ops_pell.pell_spmv,
         "pell_spmm": ops_pell.pell_spmm,
         "pell_cg_fused": ops_pell_cg.pell_cg_fused,
+        "well_spmv": ops_well.well_spmv,
+        "well_spmm": ops_well.well_spmm,
+        "bell_spmv": ops_bell.bell_spmv,
+        "bell_spmm": ops_bell.bell_spmm,
     }
     max_err = {k: 0.0 for k in kernels}
 
@@ -444,8 +725,11 @@ def main():
 
     t0 = time.perf_counter()
     scatter = gt.generators.local_scatter(SCATTER_ROWS)
-    Cs = gt.Csr.from_matrix_data(scatter, device=dev, strategy="pallas")
-    Ps_auto = ops_pell.plan_for(Cs.row_ptrs, Cs.col_idxs, Cs.values, Cs.shape)
+    Cs = gt.Csr.from_matrix_data(scatter, device=dev)
+    # the S = "auto" PELL layout itself: for this pattern (PELL inflation
+    # 6.5 > 4) the plan cache's chooser prefers the WELL plan, as the JAX
+    # package's does
+    Ps_auto = gt.Pell.from_csr(Cs, S="auto")
     Ps8 = gt.Pell.from_csr(Cs)
     torch.cuda.synchronize()
     emit({"phase": "setup", "matrix": f"local_scatter({SCATTER_ROWS})", "nnz": scatter.nnz,
@@ -645,10 +929,18 @@ def main():
     launches2 = {k: f.launches for k, f in kernels.items()}
     check(all(launches2[k] > 0 for k in PATH2), f"a kernel of path 2 never ran: {launches2}")
     emit({"phase": "main_path", "path": 2, "launches": launches2})
-    launches = {k: launches1[k] + launches2[k] for k in kernels}
     del X64
 
-    # -- 5. timings (printed, not checked) -------------------------------------------
+    # -- 5. main path 3: Csr -> Well, choose_format -> Well and Bell ----------------
+    zero_counts()
+    p3 = main_path3(gt, dev, rng, crit)
+    launches3 = {k: f.launches for k, f in kernels.items()}
+    check(all(launches3[k] > 0 for k in PATH3), f"a kernel of path 3 never ran: {launches3}")
+    emit({"phase": "main_path", "path": 3, "launches": launches3})
+    launches = {k: launches1[k] + launches2[k] + launches3[k] for k in kernels}
+    check_path3_kernels(gt, dev, rng, p3, record_err)
+
+    # -- 6. timings (printed, not checked) -------------------------------------------
     src = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     dst = torch.empty_like(src)
     copy_ms = slope_ms(lambda: dst.copy_(src))
@@ -717,6 +1009,65 @@ def main():
                 rec[name] = (k_ms, p_ms, slope_ms(lib), nbytes, flops)
     del lib3
 
+    W, Bop = p3["W"], p3["Bop"]
+    n_pl = W.shape[0]
+    x_pl = torch.as_tensor(rng.standard_normal(n_pl).astype(np.float32), device=dev)
+    X_pl = torch.as_tensor(rng.standard_normal((n_pl, 4)).astype(np.float32), device=dev)
+    lib_pl = library_csr(p3["C"])
+    m_b = Bop.shape[1]
+    x_b = torch.as_tensor(rng.standard_normal(m_b).astype(np.float32), device=dev)
+    X_b = torch.as_tensor(rng.standard_normal((m_b, 4)).astype(np.float32), device=dev)
+    lib_b = library_csr(p3["Cb"])
+    nnz_pl = p3["C"].nnz
+    cells_w = W.values.numel()
+    for storage, Bv in (("f32", Bop), ("bf16", Bop.reduce_storage())):
+        # bound bytes: the stored plan or panels (padding included), x read
+        # once and y written once; operations: 2 per stored cell and column
+        cells_b = Bv.values.numel()
+        bell_bytes = cells_b * Bv.values.element_size() + Bv.panel_ids.numel() * 4
+        cases = {
+            "bell_spmv": (lambda: ops_bell.bell_spmv(Bv, x_b),
+                          lambda: ops_bell.bell_spmv_reference(Bv, x_b),
+                          lambda: torch.mv(lib_b, x_b), bell_bytes + 4 * (m_b + Bv.shape[0]),
+                          2 * cells_b),
+            "bell_spmm": (lambda: ops_bell.bell_spmm(Bv, X_b),
+                          lambda: ops_bell.bell_spmm_reference(Bv, X_b),
+                          lambda: torch.sparse.mm(lib_b, X_b),
+                          bell_bytes + 16 * (m_b + Bv.shape[0]), 8 * cells_b),
+        }
+        if storage == "f32":
+            cases.update({
+                "well_spmv": (lambda: ops_well.well_spmv(W, x_pl),
+                              lambda: ops_well.well_spmv_reference(W, x_pl),
+                              lambda: torch.mv(lib_pl, x_pl), W.storage_bytes() + 8 * n_pl,
+                              2 * cells_w),
+                "well_spmm": (lambda: ops_well.well_spmm(W, X_pl),
+                              lambda: ops_well.well_spmm_reference(W, X_pl),
+                              lambda: torch.sparse.mm(lib_pl, X_pl),
+                              W.storage_bytes() + 32 * n_pl, 8 * cells_w),
+            })
+        for name, (kern, plain, lib, nbytes, flops) in cases.items():
+            k_ms = slope_ms(kern, 5, 25)
+            # the plain WELL versions take 3-6 s a call at 2^20 rows
+            p_ms = slope_ms(plain, 1, 2, 1)
+            gbs = nbytes / k_ms / 1e6
+            timing[f"{name}_{storage}"] = {"ms": k_ms, "plain_ms": p_ms, "GBps": gbs,
+                                           "frac_of_copy": gbs / copy_gbs}
+            if storage == "f32":
+                rec[name] = (k_ms, p_ms, slope_ms(lib, 5, 25), nbytes, flops)
+    # the CSR's own bound for the WELL kernels: 12 bytes a nonzero (value,
+    # column index, gathered x) plus y, and x for the k columns
+    timing["well_csr_bound_ms"] = {
+        "well_spmv": (12 * nnz_pl + 4 * n_pl) / PEAK_BYTES_S * 1e3,
+        "well_spmm": (8 * nnz_pl + 4 * 4 * nnz_pl + 16 * n_pl) / PEAK_BYTES_S * 1e3}
+    del lib_pl, lib_b
+
+    def streaming_well(its):
+        gt.Cg.build(criteria=[stop.Iteration(max_iters=its)]).generate(W).solve(p3["b"])
+
+    w_ms = iter_ms(streaming_well, 20, 100)
+    timing["cg_us_per_iter_well"] = {"streaming": w_ms * 1e3, "T": W.T, "rows": n_pl}
+
     zeros4 = torch.zeros_like(B)
 
     def fused(its):
@@ -777,7 +1128,7 @@ def main():
     timing["cg_iteration_gap_2048"] = gaps
     emit(timing)
 
-    # -- 6. result -----------------------------------------------------------------------
+    # -- 7. result -----------------------------------------------------------------------
     rows = []
     for name in kernels:
         k_ms, p_ms, l_ms, nbytes, flops = rec[name]
@@ -788,6 +1139,8 @@ def main():
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
                      "bytes": nbytes, "flops": flops,
                      "copy_bound_ms": nbytes / copy_gbs / 1e6})
+        if name in timing["well_csr_bound_ms"]:
+            rows[-1]["csr_bound_ms"] = timing["well_csr_bound_ms"][name]
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

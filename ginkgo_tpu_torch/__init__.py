@@ -14,7 +14,10 @@ Ported so far:
   sides in one fused kernel;
 - slice 2: unstructured matrices, ``MatrixData`` -> ``Csr`` (classical,
   merge_path, sparselib and the PELL-plan "pallas" strategy) -> ``Pell``
-  -> ``Cg`` / ``Fcg``, fused or streaming.
+  -> ``Cg`` / ``Fcg``, fused or streaming;
+- slice 3: locality-free and block-sparse matrices, ``Well`` and ``Bell``,
+  the WELL plan of ``Csr``'s "pallas" and "auto" strategies, and
+  ``choose_format``.
 """
 
 __version__ = "0.1.0"
@@ -23,17 +26,21 @@ from . import stop
 from .base import exceptions, types
 from .base.linop import Combination, Composition, LinOp, Perturbation
 from .base.matrix_data import DeviceMatrixData, MatrixData
+from .matrix.auto import choose_format
+from .matrix.bell import Bell
 from .matrix.csr import Csr
 from .matrix.dense import Dense
 from .matrix.dia import Dia
 from .matrix.diagonal import Diagonal, Identity
 from .matrix.pell import Pell
+from .matrix.well import Well
 from .preconditioner.jacobi import Jacobi
 from .solver.cg import Cg, Fcg
 from .solver.solver_base import SolveInfo
 from .utils import generators
 
 __all__ = [
+    "Bell",
     "Cg",
     "Combination",
     "Composition",
@@ -50,6 +57,8 @@ __all__ = [
     "Pell",
     "Perturbation",
     "SolveInfo",
+    "Well",
+    "choose_format",
     "exceptions",
     "generators",
     "stop",

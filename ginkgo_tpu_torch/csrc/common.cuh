@@ -12,6 +12,10 @@
 // DTYPE_CODE, ops/pell.py INDEX_CODE)
 enum GkDtype : int { GK_F32 = 0, GK_F64 = 1, GK_BF16 = 2, GK_I8 = 3, GK_I32 = 4 };
 
+// Lanes of a plan tile or a panel: 128 consecutive rows or columns (the
+// PELL, WELL and BELL layouts of the JAX package).
+#define GK_LANES 128
+
 // The DIA kernels take at most this many diagonals: the offsets travel by
 // value in the kernel's parameter block (matrix/dia.py suitable_for_dia caps
 // a DIA operator at 64 diagonals as well).

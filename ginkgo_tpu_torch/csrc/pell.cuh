@@ -19,8 +19,6 @@
 
 #include "common.cuh"
 
-#define GK_LANES 128
-
 template <typename TA, bool LDCG, typename TV, typename TQ>
 __device__ __forceinline__ TA gk_pell_row(const TV* __restrict__ values,
                                           const TQ* __restrict__ qidx,

@@ -11,9 +11,11 @@ import numpy as np
 import torch
 
 from .base.matrix_data import MatrixData
+from .matrix.bell import Bell
 from .matrix.csr import Csr
 from .matrix.dia import Dia
 from .matrix.pell import Pell
+from .matrix.well import Well
 from .ops.pell import tile_ptr_from_steps
 from .preconditioner.jacobi import Jacobi
 
@@ -79,4 +81,43 @@ def pell_from_arrays(values, qidx, bases, tile_of_step, *, shape, n_steps,
         NT=int(NT),
         NP=int(NP),
         S=int(S),
+    )
+
+
+def well_from_arrays(values, qidx, rt, tsb, bases, tile_of_step, *, shape, n_steps,
+                     nnz, G, T, NT, NST, NP, NW, device) -> Well:
+    """A ``Well`` from a JAX WELL plan or Well: its arrays, carried bit for
+    bit (``tsb`` None for T = 1), and its geometry; ``tile_ptr`` is derived
+    from the step -> supertile map."""
+    return Well(
+        values=_tensor(values, device),
+        qidx=_tensor(qidx, device),
+        rt=_tensor(rt, device),
+        bases=_tensor(np.asarray(bases, np.int32), device),
+        tile_ptr=_tensor(tile_ptr_from_steps(tile_of_step, int(NST), int(G)), device),
+        tsb=None if tsb is None else _tensor(tsb, device),
+        shape=tuple(int(s) for s in shape),
+        n_steps=int(n_steps),
+        nnz=int(nnz),
+        G=int(G),
+        T=int(T),
+        NT=int(NT),
+        NST=int(NST),
+        NP=int(NP),
+        NW=int(NW),
+    )
+
+
+def bell_from_arrays(values, panel_ids, panel_valid, ent_flat, *, shape, block_rows,
+                     nnz_stored, device) -> Bell:
+    """A ``Bell`` from a JAX Bell's panels, panel ids, validity and entry
+    slots, carried bit for bit."""
+    return Bell(
+        values=_tensor(values, device),
+        panel_ids=_tensor(panel_ids, device),
+        panel_valid=_tensor(panel_valid, device),
+        ent_flat=None if ent_flat is None else _tensor(ent_flat, device),
+        shape=tuple(int(s) for s in shape),
+        block_rows=int(block_rows),
+        nnz_stored=int(nnz_stored),
     )

@@ -7,11 +7,13 @@ the SpMV; the names are the JAX package's, so user code carries over:
   'classical'    gather + sorted segment sum      (ops/spmv.py)
   'merge_path'   scan + row-boundary difference   (ops/spmv.py)
   'sparselib'    torch.sparse CSR product (the vendor-library binding)
-  'pallas'       the cached PELL plan and kernels K5/K6 (ops/pell.py)
-  'auto'         on a CUDA tensor 'pallas' when the PELL plan's inflation
-                 is at most 16 and its slots fit HARD_PAD_BYTES, else
-                 'classical' (the JAX package's accelerator branch, whose
-                 WELL half waits for the WELL kernels); on a CPU tensor
+  'pallas'       the cached PELL or WELL plan (ops/pell.plan_for) and
+                 kernels K5/K6 or K8/K9
+  'auto'         on a CUDA tensor the JAX package's accelerator branch:
+                 'pallas' when the PELL plan's inflation is at most 16, or
+                 else when the WELL plan's is at most 16 or its padded
+                 bytes at most 256 MiB, and the plan's slots fit
+                 HARD_PAD_BYTES; 'classical' otherwise.  On a CPU tensor
                  its host branch, 'merge_path' for skewed rows and
                  'classical' otherwise
   'sellp'        not ported yet (the Ell/Sellp formats come with queue A
@@ -34,6 +36,7 @@ from ..base.linop import LinOp, _scalar, as_2d, restore_1d
 from ..base.matrix_data import MatrixData
 from ..ops import pell as ops_pell
 from ..ops import spmv as spmv_ops
+from ..ops import well as ops_well
 
 STRATEGIES = ("classical", "merge_path", "sparselib", "sellp", "pallas", "auto")
 
@@ -122,16 +125,25 @@ class Csr(LinOp):
         return resolved
 
     def _resolve_unstructured(self) -> str:
-        """The accelerator branch: the streaming PELL plan when its storage
-        inflation is acceptable (a statistics-only pass, nothing is
-        allocated), else the gather kernel."""
-        stats = ops_pell.PellPlan(
-            types.to_host(self.row_ptrs), types.to_host(self.col_idxs),
-            types.to_host(self.values), self.shape, q_dtype=np.int8,
-            materialize=False, value_itemsize=self.values.element_size(),
-        )
+        """The accelerator branch: a streaming plan when its storage
+        inflation is acceptable, else the gather kernel.  PELL is tried
+        first; a locality-free pattern gets the WELL plan under the same
+        gates as the JAX package's (statistics-only passes, nothing is
+        allocated)."""
+        host = [types.to_host(t) for t in (self.row_ptrs, self.col_idxs, self.values)]
+        itemsize = self.values.element_size()
+        stats = ops_pell.PellPlan(*host, self.shape, q_dtype=np.int8,
+                                  materialize=False, value_itemsize=itemsize)
         if stats.inflation <= 16.0 and stats.total_cells * 8 <= ops_pell.HARD_PAD_BYTES:
             return "pallas"
+        if stats.nnz > 0:
+            ws = ops_well.WellPlan(*host, self.shape, materialize=False,
+                                   value_itemsize=itemsize)
+            # the cells bound is plan_for's max_cells, so that 'pallas'
+            # never resolves to a plan that plan_for then declines
+            if ((ws.inflation <= 16.0 or ws.padded_bytes <= 256 << 20)
+                    and ws.total_cells * 8 <= ops_pell.HARD_PAD_BYTES):
+                return "pallas"
         return "classical"
 
     def apply(self, b):
@@ -291,6 +303,11 @@ class Csr(LinOp):
         from .dia import Dia
 
         return Dia.from_matrix_data(self.to_matrix_data(), device=self.device)
+
+    def to_bell(self, block_rows: int = 8):
+        from .bell import Bell
+
+        return Bell.from_matrix_data(self.to_matrix_data(), block_rows, device=self.device)
 
     def to_scipy(self):
         """scipy CSR on the host; bfloat16 widens to float32 (scipy has no

@@ -398,35 +398,49 @@ class _ByteLRU:
 _PLAN_CACHE = _ByteLRU(PLAN_CACHE_BYTES)
 
 
-def plan_for(row_ptrs, col_idxs, values, shape):
-    """The Pell operator of a Csr's storage, built once and cached on the
-    identity of its three tensors (the cache entry holds them, so their
-    ids stay valid) and on their version counters: unlike JAX arrays, a
-    tensor can change in place, and a changed tensor gets a new plan.
-    The plan is PELL with S="auto" and int8 lane indices, as the JAX
-    package builds it for a pattern whose PELL inflation is at most 4;
-    its WELL alternative waits for the WELL kernels.  Raises MemoryError
-    when the padded slots would pass HARD_PAD_BYTES."""
-    from ..matrix.pell import Pell
+def _cache_key(row_ptrs, col_idxs, values, shape):
+    return tuple((id(t), t._version) for t in (row_ptrs, col_idxs, values)) + (tuple(shape),)
 
-    key = tuple((id(t), t._version) for t in (row_ptrs, col_idxs, values)) + (tuple(shape),)
+
+def _cached(key, row_ptrs, col_idxs, values):
     hit = _PLAN_CACHE.get(key)
     if (hit is not None and hit[0] is row_ptrs and hit[1] is col_idxs
             and hit[2] is values):
         return hit[3]
-    plan = PellPlan(
+    return None
+
+
+def plan_for(row_ptrs, col_idxs, values, shape):
+    """The plan operator of a Csr's storage, a ``Pell`` or a ``Well``,
+    built once and cached on the identity of its three tensors (the cache
+    entry holds them, so their ids stay valid) and on their version
+    counters: unlike JAX arrays, a tensor can change in place, and a
+    changed tensor gets a new plan.  The plan is the cheaper of PELL (S =
+    "auto", int8 lane indices) and WELL by the JAX package's cost model
+    (``ops/well.choose_unstructured_plan``).  Raises MemoryError when
+    neither plan's padded slots fit HARD_PAD_BYTES."""
+    from ..matrix.pell import Pell
+    from ..matrix.well import Well
+    from .well import WellPlan, choose_unstructured_plan
+
+    key = _cache_key(row_ptrs, col_idxs, values, shape)
+    hit = _cached(key, row_ptrs, col_idxs, values)
+    if hit is not None:
+        return hit
+    plan = choose_unstructured_plan(
         types.to_host(row_ptrs), types.to_host(col_idxs), types.to_host(values),
-        shape, S="auto", q_dtype=np.int8, max_cells=HARD_PAD_BYTES // 8,
+        shape, q_dtype=np.int8, max_cells=HARD_PAD_BYTES // 8,
         value_itemsize=values.element_size(),
     )
     if plan.too_large:
         raise MemoryError(
-            "the PELL plan of this pattern would hold "
+            "neither the PELL plan nor the WELL plan of this pattern fits: "
             f"{plan.total_cells * 8 / 2**30:.1f} GB of padded slots "
             f"(inflation {plan.inflation:.0f}x); use the classical or "
             "merge_path strategy, or reorder the matrix to improve column locality"
         )
-    A = Pell.from_plan(plan, device=values.device, dtype=values.dtype)
+    cls = Well if isinstance(plan, WellPlan) else Pell
+    A = cls.from_plan(plan, device=values.device, dtype=values.dtype)
     _PLAN_CACHE.put(key, (row_ptrs, col_idxs, values, A), A.storage_bytes())
     plan_for.builds += 1
     return A
@@ -435,10 +449,44 @@ def plan_for(row_ptrs, col_idxs, values, shape):
 plan_for.builds = 0
 
 
+def _spmm_plan(A, row_ptrs, col_idxs, values, shape):
+    """The plan operator a k-column product runs, as the JAX package picks
+    it: a Pell with S != 8 gets an S = 8 sibling, built once and cached
+    under a tagged key (the JAX package measured its SpMM kernel faster at
+    S = 8); a Well (8 sublanes by construction) or a Pell with S = 8 is its
+    own.  When the S = 8 plan would pass HARD_PAD_BYTES, ``A`` stays."""
+    from ..matrix.pell import Pell
+
+    if hasattr(A, "rt") or A.S == SUBLANES:
+        return A
+    key = ("spmm8",) + _cache_key(row_ptrs, col_idxs, values, shape)
+    hit = _cached(key, row_ptrs, col_idxs, values)
+    if hit is not None:
+        return hit
+    p8 = PellPlan(
+        types.to_host(row_ptrs), types.to_host(col_idxs), types.to_host(values),
+        shape, S=SUBLANES, q_dtype=np.int8, max_cells=HARD_PAD_BYTES // 8,
+        value_itemsize=values.element_size(),
+    )
+    if p8.too_large:
+        return A
+    A8 = Pell.from_plan(p8, device=values.device, dtype=values.dtype)
+    _PLAN_CACHE.put(key, (row_ptrs, col_idxs, values, A8), A8.storage_bytes())
+    _spmm_plan.builds += 1
+    return A8
+
+
+_spmm_plan.builds = 0
+
+
 def csr_spmv(row_ptrs, col_idxs, values, arr, n_rows):
-    """The Csr "pallas" strategy: arr (m, k) through the cached plan, K5 for
-    one column and K6 for k."""
-    A = plan_for(row_ptrs, col_idxs, values, (n_rows, arr.shape[0]))
+    """The Csr "pallas" strategy: arr (m, k) through the cached plan; one
+    column runs K5 or K8, k columns K6 (on the S = 8 plan) or K9."""
+    from .well import plan_spmm, plan_spmv
+
+    shape = (n_rows, arr.shape[0])
+    A = plan_for(row_ptrs, col_idxs, values, shape)
     if arr.shape[1] > 1:
-        return pell_spmm(A, arr.contiguous())
-    return pell_spmv(A, arr[:, 0].contiguous())[:, None]
+        A = _spmm_plan(A, row_ptrs, col_idxs, values, shape)
+        return plan_spmm(A, arr.contiguous())
+    return plan_spmv(A, arr[:, 0].contiguous())[:, None]

@@ -56,6 +56,8 @@ def test_import_leaves_no_jax_in_sys_modules():
         "import ginkgo_tpu_torch, ginkgo_tpu_torch.interop\n"
         "import ginkgo_tpu_torch.ops.dia, ginkgo_tpu_torch.ops.cg\n"
         "import ginkgo_tpu_torch.ops.pell, ginkgo_tpu_torch.ops.pell_cg\n"
+        "import ginkgo_tpu_torch.ops.well, ginkgo_tpu_torch.ops.bell\n"
+        "import ginkgo_tpu_torch.matrix.auto\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
         "    if m.split('.')[0] in ('jax', 'jaxlib', 'ginkgo_tpu'))))\n"
     )
@@ -65,12 +67,12 @@ def test_import_leaves_no_jax_in_sys_modules():
 
 def test_cpu_slice_launches_no_kernel():
     """Fused route, streaming route, k-column solve and apply_advanced on
-    CPU tensors, on a Dia and through Csr and Pell: every wrapper takes its
-    plain version."""
+    CPU tensors, on a Dia, through Csr, Pell and Well, and Bell applies:
+    every wrapper takes its plain version."""
     proc = _run(
         "import json, numpy as np, torch\n"
         "import ginkgo_tpu_torch as gt\n"
-        "from ginkgo_tpu_torch.ops import cg, dia, pell, pell_cg\n"
+        "from ginkgo_tpu_torch.ops import bell, cg, dia, pell, pell_cg, well\n"
         "A = gt.Dia.from_matrix_data(gt.generators.poisson_2d(12, dtype=np.float32), device='cpu')\n"
         "n = A.shape[0]\n"
         "crit = [gt.stop.Iteration(max_iters=200), gt.stop.ResidualNorm(tolerance=1e-6)]\n"
@@ -82,16 +84,20 @@ def test_cpu_slice_launches_no_kernel():
         "assert bool(info.converged.all()) and bool(minfo.converged.all())\n"
         "C = gt.Csr.from_matrix_data(gt.generators.poisson_3d(6, dtype=np.float32), device='cpu')\n"
         "P = gt.Pell.from_csr(C)\n"
-        "for op in (C.with_strategy('pallas'), P):\n"
+        "for op in (C.with_strategy('pallas'), P, gt.Well.from_csr(C, T=4)):\n"
         "    for b in (torch.ones(C.shape[0]), torch.ones(C.shape[0], 3)):\n"
         "        _, i = gt.Cg.build(criteria=crit).generate(op).solve(b)\n"
         "        assert bool(i.converged.all())\n"
+        "B = C.to_bell()\n"
+        "assert B.apply(torch.ones(C.shape[0])).shape == (C.shape[0],)\n"
+        "assert B.apply(torch.ones(C.shape[0], 3)).shape == (C.shape[0], 3)\n"
         "print(json.dumps([f.launches for f in (dia.dia_spmv, dia.dia_spmv_advanced,\n"
         "                  dia.dia_spmm, cg.cg_fused, cg.cg_fused_multi, pell.pell_spmv,\n"
-        "                  pell.pell_spmm, pell_cg.pell_cg_fused)]))\n"
+        "                  pell.pell_spmm, pell_cg.pell_cg_fused, well.well_spmv,\n"
+        "                  well.well_spmm, bell.bell_spmv, bell.bell_spmm)]))\n"
     )
     assert proc.returncode == 0, proc.stderr
-    assert json.loads(proc.stdout.strip().splitlines()[-1]) == [0] * 8
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == [0] * 12
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -112,7 +118,8 @@ def test_kernel_sources_are_listed():
     """Every kernel the wrappers load has its source in csrc/."""
     from ginkgo_tpu_torch import _build
 
-    assert _build.KERNELS == ("dia_spmv", "cg_fused", "pell_spmv", "pell_cg_fused")
+    assert _build.KERNELS == ("dia_spmv", "cg_fused", "pell_spmv", "pell_cg_fused",
+                              "well_spmv", "bell_spmv")
     for name in _build.KERNELS:
         assert (PKG / "csrc" / f"{name}.cu").is_file()
     for header in ("common", "coop", "pell"):

@@ -133,8 +133,8 @@ def test_csr_pallas_strategy_matches_jax(pattern):
     rng = np.random.default_rng(6)
     n = data.shape[0]
     before = ops_pell.plan_for.builds
-    # k = 3 runs K6's plain version on the same cached plan (the JAX
-    # package builds an S = 8 sibling plan for it)
+    # k = 3 runs K6's plain version on the S = 8 sibling of the cached plan
+    # (built once beside it, as the JAX package does)
     for k in ((1, 3) if pattern == "poisson3d" else (1,)):
         x = rng.standard_normal((n, k)).astype(np.float32)
         got = A.apply(torch.from_numpy(x)).numpy()
