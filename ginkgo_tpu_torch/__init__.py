@@ -17,7 +17,10 @@ Ported so far:
   -> ``Cg`` / ``Fcg``, fused or streaming;
 - slice 3: locality-free and block-sparse matrices, ``Well`` and ``Bell``,
   the WELL plan of ``Csr``'s "pallas" and "auto" strategies, and
-  ``choose_format``.
+  ``choose_format``;
+- slice 4: the nonsymmetric Krylov solvers ``Bicgstab``, ``Cgs``, ``Bicg``,
+  ``Gmres`` and ``CbGmres``, each with a whole-solve kernel for one column
+  on a ``Dia``.
 """
 
 __version__ = "0.1.0"
@@ -35,13 +38,19 @@ from .matrix.diagonal import Diagonal, Identity
 from .matrix.pell import Pell
 from .matrix.well import Well
 from .preconditioner.jacobi import Jacobi
+from .solver.bicgstab import Bicg, Bicgstab, Cgs
 from .solver.cg import Cg, Fcg
+from .solver.gmres import CbGmres, Gmres
 from .solver.solver_base import SolveInfo
 from .utils import generators
 
 __all__ = [
     "Bell",
+    "Bicg",
+    "Bicgstab",
+    "CbGmres",
     "Cg",
+    "Cgs",
     "Combination",
     "Composition",
     "Csr",
@@ -50,6 +59,7 @@ __all__ = [
     "Dia",
     "Diagonal",
     "Fcg",
+    "Gmres",
     "Identity",
     "Jacobi",
     "LinOp",

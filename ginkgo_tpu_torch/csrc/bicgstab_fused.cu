@@ -1,0 +1,245 @@
+// Whole-solve right-preconditioned BiCGSTAB in one persistent cooperative
+// kernel: kernel K12 of the PyTorch port.
+//
+// Replaces ginkgo_tpu/ops/pallas_bicgstab.py bicgstab_vmem_solve
+// (_bicgstab_kernel, :53-186).  A diagonal preconditioner M is folded into
+// the operator before the launch (solver/_fused_gate.fold_minv: diagonal d
+// scaled by minv at column i + off_d and rounded back to the diagonals'
+// dtype), so the kernel runs on A M and applies minv only in the x update,
+// y = minv p and z = minv s.
+//
+// What bounds it on the H100: bytes.  Per iteration five passes move
+// (2 nd sizeof(TD) + 72) n bytes, 80 n with minv: p = r + beta (p - omega
+// v) reads r, p, v and writes p; v = (A M) p reads the diagonals, p and rr
+// and writes v; s = r - alpha v reads r, v and writes s; t = (A M) s reads
+// the diagonals and s and writes t; the update reads x, p, s, t, rr (and
+// minv) and writes x and r.
+//
+// What the design does about it: K4's (cg_fused.cu).  The grid is what the
+// SMs hold at once, launched cooperatively; the loop runs inside the
+// kernel with grid-wide barriers between the passes; each row belongs to
+// one thread in every pass; p and s, which the products read across rows,
+// are loaded with __ldcg.  Dot products are float64 per-block partials that
+// every block sums in one fixed order (coop.cuh), so all blocks take the
+// same branch.  Consecutive reductions with no barrier between them write
+// different partial buffers, so a fast block never overwrites partials a
+// slow block is still summing.
+//
+// Semantics kept from _bicgstab_kernel:
+//   - shadow residual rr = r0; rho starts at <r0, r0>; p = v = 0; the
+//     carried rho_old, alpha and omega start at 1;
+//   - half step: after s = r - alpha v, a solve whose monitor (s.s, or
+//     |rho| in implicit mode) is at the threshold takes omega = 0, so
+//     r = s, and carries omega = 1 into the next beta;
+//   - the next rho = <rr, r_new> is summed in the update pass;
+//   - the loop runs while it < max_iters && !(mon <= tol_sq): a NaN monitor
+//     keeps iterating; zero denominators give 0 (gk_sdiv).
+
+#include "coop.cuh"
+
+namespace cg = cooperative_groups;
+
+struct BicgstabParams {
+  const void* diags;  // (nd, n) of A M
+  GkOffsets offs;
+  long long n;
+  const float* r0;
+  const float* x0;
+  const float* minv;    // nullptr: Identity; used in the x update only
+  const float* tol_sq;  // device scalar
+  int max_iters;
+  int implicit;
+  float* x;
+  float* r;
+  float* rr;
+  float* v;
+  float* t;
+  float* p;
+  float* s;
+  double* part;  // 6 * gridDim.x per-block partial sums
+  int* it_out;
+  float* mon_out;
+  int* conv_out;
+};
+
+template <typename TD>
+__global__ void __launch_bounds__(GK_CG_THREADS)
+    bicgstab_fused_kernel(const BicgstabParams P) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ double sh1[1][GK_CG_WARPS];
+  __shared__ double sh2[2][GK_CG_WARPS];
+  __shared__ double bc1[1];
+  __shared__ double bc2[2];
+
+  const TD* __restrict__ D = static_cast<const TD*>(P.diags);
+  const long long n = P.n;
+  const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const int G = gridDim.x;
+  double* part_rv = P.part;          // [G]     <rr, v>
+  double* part_ss = P.part + G;      // [G]     s.s
+  double* part_t = P.part + 2 * G;   // [G][2]  t.s, t.t
+  double* part_u = P.part + 4 * G;   // [G][2]  <rr, r>, r.r (and the init)
+  float* __restrict__ x = P.x;
+  float* __restrict__ r = P.r;
+  float* __restrict__ rr = P.rr;
+  float* __restrict__ v = P.v;
+  float* __restrict__ t = P.t;
+  float* p = P.p;
+  float* s = P.s;
+  const float* __restrict__ minv = P.minv;
+
+  // init: x = x0, r = rr = r0, p = v = 0; rho = <r0, r0>
+  {
+    double acc[2] = {0.0, 0.0};
+    for (long long i = t0; i < n; i += stride) {
+      const float ri = P.r0[i];
+      x[i] = P.x0[i];
+      r[i] = ri;
+      rr[i] = ri;
+      v[i] = 0.f;
+      p[i] = 0.f;
+      acc[0] += (double)ri * ri;
+    }
+    block_partial<2>(acc, part_u, sh2);
+  }
+  grid.sync();
+  double tot1[1], tot2[2];
+  grid_total<2>(part_u, tot2, sh2, bc2);
+  float rho_new = (float)tot2[0];
+  float rho_old = 1.f, alpha = 1.f, omega = 1.f;
+
+  const float tol_sq = *P.tol_sq;
+  int it = 0;
+  float mon = CUDART_INF_F;
+  while (it < P.max_iters && !(mon <= tol_sq)) {
+    const float beta = gk_sdiv(rho_new * alpha, rho_old * omega);
+
+    // pass 1: p = r + beta (p - omega v)
+    for (long long i = t0; i < n; i += stride) {
+      p[i] = r[i] + beta * (__ldcg(p + i) - omega * v[i]);
+    }
+    grid.sync();
+
+    // pass 2: v = (A M) p; partial <rr, v>
+    {
+      double acc[1] = {0.0};
+      for (long long i = t0; i < n; i += stride) {
+        const float vi = gk_dia_row(D, P.offs, n, i, p);
+        v[i] = vi;
+        acc[0] += (double)rr[i] * vi;
+      }
+      block_partial<1>(acc, part_rv, sh1);
+    }
+    grid.sync();
+    grid_total<1>(part_rv, tot1, sh1, bc1);
+    const float alpha_new = gk_sdiv(rho_new, (float)tot1[0]);
+
+    // pass 3: s = r - alpha v; partial s.s (the half-step check)
+    {
+      double acc[1] = {0.0};
+      for (long long i = t0; i < n; i += stride) {
+        const float si = r[i] - alpha_new * v[i];
+        s[i] = si;
+        acc[0] += (double)si * si;
+      }
+      block_partial<1>(acc, part_ss, sh1);
+    }
+    grid.sync();
+    grid_total<1>(part_ss, tot1, sh1, bc1);
+    const bool half_done = (P.implicit ? fabsf(rho_new) : (float)tot1[0]) <= tol_sq;
+
+    // pass 4: t = (A M) s; partial t.s, t.t
+    {
+      double acc[2] = {0.0, 0.0};
+      for (long long i = t0; i < n; i += stride) {
+        const float ti = gk_dia_row(D, P.offs, n, i, s);
+        t[i] = ti;
+        const float si = __ldcg(s + i);
+        acc[0] += (double)ti * si;
+        acc[1] += (double)ti * ti;
+      }
+      block_partial<2>(acc, part_t, sh2);
+    }
+    grid.sync();
+    grid_total<2>(part_t, tot2, sh2, bc2);
+    const float omega_new = half_done ? 0.f : gk_sdiv((float)tot2[0], (float)tot2[1]);
+
+    // pass 5: x += alpha (M p) + omega (M s); r = s - omega t; partial
+    // <rr, r> (the next rho) and r.r
+    {
+      double acc[2] = {0.0, 0.0};
+      for (long long i = t0; i < n; i += stride) {
+        const float pi = __ldcg(p + i);
+        const float si = __ldcg(s + i);
+        const float yi = minv ? minv[i] * pi : pi;
+        const float zi = minv ? minv[i] * si : si;
+        x[i] = x[i] + alpha_new * yi + omega_new * zi;
+        const float ri = si - omega_new * t[i];
+        r[i] = ri;
+        acc[0] += (double)rr[i] * ri;
+        acc[1] += (double)ri * ri;
+      }
+      block_partial<2>(acc, part_u, sh2);
+    }
+    grid.sync();
+    grid_total<2>(part_u, tot2, sh2, bc2);
+    mon = P.implicit ? fabsf(rho_new) : (float)tot2[1];
+    rho_old = rho_new;
+    alpha = alpha_new;
+    omega = half_done ? 1.f : omega_new;
+    rho_new = (float)tot2[0];
+    ++it;
+  }
+
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *P.it_out = it;
+    *P.mon_out = mon;
+    *P.conv_out = (mon <= tol_sq) ? 1 : 0;
+  }
+}
+
+// Blocks of the cooperative grid (the wrapper sizes the partial sums, 6
+// doubles per block, from it).
+extern "C" int bicgstab_fused_grid(int d_dtype, int* blocks) {
+  if (d_dtype == GK_F32) return gk_coop_blocks(bicgstab_fused_kernel<float>, blocks);
+  if (d_dtype == GK_BF16)
+    return gk_coop_blocks(bicgstab_fused_kernel<__nv_bfloat16>, blocks);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int bicgstab_fused_solve(
+    const void* diags, int d_dtype, const long long* offsets, int nd, long long n,
+    const float* r0, const float* x0, const float* minv, const float* tol_sq,
+    int max_iters, int implicit, float* x, float* r, float* rr, float* v,
+    float* t, float* p, float* s, double* part, int blocks, int* it_out,
+    float* mon_out, int* conv_out, void* stream) {
+  if (nd < 1 || nd > GK_MAX_DIAGS || blocks < 1) return (int)cudaErrorInvalidValue;
+  BicgstabParams P;
+  P.diags = diags;
+  P.offs.nd = nd;
+  for (int d = 0; d < nd; ++d) P.offs.off[d] = offsets[d];
+  P.n = n;
+  P.r0 = r0;
+  P.x0 = x0;
+  P.minv = minv;
+  P.tol_sq = tol_sq;
+  P.max_iters = max_iters;
+  P.implicit = implicit;
+  P.x = x;
+  P.r = r;
+  P.rr = rr;
+  P.v = v;
+  P.t = t;
+  P.p = p;
+  P.s = s;
+  P.part = part;
+  P.it_out = it_out;
+  P.mon_out = mon_out;
+  P.conv_out = conv_out;
+  if (d_dtype == GK_F32)
+    return gk_coop_launch(bicgstab_fused_kernel<float>, P, blocks, stream);
+  if (d_dtype == GK_BF16)
+    return gk_coop_launch(bicgstab_fused_kernel<__nv_bfloat16>, P, blocks, stream);
+  return (int)cudaErrorInvalidValue;
+}

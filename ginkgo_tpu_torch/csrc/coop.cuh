@@ -1,4 +1,5 @@
-// Helpers of the persistent cooperative whole-solve kernels (K4, K4m, K7).
+// Helpers of the persistent cooperative whole-solve kernels (K4, K4m, K7,
+// K12-K15).
 //
 // A solve runs in one cooperative launch whose grid is what the SMs hold at
 // once; passes are separated by cooperative_groups::this_grid().sync().  Dot
@@ -85,11 +86,28 @@ __device__ __forceinline__ void grid_total(const double* part, double (&tot)[NV]
   __syncthreads();
 }
 
+// Row i of a DIA product, sum_d D[d][i] * src[i + off_d] over the columns
+// in [0, n), summed in offset order from 0 as ops/dia.py's plain version
+// does.  `src` is read with __ldcg: the whole-solve kernels rewrite it
+// between passes, and a row of another block must never come from a stale
+// L1 line.
+template <typename TD>
+__device__ __forceinline__ float gk_dia_row(const TD* __restrict__ D,
+                                            const GkOffsets& offs, long long n,
+                                            long long i, const float* src) {
+  float acc = 0.f;
+  for (int d = 0; d < offs.nd; ++d) {
+    const long long j = i + offs.off[d];
+    if (j >= 0 && j < n) acc += GkAcc<float>::load(D[d * n + i]) * __ldcg(src + j);
+  }
+  return acc;
+}
+
 // Blocks of a cooperative grid for `kernel`: co-resident blocks per SM
-// (occupancy at GK_CG_THREADS threads, no dynamic shared memory) times the
-// SM count.
+// (occupancy at GK_CG_THREADS threads and `smem` bytes of dynamic shared
+// memory) times the SM count.
 template <typename Kernel>
-static int gk_coop_blocks(Kernel kernel, int* blocks) {
+static int gk_coop_blocks(Kernel kernel, int* blocks, size_t smem = 0) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
@@ -100,20 +118,21 @@ static int gk_coop_blocks(Kernel kernel, int* blocks) {
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                    GK_CG_THREADS, 0);
+                                                    GK_CG_THREADS, smem);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   *blocks = per_sm * sms;
   return 0;
 }
 
-// Launch `kernel(params)` cooperatively on `blocks` blocks.
+// Launch `kernel(params)` cooperatively on `blocks` blocks with `smem` bytes
+// of dynamic shared memory.
 template <typename Kernel, typename Params>
 static int gk_coop_launch(Kernel kernel, const Params& params, int blocks,
-                          void* stream) {
+                          void* stream, size_t smem = 0) {
   void* args[] = {const_cast<Params*>(&params)};
   cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)kernel, dim3(blocks), dim3(GK_CG_THREADS), args, 0,
+      (const void*)kernel, dim3(blocks), dim3(GK_CG_THREADS), args, smem,
       (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

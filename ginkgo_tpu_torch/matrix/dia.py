@@ -128,15 +128,17 @@ class Dia(LinOp):
     def compute_absolute(self):
         return self.replace(diags=torch.abs(self.diags))
 
+    # The host triples of bfloat16 diagonals are float32; the transpose
+    # keeps the diagonals' dtype, as the JAX package's does.
     def transpose(self) -> "Dia":
         return Dia.from_matrix_data(
             self.to_matrix_data().transpose(), device=self.device
-        )
+        ).astype(self.dtype)
 
     def conj_transpose(self) -> "Dia":
         return Dia.from_matrix_data(
             self.to_matrix_data().conj_transpose(), device=self.device
-        )
+        ).astype(self.dtype)
 
     # -- conversions --------------------------------------------------------------
 

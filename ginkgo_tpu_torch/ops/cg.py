@@ -185,7 +185,9 @@ def check_solve_vectors(what, shape, dev, vecs, minv, tol, k):
         raise ValueError(f"{what}: tol_sq_eff must be {k} float32 on {dev}")
 
 
-def _check_diags(diags, offsets, dev, what):
+def check_fused_diags(diags, offsets, dev, what):
+    """The diagonals of a whole-solve kernel: contiguous (nd, n) float32 or
+    bfloat16 on ``dev``, 1 to MAX_DIAGS of them."""
     if diags.device != dev:
         raise RuntimeError(f"{what}: all operands must be on one device")
     if diags.dtype not in FUSED_DIAG_DTYPES:
@@ -213,7 +215,7 @@ def cg_fused(diags, offsets, r0, x0, minv=None, *, tol_sq_eff, max_iters,
         )
     dev = r0.device
     tol = torch.as_tensor(tol_sq_eff, dtype=torch.float32, device=dev).reshape(1).contiguous()
-    _check_diags(diags, offsets, dev, "cg_fused")
+    check_fused_diags(diags, offsets, dev, "cg_fused")
     n = diags.shape[1]
     check_solve_vectors("cg_fused", (n,), dev, (r0, x0), minv, tol, 1)
     lib = _lib()
@@ -263,7 +265,7 @@ def cg_fused_multi(diags, offsets, r0, x0, minv=None, *, tol_sq_eff, max_iters,
     k = r0.shape[1]
     tol = torch.as_tensor(tol_sq_eff, dtype=torch.float32, device=dev).reshape(-1)
     tol = tol.expand(k).contiguous()
-    _check_diags(diags, offsets, dev, "cg_fused_multi")
+    check_fused_diags(diags, offsets, dev, "cg_fused_multi")
     n = diags.shape[1]
     check_solve_vectors("cg_fused_multi", (n, k), dev, (r0, x0), minv, tol, k)
     lib = _lib()

@@ -1,0 +1,216 @@
+"""Whole-solve fused restarted GMRES(m): kernel K15 and its plain version.
+
+Counterpart of ``ginkgo_tpu/ops/pallas_gmres.py`` ``gmres_vmem_solve``
+(``_gmres_dia_kernel`` over ``_gmres_core``, :110-378): left scalar-Jacobi
+preconditioned GMRES(m) on a ``Dia``, every restart cycle in one
+persistent cooperative CUDA kernel (``csrc/gmres_fused.cu``).  The basis
+is stored in float32 or, for CB-GMRES's reduce1/reduce2 modes, bfloat16,
+with float32 arithmetic.
+
+Semantics, shared by the kernel and :func:`gmres_solve_reference`, step by
+step as ``_gmres_core``:
+
+- a cycle starts from the true residual u = b - A x: V_0 = z / |z| with
+  z = M u (1/|z| taken as 1 when |z| is not positive);
+- Arnoldi step j: u = M A V_j, then CGS2 against rows 0..j (all dots,
+  then u -= h_i V_i in i order, twice; h = h1 + h2), |u| and V_{j+1} =
+  u / |u|;
+- the Givens rotations, in float32, with phase = sign(a) for real data;
+- the cycle stops when |g[j+1]|^2 <= tol_sq_eff (the preconditioned
+  estimate; NaN keeps going), at the iteration cap, or after m steps; the
+  first cycle's flag starts from the true residual;
+- y = R^-1 g by back-substitution (R[i][k] y[k] summed for k = i+1 ..
+  steps-1; a zero pivot gives 0), then x += y_i V_i in i order;
+- after each cycle the true r.r decides ``converged`` (r.r <= tol_sq_eff
+  and tol_sq_eff >= 0), which can retract the in-cycle stop.
+
+It takes b, not r0, and returns the true r.r.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from .cg import _dots, check_fused_diags, check_solve_vectors, coop_grid_blocks
+from .dia import DTYPE_CODE, check_status, dia_spmv_reference, offsets_array, on_cpu
+
+#: basis storage dtypes the kernel takes (keep; reduce1/reduce2)
+BASIS_DTYPES = (torch.float32, torch.bfloat16)
+#: largest Krylov dimension the kernel takes: its scalar state (R factor,
+#: rotations, g, y) lives in shared memory (csrc/gmres_fused.cu GK_GMRES_MAX_M)
+MAX_FUSED_KRYLOV_DIM = 100
+
+
+def _inv_pos(v):
+    """1/v where v > 0, else 1 (pallas_gmres inv_beta / inv_h)."""
+    ok = v > 0
+    return torch.where(ok, 1.0 / torch.where(ok, v, torch.ones_like(v)), 1.0)
+
+
+def _givens(h, j, cs, sn, g):
+    """Rotate the new Hessenberg column h (float32 on the host, entries
+    0..j+1) by the earlier rotations and a new one, in the TPU kernel's
+    order; updates cs, sn, g in place and returns the rotated column."""
+    for i in range(j):
+        hi, hi1 = h[i].clone(), h[i + 1].clone()
+        h[i] = cs[i] * hi + sn[i] * hi1
+        h[i + 1] = -sn[i] * hi + cs[i] * hi1
+    a, bb = h[j].clone(), h[j + 1].clone()
+    denom = torch.sqrt(a * a + bb * bb)
+    pos = bool(denom > 0)
+    c = torch.abs(a) / denom if pos else torch.ones_like(a)
+    phase = torch.sign(a) if bool(torch.abs(a) > 0) else torch.ones_like(a)
+    s = phase * bb / denom if pos else torch.zeros_like(a)
+    h[j] = c * a + s * bb
+    h[j + 1] = 0.0
+    gj = g[j].clone()
+    g[j + 1] = -s * gj
+    g[j] = c * gj
+    cs[j], sn[j] = c, s
+    return h
+
+
+def gmres_solve_reference(diags, offsets, b, x0, minv=None, *, m, tol_sq_eff, max_iters,
+                          basis_dtype=torch.float32):
+    """K15's plain version, step by step as the kernel.  diags: (nd, n);
+    b, x0, minv: (n,) float32; m: the Krylov dimension; basis_dtype:
+    float32 or bfloat16.  The m-sized scalar work runs on the host in
+    float32.  Returns (x, iterations int32, true r.r float32, converged)."""
+    n = b.shape[0]
+    dev = b.device
+    m = int(m)
+    tol = float(torch.as_tensor(tol_sq_eff, dtype=torch.float32))
+    tol_t = torch.tensor(tol, dtype=torch.float32)
+    mv = None if minv is None else minv.to(torch.float32)
+
+    def spmv(v):
+        return dia_spmv_reference(diags, offsets, v, n)
+
+    def precond(v):
+        return v if mv is None else mv * v
+
+    def residual(x):
+        u = b - spmv(x)
+        return u, _dots(u, u), _dots(precond(u), precond(u))
+
+    V = torch.zeros((m + 1, n), dtype=basis_dtype, device=dev)
+    x = x0.clone()
+    u, rr, zz = residual(x)
+    rr_h = rr.cpu()
+    done = bool(rr_h <= tol_t) and tol >= 0
+    it = 0
+    while not done and it < max_iters:
+        beta = torch.sqrt(zz)
+        V[0] = (precond(u) * _inv_pos(beta)).to(basis_dtype)
+        g = torch.zeros(m + 1, dtype=torch.float32)
+        cs = torch.zeros(m, dtype=torch.float32)
+        sn = torch.zeros(m, dtype=torch.float32)
+        Rm = torch.zeros((m, m + 1), dtype=torch.float32)  # row j: column j of R
+        g[0] = beta.cpu()
+        j = 0
+        active = not bool(rr_h <= tol_t)
+        while active and j < m:
+            u = precond(spmv(V[j].float()))
+            h = torch.zeros(m + 1, dtype=torch.float32)
+            for _ in range(2):  # CGS2: all dots, then all subtractions
+                Vj = V[: j + 1].float()
+                hp = (Vj.double() @ u.double()).float()
+                for i in range(j + 1):
+                    u = u - hp[i] * Vj[i]
+                h[: j + 1] = h[: j + 1] + hp.cpu()
+            hnext = torch.sqrt(_dots(u, u))
+            V[j + 1] = (u * _inv_pos(hnext)).to(basis_dtype)
+            h[j + 1] = hnext.cpu()
+            Rm[j] = _givens(h, j, cs, sn, g)
+            it += 1
+            active = not bool(g[j + 1] * g[j + 1] <= tol_t) and it < max_iters
+            j += 1
+        y = torch.zeros(m, dtype=torch.float32)
+        for i in range(j - 1, -1, -1):
+            acc = torch.zeros((), dtype=torch.float32)
+            for k in range(i + 1, j):
+                acc = acc + Rm[k, i] * y[k]
+            diag = Rm[i, i]
+            y[i] = (g[i] - acc) / diag if bool(diag != 0) else 0.0
+        y = y.to(dev)
+        for i in range(j):
+            x = x + y[i] * V[i].float()
+        u, rr, zz = residual(x)
+        rr_h = rr.cpu()
+        done = bool(rr_h <= tol_t) and tol >= 0
+    iters = torch.tensor(it, dtype=torch.int32, device=dev)
+    return x, iters, rr, torch.tensor(done, device=dev)
+
+
+def _lib():
+    lib = _build.load("gmres_fused")
+    if not hasattr(lib, "gk_typed"):
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        offs, blocks = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)
+        lib.gmres_fused_grid.argtypes = [I, I, I, blocks]
+        lib.gmres_fused_solve.argtypes = [
+            P, I, offs, I, L,  # diags, offsets, n
+            P, P, P, P,  # b, x0, minv, tol_sq
+            I, I, P, I,  # max_iters, m, basis, basis dtype
+            P, P, P, P, I,  # x, u, partials, summed dots, blocks
+            P, P, P, P,  # it_out, rr_out, conv_out, stream
+        ]
+        for fn in (lib.gmres_fused_grid, lib.gmres_fused_solve):
+            fn.restype = I
+        lib.gk_error_string.argtypes = [I]
+        lib.gk_error_string.restype = ctypes.c_char_p
+        lib.gk_typed = True
+    return lib
+
+
+def gmres_fused(diags, offsets, b, x0, minv=None, *, m, tol_sq_eff, max_iters,
+                basis_dtype=torch.float32):
+    """K15: run restarted GMRES(m) to the stop test in one kernel.  diags:
+    (nd, n) float32/bfloat16; b, x0, minv: (n,) float32; tol_sq_eff: the
+    squared absolute threshold on both the in-cycle estimate and the true
+    residual (negative: run to max_iters), a float32 tensor on the device;
+    basis_dtype: float32 or bfloat16.  Returns (x, iterations int32, true
+    r.r float32, converged bool) as device tensors."""
+    if on_cpu(b):
+        return gmres_solve_reference(
+            diags, offsets, b, x0, minv, m=m, tol_sq_eff=tol_sq_eff,
+            max_iters=max_iters, basis_dtype=basis_dtype,
+        )
+    dev = b.device
+    m = int(m)
+    if not 1 <= m <= MAX_FUSED_KRYLOV_DIM:
+        raise ValueError(f"gmres_fused: takes 1 <= m <= {MAX_FUSED_KRYLOV_DIM}, got {m}")
+    if basis_dtype not in BASIS_DTYPES:
+        raise TypeError(f"gmres_fused: the basis must be float32/bfloat16, got {basis_dtype}")
+    tol = torch.as_tensor(tol_sq_eff, dtype=torch.float32, device=dev).reshape(1).contiguous()
+    check_fused_diags(diags, offsets, dev, "gmres_fused")
+    n = diags.shape[1]
+    check_solve_vectors("gmres_fused", (n,), dev, (b, x0), minv, tol, 1)
+    lib = _lib()
+    dcode, vcode = DTYPE_CODE[diags.dtype], DTYPE_CODE[basis_dtype]
+    blocks = coop_grid_blocks(lib, "gmres_fused_grid", (dcode, vcode, m), dev)
+    V = torch.empty((m + 1, n), dtype=basis_dtype, device=dev)
+    x = torch.empty_like(b)
+    u = torch.empty_like(b)
+    part = torch.empty((m + 4) * blocks, dtype=torch.float64, device=dev)
+    hd = torch.empty(m + 1, dtype=torch.float64, device=dev)
+    it_conv = torch.empty(2, dtype=torch.int32, device=dev)
+    rr = torch.empty(1, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        status = lib.gmres_fused_solve(
+            diags.data_ptr(), dcode, offsets_array(offsets), len(offsets), n,
+            b.data_ptr(), x0.data_ptr(), None if minv is None else minv.data_ptr(),
+            tol.data_ptr(), min(int(max_iters), 2**31 - 1), m, V.data_ptr(), vcode,
+            x.data_ptr(), u.data_ptr(), part.data_ptr(), hd.data_ptr(), blocks,
+            it_conv.data_ptr(), rr.data_ptr(), it_conv[1:].data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    check_status(lib, status, "gmres_fused")
+    gmres_fused.launches += 1
+    return x, it_conv[0], rr[0], it_conv[1] != 0
+
+
+gmres_fused.launches = 0

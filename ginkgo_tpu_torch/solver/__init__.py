@@ -1,4 +1,7 @@
+from .bicgstab import Bicg, Bicgstab, Cgs
 from .cg import Cg, Fcg
+from .gmres import CbGmres, Gmres
 from .solver_base import SolveInfo, SolverFactory
 
-__all__ = ["Cg", "Fcg", "SolveInfo", "SolverFactory"]
+__all__ = ["Bicg", "Bicgstab", "CbGmres", "Cg", "Cgs", "Fcg", "Gmres", "SolveInfo",
+           "SolverFactory"]

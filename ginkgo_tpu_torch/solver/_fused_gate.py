@@ -1,4 +1,4 @@
-"""Gates for the whole-solve fused CG kernels on the GPU.
+"""Gates for the whole-solve fused Krylov kernels on the GPU.
 
 Counterpart of ``ginkgo_tpu/solver/_fused_gate.py``.  The gates look only
 at the solve's structure, never at the device, so the CPU (where each
@@ -12,9 +12,11 @@ Every fused route needs:
 - no history tracking.
 
 ``prepare_fused_dia`` adds a square ``Dia`` with 1 to 64 diagonals stored
-as float32 or bfloat16 (kernels K4, K4m); ``prepare_fused_pell`` a square
-``Pell`` with float32 or bfloat16 values and S = 8, the layout both
-packages' fused kernels are routed to (K7).
+as float32 or bfloat16 (kernels K4, K4m, K12-K15; ``fused_transpose_ok``
+adds BiCG's A^H for K14); ``prepare_fused_pell`` a square ``Pell`` with
+float32 or bfloat16 values and S = 8, the layout both packages' fused
+kernels are routed to (K7).  ``fold_minv`` builds the A M operator that
+the fused BiCGSTAB and CGS kernels run on.
 
 The TPU gates' VMEM/SMEM budgets and environment flags have no
 counterpart: the GPU kernels keep their state in device memory, so no
@@ -33,7 +35,7 @@ from ..ops.dia import MAX_DIAGS
 from ..ops.pell_cg import FUSED_VALUE_DTYPES
 from ..preconditioner.jacobi import Jacobi
 from ..stop.criterion import analyze_simple_residual
-from .solver_base import extract_max_iters, norm2
+from .solver_base import SolveInfo, extract_max_iters, norm2
 
 #: the slot layout the fused Pell kernel is routed to
 FUSED_PELL_S = 8
@@ -81,6 +83,33 @@ def prepare_fused_dia(solver, b, max_cols=1):
     return _prepare_common(solver, b, max_cols)
 
 
+def fused_transpose_ok(A, At):
+    """BiCG's fused kernel K14 also takes At (A^H): a square ``Dia`` with
+    1 to 64 float32/bfloat16 diagonals and A's shape (ginkgo_tpu
+    solver/bicgstab.py:615-628)."""
+    return (isinstance(At, Dia) and At.shape == A.shape
+            and 1 <= At.num_diags <= MAX_DIAGS and At.dtype in FUSED_DIAG_DTYPES)
+
+
+def fold_minv(A, minv):
+    """The diagonals of A M for a diagonal M = diag(minv): diagonal d scaled
+    by minv at column i + off_d (0 outside the columns), in float32, then
+    rounded back to ``A.diags.dtype``, so bfloat16 diagonals stay bfloat16
+    (ginkgo_tpu solver/bicgstab.py:72-83).  The fused BiCGSTAB and CGS
+    kernels run on it; the solver and the tests both call this one
+    function, since parity depends on that rounding."""
+    n = A.shape[1]
+    mv = minv.to(torch.float32)
+    out = torch.empty_like(A.diags)
+    for d, off in enumerate(A.offsets):
+        shifted = torch.zeros(A.diags.shape[1], dtype=torch.float32, device=A.diags.device)
+        lo, hi = max(0, -off), min(A.diags.shape[1], n - off)
+        if hi > lo:
+            shifted[lo:hi] = mv[lo + off:hi + off]
+        out[d] = (A.diags[d].to(torch.float32) * shifted).to(A.diags.dtype)
+    return out
+
+
 def prepare_fused_pell(solver, b):
     """None or the ctx K7 needs, for one column on a square Pell."""
     A = solver.A
@@ -91,6 +120,19 @@ def prepare_fused_pell(solver, b):
     if A.S != FUSED_PELL_S:
         return None
     return _prepare_common(solver, b, 1)
+
+
+def fused_info(ctx, b, it, mon, conv):
+    """The SolveInfo of a whole-solve kernel's (k,) monitor and converged
+    flags: the residual norm where an exact-residual criterion is tracked
+    (else inf, the streaming loop's fill, solver_base._check_stop), and
+    converged only under a residual criterion."""
+    if ctx["has_res"] and not ctx["implicit"]:
+        rn = torch.sqrt(mon).to(b.dtype)
+    else:
+        rn = torch.full(mon.shape, float("inf"), dtype=b.dtype, device=b.device)
+    conv_mask = conv if ctx["has_res"] else torch.zeros_like(conv)
+    return SolveInfo(iterations=it, residual_norm=rn, converged=conv_mask)
 
 
 def tol_sq_eff(ctx, b, r0):

@@ -32,7 +32,7 @@ from ..base.linop import LinOp
 from ..matrix.pell import Pell
 from ..ops.cg import MAX_FUSED_COLS, cg_fused, cg_fused_multi
 from ..ops.pell_cg import pell_cg_fused
-from ._fused_gate import prepare_fused_dia, prepare_fused_pell, tol_sq_eff
+from ._fused_gate import fused_info, prepare_fused_dia, prepare_fused_pell, tol_sq_eff
 from .solver_base import (
     IterativeSolverMixin,
     SolveInfo,
@@ -65,14 +65,7 @@ def _solve_fused(b, x0, ctx, flexible):
         else:
             x, _r, it, mon, conv = cg_fused(A.diags, A.offsets, r0_1, x0_1, minv, **kw)
         x, mon, conv = x[:, None], mon[None], conv[None]
-    if ctx["has_res"] and not ctx["implicit"]:
-        rn = torch.sqrt(mon).to(b.dtype)
-    else:
-        # the streaming loop's fill when no exact-residual criterion is
-        # tracked (solver_base._check_stop)
-        rn = torch.full(mon.shape, float("inf"), dtype=b.dtype, device=b.device)
-    conv_mask = conv if ctx["has_res"] else torch.zeros_like(conv)
-    return x, SolveInfo(iterations=it, residual_norm=rn, converged=conv_mask)
+    return x, fused_info(ctx, b, it, mon, conv)
 
 
 def _try_fused(solver, b, x0, flexible):

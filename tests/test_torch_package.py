@@ -119,7 +119,8 @@ def test_kernel_sources_are_listed():
     from ginkgo_tpu_torch import _build
 
     assert _build.KERNELS == ("dia_spmv", "cg_fused", "pell_spmv", "pell_cg_fused",
-                              "well_spmv", "bell_spmv")
+                              "well_spmv", "bell_spmv", "bicgstab_fused", "cgs_fused",
+                              "gmres_fused")
     for name in _build.KERNELS:
         assert (PKG / "csrc" / f"{name}.cu").is_file()
     for header in ("common", "coop", "pell"):
