@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``ginkgo_tpu_torch/csrc`` (one
-``nvcc`` per source, all started together) and drives the four paths of
+``nvcc`` per source, all started together) and drives the five paths of
 the port that users call:
 
 - path 1 (slice 1): a 2-D Poisson matrix on a 2048 x 2048 grid (4,194,304
@@ -21,7 +21,10 @@ the port that users call:
   and a 32768^2 block-structured matrix -> ``choose_format`` -> ``Bell``;
 - path 4 (slice 4): a nonsymmetric convection-diffusion operator on the
   2048^2 grid as ``Dia`` -> ``Bicgstab``/``Cgs``/``Bicg``/``Gmres``/
-  ``CbGmres``, and ``Bicgstab`` on the Poisson matrix of path 1.
+  ``CbGmres``, and ``Bicgstab`` on the Poisson matrix of path 1;
+- path 5 (slice 5): the same operator with four right-hand sides ->
+  ``Bicgstab``/``Gmres``/``CbGmres`` (the k-column kernels), and with one
+  -> ``Idr``(2 and 4) and ``Ir``.
 
 Phases, each of which raises on failure:
 
@@ -59,11 +62,23 @@ Phases, each of which raises on failure:
    bfloat16 basis) and "integer" (streaming); BiCGSTAB on the Poisson
    matrix fused and streaming; then K12-K15 against their plain versions
    on the path's matrix, with a NaN case each;
-7. timings, printed and not checked: each kernel, its plain version and
+7. main path 5: on the operator of path 4, Bicgstab and Gmres(30) with
+   four columns fused (K12m, K15m) with float32 and bfloat16 diagonals and
+   with Jacobi, CbGmres "auto" (K15m with a bfloat16 basis) and both
+   streaming, each column held against a float64 four-column solve, with
+   the per-column stop iterations; Idr(2) and Idr(4) fused (K16) the same
+   three ways and streaming; Ir fused (K17) with Jacobi (f32, bf16) and
+   with the Identity, and streaming; then the routes that stream (k = 9
+   BiCGSTAB, k = 5 GMRES, IDR(5), IR with the implicit criterion, k = 4
+   CGS) at 64^2, by launch counters; then K12m, K15m, K16, K17 and the
+   smoother ir_smooth against their plain versions at 64^2 and 2048^2,
+   equal bit for bit, with a NaN case each;
+8. timings, printed and not checked: each kernel, its plain version and
    the one PyTorch call that computes the same function, by the slope
    between two trip counts (CUDA events); CG, BiCGSTAB, CGS and BiCG time
    per iteration and GMRES(30) time per Arnoldi step, fused and
-   streaming; bounds; the copy bandwidth.
+   streaming; the k-column BiCGSTAB and GMRES, IDR(2), IDR(4) and IR per
+   iteration, and the smoother per sweep; bounds; the copy bandwidth.
 
 The launch counters are set to 0 just before each main path and read just
 after it; every kernel of a path must have run there.  The last lines are
@@ -74,6 +89,7 @@ without the package beside it, the script fails and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.metadata
 import json
 import subprocess
@@ -125,11 +141,22 @@ KERNEL_META = {
     "bicg_fused": ("ginkgo_tpu_torch/csrc/cgs_fused.cu", "ginkgo_tpu/ops/pallas_cgs.py:428"),
     "gmres_fused": ("ginkgo_tpu_torch/csrc/gmres_fused.cu",
                     "ginkgo_tpu/ops/pallas_gmres.py:913"),
+    "bicgstab_fused_multi": ("ginkgo_tpu_torch/csrc/bicgstab_fused.cu",
+                             "ginkgo_tpu/ops/pallas_bicgstab.py:462"),
+    "gmres_fused_multi": ("ginkgo_tpu_torch/csrc/gmres_fused.cu",
+                          "ginkgo_tpu/ops/pallas_gmres.py:799"),
+    "idr_fused": ("ginkgo_tpu_torch/csrc/idr_fused.cu", "ginkgo_tpu/ops/pallas_idr.py:338"),
+    # one TPU site (_common_call) for both kernels of pallas_ir.py
+    "ir_fused": ("ginkgo_tpu_torch/csrc/ir_fused.cu", "ginkgo_tpu/ops/pallas_ir.py:232"),
+    "ir_smooth": ("ginkgo_tpu_torch/csrc/ir_fused.cu", "ginkgo_tpu/ops/pallas_ir.py:232"),
 }
 PATH1 = ("dia_spmv", "dia_spmv_advanced", "dia_spmm", "cg_fused", "cg_fused_multi")
 PATH2 = ("pell_spmv", "pell_spmm", "pell_cg_fused")
 PATH3 = ("well_spmv", "well_spmm", "bell_spmv", "bell_spmm")
 PATH4 = ("bicgstab_fused", "cgs_fused", "bicg_fused", "gmres_fused")
+#: ir_smooth has no caller on a main path yet (multigrid's FixedSmoother
+#: waits for the multigrid slice): its launches are checked with the kernels
+PATH5 = ("bicgstab_fused_multi", "gmres_fused_multi", "idr_fused", "ir_fused")
 #: path 4: GMRES(30), the restart length of the JAX bench's GMRES row
 KRYLOV_DIM = 30
 #: path 4: BiCGSTAB's cap on the Poisson matrix, about CG's 4217 iterations
@@ -650,7 +677,7 @@ def main_path4(gt, dev, rng, crit, kernels, data1, x64_ones, nside=NSIDE):
                                  bounded=False),
                       "solve_s": round(time.perf_counter() - t0, 4)}
     emit(row)
-    return {"A": A, "b": b, "A1": A1, "b1": b1}
+    return {"A": A, "Ab": Ab, "b": b, "refs": refs, "norm_a": norm_a, "A1": A1, "b1": b1}
 
 
 def check_path4_kernels(gt, dev, rng, p4, record_err, max_iters=MAX_ITERS):
@@ -830,6 +857,506 @@ def time_path4(gt, dev, p4, rec, timing):
     timing["krylov_us_per_iter"] = out
 
 
+@contextlib.contextmanager
+def outputs_of(module, name):
+    """Keep the keyword arguments and outputs of ``module.name`` while the
+    main path calls it: a solve's per-column stop iterations, which
+    SolveInfo does not carry.  The wrapper itself still runs, and counts."""
+    fn = getattr(module, name)
+    seen = []
+
+    def spy(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        seen.append((kwargs, out))
+        return out
+
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
+
+
+def main_path5(gt, dev, rng, crit, kernels, p4):
+    """Main path 5 through the entry points a user calls; every check
+    raises.  On A2 (path 4's convection-diffusion Dia, float32 and bfloat16
+    diagonals): Bicgstab and Gmres(30) with k = 4 columns fused with
+    float32 and bfloat16 diagonals and with scalar Jacobi (K12m, K15m),
+    CbGmres "auto" with k = 4 (K15m with a bfloat16 basis), both streaming
+    with k = 4; Idr(2) and Idr(4) fused (K16) the same three ways and
+    streaming; Ir with scalar Jacobi, relaxation 1.0, fused f32 and bf16,
+    with an Identity inner solver and relaxation 0.2 fused (K17), and Jacobi
+    streaming.  Every solution is held against a float64 solve of the
+    system it solved, column by column.  Then the declined routes at 64^2,
+    by launch counters."""
+    from ginkgo_tpu_torch import stop
+    from ginkgo_tpu_torch.solver import bicgstab as sol_bicgstab
+    from ginkgo_tpu_torch.solver import gmres as sol_gmres
+
+    A, Ab, b, refs, norm_a = p4["A"], p4["Ab"], p4["b"], p4["refs"], p4["norm_a"]
+    n = A.shape[0]
+    B = rhs4(n, rng, dev)
+    Z = torch.zeros_like(B)
+    f64_crit = [stop.Iteration(max_iters=MAX_ITERS), stop.ResidualNorm(tolerance=1e-10)]
+    refs4 = {}
+    for storage, Av in (("f32", A), ("bf16", Ab)):
+        # streaming BiCGSTAB in float64 on the four columns (K3 with
+        # float64 vectors)
+        t0 = time.perf_counter()
+        refs4[storage], info = gt.Bicgstab.build(criteria=f64_crit).generate(
+            Av.astype(torch.float64)).solve(B.double())
+        _sync(dev)
+        check(bool(info.converged.all()), f"path 5: float64 k=4 reference ({storage}): not converged")
+        emit({"phase": "main_path", "path": 5, "route": "streaming",
+              "case": f"f64_reference_k4_{storage}", "iterations": info.num_iterations,
+              "solve_s": round(time.perf_counter() - t0, 4)})
+    jac = gt.Jacobi.build(max_block_size=1)
+    three = (("f32", A, None, "f32"), ("bf16", Ab, None, "bf16"), ("f32_jacobi", A, jac, "f32"))
+
+    # k = 4 columns: K12m and K15m
+    cols = {"bicgstab": (gt.Bicgstab, {}, sol_bicgstab, "bicgstab_fused_multi", 5),
+            "gmres": (gt.Gmres, {"krylov_dim": KRYLOV_DIM}, sol_gmres, "gmres_fused_multi", 4)}
+    for name, (cls, params, module, kname, itc_at) in cols.items():
+        kern = kernels[kname]
+        for case, Av, pre, ref in three:
+            solver = cls.build(criteria=crit, preconditioner=pre, **params).generate(Av)
+            before = kern.launches
+            t0 = time.perf_counter()
+            with outputs_of(module, kname) as seen:
+                X, info = solver.solve(B)
+            _sync(dev)
+            solve_s = time.perf_counter() - t0
+            label = f"path 5: {name} k=4 {case}"
+            check(kern.launches == before + 1 and len(seen) == 1, f"{label} did not run {kname}")
+            check(bool(info.converged.all()), f"{label}: converged {info.converged.tolist()}")
+            check(X.shape == (n, 4), f"{label}: bad x")
+            emit({"phase": "main_path", "path": 5, "route": "fused", "solver": name, "k": 4,
+                  "case": case, "iterations": info.num_iterations,
+                  "column_iterations": seen[0][1][itc_at].tolist(),
+                  "residual_norm": info.residual_norm.tolist(),
+                  **accuracy(Av, X, B, refs4[ref], norm_a, label), "solve_s": round(solve_s, 4)})
+        solver = cls.build(criteria=crit, **params).generate(A)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            Xs, sinfo = solver._solve_streaming(B, Z)
+        _sync(dev)
+        label = f"path 5: {name} k=4 streaming"
+        check(bool(sinfo.converged.all()), f"{label}: converged {sinfo.converged.tolist()}")
+        emit({"phase": "main_path", "path": 5, "route": "streaming", "solver": name, "k": 4,
+              "case": "f32", "iterations": sinfo.num_iterations,
+              **accuracy(A, Xs, B, refs4["f32"], norm_a, label),
+              "solve_s": round(time.perf_counter() - t0, 4)})
+
+    solver = gt.CbGmres.build(criteria=crit, krylov_dim=KRYLOV_DIM).generate(A)
+    check(solver._resolved_mode() == "reduce1", "path 5: CbGmres 'auto' did not resolve to reduce1")
+    t0 = time.perf_counter()
+    with outputs_of(sol_gmres, "gmres_fused_multi") as seen:
+        X, info = solver.solve(B)
+    _sync(dev)
+    label = "path 5: CbGmres auto k=4"
+    check(len(seen) == 1 and seen[0][0]["basis_dtype"] == torch.bfloat16,
+          f"{label} did not run gmres_fused_multi with a bfloat16 basis")
+    check(bool(info.converged.all()), f"{label}: converged {info.converged.tolist()}")
+    emit({"phase": "main_path", "path": 5, "route": "fused", "solver": "cbgmres", "k": 4,
+          "case": "auto", "resolved": "reduce1", "iterations": info.num_iterations,
+          "column_iterations": seen[0][1][4].tolist(),
+          **accuracy(A, X, B, refs4["f32"], norm_a, label),
+          "solve_s": round(time.perf_counter() - t0, 4)})
+
+    # one column: IDR(s) (K16) and IR (K17)
+    z = torch.zeros_like(b)
+    for sdim in (2, 4):
+        for case, Av, pre, ref in three:
+            t0 = time.perf_counter()
+            solver = gt.Idr.build(criteria=crit, preconditioner=pre, subspace_dim=sdim).generate(Av)
+            generate_s = time.perf_counter() - t0
+            before = kernels["idr_fused"].launches
+            t0 = time.perf_counter()
+            x, info = solver.solve(b)
+            _sync(dev)
+            label = f"path 5: idr({sdim}) {case}"
+            check(kernels["idr_fused"].launches == before + 1, f"{label} did not run idr_fused")
+            check(bool(info.converged.all()), f"{label}: not converged")
+            emit({"phase": "main_path", "path": 5, "route": "fused", "solver": f"idr({sdim})",
+                  "case": case, "iterations": info.num_iterations,
+                  "residual_norm": float(info.residual_norm[0]),
+                  **accuracy(Av, x, b, refs[ref], norm_a, label),
+                  "generate_s": round(generate_s, 4),
+                  "solve_s": round(time.perf_counter() - t0, 4)})
+        solver = gt.Idr.build(criteria=crit, subspace_dim=sdim).generate(A)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            x, it, stopped, _rn = solver._solve_single(b, z)
+        _sync(dev)
+        label = f"path 5: idr({sdim}) streaming"
+        check(bool(stopped), f"{label}: not converged")
+        emit({"phase": "main_path", "path": 5, "route": "streaming", "solver": f"idr({sdim})",
+              "case": "f32", "iterations": int(it), **accuracy(A, x, b, refs["f32"], norm_a, label),
+              "solve_s": round(time.perf_counter() - t0, 4)})
+
+    for case, Av, pre, omega, ref in (("f32_jacobi", A, jac, 1.0, "f32"),
+                                      ("bf16_jacobi", Ab, jac, 1.0, "bf16"),
+                                      ("f32_identity", A, None, 0.2, "f32")):
+        solver = gt.Ir.build(criteria=crit, preconditioner=pre,
+                             relaxation_factor=omega).generate(Av)
+        before = kernels["ir_fused"].launches
+        t0 = time.perf_counter()
+        x, info = solver.solve(b)
+        _sync(dev)
+        label = f"path 5: ir {case}"
+        check(kernels["ir_fused"].launches == before + 1, f"{label} did not run ir_fused")
+        check(bool(info.converged.all()), f"{label}: not converged")
+        emit({"phase": "main_path", "path": 5, "route": "fused", "solver": "ir", "case": case,
+              "relaxation_factor": omega, "iterations": info.num_iterations,
+              "residual_norm": float(info.residual_norm[0]),
+              **accuracy(Av, x, b, refs[ref], norm_a, label),
+              "solve_s": round(time.perf_counter() - t0, 4)})
+    solver = gt.Ir.build(criteria=crit, preconditioner=jac).generate(A)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        xs, sinfo = solver._solve_streaming(b[:, None], z[:, None])
+    _sync(dev)
+    check(bool(sinfo.converged.all()), "path 5: ir streaming: not converged")
+    emit({"phase": "main_path", "path": 5, "route": "streaming", "solver": "ir",
+          "case": "f32_jacobi", "iterations": sinfo.num_iterations,
+          **accuracy(A, xs[:, 0], b, refs["f32"], norm_a, "path 5: ir streaming"),
+          "solve_s": round(time.perf_counter() - t0, 4)})
+
+    # the routes that stream, at 64^2: no kernel of the slice runs for them
+    A64 = gt.Dia.from_matrix_data(gt.MatrixData.from_coo(*convdiff_2d(SMALL)), device=dev)
+    n64 = A64.shape[0]
+    short = [stop.Iteration(max_iters=200), stop.ResidualNorm(tolerance=1e-4)]
+    implicit = [stop.Iteration(max_iters=30), stop.ImplicitResidualNorm(tolerance=TOL)]
+    declined = (
+        ("bicgstab k=9", gt.Bicgstab.build(criteria=short), 9, "bicgstab_fused_multi"),
+        ("gmres k=5", gt.Gmres.build(criteria=short, krylov_dim=KRYLOV_DIM), 5,
+         "gmres_fused_multi"),
+        ("idr(5)", gt.Idr.build(criteria=short, subspace_dim=5), 1, "idr_fused"),
+        ("ir implicit", gt.Ir.build(criteria=implicit, preconditioner=jac), 1, "ir_fused"),
+        ("cgs k=4", gt.Cgs.build(criteria=short), 4, "cgs_fused"),
+    )
+    row = {"phase": "main_path", "path": 5, "case": "declined_routes", "nside": SMALL}
+    for label, factory, k, kname in declined:
+        before = {name: f.launches for name, f in kernels.items()}
+        spmv = kernels["dia_spmv"].launches + kernels["dia_spmm"].launches
+        X, info = factory.generate(A64).solve(torch.ones(n64, k, device=dev))
+        _sync(dev)
+        fused = [name for name in (*PATH4, *PATH5)
+                 if kernels[name].launches != before[name]]
+        check(not fused and kernels["dia_spmv"].launches + kernels["dia_spmm"].launches > spmv,
+              f"path 5: {label} did not stream (fused kernels run: {fused})")
+        check(X.shape == (n64, k) and bool(torch.isfinite(X).all()), f"path 5: {label}: bad x")
+        row[label] = {"streams": True, "iterations": info.num_iterations,
+                      "converged": info.converged.tolist()}
+    emit(row)
+    return {"B": B, "refs4": refs4}
+
+
+def check_path5_kernels(gt, dev, rng, p4, p5, kernels, record_err):
+    """K12m, K15m, K16, K17 and ir_smooth against their plain versions on
+    A2 at 64^2 and at 2048^2: K12m with float32 and bfloat16 diagonals,
+    with and without an inverse diagonal (folded into A M), and implicit,
+    on four columns that stop at different iterations; K15m with a float32
+    and a bfloat16 basis, with and without an inverse diagonal, where a
+    column stops inside a cycle while another runs on; K16 with s = 1, 2, 4
+    on float32 diagonals and on bfloat16 diagonals with an inverse
+    diagonal; K17 with the Identity (relaxation 0.2) and an inverse
+    diagonal (1.0); ir_smooth from zero and from x0, with and without the
+    residual, 1 and 3 sweeps.  Then a NaN in b per kernel at 2048^2, which
+    must run to the cap on both (for k columns, the NaN column only).
+
+    Every kernel runs twice and must equal itself bit for bit, and then its
+    plain version: the same iteration and per-column stop counts and x bit
+    for bit.  (The plain versions' host-side square roots are correctly
+    rounded, as the kernels' sqrtf is: ops/cg._sqrt.)"""
+    from ginkgo_tpu_torch.ops import bicgstab as ops_bicgstab
+    from ginkgo_tpu_torch.ops import gmres as ops_gmres
+    from ginkgo_tpu_torch.ops import idr as ops_idr
+    from ginkgo_tpu_torch.ops import ir as ops_ir
+    from ginkgo_tpu_torch.solver._fused_gate import fold_minv
+
+    def outcome(name, out):
+        """(x, iterations, per-column stop iterations or None, converged)."""
+        if name == "bicgstab_fused_multi":
+            return out[0], int(out[2]), out[5].tolist(), out[4].tolist()
+        if name == "gmres_fused_multi":
+            return out[0], int(out[1]), out[4].tolist(), out[3].tolist()
+        return out[0], int(out[2]), None, [bool(out[4])]
+
+    def compare(name, label, kern, plain, nan_col=None, cap=None):
+        t0 = time.perf_counter()
+        kx, kit, kitc, kconv = outcome(name, kern())
+        _sync(dev)
+        k_s = time.perf_counter() - t0
+        kx2, kit2, kitc2, _ = outcome(name, kern())
+        t0 = time.perf_counter()
+        px, pit, pitc, pconv = outcome(name, plain())
+        _sync(dev)
+        p_s = time.perf_counter() - t0
+        what = f"{name} {label}"
+        check(kit2 == kit and kitc2 == kitc and (torch.equal(kx2, kx) or cap is not None),
+              f"{what}: the kernel differs from itself")
+        row = {"iters": kit, "plain_iters": pit, "column_iters": kitc, "plain_column_iters": pitc,
+               "s": round(k_s, 4), "plain_s": round(p_s, 4)}
+        if cap is not None:  # a NaN in b: that column runs to the cap on both
+            its = (kit, pit) if nan_col is None else (kitc[nan_col], pitc[nan_col])
+            check(its == (cap, cap) and not kconv[nan_col or 0] and not pconv[nan_col or 0],
+                  f"{what}: with a NaN, {its} iterations, converged {kconv} / {pconv}")
+            return row
+        row.update(bit_equal=bool(torch.equal(kx, px)), x_max_abs_err=record_err(name, kx, px))
+        check(all(kconv) and all(pconv), f"{what}: not converged ({kconv}, {pconv})")
+        check(kit == pit and kitc == pitc and row["bit_equal"],
+              f"{what}: {kit} / {pit} iterations, {kitc} / {pitc}, x differs by "
+              f"{row['x_max_abs_err']}")
+        return row
+
+    minv_big = torch.as_tensor(rng.uniform(0.15, 0.3, p4["A"].shape[0]).astype(np.float32),
+                               device=dev)
+    A64 = gt.Dia.from_matrix_data(gt.MatrixData.from_coo(*convdiff_2d(SMALL)), device=dev)
+    B64 = rhs4(A64.shape[0], rng, dev)
+    minv64 = torch.as_tensor(rng.uniform(0.15, 0.3, A64.shape[0]).astype(np.float32), device=dev)
+    for nside, A, B, minv in ((SMALL, A64, B64, minv64), (NSIDE, p4["A"], p5["B"], minv_big)):
+        Ab = A.reduce_storage()
+        b = B[:, 1].contiguous()
+        z, Z = torch.zeros_like(b), torch.zeros_like(B)
+        tol4 = ((TOL * B.norm(dim=0)) ** 2).contiguous()
+        tol1 = torch.full((), (TOL * float(b.norm())) ** 2, dtype=torch.float32, device=dev)
+        row = {"phase": "kernel_check", "path": 5, "matrix": f"convdiff_2d({nside})"}
+        for storage, Av in (("f32", A), ("bf16", Ab)):
+            for pre_label, pre in (("identity", None), ("minv", minv)):
+                D = Av.diags if pre is None else fold_minv(Av, pre)
+                implicit_cases = (False, True) if (storage, pre) == ("f32", None) else (False,)
+                for implicit in implicit_cases:
+                    kw = dict(tol_sq_eff=tol4, max_iters=MAX_ITERS, use_implicit=implicit)
+                    row[f"bicgstab_fused_multi {storage} {pre_label}{' implicit' * implicit}"] = compare(
+                        "bicgstab_fused_multi", f"{nside} {storage} {pre_label} {implicit}",
+                        lambda D=D, Av=Av, pre=pre, kw=kw: ops_bicgstab.bicgstab_fused_multi(
+                            D, Av.offsets, B, Z, pre, **kw),
+                        lambda D=D, Av=Av, pre=pre, kw=kw: ops_bicgstab.bicgstab_solve_multi_reference(
+                            D, Av.offsets, B, Z, pre, **kw),
+                    )
+                if storage == "bf16":
+                    continue
+                for basis in (torch.float32, torch.bfloat16):
+                    kw = dict(m=KRYLOV_DIM, tol_sq_eff=tol4, max_iters=MAX_ITERS, basis_dtype=basis)
+                    key = f"gmres_fused_multi {str(basis)[6:]} basis {pre_label}"
+                    row[key] = compare(
+                        "gmres_fused_multi", f"{nside} {key}",
+                        lambda pre=pre, kw=kw: ops_gmres.gmres_fused_multi(
+                            Av.diags, Av.offsets, B, Z, pre, **kw),
+                        lambda pre=pre, kw=kw: ops_gmres.gmres_solve_multi_reference(
+                            Av.diags, Av.offsets, B, Z, pre, **kw),
+                    )
+                    itc, it = row[key]["column_iters"], row[key]["iters"]
+                    # a column stopped inside a cycle that another ran on in
+                    row[key]["mid_cycle_stop"] = any(
+                        c < it and (c - 1) // KRYLOV_DIM == (d - 1) // KRYLOV_DIM
+                        for c in itc for d in itc if d > c)
+            pre_label, pre = ("identity", None) if storage == "f32" else ("minv", minv)
+            for sdim in (1, 2, 4):
+                P = gt.Idr.build(criteria=None, subspace_dim=sdim).generate(A).P
+                kw = dict(kappa=0.7, tol_sq_eff=tol1, max_iters=MAX_ITERS)
+                row[f"idr_fused s={sdim} {storage} {pre_label}"] = compare(
+                    "idr_fused", f"{nside} s={sdim} {storage} {pre_label}",
+                    lambda P=P, Av=Av, pre=pre, kw=kw: ops_idr.idr_fused(
+                        Av.diags, Av.offsets, P, b, z, b, pre, **kw),
+                    lambda P=P, Av=Av, pre=pre, kw=kw: ops_idr.idr_solve_reference(
+                        Av.diags, Av.offsets, P, b, z, b, pre, **kw),
+                )
+        inv_diag = 1.0 / A.extract_diagonal().values.float()
+        for pre_label, pre, omega in (("identity", None, 0.2), ("minv", inv_diag, 1.0)):
+            kw = dict(omega=omega, tol_sq_eff=tol1, max_iters=MAX_ITERS)
+            row[f"ir_fused {pre_label}"] = compare(
+                "ir_fused", f"{nside} {pre_label}",
+                lambda pre=pre, kw=kw: ops_ir.ir_fused(A.diags, A.offsets, b, z, pre, **kw),
+                lambda pre=pre, kw=kw: ops_ir.ir_solve_reference(A.diags, A.offsets, b, z, pre,
+                                                                 **kw),
+            )
+        # the smoother: no dots, so x (and r when asked for) bit for bit
+        x0 = torch.as_tensor(rng.standard_normal(A.shape[0]).astype(np.float32), device=dev)
+        before = kernels["ir_smooth"].launches
+        for start, xs in (("zero", None), ("x0", x0)):
+            for with_r in (False, True):
+                for iters in (1, 3):
+                    kw = dict(omega=0.8, iters=iters, with_residual=with_r)
+                    kx, kr = ops_ir.ir_smooth(A.diags, A.offsets, b, xs, inv_diag, **kw)
+                    px, pr = ops_ir.ir_smooth_reference(A.diags, A.offsets, b, xs, inv_diag, **kw)
+                    _sync(dev)
+                    err = record_err("ir_smooth", kx, px)
+                    what = f"ir_smooth {nside} from {start}, residual {with_r}, {iters} sweeps"
+                    check(torch.equal(kx, px) and (not with_r or torch.equal(kr, pr)),
+                          f"{what}: x differs by {err}")
+                    row[f"ir_smooth {start} r={with_r} iters={iters}"] = {"bit_equal": True}
+        check(kernels["ir_smooth"].launches == before + 8,
+              f"ir_smooth launched {kernels['ir_smooth'].launches - before} times, not 8")
+        if nside == NSIDE:
+            mid = [v["mid_cycle_stop"] for key, v in row.items() if key.startswith("gmres")]
+            check(any(mid), "gmres_fused_multi: no case stopped a column inside a cycle")
+        emit(row)
+
+    # a NaN in b keeps its monitor NaN: it runs to the cap on both
+    A, B = p4["A"], p5["B"]
+    b = B[:, 1].contiguous()
+    z, Z = torch.zeros_like(b), torch.zeros_like(B)
+    Bn, bn = B.clone(), b.clone()
+    Bn[5, 1] = float("nan")
+    bn[5] = float("nan")
+    tol4 = ((TOL * B.norm(dim=0)) ** 2).contiguous()
+    tol1 = torch.full((), (TOL * float(b.norm())) ** 2, dtype=torch.float32, device=dev)
+    inv_diag = 1.0 / A.extract_diagonal().values.float()
+    P = gt.Idr.build(criteria=None, subspace_dim=2).generate(A).P
+    cap = 25
+    row = {"phase": "kernel_check", "path": 5, "case": "nan_rhs_runs_to_cap", "cap": cap}
+    cases = {
+        "bicgstab_fused_multi": (
+            lambda: ops_bicgstab.bicgstab_fused_multi(A.diags, A.offsets, Bn, Z, None,
+                                                      tol_sq_eff=tol4, max_iters=cap),
+            lambda: ops_bicgstab.bicgstab_solve_multi_reference(A.diags, A.offsets, Bn, Z, None,
+                                                                tol_sq_eff=tol4, max_iters=cap),
+            1),
+        "gmres_fused_multi": (
+            lambda: ops_gmres.gmres_fused_multi(A.diags, A.offsets, Bn, Z, None, m=KRYLOV_DIM,
+                                                tol_sq_eff=tol4, max_iters=cap),
+            lambda: ops_gmres.gmres_solve_multi_reference(A.diags, A.offsets, Bn, Z, None,
+                                                          m=KRYLOV_DIM, tol_sq_eff=tol4,
+                                                          max_iters=cap),
+            1),
+        "idr_fused": (
+            lambda: ops_idr.idr_fused(A.diags, A.offsets, P, bn, z, bn, None, kappa=0.7,
+                                      tol_sq_eff=tol1, max_iters=cap),
+            lambda: ops_idr.idr_solve_reference(A.diags, A.offsets, P, bn, z, bn, None,
+                                                kappa=0.7, tol_sq_eff=tol1, max_iters=cap),
+            None),
+        "ir_fused": (
+            lambda: ops_ir.ir_fused(A.diags, A.offsets, bn, z, inv_diag, omega=1.0,
+                                    tol_sq_eff=tol1, max_iters=cap),
+            lambda: ops_ir.ir_solve_reference(A.diags, A.offsets, bn, z, inv_diag, omega=1.0,
+                                              tol_sq_eff=tol1, max_iters=cap),
+            None),
+    }
+    for name, (kern, plain, nan_col) in cases.items():
+        row[name] = compare(name, "nan", kern, plain, nan_col=nan_col, cap=cap)
+    emit(row)
+
+
+def time_path5(gt, dev, p4, rec, timing):
+    """Per-iteration times on A1 (the 2048^2 Poisson matrix of path 1) by
+    the slope between whole solves with Iteration-only criteria: K12m (k =
+    4) per iteration and K17 (scalar Jacobi, relaxation 1.0) per sweep
+    between Iteration(200) and Iteration(1000); K16 per outer iteration for
+    s = 2 and s = 4, 200 to 1000; K15m (k = 4, m = 30) per Arnoldi step, 60
+    to 240, with a float32 and a bfloat16 basis; ir_smooth per sweep between
+    calls of 20 and 100 sweeps; each beside its streaming route and its
+    plain version (fewer trips where those sync the host every step).
+
+    Bounds, each input read once and each carried vector read and written
+    once per iteration: K12m (4 nd + 36 k) n bytes, (4 nd + 22) k n
+    operations; K15m per step K15's cycle model with the vectors k wide;
+    K16 (4 nd + 20 s + 20) n bytes (diagonals, P and b in; x, r, G and U
+    in and out); K17 and ir_smooth (4 nd + 24) n bytes a sweep (diagonals,
+    b, minv in; x and r in and out)."""
+    from ginkgo_tpu_torch import stop
+    from ginkgo_tpu_torch.ops import bicgstab as ops_bicgstab
+    from ginkgo_tpu_torch.ops import gmres as ops_gmres
+    from ginkgo_tpu_torch.ops import idr as ops_idr
+    from ginkgo_tpu_torch.ops import ir as ops_ir
+
+    A1, b1 = p4["A1"], p4["b1"]
+    n, nd, k, m = A1.shape[0], len(A1.offsets), 4, KRYLOV_DIM
+    B1 = rhs4(n, np.random.default_rng(SEED + 5), dev)
+    Z, z = torch.zeros_like(B1), torch.zeros_like(b1)
+    inv_diag = 1.0 / A1.extract_diagonal().values.float()
+    jac = gt.Jacobi.build(max_block_size=1)
+    one = [stop.Iteration(max_iters=1)]
+    solvers = {
+        "bicgstab": gt.Bicgstab.build(criteria=one).generate(A1),
+        "gmres": gt.Gmres.build(criteria=one, krylov_dim=m).generate(A1),
+        "idr2": gt.Idr.build(criteria=one, subspace_dim=2).generate(A1),
+        "idr4": gt.Idr.build(criteria=one, subspace_dim=4).generate(A1),
+        "ir": gt.Ir.build(criteria=one, preconditioner=jac, relaxation_factor=1.0).generate(A1),
+    }
+
+    def capped(name, its, **params):
+        return solvers[name].replace(criterion=stop.Iteration(max_iters=its), **params)
+
+    def fused(name, rhs, **params):
+        return lambda its: capped(name, its, **params).solve(rhs)
+
+    def streaming(name, rhs):
+        def run(its):
+            with torch.no_grad():
+                s = capped(name, its)
+                if name.startswith("idr"):
+                    s._solve_single(rhs, z)
+                else:
+                    s._solve_streaming(rhs, torch.zeros_like(rhs))
+        return run
+
+    out = {"matrix": f"poisson_2d({NSIDE})", "card": timing["card"]}
+    # K12m
+    f_ms = iter_ms(fused("bicgstab", B1))
+    s_ms = iter_ms(streaming("bicgstab", B1))
+    p_ms = iter_ms(lambda its: ops_bicgstab.bicgstab_solve_multi_reference(
+        A1.diags, A1.offsets, B1, Z, None, tol_sq_eff=-1.0, max_iters=its), 50, 250)
+    nbytes, flops = (4 * nd + 36 * k) * n, (4 * nd + 22) * k * n
+    rec["bicgstab_fused_multi"] = (f_ms, p_ms, None, nbytes, flops)
+    out["bicgstab_fused_multi_k4"] = {"fused_us": f_ms * 1e3, "streaming_us": s_ms * 1e3,
+                                      "plain_us": p_ms * 1e3, "GBps": nbytes / f_ms / 1e6}
+    # K15m, per Arnoldi step
+    gm = {}
+    for label, mode, vb in (("f32", "keep", 4), ("bf16", "reduce1", 2)):
+        cycle_bytes = (sum((4 * nd + (j + 2) * vb * k) * n for j in range(m))
+                       + (4 * nd + (m * vb + 12) * k) * n)
+        cycle_flops = (sum((2 * nd + 8 * (j + 1) + 3) * k * n for j in range(m))
+                       + (2 * nd + 2 * m + 2) * k * n)
+        ms = iter_ms(fused("gmres", B1, storage_precision=mode), 60, 240)
+        gm[label] = {"fused_us_per_step": ms * 1e3, "bytes_per_step": cycle_bytes / m,
+                     "GBps": cycle_bytes / m / ms / 1e6}
+        if label == "f32":
+            gm["streaming_us_per_step"] = iter_ms(streaming("gmres", B1), 30, 90) * 1e3
+            p_ms = iter_ms(lambda its: ops_gmres.gmres_solve_multi_reference(
+                A1.diags, A1.offsets, B1, Z, None, m=m, tol_sq_eff=-1.0, max_iters=its), 30, 90)
+            gm["plain_us_per_step"] = p_ms * 1e3
+            rec["gmres_fused_multi"] = (ms, p_ms, None, cycle_bytes / m, cycle_flops / m)
+    out["gmres_fused_multi_k4"] = gm
+    # K16, per outer iteration
+    for sdim in (2, 4):
+        name = f"idr{sdim}"
+        P = solvers[name].P
+        f_ms = iter_ms(fused(name, b1))
+        s_ms = iter_ms(streaming(name, b1), 20, 100)
+        p_ms = iter_ms(lambda its, P=P: ops_idr.idr_solve_reference(
+            A1.diags, A1.offsets, P, b1, z, b1, None, kappa=0.7, tol_sq_eff=-1.0,
+            max_iters=its), 20, 100)
+        nbytes = (4 * nd + 20 * sdim + 20) * n
+        flops = (2 * nd * (sdim + 2) + 7 * sdim * sdim + 6 * sdim + 11) * n
+        if sdim == 2:  # the kernels line carries Idr's default subspace
+            rec["idr_fused"] = (f_ms, p_ms, None, nbytes, flops)
+        out[f"idr_fused_s{sdim}"] = {"fused_us": f_ms * 1e3, "streaming_us": s_ms * 1e3,
+                                     "plain_us": p_ms * 1e3, "GBps": nbytes / f_ms / 1e6}
+    # K17 per sweep, and the smoother
+    nbytes = (4 * nd + 24) * n
+    f_ms = iter_ms(fused("ir", b1))
+    s_ms = iter_ms(streaming("ir", b1[:, None]))
+    p_ms = iter_ms(lambda its: ops_ir.ir_solve_reference(
+        A1.diags, A1.offsets, b1, z, inv_diag, omega=1.0, tol_sq_eff=-1.0, max_iters=its),
+        50, 250)
+    rec["ir_fused"] = (f_ms, p_ms, None, nbytes, (2 * nd + 6) * n)
+    out["ir_fused"] = {"fused_us": f_ms * 1e3, "streaming_us": s_ms * 1e3,
+                       "plain_us": p_ms * 1e3, "GBps": nbytes / f_ms / 1e6}
+    x0 = torch.ones_like(b1)
+    k_ms = iter_ms(lambda its: ops_ir.ir_smooth(A1.diags, A1.offsets, b1, x0, inv_diag,
+                                                omega=1.0, iters=its, with_residual=True),
+                   20, 100)
+    p_ms = iter_ms(lambda its: ops_ir.ir_smooth_reference(
+        A1.diags, A1.offsets, b1, x0, inv_diag, omega=1.0, iters=its, with_residual=True),
+        20, 100)
+    rec["ir_smooth"] = (k_ms, p_ms, None, nbytes, (2 * nd + 4) * n)
+    out["ir_smooth"] = {"us_per_sweep": k_ms * 1e3, "plain_us_per_sweep": p_ms * 1e3,
+                        "GBps": nbytes / k_ms / 1e6}
+    timing["slice5_us_per_iter"] = out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check needs a GPU")
@@ -841,6 +1368,8 @@ def main():
     from ginkgo_tpu_torch.ops import cgs as ops_cgs
     from ginkgo_tpu_torch.ops import dia as ops_dia
     from ginkgo_tpu_torch.ops import gmres as ops_gmres
+    from ginkgo_tpu_torch.ops import idr as ops_idr
+    from ginkgo_tpu_torch.ops import ir as ops_ir
     from ginkgo_tpu_torch.ops import pell as ops_pell
     from ginkgo_tpu_torch.ops import pell_cg as ops_pell_cg
     from ginkgo_tpu_torch.ops import well as ops_well
@@ -865,6 +1394,11 @@ def main():
         "cgs_fused": ops_cgs.cgs_fused,
         "bicg_fused": ops_cgs.bicg_fused,
         "gmres_fused": ops_gmres.gmres_fused,
+        "bicgstab_fused_multi": ops_bicgstab.bicgstab_fused_multi,
+        "gmres_fused_multi": ops_gmres.gmres_fused_multi,
+        "idr_fused": ops_idr.idr_fused,
+        "ir_fused": ops_ir.ir_fused,
+        "ir_smooth": ops_ir.ir_smooth,
     }
     max_err = {k: 0.0 for k in kernels}
 
@@ -1298,9 +1832,19 @@ def main():
     launches4 = {k: f.launches for k, f in kernels.items()}
     check(all(launches4[k] > 0 for k in PATH4), f"a kernel of path 4 never ran: {launches4}")
     emit({"phase": "main_path", "path": 4, "launches": launches4})
-    launches = {k: launches1[k] + launches2[k] + launches3[k] + launches4[k] for k in kernels}
     check_path4_kernels(gt, dev, rng, p4, record_err)
     del x64_ones
+
+    # -- 5c. main path 5: k columns, IDR and IR on a Dia -------------------------------
+    zero_counts()
+    p5 = main_path5(gt, dev, rng, crit, kernels, p4)
+    launches5 = {k: f.launches for k, f in kernels.items()}
+    check(all(launches5[k] > 0 for k in PATH5), f"a kernel of path 5 never ran: {launches5}")
+    emit({"phase": "main_path", "path": 5, "launches": launches5})
+    launches = {k: launches1[k] + launches2[k] + launches3[k] + launches4[k] + launches5[k]
+                for k in kernels}
+    check_path5_kernels(gt, dev, rng, p4, p5, kernels, record_err)
+    del p5
 
     # -- 6. timings (printed, not checked) -------------------------------------------
     src = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
@@ -1489,6 +2033,7 @@ def main():
                                           "GBps": nbytes / f_ms / 1e6}
     timing["cg_iteration_gap_2048"] = gaps
     time_path4(gt, dev, p4, rec, timing)
+    time_path5(gt, dev, p4, rec, timing)
     emit(timing)
 
     # -- 7. result -----------------------------------------------------------------------

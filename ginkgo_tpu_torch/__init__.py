@@ -20,7 +20,11 @@ Ported so far:
   ``choose_format``;
 - slice 4: the nonsymmetric Krylov solvers ``Bicgstab``, ``Cgs``, ``Bicg``,
   ``Gmres`` and ``CbGmres``, each with a whole-solve kernel for one column
-  on a ``Dia``.
+  on a ``Dia``;
+- slice 5: k-column whole-solve kernels for ``Bicgstab`` (2 to 8 columns)
+  and ``Gmres``/``CbGmres`` (2 to 4), and the solvers ``Idr`` and
+  ``Ir``/``Richardson``, each with a whole-solve kernel for one column on
+  a ``Dia`` (IR's kernel also runs fixed smoothing sweeps).
 """
 
 __version__ = "0.1.0"
@@ -41,6 +45,8 @@ from .preconditioner.jacobi import Jacobi
 from .solver.bicgstab import Bicg, Bicgstab, Cgs
 from .solver.cg import Cg, Fcg
 from .solver.gmres import CbGmres, Gmres
+from .solver.idr import Idr
+from .solver.ir import Ir, Richardson
 from .solver.solver_base import SolveInfo
 from .utils import generators
 
@@ -61,11 +67,14 @@ __all__ = [
     "Fcg",
     "Gmres",
     "Identity",
+    "Idr",
+    "Ir",
     "Jacobi",
     "LinOp",
     "MatrixData",
     "Pell",
     "Perturbation",
+    "Richardson",
     "SolveInfo",
     "Well",
     "choose_format",

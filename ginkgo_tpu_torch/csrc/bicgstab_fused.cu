@@ -1,5 +1,6 @@
 // Whole-solve right-preconditioned BiCGSTAB in one persistent cooperative
-// kernel: kernel K12 of the PyTorch port.
+// kernel: kernel K12 of the PyTorch port, and its k-column form K12m
+// (below).
 //
 // Replaces ginkgo_tpu/ops/pallas_bicgstab.py bicgstab_vmem_solve
 // (_bicgstab_kernel, :53-186).  A diagonal preconditioner M is folded into
@@ -43,10 +44,10 @@ struct BicgstabParams {
   const void* diags;  // (nd, n) of A M
   GkOffsets offs;
   long long n;
-  const float* r0;
+  const float* r0;      // (n,), or (n, K) row-major in K12m
   const float* x0;
-  const float* minv;    // nullptr: Identity; used in the x update only
-  const float* tol_sq;  // device scalar
+  const float* minv;    // (n,) or nullptr: Identity; used in the x update only
+  const float* tol_sq;  // device scalar, (K,) in K12m
   int max_iters;
   int implicit;
   float* x;
@@ -56,10 +57,11 @@ struct BicgstabParams {
   float* t;
   float* p;
   float* s;
-  double* part;  // 6 * gridDim.x per-block partial sums
+  double* part;  // 6 * gridDim.x (6 K gridDim.x in K12m) per-block partial sums
   int* it_out;
-  float* mon_out;
-  int* conv_out;
+  float* mon_out;   // (K,) in K12m
+  int* conv_out;    // (K,) in K12m
+  int* itc_out;     // K12m: (K,) iteration at which each column stopped
 };
 
 template <typename TD>
@@ -199,6 +201,240 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
   }
 }
 
+// k-column BiCGSTAB with per-column stopping: kernel K12m.
+//
+// Replaces ginkgo_tpu/ops/pallas_bicgstab.py bicgstab_vmem_solve_multi
+// (_bicgstab_multi_kernel, :202-426): K columns (2 <= K <= 8) solved
+// together in K12's five passes, the vectors (n, K) row-major as K4m's, so
+// each diagonal value is read once per row for all K columns.  Every scalar
+// of K12 is a K-vector, and every reduction carries K (passes 2, 3) or 2 K
+// (passes 4, 5) float64 partials per block.  Per column, as the
+// reference's stopping-status-masked step kernels:
+//   - a stopped column keeps p, v, x and r: the update is a select on the
+//     write, so a frozen column's x and r stay bit-identical from the
+//     iteration it stopped; s and t are still computed for it, with
+//     alpha_eff = omega_eff = 0, and its carried rho, alpha and omega stay;
+//   - the half step fires per column (s.s, or |rho| in implicit mode, at
+//     the threshold): omega = 0, carried as 1;
+//   - each column records the iteration at which it stopped (itc);
+//   - every monitor starts at +inf, so the first iteration always runs,
+//     and the loop runs while it < max_iters and any column is active.
+// Bytes per iteration: 2 nd sizeof(TD) n + 72 K n (80 K n with minv, read
+// once per row for the K columns: + 4 n).
+template <typename TD, int K>
+__global__ void __launch_bounds__(GK_CG_THREADS)
+    bicgstab_fused_multi_kernel(const BicgstabParams P) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ double sh1[K][GK_CG_WARPS];
+  __shared__ double sh2[2 * K][GK_CG_WARPS];
+  __shared__ double bc1[K];
+  __shared__ double bc2[2 * K];
+
+  const TD* __restrict__ D = static_cast<const TD*>(P.diags);
+  const long long n = P.n;
+  const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const int G = gridDim.x;
+  double* part_rv = P.part;              // [G][K]   <rr, v>
+  double* part_ss = P.part + G * K;      // [G][K]   s.s
+  double* part_t = P.part + 2 * G * K;   // [G][2K]  t.s, t.t
+  double* part_u = P.part + 4 * G * K;   // [G][2K]  <rr, r>, r.r (and the init)
+  float* __restrict__ x = P.x;
+  float* __restrict__ r = P.r;
+  float* __restrict__ rr = P.rr;
+  float* __restrict__ v = P.v;
+  float* __restrict__ t = P.t;
+  float* p = P.p;
+  float* s = P.s;
+  const float* __restrict__ minv = P.minv;
+
+  // init: X = X0, R = RR = R0, P = V = 0; rho_c = <r0_c, r0_c>
+  {
+    double acc[2 * K];
+#pragma unroll
+    for (int c = 0; c < 2 * K; ++c) acc[c] = 0.0;
+    for (long long i = t0; i < n; i += stride) {
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        const long long e = i * K + c;
+        const float ri = P.r0[e];
+        x[e] = P.x0[e];
+        r[e] = ri;
+        rr[e] = ri;
+        v[e] = 0.f;
+        p[e] = 0.f;
+        acc[c] += (double)ri * ri;
+      }
+    }
+    block_partial<2 * K>(acc, part_u, sh2);
+  }
+  grid.sync();
+  double tot1[K], tot2[2 * K];
+  grid_total<2 * K>(part_u, tot2, sh2, bc2);
+  float rho_new[K], rho_old[K], alpha[K], omega[K], tol[K], mon[K];
+  bool act[K];
+  int itc[K];
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    rho_new[c] = (float)tot2[c];
+    rho_old[c] = alpha[c] = omega[c] = 1.f;
+    tol[c] = P.tol_sq[c];
+    mon[c] = CUDART_INF_F;
+    act[c] = true;
+    itc[c] = 0;
+  }
+
+  int it = 0;
+  for (;;) {
+    bool any = false;
+#pragma unroll
+    for (int c = 0; c < K; ++c) any = any || act[c];
+    if (!(it < P.max_iters && any)) break;
+    float beta[K];
+#pragma unroll
+    for (int c = 0; c < K; ++c) beta[c] = gk_sdiv(rho_new[c] * alpha[c], rho_old[c] * omega[c]);
+
+    // pass 1: P = R + beta (P - omega V) in the active columns
+    for (long long i = t0; i < n; i += stride) {
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        const long long e = i * K + c;
+        if (act[c]) p[e] = r[e] + beta[c] * (__ldcg(p + e) - omega[c] * v[e]);
+      }
+    }
+    grid.sync();
+
+    // pass 2: V = (A M) P in the active columns; partial <rr, v>
+    {
+      double acc[K];
+#pragma unroll
+      for (int c = 0; c < K; ++c) acc[c] = 0.0;
+      for (long long i = t0; i < n; i += stride) {
+        float av[K];
+        gk_dia_row_cols<TD, float, K>(D, P.offs, n, i, p, av);
+#pragma unroll
+        for (int c = 0; c < K; ++c) {
+          const long long e = i * K + c;
+          const float vi = act[c] ? av[c] : v[e];
+          v[e] = vi;
+          acc[c] += (double)rr[e] * vi;
+        }
+      }
+      block_partial<K>(acc, part_rv, sh1);
+    }
+    grid.sync();
+    grid_total<K>(part_rv, tot1, sh1, bc1);
+    float alpha_new[K], alpha_eff[K];
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      alpha_new[c] = act[c] ? gk_sdiv(rho_new[c], (float)tot1[c]) : alpha[c];
+      alpha_eff[c] = act[c] ? alpha_new[c] : 0.f;
+    }
+
+    // pass 3: S = R - alpha_eff V in every column; partial s.s
+    {
+      double acc[K];
+#pragma unroll
+      for (int c = 0; c < K; ++c) acc[c] = 0.0;
+      for (long long i = t0; i < n; i += stride) {
+#pragma unroll
+        for (int c = 0; c < K; ++c) {
+          const long long e = i * K + c;
+          const float si = r[e] - alpha_eff[c] * v[e];
+          s[e] = si;
+          acc[c] += (double)si * si;
+        }
+      }
+      block_partial<K>(acc, part_ss, sh1);
+    }
+    grid.sync();
+    grid_total<K>(part_ss, tot1, sh1, bc1);
+    bool half_done[K];
+#pragma unroll
+    for (int c = 0; c < K; ++c)
+      half_done[c] = act[c] && ((P.implicit ? fabsf(rho_new[c]) : (float)tot1[c]) <= tol[c]);
+
+    // pass 4: T = (A M) S; partial t.s, t.t
+    {
+      double acc[2 * K];
+#pragma unroll
+      for (int c = 0; c < 2 * K; ++c) acc[c] = 0.0;
+      for (long long i = t0; i < n; i += stride) {
+        float at[K];
+        gk_dia_row_cols<TD, float, K>(D, P.offs, n, i, s, at);
+#pragma unroll
+        for (int c = 0; c < K; ++c) {
+          const long long e = i * K + c;
+          t[e] = at[c];
+          const float si = __ldcg(s + e);
+          acc[c] += (double)at[c] * si;
+          acc[K + c] += (double)at[c] * at[c];
+        }
+      }
+      block_partial<2 * K>(acc, part_t, sh2);
+    }
+    grid.sync();
+    grid_total<2 * K>(part_t, tot2, sh2, bc2);
+    float omega_eff[K];
+#pragma unroll
+    for (int c = 0; c < K; ++c)
+      omega_eff[c] = (act[c] && !half_done[c]) ? gk_sdiv((float)tot2[c], (float)tot2[K + c]) : 0.f;
+
+    // pass 5: X += alpha (M P) + omega (M S), R = S - omega T in the active
+    // columns; partial <rr, r> (the next rho) and r.r
+    {
+      double acc[2 * K];
+#pragma unroll
+      for (int c = 0; c < 2 * K; ++c) acc[c] = 0.0;
+      for (long long i = t0; i < n; i += stride) {
+        const float mi = minv ? minv[i] : 1.f;
+#pragma unroll
+        for (int c = 0; c < K; ++c) {
+          const long long e = i * K + c;
+          float ri = r[e];
+          if (act[c]) {
+            const float pi = __ldcg(p + e);
+            const float si = __ldcg(s + e);
+            const float yi = minv ? mi * pi : pi;
+            const float zi = minv ? mi * si : si;
+            x[e] = x[e] + alpha_eff[c] * yi + omega_eff[c] * zi;
+            ri = si - omega_eff[c] * t[e];
+            r[e] = ri;
+          }
+          acc[c] += (double)rr[e] * ri;
+          acc[K + c] += (double)ri * ri;
+        }
+      }
+      block_partial<2 * K>(acc, part_u, sh2);
+    }
+    grid.sync();
+    grid_total<2 * K>(part_u, tot2, sh2, bc2);
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      mon[c] = P.implicit ? fabsf(rho_new[c]) : (float)tot2[K + c];
+      if (act[c]) {
+        itc[c] = it + 1;
+        omega[c] = half_done[c] ? 1.f : omega_eff[c];
+      }
+      rho_old[c] = rho_new[c];
+      alpha[c] = alpha_new[c];
+      if (act[c]) rho_new[c] = (float)tot2[c];
+      act[c] = act[c] && !(mon[c] <= tol[c]);
+    }
+    ++it;
+  }
+
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *P.it_out = it;
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      P.mon_out[c] = mon[c];
+      P.conv_out[c] = (mon[c] <= tol[c]) ? 1 : 0;
+      P.itc_out[c] = itc[c];
+    }
+  }
+}
+
 // Blocks of the cooperative grid (the wrapper sizes the partial sums, 6
 // doubles per block, from it).
 extern "C" int bicgstab_fused_grid(int d_dtype, int* blocks) {
@@ -237,9 +473,82 @@ extern "C" int bicgstab_fused_solve(
   P.it_out = it_out;
   P.mon_out = mon_out;
   P.conv_out = conv_out;
+  P.itc_out = nullptr;
   if (d_dtype == GK_F32)
     return gk_coop_launch(bicgstab_fused_kernel<float>, P, blocks, stream);
   if (d_dtype == GK_BF16)
     return gk_coop_launch(bicgstab_fused_kernel<__nv_bfloat16>, P, blocks, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+template <int K>
+static int multi_grid(int d_dtype, int* blocks) {
+  if (d_dtype == GK_F32) return gk_coop_blocks(bicgstab_fused_multi_kernel<float, K>, blocks);
+  if (d_dtype == GK_BF16)
+    return gk_coop_blocks(bicgstab_fused_multi_kernel<__nv_bfloat16, K>, blocks);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int K>
+static int multi_launch(int d_dtype, const BicgstabParams& P, int blocks, void* stream) {
+  if (d_dtype == GK_F32)
+    return gk_coop_launch(bicgstab_fused_multi_kernel<float, K>, P, blocks, stream);
+  if (d_dtype == GK_BF16)
+    return gk_coop_launch(bicgstab_fused_multi_kernel<__nv_bfloat16, K>, P, blocks, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+#define GK_SWITCH_K(k, CALL_K)                   \
+  switch (k) {                                   \
+    case 2: return CALL_K(2);                    \
+    case 3: return CALL_K(3);                    \
+    case 4: return CALL_K(4);                    \
+    case 5: return CALL_K(5);                    \
+    case 6: return CALL_K(6);                    \
+    case 7: return CALL_K(7);                    \
+    case 8: return CALL_K(8);                    \
+    default: return (int)cudaErrorInvalidValue;  \
+  }
+
+// Blocks of K12m's cooperative grid for k columns (6 k doubles of partial
+// sums per block).
+extern "C" int bicgstab_fused_multi_grid(int d_dtype, int k, int* blocks) {
+#define GK_GRID_K(K) multi_grid<K>(d_dtype, blocks)
+  GK_SWITCH_K(k, GK_GRID_K)
+#undef GK_GRID_K
+}
+
+extern "C" int bicgstab_fused_multi_solve(
+    const void* diags, int d_dtype, const long long* offsets, int nd, long long n, int k,
+    const float* r0, const float* x0, const float* minv, const float* tol_sq,
+    int max_iters, int implicit, float* x, float* r, float* rr, float* v,
+    float* t, float* p, float* s, double* part, int blocks, int* it_out,
+    float* mon_out, int* conv_out, int* itc_out, void* stream) {
+  if (nd < 1 || nd > GK_MAX_DIAGS || blocks < 1) return (int)cudaErrorInvalidValue;
+  BicgstabParams P;
+  P.diags = diags;
+  P.offs.nd = nd;
+  for (int d = 0; d < nd; ++d) P.offs.off[d] = offsets[d];
+  P.n = n;
+  P.r0 = r0;
+  P.x0 = x0;
+  P.minv = minv;
+  P.tol_sq = tol_sq;
+  P.max_iters = max_iters;
+  P.implicit = implicit;
+  P.x = x;
+  P.r = r;
+  P.rr = rr;
+  P.v = v;
+  P.t = t;
+  P.p = p;
+  P.s = s;
+  P.part = part;
+  P.it_out = it_out;
+  P.mon_out = mon_out;
+  P.conv_out = conv_out;
+  P.itc_out = itc_out;
+#define GK_LAUNCH_K(K) multi_launch<K>(d_dtype, P, blocks, stream)
+  GK_SWITCH_K(k, GK_LAUNCH_K)
+#undef GK_LAUNCH_K
 }

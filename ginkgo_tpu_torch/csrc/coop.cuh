@@ -1,5 +1,5 @@
 // Helpers of the persistent cooperative whole-solve kernels (K4, K4m, K7,
-// K12-K15).
+// K12-K17, K12m, K15m).
 //
 // A solve runs in one cooperative launch whose grid is what the SMs hold at
 // once; passes are separated by cooperative_groups::this_grid().sync().  Dot
@@ -101,6 +101,27 @@ __device__ __forceinline__ float gk_dia_row(const TD* __restrict__ D,
     if (j >= 0 && j < n) acc += GkAcc<float>::load(D[d * n + i]) * __ldcg(src + j);
   }
   return acc;
+}
+
+// Row i of a DIA product on the K columns of a row-major (n, K) source,
+// each diagonal value read once for all K columns; every column is summed
+// as gk_dia_row sums one (the plain versions' dia_spmv_reference order).
+// The source is float32, or bfloat16 (a GMRES basis) widened on read.
+template <typename TD, typename TS, int K>
+__device__ __forceinline__ void gk_dia_row_cols(const TD* __restrict__ D,
+                                                const GkOffsets& offs, long long n,
+                                                long long i, const TS* src,
+                                                float (&acc)[K]) {
+#pragma unroll
+  for (int c = 0; c < K; ++c) acc[c] = 0.f;
+  for (int d = 0; d < offs.nd; ++d) {
+    const long long j = i + offs.off[d];
+    if (j >= 0 && j < n) {
+      const float v = GkAcc<float>::load(D[d * n + i]);
+#pragma unroll
+      for (int c = 0; c < K; ++c) acc[c] += v * gk_to_float(__ldcg(src + j * K + c));
+    }
+  }
 }
 
 // Blocks of a cooperative grid for `kernel`: co-resident blocks per SM

@@ -1,5 +1,5 @@
 // Whole-solve restarted GMRES(m) in one persistent cooperative kernel:
-// kernel K15 of the PyTorch port.
+// kernel K15 of the PyTorch port, and its k-column form K15m (below).
 //
 // Replaces ginkgo_tpu/ops/pallas_gmres.py gmres_vmem_solve
 // (_gmres_dia_kernel, :834, over _gmres_core, :110-378): left scalar-Jacobi
@@ -50,6 +50,9 @@ namespace cg = cooperative_groups;
 // 4 (m^2 + 7 m + 3) bytes of shared memory, under the 48 KB a block gets
 // without opting in (ops/gmres.py MAX_FUSED_KRYLOV_DIM).
 #define GK_GMRES_MAX_M 100
+// K15m keeps that state per column, 4 k (m^2 + 7 m + 3) bytes: m <= 50
+// stays under 48 KB for k = 4 (ops/gmres.py MAX_FUSED_KRYLOV_DIM_MULTI).
+#define GK_GMRES_MULTI_MAX_M 50
 
 struct GmresParams {
   const void* diags;
@@ -311,6 +314,397 @@ __global__ void __launch_bounds__(GK_CG_THREADS) gmres_fused_kernel(const GmresP
   }
 }
 
+// k-column restarted GMRES(m) with per-column stopping: kernel K15m.
+//
+// Replaces ginkgo_tpu/ops/pallas_gmres.py gmres_vmem_solve_multi
+// (_gmres_multi_dia_kernel, :396-766): K columns (2 <= K <= 4) in K15's
+// passes, the vectors (n, K) row-major and the basis (m + 1, n, K), so a
+// pass reads each diagonal value once per row for all K columns and the
+// six grid barriers of an Arnoldi step are shared by the columns.
+//   - One Arnoldi step counter j for all columns; each column has its own
+//     g, cs, sn, R (per-column blocks of the dynamic shared memory, run by
+//     thread 0 of every block as in K15, with K15's rotation order, phase =
+//     sign(a) and in-i-order subtractions).
+//   - A column stays active in a cycle while !(g[j+1]^2 <= tol) and
+//     it < max_iters; a stopped column's QR freezes, but its basis row is
+//     still written.
+//   - After the cycle: the back-substitution over the full m (rows past a
+//     column's own steps have a zero R diagonal and give y = 0), y = 0 for
+//     a column done at the cycle's start, and x += y_i V_i over the shared j.
+//   - The true residual of every column then decides `done` (done only
+//     grows): a column whose in-cycle stop the true residual does not
+//     confirm runs on in the next cycle.  The first `done` comes from r0.
+// Bytes per Arnoldi step: K15's with every vector K columns wide; the
+// diagonals are read once for all K.
+template <typename TV, int K>
+__device__ __forceinline__ void basis_dots_cols(const TV* V, const float* u, int j,
+                                                long long n, double* part,
+                                                double (&sh)[K][GK_CG_WARPS]) {
+  const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (int i = 0; i <= j; ++i) {
+    const TV* Vi = V + (long long)i * n * K;
+    double acc[K];
+#pragma unroll
+    for (int c = 0; c < K; ++c) acc[c] = 0.0;
+    for (long long r = t0; r < n; r += stride) {
+#pragma unroll
+      for (int c = 0; c < K; ++c)
+        acc[c] += (double)gk_to_float(__ldcg(Vi + r * K + c)) * (double)u[r * K + c];
+    }
+    block_partial<K>(acc, part + (long long)i * gridDim.x * K, sh);
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void sum_dots_cols(const double* part, double* hd, int j,
+                                              double (&sh)[K][GK_CG_WARPS],
+                                              double (&bc)[K]) {
+  for (int i = blockIdx.x; i <= j; i += gridDim.x) {
+    double tot[K];
+    grid_total<K>(part + (long long)i * gridDim.x * K, tot, sh, bc);
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int c = 0; c < K; ++c) hd[i * K + c] = tot[c];
+    }
+  }
+}
+
+struct GmresMultiParams {
+  const void* diags;
+  GkOffsets offs;
+  long long n;
+  const float* b;       // (n, K)
+  const float* x0;      // (n, K)
+  const float* minv;    // (n,) or nullptr: Identity
+  const float* tol_sq;  // (K,)
+  int max_iters;
+  int m;
+  float* x;      // (n, K)
+  float* u;      // (n, K)
+  void* V;       // (m + 1, n, K) basis
+  double* part;  // (m + 4) K gridDim.x per-block partial sums
+  double* hd;    // (m + 1) K summed dots
+  int* it_out;
+  float* rr_out;  // (K,)
+  int* conv_out;  // (K,)
+  int* itc_out;   // (K,)
+};
+
+template <typename TD, typename TV, int K>
+__global__ void __launch_bounds__(GK_CG_THREADS)
+    gmres_fused_multi_kernel(const GmresMultiParams P) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ double shK[K][GK_CG_WARPS];
+  __shared__ double sh2K[2 * K][GK_CG_WARPS];
+  __shared__ double bcK[K];
+  __shared__ double bc2K[2 * K];
+  __shared__ int sm_act[K];
+  extern __shared__ float sm[];
+  const int m = P.m;
+  const int per_col = m * m + 7 * m + 3;
+  // column c's block: h1 [m+1], h2 [m+1], g [m+1], cs [m], sn [m], y [m],
+  // Rm [m][m+1] (row j is column j of R), as K15's
+  float *h1[K], *h2[K], *g[K], *cs[K], *sn[K], *y[K], *Rm[K];
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    h1[c] = sm + c * per_col;
+    h2[c] = h1[c] + (m + 1);
+    g[c] = h2[c] + (m + 1);
+    cs[c] = g[c] + (m + 1);
+    sn[c] = cs[c] + m;
+    y[c] = sn[c] + m;
+    Rm[c] = y[c] + m;
+  }
+
+  const TD* __restrict__ D = static_cast<const TD*>(P.diags);
+  TV* V = static_cast<TV*>(P.V);
+  const long long n = P.n;
+  const long long nK = n * K;
+  const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const int G = gridDim.x;
+  double* part_b = P.part;                                // [m + 1][G][K] basis dots
+  double* part_r = P.part + (long long)(m + 1) * G * K;  // [G][2K] r.r, z.z
+  double* part_n = part_r + 2 * G * K;                    // [G][K] u.u
+  float* x = P.x;
+  float* __restrict__ u = P.u;
+  const float* __restrict__ minv = P.minv;
+  float tol[K], rr[K], beta_sq[K];
+  bool done[K];
+  int itc[K];
+
+  // init: X = X0, U = B - A X0; partial r.r and z.z with z = M u
+  {
+    double acc[2 * K];
+#pragma unroll
+    for (int c = 0; c < 2 * K; ++c) acc[c] = 0.0;
+    for (long long k = t0; k < n; k += stride) {
+      float ax[K];
+      gk_dia_row_cols<TD, float, K>(D, P.offs, n, k, P.x0, ax);
+      const float mk = minv ? minv[k] : 1.f;
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        const long long e = k * K + c;
+        x[e] = P.x0[e];
+        const float rk = P.b[e] - ax[c];
+        u[e] = rk;
+        const float zk = minv ? mk * rk : rk;
+        acc[c] += (double)rk * rk;
+        acc[K + c] += (double)zk * zk;
+      }
+    }
+    block_partial<2 * K>(acc, part_r, sh2K);
+  }
+  grid.sync();
+  double tot2[2 * K], tot1[K];
+  grid_total<2 * K>(part_r, tot2, sh2K, bc2K);
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    tol[c] = P.tol_sq[c];
+    rr[c] = (float)tot2[c];
+    beta_sq[c] = (float)tot2[K + c];
+    done[c] = rr[c] <= tol[c];
+    itc[c] = 0;
+  }
+  int it = 0;
+
+  for (;;) {
+    bool all_done = true;
+#pragma unroll
+    for (int c = 0; c < K; ++c) all_done = all_done && done[c];
+    if (!(!all_done && it < P.max_iters)) break;
+
+    // cycle start: V_0 = z / |z| per column, z = M u (u holds the true residual)
+    float inv_beta[K];
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      const float beta = sqrtf(beta_sq[c]);
+      inv_beta[c] = beta > 0.f ? 1.f / beta : 1.f;
+    }
+    for (long long k = t0; k < n; k += stride) {
+      const float mk = minv ? minv[k] : 1.f;
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        const long long e = k * K + c;
+        const float zk = minv ? mk * u[e] : u[e];
+        gk_store(V + e, zk * inv_beta[c]);
+      }
+    }
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        for (int i = 0; i <= m; ++i) g[c][i] = 0.f;
+        g[c][0] = sqrtf(beta_sq[c]);
+        for (int i = 0; i < m; ++i) cs[c][i] = sn[c][i] = 0.f;
+        for (int i = 0; i < m * (m + 1); ++i) Rm[c][i] = 0.f;
+      }
+    }
+    grid.sync();
+
+    bool act[K];
+    bool any_act = false;
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      act[c] = !done[c];
+      any_act = any_act || act[c];
+    }
+    int j = 0;
+    while (any_act && j < m) {
+      // U = M A V_j; first dots <V_i, u>
+      const TV* Vj = V + (long long)j * nK;
+      for (long long k = t0; k < n; k += stride) {
+        float av[K];
+        gk_dia_row_cols<TD, TV, K>(D, P.offs, n, k, Vj, av);
+        const float mk = minv ? minv[k] : 1.f;
+#pragma unroll
+        for (int c = 0; c < K; ++c) u[k * K + c] = minv ? mk * av[c] : av[c];
+      }
+      basis_dots_cols<TV, K>(V, u, j, n, part_b, shK);
+      grid.sync();
+      sum_dots_cols<K>(part_b, P.hd, j, shK, bcK);
+      grid.sync();
+      if (threadIdx.x <= j) {
+#pragma unroll
+        for (int c = 0; c < K; ++c) h1[c][threadIdx.x] = (float)__ldcg(P.hd + threadIdx.x * K + c);
+      }
+      __syncthreads();
+
+      // first subtraction u -= h1_i V_i in i order; second dots
+      for (long long k = t0; k < n; k += stride) {
+#pragma unroll
+        for (int c = 0; c < K; ++c) {
+          const long long e = k * K + c;
+          float uk = u[e];
+          for (int i = 0; i <= j; ++i)
+            uk = uk - h1[c][i] * gk_to_float(__ldcg(V + (long long)i * nK + e));
+          u[e] = uk;
+        }
+      }
+      basis_dots_cols<TV, K>(V, u, j, n, part_b, shK);
+      grid.sync();
+      sum_dots_cols<K>(part_b, P.hd, j, shK, bcK);
+      grid.sync();
+      if (threadIdx.x <= j) {
+#pragma unroll
+        for (int c = 0; c < K; ++c) h2[c][threadIdx.x] = (float)__ldcg(P.hd + threadIdx.x * K + c);
+      }
+      __syncthreads();
+
+      // second subtraction; partial u.u
+      {
+        double acc[K];
+#pragma unroll
+        for (int c = 0; c < K; ++c) acc[c] = 0.0;
+        for (long long k = t0; k < n; k += stride) {
+#pragma unroll
+          for (int c = 0; c < K; ++c) {
+            const long long e = k * K + c;
+            float uk = u[e];
+            for (int i = 0; i <= j; ++i)
+              uk = uk - h2[c][i] * gk_to_float(__ldcg(V + (long long)i * nK + e));
+            u[e] = uk;
+            acc[c] += (double)uk * uk;
+          }
+        }
+        block_partial<K>(acc, part_n, shK);
+      }
+      grid.sync();
+      grid_total<K>(part_n, tot1, shK, bcK);
+      float inv_h[K], hnext[K];
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        hnext[c] = sqrtf((float)tot1[c]);
+        inv_h[c] = hnext[c] > 0.f ? 1.f / hnext[c] : 1.f;
+      }
+
+      // the Givens chain of every active column, by thread 0
+      if (threadIdx.x == 0) {
+#pragma unroll
+        for (int c = 0; c < K; ++c) {
+          if (!act[c]) {
+            sm_act[c] = 0;
+            continue;
+          }
+          float* h = h1[c];  // h = h1 + h2 in place, h[j + 1] = |u|
+          for (int i = 0; i <= j; ++i) h[i] = h1[c][i] + h2[c][i];
+          h[j + 1] = hnext[c];
+          for (int i = 0; i < j; ++i) {
+            const float hi = h[i], hi1 = h[i + 1];
+            h[i] = cs[c][i] * hi + sn[c][i] * hi1;
+            h[i + 1] = -sn[c][i] * hi + cs[c][i] * hi1;
+          }
+          const float a = h[j], bb = h[j + 1];
+          const float denom = sqrtf(a * a + bb * bb);
+          const float cc = denom > 0.f ? fabsf(a) / denom : 1.f;
+          const float phase = fabsf(a) > 0.f ? (a > 0.f ? 1.f : -1.f) : 1.f;
+          const float ss = denom > 0.f ? phase * bb / denom : 0.f;
+          h[j] = cc * a + ss * bb;
+          h[j + 1] = 0.f;
+          const float gj = g[c][j];
+          g[c][j + 1] = -ss * gj;
+          g[c][j] = cc * gj;
+          for (int i = 0; i <= m; ++i) Rm[c][j * (m + 1) + i] = i <= j ? h[i] : 0.f;
+          cs[c][j] = cc;
+          sn[c][j] = ss;
+          const float res_sq = g[c][j + 1] * g[c][j + 1];
+          sm_act[c] = (!(res_sq <= tol[c]) && it + 1 < P.max_iters) ? 1 : 0;
+        }
+      }
+      __syncthreads();
+      any_act = false;
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        if (act[c]) itc[c] = it + 1;
+        act[c] = sm_act[c] != 0;
+        any_act = any_act || act[c];
+      }
+
+      // V_{j+1} = u / |u| in every column
+      TV* Vn = V + (long long)(j + 1) * nK;
+      for (long long k = t0; k < n; k += stride) {
+#pragma unroll
+        for (int c = 0; c < K; ++c) gk_store(Vn + k * K + c, u[k * K + c] * inv_h[c]);
+      }
+      ++it;
+      ++j;
+      grid.sync();
+    }
+    const int steps = j;
+
+    // guarded back-substitution R y = g over the full m, by thread 0; a
+    // column done at the cycle's start gets y = 0
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        for (int i = 0; i < m; ++i) y[c][i] = 0.f;
+        if (done[c]) continue;
+        for (int i = m - 1; i >= 0; --i) {
+          float acc = 0.f;
+          for (int k = i + 1; k < m; ++k) acc = acc + Rm[c][k * (m + 1) + i] * y[c][k];
+          const float diag = Rm[c][i * (m + 1) + i];
+          y[c][i] = diag != 0.f ? (g[c][i] - acc) / diag : 0.f;
+        }
+      }
+    }
+    __syncthreads();
+
+    // x += y_i V_i in i order over the shared steps
+    for (long long k = t0; k < n; k += stride) {
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        const long long e = k * K + c;
+        float xk = x[e];
+        for (int i = 0; i < steps; ++i)
+          xk = xk + y[c][i] * gk_to_float(__ldcg(V + (long long)i * nK + e));
+        x[e] = xk;
+      }
+    }
+    grid.sync();
+
+    // the true residual U = B - A X per column; partial r.r and z.z
+    {
+      double acc[2 * K];
+#pragma unroll
+      for (int c = 0; c < 2 * K; ++c) acc[c] = 0.0;
+      for (long long k = t0; k < n; k += stride) {
+        float ax[K];
+        gk_dia_row_cols<TD, float, K>(D, P.offs, n, k, x, ax);
+        const float mk = minv ? minv[k] : 1.f;
+#pragma unroll
+        for (int c = 0; c < K; ++c) {
+          const long long e = k * K + c;
+          const float rk = P.b[e] - ax[c];
+          u[e] = rk;
+          const float zk = minv ? mk * rk : rk;
+          acc[c] += (double)rk * rk;
+          acc[K + c] += (double)zk * zk;
+        }
+      }
+      block_partial<2 * K>(acc, part_r, sh2K);
+    }
+    grid.sync();
+    grid_total<2 * K>(part_r, tot2, sh2K, bc2K);
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      const float rr_new = (float)tot2[c];
+      if (!done[c]) rr[c] = rr_new;
+      done[c] = done[c] || (rr_new <= tol[c]);
+      beta_sq[c] = (float)tot2[K + c];
+    }
+  }
+
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *P.it_out = it;
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      P.rr_out[c] = rr[c];
+      P.conv_out[c] = done[c] ? 1 : 0;
+      P.itc_out[c] = itc[c];
+    }
+  }
+}
+
 static size_t gmres_smem(int m) { return sizeof(float) * ((size_t)m * m + 7 * (size_t)m + 3); }
 
 #define GK_GMRES_DISPATCH(d_dtype, v_dtype, CALL)                                    \
@@ -361,4 +755,72 @@ extern "C" int gmres_fused_solve(
 #define GK_LAUNCH(TD, TV) gk_coop_launch(gmres_fused_kernel<TD, TV>, P, blocks, stream, smem)
   GK_GMRES_DISPATCH(d_dtype, v_dtype, GK_LAUNCH)
 #undef GK_LAUNCH
+}
+
+#define GK_GMRES_SWITCH_K(k, CALL_K)             \
+  switch (k) {                                   \
+    case 2: return CALL_K(2);                    \
+    case 3: return CALL_K(3);                    \
+    case 4: return CALL_K(4);                    \
+    default: return (int)cudaErrorInvalidValue;  \
+  }
+
+template <int K>
+static int multi_grid(int d_dtype, int v_dtype, size_t smem, int* blocks) {
+#define GK_GRID(TD, TV) gk_coop_blocks(gmres_fused_multi_kernel<TD, TV, K>, blocks, smem)
+  GK_GMRES_DISPATCH(d_dtype, v_dtype, GK_GRID)
+#undef GK_GRID
+}
+
+template <int K>
+static int multi_launch(int d_dtype, int v_dtype, const GmresMultiParams& P, size_t smem,
+                        int blocks, void* stream) {
+#define GK_LAUNCH(TD, TV) \
+  gk_coop_launch(gmres_fused_multi_kernel<TD, TV, K>, P, blocks, stream, smem)
+  GK_GMRES_DISPATCH(d_dtype, v_dtype, GK_LAUNCH)
+#undef GK_LAUNCH
+}
+
+// Blocks of K15m's cooperative grid for the dtypes, k columns and the
+// Krylov dimension m (the per-column shared memory, k gmres_smem(m)).
+extern "C" int gmres_fused_multi_grid(int d_dtype, int v_dtype, int k, int m, int* blocks) {
+  if (m < 1 || m > GK_GMRES_MULTI_MAX_M) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)k * gmres_smem(m);
+#define GK_GRID_K(K) multi_grid<K>(d_dtype, v_dtype, smem, blocks)
+  GK_GMRES_SWITCH_K(k, GK_GRID_K)
+#undef GK_GRID_K
+}
+
+extern "C" int gmres_fused_multi_solve(
+    const void* diags, int d_dtype, const long long* offsets, int nd, long long n, int k,
+    const float* b, const float* x0, const float* minv, const float* tol_sq,
+    int max_iters, int m, void* V, int v_dtype, float* x, float* u, double* part,
+    double* hd, int blocks, int* it_out, float* rr_out, int* conv_out, int* itc_out,
+    void* stream) {
+  if (nd < 1 || nd > GK_MAX_DIAGS || blocks < 1 || m < 1 || m > GK_GMRES_MULTI_MAX_M)
+    return (int)cudaErrorInvalidValue;
+  GmresMultiParams P;
+  P.diags = diags;
+  P.offs.nd = nd;
+  for (int d = 0; d < nd; ++d) P.offs.off[d] = offsets[d];
+  P.n = n;
+  P.b = b;
+  P.x0 = x0;
+  P.minv = minv;
+  P.tol_sq = tol_sq;
+  P.max_iters = max_iters;
+  P.m = m;
+  P.x = x;
+  P.u = u;
+  P.V = V;
+  P.part = part;
+  P.hd = hd;
+  P.it_out = it_out;
+  P.rr_out = rr_out;
+  P.conv_out = conv_out;
+  P.itc_out = itc_out;
+  const size_t smem = (size_t)k * gmres_smem(m);
+#define GK_LAUNCH_K(K) multi_launch<K>(d_dtype, v_dtype, P, smem, blocks, stream)
+  GK_GMRES_SWITCH_K(k, GK_LAUNCH_K)
+#undef GK_LAUNCH_K
 }

@@ -47,6 +47,15 @@ def _sdiv(num, den):
     return torch.where(ok, num / torch.where(ok, den, torch.ones_like(den)), 0.0)
 
 
+def _sqrt(v):
+    """float32 square root, correctly rounded as the kernels' sqrtf is:
+    taken in float64 and rounded once to float32, which is exact for a
+    square root (53 >= 2 * 24 + 2 bits).  PyTorch's float32 sqrt on the
+    CPU, where the plain versions do their scalar work, misrounds some
+    inputs by an ulp."""
+    return torch.sqrt(v.to(torch.float64)).to(torch.float32)
+
+
 def _dots(a, b):
     """Column-wise float32 dot products of (n, k) operands, summed in
     float64 and rounded to float32, as the kernels sum their partials."""

@@ -10,10 +10,14 @@ route that accepts it:
   (``ops/cgs.cgs_fused``) or K14 (``ops/cgs.bicg_fused``).  BiCGSTAB and
   CGS run on A M with the diagonal M folded into the diagonals
   (``_fused_gate.fold_minv``); BiCG also needs A^H as a ``Dia``;
+- BiCGSTAB with 2 to 8 float32 columns under the same gate: the k-column
+  kernel K12m (``ops/bicgstab.bicgstab_fused_multi``), per-column stopping
+  in the kernel, on A M as K12;
 - otherwise the streaming loop (``_solve_streaming``), step for step as
-  the JAX package's: k > 1 columns, block Jacobi or any other
-  preconditioner, a ``Csr``/``Pell``/``Well``/``Bell`` operator.  The JAX
-  package's Pell, ILU, multigrid and k-column fused routes are not ported
+  the JAX package's: more than 8 columns (CGS and BiCG: more than one;
+  the JAX package has no k-column kernel for them), block Jacobi or any
+  other preconditioner, a ``Csr``/``Pell``/``Well``/``Bell`` operator.
+  The JAX package's Pell, ILU and multigrid fused routes are not ported
   yet and stream here.  Per-column stop masks freeze converged columns;
   the loop condition is read on the host once per iteration.
 """
@@ -27,7 +31,8 @@ from typing import Any
 import torch
 
 from ..base.linop import LinOp
-from ..ops.bicgstab import bicgstab_fused
+from ..ops.bicgstab import bicgstab_fused, bicgstab_fused_multi
+from ..ops.cg import MAX_FUSED_COLS
 from ..ops.cgs import bicg_fused, cgs_fused
 from ._fused_gate import (
     fold_minv,
@@ -47,11 +52,13 @@ from .solver_base import (
 )
 
 
-def _solve_fused(solver, b, x0, run, fold):
-    """(x, SolveInfo) from a one-column whole-solve kernel ``run`` taking
-    (diags, offsets, r0, x0, minv), or None when the gate declines.  With
-    ``fold`` the kernel runs on A M and takes minv for the x update."""
-    ctx = prepare_fused_dia(solver, b)
+def _solve_fused(solver, b, x0, run, fold, max_cols=1):
+    """(x, SolveInfo) from a whole-solve kernel ``run`` taking (diags,
+    offsets, r0, x0, minv), or None when the gate declines.  One column
+    goes to ``run`` as (n,) vectors; with ``max_cols`` > 1, k columns go as
+    (n, k) to a k-column kernel.  With ``fold`` the kernel runs on A M and
+    takes minv for the x update."""
+    ctx = prepare_fused_dia(solver, b, max_cols=max_cols)
     if ctx is None:
         return None
     A = ctx["A"]
@@ -60,11 +67,14 @@ def _solve_fused(solver, b, x0, run, fold):
     if minv is not None:
         minv = minv.to(torch.float32).contiguous()
     diags = A.diags if (minv is None or not fold) else fold_minv(A, minv)
-    x, _r, it, mon, conv = run(
-        diags, A.offsets, r0[:, 0].contiguous(), x0[:, 0].contiguous(), minv,
-        tol_sq_eff=tol_sq_eff(ctx, b, r0), max_iters=ctx["cap"],
-        use_implicit=ctx["implicit"],
-    )
+    kw = {"tol_sq_eff": tol_sq_eff(ctx, b, r0), "max_iters": ctx["cap"],
+          "use_implicit": ctx["implicit"]}
+    if b.shape[1] > 1:
+        x, _r, it, mon, conv, _itc = run(diags, A.offsets, r0.contiguous(), x0.contiguous(),
+                                         minv, **kw)
+        return x, fused_info(ctx, b, it, mon, conv)
+    x, _r, it, mon, conv = run(diags, A.offsets, r0[:, 0].contiguous(),
+                               x0[:, 0].contiguous(), minv, **kw)
     return x[:, None], fused_info(ctx, b, it, mon[None], conv[None])
 
 
@@ -87,7 +97,11 @@ class Bicgstab(IterativeSolverMixin, LinOp):
         return fast if fast is not None else self._solve_streaming(b, x0)
 
     def _try_fused(self, b, x0):
-        """K12 on A M, or None."""
+        """K12 on A M for one column, K12m for 2 to 8 columns (the JAX
+        package's rule, solver/bicgstab.py:52-54, 108-174), or None."""
+        if b.shape[1] > 1:
+            return _solve_fused(self, b, x0, bicgstab_fused_multi, fold=True,
+                                max_cols=MAX_FUSED_COLS)
         return _solve_fused(self, b, x0, bicgstab_fused, fold=True)
 
     def _solve_streaming(self, b, x0):

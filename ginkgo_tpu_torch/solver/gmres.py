@@ -12,10 +12,16 @@ A solve takes the first route that accepts it:
   Jacobi preconditioner, a simple residual criterion, a float storage mode
   (keep: float32 basis; reduce1/reduce2: bfloat16) and krylov_dim <= 100:
   the whole-solve kernel K15 (``ops/gmres.gmres_fused``);
+- 2 to 4 float32 columns under the same gate and krylov_dim <= 50: the
+  k-column kernel K15m (``ops/gmres.gmres_fused_multi``), per-column
+  stopping in the kernel.  As in the JAX package (solver/gmres.py:304-306)
+  a k > 1 solve never tries the one-column kernel.  The JAX package's gate
+  for it is a VMEM fit, not a cap on krylov_dim: a k-column solve with
+  krylov_dim > 50 streams here;
 - otherwise the streaming loop: ``_solve_single`` per column, the loop
   that ``jax.vmap`` runs over the columns in the JAX package.  Integer
-  storage modes, k > 1 columns (the JAX package's k-column kernel is not
-  ported yet) and the JAX package's Pell route stream here.
+  storage modes, more than 4 columns and the JAX package's Pell route
+  (not ported yet) stream here.
 """
 
 from __future__ import annotations
@@ -26,7 +32,13 @@ from typing import Any
 import torch
 
 from ..base.linop import LinOp
-from ..ops.gmres import MAX_FUSED_KRYLOV_DIM, gmres_fused
+from ..ops.gmres import (
+    MAX_FUSED_GMRES_COLS,
+    MAX_FUSED_KRYLOV_DIM,
+    MAX_FUSED_KRYLOV_DIM_MULTI,
+    gmres_fused,
+    gmres_fused_multi,
+)
 from ._fused_gate import prepare_fused_dia, tol_sq_eff
 from .solver_base import IterativeSolverMixin, SolveInfo, extract_max_iters
 
@@ -105,12 +117,15 @@ class Gmres(IterativeSolverMixin, LinOp):
         return None if mode in _INT_MODES else _storage_dtype(mode, torch.float32)
 
     def _try_fused(self, b, x0):
-        """K15, or None.  Reports the true residual norm, always."""
+        """K15 for one column, K15m for 2 to 4, or None.  Reports the true
+        residual norms, always."""
         basis_dtype = self._fused_basis_dtype()
         m = int(self.krylov_dim)
-        if basis_dtype is None or not 1 <= m <= MAX_FUSED_KRYLOV_DIM:
+        k = b.shape[1]
+        cap_m = MAX_FUSED_KRYLOV_DIM if k == 1 else MAX_FUSED_KRYLOV_DIM_MULTI
+        if basis_dtype is None or not 1 <= m <= cap_m:
             return None
-        ctx = prepare_fused_dia(self, b)
+        ctx = prepare_fused_dia(self, b, max_cols=MAX_FUSED_GMRES_COLS)
         if ctx is None:
             return None
         A = ctx["A"]
@@ -118,16 +133,18 @@ class Gmres(IterativeSolverMixin, LinOp):
         minv = ctx["minv"]
         if minv is not None:
             minv = minv.to(torch.float32).contiguous()
-        x, it, rr, conv = gmres_fused(
-            A.diags, A.offsets, b[:, 0].contiguous(), x0[:, 0].contiguous(), minv, m=m,
-            tol_sq_eff=tol_sq_eff(ctx, b, r0), max_iters=ctx["cap"],
-            basis_dtype=basis_dtype,
-        )
-        conv = conv[None] if ctx["has_res"] else torch.zeros(1, dtype=torch.bool,
-                                                             device=b.device)
-        return x[:, None], SolveInfo(
-            iterations=it, residual_norm=torch.sqrt(rr)[None].to(b.dtype), converged=conv
-        )
+        kw = {"m": m, "tol_sq_eff": tol_sq_eff(ctx, b, r0), "max_iters": ctx["cap"],
+              "basis_dtype": basis_dtype}
+        if k > 1:
+            x, it, rr, conv, _itc = gmres_fused_multi(A.diags, A.offsets, b.contiguous(),
+                                                      x0.contiguous(), minv, **kw)
+        else:
+            x, it, rr, conv = gmres_fused(A.diags, A.offsets, b[:, 0].contiguous(),
+                                          x0[:, 0].contiguous(), minv, **kw)
+            x, rr, conv = x[:, None], rr[None], conv[None]
+        conv = conv if ctx["has_res"] else torch.zeros_like(conv)
+        return x, SolveInfo(iterations=it, residual_norm=torch.sqrt(rr).to(b.dtype),
+                            converged=conv)
 
     def _solve_single(self, b, x0):
         """b, x0: (n,).  Left-preconditioned restarted GMRES, step for step

@@ -12,7 +12,8 @@
   CPU) and the streaming loop (float64 to 1e-10, k = 3 columns).
 - Gates: the routes the port does not take yet (a Pell operator, a
   preconditioner that is not diagonal, as ILU and multigrid are to the
-  gate, k > 1 columns) stream and say so.
+  gate) stream and say so; k = 2 columns take the k-column kernel K12m and
+  k = 9 streams, as in the JAX package.
 
 The helpers here (the test matrices, the JAX frame) serve the other slice-4
 test files too.
@@ -274,8 +275,8 @@ def test_bicgstab_fused_route_matches_jax_streaming(matrix, storage, crit, jacob
 
 @pytest.mark.parametrize("jacobi", [False, True])
 def test_bicgstab_streaming_k3_matches_jax_float64(jacobi, monkeypatch):
-    """k = 3 float64 columns stream in both packages (the JAX k-column
-    kernel is not ported yet): equal iterations, stop masks and x."""
+    """k = 3 float64 columns stream in both packages (the k-column kernel
+    takes float32 only, in both): equal iterations, stop masks and x."""
     jd, pd = matrices("convdiff32_jitter")
     JA = JDia.from_matrix_data(jd).astype(jnp.float64)
     A = gt.Dia.from_matrix_data(pd, device="cpu").astype(torch.float64)
@@ -320,8 +321,9 @@ def test_bicgstab_declined_routes_stream(monkeypatch):
     """Routes the JAX package takes and the port does not yet: each
     streams (``_try_fused`` returns None) and solves as the JAX loop does.
     A Pell operator (the JAX Pell kernel, bicgstab.py:277), a general
-    preconditioner (what ILU and multigrid are to the gate, :176, :219),
-    k = 2 columns (the k-column kernel, :108)."""
+    preconditioner (what ILU and multigrid are to the gate, :176, :219).
+    Columns follow the JAX package's rule (:52-54, 108-174): k = 2 takes
+    the k-column kernel K12m, k = 9 streams."""
     jd, pd = matrices("tridiag700")
     crit = [stop.Iteration(max_iters=200), stop.ResidualNorm(tolerance=1e-6)]
     P = gt.Pell.from_matrix_data(pd, device="cpu")
@@ -332,7 +334,7 @@ def test_bicgstab_declined_routes_stream(monkeypatch):
     sg = gt.Bicgstab.build(criteria=crit, preconditioner=general).generate(A)
     assert _declines(sg, A)
     sk = gt.Bicgstab.build(criteria=crit).generate(A)
-    assert _declines(sk, A, k=2) and not _declines(sk, A)
+    assert not _declines(sk, A, k=2) and _declines(sk, A, k=9) and not _declines(sk, A)
     # the Pell solve streams through its SpMV and matches the JAX loop
     js = JBicgstab.build(criteria=criteria("resnorm", 200, 1e-6)[0]).generate(
         JDia.from_matrix_data(jd))

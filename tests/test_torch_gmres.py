@@ -13,9 +13,9 @@ package (ginkgo_tpu) on the CPU.
   one restart cycle of iterations, as tests/test_pallas_gmres.py holds the
   JAX kernel to its own streaming loop; the streaming loop in float64 to
   1e-10 in all six CB-GMRES storage modes and for k = 3 columns.
-- Gates: integer storage modes, k > 1 columns, a Pell operator and a
-  Krylov dimension beyond the kernel's stream and say so; "auto" resolves
-  as the JAX package does.
+- Gates: integer storage modes, k > 4 columns, a Pell operator and a
+  Krylov dimension beyond the kernel's stream and say so (k = 2 takes the
+  k-column kernel K15m); "auto" resolves as the JAX package does.
 """
 
 import numpy as np
@@ -175,8 +175,9 @@ def test_cbgmres_streaming_modes_match_jax_float64(mode, monkeypatch):
 
 def test_gmres_streaming_k3_matches_jax(monkeypatch):
     """k = 3 float64 columns stream in the port (a loop over the columns
-    where the JAX package vmaps), each with its own iteration count and
-    stop flag; the solve reports the largest count."""
+    where the JAX package vmaps; the k-column kernel takes float32 only, in
+    both), each with its own iteration count and stop flag; the solve
+    reports the largest count."""
     JA, A = dia_pair("poisson16")
     JA, A = JA.astype(jnp.float64), A.astype(torch.float64)
     n = A.shape[0]
@@ -198,18 +199,19 @@ def test_gmres_streaming_k3_matches_jax(monkeypatch):
 
 
 def test_gmres_declined_routes_stream():
-    """Integer storage, k > 1 columns (the JAX k-column kernel,
-    gmres.py:351), a Pell (the JAX Pell kernel, gmres.py:418) and a Krylov
-    dimension beyond the kernel's shared memory stream; "auto" resolves to
-    keep below 2^19 rows and reduce1 at or above, as the JAX package's
-    rule does."""
+    """Integer storage, k = 5 columns (beyond the JAX k-column kernel's 4,
+    gmres.py:351-377; k = 2 takes K15m), a Pell (the JAX Pell kernel,
+    gmres.py:418) and a Krylov dimension beyond the kernel's shared memory
+    stream; "auto" resolves to keep below 2^19 rows and reduce1 at or
+    above, as the JAX package's rule does."""
     jd, pd = matrices("poisson16")
     _, A = dia_pair("poisson16")
-    b1, b2 = torch.ones(A.shape[0], 1), torch.ones(A.shape[0], 2)
+    b1, b2, b5 = (torch.ones(A.shape[0], k) for k in (1, 2, 5))
     crit = [stop.Iteration(max_iters=20), stop.ResidualNorm(tolerance=1e-6)]
     ok = gt.Gmres.build(criteria=crit).generate(A)
     assert ok._try_fused(b1, torch.zeros_like(b1)) is not None
-    assert ok._try_fused(b2, torch.zeros_like(b2)) is None
+    assert ok._try_fused(b2, torch.zeros_like(b2)) is not None
+    assert ok._try_fused(b5, torch.zeros_like(b5)) is None
     for mode in ("integer", "ireduce1", "ireduce2"):
         s = gt.Gmres.build(criteria=crit, storage_precision=mode).generate(A)
         assert s._try_fused(b1, torch.zeros_like(b1)) is None
