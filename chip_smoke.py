@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``ginkgo_tpu_torch/csrc`` (one
-``nvcc`` per source, all started together) and drives the five paths of
+``nvcc`` per source, all started together) and drives the six paths of
 the port that users call:
 
 - path 1 (slice 1): a 2-D Poisson matrix on a 2048 x 2048 grid (4,194,304
@@ -24,7 +24,11 @@ the port that users call:
   ``CbGmres``, and ``Bicgstab`` on the Poisson matrix of path 1;
 - path 5 (slice 5): the same operator with four right-hand sides ->
   ``Bicgstab``/``Gmres``/``CbGmres`` (the k-column kernels), and with one
-  -> ``Idr``(2 and 4) and ``Ir``.
+  -> ``Idr``(2 and 4) and ``Ir``;
+- path 6 (slice 6): the same operator handed over as a ``Csr`` ->
+  ``Pell.from_csr`` -> ``Bicgstab``/``Cgs``/``Gmres``/``CbGmres``/``Ir``
+  (the Pell whole-solve kernels), and per-iteration times on path 2's
+  160^3 ``Pell``.
 
 Phases, each of which raises on failure:
 
@@ -73,12 +77,24 @@ Phases, each of which raises on failure:
    CGS) at 64^2, by launch counters; then K12m, K15m, K16, K17 and the
    smoother ir_smooth against their plain versions at 64^2 and 2048^2,
    equal bit for bit, with a NaN case each;
-8. timings, printed and not checked: each kernel, its plain version and
+8. main path 6: on path 4's operator as a ``Pell`` (S = 8, from the
+   ``Csr``), Bicgstab, Cgs, Gmres(30) and Ir fused (K19, K20, K18, K21)
+   with float32 and bfloat16 values and with Jacobi (IR: Jacobi with both
+   value types and the Identity at 0.2), each streaming, CbGmres "auto" (K18
+   with a bfloat16 basis), each held against path 4's float64 solve of the
+   same system; the routes that stream on a Pell (Bicg, Idr, k = 2
+   BiCGSTAB, krylov_dim 101, IR implicit) at 64^2 by launch counters; then
+   K18-K21 against their plain versions on a 24^3 shifted Poisson and the
+   64^2 operator (float32/bfloat16 values, int8/int32 lane indices, equal
+   iterations and x bit for bit, a NaN case each, IR's zero-sweep case)
+   and at 2048^2 under a cap;
+9. timings, printed and not checked: each kernel, its plain version and
    the one PyTorch call that computes the same function, by the slope
    between two trip counts (CUDA events); CG, BiCGSTAB, CGS and BiCG time
    per iteration and GMRES(30) time per Arnoldi step, fused and
    streaming; the k-column BiCGSTAB and GMRES, IDR(2), IDR(4) and IR per
-   iteration, and the smoother per sweep; bounds; the copy bandwidth.
+   iteration, and the smoother per sweep; BiCGSTAB, CGS, IR and GMRES(30)
+   on the 160^3 ``Pell``; bounds; the copy bandwidth.
 
 The launch counters are set to 0 just before each main path and read just
 after it; every kernel of a path must have run there.  The last lines are
@@ -149,6 +165,14 @@ KERNEL_META = {
     # one TPU site (_common_call) for both kernels of pallas_ir.py
     "ir_fused": ("ginkgo_tpu_torch/csrc/ir_fused.cu", "ginkgo_tpu/ops/pallas_ir.py:232"),
     "ir_smooth": ("ginkgo_tpu_torch/csrc/ir_fused.cu", "ginkgo_tpu/ops/pallas_ir.py:232"),
+    # K18-K21: the Dia kernels' sources, instantiated on the Pell operator
+    "pell_gmres_fused": ("ginkgo_tpu_torch/csrc/gmres_fused.cu",
+                         "ginkgo_tpu/ops/pallas_gmres.py:984"),
+    "pell_bicgstab_fused": ("ginkgo_tpu_torch/csrc/bicgstab_fused.cu",
+                            "ginkgo_tpu/ops/pallas_pell_cg.py:505"),
+    "pell_cgs_fused": ("ginkgo_tpu_torch/csrc/cgs_fused.cu",
+                       "ginkgo_tpu/ops/pallas_pell_cg.py:741"),
+    "pell_ir_fused": ("ginkgo_tpu_torch/csrc/ir_fused.cu", "ginkgo_tpu/ops/pallas_pell_cg.py:915"),
 }
 PATH1 = ("dia_spmv", "dia_spmv_advanced", "dia_spmm", "cg_fused", "cg_fused_multi")
 PATH2 = ("pell_spmv", "pell_spmm", "pell_cg_fused")
@@ -161,6 +185,8 @@ PATH5 = ("bicgstab_fused_multi", "gmres_fused_multi", "idr_fused", "ir_fused")
 KRYLOV_DIM = 30
 #: path 4: BiCGSTAB's cap on the Poisson matrix, about CG's 4217 iterations
 A1_BICGSTAB_CAP = 5000
+#: path 6: the iteration cap of the full-width kernel-against-plain checks
+CAP6 = 20
 EPS32 = float(np.finfo(np.float32).eps)
 
 
@@ -1357,6 +1383,381 @@ def time_path5(gt, dev, p4, rec, timing):
     timing["slice5_us_per_iter"] = out
 
 
+PATH6 = ("pell_gmres_fused", "pell_bicgstab_fused", "pell_cgs_fused", "pell_ir_fused")
+
+
+def path6_solvers(gt):
+    """name -> (solver class, build parameters, its Pell kernel, inner
+    solver factory or None, relaxation factor)."""
+    jac = gt.Jacobi.build(max_block_size=1)
+    return {"bicgstab": (gt.Bicgstab, {}, "pell_bicgstab_fused"),
+            "cgs": (gt.Cgs, {}, "pell_cgs_fused"),
+            "gmres": (gt.Gmres, {"krylov_dim": KRYLOV_DIM}, "pell_gmres_fused"),
+            "ir": (gt.Ir, {"preconditioner": jac, "relaxation_factor": 1.0}, "pell_ir_fused")}
+
+
+def shifted_poisson_3d(gt, nside, seed=7):
+    """The 7-point 3-D Poisson matrix with a seeded uniform [0, 2) shift of
+    its diagonal (SPD; scalar Jacobi is not a multiple of I)."""
+    data = gt.generators.poisson_3d(nside, dtype=np.float32)
+    diag = data.rows == data.cols
+    vals = data.values.copy()
+    vals[diag] += np.random.default_rng(seed).uniform(0.0, 2.0, int(diag.sum())).astype(np.float32)
+    return gt.MatrixData.from_coo(data.shape, data.rows, data.cols, vals)
+
+
+def main_path6(gt, dev, rng, crit, kernels, p4):
+    """Main path 6 through the entry points a user calls; every check
+    raises.  A2 (path 4's convection-diffusion operator on the 2048^2 grid)
+    handed over as a ``Csr`` and converted by ``Pell.from_csr`` (S = 8):
+    Bicgstab, Cgs, Gmres(30) and Ir (scalar Jacobi, relaxation 1.0) fused
+    (K19, K20, K18, K21) with float32 values, with bfloat16 values
+    (``reduce_storage``) and with Jacobi (IR: with the Identity at 0.2),
+    then streaming; CbGmres "auto" (K18 with a bfloat16 basis).  The Pell
+    holds A2's float32 values, and its bfloat16 form rounds them as the
+    bfloat16 ``Dia`` does, so each solution is held against path 4's
+    float64 solve of the same system.  Then the routes that must stream on
+    a Pell, at 64^2, by launch counters."""
+    from ginkgo_tpu_torch import stop
+    from ginkgo_tpu_torch.solver import gmres as sol_gmres
+
+    b, refs, norm_a = p4["b"], p4["refs"], p4["norm_a"]
+    t0 = time.perf_counter()
+    data = gt.MatrixData.from_coo(*convdiff_2d(NSIDE))
+    C = gt.Csr.from_matrix_data(data, device=dev)
+    _sync(dev)
+    csr_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    P = gt.Pell.from_csr(C)
+    _sync(dev)
+    pell_s = time.perf_counter() - t0
+    Pb = P.reduce_storage()
+    n = P.shape[0]
+    check(P.S == 8 and P.dtype == torch.float32 and n == b.shape[0], "path 6: bad Pell")
+    emit({"phase": "main_path", "path": 6, "case": "pell_from_csr",
+          "matrix": f"convdiff_2d({NSIDE})", "rows": n, "nnz": data.nnz,
+          "csr_s": round(csr_s, 3), "pell_plan_s": round(pell_s, 3), "S": P.S, "G": P.G,
+          "inflation": P.inflation, "cells": P.values.numel(), "plan_bytes": P.storage_bytes()})
+    z = torch.zeros_like(b)
+    jac = gt.Jacobi.build(max_block_size=1)
+    # scalar Jacobi, generated once per operator (the diagonal comes from
+    # the host: Pell.extract_diagonal goes through to_csr)
+    t0 = time.perf_counter()
+    M, Mb = jac.generate(P), jac.generate(Pb)
+    _sync(dev)
+    emit({"phase": "main_path", "path": 6, "case": "jacobi_generate_x2",
+          "s": round(time.perf_counter() - t0, 3)})
+    for name, (cls, params, kname) in path6_solvers(gt).items():
+        kern = kernels[kname]
+        if name == "ir":
+            cases = (("f32_jacobi", P, {**params, "preconditioner": M}, "f32"),
+                     ("bf16_jacobi", Pb, {**params, "preconditioner": Mb}, "bf16"),
+                     ("f32_identity", P, {"relaxation_factor": 0.2}, "f32"))
+        else:
+            cases = (("f32", P, params, "f32"), ("bf16", Pb, params, "bf16"),
+                     ("f32_jacobi", P, {**params, "preconditioner": M}, "f32"))
+        for case, Pv, kw, ref in cases:
+            t0 = time.perf_counter()
+            solver = cls.build(criteria=crit, **kw).generate(Pv)
+            generate_s = time.perf_counter() - t0
+            before = kern.launches
+            t0 = time.perf_counter()
+            x, info = solver.solve(b)
+            _sync(dev)
+            solve_s = time.perf_counter() - t0
+            label = f"path 6: {name} {case}"
+            check(kern.launches == before + 1, f"{label} did not run {kname}")
+            check(bool(info.converged.all()), f"{label}: not converged")
+            check(x.shape == (n,) and x.dtype == torch.float32, f"{label}: bad x")
+            emit({"phase": "main_path", "path": 6, "route": "fused", "solver": name,
+                  "case": case, "iterations": info.num_iterations,
+                  "residual_norm": float(info.residual_norm[0]),
+                  **accuracy(Pv, x, b, refs[ref], norm_a, label),
+                  "generate_s": round(generate_s, 4), "solve_s": round(solve_s, 4)})
+        streaming_kw = {**params, "preconditioner": M} if name == "ir" else params
+        solver = cls.build(criteria=crit, **streaming_kw).generate(P)
+        before = {k: f.launches for k, f in kernels.items()}
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            xs, sinfo = solver._solve_streaming(b[:, None], z[:, None])
+        _sync(dev)
+        label = f"path 6: {name} streaming"
+        fused = [k for k in (*PATH2, *PATH6) if k != "pell_spmv"
+                 and kernels[k].launches != before[k]]
+        check(not fused and kernels["pell_spmv"].launches > before["pell_spmv"],
+              f"{label}: did not stream through pell_spmv ({fused})")
+        check(bool(sinfo.converged.all()), f"{label}: not converged")
+        emit({"phase": "main_path", "path": 6, "route": "streaming", "solver": name,
+              "case": "f32_jacobi" if name == "ir" else "f32",
+              "iterations": sinfo.num_iterations,
+              "pell_spmv_launches": kernels["pell_spmv"].launches - before["pell_spmv"],
+              **accuracy(P, xs[:, 0], b, refs["f32"], norm_a, label),
+              "solve_s": round(time.perf_counter() - t0, 4)})
+
+    solver = gt.CbGmres.build(criteria=crit, krylov_dim=KRYLOV_DIM).generate(P)
+    check(solver._resolved_mode() == "reduce1", "path 6: CbGmres 'auto' did not resolve to reduce1")
+    t0 = time.perf_counter()
+    with outputs_of(sol_gmres, "pell_gmres_fused") as seen:
+        x, info = solver.solve(b)
+    _sync(dev)
+    label = "path 6: CbGmres auto"
+    check(len(seen) == 1 and seen[0][0]["basis_dtype"] == torch.bfloat16,
+          f"{label} did not run pell_gmres_fused with a bfloat16 basis")
+    check(bool(info.converged.all()), f"{label}: not converged")
+    emit({"phase": "main_path", "path": 6, "route": "fused", "solver": "cbgmres",
+          "case": "auto", "resolved": "reduce1", "iterations": info.num_iterations,
+          **accuracy(P, x, b, refs["f32"], norm_a, label),
+          "solve_s": round(time.perf_counter() - t0, 4)})
+
+    # the routes that stream on a Pell, at 64^2: no whole-solve kernel runs
+    d64 = gt.MatrixData.from_coo(*convdiff_2d(SMALL))
+    P64 = gt.Pell.from_csr(gt.Csr.from_matrix_data(d64, device=dev))
+    n64 = P64.shape[0]
+    short = [stop.Iteration(max_iters=200), stop.ResidualNorm(tolerance=1e-4)]
+    implicit = [stop.Iteration(max_iters=30), stop.ImplicitResidualNorm(tolerance=TOL)]
+    declined = (
+        ("bicg", gt.Bicg.build(criteria=short), 1),
+        ("idr", gt.Idr.build(criteria=short), 1),
+        ("bicgstab k=2", gt.Bicgstab.build(criteria=short), 2),
+        ("gmres krylov_dim=101", gt.Gmres.build(criteria=short, krylov_dim=101), 1),
+        ("ir implicit", gt.Ir.build(criteria=implicit, preconditioner=jac), 1),
+    )
+    row = {"phase": "main_path", "path": 6, "case": "declined_routes", "nside": SMALL}
+    whole = [k for k in kernels if k.endswith("_fused") or k.endswith("_fused_multi")]
+    for label, factory, k in declined:
+        before = {name: f.launches for name, f in kernels.items()}
+        X, info = factory.generate(P64).solve(torch.ones(n64, k, device=dev))
+        _sync(dev)
+        fused = [name for name in whole if kernels[name].launches != before[name]]
+        spmv = sum(kernels[f].launches - before[f] for f in ("pell_spmv", "pell_spmm"))
+        check(not fused and spmv > 0, f"path 6: {label} did not stream (fused kernels run: {fused})")
+        check(X.shape == (n64, k) and bool(torch.isfinite(X).all()), f"path 6: {label}: bad x")
+        row[label] = {"streams": True, "pell_spmv_launches": spmv,
+                      "iterations": info.num_iterations, "converged": info.converged.tolist()}
+    emit(row)
+    return {"P": P, "Pb": Pb, "b": b}
+
+
+def check_path6_kernels(gt, dev, rng, p4, p6, record_err):
+    """K18-K21 against their plain versions on the card.  At small size (a
+    24^3 shifted Poisson matrix and A2 at 64^2, each a ``Pell``), solves to
+    convergence with float32 and bfloat16 values, int8 and int32 lane
+    indices, with and without an inverse diagonal, K18 with a float32 and a
+    bfloat16 basis: equal iteration counts and x bit for bit; then a NaN in
+    b per kernel, which runs to the cap on both, and IR's zero-sweep case
+    (x0 the float64 solution: no sweep on either).  At full width (A2 as
+    the path's Pell, float32 and bfloat16 values), solves under a cap of
+    CAP6 iterations: equal counts, x within 1e-5 of its largest entry and
+    reported bit_equal.  Every kernel runs twice and must equal itself."""
+    from ginkgo_tpu_torch import stop
+    from ginkgo_tpu_torch.ops import gmres as ops_gmres
+    from ginkgo_tpu_torch.ops import pell_cg as ops_pc
+
+    def outcome(out):
+        """(x, iterations, monitor, converged) of a Pell kernel's output."""
+        x, it, mon, conv = (out[0], out[2], out[3], out[4]) if len(out) == 5 else out
+        return x, int(it), float(mon), bool(conv)
+
+    def cases(P, b, x0, minv, tol, cap, omega):
+        kw = dict(tol_sq_eff=tol, max_iters=cap)
+        out = {
+            "pell_bicgstab_fused": (
+                lambda: ops_pc.pell_bicgstab_fused(P, b, x0, minv, **kw),
+                lambda: ops_pc.pell_bicgstab_solve_reference(P, b, x0, minv, **kw)),
+            "pell_cgs_fused": (
+                lambda: ops_pc.pell_cgs_fused(P, b, x0, minv, **kw),
+                lambda: ops_pc.pell_cgs_solve_reference(P, b, x0, minv, **kw)),
+            "pell_ir_fused": (
+                lambda: ops_pc.pell_ir_fused(P, b, x0, minv, omega=omega, **kw),
+                lambda: ops_pc.pell_ir_solve_reference(P, b, x0, minv, omega=omega, **kw)),
+        }
+        for basis in (torch.float32, torch.bfloat16):
+            out[f"pell_gmres_fused:{str(basis)[6:]}"] = (
+                lambda basis=basis: ops_gmres.pell_gmres_fused(
+                    P, b, x0, minv, m=KRYLOV_DIM, basis_dtype=basis, **kw),
+                lambda basis=basis: ops_gmres.pell_gmres_solve_reference(
+                    P, b, x0, minv, m=KRYLOV_DIM, basis_dtype=basis, **kw))
+        return out
+
+    def compare(key, what, kern, plain, exact, cap=None):
+        name = key.split(":")[0]
+        t0 = time.perf_counter()
+        kx, kit, kmon, kconv = outcome(kern())
+        _sync(dev)
+        k_s = time.perf_counter() - t0
+        kx2, kit2, _, _ = outcome(kern())
+        t0 = time.perf_counter()
+        px, pit, pmon, pconv = outcome(plain())
+        _sync(dev)
+        p_s = time.perf_counter() - t0
+        check(kit2 == kit and (torch.equal(kx2, kx) or np.isnan(kmon)),
+              f"{what}: the kernel differs from itself")
+        row = {"iters": kit, "plain_iters": pit, "s": round(k_s, 4), "plain_s": round(p_s, 4)}
+        if cap is not None and np.isnan(kmon):  # a NaN in b: both run to the cap
+            check(kit == pit == cap and np.isnan(pmon) and not kconv and not pconv,
+                  f"{what}: with a NaN, {kit} / {pit} iterations, monitors {kmon} / {pmon}")
+            return row
+        err = record_err(name, kx, px)
+        row.update(bit_equal=bool(torch.equal(kx, px)), x_max_abs_err=err, converged=kconv)
+        check(kit == pit and kconv == pconv, f"{what}: {kit} / {pit} iterations, "
+              f"converged {kconv} / {pconv}")
+        if exact:
+            check(kconv and row["bit_equal"], f"{what}: converged {kconv}, x differs by {err}")
+        else:
+            check(bool(torch.isfinite(kx).all()) and err <= 1e-5 * float(px.abs().max()),
+                  f"{what}: x differs by {err}")
+        return row
+
+    small = {"poisson_3d_shifted(24)": shifted_poisson_3d(gt, SMALL3),
+             f"convdiff_2d({SMALL})": gt.MatrixData.from_coo(*convdiff_2d(SMALL))}
+    for label, data in small.items():
+        C = gt.Csr.from_matrix_data(data, device=dev)
+        P8 = gt.Pell.from_csr(C)
+        P32 = gt.Pell.from_csr(C, q_dtype=np.int32)
+        n = P8.shape[0]
+        inv_diag = (1.0 / P8.extract_diagonal().values.float()).contiguous()
+        b = torch.as_tensor(rng.uniform(0.5, 1.5, n).astype(np.float32), device=dev)
+        z = torch.zeros_like(b)
+        tol = torch.full((), (TOL * float(b.norm())) ** 2, dtype=torch.float32, device=dev)
+        row = {"phase": "kernel_check", "path": 6, "matrix": label}
+        for storage, Pv, pre_label, pre in (
+                ("f32/i8", P8, "identity", None), ("f32/i8", P8, "minv", inv_diag),
+                ("f32/i32", P32, "identity", None), ("bf16/i8", P8.reduce_storage(), "minv", inv_diag),
+                ("bf16/i32", P32.astype(torch.bfloat16), "identity", None)):
+            held = f"{str(Pv.values.dtype)[6:]}/{str(Pv.qidx.dtype)[6:]}"
+            check(held == storage.replace("f32", "float32").replace("bf16", "bfloat16")
+                  .replace("i8", "int8").replace("i32", "int32"),
+                  f"path 6 check: the {storage} plan holds {held}")
+            for key, (kern, plain) in cases(Pv, b, z, pre, tol, MAX_ITERS,
+                                            1.0 if pre is not None else 0.2).items():
+                if key == "pell_ir_fused" and pre is None and label.startswith("poisson"):
+                    continue  # the Identity at 0.2 diverges on this matrix
+                row[f"{key} {storage} {pre_label}"] = compare(
+                    key, f"{key} {label} {storage} {pre_label}", kern, plain, exact=True)
+        # a NaN in b keeps every monitor NaN: both run to the cap
+        bn = b.clone()
+        bn[5] = float("nan")
+        for key, (kern, plain) in cases(P8, bn, z, inv_diag, tol, 25, 1.0).items():
+            row[f"{key} nan"] = compare(key, f"{key} {label} nan", kern, plain, exact=True, cap=25)
+        # IR's zero-sweep case: r0 of the float64 solution meets the tolerance
+        x64, _ = gt.Ir.build(criteria=[stop.Iteration(max_iters=MAX_ITERS),
+                                       stop.ResidualNorm(tolerance=1e-10)],
+                             preconditioner=gt.Jacobi.build(max_block_size=1)).generate(
+            P8.astype(torch.float64)).solve(b.double())
+        x0 = x64.float().contiguous()
+        kw = dict(omega=1.0, tol_sq_eff=tol, max_iters=MAX_ITERS)
+        row["pell_ir_fused zero_sweeps"] = compare(
+            "pell_ir_fused", f"pell_ir_fused {label} zero sweeps",
+            lambda: ops_pc.pell_ir_fused(P8, b, x0, inv_diag, **kw),
+            lambda: ops_pc.pell_ir_solve_reference(P8, b, x0, inv_diag, **kw), exact=True)
+        check(row["pell_ir_fused zero_sweeps"]["iters"] == 0,
+              f"pell_ir_fused {label}: {row['pell_ir_fused zero_sweeps']['iters']} sweeps from "
+              "an x0 that meets the tolerance")
+        emit(row)
+
+    # full width, under a cap
+    P, b = p6["P"], p6["b"]
+    z = torch.zeros_like(b)
+    inv_diag = (1.0 / p4["A"].extract_diagonal().values.float()).contiguous()
+    tol = torch.full((), (TOL * float(b.norm())) ** 2, dtype=torch.float32, device=dev)
+    row = {"phase": "kernel_check", "path": 6, "matrix": f"convdiff_2d({NSIDE})", "cap": CAP6}
+    for storage, Pv in (("f32/i8", P), ("bf16/i8", p6["Pb"])):
+        for pre_label, pre in (("identity", None), ("minv", inv_diag)):
+            for key, (kern, plain) in cases(Pv, b, z, pre, tol, CAP6,
+                                            1.0 if pre is not None else 0.2).items():
+                row[f"{key} {storage} {pre_label}"] = compare(
+                    key, f"{key} {NSIDE} {storage} {pre_label}", kern, plain, exact=False)
+    emit(row)
+
+
+def time_path6(gt, dev, P, b3, rec, timing):
+    """Per-iteration times on the 160^3 Poisson ``Pell`` of path 2 by the
+    slope between whole solves with Iteration-only criteria: K19 and K20
+    between Iteration(200) and Iteration(1000), K21 (scalar Jacobi,
+    relaxation 1.0) per sweep the same, K18 per Arnoldi step between 60
+    and 240 (m = 30, float32 and bfloat16 bases); each beside its streaming
+    route and its plain version (fewer trips).  The true residual of the
+    longer run is reported, not bounded: in float32 BiCGSTAB on a Poisson
+    matrix with b = ones stagnates before 1e-6 (ROADMAP, "Not faults").
+
+    Bounds per iteration, each input read once and each output written
+    once (the plan's bytes once, as the Dia rows count the diagonals once),
+    and beside them the plan read once per SpMV: BiCGSTAB and CGS plan +
+    36 n bytes (rr in; x, r and two carried vectors in and out), 4 cells +
+    22 n (CGS 19 n) operations, two SpMVs; IR plan + 24 n (b, minv in; x,
+    r in and out), 2 cells + 6 n, one SpMV; GMRES per step K15's cycle
+    model with the plan in place of the diagonals, one SpMV."""
+    from ginkgo_tpu_torch import stop
+    from ginkgo_tpu_torch.ops import gmres as ops_gmres
+    from ginkgo_tpu_torch.ops import pell_cg as ops_pc
+
+    n = P.shape[0]
+    z = torch.zeros_like(b3)
+    plan = P.storage_bytes()
+    cells = P.values.numel()
+    one = [stop.Iteration(max_iters=1)]
+    solvers = {name: cls.build(criteria=one, **params).generate(P)
+               for name, (cls, params, _) in path6_solvers(gt).items()}
+    inv_diag = solvers["ir"].preconditioner.inv_diag.float().contiguous()
+
+    def capped(name, its, **params):
+        return solvers[name].replace(criterion=stop.Iteration(max_iters=its), **params)
+
+    def fused(name, **params):
+        return lambda its: capped(name, its, **params).solve(b3)
+
+    def streaming(name):
+        def run(its):
+            with torch.no_grad():
+                capped(name, its)._solve_streaming(b3[:, None], z[:, None])
+        return run
+
+    kw = dict(tol_sq_eff=-1.0)
+    plains = {
+        "bicgstab": lambda its: ops_pc.pell_bicgstab_solve_reference(P, b3, z, None,
+                                                                     max_iters=its, **kw),
+        "cgs": lambda its: ops_pc.pell_cgs_solve_reference(P, b3, z, None, max_iters=its, **kw),
+        "ir": lambda its: ops_pc.pell_ir_solve_reference(P, b3, z, inv_diag, omega=1.0,
+                                                         max_iters=its, **kw),
+        "gmres": lambda its: ops_gmres.pell_gmres_solve_reference(
+            P, b3, z, None, m=KRYLOV_DIM, max_iters=its, **kw),
+    }
+    per_iter = {
+        "bicgstab": (plan + 36 * n, 2 * plan + 36 * n, 4 * cells + 22 * n),
+        "cgs": (plan + 36 * n, 2 * plan + 36 * n, 4 * cells + 19 * n),
+        "ir": (plan + 24 * n, plan + 24 * n, 2 * cells + 6 * n),
+    }
+    out = {"matrix": f"poisson_3d({NSIDE3})", "card": timing["card"], "plan_bytes": plan,
+           "cells": cells}
+    for name, (nbytes, nbytes_spmv, flops) in per_iter.items():
+        f_ms, s_ms = iter_ms(fused(name)), iter_ms(streaming(name))
+        p_ms = iter_ms(plains[name], 50, 250)
+        kname = path6_solvers(gt)[name][2]
+        rec[kname] = (f_ms, p_ms, None, nbytes, flops, nbytes_spmv)
+        x, info = capped(name, 1000).solve(b3)
+        out[kname] = {"fused_us": f_ms * 1e3, "streaming_us": s_ms * 1e3, "plain_us": p_ms * 1e3,
+                      "GBps": nbytes_spmv / f_ms / 1e6,
+                      "true_relres_1000": float((b3 - P.apply(x)).norm() / b3.norm())}
+    m = KRYLOV_DIM
+    gm = {}
+    for label, basis, vb in (("f32", "keep", 4), ("bf16", "reduce1", 2)):
+        cycle_bytes = sum(plan + (j + 2) * vb * n for j in range(m)) + plan + (m * vb + 12) * n
+        cycle_flops = sum(2 * cells + (8 * (j + 1) + 3) * n for j in range(m)) + 2 * cells + (2 * m + 2) * n
+        ms = iter_ms(fused("gmres", storage_precision=basis), 60, 240)
+        gm[label] = {"fused_us_per_step": ms * 1e3, "bytes_per_step": cycle_bytes / m,
+                     "GBps": cycle_bytes / m / ms / 1e6}
+        if label == "f32":
+            gm["streaming_us_per_step"] = iter_ms(streaming("gmres"), 60, 240) * 1e3
+            p_ms = iter_ms(plains["gmres"], 30, 90)
+            gm["plain_us_per_step"] = p_ms * 1e3
+            rec["pell_gmres_fused"] = (ms, p_ms, None, cycle_bytes / m, cycle_flops / m,
+                                       cycle_bytes / m)
+            x, info = capped("gmres", 240).solve(b3)
+            gm["true_relres_240"] = float((b3 - P.apply(x)).norm() / b3.norm())
+    out["pell_gmres_fused"] = gm
+    timing["slice6_us_per_iter"] = out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check needs a GPU")
@@ -1399,6 +1800,10 @@ def main():
         "idr_fused": ops_idr.idr_fused,
         "ir_fused": ops_ir.ir_fused,
         "ir_smooth": ops_ir.ir_smooth,
+        "pell_gmres_fused": ops_gmres.pell_gmres_fused,
+        "pell_bicgstab_fused": ops_pell_cg.pell_bicgstab_fused,
+        "pell_cgs_fused": ops_pell_cg.pell_cgs_fused,
+        "pell_ir_fused": ops_pell_cg.pell_ir_fused,
     }
     max_err = {k: 0.0 for k in kernels}
 
@@ -1841,10 +2246,19 @@ def main():
     launches5 = {k: f.launches for k, f in kernels.items()}
     check(all(launches5[k] > 0 for k in PATH5), f"a kernel of path 5 never ran: {launches5}")
     emit({"phase": "main_path", "path": 5, "launches": launches5})
-    launches = {k: launches1[k] + launches2[k] + launches3[k] + launches4[k] + launches5[k]
-                for k in kernels}
     check_path5_kernels(gt, dev, rng, p4, p5, kernels, record_err)
     del p5
+
+    # -- 5d. main path 6: the Krylov solvers on a Pell (Csr -> Pell) -------------------
+    zero_counts()
+    p6 = main_path6(gt, dev, rng, crit, kernels, p4)
+    launches6 = {k: f.launches for k, f in kernels.items()}
+    check(all(launches6[k] > 0 for k in PATH6), f"a kernel of path 6 never ran: {launches6}")
+    emit({"phase": "main_path", "path": 6, "launches": launches6})
+    launches = {k: launches1[k] + launches2[k] + launches3[k] + launches4[k] + launches5[k]
+                + launches6[k] for k in kernels}
+    check_path6_kernels(gt, dev, rng, p4, p6, record_err)
+    del p6
 
     # -- 6. timings (printed, not checked) -------------------------------------------
     src = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
@@ -2034,12 +2448,13 @@ def main():
     timing["cg_iteration_gap_2048"] = gaps
     time_path4(gt, dev, p4, rec, timing)
     time_path5(gt, dev, p4, rec, timing)
+    time_path6(gt, dev, P, b3, rec, timing)
     emit(timing)
 
     # -- 7. result -----------------------------------------------------------------------
     rows = []
     for name in kernels:
-        k_ms, p_ms, l_ms, nbytes, flops = rec[name]
+        k_ms, p_ms, l_ms, nbytes, flops = rec[name][:5]
         b_ms, b_by = bound(nbytes, flops)
         rows.append({"name": name, "route": "cuda", "source": KERNEL_META[name][0],
                      "replaces": KERNEL_META[name][1], "launches": launches[name],
@@ -2049,6 +2464,8 @@ def main():
                      "copy_bound_ms": nbytes / copy_gbs / 1e6})
         if name in timing["well_csr_bound_ms"]:
             rows[-1]["csr_bound_ms"] = timing["well_csr_bound_ms"][name]
+        if len(rec[name]) > 5:  # the Pell solvers: the plan read once per SpMV
+            rows[-1]["bound_ms_plan_per_spmv"] = bound(rec[name][5], flops)[0]
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

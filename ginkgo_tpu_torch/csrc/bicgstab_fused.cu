@@ -1,13 +1,23 @@
 // Whole-solve right-preconditioned BiCGSTAB in one persistent cooperative
-// kernel: kernel K12 of the PyTorch port, and its k-column form K12m
-// (below).
+// kernel, templated on its operator (coop.cuh GkDiaOp, pell.cuh GkPellOp):
+// kernel K12 of the PyTorch port on a Dia, K19 on a Pell, and the k-column
+// form K12m (below).
 //
-// Replaces ginkgo_tpu/ops/pallas_bicgstab.py bicgstab_vmem_solve
+// K12 replaces ginkgo_tpu/ops/pallas_bicgstab.py bicgstab_vmem_solve
 // (_bicgstab_kernel, :53-186).  A diagonal preconditioner M is folded into
 // the operator before the launch (solver/_fused_gate.fold_minv: diagonal d
 // scaled by minv at column i + off_d and rounded back to the diagonals'
 // dtype), so the kernel runs on A M and applies minv only in the x update,
 // y = minv p and z = minv s.
+//
+// K19 replaces ginkgo_tpu/ops/pallas_pell_cg.py pell_bicgstab_vmem_solve
+// (_pell_bicgstab_kernel, :313): the same loop on a Pell.  PELL values have
+// no column fold, so M is applied explicitly, v = A (M p) and t = A (M s):
+// the operator's gather multiplies each gathered p or s by minv of its
+// column (GkPellOp cminv), the TPU kernel's staged w = M p rounded the same
+// way, with no pass of its own.  The x update is the same as K12's.  Per
+// iteration it moves the plan twice (values, lane indices, bases) and the
+// vectors as K12 does, plus minv gathered with p and s.
 //
 // What bounds it on the H100: bytes.  Per iteration five passes move
 // (2 nd sizeof(TD) + 72) n bytes, 80 n with minv: p = r + beta (p - omega
@@ -37,12 +47,13 @@
 //     keeps iterating; zero denominators give 0 (gk_sdiv).
 
 #include "coop.cuh"
+#include "pell.cuh"
 
 namespace cg = cooperative_groups;
 
+template <typename Op>
 struct BicgstabParams {
-  const void* diags;  // (nd, n) of A M
-  GkOffsets offs;
+  Op op;  // A M (Dia, folded), or A with M applied on the gather (Pell)
   long long n;
   const float* r0;      // (n,), or (n, K) row-major in K12m
   const float* x0;
@@ -64,16 +75,15 @@ struct BicgstabParams {
   int* itc_out;     // K12m: (K,) iteration at which each column stopped
 };
 
-template <typename TD>
+template <typename Op>
 __global__ void __launch_bounds__(GK_CG_THREADS)
-    bicgstab_fused_kernel(const BicgstabParams P) {
+    bicgstab_fused_kernel(const BicgstabParams<Op> P) {
   cg::grid_group grid = cg::this_grid();
   __shared__ double sh1[1][GK_CG_WARPS];
   __shared__ double sh2[2][GK_CG_WARPS];
   __shared__ double bc1[1];
   __shared__ double bc2[2];
 
-  const TD* __restrict__ D = static_cast<const TD*>(P.diags);
   const long long n = P.n;
   const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -127,7 +137,7 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
     {
       double acc[1] = {0.0};
       for (long long i = t0; i < n; i += stride) {
-        const float vi = gk_dia_row(D, P.offs, n, i, p);
+        const float vi = P.op.row(i, p);
         v[i] = vi;
         acc[0] += (double)rr[i] * vi;
       }
@@ -155,7 +165,7 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
     {
       double acc[2] = {0.0, 0.0};
       for (long long i = t0; i < n; i += stride) {
-        const float ti = gk_dia_row(D, P.offs, n, i, s);
+        const float ti = P.op.row(i, s);
         t[i] = ti;
         const float si = __ldcg(s + i);
         acc[0] += (double)ti * si;
@@ -223,14 +233,14 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
 // once per row for the K columns: + 4 n).
 template <typename TD, int K>
 __global__ void __launch_bounds__(GK_CG_THREADS)
-    bicgstab_fused_multi_kernel(const BicgstabParams P) {
+    bicgstab_fused_multi_kernel(const BicgstabParams<GkDiaOp<TD>> P) {
   cg::grid_group grid = cg::this_grid();
   __shared__ double sh1[K][GK_CG_WARPS];
   __shared__ double sh2[2 * K][GK_CG_WARPS];
   __shared__ double bc1[K];
   __shared__ double bc2[2 * K];
 
-  const TD* __restrict__ D = static_cast<const TD*>(P.diags);
+  const TD* __restrict__ D = P.op.diags;
   const long long n = P.n;
   const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -311,7 +321,7 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
       for (int c = 0; c < K; ++c) acc[c] = 0.0;
       for (long long i = t0; i < n; i += stride) {
         float av[K];
-        gk_dia_row_cols<TD, float, K>(D, P.offs, n, i, p, av);
+        gk_dia_row_cols<TD, float, K>(D, P.op.offs, n, i, p, av);
 #pragma unroll
         for (int c = 0; c < K; ++c) {
           const long long e = i * K + c;
@@ -361,7 +371,7 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
       for (int c = 0; c < 2 * K; ++c) acc[c] = 0.0;
       for (long long i = t0; i < n; i += stride) {
         float at[K];
-        gk_dia_row_cols<TD, float, K>(D, P.offs, n, i, s, at);
+        gk_dia_row_cols<TD, float, K>(D, P.op.offs, n, i, s, at);
 #pragma unroll
         for (int c = 0; c < K; ++c) {
           const long long e = i * K + c;
@@ -435,26 +445,16 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
   }
 }
 
-// Blocks of the cooperative grid (the wrapper sizes the partial sums, 6
-// doubles per block, from it).
-extern "C" int bicgstab_fused_grid(int d_dtype, int* blocks) {
-  if (d_dtype == GK_F32) return gk_coop_blocks(bicgstab_fused_kernel<float>, blocks);
-  if (d_dtype == GK_BF16)
-    return gk_coop_blocks(bicgstab_fused_kernel<__nv_bfloat16>, blocks);
-  return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int bicgstab_fused_solve(
-    const void* diags, int d_dtype, const long long* offsets, int nd, long long n,
-    const float* r0, const float* x0, const float* minv, const float* tol_sq,
-    int max_iters, int implicit, float* x, float* r, float* rr, float* v,
-    float* t, float* p, float* s, double* part, int blocks, int* it_out,
-    float* mon_out, int* conv_out, void* stream) {
-  if (nd < 1 || nd > GK_MAX_DIAGS || blocks < 1) return (int)cudaErrorInvalidValue;
-  BicgstabParams P;
-  P.diags = diags;
-  P.offs.nd = nd;
-  for (int d = 0; d < nd; ++d) P.offs.off[d] = offsets[d];
+// The launch parameters shared by every entry point; the operator is set by
+// the caller.
+template <typename Op>
+static BicgstabParams<Op> bicgstab_params(
+    const Op& op, long long n, const float* r0, const float* x0, const float* minv,
+    const float* tol_sq, int max_iters, int implicit, float* x, float* r, float* rr,
+    float* v, float* t, float* p, float* s, double* part, int* it_out, float* mon_out,
+    int* conv_out, int* itc_out) {
+  BicgstabParams<Op> P;
+  P.op = op;
   P.n = n;
   P.r0 = r0;
   P.x0 = x0;
@@ -473,12 +473,75 @@ extern "C" int bicgstab_fused_solve(
   P.it_out = it_out;
   P.mon_out = mon_out;
   P.conv_out = conv_out;
-  P.itc_out = nullptr;
-  if (d_dtype == GK_F32)
-    return gk_coop_launch(bicgstab_fused_kernel<float>, P, blocks, stream);
+  P.itc_out = itc_out;
+  return P;
+}
+
+// Blocks of the cooperative grid (the wrapper sizes the partial sums, 6
+// doubles per block, from it).
+extern "C" int bicgstab_fused_grid(int d_dtype, int* blocks) {
+  if (d_dtype == GK_F32) return gk_coop_blocks(bicgstab_fused_kernel<GkDiaOp<float>>, blocks);
   if (d_dtype == GK_BF16)
-    return gk_coop_launch(bicgstab_fused_kernel<__nv_bfloat16>, P, blocks, stream);
+    return gk_coop_blocks(bicgstab_fused_kernel<GkDiaOp<__nv_bfloat16>>, blocks);
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int bicgstab_fused_solve(
+    const void* diags, int d_dtype, const long long* offsets, int nd, long long n,
+    const float* r0, const float* x0, const float* minv, const float* tol_sq,
+    int max_iters, int implicit, float* x, float* r, float* rr, float* v,
+    float* t, float* p, float* s, double* part, int blocks, int* it_out,
+    float* mon_out, int* conv_out, void* stream) {
+  if (nd < 1 || nd > GK_MAX_DIAGS || blocks < 1) return (int)cudaErrorInvalidValue;
+#define GK_DIA_LAUNCH(TD)                                                              \
+  gk_coop_launch(bicgstab_fused_kernel<GkDiaOp<TD>>,                                   \
+                 bicgstab_params(gk_dia_op<TD>(diags, offsets, nd, n), n, r0, x0, minv, \
+                                 tol_sq, max_iters, implicit, x, r, rr, v, t, p, s,     \
+                                 part, it_out, mon_out, conv_out, nullptr),             \
+                 blocks, stream)
+  if (d_dtype == GK_F32) return GK_DIA_LAUNCH(float);
+  if (d_dtype == GK_BF16) return GK_DIA_LAUNCH(__nv_bfloat16);
+#undef GK_DIA_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// K19: blocks of the Pell form's cooperative grid (6 doubles of partial
+// sums per block, as K12).
+extern "C" int pell_bicgstab_fused_grid(int v_dtype, int q_dtype, int* blocks) {
+  GK_PELL_VQ_DISPATCH(v_dtype, q_dtype,
+                      gk_coop_blocks(bicgstab_fused_kernel<GkPellOp<TV, TQ>>, blocks));
+}
+
+template <typename TV, typename TQ>
+static int pell_bicgstab_launch(const void* values, const void* qidx, const int* bases,
+                                const int* tile_ptr, int S, int G, long long n,
+                                const float* r0, const float* x0, const float* minv,
+                                const float* tol_sq, int max_iters, int implicit, float* x,
+                                float* r, float* rr, float* v, float* t, float* p, float* s,
+                                double* part, int blocks, int* it_out, float* mon_out,
+                                int* conv_out, void* stream) {
+  return gk_coop_launch(
+      bicgstab_fused_kernel<GkPellOp<TV, TQ>>,
+      bicgstab_params(gk_pell_op<TV, TQ>(values, qidx, bases, tile_ptr, S, G, n, minv), n,
+                      r0, x0, minv, tol_sq, max_iters, implicit, x, r, rr, v, t, p, s, part,
+                      it_out, mon_out, conv_out, nullptr),
+      blocks, stream);
+}
+
+// K19: BiCGSTAB on a square Pell (values float32/bfloat16, lane indices
+// int8/int32), M = diag(minv) applied explicitly (minv nullptr: Identity).
+extern "C" int pell_bicgstab_fused_solve(
+    const void* values, int v_dtype, const void* qidx, int q_dtype, const int* bases,
+    const int* tile_ptr, int S, int G, long long n, const float* r0, const float* x0,
+    const float* minv, const float* tol_sq, int max_iters, int implicit, float* x, float* r,
+    float* rr, float* v, float* t, float* p, float* s, double* part, int blocks,
+    int* it_out, float* mon_out, int* conv_out, void* stream) {
+  if (S < 1 || G < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
+  GK_PELL_VQ_DISPATCH(v_dtype, q_dtype,
+                      (pell_bicgstab_launch<TV, TQ>)(
+                          values, qidx, bases, tile_ptr, S, G, n, r0, x0, minv, tol_sq,
+                          max_iters, implicit, x, r, rr, v, t, p, s, part, blocks, it_out,
+                          mon_out, conv_out, stream));
 }
 
 template <int K>
@@ -489,13 +552,19 @@ static int multi_grid(int d_dtype, int* blocks) {
   return (int)cudaErrorInvalidValue;
 }
 
-template <int K>
-static int multi_launch(int d_dtype, const BicgstabParams& P, int blocks, void* stream) {
-  if (d_dtype == GK_F32)
-    return gk_coop_launch(bicgstab_fused_multi_kernel<float, K>, P, blocks, stream);
-  if (d_dtype == GK_BF16)
-    return gk_coop_launch(bicgstab_fused_multi_kernel<__nv_bfloat16, K>, P, blocks, stream);
-  return (int)cudaErrorInvalidValue;
+template <typename TD, int K>
+static int multi_launch(const void* diags, const long long* offsets, int nd, long long n,
+                        const float* r0, const float* x0, const float* minv,
+                        const float* tol_sq, int max_iters, int implicit, float* x, float* r,
+                        float* rr, float* v, float* t, float* p, float* s, double* part,
+                        int blocks, int* it_out, float* mon_out, int* conv_out,
+                        int* itc_out, void* stream) {
+  return gk_coop_launch(
+      bicgstab_fused_multi_kernel<TD, K>,
+      bicgstab_params(gk_dia_op<TD>(diags, offsets, nd, n), n, r0, x0, minv, tol_sq,
+                      max_iters, implicit, x, r, rr, v, t, p, s, part, it_out, mon_out,
+                      conv_out, itc_out),
+      blocks, stream);
 }
 
 #define GK_SWITCH_K(k, CALL_K)                   \
@@ -525,30 +594,16 @@ extern "C" int bicgstab_fused_multi_solve(
     float* t, float* p, float* s, double* part, int blocks, int* it_out,
     float* mon_out, int* conv_out, int* itc_out, void* stream) {
   if (nd < 1 || nd > GK_MAX_DIAGS || blocks < 1) return (int)cudaErrorInvalidValue;
-  BicgstabParams P;
-  P.diags = diags;
-  P.offs.nd = nd;
-  for (int d = 0; d < nd; ++d) P.offs.off[d] = offsets[d];
-  P.n = n;
-  P.r0 = r0;
-  P.x0 = x0;
-  P.minv = minv;
-  P.tol_sq = tol_sq;
-  P.max_iters = max_iters;
-  P.implicit = implicit;
-  P.x = x;
-  P.r = r;
-  P.rr = rr;
-  P.v = v;
-  P.t = t;
-  P.p = p;
-  P.s = s;
-  P.part = part;
-  P.it_out = it_out;
-  P.mon_out = mon_out;
-  P.conv_out = conv_out;
-  P.itc_out = itc_out;
-#define GK_LAUNCH_K(K) multi_launch<K>(d_dtype, P, blocks, stream)
-  GK_SWITCH_K(k, GK_LAUNCH_K)
-#undef GK_LAUNCH_K
+#define GK_LAUNCH_TD_K(TD, K)                                                             \
+  multi_launch<TD, K>(diags, offsets, nd, n, r0, x0, minv, tol_sq, max_iters, implicit, x, \
+                      r, rr, v, t, p, s, part, blocks, it_out, mon_out, conv_out, itc_out,   \
+                      stream)
+#define GK_LAUNCH_F32_K(K) GK_LAUNCH_TD_K(float, K)
+#define GK_LAUNCH_BF16_K(K) GK_LAUNCH_TD_K(__nv_bfloat16, K)
+  if (d_dtype == GK_F32) GK_SWITCH_K(k, GK_LAUNCH_F32_K)
+  if (d_dtype == GK_BF16) GK_SWITCH_K(k, GK_LAUNCH_BF16_K)
+#undef GK_LAUNCH_BF16_K
+#undef GK_LAUNCH_F32_K
+#undef GK_LAUNCH_TD_K
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,15 @@
 // Whole-solve CGS and BiCG in persistent cooperative kernels: kernels K13
-// (cgs_fused) and K14 (bicg_fused) of the PyTorch port.
+// (cgs_fused) and K14 (bicg_fused) of the PyTorch port, and K20
+// (pell_cgs_fused), K13's loop on a Pell.
 //
 // Replaces ginkgo_tpu/ops/pallas_cgs.py cgs_vmem_solve (_cgs_kernel,
-// :61-178) and bicg_vmem_solve (_bicg_kernel, :266-390).
+// :61-178) and bicg_vmem_solve (_bicg_kernel, :266-390), and
+// ginkgo_tpu/ops/pallas_pell_cg.py pell_cgs_vmem_solve (_pell_cgs_kernel,
+// :559).  The CGS kernel is templated on its operator (coop.cuh GkDiaOp,
+// pell.cuh GkPellOp).  On a Pell, M is applied explicitly on the
+// operator's gather (v = A (M p), t = A (M w)), as the TPU kernel stages
+// it (PELL values have no column fold); the x update x += alpha (M w) is
+// K13's.
 //
 // CGS is transpose-free.  As in K12 a diagonal preconditioner is folded
 // into the operator before the launch (solver/_fused_gate.fold_minv), and
@@ -36,12 +43,13 @@
 // denominators give 0.
 
 #include "coop.cuh"
+#include "pell.cuh"
 
 namespace cg = cooperative_groups;
 
+template <typename Op>
 struct CgsParams {
-  const void* diags;  // (nd, n) of A M
-  GkOffsets offs;
+  Op op;  // A M (Dia, folded), or A with M applied on the gather (Pell)
   long long n;
   const float* r0;
   const float* x0;
@@ -63,15 +71,14 @@ struct CgsParams {
   int* conv_out;
 };
 
-template <typename TD>
-__global__ void __launch_bounds__(GK_CG_THREADS) cgs_fused_kernel(const CgsParams P) {
+template <typename Op>
+__global__ void __launch_bounds__(GK_CG_THREADS) cgs_fused_kernel(const CgsParams<Op> P) {
   cg::grid_group grid = cg::this_grid();
   __shared__ double sh1[1][GK_CG_WARPS];
   __shared__ double sh2[2][GK_CG_WARPS];
   __shared__ double bc1[1];
   __shared__ double bc2[2];
 
-  const TD* __restrict__ D = static_cast<const TD*>(P.diags);
   const long long n = P.n;
   const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -127,7 +134,7 @@ __global__ void __launch_bounds__(GK_CG_THREADS) cgs_fused_kernel(const CgsParam
     {
       double acc[1] = {0.0};
       for (long long i = t0; i < n; i += stride) {
-        const float vi = gk_dia_row(D, P.offs, n, i, p);
+        const float vi = P.op.row(i, p);
         v[i] = vi;
         acc[0] += (double)rr[i] * vi;
       }
@@ -151,7 +158,7 @@ __global__ void __launch_bounds__(GK_CG_THREADS) cgs_fused_kernel(const CgsParam
     {
       double acc[2] = {0.0, 0.0};
       for (long long i = t0; i < n; i += stride) {
-        const float ti = gk_dia_row(D, P.offs, n, i, w);
+        const float ti = P.op.row(i, w);
         const float wi = __ldcg(w + i);
         const float mwi = minv ? minv[i] * wi : wi;
         x[i] = x[i] + alpha * mwi;
@@ -316,23 +323,14 @@ static void copy_offsets(GkOffsets& dst, const long long* offsets, int nd) {
   for (int d = 0; d < nd; ++d) dst.off[d] = offsets[d];
 }
 
-// Blocks of K13's cooperative grid (3 doubles of partial sums per block).
-extern "C" int cgs_fused_grid(int d_dtype, int* blocks) {
-  if (d_dtype == GK_F32) return gk_coop_blocks(cgs_fused_kernel<float>, blocks);
-  if (d_dtype == GK_BF16) return gk_coop_blocks(cgs_fused_kernel<__nv_bfloat16>, blocks);
-  return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int cgs_fused_solve(
-    const void* diags, int d_dtype, const long long* offsets, int nd, long long n,
-    const float* r0, const float* x0, const float* minv, const float* tol_sq,
-    int max_iters, int implicit, float* x, float* r, float* rr, float* q, float* u,
-    float* v, float* p, float* w, double* part, int blocks, int* it_out,
-    float* mon_out, int* conv_out, void* stream) {
-  if (nd < 1 || nd > GK_MAX_DIAGS || blocks < 1) return (int)cudaErrorInvalidValue;
-  CgsParams P;
-  P.diags = diags;
-  copy_offsets(P.offs, offsets, nd);
+template <typename Op>
+static CgsParams<Op> cgs_params(const Op& op, long long n, const float* r0, const float* x0,
+                                const float* minv, const float* tol_sq, int max_iters,
+                                int implicit, float* x, float* r, float* rr, float* q,
+                                float* u, float* v, float* p, float* w, double* part,
+                                int* it_out, float* mon_out, int* conv_out) {
+  CgsParams<Op> P;
+  P.op = op;
   P.n = n;
   P.r0 = r0;
   P.x0 = x0;
@@ -352,10 +350,73 @@ extern "C" int cgs_fused_solve(
   P.it_out = it_out;
   P.mon_out = mon_out;
   P.conv_out = conv_out;
-  if (d_dtype == GK_F32) return gk_coop_launch(cgs_fused_kernel<float>, P, blocks, stream);
+  return P;
+}
+
+// Blocks of K13's cooperative grid (3 doubles of partial sums per block).
+extern "C" int cgs_fused_grid(int d_dtype, int* blocks) {
+  if (d_dtype == GK_F32) return gk_coop_blocks(cgs_fused_kernel<GkDiaOp<float>>, blocks);
   if (d_dtype == GK_BF16)
-    return gk_coop_launch(cgs_fused_kernel<__nv_bfloat16>, P, blocks, stream);
+    return gk_coop_blocks(cgs_fused_kernel<GkDiaOp<__nv_bfloat16>>, blocks);
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int cgs_fused_solve(
+    const void* diags, int d_dtype, const long long* offsets, int nd, long long n,
+    const float* r0, const float* x0, const float* minv, const float* tol_sq,
+    int max_iters, int implicit, float* x, float* r, float* rr, float* q, float* u,
+    float* v, float* p, float* w, double* part, int blocks, int* it_out,
+    float* mon_out, int* conv_out, void* stream) {
+  if (nd < 1 || nd > GK_MAX_DIAGS || blocks < 1) return (int)cudaErrorInvalidValue;
+#define GK_DIA_LAUNCH(TD)                                                                   \
+  gk_coop_launch(cgs_fused_kernel<GkDiaOp<TD>>,                                             \
+                 cgs_params(gk_dia_op<TD>(diags, offsets, nd, n), n, r0, x0, minv, tol_sq,  \
+                            max_iters, implicit, x, r, rr, q, u, v, p, w, part, it_out,     \
+                            mon_out, conv_out),                                             \
+                 blocks, stream)
+  if (d_dtype == GK_F32) return GK_DIA_LAUNCH(float);
+  if (d_dtype == GK_BF16) return GK_DIA_LAUNCH(__nv_bfloat16);
+#undef GK_DIA_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// K20: blocks of the Pell form's cooperative grid (3 doubles of partial
+// sums per block, as K13).
+extern "C" int pell_cgs_fused_grid(int v_dtype, int q_dtype, int* blocks) {
+  GK_PELL_VQ_DISPATCH(v_dtype, q_dtype,
+                      gk_coop_blocks(cgs_fused_kernel<GkPellOp<TV, TQ>>, blocks));
+}
+
+template <typename TV, typename TQ>
+static int pell_cgs_launch(const void* values, const void* qidx, const int* bases,
+                           const int* tile_ptr, int S, int G, long long n, const float* r0,
+                           const float* x0, const float* minv, const float* tol_sq,
+                           int max_iters, int implicit, float* x, float* r, float* rr,
+                           float* q, float* u, float* v, float* p, float* w, double* part,
+                           int blocks, int* it_out, float* mon_out, int* conv_out,
+                           void* stream) {
+  return gk_coop_launch(
+      cgs_fused_kernel<GkPellOp<TV, TQ>>,
+      cgs_params(gk_pell_op<TV, TQ>(values, qidx, bases, tile_ptr, S, G, n, minv), n, r0, x0,
+                 minv, tol_sq, max_iters, implicit, x, r, rr, q, u, v, p, w, part, it_out,
+                 mon_out, conv_out),
+      blocks, stream);
+}
+
+// K20: CGS on a square Pell (values float32/bfloat16, lane indices
+// int8/int32), M = diag(minv) applied explicitly (minv nullptr: Identity).
+extern "C" int pell_cgs_fused_solve(
+    const void* values, int v_dtype, const void* qidx, int q_dtype, const int* bases,
+    const int* tile_ptr, int S, int G, long long n, const float* r0, const float* x0,
+    const float* minv, const float* tol_sq, int max_iters, int implicit, float* x, float* r,
+    float* rr, float* q, float* u, float* v, float* p, float* w, double* part, int blocks,
+    int* it_out, float* mon_out, int* conv_out, void* stream) {
+  if (S < 1 || G < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
+  GK_PELL_VQ_DISPATCH(v_dtype, q_dtype,
+                      (pell_cgs_launch<TV, TQ>)(
+                          values, qidx, bases, tile_ptr, S, G, n, r0, x0, minv, tol_sq,
+                          max_iters, implicit, x, r, rr, q, u, v, p, w, part, blocks, it_out,
+                          mon_out, conv_out, stream));
 }
 
 // Blocks of K14's cooperative grid for the dtypes of A and A^H (3 doubles

@@ -88,19 +88,51 @@ __device__ __forceinline__ void grid_total(const double* part, double (&tot)[NV]
 
 // Row i of a DIA product, sum_d D[d][i] * src[i + off_d] over the columns
 // in [0, n), summed in offset order from 0 as ops/dia.py's plain version
-// does.  `src` is read with __ldcg: the whole-solve kernels rewrite it
-// between passes, and a row of another block must never come from a stale
-// L1 line.
-template <typename TD>
+// does.  `src` is float32, or bfloat16 (a GMRES basis) widened on read; it
+// is read with __ldcg: the whole-solve kernels rewrite it between passes,
+// and a row of another block must never come from a stale L1 line.
+template <typename TD, typename TS>
 __device__ __forceinline__ float gk_dia_row(const TD* __restrict__ D,
                                             const GkOffsets& offs, long long n,
-                                            long long i, const float* src) {
+                                            long long i, const TS* src) {
   float acc = 0.f;
   for (int d = 0; d < offs.nd; ++d) {
     const long long j = i + offs.off[d];
-    if (j >= 0 && j < n) acc += GkAcc<float>::load(D[d * n + i]) * __ldcg(src + j);
+    if (j >= 0 && j < n)
+      acc += GkAcc<float>::load(D[d * n + i]) * gk_to_float(__ldcg(src + j));
   }
   return acc;
+}
+
+// The operator of a whole-solve kernel that is templated on it (K12, K13,
+// K15, K17 and their Pell forms): row(i, src) is row i of the product with
+// a vector that other blocks may have written since the last grid barrier.
+// A Dia: (nd, n) diagonals and their offsets; for BiCGSTAB and CGS they
+// are A M with the preconditioner folded in (solver/_fused_gate.fold_minv).
+// The Pell operator is pell.cuh's GkPellOp.
+template <typename TD>
+struct GkDiaOp {
+  const TD* diags;
+  GkOffsets offs;
+  long long n;
+
+  template <typename TS>
+  __device__ __forceinline__ float row(long long i, const TS* src) const {
+    return gk_dia_row(diags, offs, n, i, src);
+  }
+};
+
+// The Dia operator of the C entry points' arguments (nd in [1, GK_MAX_DIAGS],
+// which the entry points check).
+template <typename TD>
+static GkDiaOp<TD> gk_dia_op(const void* diags, const long long* offsets, int nd,
+                             long long n) {
+  GkDiaOp<TD> op;
+  op.diags = static_cast<const TD*>(diags);
+  op.offs.nd = nd;
+  for (int d = 0; d < nd; ++d) op.offs.off[d] = offsets[d];
+  op.n = n;
+  return op;
 }
 
 // Row i of a DIA product on the K columns of a row-major (n, K) source,

@@ -1,7 +1,14 @@
-// Whole-solve restarted GMRES(m) in one persistent cooperative kernel:
-// kernel K15 of the PyTorch port, and its k-column form K15m (below).
+// Whole-solve restarted GMRES(m) in one persistent cooperative kernel,
+// templated on its operator (coop.cuh GkDiaOp, pell.cuh GkPellOp): kernel
+// K15 of the PyTorch port on a Dia, K18 on a Pell, and the k-column form
+// K15m (below).
 //
-// Replaces ginkgo_tpu/ops/pallas_gmres.py gmres_vmem_solve
+// K18 replaces ginkgo_tpu/ops/pallas_gmres.py pell_gmres_vmem_solve
+// (_gmres_pell_kernel, :857), which runs the same _gmres_core over the
+// Pell SpMV: only the operator's row differs (Arnoldi product, true
+// residual), and every step moves the plan once in place of the diagonals.
+//
+// K15 replaces ginkgo_tpu/ops/pallas_gmres.py gmres_vmem_solve
 // (_gmres_dia_kernel, :834, over _gmres_core, :110-378): left scalar-Jacobi
 // preconditioned GMRES(m) with the Arnoldi process orthogonalized by CGS2,
 // the Givens QR of the Hessenberg matrix updated on the fly, the
@@ -43,6 +50,7 @@
 //     take 1 (inv_beta, inv_h), zero pivots give y = 0.
 
 #include "coop.cuh"
+#include "pell.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -54,9 +62,9 @@ namespace cg = cooperative_groups;
 // stays under 48 KB for k = 4 (ops/gmres.py MAX_FUSED_KRYLOV_DIM_MULTI).
 #define GK_GMRES_MULTI_MAX_M 50
 
+template <typename Op>
 struct GmresParams {
-  const void* diags;
-  GkOffsets offs;
+  Op op;
   long long n;
   const float* b;
   const float* x0;
@@ -108,8 +116,8 @@ __device__ __forceinline__ void sum_dots(const double* part, double* hd, int j,
   }
 }
 
-template <typename TD, typename TV>
-__global__ void __launch_bounds__(GK_CG_THREADS) gmres_fused_kernel(const GmresParams P) {
+template <typename Op, typename TV>
+__global__ void __launch_bounds__(GK_CG_THREADS) gmres_fused_kernel(const GmresParams<Op> P) {
   cg::grid_group grid = cg::this_grid();
   __shared__ double sh1[1][GK_CG_WARPS];
   __shared__ double sh2[2][GK_CG_WARPS];
@@ -126,7 +134,6 @@ __global__ void __launch_bounds__(GK_CG_THREADS) gmres_fused_kernel(const GmresP
   float* y = sn + m;         // [m]
   float* Rm = y + m;         // [m][m + 1]: row j is column j of R
 
-  const TD* __restrict__ D = static_cast<const TD*>(P.diags);
   TV* V = static_cast<TV*>(P.V);
   const long long n = P.n;
   const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -145,7 +152,7 @@ __global__ void __launch_bounds__(GK_CG_THREADS) gmres_fused_kernel(const GmresP
     double acc[2] = {0.0, 0.0};
     for (long long k = t0; k < n; k += stride) {
       x[k] = P.x0[k];
-      const float rk = P.b[k] - gk_dia_row(D, P.offs, n, k, P.x0);
+      const float rk = P.b[k] - P.op.row(k, P.x0);
       u[k] = rk;
       const float zk = minv ? minv[k] * rk : rk;
       acc[0] += (double)rk * rk;
@@ -183,12 +190,7 @@ __global__ void __launch_bounds__(GK_CG_THREADS) gmres_fused_kernel(const GmresP
       // u = M A V_j; first dots <V_i, u>
       const TV* Vj = V + (long long)j * n;
       for (long long k = t0; k < n; k += stride) {
-        float acc = 0.f;
-        for (int d = 0; d < P.offs.nd; ++d) {
-          const long long c = k + P.offs.off[d];
-          if (c >= 0 && c < n)
-            acc += GkAcc<float>::load(D[d * n + k]) * gk_to_float(__ldcg(Vj + c));
-        }
+        const float acc = P.op.row(k, Vj);
         u[k] = minv ? minv[k] * acc : acc;
       }
       basis_dots(V, u, j, n, part_b, sh1);
@@ -292,7 +294,7 @@ __global__ void __launch_bounds__(GK_CG_THREADS) gmres_fused_kernel(const GmresP
     {
       double acc[2] = {0.0, 0.0};
       for (long long k = t0; k < n; k += stride) {
-        const float rk = P.b[k] - gk_dia_row(D, P.offs, n, k, x);
+        const float rk = P.b[k] - P.op.row(k, x);
         u[k] = rk;
         const float zk = minv ? minv[k] * rk : rk;
         acc[0] += (double)rk * rk;
@@ -715,27 +717,14 @@ static size_t gmres_smem(int m) { return sizeof(float) * ((size_t)m * m + 7 * (s
     return CALL(__nv_bfloat16, __nv_bfloat16);                                       \
   return (int)cudaErrorInvalidValue;
 
-// Blocks of the cooperative grid for the diagonals' and the basis' dtypes
-// and the Krylov dimension m (which sizes the shared memory).
-extern "C" int gmres_fused_grid(int d_dtype, int v_dtype, int m, int* blocks) {
-  if (m < 1 || m > GK_GMRES_MAX_M) return (int)cudaErrorInvalidValue;
-  const size_t smem = gmres_smem(m);
-#define GK_GRID(TD, TV) gk_coop_blocks(gmres_fused_kernel<TD, TV>, blocks, smem)
-  GK_GMRES_DISPATCH(d_dtype, v_dtype, GK_GRID)
-#undef GK_GRID
-}
-
-extern "C" int gmres_fused_solve(
-    const void* diags, int d_dtype, const long long* offsets, int nd, long long n,
-    const float* b, const float* x0, const float* minv, const float* tol_sq,
-    int max_iters, int m, void* V, int v_dtype, float* x, float* u, double* part,
-    double* hd, int blocks, int* it_out, float* rr_out, int* conv_out, void* stream) {
-  if (nd < 1 || nd > GK_MAX_DIAGS || blocks < 1 || m < 1 || m > GK_GMRES_MAX_M)
-    return (int)cudaErrorInvalidValue;
-  GmresParams P;
-  P.diags = diags;
-  P.offs.nd = nd;
-  for (int d = 0; d < nd; ++d) P.offs.off[d] = offsets[d];
+template <typename Op>
+static GmresParams<Op> gmres_params(const Op& op, long long n, const float* b,
+                                    const float* x0, const float* minv, const float* tol_sq,
+                                    int max_iters, int m, void* V, float* x, float* u,
+                                    double* part, double* hd, int* it_out, float* rr_out,
+                                    int* conv_out) {
+  GmresParams<Op> P;
+  P.op = op;
   P.n = n;
   P.b = b;
   P.x0 = x0;
@@ -751,10 +740,90 @@ extern "C" int gmres_fused_solve(
   P.it_out = it_out;
   P.rr_out = rr_out;
   P.conv_out = conv_out;
+  return P;
+}
+
+// Blocks of the cooperative grid for the diagonals' and the basis' dtypes
+// and the Krylov dimension m (which sizes the shared memory).
+extern "C" int gmres_fused_grid(int d_dtype, int v_dtype, int m, int* blocks) {
+  if (m < 1 || m > GK_GMRES_MAX_M) return (int)cudaErrorInvalidValue;
   const size_t smem = gmres_smem(m);
-#define GK_LAUNCH(TD, TV) gk_coop_launch(gmres_fused_kernel<TD, TV>, P, blocks, stream, smem)
+#define GK_GRID(TD, TV) gk_coop_blocks(gmres_fused_kernel<GkDiaOp<TD>, TV>, blocks, smem)
+  GK_GMRES_DISPATCH(d_dtype, v_dtype, GK_GRID)
+#undef GK_GRID
+}
+
+extern "C" int gmres_fused_solve(
+    const void* diags, int d_dtype, const long long* offsets, int nd, long long n,
+    const float* b, const float* x0, const float* minv, const float* tol_sq,
+    int max_iters, int m, void* V, int v_dtype, float* x, float* u, double* part,
+    double* hd, int blocks, int* it_out, float* rr_out, int* conv_out, void* stream) {
+  if (nd < 1 || nd > GK_MAX_DIAGS || blocks < 1 || m < 1 || m > GK_GMRES_MAX_M)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = gmres_smem(m);
+#define GK_LAUNCH(TD, TV)                                                                 \
+  gk_coop_launch(gmres_fused_kernel<GkDiaOp<TD>, TV>,                                     \
+                 gmres_params(gk_dia_op<TD>(diags, offsets, nd, n), n, b, x0, minv, tol_sq, \
+                              max_iters, m, V, x, u, part, hd, it_out, rr_out, conv_out), \
+                 blocks, stream, smem)
   GK_GMRES_DISPATCH(d_dtype, v_dtype, GK_LAUNCH)
 #undef GK_LAUNCH
+}
+
+template <typename TVal, typename TQ>
+static int pell_gmres_grid(int v_dtype, size_t smem, int* blocks) {
+  if (v_dtype == GK_F32)
+    return gk_coop_blocks(gmres_fused_kernel<GkPellOp<TVal, TQ>, float>, blocks, smem);
+  if (v_dtype == GK_BF16)
+    return gk_coop_blocks(gmres_fused_kernel<GkPellOp<TVal, TQ>, __nv_bfloat16>, blocks, smem);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K18: blocks of the Pell form's cooperative grid for the values', lane
+// indices' and basis' dtypes and the Krylov dimension m.
+extern "C" int pell_gmres_fused_grid(int val_dtype, int q_dtype, int v_dtype, int m,
+                                     int* blocks) {
+  if (m < 1 || m > GK_GMRES_MAX_M) return (int)cudaErrorInvalidValue;
+  const size_t smem = gmres_smem(m);
+  GK_PELL_VQ_DISPATCH(val_dtype, q_dtype, (pell_gmres_grid<TV, TQ>)(v_dtype, smem, blocks));
+}
+
+template <typename TVal, typename TQ>
+static int pell_gmres_launch(const void* values, const void* qidx, const int* bases,
+                             const int* tile_ptr, int S, int G, long long n, const float* b,
+                             const float* x0, const float* minv, const float* tol_sq,
+                             int max_iters, int m, void* V, int v_dtype, float* x, float* u,
+                             double* part, double* hd, int blocks, int* it_out,
+                             float* rr_out, int* conv_out, void* stream) {
+  const GmresParams<GkPellOp<TVal, TQ>> P = gmres_params(
+      gk_pell_op<TVal, TQ>(values, qidx, bases, tile_ptr, S, G, n, nullptr), n, b, x0, minv,
+      tol_sq, max_iters, m, V, x, u, part, hd, it_out, rr_out, conv_out);
+  const size_t smem = gmres_smem(m);
+  if (v_dtype == GK_F32)
+    return gk_coop_launch(gmres_fused_kernel<GkPellOp<TVal, TQ>, float>, P, blocks, stream,
+                          smem);
+  if (v_dtype == GK_BF16)
+    return gk_coop_launch(gmres_fused_kernel<GkPellOp<TVal, TQ>, __nv_bfloat16>, P, blocks,
+                          stream, smem);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K18: restarted GMRES(m) on a square Pell (values float32/bfloat16, lane
+// indices int8/int32), left-preconditioned by minv (nullptr: Identity),
+// with a float32 or bfloat16 basis.
+extern "C" int pell_gmres_fused_solve(
+    const void* values, int val_dtype, const void* qidx, int q_dtype, const int* bases,
+    const int* tile_ptr, int S, int G, long long n, const float* b, const float* x0,
+    const float* minv, const float* tol_sq, int max_iters, int m, void* V, int v_dtype,
+    float* x, float* u, double* part, double* hd, int blocks, int* it_out, float* rr_out,
+    int* conv_out, void* stream) {
+  if (S < 1 || G < 1 || blocks < 1 || m < 1 || m > GK_GMRES_MAX_M)
+    return (int)cudaErrorInvalidValue;
+  GK_PELL_VQ_DISPATCH(val_dtype, q_dtype,
+                      (pell_gmres_launch<TV, TQ>)(values, qidx, bases, tile_ptr, S, G, n, b,
+                                                  x0, minv, tol_sq, max_iters, m, V, v_dtype,
+                                                  x, u, part, hd, blocks, it_out, rr_out,
+                                                  conv_out, stream));
 }
 
 #define GK_GMRES_SWITCH_K(k, CALL_K)             \

@@ -30,14 +30,24 @@
 // sweep always runs; the loop runs while it < max_iters && !(rr <= tol_sq),
 // rr the post-sweep r.r (a NaN keeps sweeping); the reported rr is the last
 // sweep's, or r0's when max_iters = 0.
+//
+// The passes are templated on the operator (coop.cuh GkDiaOp, pell.cuh
+// GkPellOp): on a Pell, ir_fused_kernel is K21 (pell_ir_fused_solve), which
+// replaces ginkgo_tpu/ops/pallas_pell_cg.py pell_ir_vmem_solve
+// (_pell_ir_kernel, :794).  That TPU kernel's monitor starts at the r.r of
+// r0 = b - A x0, not at +inf, so a solve whose r0 already meets the
+// threshold runs no sweep (the template flag kMonitorFromR0); every other
+// rule is K17's.  A sweep moves the plan once (values, lane indices, bases)
+// and the vectors as K17 does.
 
 #include "coop.cuh"
+#include "pell.cuh"
 
 namespace cg = cooperative_groups;
 
+template <typename Op>
 struct IrParams {
-  const void* diags;
-  GkOffsets offs;
+  Op op;
   long long n;
   const float* b;
   const float* x0;      // ir_smooth: nullptr starts from zero
@@ -55,7 +65,8 @@ struct IrParams {
 };
 
 // x += omega M r over this thread's rows.
-__device__ __forceinline__ void ir_update(const IrParams& P) {
+template <typename Op>
+__device__ __forceinline__ void ir_update(const IrParams<Op>& P) {
   const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = t0; i < P.n; i += stride) {
@@ -66,22 +77,21 @@ __device__ __forceinline__ void ir_update(const IrParams& P) {
 }
 
 // r = b - A x over this thread's rows; returns this thread's part of r.r.
-template <typename TD>
-__device__ __forceinline__ double ir_residual(const IrParams& P) {
-  const TD* __restrict__ D = static_cast<const TD*>(P.diags);
+template <typename Op>
+__device__ __forceinline__ double ir_residual(const IrParams<Op>& P) {
   const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
   double acc = 0.0;
   for (long long i = t0; i < P.n; i += stride) {
-    const float ri = P.b[i] - gk_dia_row(D, P.offs, P.n, i, P.x);
+    const float ri = P.b[i] - P.op.row(i, P.x);
     P.r[i] = ri;
     acc += (double)ri * ri;
   }
   return acc;
 }
 
-template <typename TD>
-__global__ void __launch_bounds__(GK_CG_THREADS) ir_fused_kernel(const IrParams P) {
+template <typename Op, bool kMonitorFromR0>
+__global__ void __launch_bounds__(GK_CG_THREADS) ir_fused_kernel(const IrParams<Op> P) {
   cg::grid_group grid = cg::this_grid();
   __shared__ double sh1[1][GK_CG_WARPS];
   __shared__ double bc1[1];
@@ -90,7 +100,7 @@ __global__ void __launch_bounds__(GK_CG_THREADS) ir_fused_kernel(const IrParams 
 
   for (long long i = t0; i < P.n; i += stride) P.x[i] = P.x0[i];
   grid.sync();
-  double acc[1] = {ir_residual<TD>(P)};
+  double acc[1] = {ir_residual(P)};
   block_partial<1>(acc, P.part, sh1);
   grid.sync();
   double tot[1];
@@ -98,12 +108,12 @@ __global__ void __launch_bounds__(GK_CG_THREADS) ir_fused_kernel(const IrParams 
   float rr = (float)tot[0];
 
   const float tol_sq = *P.tol_sq;
-  float mon = CUDART_INF_F;
+  float mon = kMonitorFromR0 ? rr : CUDART_INF_F;
   int it = 0;
   while (it < P.iters && !(mon <= tol_sq)) {
     ir_update(P);
     grid.sync();
-    acc[0] = ir_residual<TD>(P);
+    acc[0] = ir_residual(P);
     // a block writes these partials after the barrier above, which no
     // block reaches before it has read the previous sweep's
     block_partial<1>(acc, P.part, sh1);
@@ -121,8 +131,8 @@ __global__ void __launch_bounds__(GK_CG_THREADS) ir_fused_kernel(const IrParams 
   }
 }
 
-template <typename TD>
-__global__ void __launch_bounds__(GK_CG_THREADS) ir_smooth_kernel(const IrParams P) {
+template <typename Op>
+__global__ void __launch_bounds__(GK_CG_THREADS) ir_smooth_kernel(const IrParams<Op> P) {
   cg::grid_group grid = cg::this_grid();
   const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -136,7 +146,7 @@ __global__ void __launch_bounds__(GK_CG_THREADS) ir_smooth_kernel(const IrParams
   } else {
     for (long long i = t0; i < P.n; i += stride) P.x[i] = P.x0[i];
     grid.sync();
-    ir_residual<TD>(P);
+    ir_residual(P);
   }
   // The residual's product reads x across rows and, with no reduction
   // here, nothing else orders it before the next update writes x: a
@@ -146,7 +156,7 @@ __global__ void __launch_bounds__(GK_CG_THREADS) ir_smooth_kernel(const IrParams
     grid.sync();
     ir_update(P);
     grid.sync();
-    ir_residual<TD>(P);
+    ir_residual(P);
   }
   if (!P.with_residual && P.iters > 0) grid.sync();
   if (!P.with_residual && P.iters > 0) ir_update(P);
@@ -157,11 +167,11 @@ __global__ void __launch_bounds__(GK_CG_THREADS) ir_smooth_kernel(const IrParams
 extern "C" int ir_fused_grid(int d_dtype, int* blocks) {
   int a = 0, b = 0, e = 0;
   if (d_dtype == GK_F32) {
-    if ((e = gk_coop_blocks(ir_fused_kernel<float>, &a)) != 0) return e;
-    if ((e = gk_coop_blocks(ir_smooth_kernel<float>, &b)) != 0) return e;
+    if ((e = gk_coop_blocks(ir_fused_kernel<GkDiaOp<float>, false>, &a)) != 0) return e;
+    if ((e = gk_coop_blocks(ir_smooth_kernel<GkDiaOp<float>>, &b)) != 0) return e;
   } else if (d_dtype == GK_BF16) {
-    if ((e = gk_coop_blocks(ir_fused_kernel<__nv_bfloat16>, &a)) != 0) return e;
-    if ((e = gk_coop_blocks(ir_smooth_kernel<__nv_bfloat16>, &b)) != 0) return e;
+    if ((e = gk_coop_blocks(ir_fused_kernel<GkDiaOp<__nv_bfloat16>, false>, &a)) != 0) return e;
+    if ((e = gk_coop_blocks(ir_smooth_kernel<GkDiaOp<__nv_bfloat16>>, &b)) != 0) return e;
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -169,13 +179,11 @@ extern "C" int ir_fused_grid(int d_dtype, int* blocks) {
   return 0;
 }
 
-static int ir_params(IrParams& P, const void* diags, const long long* offsets, int nd,
-                     long long n, const float* b, const float* x0, const float* minv,
-                     float omega, int iters, float* x, float* r) {
-  if (nd < 1 || nd > GK_MAX_DIAGS || iters < 0) return (int)cudaErrorInvalidValue;
-  P.diags = diags;
-  P.offs.nd = nd;
-  for (int d = 0; d < nd; ++d) P.offs.off[d] = offsets[d];
+template <typename Op>
+static IrParams<Op> ir_params(const Op& op, long long n, const float* b, const float* x0,
+                              const float* minv, float omega, int iters, float* x, float* r) {
+  IrParams<Op> P;
+  P.op = op;
   P.n = n;
   P.b = b;
   P.x0 = x0;
@@ -190,7 +198,22 @@ static int ir_params(IrParams& P, const void* diags, const long long* offsets, i
   P.it_out = nullptr;
   P.rr_out = nullptr;
   P.conv_out = nullptr;
-  return 0;
+  return P;
+}
+
+// The stop-test entry points' launch (K17 on a Dia, K21 on a Pell).
+template <typename Op, bool kMonitorFromR0>
+static int ir_solve_launch(const Op& op, long long n, const float* b, const float* x0,
+                           const float* minv, const float* tol_sq, float omega, int max_iters,
+                           float* x, float* r, double* part, int blocks, int* it_out,
+                           float* rr_out, int* conv_out, void* stream) {
+  IrParams<Op> P = ir_params(op, n, b, x0, minv, omega, max_iters, x, r);
+  P.tol_sq = tol_sq;
+  P.part = part;
+  P.it_out = it_out;
+  P.rr_out = rr_out;
+  P.conv_out = conv_out;
+  return gk_coop_launch(ir_fused_kernel<Op, kMonitorFromR0>, P, blocks, stream);
 }
 
 extern "C" int ir_fused_solve(const void* diags, int d_dtype, const long long* offsets,
@@ -198,17 +221,15 @@ extern "C" int ir_fused_solve(const void* diags, int d_dtype, const long long* o
                               const float* minv, const float* tol_sq, float omega,
                               int max_iters, float* x, float* r, double* part, int blocks,
                               int* it_out, float* rr_out, int* conv_out, void* stream) {
-  IrParams P;
-  int e = ir_params(P, diags, offsets, nd, n, b, x0, minv, omega, max_iters, x, r);
-  if (e != 0 || blocks < 1 || x0 == nullptr) return e != 0 ? e : (int)cudaErrorInvalidValue;
-  P.tol_sq = tol_sq;
-  P.part = part;
-  P.it_out = it_out;
-  P.rr_out = rr_out;
-  P.conv_out = conv_out;
-  if (d_dtype == GK_F32) return gk_coop_launch(ir_fused_kernel<float>, P, blocks, stream);
-  if (d_dtype == GK_BF16)
-    return gk_coop_launch(ir_fused_kernel<__nv_bfloat16>, P, blocks, stream);
+  if (nd < 1 || nd > GK_MAX_DIAGS || max_iters < 0 || blocks < 1 || x0 == nullptr)
+    return (int)cudaErrorInvalidValue;
+#define GK_DIA_LAUNCH(TD)                                                                  \
+  ir_solve_launch<GkDiaOp<TD>, false>(gk_dia_op<TD>(diags, offsets, nd, n), n, b, x0, minv, \
+                                      tol_sq, omega, max_iters, x, r, part, blocks, it_out, \
+                                      rr_out, conv_out, stream)
+  if (d_dtype == GK_F32) return GK_DIA_LAUNCH(float);
+  if (d_dtype == GK_BF16) return GK_DIA_LAUNCH(__nv_bfloat16);
+#undef GK_DIA_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
@@ -216,12 +237,53 @@ extern "C" int ir_smooth(const void* diags, int d_dtype, const long long* offset
                          long long n, const float* b, const float* x0, const float* minv,
                          float omega, int iters, int with_residual, float* x, float* r,
                          int blocks, void* stream) {
-  IrParams P;
-  int e = ir_params(P, diags, offsets, nd, n, b, x0, minv, omega, iters, x, r);
-  if (e != 0 || blocks < 1) return e != 0 ? e : (int)cudaErrorInvalidValue;
-  P.with_residual = with_residual;
-  if (d_dtype == GK_F32) return gk_coop_launch(ir_smooth_kernel<float>, P, blocks, stream);
-  if (d_dtype == GK_BF16)
-    return gk_coop_launch(ir_smooth_kernel<__nv_bfloat16>, P, blocks, stream);
+  if (nd < 1 || nd > GK_MAX_DIAGS || iters < 0 || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+#define GK_DIA_LAUNCH(TD)                                                                  \
+  do {                                                                                     \
+    IrParams<GkDiaOp<TD>> P =                                                              \
+        ir_params(gk_dia_op<TD>(diags, offsets, nd, n), n, b, x0, minv, omega, iters, x, r); \
+    P.with_residual = with_residual;                                                       \
+    return gk_coop_launch(ir_smooth_kernel<GkDiaOp<TD>>, P, blocks, stream);               \
+  } while (0)
+  if (d_dtype == GK_F32) GK_DIA_LAUNCH(float);
+  if (d_dtype == GK_BF16) GK_DIA_LAUNCH(__nv_bfloat16);
+#undef GK_DIA_LAUNCH
   return (int)cudaErrorInvalidValue;
+}
+
+// K21: blocks of the Pell form's cooperative grid (one double of partial
+// sums per block).
+extern "C" int pell_ir_fused_grid(int v_dtype, int q_dtype, int* blocks) {
+  GK_PELL_VQ_DISPATCH(v_dtype, q_dtype,
+                      gk_coop_blocks(ir_fused_kernel<GkPellOp<TV, TQ>, true>, blocks));
+}
+
+template <typename TV, typename TQ>
+static int pell_ir_launch(const void* values, const void* qidx, const int* bases,
+                          const int* tile_ptr, int S, int G, long long n, const float* b,
+                          const float* x0, const float* minv, const float* tol_sq,
+                          float omega, int max_iters, float* x, float* r, double* part,
+                          int blocks, int* it_out, float* rr_out, int* conv_out,
+                          void* stream) {
+  return ir_solve_launch<GkPellOp<TV, TQ>, true>(
+      gk_pell_op<TV, TQ>(values, qidx, bases, tile_ptr, S, G, n, nullptr), n, b, x0, minv,
+      tol_sq, omega, max_iters, x, r, part, blocks, it_out, rr_out, conv_out, stream);
+}
+
+// K21: IR/Richardson sweeps on a square Pell (values float32/bfloat16, lane
+// indices int8/int32) to the stop test, the monitor starting at r0's r.r.
+extern "C" int pell_ir_fused_solve(const void* values, int v_dtype, const void* qidx,
+                                   int q_dtype, const int* bases, const int* tile_ptr, int S,
+                                   int G, long long n, const float* b, const float* x0,
+                                   const float* minv, const float* tol_sq, float omega,
+                                   int max_iters, float* x, float* r, double* part,
+                                   int blocks, int* it_out, float* rr_out, int* conv_out,
+                                   void* stream) {
+  if (S < 1 || G < 1 || max_iters < 0 || blocks < 1 || x0 == nullptr)
+    return (int)cudaErrorInvalidValue;
+  GK_PELL_VQ_DISPATCH(v_dtype, q_dtype,
+                      (pell_ir_launch<TV, TQ>)(values, qidx, bases, tile_ptr, S, G, n, b, x0,
+                                               minv, tol_sq, omega, max_iters, x, r, part,
+                                               blocks, it_out, rr_out, conv_out, stream));
 }

@@ -162,35 +162,10 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
   }
 }
 
-#define GK_PELL_CG_DISPATCH(v_dtype, q_dtype, CALL)                          \
-  do {                                                                      \
-    if (v_dtype == GK_F32 && q_dtype == GK_I8) {                            \
-      using TV = float;                                                     \
-      using TQ = signed char;                                               \
-      return CALL;                                                          \
-    }                                                                       \
-    if (v_dtype == GK_F32 && q_dtype == GK_I32) {                           \
-      using TV = float;                                                     \
-      using TQ = int;                                                       \
-      return CALL;                                                          \
-    }                                                                       \
-    if (v_dtype == GK_BF16 && q_dtype == GK_I8) {                           \
-      using TV = __nv_bfloat16;                                             \
-      using TQ = signed char;                                               \
-      return CALL;                                                          \
-    }                                                                       \
-    if (v_dtype == GK_BF16 && q_dtype == GK_I32) {                          \
-      using TV = __nv_bfloat16;                                             \
-      using TQ = int;                                                       \
-      return CALL;                                                          \
-    }                                                                       \
-    return (int)cudaErrorInvalidValue;                                      \
-  } while (0)
-
 // Number of blocks the cooperative grid will have (the wrapper sizes the
 // partial-sum scratch, 4 doubles per block, from it).
 extern "C" int pell_cg_fused_grid(int v_dtype, int q_dtype, int* blocks) {
-  GK_PELL_CG_DISPATCH(v_dtype, q_dtype,
+  GK_PELL_VQ_DISPATCH(v_dtype, q_dtype,
                       gk_coop_blocks(pell_cg_fused_kernel<TV, TQ>, blocks));
 }
 
@@ -225,7 +200,7 @@ extern "C" int pell_cg_fused_solve(
   P.it_out = it_out;
   P.mon_out = mon_out;
   P.conv_out = conv_out;
-  GK_PELL_CG_DISPATCH(v_dtype, q_dtype,
+  GK_PELL_VQ_DISPATCH(v_dtype, q_dtype,
                       gk_coop_launch(pell_cg_fused_kernel<TV, TQ>, P, blocks,
                                      stream));
 }

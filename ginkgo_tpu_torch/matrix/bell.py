@@ -98,7 +98,10 @@ class Bell(LinOp):
 
     @staticmethod
     def from_csr(csr, block_rows: int = 8) -> "Bell":
-        return Bell.from_matrix_data(csr.to_matrix_data(), block_rows, device=csr.device)
+        """The panels of a ``Csr``, in its values' dtype (the host triples
+        of bfloat16 values are float32)."""
+        return Bell.from_matrix_data(csr.to_matrix_data(), block_rows,
+                                     device=csr.device).astype(csr.dtype)
 
     @property
     def dtype(self):

@@ -299,15 +299,17 @@ class Csr(LinOp):
     def to_csr(self):
         return self
 
+    # The host triples of bfloat16 values are float32 (types.to_host); the
+    # conversions keep the values' dtype, as the JAX package's do.
     def to_dia(self):
         from .dia import Dia
 
-        return Dia.from_matrix_data(self.to_matrix_data(), device=self.device)
+        return Dia.from_matrix_data(self.to_matrix_data(), device=self.device).astype(self.dtype)
 
     def to_bell(self, block_rows: int = 8):
         from .bell import Bell
 
-        return Bell.from_matrix_data(self.to_matrix_data(), block_rows, device=self.device)
+        return Bell.from_csr(self, block_rows)
 
     def to_scipy(self):
         """scipy CSR on the host; bfloat16 widens to float32 (scipy has no

@@ -60,8 +60,12 @@ class Dense(LinOp):
         return self.values.numel()
 
     def _product(self, arr):
+        """values @ arr computed in the arithmetic dtype and returned in
+        ``promote_types(self.dtype, arr.dtype)`` (the JAX package's
+        ``result_type``)."""
         work = torch.promote_types(types.arithmetic_dtype(self.dtype), arr.dtype)
-        return self.values.to(work) @ arr.to(work)
+        out = self.values.to(work) @ arr.to(work)
+        return out.to(torch.promote_types(self.dtype, arr.dtype))
 
     def apply(self, b):
         arr, was_1d = as_2d(b)

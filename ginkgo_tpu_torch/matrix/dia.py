@@ -80,6 +80,9 @@ class Dia(LinOp):
         return arr.to(work).contiguous()
 
     def apply(self, b):
+        """A b in ``promote_types(self.dtype, b.dtype)``, computed in the
+        arithmetic dtype (bfloat16 storage computes in float32), as the
+        JAX package's ``result_type``."""
         arr, was_1d = as_2d(b)
         n, m = self.shape
         xa = self._operand(arr)
@@ -87,7 +90,7 @@ class Dia(LinOp):
             y = dia_spmv(self.diags, self.offsets, xa[:, 0], m)[:, None]
         else:
             y = dia_spmm(self.diags, self.offsets, xa, m)
-        return restore_1d(y, was_1d)
+        return restore_1d(y.to(torch.promote_types(self.dtype, arr.dtype)), was_1d)
 
     def apply_advanced(self, alpha, b, beta, x):
         """x := alpha * A b + beta * x; one fused K2 pass for a single

@@ -103,14 +103,17 @@ class Pell(LinOp):
     # -- apply ----------------------------------------------------------------
 
     def apply(self, b):
+        """A b in b's dtype, as the JAX package's; a vector dtype the
+        kernels do not take (bfloat16) is computed in float32."""
         arr, was_1d = as_2d(b)
-        if arr.dtype not in VECTOR_DTYPES:
+        dtype = arr.dtype
+        if dtype not in VECTOR_DTYPES:
             arr = arr.to(torch.float32)
         if arr.shape[1] > 1:
             out = pell_spmm(self, arr.contiguous())
         else:
             out = pell_spmv(self, arr[:, 0].contiguous())[:, None]
-        return restore_1d(out, was_1d)
+        return restore_1d(out.to(dtype) if dtype.is_floating_point else out, was_1d)
 
     def apply_advanced(self, alpha, b, beta, x):
         arr, was_1d = as_2d(b)

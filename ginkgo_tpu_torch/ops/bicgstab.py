@@ -3,7 +3,9 @@
 Counterpart of ``ginkgo_tpu/ops/pallas_bicgstab.py`` ``bicgstab_vmem_solve``
 (K12, ``_bicgstab_kernel``, :53-186) and ``bicgstab_vmem_solve_multi`` (K12m,
 ``_bicgstab_multi_kernel``, :202-426, 2 to 8 columns with per-column
-stopping).  Right-preconditioned BiCGSTAB with a
+stopping).  The one-column loop exists once, :func:`bicgstab_loop_reference`
+over an SpMV; K12's plain version runs it on a Dia, K19's
+(``ops/pell_cg.py``) on a Pell.  Right-preconditioned BiCGSTAB with a
 diagonal M folded into the operator: ``diags`` hold A M
 (``solver/_fused_gate.fold_minv``), and ``minv`` is applied only in the x
 update.  The whole loop, with the half-step check on s and the stop test,
@@ -46,19 +48,17 @@ from .cg import (
 from .dia import DTYPE_CODE, check_status, dia_spmv_reference, offsets_array, on_cpu
 
 
-def bicgstab_solve_reference(diags, offsets, r0, x0, minv=None, *, tol_sq_eff,
-                             max_iters, use_implicit=False):
-    """K12's plain version, pass by pass as the kernel.  diags: (nd, n) of
-    A M; r0, x0, minv: (n,) float32.  Returns (x, r, iterations int32,
-    monitored_sq float32, converged)."""
-    n = r0.shape[0]
+def bicgstab_loop_reference(spmv, r0, x0, minv=None, *, tol_sq_eff, max_iters,
+                            use_implicit=False):
+    """The one-column whole solve, pass by pass as K12 and K19, for any
+    operator.  spmv: (n,) -> (n,) float32, the product the kernel runs
+    on p and s, A M in either form (folded, or M applied before A); minv:
+    (n,) or None, applied in the x update; r0, x0: (n,) float32.  Returns
+    (x, r, iterations int32, monitored_sq float32, converged)."""
     dev = r0.device
     tol = torch.as_tensor(tol_sq_eff, dtype=torch.float32, device=dev).reshape(())
     mv = None if minv is None else minv.to(torch.float32)
     one = torch.ones((), dtype=torch.float32, device=dev)
-
-    def spmv(v):
-        return dia_spmv_reference(diags, offsets, v, n)
 
     x = x0.clone()
     r = r0.clone()
@@ -91,6 +91,18 @@ def bicgstab_solve_reference(diags, offsets, r0, x0, minv=None, *, tol_sq_eff,
         it += 1
     iters = torch.tensor(it, dtype=torch.int32, device=dev)
     return x, r, iters, mon, mon <= tol
+
+
+def bicgstab_solve_reference(diags, offsets, r0, x0, minv=None, *, tol_sq_eff,
+                             max_iters, use_implicit=False):
+    """K12's plain version.  diags: (nd, n) of A M; r0, x0, minv: (n,)
+    float32.  Returns (x, r, iterations int32, monitored_sq float32,
+    converged)."""
+    n = r0.shape[0]
+    return bicgstab_loop_reference(
+        lambda v: dia_spmv_reference(diags, offsets, v, n), r0, x0, minv,
+        tol_sq_eff=tol_sq_eff, max_iters=max_iters, use_implicit=use_implicit,
+    )
 
 
 def bicgstab_solve_multi_reference(diags, offsets, r0, x0, minv=None, *, tol_sq_eff,
@@ -169,8 +181,18 @@ def _lib():
             P, I,  # partials, blocks
             P, P, P, P, P,  # it_out, mon_out, conv_out, itc_out, stream
         ]
+        lib.pell_bicgstab_fused_grid.argtypes = [I, I, blocks]
+        lib.pell_bicgstab_fused_solve.argtypes = [
+            P, I, P, I, P, P, I, I, L,  # values, qidx, bases, tile_ptr, S, G, n
+            P, P, P, P,  # r0, x0, minv, tol_sq
+            I, I,  # max_iters, implicit
+            P, P, P, P, P, P, P,  # x, r, rr, v, t, p, s
+            P, I,  # partials, blocks
+            P, P, P, P,  # it_out, mon_out, conv_out, stream
+        ]
         for fn in (lib.bicgstab_fused_grid, lib.bicgstab_fused_solve,
-                   lib.bicgstab_fused_multi_grid, lib.bicgstab_fused_multi_solve):
+                   lib.bicgstab_fused_multi_grid, lib.bicgstab_fused_multi_solve,
+                   lib.pell_bicgstab_fused_grid, lib.pell_bicgstab_fused_solve):
             fn.restype = I
         lib.gk_error_string.argtypes = [I]
         lib.gk_error_string.restype = ctypes.c_char_p

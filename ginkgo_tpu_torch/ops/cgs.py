@@ -7,7 +7,9 @@ Counterpart of ``ginkgo_tpu/ops/pallas_cgs.py`` ``cgs_vmem_solve``
 
 - CGS runs on A M with a diagonal M folded into the diagonals
   (``solver/_fused_gate.fold_minv``); ``minv`` is applied only in the x
-  update, x += alpha minv (u + q).
+  update, x += alpha minv (u + q).  The loop exists once,
+  :func:`cgs_loop_reference` over an SpMV; K20's plain version
+  (``ops/pell_cg.py``) runs it on a Pell.
 - BiCG takes A's diagonals and those of A^H (the ``Dia`` conjugate
   transpose: offsets negated) and runs both products in one pass; a real
   diagonal M is its own M^H, so z = M r and z2 = M r2.
@@ -37,17 +39,15 @@ def _start(r0, tol_sq_eff):
     return tol, mon, torch.ones((), dtype=torch.float32, device=dev)
 
 
-def cgs_solve_reference(diags, offsets, r0, x0, minv=None, *, tol_sq_eff, max_iters,
-                        use_implicit=False):
-    """K13's plain version, pass by pass as the kernel.  diags: (nd, n) of
-    A M; r0, x0, minv: (n,) float32.  Returns (x, r, iterations int32,
-    monitored_sq float32, converged)."""
-    n = r0.shape[0]
+def cgs_loop_reference(spmv, r0, x0, minv=None, *, tol_sq_eff, max_iters,
+                       use_implicit=False):
+    """The whole CGS solve, pass by pass as K13 and K20, for any operator.
+    spmv: (n,) -> (n,) float32, A M in either form (folded, or M applied
+    before A); minv: (n,) or None, applied in the x update; r0, x0: (n,)
+    float32.  Returns (x, r, iterations int32, monitored_sq float32,
+    converged)."""
     tol, mon, rho_old = _start(r0, tol_sq_eff)
     mv = None if minv is None else minv.to(torch.float32)
-
-    def spmv(v):
-        return dia_spmv_reference(diags, offsets, v, n)
 
     x = x0.clone()
     r = r0.clone()
@@ -74,6 +74,18 @@ def cgs_solve_reference(diags, offsets, r0, x0, minv=None, *, tol_sq_eff, max_it
         it += 1
     iters = torch.tensor(it, dtype=torch.int32, device=r0.device)
     return x, r, iters, mon, mon <= tol
+
+
+def cgs_solve_reference(diags, offsets, r0, x0, minv=None, *, tol_sq_eff, max_iters,
+                        use_implicit=False):
+    """K13's plain version.  diags: (nd, n) of A M; r0, x0, minv: (n,)
+    float32.  Returns (x, r, iterations int32, monitored_sq float32,
+    converged)."""
+    n = r0.shape[0]
+    return cgs_loop_reference(
+        lambda v: dia_spmv_reference(diags, offsets, v, n), r0, x0, minv,
+        tol_sq_eff=tol_sq_eff, max_iters=max_iters, use_implicit=use_implicit,
+    )
 
 
 def bicg_solve_reference(diags, offsets, diags_t, offsets_t, r0, x0, minv=None, *,
@@ -137,8 +149,17 @@ def _lib():
             P, I,  # partials, blocks
             P, P, P, P,  # it_out, mon_out, conv_out, stream
         ]
+        lib.pell_cgs_fused_grid.argtypes = [I, I, blocks]
+        lib.pell_cgs_fused_solve.argtypes = [
+            P, I, P, I, P, P, I, I, L,  # values, qidx, bases, tile_ptr, S, G, n
+            P, P, P, P,  # r0, x0, minv, tol_sq
+            I, I,  # max_iters, implicit
+            P, P, P, P, P, P, P, P,  # x, r, rr, q, u, v, p, w
+            P, I,  # partials, blocks
+            P, P, P, P,  # it_out, mon_out, conv_out, stream
+        ]
         for fn in (lib.cgs_fused_grid, lib.bicg_fused_grid, lib.cgs_fused_solve,
-                   lib.bicg_fused_solve):
+                   lib.bicg_fused_solve, lib.pell_cgs_fused_grid, lib.pell_cgs_fused_solve):
             fn.restype = I
         lib.gk_error_string.argtypes = [I]
         lib.gk_error_string.restype = ctypes.c_char_p

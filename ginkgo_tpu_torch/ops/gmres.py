@@ -1,5 +1,5 @@
-"""Whole-solve fused restarted GMRES(m): kernels K15 and K15m and their
-plain versions.
+"""Whole-solve fused restarted GMRES(m): kernels K15, K15m and K18 and
+their plain versions.
 
 Counterpart of ``ginkgo_tpu/ops/pallas_gmres.py`` ``gmres_vmem_solve`` (K15,
 ``_gmres_dia_kernel`` over ``_gmres_core``, :110-378) and
@@ -27,7 +27,12 @@ step as ``_gmres_core``:
 - after each cycle the true r.r decides ``converged`` (r.r <= tol_sq_eff
   and tol_sq_eff >= 0), which can retract the in-cycle stop.
 
-It takes b, not r0, and returns the true r.r.
+It takes b, not r0, and returns the true r.r.  The one-column loop exists
+once, :func:`gmres_loop_reference` over an SpMV.  K18 (:func:`pell_gmres_fused`,
+``ginkgo_tpu/ops/pallas_gmres.py`` ``pell_gmres_vmem_solve``,
+``_gmres_pell_kernel`` :857) is K15 on a square Pell: the same
+``_gmres_core`` over the Pell SpMV, in the same CUDA kernel templated on its
+operator.
 
 K15m runs k columns through one Arnoldi step counter j.  Each column has
 its own g, rotations and R factor; a column's QR freezes once it stops
@@ -50,6 +55,7 @@ import torch
 from .. import _build
 from .cg import _dots, _sqrt, check_fused_diags, check_solve_vectors, coop_grid_blocks
 from .dia import DTYPE_CODE, check_status, dia_spmv_reference, offsets_array, on_cpu
+from .pell import INDEX_CODE, check_fused_pell, pell_plan_args, pell_spmv_reference
 
 #: basis storage dtypes the kernel takes (keep; reduce1/reduce2)
 BASIS_DTYPES = (torch.float32, torch.bfloat16)
@@ -94,21 +100,19 @@ def _givens(h, j, cs, sn, g):
     return h
 
 
-def gmres_solve_reference(diags, offsets, b, x0, minv=None, *, m, tol_sq_eff, max_iters,
-                          basis_dtype=torch.float32):
-    """K15's plain version, step by step as the kernel.  diags: (nd, n);
-    b, x0, minv: (n,) float32; m: the Krylov dimension; basis_dtype:
-    float32 or bfloat16.  The m-sized scalar work runs on the host in
-    float32.  Returns (x, iterations int32, true r.r float32, converged)."""
+def gmres_loop_reference(spmv, b, x0, minv=None, *, m, tol_sq_eff, max_iters,
+                         basis_dtype=torch.float32):
+    """The whole solve, step by step as K15 and K18, for any operator.
+    spmv: (n,) -> (n,) float32; b, x0, minv: (n,) float32; m: the Krylov
+    dimension; basis_dtype: float32 or bfloat16.  The m-sized scalar work
+    runs on the host in float32.  Returns (x, iterations int32, true r.r
+    float32, converged)."""
     n = b.shape[0]
     dev = b.device
     m = int(m)
     tol = float(torch.as_tensor(tol_sq_eff, dtype=torch.float32))
     tol_t = torch.tensor(tol, dtype=torch.float32)
     mv = None if minv is None else minv.to(torch.float32)
-
-    def spmv(v):
-        return dia_spmv_reference(diags, offsets, v, n)
 
     def precond(v):
         return v if mv is None else mv * v
@@ -164,6 +168,27 @@ def gmres_solve_reference(diags, offsets, b, x0, minv=None, *, m, tol_sq_eff, ma
         done = bool(rr_h <= tol_t) and tol >= 0
     iters = torch.tensor(it, dtype=torch.int32, device=dev)
     return x, iters, rr, torch.tensor(done, device=dev)
+
+
+def gmres_solve_reference(diags, offsets, b, x0, minv=None, *, m, tol_sq_eff, max_iters,
+                          basis_dtype=torch.float32):
+    """K15's plain version.  diags: (nd, n); b, x0, minv: (n,) float32.
+    Returns (x, iterations int32, true r.r float32, converged)."""
+    n = b.shape[0]
+    return gmres_loop_reference(
+        lambda v: dia_spmv_reference(diags, offsets, v, n), b, x0, minv, m=m,
+        tol_sq_eff=tol_sq_eff, max_iters=max_iters, basis_dtype=basis_dtype,
+    )
+
+
+def pell_gmres_solve_reference(A, b, x0, minv=None, *, m, tol_sq_eff, max_iters,
+                               basis_dtype=torch.float32):
+    """K18's plain version.  A: a square Pell; b, x0, minv: (n,) float32.
+    Returns (x, iterations int32, true r.r float32, converged)."""
+    return gmres_loop_reference(
+        lambda v: pell_spmv_reference(A, v), b, x0, minv, m=m, tol_sq_eff=tol_sq_eff,
+        max_iters=max_iters, basis_dtype=basis_dtype,
+    )
 
 
 def _back_substitute(Rm, g, m):
@@ -276,13 +301,29 @@ def _lib():
             P, P, P, P, I,  # x, u, partials, summed dots, blocks
             P, P, P, P, P,  # it_out, rr_out, conv_out, itc_out, stream
         ]
+        lib.pell_gmres_fused_grid.argtypes = [I, I, I, I, blocks]
+        lib.pell_gmres_fused_solve.argtypes = [
+            P, I, P, I, P, P, I, I, L,  # values, qidx, bases, tile_ptr, S, G, n
+            P, P, P, P,  # b, x0, minv, tol_sq
+            I, I, P, I,  # max_iters, m, basis, basis dtype
+            P, P, P, P, I,  # x, u, partials, summed dots, blocks
+            P, P, P, P,  # it_out, rr_out, conv_out, stream
+        ]
         for fn in (lib.gmres_fused_grid, lib.gmres_fused_solve,
-                   lib.gmres_fused_multi_grid, lib.gmres_fused_multi_solve):
+                   lib.gmres_fused_multi_grid, lib.gmres_fused_multi_solve,
+                   lib.pell_gmres_fused_grid, lib.pell_gmres_fused_solve):
             fn.restype = I
         lib.gk_error_string.argtypes = [I]
         lib.gk_error_string.restype = ctypes.c_char_p
         lib.gk_typed = True
     return lib
+
+
+def _check_m_basis(what, m, basis_dtype):
+    if not 1 <= m <= MAX_FUSED_KRYLOV_DIM:
+        raise ValueError(f"{what}: takes 1 <= m <= {MAX_FUSED_KRYLOV_DIM}, got {m}")
+    if basis_dtype not in BASIS_DTYPES:
+        raise TypeError(f"{what}: the basis must be float32/bfloat16, got {basis_dtype}")
 
 
 def gmres_fused(diags, offsets, b, x0, minv=None, *, m, tol_sq_eff, max_iters,
@@ -300,10 +341,7 @@ def gmres_fused(diags, offsets, b, x0, minv=None, *, m, tol_sq_eff, max_iters,
         )
     dev = b.device
     m = int(m)
-    if not 1 <= m <= MAX_FUSED_KRYLOV_DIM:
-        raise ValueError(f"gmres_fused: takes 1 <= m <= {MAX_FUSED_KRYLOV_DIM}, got {m}")
-    if basis_dtype not in BASIS_DTYPES:
-        raise TypeError(f"gmres_fused: the basis must be float32/bfloat16, got {basis_dtype}")
+    _check_m_basis("gmres_fused", m, basis_dtype)
     tol = torch.as_tensor(tol_sq_eff, dtype=torch.float32, device=dev).reshape(1).contiguous()
     check_fused_diags(diags, offsets, dev, "gmres_fused")
     n = diags.shape[1]
@@ -333,6 +371,50 @@ def gmres_fused(diags, offsets, b, x0, minv=None, *, m, tol_sq_eff, max_iters,
 
 
 gmres_fused.launches = 0
+
+
+def pell_gmres_fused(A, b, x0, minv=None, *, m, tol_sq_eff, max_iters,
+                     basis_dtype=torch.float32):
+    """K18: run restarted GMRES(m) to the stop test in one kernel on a
+    square Pell (values float32/bfloat16, lane indices int8/int32), with
+    K15's semantics.  b, x0, minv: (n,) float32; tol_sq_eff: as K15's, a
+    float32 tensor on the device; basis_dtype: float32 or bfloat16.
+    Returns (x, iterations int32, true r.r float32, converged bool) as
+    device tensors."""
+    if on_cpu(b):
+        return pell_gmres_solve_reference(A, b, x0, minv, m=m, tol_sq_eff=tol_sq_eff,
+                                          max_iters=max_iters, basis_dtype=basis_dtype)
+    dev = b.device
+    m = int(m)
+    _check_m_basis("pell_gmres_fused", m, basis_dtype)
+    n = check_fused_pell(A, dev, "pell_gmres_fused")
+    tol = torch.as_tensor(tol_sq_eff, dtype=torch.float32, device=dev).reshape(1).contiguous()
+    check_solve_vectors("pell_gmres_fused", (n,), dev, (b, x0), minv, tol, 1)
+    lib = _lib()
+    codes = (DTYPE_CODE[A.values.dtype], INDEX_CODE[A.qidx.dtype], DTYPE_CODE[basis_dtype])
+    blocks = coop_grid_blocks(lib, "pell_gmres_fused_grid", (*codes, m), dev)
+    V = torch.empty((m + 1, n), dtype=basis_dtype, device=dev)
+    x = torch.empty_like(b)
+    u = torch.empty_like(b)
+    part = torch.empty((m + 4) * blocks, dtype=torch.float64, device=dev)
+    hd = torch.empty(m + 1, dtype=torch.float64, device=dev)
+    it_conv = torch.empty(2, dtype=torch.int32, device=dev)
+    rr = torch.empty(1, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        status = lib.pell_gmres_fused_solve(
+            *pell_plan_args(A), n, b.data_ptr(), x0.data_ptr(),
+            None if minv is None else minv.data_ptr(), tol.data_ptr(),
+            min(int(max_iters), 2**31 - 1), m, V.data_ptr(), codes[2],
+            x.data_ptr(), u.data_ptr(), part.data_ptr(), hd.data_ptr(), blocks,
+            it_conv.data_ptr(), rr.data_ptr(), it_conv[1:].data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    check_status(lib, status, "pell_gmres_fused")
+    pell_gmres_fused.launches += 1
+    return x, it_conv[0], rr[0], it_conv[1] != 0
+
+
+pell_gmres_fused.launches = 0
 
 
 def gmres_fused_multi(diags, offsets, b, x0, minv=None, *, m, tol_sq_eff, max_iters,

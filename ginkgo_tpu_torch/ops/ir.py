@@ -16,7 +16,9 @@ sweep, never updated.  In ``ir_fused`` the monitor starts at +inf, so the
 first sweep always runs, and the loop runs while it < max_iters and
 ``not (r.r <= tol_sq_eff)``, r.r of the residual after the sweep (a NaN
 keeps sweeping); the reported r.r is the last sweep's, or r0's when
-max_iters is 0.
+max_iters is 0.  The sweep loop exists once, :func:`ir_loop_reference`
+over an SpMV; K21's plain version (``ops/pell_cg.py``) runs it on a Pell,
+with the monitor starting at r0's r.r as the TPU Pell kernel's does.
 """
 
 from __future__ import annotations
@@ -30,14 +32,14 @@ from .cg import _dots, check_fused_diags, check_solve_vectors, coop_grid_blocks
 from .dia import DTYPE_CODE, check_status, dia_spmv_reference, offsets_array, on_cpu
 
 
-def _passes(diags, offsets, b, minv, omega):
-    """The two passes of a sweep, as plain tensor ops."""
-    n = b.shape[0]
+def _passes(spmv, b, minv, omega):
+    """The two passes of a sweep, as plain tensor ops over the product
+    ``spmv``."""
     om = torch.tensor(omega, dtype=torch.float32).to(b.device)
     mv = None if minv is None else minv.to(torch.float32)
 
     def resid(x):
-        return b - dia_spmv_reference(diags, offsets, x, n)
+        return b - spmv(x)
 
     def update(x, r):
         return x + om * (r if mv is None else mv * r)
@@ -45,17 +47,26 @@ def _passes(diags, offsets, b, minv, omega):
     return resid, update
 
 
-def ir_solve_reference(diags, offsets, b, x0, minv=None, *, omega, tol_sq_eff, max_iters):
-    """K17's plain version of ``ir_fused``.  diags: (nd, n); b, x0, minv:
-    (n,) float32.  Returns (x, r, iterations int32, r.r float32,
-    converged)."""
+def _dia(diags, offsets, n):
+    return lambda v: dia_spmv_reference(diags, offsets, v, n)
+
+
+def ir_loop_reference(spmv, b, x0, minv=None, *, omega, tol_sq_eff, max_iters,
+                      monitor_from_r0=False):
+    """The sweeps to the stop test, pass by pass as K17 and K21, for any
+    operator.  spmv: (n,) -> (n,) float32; b, x0, minv: (n,) float32.  The
+    monitor starts at +inf, so the first sweep always runs (K17), or with
+    ``monitor_from_r0`` at r0's r.r, so an r0 at the threshold runs none
+    (K21, the TPU Pell kernel's rule).  Returns (x, r, iterations int32,
+    r.r float32, converged)."""
     dev = b.device
     tol = torch.as_tensor(tol_sq_eff, dtype=torch.float32, device=dev).reshape(())
-    resid, update = _passes(diags, offsets, b, minv, omega)
+    resid, update = _passes(spmv, b, minv, omega)
     x = x0.clone()
     r = resid(x)
     rr = _dots(r, r)
-    mon = torch.full((), float("inf"), dtype=torch.float32, device=dev)
+    mon = rr if monitor_from_r0 else torch.full((), float("inf"), dtype=torch.float32,
+                                                device=dev)
     it = 0
     # the loop condition reads the monitor on the host once per sweep
     while it < max_iters and not bool(mon <= tol):
@@ -68,12 +79,20 @@ def ir_solve_reference(diags, offsets, b, x0, minv=None, *, omega, tol_sq_eff, m
     return x, r, iters, rr, rr <= tol
 
 
+def ir_solve_reference(diags, offsets, b, x0, minv=None, *, omega, tol_sq_eff, max_iters):
+    """K17's plain version of ``ir_fused``.  diags: (nd, n); b, x0, minv:
+    (n,) float32.  Returns (x, r, iterations int32, r.r float32,
+    converged)."""
+    return ir_loop_reference(_dia(diags, offsets, b.shape[0]), b, x0, minv, omega=omega,
+                             tol_sq_eff=tol_sq_eff, max_iters=max_iters)
+
+
 def ir_smooth_reference(diags, offsets, b, x0=None, minv=None, *, omega, iters,
                         with_residual=False):
     """K17's plain version of ``ir_smooth``: x0 None starts from zero with
     r = b (no product); with ``with_residual`` every sweep ends with
     r = b - A x, else iters - 1 sweeps and a last update.  Returns (x, r)."""
-    resid, update = _passes(diags, offsets, b, minv, omega)
+    resid, update = _passes(_dia(diags, offsets, b.shape[0]), b, minv, omega)
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     r = b.clone() if x0 is None else resid(x)
     sweeps = iters if with_residual else max(iters - 1, 0)
@@ -102,7 +121,15 @@ def _lib():
             P, P, P, F, I, I,  # b, x0 (or null), minv, omega, iters, with_residual
             P, P, I, P,  # x, r, blocks, stream
         ]
-        for fn in (lib.ir_fused_grid, lib.ir_fused_solve, lib.ir_smooth):
+        lib.pell_ir_fused_grid.argtypes = [I, I, blocks]
+        lib.pell_ir_fused_solve.argtypes = [
+            P, I, P, I, P, P, I, I, L,  # values, qidx, bases, tile_ptr, S, G, n
+            P, P, P, P, F, I,  # b, x0, minv, tol_sq, omega, max_iters
+            P, P, P, I,  # x, r, partials, blocks
+            P, P, P, P,  # it_out, rr_out, conv_out, stream
+        ]
+        for fn in (lib.ir_fused_grid, lib.ir_fused_solve, lib.ir_smooth,
+                   lib.pell_ir_fused_grid, lib.pell_ir_fused_solve):
             fn.restype = I
         lib.gk_error_string.argtypes = [I]
         lib.gk_error_string.restype = ctypes.c_char_p

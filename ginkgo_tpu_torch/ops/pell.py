@@ -56,6 +56,8 @@ PLAN_CACHE_BYTES = 2 << 30
 #: index dtype codes of csrc/common.cuh (GkDtype)
 INDEX_CODE = {torch.int8: 3, torch.int32: 4}
 VALUE_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
+#: value dtypes of the whole-solve Pell kernels (K7, K18-K21)
+FUSED_VALUE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _g_cost(n_steps: int, total_slots: int, S: int, bytes_per_cell: int) -> float:
@@ -233,6 +235,18 @@ def check_plan(A, dev, what):
         raise ValueError(f"{what}: plan arrays must be contiguous")
 
 
+def check_fused_pell(A, dev, what):
+    """The operator of a whole-solve Pell kernel (K7, K18-K21): a square
+    plan on ``dev`` with float32 or bfloat16 values.  Returns its rows."""
+    check_plan(A, dev, what)
+    n = A.shape[0]
+    if A.shape[1] != n:
+        raise ValueError(f"{what}: the operator must be square, got {A.shape}")
+    if A.values.dtype not in FUSED_VALUE_DTYPES:
+        raise TypeError(f"{what}: values must be float32/bfloat16, got {A.values.dtype}")
+    return n
+
+
 def _check_operands(A, x, what):
     if not x.is_cuda:
         raise RuntimeError(f"{what}: x on {x.device}")
@@ -305,7 +319,8 @@ def pell_spmm_reference(A, X):
 # -- kernel wrappers -------------------------------------------------------------------
 
 
-def _plan_args(A):
+def pell_plan_args(A):
+    """The plan arguments every Pell kernel's C entry point starts with."""
     return (A.values.data_ptr(), DTYPE_CODE[A.values.dtype], A.qidx.data_ptr(),
             INDEX_CODE[A.qidx.dtype], A.bases.data_ptr(), A.tile_ptr.data_ptr(),
             A.S, A.G)
@@ -322,7 +337,7 @@ def pell_spmv(A, x):
     y = torch.empty(A.shape[0], dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         status = lib.pell_spmv(
-            *_plan_args(A), x.data_ptr(), DTYPE_CODE[x.dtype], y.data_ptr(),
+            *pell_plan_args(A), x.data_ptr(), DTYPE_CODE[x.dtype], y.data_ptr(),
             A.shape[0], A.shape[1], torch.cuda.current_stream().cuda_stream,
         )
     check_status(lib, status, "pell_spmv")
@@ -346,7 +361,7 @@ def pell_spmm(A, X):
     Y = torch.empty((A.shape[0], k), dtype=X.dtype, device=X.device)
     with torch.cuda.device(X.device):
         status = lib.pell_spmm(
-            *_plan_args(A), X.data_ptr(), DTYPE_CODE[X.dtype], Y.data_ptr(),
+            *pell_plan_args(A), X.data_ptr(), DTYPE_CODE[X.dtype], Y.data_ptr(),
             A.shape[0], A.shape[1], k, torch.cuda.current_stream().cuda_stream,
         )
     check_status(lib, status, "pell_spmm")

@@ -12,11 +12,12 @@ Every fused route needs:
 - no history tracking.
 
 ``prepare_fused_dia`` adds a square ``Dia`` with 1 to 64 diagonals stored
-as float32 or bfloat16 (kernels K4, K4m, K12-K15; ``fused_transpose_ok``
+as float32 or bfloat16 (kernels K4, K4m, K12-K17; ``fused_transpose_ok``
 adds BiCG's A^H for K14); ``prepare_fused_pell`` a square ``Pell`` with
 float32 or bfloat16 values and S = 8, the layout both packages' fused
-kernels are routed to (K7).  ``fold_minv`` builds the A M operator that
-the fused BiCGSTAB and CGS kernels run on.
+kernels are routed to (K7, K18-K21), for one column.  ``fold_minv`` builds
+the A M operator that the fused BiCGSTAB and CGS kernels run on a Dia;
+on a Pell they apply M explicitly.
 
 The TPU gates' VMEM/SMEM budgets and environment flags have no
 counterpart: the GPU kernels keep their state in device memory, so no
@@ -32,7 +33,7 @@ from ..matrix.diagonal import Diagonal, Identity
 from ..matrix.pell import Pell
 from ..ops.cg import FUSED_DIAG_DTYPES
 from ..ops.dia import MAX_DIAGS
-from ..ops.pell_cg import FUSED_VALUE_DTYPES
+from ..ops.pell import FUSED_VALUE_DTYPES
 from ..preconditioner.jacobi import Jacobi
 from ..stop.criterion import analyze_simple_residual
 from .solver_base import SolveInfo, extract_max_iters, norm2
@@ -111,7 +112,8 @@ def fold_minv(A, minv):
 
 
 def prepare_fused_pell(solver, b):
-    """None or the ctx K7 needs, for one column on a square Pell."""
+    """None or the ctx a whole-solve Pell kernel (K7, K18-K21) needs, for
+    one column on a square Pell."""
     A = solver.A
     if not isinstance(A, Pell) or A.shape[0] != A.shape[1]:
         return None
@@ -133,6 +135,17 @@ def fused_info(ctx, b, it, mon, conv):
         rn = torch.full(mon.shape, float("inf"), dtype=b.dtype, device=b.device)
     conv_mask = conv if ctx["has_res"] else torch.zeros_like(conv)
     return SolveInfo(iterations=it, residual_norm=rn, converged=conv_mask)
+
+
+def kernel_inputs(ctx, b, x0):
+    """What every whole-solve kernel takes besides the operator: r0 = b - A
+    x0, the inverse diagonal as contiguous float32 (or None) and the
+    per-column squared thresholds (:func:`tol_sq_eff`)."""
+    r0 = b - ctx["A"].apply(x0)
+    minv = ctx["minv"]
+    if minv is not None:
+        minv = minv.to(torch.float32).contiguous()
+    return r0, minv, tol_sq_eff(ctx, b, r0)
 
 
 def tol_sq_eff(ctx, b, r0):

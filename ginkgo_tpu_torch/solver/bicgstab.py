@@ -2,24 +2,30 @@
 
 Counterpart of ``ginkgo_tpu/solver/bicgstab.py`` (reference
 core/solver/bicgstab.cpp, cgs.cpp, bicg.cpp).  A solve takes the first
-route that accepts it:
+route that accepts it, in the JAX package's order (solver/bicgstab.py:
+52-63, 413-416):
 
-- one float32 column on a ``Dia`` with an Identity, Diagonal or scalar
-  Jacobi preconditioner and a simple residual criterion: the solver's
-  whole-solve kernel, K12 (``ops/bicgstab.bicgstab_fused``), K13
-  (``ops/cgs.cgs_fused``) or K14 (``ops/cgs.bicg_fused``).  BiCGSTAB and
-  CGS run on A M with the diagonal M folded into the diagonals
-  (``_fused_gate.fold_minv``); BiCG also needs A^H as a ``Dia``;
-- BiCGSTAB with 2 to 8 float32 columns under the same gate: the k-column
-  kernel K12m (``ops/bicgstab.bicgstab_fused_multi``), per-column stopping
-  in the kernel, on A M as K12;
+- BiCGSTAB with 2 to 8 float32 columns on a ``Dia`` with an Identity,
+  Diagonal or scalar Jacobi preconditioner and a simple residual
+  criterion: the k-column kernel K12m (``ops/bicgstab.bicgstab_fused_multi``),
+  per-column stopping in the kernel, on A M as K12; a k > 1 solve tries no
+  other kernel;
+- one float32 column on a square S = 8 ``Pell`` under the same gate:
+  BiCGSTAB's K19 (``ops/pell_cg.pell_bicgstab_fused``) or CGS's K20
+  (``ops/pell_cg.pell_cgs_fused``), M applied explicitly (PELL values have
+  no column fold).  BiCG has no Pell kernel, in the JAX package either;
+- one float32 column on a ``Dia`` under the same gate: K12
+  (``ops/bicgstab.bicgstab_fused``), K13 (``ops/cgs.cgs_fused``) or K14
+  (``ops/cgs.bicg_fused``).  BiCGSTAB and CGS run on A M with the diagonal
+  M folded into the diagonals (``_fused_gate.fold_minv``); BiCG also needs
+  A^H as a ``Dia``;
 - otherwise the streaming loop (``_solve_streaming``), step for step as
   the JAX package's: more than 8 columns (CGS and BiCG: more than one;
   the JAX package has no k-column kernel for them), block Jacobi or any
-  other preconditioner, a ``Csr``/``Pell``/``Well``/``Bell`` operator.
-  The JAX package's Pell, ILU and multigrid fused routes are not ported
-  yet and stream here.  Per-column stop masks freeze converged columns;
-  the loop condition is read on the host once per iteration.
+  other preconditioner, BiCG on a ``Pell``, a ``Csr``/``Well``/``Bell``
+  operator.  The JAX package's ILU and multigrid fused routes are not
+  ported yet and stream here.  Per-column stop masks freeze converged
+  columns; the loop condition is read on the host once per iteration.
 """
 
 from __future__ import annotations
@@ -34,12 +40,14 @@ from ..base.linop import LinOp
 from ..ops.bicgstab import bicgstab_fused, bicgstab_fused_multi
 from ..ops.cg import MAX_FUSED_COLS
 from ..ops.cgs import bicg_fused, cgs_fused
+from ..ops.pell_cg import pell_bicgstab_fused, pell_cgs_fused
 from ._fused_gate import (
     fold_minv,
     fused_info,
     fused_transpose_ok,
+    kernel_inputs,
     prepare_fused_dia,
-    tol_sq_eff,
+    prepare_fused_pell,
 )
 from .solver_base import (
     IterativeSolverMixin,
@@ -62,19 +70,29 @@ def _solve_fused(solver, b, x0, run, fold, max_cols=1):
     if ctx is None:
         return None
     A = ctx["A"]
-    r0 = b - A.apply(x0)
-    minv = ctx["minv"]
-    if minv is not None:
-        minv = minv.to(torch.float32).contiguous()
+    r0, minv, tol = kernel_inputs(ctx, b, x0)
     diags = A.diags if (minv is None or not fold) else fold_minv(A, minv)
-    kw = {"tol_sq_eff": tol_sq_eff(ctx, b, r0), "max_iters": ctx["cap"],
-          "use_implicit": ctx["implicit"]}
+    kw = {"tol_sq_eff": tol, "max_iters": ctx["cap"], "use_implicit": ctx["implicit"]}
     if b.shape[1] > 1:
         x, _r, it, mon, conv, _itc = run(diags, A.offsets, r0.contiguous(), x0.contiguous(),
                                          minv, **kw)
         return x, fused_info(ctx, b, it, mon, conv)
     x, _r, it, mon, conv = run(diags, A.offsets, r0[:, 0].contiguous(),
                                x0[:, 0].contiguous(), minv, **kw)
+    return x[:, None], fused_info(ctx, b, it, mon[None], conv[None])
+
+
+def _solve_fused_pell(solver, b, x0, run):
+    """(x, SolveInfo) from a whole-solve Pell kernel ``run`` taking (A, r0,
+    x0, minv) for one column, or None when the gate declines.  The kernel
+    applies M explicitly and takes minv for the x update too."""
+    ctx = prepare_fused_pell(solver, b)
+    if ctx is None:
+        return None
+    r0, minv, tol = kernel_inputs(ctx, b, x0)
+    x, _r, it, mon, conv = run(ctx["A"], r0[:, 0].contiguous(), x0[:, 0].contiguous(), minv,
+                               tol_sq_eff=tol, max_iters=ctx["cap"],
+                               use_implicit=ctx["implicit"])
     return x[:, None], fused_info(ctx, b, it, mon[None], conv[None])
 
 
@@ -97,12 +115,14 @@ class Bicgstab(IterativeSolverMixin, LinOp):
         return fast if fast is not None else self._solve_streaming(b, x0)
 
     def _try_fused(self, b, x0):
-        """K12 on A M for one column, K12m for 2 to 8 columns (the JAX
-        package's rule, solver/bicgstab.py:52-54, 108-174), or None."""
+        """K12m for 2 to 8 columns; for one, K19 on a Pell, else K12 on A M
+        (the JAX package's order, solver/bicgstab.py:52-63, 277), or
+        None."""
         if b.shape[1] > 1:
             return _solve_fused(self, b, x0, bicgstab_fused_multi, fold=True,
                                 max_cols=MAX_FUSED_COLS)
-        return _solve_fused(self, b, x0, bicgstab_fused, fold=True)
+        return (_solve_fused_pell(self, b, x0, pell_bicgstab_fused)
+                or _solve_fused(self, b, x0, bicgstab_fused, fold=True))
 
     def _solve_streaming(self, b, x0):
         """Right-preconditioned BiCGSTAB with the half-step check on s,
@@ -166,8 +186,10 @@ class Cgs(IterativeSolverMixin, LinOp):
         return fast if fast is not None else self._solve_streaming(b, x0)
 
     def _try_fused(self, b, x0):
-        """K13 on A M, or None."""
-        return _solve_fused(self, b, x0, cgs_fused, fold=True)
+        """K20 on a Pell, else K13 on A M (the JAX package's order,
+        solver/bicgstab.py:413-416, 464), or None."""
+        return (_solve_fused_pell(self, b, x0, pell_cgs_fused)
+                or _solve_fused(self, b, x0, cgs_fused, fold=True))
 
     def _solve_streaming(self, b, x0):
         """Step for step as ginkgo_tpu's Cgs loop (solver/bicgstab.py:

@@ -32,7 +32,7 @@ from ..base.linop import LinOp
 from ..matrix.pell import Pell
 from ..ops.cg import MAX_FUSED_COLS, cg_fused, cg_fused_multi
 from ..ops.pell_cg import pell_cg_fused
-from ._fused_gate import fused_info, prepare_fused_dia, prepare_fused_pell, tol_sq_eff
+from ._fused_gate import fused_info, kernel_inputs, prepare_fused_dia, prepare_fused_pell
 from .solver_base import (
     IterativeSolverMixin,
     SolveInfo,
@@ -47,14 +47,9 @@ def _solve_fused(b, x0, ctx, flexible):
     """The whole solve in one kernel: K4m for (n, k) on a Dia, K7 on a
     Pell, K4 on a Dia.  b, x0: (n, k) float32."""
     A = ctx["A"]
-    r0 = b - A.apply(x0)
-    kw = {
-        "tol_sq_eff": tol_sq_eff(ctx, b, r0), "max_iters": ctx["cap"],
-        "use_implicit": ctx["implicit"], "flexible": flexible,
-    }
-    minv = ctx["minv"]
-    if minv is not None:
-        minv = minv.to(torch.float32).contiguous()
+    r0, minv, tol = kernel_inputs(ctx, b, x0)
+    kw = {"tol_sq_eff": tol, "max_iters": ctx["cap"], "use_implicit": ctx["implicit"],
+          "flexible": flexible}
     if b.shape[1] > 1:
         x, _r, it, mon, conv, _itc = cg_fused_multi(
             A.diags, A.offsets, r0.contiguous(), x0.contiguous(), minv, **kw)

@@ -6,22 +6,27 @@ accessor modes keep, reduce1, reduce2, integer, ireduce1, ireduce2).
 Left-preconditioned, CGS2 orthogonalization, Givens QR applied on the
 fly, and an honest re-check of the true residual after every restart.
 
-A solve takes the first route that accepts it:
+A solve takes the first route that accepts it, in the JAX package's order
+(solver/gmres.py:300-309):
 
-- one float32 column on a ``Dia`` with an Identity, Diagonal or scalar
-  Jacobi preconditioner, a simple residual criterion, a float storage mode
-  (keep: float32 basis; reduce1/reduce2: bfloat16) and krylov_dim <= 100:
-  the whole-solve kernel K15 (``ops/gmres.gmres_fused``);
-- 2 to 4 float32 columns under the same gate and krylov_dim <= 50: the
-  k-column kernel K15m (``ops/gmres.gmres_fused_multi``), per-column
-  stopping in the kernel.  As in the JAX package (solver/gmres.py:304-306)
-  a k > 1 solve never tries the one-column kernel.  The JAX package's gate
-  for it is a VMEM fit, not a cap on krylov_dim: a k-column solve with
-  krylov_dim > 50 streams here;
+- one float32 column on a square S = 8 ``Pell`` with an Identity,
+  Diagonal or scalar Jacobi preconditioner, a simple residual criterion, a
+  float storage mode (keep: float32 basis; reduce1/reduce2: bfloat16) and
+  krylov_dim <= 100: the whole-solve kernel K18
+  (``ops/gmres.pell_gmres_fused``); ``CbGmres`` "auto" at 2^19 rows or more
+  reaches it with a bfloat16 basis;
+- one float32 column on a ``Dia`` under the same gate: K15
+  (``ops/gmres.gmres_fused``);
+- 2 to 4 float32 columns on a ``Dia`` under the same gate and
+  krylov_dim <= 50: the k-column kernel K15m
+  (``ops/gmres.gmres_fused_multi``), per-column stopping in the kernel.  As
+  in the JAX package (solver/gmres.py:304-306) a k > 1 solve never tries a
+  one-column kernel.  The JAX package's gate for it is a VMEM fit, not a
+  cap on krylov_dim: a k-column solve with krylov_dim > 50 streams here;
 - otherwise the streaming loop: ``_solve_single`` per column, the loop
   that ``jax.vmap`` runs over the columns in the JAX package.  Integer
-  storage modes, more than 4 columns and the JAX package's Pell route
-  (not ported yet) stream here.
+  storage modes, more than 4 columns (more than one on a ``Pell``) and
+  krylov_dim > 100 stream here.
 """
 
 from __future__ import annotations
@@ -32,15 +37,22 @@ from typing import Any
 import torch
 
 from ..base.linop import LinOp
+from ..matrix.pell import Pell
 from ..ops.gmres import (
     MAX_FUSED_GMRES_COLS,
     MAX_FUSED_KRYLOV_DIM,
     MAX_FUSED_KRYLOV_DIM_MULTI,
     gmres_fused,
     gmres_fused_multi,
+    pell_gmres_fused,
 )
-from ._fused_gate import prepare_fused_dia, tol_sq_eff
-from .solver_base import IterativeSolverMixin, SolveInfo, extract_max_iters
+from ._fused_gate import kernel_inputs, prepare_fused_dia, prepare_fused_pell
+from .solver_base import (
+    IterativeSolverMixin,
+    SolveInfo,
+    extract_max_iters,
+    solve_triangular,
+)
 
 # -- basis storage accessors (cb_gmres_accessor.hpp analog) --------------------
 
@@ -117,30 +129,31 @@ class Gmres(IterativeSolverMixin, LinOp):
         return None if mode in _INT_MODES else _storage_dtype(mode, torch.float32)
 
     def _try_fused(self, b, x0):
-        """K15 for one column, K15m for 2 to 4, or None.  Reports the true
-        residual norms, always."""
+        """K18 for one column on a Pell, K15 on a Dia, K15m for 2 to 4
+        columns on a Dia, or None.  Reports the true residual norms,
+        always."""
         basis_dtype = self._fused_basis_dtype()
         m = int(self.krylov_dim)
         k = b.shape[1]
         cap_m = MAX_FUSED_KRYLOV_DIM if k == 1 else MAX_FUSED_KRYLOV_DIM_MULTI
         if basis_dtype is None or not 1 <= m <= cap_m:
             return None
-        ctx = prepare_fused_dia(self, b, max_cols=MAX_FUSED_GMRES_COLS)
+        ctx = (prepare_fused_pell(self, b)
+               or prepare_fused_dia(self, b, max_cols=MAX_FUSED_GMRES_COLS))
         if ctx is None:
             return None
         A = ctx["A"]
-        r0 = b - A.apply(x0)
-        minv = ctx["minv"]
-        if minv is not None:
-            minv = minv.to(torch.float32).contiguous()
-        kw = {"m": m, "tol_sq_eff": tol_sq_eff(ctx, b, r0), "max_iters": ctx["cap"],
-              "basis_dtype": basis_dtype}
+        _r0, minv, tol = kernel_inputs(ctx, b, x0)
+        kw = {"m": m, "tol_sq_eff": tol, "max_iters": ctx["cap"], "basis_dtype": basis_dtype}
         if k > 1:
             x, it, rr, conv, _itc = gmres_fused_multi(A.diags, A.offsets, b.contiguous(),
                                                       x0.contiguous(), minv, **kw)
         else:
-            x, it, rr, conv = gmres_fused(A.diags, A.offsets, b[:, 0].contiguous(),
-                                          x0[:, 0].contiguous(), minv, **kw)
+            b1, x01 = b[:, 0].contiguous(), x0[:, 0].contiguous()
+            if isinstance(A, Pell):
+                x, it, rr, conv = pell_gmres_fused(A, b1, x01, minv, **kw)
+            else:
+                x, it, rr, conv = gmres_fused(A.diags, A.offsets, b1, x01, minv, **kw)
             x, rr, conv = x[:, None], rr[None], conv[None]
         conv = conv if ctx["has_res"] else torch.zeros_like(conv)
         return x, SolveInfo(iterations=it, residual_norm=torch.sqrt(rr).to(b.dtype),
@@ -243,7 +256,7 @@ class Gmres(IterativeSolverMixin, LinOp):
             taken = torch.arange(m, device=dev) < steps
             R = H[:m, :] + torch.diag(torch.where(taken, 0, 1).to(dt))
             gy = torch.where(taken, g[:m], 0)
-            y = torch.linalg.solve_triangular(R, gy[:, None], upper=True)[:, 0]
+            y = solve_triangular(R, gy[:, None], upper=True)[:, 0]
             dx = _decode_basis(Vs, sc, mode, dt)[:m].T @ y
             return x + dx, it, stopped
 

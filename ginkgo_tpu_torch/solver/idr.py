@@ -30,8 +30,13 @@ import torch
 from ..base import types
 from ..base.linop import LinOp
 from ..ops.idr import MAX_FUSED_IDR_S, idr_fused
-from ._fused_gate import prepare_fused_dia, tol_sq_eff
-from .solver_base import IterativeSolverMixin, SolveInfo, extract_max_iters
+from ._fused_gate import kernel_inputs, prepare_fused_dia
+from .solver_base import (
+    IterativeSolverMixin,
+    SolveInfo,
+    extract_max_iters,
+    solve_triangular,
+)
 
 
 @dataclasses.dataclass(eq=False)
@@ -86,14 +91,11 @@ class Idr(IterativeSolverMixin, LinOp):
         if ctx is None:
             return None
         A = ctx["A"]
-        r0 = b - A.apply(x0)
-        minv = ctx["minv"]
-        if minv is not None:
-            minv = minv.to(torch.float32).contiguous()
+        r0, minv, tol = kernel_inputs(ctx, b, x0)
         x, _r, it, mon, conv = idr_fused(
             A.diags, A.offsets, self.P.to(torch.float32).contiguous(), r0[:, 0].contiguous(),
             x0[:, 0].contiguous(), b[:, 0].contiguous(), minv, kappa=self.kappa,
-            tol_sq_eff=tol_sq_eff(ctx, b, r0), max_iters=ctx["cap"],
+            tol_sq_eff=tol, max_iters=ctx["cap"],
         )
         conv = conv[None] if ctx["has_res"] else torch.zeros(1, dtype=torch.bool,
                                                              device=b.device)
@@ -148,8 +150,7 @@ class Idr(IterativeSolverMixin, LinOp):
         while it < cap and not bool(stopped):
             f = torch.conj(P) @ r
             for kk in range(s):
-                csol = torch.linalg.solve_triangular(Mm[kk:, kk:], f[kk:, None],
-                                                     upper=False)[:, 0]
+                csol = solve_triangular(Mm[kk:, kk:], f[kk:, None], upper=False)[:, 0]
                 c = torch.zeros(s, dtype=dt, device=dev)
                 c[kk:] = csol
                 v = apply1(M, r - c @ G)

@@ -4,15 +4,20 @@ Counterpart of ``ginkgo_tpu/solver/ir.py`` (reference core/solver/ir.cpp,
 ir.hpp:66-81: ``relaxation_factor`` and the inner ``solver``).  With an
 inner scalar-Jacobi solver this is damped Jacobi.
 
-A solve takes the first route that accepts it:
+A solve takes the first route that accepts it, in the JAX package's order
+(solver/ir.py:98-100):
 
-- one float32 column on a ``Dia`` with an Identity, Diagonal or scalar
-  Jacobi inner solver and a criterion that is not implicit (IR has no
-  rho): the whole-solve kernel K17 (``ops/ir.ir_fused``);
+- one float32 column on a square S = 8 ``Pell`` with an Identity,
+  Diagonal or scalar Jacobi inner solver and a criterion that is not
+  implicit (IR has no rho): the whole-solve kernel K21
+  (``ops/pell_cg.pell_ir_fused``).  Its monitor starts at r0's r.r, as the
+  JAX package's Pell kernel's does, so an initial guess that already meets
+  the tolerance runs no sweep, where the Dia kernel and the streaming loop
+  run one;
+- one float32 column on a ``Dia`` under the same gate: K17
+  (``ops/ir.ir_fused``);
 - otherwise the streaming loop, step for step as the JAX package's: k > 1
   columns, the implicit criterion, any other inner solver or operator.
-  The JAX package's Pell kernel (``pallas_pell_cg.pell_ir_vmem_solve``)
-  is not ported yet, so IR on a ``Pell`` streams here.
 """
 
 from __future__ import annotations
@@ -23,8 +28,10 @@ from typing import Any
 import torch
 
 from ..base.linop import LinOp
+from ..matrix.pell import Pell
 from ..ops.ir import ir_fused
-from ._fused_gate import prepare_fused_dia, tol_sq_eff
+from ..ops.pell_cg import pell_ir_fused
+from ._fused_gate import kernel_inputs, prepare_fused_dia, prepare_fused_pell
 from .solver_base import IterativeSolverMixin, SolveInfo, extract_max_iters, masked_cols
 
 
@@ -50,21 +57,20 @@ class Ir(IterativeSolverMixin, LinOp):
         return fast if fast is not None else self._solve_streaming(b, x0)
 
     def _try_fused(self, b, x0):
-        """K17, or None.  The residual norm is reported where a residual
-        criterion is present, else inf (ginkgo_tpu solver/ir.py:130-133)."""
-        ctx = prepare_fused_dia(self, b)
+        """K21 on a Pell, K17 on a Dia, or None.  The residual norm is
+        reported where a residual criterion is present, else inf
+        (ginkgo_tpu solver/ir.py:130-133)."""
+        ctx = prepare_fused_pell(self, b) or prepare_fused_dia(self, b)
         if ctx is None or ctx["implicit"]:
             return None
         A = ctx["A"]
-        r0 = b - A.apply(x0)
-        minv = ctx["minv"]
-        if minv is not None:
-            minv = minv.to(torch.float32).contiguous()
-        x, _r, it, rr, conv = ir_fused(
-            A.diags, A.offsets, b[:, 0].contiguous(), x0[:, 0].contiguous(), minv,
-            omega=self.relaxation_factor, tol_sq_eff=tol_sq_eff(ctx, b, r0),
-            max_iters=ctx["cap"],
-        )
+        _r0, minv, tol = kernel_inputs(ctx, b, x0)
+        b1, x01 = b[:, 0].contiguous(), x0[:, 0].contiguous()
+        kw = {"omega": self.relaxation_factor, "tol_sq_eff": tol, "max_iters": ctx["cap"]}
+        if isinstance(A, Pell):
+            x, it, rr, conv = pell_ir_fused(A, b1, x01, minv, **kw)
+        else:
+            x, _r, it, rr, conv = ir_fused(A.diags, A.offsets, b1, x01, minv, **kw)
         if ctx["has_res"]:
             rn = torch.sqrt(rr)[None].to(b.dtype)
         else:

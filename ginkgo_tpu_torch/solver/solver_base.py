@@ -63,6 +63,15 @@ class SolveInfo:
         return int(self.iterations)
 
 
+def solve_triangular(T, rhs, *, upper):
+    """T^-1 rhs for a triangular T, computed in T's arithmetic dtype and
+    returned in T's dtype: PyTorch has no bfloat16 triangular solve on the
+    CPU, and the JAX package solves a bfloat16 system too."""
+    work = types.arithmetic_dtype(T.dtype)
+    out = torch.linalg.solve_triangular(T.to(work), rhs.to(work), upper=upper)
+    return out.to(T.dtype)
+
+
 def extract_max_iters(criterion: Criterion, default: int = HARD_ITER_CAP) -> int:
     found = []
 

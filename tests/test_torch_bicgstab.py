@@ -318,24 +318,25 @@ def _declines(solver, A, k=1):
 
 
 def test_bicgstab_declined_routes_stream(monkeypatch):
-    """Routes the JAX package takes and the port does not yet: each
-    streams (``_try_fused`` returns None) and solves as the JAX loop does.
-    A Pell operator (the JAX Pell kernel, bicgstab.py:277), a general
-    preconditioner (what ILU and multigrid are to the gate, :176, :219).
-    Columns follow the JAX package's rule (:52-54, 108-174): k = 2 takes
-    the k-column kernel K12m, k = 9 streams."""
+    """Routes the JAX package takes and the port does not yet: a general
+    preconditioner (what ILU and multigrid are to the gate, :176, :219)
+    streams (``_try_fused`` returns None).  Columns follow the JAX
+    package's rule (:52-54, 108-174): k = 2 takes the k-column kernel
+    K12m, k = 9 streams.  A one-column solve on an S = 8 Pell takes the
+    Pell kernel K19 (the JAX Pell kernel, bicgstab.py:277; ported in slice
+    6) and solves as the JAX loop does; on the Pell, k = 2 streams."""
     jd, pd = matrices("tridiag700")
     crit = [stop.Iteration(max_iters=200), stop.ResidualNorm(tolerance=1e-6)]
     P = gt.Pell.from_matrix_data(pd, device="cpu")
     sp = gt.Bicgstab.build(criteria=crit).generate(P)
-    assert _declines(sp, P)
+    assert not _declines(sp, P) and _declines(sp, P, k=2)
     _, A = dia_pair("tridiag700")
     general = gt.Composition(operators=(gt.Jacobi.build().generate(A),))
     sg = gt.Bicgstab.build(criteria=crit, preconditioner=general).generate(A)
     assert _declines(sg, A)
     sk = gt.Bicgstab.build(criteria=crit).generate(A)
     assert not _declines(sk, A, k=2) and _declines(sk, A, k=9) and not _declines(sk, A)
-    # the Pell solve streams through its SpMV and matches the JAX loop
+    # the Pell solve runs K19's plain version and matches the JAX loop
     js = JBicgstab.build(criteria=criteria("resnorm", 200, 1e-6)[0]).generate(
         JDia.from_matrix_data(jd))
     b = np.random.default_rng(3).standard_normal((700, 1)).astype(np.float32)

@@ -180,15 +180,20 @@ def test_bicg_needs_the_transpose():
 
 
 def test_declined_routes_stream(monkeypatch):
-    """The JAX Pell CGS kernel (bicgstab.py:413) and k-column solves are
-    not ported: Cgs on a Pell and 2-column solves stream; a Bicg whose At
-    is not a Dia streams."""
+    """k-column CGS and BiCG have no kernel: 2-column solves stream; a Bicg
+    whose At is not a Dia streams, and Bicg on a Pell (no Pell BiCG kernel
+    in the JAX package either).  Cgs on an S = 8 Pell takes the Pell kernel
+    K20 (the JAX Pell CGS kernel, bicgstab.py:413; ported in slice 6) and
+    solves as the JAX loop does."""
     jd, pd = matrices("tridiag700")
     crit = [stop.Iteration(max_iters=200), stop.ResidualNorm(tolerance=1e-6)]
     P = gt.Pell.from_matrix_data(pd, device="cpu")
     b1, b2 = torch.ones(700, 1), torch.ones(700, 2)
     sp = gt.Cgs.build(criteria=crit).generate(P)
-    assert sp._try_fused(b1, torch.zeros_like(b1)) is None
+    assert sp._try_fused(b1, torch.zeros_like(b1)) is not None
+    assert sp._try_fused(b2, torch.zeros_like(b2)) is None
+    spb = gt.Bicg.build(criteria=crit).generate(P)
+    assert spb._try_fused(b1, torch.zeros_like(b1)) is None
     _, A = dia_pair("tridiag700")
     for cls in (gt.Cgs, gt.Bicg):
         s = cls.build(criteria=crit).generate(A)
@@ -197,7 +202,7 @@ def test_declined_routes_stream(monkeypatch):
     sb = gt.Bicg.build(criteria=crit).generate(A)
     sb.At = sb.At.to_dense()
     assert sb._try_fused(b1, torch.zeros_like(b1)) is None
-    # the Pell solve streams through its SpMV and matches the JAX loop
+    # the Pell solve runs K20's plain version and matches the JAX loop
     js, _ = solver_pair(JCgs, gt.Cgs, JDia.from_matrix_data(jd), A,
                         ("resnorm", 200, 1e-6), False)
     b = np.random.default_rng(3).standard_normal((700, 1)).astype(np.float32)

@@ -1,0 +1,117 @@
+"""bfloat16 where the JAX package keeps it: the port's output dtypes against
+the JAX package's on the CPU.
+
+- Every format and conversion of the port (``Dense``, ``Csr``, ``Dia``,
+  ``Csr.to_dia``, ``Csr.to_bell``, ``Bell.from_csr``, ``Pell.from_csr``,
+  ``Well.from_csr``) with float32 and bfloat16 values, applied to float32,
+  bfloat16 and float64 vectors: the operator's dtype and the product's
+  dtype equal the JAX package's, and the product its values.  ``Dense``,
+  ``Csr``, ``Dia`` and ``Bell`` promote the two dtypes; ``Pell`` and
+  ``Well`` return the vector's.
+- Cg, Bicgstab, Ir, Gmres and Idr with a bfloat16 right-hand side on a
+  bfloat16 ``Dia``: a bfloat16 x after the JAX package's iteration count.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+import ginkgo_tpu as gko
+import ginkgo_tpu_torch as gt
+from ginkgo_tpu import stop as jstop
+from ginkgo_tpu.base.matrix_data import MatrixData as JMatrixData
+from ginkgo_tpu_torch import stop
+
+DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16),
+          "f64": (jnp.float64, torch.float64)}
+
+
+def _data(nside=12):
+    data = gt.generators.poisson_2d(nside, dtype=np.float32)
+    return data, JMatrixData.from_coo(data.shape, data.rows, data.cols, data.values)
+
+
+def _operators(name, values):
+    """(the JAX operator, the port's) of a format or conversion with
+    ``values`` ("f32"/"bf16") stored."""
+    data, jd = _data()
+    jdt, tdt = DTYPES[values]
+    if name == "dense":
+        return (gko.matrix.dense.Dense.from_matrix_data(jd).astype(jdt),
+                gt.Dense.from_matrix_data(data, device="cpu").astype(tdt))
+    if name == "dia":
+        return (gko.matrix.dia.Dia.from_matrix_data(jd).astype(jdt),
+                gt.Dia.from_matrix_data(data, device="cpu").astype(tdt))
+    JC = gko.matrix.csr.Csr.from_matrix_data(jd).astype(jdt)
+    C = gt.Csr.from_matrix_data(data, device="cpu").astype(tdt)
+    return {
+        "csr": lambda: (JC, C),
+        "csr.to_dia": lambda: (JC.to_dia(), C.to_dia()),
+        "csr.to_bell": lambda: (JC.to_bell(), C.to_bell()),
+        "bell.from_csr": lambda: (gko.matrix.bell.Bell.from_csr(JC), gt.Bell.from_csr(C)),
+        "pell.from_csr": lambda: (gko.matrix.pell.Pell.from_csr(JC), gt.Pell.from_csr(C)),
+        "well.from_csr": lambda: (gko.matrix.well.Well.from_csr(JC), gt.Well.from_csr(C)),
+    }[name]()
+
+
+FORMATS = ("dense", "csr", "dia", "csr.to_dia", "csr.to_bell", "bell.from_csr",
+           "pell.from_csr", "well.from_csr")
+
+
+@pytest.mark.parametrize("vector", sorted(DTYPES))
+@pytest.mark.parametrize("values", ["f32", "bf16"])
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_apply_dtype_matches_jax(fmt, values, vector):
+    JA, A = _operators(fmt, values)
+    assert str(A.dtype).split(".")[-1] == str(JA.dtype)
+    jdt, tdt = DTYPES[vector]
+    x = np.random.default_rng(3).uniform(0.5, 1.5, (A.shape[1], 1)).astype(np.float32)
+    jy = JA.apply(jnp.asarray(x).astype(jdt))
+    y = A.apply(torch.from_numpy(x).to(tdt))
+    assert str(y.dtype).split(".")[-1] == str(jy.dtype)
+    assert y.shape == tuple(jy.shape)
+    # the values: both compute in float32 (float64 for float64 operands)
+    # and round the product to the output dtype
+    tol = 1e-2 if "bfloat16" in str(jy.dtype) else 1e-5
+    np.testing.assert_allclose(y.double().numpy(), np.asarray(jy, np.float64),
+                               rtol=tol, atol=tol)
+
+
+SOLVERS = {
+    # name: (JAX solver, port solver, build parameters)
+    "cg": (gko.solver.Cg, gt.Cg, {}),
+    "bicgstab": (gko.solver.Bicgstab, gt.Bicgstab, {}),
+    "ir": (gko.solver.Ir, gt.Ir, {}),
+    "gmres": (gko.solver.Gmres, gt.Gmres, {}),
+    "idr": (gko.solver.Idr, gt.Idr, {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SOLVERS))
+def test_bf16_solve_on_bf16_dia(name):
+    """poisson_2d(8) after reduce_storage(), b = ones in bfloat16,
+    Iteration(20) and ResidualNorm(1e-3): both packages return a bfloat16
+    x after the same number of iterations (Cg 9, Bicgstab 6, Ir 20; the
+    Identity-preconditioned Richardson diverges on this matrix in both)."""
+    data, jd = _data(8)
+    JS, PS, params = SOLVERS[name]
+    JA = gko.matrix.dia.Dia.from_matrix_data(jd).reduce_storage()
+    A = gt.Dia.from_matrix_data(data, device="cpu").reduce_storage()
+    assert A.dtype == torch.bfloat16
+    jc = [jstop.Iteration(max_iters=20), jstop.ResidualNorm(tolerance=1e-3)]
+    pc = [stop.Iteration(max_iters=20), stop.ResidualNorm(tolerance=1e-3)]
+    b = np.ones((A.shape[0], 1), np.float32)
+    jx, jinfo = JS.build(criteria=jc, **params).generate(JA).solve(
+        jnp.asarray(b, jnp.bfloat16))
+    px, pinfo = PS.build(criteria=pc, **params).generate(A).solve(
+        torch.from_numpy(b).to(torch.bfloat16))
+    assert str(jx.dtype) == "bfloat16" and px.dtype == torch.bfloat16
+    assert px.shape == tuple(jx.shape)
+    assert int(pinfo.iterations) == int(jinfo.iterations)
+    np.testing.assert_array_equal(pinfo.converged.numpy(), np.asarray(jinfo.converged))
+    if bool(pinfo.converged.all()):
+        # a bfloat16 x holds 8 bits: the two agree to a few of its ulps
+        jxf = np.asarray(jx, np.float32)
+        np.testing.assert_allclose(px.float().numpy(), jxf, rtol=0,
+                                   atol=4 * 2.0**-8 * np.abs(jxf).max())

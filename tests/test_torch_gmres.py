@@ -200,10 +200,11 @@ def test_gmres_streaming_k3_matches_jax(monkeypatch):
 
 def test_gmres_declined_routes_stream():
     """Integer storage, k = 5 columns (beyond the JAX k-column kernel's 4,
-    gmres.py:351-377; k = 2 takes K15m), a Pell (the JAX Pell kernel,
-    gmres.py:418) and a Krylov dimension beyond the kernel's shared memory
-    stream; "auto" resolves to keep below 2^19 rows and reduce1 at or
-    above, as the JAX package's rule does."""
+    gmres.py:351-377; k = 2 takes K15m) and a Krylov dimension beyond the
+    kernel's shared memory stream; one column on an S = 8 Pell takes the
+    Pell kernel K18 (the JAX Pell kernel, gmres.py:418; ported in slice 6),
+    two stream there; "auto" resolves to keep below 2^19 rows and reduce1
+    at or above, as the JAX package's rule does."""
     jd, pd = matrices("poisson16")
     _, A = dia_pair("poisson16")
     b1, b2, b5 = (torch.ones(A.shape[0], k) for k in (1, 2, 5))
@@ -219,7 +220,8 @@ def test_gmres_declined_routes_stream():
     assert big._try_fused(b1, torch.zeros_like(b1)) is None
     P = gt.Pell.from_matrix_data(pd, device="cpu")
     sp = gt.Gmres.build(criteria=crit).generate(P)
-    assert sp._try_fused(b1, torch.zeros_like(b1)) is None
+    assert sp._try_fused(b1, torch.zeros_like(b1)) is not None
+    assert sp._try_fused(b2, torch.zeros_like(b2)) is None
     x, info = sp.solve(b1)
     assert x.shape == b1.shape and int(info.iterations) == 20
     auto = gt.CbGmres.build(criteria=crit).generate(A)

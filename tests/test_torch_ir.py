@@ -227,9 +227,10 @@ def test_ir_fused_route_matches_jax_streaming(crit, monkeypatch):
 
 
 def test_ir_declined_routes_stream(monkeypatch):
-    """IR on a Pell (the JAX package's Pell kernel, solver/ir.py:98-100,
-    140-180, is slice 6), the implicit criterion (ir.py:107), k = 2 and a
-    preconditioner that is not diagonal stream; each still solves."""
+    """The implicit criterion (ir.py:107), k = 2 and a preconditioner that
+    is not diagonal stream, on a Dia and on a Pell; each still solves.  One
+    column on an S = 8 Pell takes the Pell kernel K21 (the JAX package's
+    Pell kernel, solver/ir.py:98-100, 140-180; ported in slice 6)."""
     jd, pd = matrices("tridiag700")
     _, A = dia_pair("tridiag700")
     crit = [stop.Iteration(max_iters=300), stop.ResidualNorm(tolerance=1e-6)]
@@ -240,7 +241,12 @@ def test_ir_declined_routes_stream(monkeypatch):
     assert ok._try_fused(b2, torch.zeros_like(b2)) is None
     P = gt.Pell.from_matrix_data(pd, device="cpu")
     sp = gt.Ir.build(criteria=crit, preconditioner=jac).generate(P)
-    assert sp._try_fused(b1, torch.zeros_like(b1)) is None
+    assert sp._try_fused(b1, torch.zeros_like(b1)) is not None
+    assert sp._try_fused(b2, torch.zeros_like(b2)) is None
+    spi = gt.Ir.build(criteria=[stop.Iteration(max_iters=30),
+                                stop.ImplicitResidualNorm(tolerance=1e-6)],
+                      preconditioner=jac).generate(P)
+    assert spi._try_fused(b1, torch.zeros_like(b1)) is None
     implicit = [stop.Iteration(max_iters=30), stop.ImplicitResidualNorm(tolerance=1e-6)]
     si = gt.Ir.build(criteria=implicit, preconditioner=jac).generate(A)
     assert si._try_fused(b1, torch.zeros_like(b1)) is None
