@@ -28,7 +28,13 @@ the port that users call:
 - path 6 (slice 6): the same operator handed over as a ``Csr`` ->
   ``Pell.from_csr`` -> ``Bicgstab``/``Cgs``/``Gmres``/``CbGmres``/``Ir``
   (the Pell whole-solve kernels), and per-iteration times on path 2's
-  160^3 ``Pell``.
+  160^3 ``Pell``;
+- path 7 (slice 7): incomplete factorizations and triangular solves:
+  path 1's ``Dia`` -> ``Cg`` with ``Ic`` and with ``Ilu`` (ParIc/ParIlu,
+  3 sweeps a triangle; the whole-solve kernel K23), path 4's ``Dia`` ->
+  ``Bicgstab`` with ``Ilu`` (K24) and ``Gmres(30)`` with it (streaming,
+  K22 per triangle), path 2's ``Csr`` -> ``Cg`` with ``Ic`` (K5 + K22), a
+  ``LowerTrs`` solve (K22), and at 64^2 ``Direct`` and ``Isai`` + ``Gmres``.
 
 Phases, each of which raises on failure:
 
@@ -88,13 +94,23 @@ Phases, each of which raises on failure:
    64^2 operator (float32/bfloat16 values, int8/int32 lane indices, equal
    iterations and x bit for bit, a NaN case each, IR's zero-sweep case)
    and at 2048^2 under a cap;
-9. timings, printed and not checked: each kernel, its plain version and
+9. main path 7: ``Dia.to_csr``, ParIc and ParIlu on A1 (two ParIlu runs
+   bit-identical), the IC and ILU sweep preconditioners, ``Cg`` with each
+   fused (K23) and streaming (K1 + K22), ``Bicgstab`` with A2's ILU fused
+   (K24) and streaming, ``Gmres(30)`` with it (K22), ``Cg`` with IC on the
+   160^3 ``Csr`` (K5 + K22), one ``LowerTrs`` solve (K22), ``Direct`` and
+   ``Isai`` + ``Gmres`` at 64^2, each held against a float64 solve; then
+   K22-K24 against their plain versions at 24^2 and 64^2 (f32/bf16
+   triangles and A, sweeps 0/1/3/8, equal iterations and x bit for bit, a
+   NaN case each) and at 2048^2 under a cap;
+10. timings, printed and not checked: each kernel, its plain version and
    the one PyTorch call that computes the same function, by the slope
    between two trip counts (CUDA events); CG, BiCGSTAB, CGS and BiCG time
    per iteration and GMRES(30) time per Arnoldi step, fused and
    streaming; the k-column BiCGSTAB and GMRES, IDR(2), IDR(4) and IR per
    iteration, and the smoother per sweep; BiCGSTAB, CGS, IR and GMRES(30)
-   on the 160^3 ``Pell``; bounds; the copy bandwidth.
+   on the 160^3 ``Pell``; K23 and K24 per iteration and K22 per launch;
+   bounds; the copy bandwidth.
 
 The launch counters are set to 0 just before each main path and read just
 after it; every kernel of a path must have run there.  The last lines are
@@ -173,6 +189,11 @@ KERNEL_META = {
     "pell_cgs_fused": ("ginkgo_tpu_torch/csrc/cgs_fused.cu",
                        "ginkgo_tpu/ops/pallas_pell_cg.py:741"),
     "pell_ir_fused": ("ginkgo_tpu_torch/csrc/ir_fused.cu", "ginkgo_tpu/ops/pallas_pell_cg.py:915"),
+    # K22-K24: one source, one shared sweep routine
+    "trs_fused": ("ginkgo_tpu_torch/csrc/trs_fused.cu", "ginkgo_tpu/ops/pallas_trs.py:87"),
+    "cg_ilu_fused": ("ginkgo_tpu_torch/csrc/trs_fused.cu", "ginkgo_tpu/ops/pallas_cg_ilu.py:268"),
+    "bicgstab_ilu_fused": ("ginkgo_tpu_torch/csrc/trs_fused.cu",
+                           "ginkgo_tpu/ops/pallas_cg_ilu.py:518"),
 }
 PATH1 = ("dia_spmv", "dia_spmv_advanced", "dia_spmm", "cg_fused", "cg_fused_multi")
 PATH2 = ("pell_spmv", "pell_spmm", "pell_cg_fused")
@@ -181,6 +202,7 @@ PATH4 = ("bicgstab_fused", "cgs_fused", "bicg_fused", "gmres_fused")
 #: ir_smooth has no caller on a main path yet (multigrid's FixedSmoother
 #: waits for the multigrid slice): its launches are checked with the kernels
 PATH5 = ("bicgstab_fused_multi", "gmres_fused_multi", "idr_fused", "ir_fused")
+PATH7 = ("trs_fused", "cg_ilu_fused", "bicgstab_ilu_fused")
 #: path 4: GMRES(30), the restart length of the JAX bench's GMRES row
 KRYLOV_DIM = 30
 #: path 4: BiCGSTAB's cap on the Poisson matrix, about CG's 4217 iterations
@@ -188,6 +210,14 @@ A1_BICGSTAB_CAP = 5000
 #: path 6: the iteration cap of the full-width kernel-against-plain checks
 CAP6 = 20
 EPS32 = float(np.finfo(np.float32).eps)
+
+
+_T0 = time.perf_counter()
+
+
+def elapsed():
+    """Seconds since the script started, for the budget of the run."""
+    return round(time.perf_counter() - _T0, 1)
 
 
 def check(cond, what):
@@ -623,6 +653,7 @@ def main_path4(gt, dev, rng, crit, kernels, data1, x64_ones, nside=NSIDE):
               "iterations": info.num_iterations,
               "solve_s": round(time.perf_counter() - t0, 4)})
 
+    iterations = {}  # the f32 counts, which path 7's preconditioned solves must beat
     for name, (cls, params, kname) in path4_solvers(gt).items():
         kern = kernels[kname]
         for case, Av, pre, ref in (("f32", A, None, "f32"), ("bf16", Ab, None, "bf16"),
@@ -637,6 +668,8 @@ def main_path4(gt, dev, rng, crit, kernels, data1, x64_ones, nside=NSIDE):
             check(kern.launches == before + 1, f"{label} did not run {kname}")
             check(bool(info.converged.all()), f"{label}: not converged")
             check(x.shape == (n,), f"{label}: bad x")
+            if case == "f32":
+                iterations[name] = info.num_iterations
             emit({"phase": "main_path", "path": 4, "route": "fused", "solver": name,
                   "case": case, "iterations": info.num_iterations,
                   "residual_norm": float(info.residual_norm[0]),
@@ -703,7 +736,8 @@ def main_path4(gt, dev, rng, crit, kernels, data1, x64_ones, nside=NSIDE):
                                  bounded=False),
                       "solve_s": round(time.perf_counter() - t0, 4)}
     emit(row)
-    return {"A": A, "Ab": Ab, "b": b, "refs": refs, "norm_a": norm_a, "A1": A1, "b1": b1}
+    return {"A": A, "Ab": Ab, "b": b, "refs": refs, "norm_a": norm_a, "A1": A1, "b1": b1,
+            "iterations": iterations}
 
 
 def check_path4_kernels(gt, dev, rng, p4, record_err, max_iters=MAX_ITERS):
@@ -1758,6 +1792,422 @@ def time_path6(gt, dev, P, b3, rec, timing):
     timing["slice6_us_per_iter"] = out
 
 
+#: path 7: the cap of CG with the ILU preconditioner on A1, which does not
+#: reach 1e-6 in float32 (main_path7)
+A1_CG_ILU_CAP = 5000
+#: path 7: sweeps per triangle of every ILU/IC preconditioner of the path
+#: (passed explicitly: sweeps=None runs the level count, a Python loop
+#: over the rows)
+SWEEPS7 = 3
+
+
+def ilu_factories(gt, kind, sweeps=SWEEPS7):
+    """The ``Ic`` or ``Ilu`` factory of path 7: 'sweeps' triangular solvers
+    with ``sweeps`` sweeps each (Ic's upper solver mirrors its lower)."""
+    from ginkgo_tpu_torch.solver import LowerTrs, UpperTrs
+
+    lf = LowerTrs.build(algorithm="sweeps", sweeps=sweeps)
+    if kind == "ic":
+        return gt.preconditioner.Ic.build(l_solver_factory=lf)
+    return gt.preconditioner.Ilu.build(
+        l_solver_factory=lf, u_solver_factory=UpperTrs.build(algorithm="sweeps", sweeps=sweeps))
+
+
+def _timed(fn, dev):
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, round(time.perf_counter() - t0, 3)
+
+
+def main_path7(gt, dev, rng, crit, kernels, data1, x64_ones, p4, C3, P3, x64_3, norm3,
+               cg_iterations):
+    """Main path 7 through the entry points a user calls; every check
+    raises; each preconditioned solve that converges must take fewer
+    iterations than its solver took without a preconditioner in paths 1, 2
+    and 4 (``cg_iterations``, ``p4["iterations"]``).  A1 (path 1's 2048^2
+    Poisson ``Dia``): ``Cg`` with ``Ic``
+    (ParIc, 5 iterations) and with ``Ilu`` (ParIlu), 3 sweeps a triangle,
+    fused (K23) and streaming (K22 per triangle, K1); two ParIlu runs of
+    one matrix must be bit-identical.  A2 (path 4's convection-diffusion
+    ``Dia``): ``Bicgstab`` with ``Ilu`` fused (K24) and streaming, and
+    ``Gmres(30)`` with the same preconditioner, which has no ILU kernel and
+    streams (2 K22 launches per M apply).  Path 2's 160^3 Poisson: ``Ic``
+    generated from the ``Csr``, ``Cg`` on its ``Pell`` (the triangles of the
+    factor are Dias, the operator is not, and K7 takes only a diagonal M:
+    streaming on K5 and K22; the Csr's own plan build is path 2's set-up,
+    and the plan cache no longer holds it).  One ``LowerTrs`` sweeps solve on
+    A1's L factor (K22).  At 64^2: ``Direct`` (Lu + block_scan) and
+    ``Isai`` + ``Gmres``, host-built solvers running on the card.  Every
+    solution is held against a float64 solve of its system."""
+    from ginkgo_tpu_torch import stop
+    from ginkgo_tpu_torch.factorization import LuFactory, ParIc, ParIlu
+    from ginkgo_tpu_torch.solver import LowerTrs
+
+    row = {"phase": "main_path", "path": 7, "case": "setup", "sweeps": SWEEPS7}
+    A1 = p4["A1"]
+    b1 = p4["b1"]
+    n1 = A1.shape[0]
+    norm1 = inf_norm(data1)
+    C1, row["a1_to_csr_s"] = _timed(A1.to_csr, dev)
+    fic, row["a1_paric_s"] = _timed(lambda: ParIc().generate(C1), dev)
+    filu, row["a1_parilu_s"] = _timed(lambda: ParIlu().generate(C1), dev)
+    filu2 = ParIlu().generate(C1)
+    _sync(dev)
+    check(torch.equal(filu.l_factor.values, filu2.l_factor.values)
+          and torch.equal(filu.u_factor.values, filu2.u_factor.values),
+          "path 7: two ParIlu factorizations of A1 differ")
+    row["parilu_bit_identical"] = True
+    del filu2
+    M_ic, row["a1_ic_trs_builds_s"] = _timed(lambda: ilu_factories(gt, "ic").generate(fic), dev)
+    M_ilu, row["a1_ilu_trs_builds_s"] = _timed(lambda: ilu_factories(gt, "ilu").generate(filu),
+                                               dev)
+    for label, M in (("ic", M_ic), ("ilu", M_ilu)):
+        for t in (M.l_solver, M.u_solver):
+            check(isinstance(t.off_csr, gt.Dia) and t.sweeps == SWEEPS7,
+                  f"path 7: the {label} triangles are not Dias with {SWEEPS7} sweeps")
+        row[f"{label}_triangle_offsets"] = [M.l_solver.off_csr.offsets,
+                                            M.u_solver.off_csr.offsets]
+    A2, b2, refs2, norm2 = p4["A"], p4["b"], p4["refs"], p4["norm_a"]
+    C2, row["a2_to_csr_s"] = _timed(A2.to_csr, dev)
+    M2, row["a2_ilu_s"] = _timed(lambda: ilu_factories(gt, "ilu").generate(C2), dev)
+    emit(row)
+
+    out = {"A1": A1, "b1": b1, "M_ic": M_ic, "M_ilu": M_ilu, "A2": A2, "b2": b2, "M2": M2,
+           "L1": filu.l_factor}
+    # CG with the ILU sweeps preconditioner (M = U^-1 L^-1 by truncated
+    # sweeps is not exactly symmetric) does not reach 1e-6 in float32 on A1;
+    # the JAX package takes the same counts from 64^2 to 1024^2 (56 to 1566
+    # iterations) on the CPU.  It runs under a cap, its numbers reported and
+    # only its routes checked, as path 4 does for BiCGSTAB on A1.
+    ilu_crit = [stop.Iteration(max_iters=A1_CG_ILU_CAP), stop.ResidualNorm(tolerance=TOL)]
+    unprec = p4["iterations"]
+    runs = (("cg_ic", gt.Cg, A1, M_ic, b1, x64_ones, norm1, "cg_ilu_fused", crit,
+             cg_iterations["a1"]),
+            ("cg_ilu", gt.Cg, A1, M_ilu, b1, x64_ones, norm1, "cg_ilu_fused", ilu_crit, None),
+            ("bicgstab_ilu", gt.Bicgstab, A2, M2, b2, refs2["f32"], norm2, "bicgstab_ilu_fused",
+             crit, unprec["bicgstab"]))
+    for label, cls, A, M, b, ref, norm_a, kname, criteria, plain_its in runs:
+        bounded = criteria is crit
+        solver = cls.build(criteria=criteria, preconditioner=M).generate(A)
+        before = {k: f.launches for k, f in kernels.items()}
+        (x, info), solve_s = _timed(lambda: solver.solve(b), dev)
+        check(kernels[kname].launches == before[kname] + 1, f"path 7: {label} did not run {kname}")
+        check(kernels["trs_fused"].launches == before["trs_fused"],
+              f"path 7: {label} ran trs_fused beside {kname}")
+        check(bool(info.converged.all()) or not bounded, f"path 7: {label}: not converged")
+        check(x.shape == b.shape and x.dtype == torch.float32 and bool(torch.isfinite(x).all()),
+              f"path 7: {label}: bad x")
+        fused_it = info.num_iterations
+        check(plain_its is None or fused_it < plain_its,
+              f"path 7: {label}: {fused_it} iterations, {plain_its} without a preconditioner")
+        emit({"phase": "main_path", "path": 7, "route": "fused", "case": label,
+              "iterations": fused_it, "unpreconditioned_iterations": plain_its,
+              "converged": bool(info.converged.all()),
+              "residual_norm": float(info.residual_norm[0]),
+              **accuracy(A, x, b, ref, norm_a, f"path 7: {label}", bounded=bounded),
+              "solve_s": solve_s})
+        before = {k: f.launches for k, f in kernels.items()}
+        with torch.no_grad():
+            (xs, sinfo), solve_s = _timed(
+                lambda: solver._solve_streaming(b[:, None], torch.zeros_like(b)[:, None]), dev)
+        k22 = kernels["trs_fused"].launches - before["trs_fused"]
+        per_iter = 2 if cls is gt.Cg else 4  # M applies: CG one, BiCGSTAB two an iteration
+        check(kernels[kname].launches == before[kname] and k22 >= per_iter * sinfo.num_iterations,
+              f"path 7: {label} streaming: {k22} trs_fused launches in "
+              f"{sinfo.num_iterations} iterations")
+        if bounded:
+            check(bool(sinfo.converged.all()), f"path 7: {label} streaming: not converged")
+            check(abs(sinfo.num_iterations - fused_it) <= max(3, 0.01 * fused_it),
+                  f"path 7: {label}: fused {fused_it} and streaming {sinfo.num_iterations} "
+                  "iterations")
+        emit({"phase": "main_path", "path": 7, "route": "streaming", "case": label,
+              "iterations": sinfo.num_iterations, "converged": bool(sinfo.converged.all()),
+              "trs_fused_launches": k22,
+              **accuracy(A, xs[:, 0], b, ref, norm_a, f"path 7: {label} streaming",
+                         bounded=bounded),
+              "solve_s": solve_s})
+
+    # GMRES(30) with the ILU of A2: no ILU kernel for GMRES, so it streams
+    solver = gt.Gmres.build(criteria=crit, krylov_dim=KRYLOV_DIM, preconditioner=M2).generate(A2)
+    before = {k: f.launches for k, f in kernels.items()}
+    (x, info), solve_s = _timed(lambda: solver.solve(b2), dev)
+    k22 = kernels["trs_fused"].launches - before["trs_fused"]
+    fused = [k for k in kernels if k.endswith("_fused") and k != "trs_fused"
+             and kernels[k].launches != before[k]]
+    check(not fused and k22 >= 2 * info.num_iterations,
+          f"path 7: gmres_ilu: {k22} trs_fused launches in {info.num_iterations} steps, "
+          f"fused kernels {fused}")
+    check(bool(info.converged.all()) and info.num_iterations < unprec["gmres"],
+          f"path 7: gmres_ilu: {info.num_iterations} steps, converged {info.converged.tolist()}")
+    emit({"phase": "main_path", "path": 7, "route": "streaming", "case": "gmres_ilu",
+          "iterations": info.num_iterations, "unpreconditioned_iterations": unprec["gmres"],
+          "trs_fused_launches": k22,
+          **accuracy(A2, x, b2, refs2["f32"], norm2, "path 7: gmres_ilu"), "solve_s": solve_s})
+
+    # Cg + Ic on path 2's 160^3 system: IC from the Csr, K5 for A (the
+    # Pell), K22 for the triangles
+    M3, ic3_s = _timed(lambda: ilu_factories(gt, "ic").generate(C3), dev)
+    check(isinstance(M3.l_solver.off_csr, gt.Dia), "path 7: the 160^3 IC triangle is not a Dia")
+    b3 = torch.ones(C3.shape[0], device=dev)
+    before = {k: f.launches for k, f in kernels.items()}
+    (x, info), solve_s = _timed(
+        lambda: gt.Cg.build(criteria=crit, preconditioner=M3).generate(P3).solve(b3), dev)
+    k22 = kernels["trs_fused"].launches - before["trs_fused"]
+    k5 = kernels["pell_spmv"].launches - before["pell_spmv"]
+    check(k22 >= 2 * info.num_iterations and k5 >= info.num_iterations,
+          f"path 7: cg_ic on the 160^3 system: {k22} trs_fused, {k5} pell_spmv launches")
+    check(bool(info.converged.all()) and info.num_iterations < cg_iterations["poisson3d160"],
+          f"path 7: cg_ic on the 160^3 system: {info.num_iterations} iterations, converged "
+          f"{info.converged.tolist()}")
+    emit({"phase": "main_path", "path": 7, "route": "streaming", "case": "poisson3d160_cg_ic",
+          "ic_generate_s": ic3_s, "iterations": info.num_iterations,
+          "unpreconditioned_iterations": cg_iterations["poisson3d160"], "trs_fused_launches": k22,
+          "pell_spmv_launches": k5, "triangle_offsets": M3.l_solver.off_csr.offsets,
+          **accuracy(P3, x, b3, x64_3, norm3, "path 7: poisson3d160_cg_ic"),
+          "solve_s": solve_s})
+    del M3
+
+    # one direct LowerTrs sweeps solve on A1's L factor
+    T, trs_s = _timed(lambda: LowerTrs.build(algorithm="sweeps", sweeps=SWEEPS7).generate(
+        filu.l_factor), dev)
+    before = kernels["trs_fused"].launches
+    y = T.apply(b1)
+    _sync(dev)
+    check(kernels["trs_fused"].launches == before + 1 and bool(torch.isfinite(y).all()),
+          "path 7: LowerTrs did not run trs_fused once")
+    emit({"phase": "main_path", "path": 7, "case": "lower_trs", "build_s": trs_s,
+          "y_norm": float(y.norm())})
+
+    # host-built solvers at 64^2: Direct (Lu + block_scan) on the Poisson
+    # matrix, Isai + Gmres on the convection-diffusion one
+    import scipy.sparse.linalg as spla
+
+    for case, d64 in (("direct_64", gt.generators.poisson_2d(SMALL, dtype=np.float32)),
+                      ("isai_gmres_64", gt.MatrixData.from_coo(*convdiff_2d(SMALL)))):
+        A64 = gt.Dia.from_matrix_data(d64, device=dev)
+        b64 = torch.as_tensor(rng.uniform(0.5, 1.5, A64.shape[0]).astype(np.float32), device=dev)
+        x64 = torch.as_tensor(spla.spsolve(A64.astype(torch.float64).to_scipy().tocsc(),
+                                           b64.double().cpu().numpy()), device=dev)
+        if case == "direct_64":
+            S, generate_s = _timed(
+                lambda: gt.Direct.build(factorization=LuFactory()).generate(A64), dev)
+            check(S.l_solver.algorithm == "block_scan", "path 7: Direct's solvers")
+        else:
+            S, generate_s = _timed(lambda: gt.Gmres.build(
+                criteria=crit, krylov_dim=KRYLOV_DIM,
+                preconditioner=gt.preconditioner.Isai.build(isai_type="general")).generate(A64),
+                dev)
+        (x, info), solve_s = _timed(lambda: S.solve(b64), dev)
+        check(bool(info.converged.all()) and x.device == dev, f"path 7: {case}: not converged")
+        emit({"phase": "main_path", "path": 7, "case": case, "generate_s": generate_s,
+              "iterations": info.num_iterations, "solve_s": solve_s,
+              **accuracy(A64, x, b64, x64, inf_norm(d64), f"path 7: {case}")})
+    return out
+
+
+def _ilu_parts(M):
+    """(Tl, Tu, invdl, invdu) of an IluPreconditioner, as K23/K24 take them."""
+    lt, ut = M.l_solver, M.u_solver
+    return (lt.off_csr, ut.off_csr, (1.0 / lt.diag).float().contiguous(),
+            (1.0 / ut.diag).float().contiguous())
+
+
+def check_path7_kernels(gt, dev, rng, p7, record_err):
+    """K22-K24 against their plain versions on the card.  At 24^2 and 64^2
+    (the Poisson matrix with IC triangles for K22/K23 and with ILU ones for
+    K23, the convection-diffusion matrix with ILU triangles for K22/K24):
+    float32 and bfloat16 triangles, float32 and bfloat16 A, sweeps
+    0/1/3/8 (K23/K24 with the U side one more, mod 9): equal iterations and
+    x bit for bit; a NaN in b runs to the cap on both.  At 2048^2 (path 7's
+    preconditioners, float32 and bfloat16 triangles) K23 and K24 under a cap
+    of CAP6 iterations and K22 with 3 sweeps: equal counts, x within 1e-5
+    of its largest entry, bit_equal reported.  Every kernel runs twice and
+    must equal itself."""
+    from ginkgo_tpu_torch.ops import cg_ilu as ops_cg_ilu
+    from ginkgo_tpu_torch.ops import trs as ops_trs
+
+    def compare(name, what, kern, plain, exact, cap=None):
+        t0 = time.perf_counter()
+        k = kern()
+        _sync(dev)
+        k_s = time.perf_counter() - t0
+        k2 = kern()
+        t0 = time.perf_counter()
+        p = plain()
+        _sync(dev)
+        p_s = time.perf_counter() - t0
+        if name == "trs_fused":
+            kx, kit, kmon, kconv, px, pit, pmon, pconv = k, 0, 0.0, True, p, 0, 0.0, True
+            same = torch.equal(k2, k)
+        else:
+            kx, kit, kmon, kconv = k[0], int(k[2]), float(k[3]), bool(k[4])
+            px, pit, pmon, pconv = p[0], int(p[2]), float(p[3]), bool(p[4])
+            same = int(k2[2]) == kit and (torch.equal(k2[0], kx) or np.isnan(kmon))
+        check(same, f"{what}: the kernel differs from itself")
+        row = {"iters": kit, "plain_iters": pit, "s": round(k_s, 4), "plain_s": round(p_s, 4)}
+        if cap is not None and np.isnan(kmon):
+            check(kit == pit == cap and np.isnan(pmon) and not kconv and not pconv,
+                  f"{what}: with a NaN, {kit} / {pit} iterations, monitors {kmon} / {pmon}")
+            return row
+        err = record_err(name, kx, px)
+        row.update(bit_equal=bool(torch.equal(kx, px)), x_max_abs_err=err, converged=kconv)
+        check(kit == pit and kconv == pconv,
+              f"{what}: {kit} / {pit} iterations, converged {kconv} / {pconv}")
+        if exact:
+            check(row["bit_equal"], f"{what}: x differs by {err}")
+        else:
+            check(bool(torch.isfinite(kx).all()) and err <= 1e-5 * float(px.abs().max()),
+                  f"{what}: x differs by {err}")
+        return row
+
+    def cases(A, M, b, tol, cap, sweeps, storage, solvers):
+        Tl, Tu, invdl, invdu = _ilu_parts(M)
+        Tl, Tu = Tl.astype(storage), Tu.astype(storage)
+        z = torch.zeros_like(b)
+        out = {"trs_fused": (lambda: ops_trs.trs_fused(Tl, invdl, b, sweeps=sweeps),
+                             lambda: ops_trs.trs_reference(Tl, invdl, b, sweeps=sweeps))}
+        kw = dict(sweeps_l=sweeps, sweeps_u=(sweeps + 1) % 9, tol_sq_eff=tol, max_iters=cap)
+        for name in solvers:
+            kern = getattr(ops_cg_ilu, name)
+            plain = (ops_cg_ilu.cg_ilu_reference if name == "cg_ilu_fused"
+                     else ops_cg_ilu.bicgstab_ilu_reference)
+            out[name] = (lambda kern=kern: kern(A, Tl, Tu, invdl, invdu, b, z, **kw),
+                         lambda plain=plain: plain(A, Tl, Tu, invdl, invdu, b, z, **kw))
+        return out
+
+    small_cap = 300
+    for nside in (24, SMALL):
+        systems = (
+            ("poisson_ic", gt.generators.poisson_2d(nside, dtype=np.float32), "ic",
+             ("cg_ilu_fused",)),
+            ("poisson_ilu", gt.generators.poisson_2d(nside, dtype=np.float32), "ilu",
+             ("cg_ilu_fused",)),
+            ("convdiff_ilu", gt.MatrixData.from_coo(*convdiff_2d(nside)), "ilu",
+             ("bicgstab_ilu_fused",)),
+        )
+        for label, data, kind, solvers in systems:
+            A = gt.Dia.from_matrix_data(data, device=dev)
+            M = ilu_factories(gt, kind).generate(A)
+            b = torch.as_tensor(rng.uniform(0.5, 1.5, A.shape[0]).astype(np.float32), device=dev)
+            tol = torch.full((), (TOL * float(b.norm())) ** 2, dtype=torch.float32, device=dev)
+            row = {"phase": "kernel_check", "path": 7, "matrix": f"{label}({nside})"}
+            for storage in (torch.float32, torch.bfloat16):
+                for Av in (A, A.reduce_storage()):
+                    for sweeps in (0, 1, 3, 8):
+                        for name, (kern, plain) in cases(Av, M, b, tol, small_cap, sweeps,
+                                                         storage, solvers).items():
+                            if name == "trs_fused" and Av is not A:
+                                continue  # K22 does not read A
+                            key = (f"{name} tri {str(storage)[6:]} A {str(Av.dtype)[6:]} "
+                                   f"sweeps {sweeps}")
+                            row[key] = compare(name, f"{key} {label}({nside})", kern, plain,
+                                               exact=True)
+            bn = b.clone()
+            bn[5] = float("nan")
+            for name, (kern, plain) in cases(A, M, bn, tol, 25, 3, torch.float32,
+                                             solvers).items():
+                if name != "trs_fused":
+                    row[f"{name} nan"] = compare(name, f"{name} {label}({nside}) nan", kern,
+                                                 plain, exact=True, cap=25)
+            emit(row)
+
+    row = {"phase": "kernel_check", "path": 7, "nside": NSIDE, "cap": CAP6}
+    for label, A, M, b, solvers in (("poisson_ic", p7["A1"], p7["M_ic"], p7["b1"],
+                                     ("cg_ilu_fused",)),
+                                    ("poisson_ilu", p7["A1"], p7["M_ilu"], p7["b1"],
+                                     ("cg_ilu_fused",)),
+                                    ("convdiff_ilu", p7["A2"], p7["M2"], p7["b2"],
+                                     ("bicgstab_ilu_fused",))):
+        tol = torch.full((), (TOL * float(b.norm())) ** 2, dtype=torch.float32, device=dev)
+        for storage in (torch.float32, torch.bfloat16):
+            for name, (kern, plain) in cases(A, M, b, tol, CAP6, SWEEPS7, storage,
+                                             solvers).items():
+                key = f"{name} {label} tri {str(storage)[6:]}"
+                row[key] = compare(name, f"{key} {NSIDE}", kern, plain, exact=False)
+    emit(row)
+
+
+def time_path7(gt, dev, p7, rec, timing):
+    """Per-iteration times by the slope between whole solves with
+    Iteration-only criteria: K23 with path 7's IC on A1 and K24 with its
+    ILU on A2, between Iteration(200) and Iteration(1000), each beside its
+    streaming route (K1 + K22) and its plain version (between 50 and 250);
+    K22 per launch (3 sweeps on A1's IC lower triangle, slope of chained
+    launches) beside its plain version.
+
+    Bounds (NVIDIA's peak rates, each input read once, each output written
+    once): K22 the triangle's diagonals, b and the inverse diagonal read,
+    x written, (4 nd + 12) n bytes, (s (2 nd + 2) + 1) n operations.  K23 per
+    iteration A's, L's and U's diagonals, x, r and p read and written, the
+    two inverse diagonals read, (4 (nd_A + nd_L + nd_U) + 32) n bytes; K24
+    per iteration the same with x, r, p and v read and written and rr read,
+    (4 (nd_A + nd_L + nd_U) + 44) n; beside them ``bound_ms_tri_per_sweep``
+    with the triangles' diagonals read once per sweep pass.  Operations: the
+    products with A and the sweeps (2 a stored diagonal entry, 2 a row a
+    sweep, 1 a row a solve's start) and the vector work (K23 12 n, K24 22 n
+    a product-pair)."""
+    from ginkgo_tpu_torch import stop
+    from ginkgo_tpu_torch.ops import cg_ilu as ops_cg_ilu
+    from ginkgo_tpu_torch.ops import trs as ops_trs
+
+    s = SWEEPS7
+    out = {"card": timing["card"], "sweeps": s}
+
+    def tri_flops(M, n):
+        return sum((s * (2 * t.off_csr.num_diags + 2) + 1) * n for t in (M.l_solver, M.u_solver))
+
+    for kname, cls, A, M, b, n_m, vec_bytes, vec_flops in (
+            ("cg_ilu_fused", gt.Cg, p7["A1"], p7["M_ic"], p7["b1"], 1, 32, 12),
+            ("bicgstab_ilu_fused", gt.Bicgstab, p7["A2"], p7["M2"], p7["b2"], 2, 44, 22)):
+        n = A.shape[0]
+        z = torch.zeros_like(b)
+        solver = cls.build(criteria=[stop.Iteration(max_iters=1)], preconditioner=M).generate(A)
+
+        def capped(its, solver=solver):
+            return solver.replace(criterion=stop.Iteration(max_iters=its))
+
+        def fused(its, b=b):
+            capped(its).solve(b)
+
+        def streaming(its, b=b, z=z):
+            with torch.no_grad():
+                capped(its)._solve_streaming(b[:, None], z[:, None])
+
+        Tl, Tu, invdl, invdu = _ilu_parts(M)
+        plain_fn = (ops_cg_ilu.cg_ilu_reference if kname == "cg_ilu_fused"
+                    else ops_cg_ilu.bicgstab_ilu_reference)
+
+        def plain(its, A=A, Tl=Tl, Tu=Tu, invdl=invdl, invdu=invdu, b=b, z=z, fn=plain_fn):
+            fn(A, Tl, Tu, invdl, invdu, b, z, sweeps_l=s, sweeps_u=s, tol_sq_eff=-1.0,
+               max_iters=its)
+
+        nd_t = Tl.num_diags + Tu.num_diags
+        nbytes = (4 * (A.num_diags + nd_t) + vec_bytes) * n
+        nbytes_sweep = (4 * A.num_diags + 4 * s * nd_t + vec_bytes) * n
+        flops = n_m * (2 * A.num_diags * n + tri_flops(M, n)) + vec_flops * n
+        f_ms, st_ms = iter_ms(fused), iter_ms(streaming)
+        p_ms = iter_ms(plain, 50, 250)
+        rec[kname] = (f_ms, p_ms, None, nbytes, flops)
+        out[kname] = {"fused_us": f_ms * 1e3, "streaming_us": st_ms * 1e3, "plain_us": p_ms * 1e3,
+                      "bytes": nbytes, "GBps": nbytes / f_ms / 1e6,
+                      "bound_ms_tri_per_sweep": bound(nbytes_sweep, flops)[0]}
+    M = p7["M_ic"]
+    Tl, _, invdl, _ = _ilu_parts(M)
+    b = p7["b1"]
+    n = b.shape[0]
+    k_ms = slope_ms(lambda: ops_trs.trs_fused(Tl, invdl, b, sweeps=s))
+    p_ms = slope_ms(lambda: ops_trs.trs_reference(Tl, invdl, b, sweeps=s), 2, 7, 2)
+    nbytes = (4 * Tl.num_diags + 12) * n
+    flops = (s * (2 * Tl.num_diags + 2) + 1) * n
+    rec["trs_fused"] = (k_ms, p_ms, None, nbytes, flops)
+    out["trs_fused"] = {"us": k_ms * 1e3, "plain_us": p_ms * 1e3, "bytes": nbytes,
+                        "GBps": nbytes / k_ms / 1e6,
+                        "bound_ms_tri_per_sweep": bound((4 * Tl.num_diags * s + 12) * n,
+                                                        flops)[0]}
+    timing["slice7"] = out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check needs a GPU")
@@ -1766,6 +2216,7 @@ def main():
     from ginkgo_tpu_torch.ops import bell as ops_bell
     from ginkgo_tpu_torch.ops import bicgstab as ops_bicgstab
     from ginkgo_tpu_torch.ops import cg as ops_cg
+    from ginkgo_tpu_torch.ops import cg_ilu as ops_cg_ilu
     from ginkgo_tpu_torch.ops import cgs as ops_cgs
     from ginkgo_tpu_torch.ops import dia as ops_dia
     from ginkgo_tpu_torch.ops import gmres as ops_gmres
@@ -1773,6 +2224,7 @@ def main():
     from ginkgo_tpu_torch.ops import ir as ops_ir
     from ginkgo_tpu_torch.ops import pell as ops_pell
     from ginkgo_tpu_torch.ops import pell_cg as ops_pell_cg
+    from ginkgo_tpu_torch.ops import trs as ops_trs
     from ginkgo_tpu_torch.ops import well as ops_well
 
     dev = torch.device(DEVICE, 0)
@@ -1804,6 +2256,9 @@ def main():
         "pell_bicgstab_fused": ops_pell_cg.pell_bicgstab_fused,
         "pell_cgs_fused": ops_pell_cg.pell_cgs_fused,
         "pell_ir_fused": ops_pell_cg.pell_ir_fused,
+        "trs_fused": ops_trs.trs_fused,
+        "cg_ilu_fused": ops_cg_ilu.cg_ilu_fused,
+        "bicgstab_ilu_fused": ops_cg_ilu.bicgstab_ilu_fused,
     }
     max_err = {k: 0.0 for k in kernels}
 
@@ -2070,6 +2525,8 @@ def main():
         solve_s = time.perf_counter() - t0
         check(ops_cg.cg_fused.launches == before + 1, f"main path {label} did not run cg_fused")
         check(bool(info.converged.all()), f"main path {label}: not converged")
+        if label == "f32":
+            cg_iterations = {"a1": info.num_iterations}  # path 7 must beat it
         check(x.shape == (n,) and bool(torch.isfinite(x).all()), f"main path {label}: bad x")
         emit({"phase": "main_path", "path": 1, "route": "fused", "case": label,
               "iterations": info.num_iterations, "residual_norm": float(info.residual_norm[0]),
@@ -2117,7 +2574,8 @@ def main():
           "solve_s": round(solve_s, 4)})
     launches1 = {k: f.launches for k, f in kernels.items()}
     check(all(launches1[k] > 0 for k in PATH1), f"a kernel of path 1 never ran: {launches1}")
-    emit({"phase": "main_path", "path": 1, "launches": launches1, "bnorm": bnorm})
+    emit({"phase": "main_path", "path": 1, "launches": launches1, "t_s": elapsed(),
+          "bnorm": bnorm})
     x64_ones = X64[:, 0].clone()  # path 4 solves the same system with BiCGSTAB
     del X64
 
@@ -2158,6 +2616,7 @@ def main():
     k5_before = ops_pell.pell_spmv.launches
     t0 = time.perf_counter()
     x, info = gt.Cg.build(criteria=crit).generate(C).solve(b3)
+    cg_iterations["poisson3d160"] = info.num_iterations
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     k5_runs = ops_pell.pell_spmv.launches - k5_before
@@ -2220,7 +2679,8 @@ def main():
           "solve_s": round(solve_s, 4)})
     launches2 = {k: f.launches for k, f in kernels.items()}
     check(all(launches2[k] > 0 for k in PATH2), f"a kernel of path 2 never ran: {launches2}")
-    emit({"phase": "main_path", "path": 2, "launches": launches2})
+    emit({"phase": "main_path", "path": 2, "launches": launches2, "t_s": elapsed()})
+    x64_3 = X64[:, 0].clone()  # path 7 solves the same system with an IC preconditioner
     del X64
 
     # -- 5. main path 3: Csr -> Well, choose_format -> Well and Bell ----------------
@@ -2228,7 +2688,7 @@ def main():
     p3 = main_path3(gt, dev, rng, crit)
     launches3 = {k: f.launches for k, f in kernels.items()}
     check(all(launches3[k] > 0 for k in PATH3), f"a kernel of path 3 never ran: {launches3}")
-    emit({"phase": "main_path", "path": 3, "launches": launches3})
+    emit({"phase": "main_path", "path": 3, "launches": launches3, "t_s": elapsed()})
     check_path3_kernels(gt, dev, rng, p3, record_err)
 
     # -- 5b. main path 4: the nonsymmetric Krylov solvers on a Dia -----------------------
@@ -2236,16 +2696,15 @@ def main():
     p4 = main_path4(gt, dev, rng, crit, kernels, data, x64_ones)
     launches4 = {k: f.launches for k, f in kernels.items()}
     check(all(launches4[k] > 0 for k in PATH4), f"a kernel of path 4 never ran: {launches4}")
-    emit({"phase": "main_path", "path": 4, "launches": launches4})
+    emit({"phase": "main_path", "path": 4, "launches": launches4, "t_s": elapsed()})
     check_path4_kernels(gt, dev, rng, p4, record_err)
-    del x64_ones
 
     # -- 5c. main path 5: k columns, IDR and IR on a Dia -------------------------------
     zero_counts()
     p5 = main_path5(gt, dev, rng, crit, kernels, p4)
     launches5 = {k: f.launches for k, f in kernels.items()}
     check(all(launches5[k] > 0 for k in PATH5), f"a kernel of path 5 never ran: {launches5}")
-    emit({"phase": "main_path", "path": 5, "launches": launches5})
+    emit({"phase": "main_path", "path": 5, "launches": launches5, "t_s": elapsed()})
     check_path5_kernels(gt, dev, rng, p4, p5, kernels, record_err)
     del p5
 
@@ -2254,11 +2713,22 @@ def main():
     p6 = main_path6(gt, dev, rng, crit, kernels, p4)
     launches6 = {k: f.launches for k, f in kernels.items()}
     check(all(launches6[k] > 0 for k in PATH6), f"a kernel of path 6 never ran: {launches6}")
-    emit({"phase": "main_path", "path": 6, "launches": launches6})
-    launches = {k: launches1[k] + launches2[k] + launches3[k] + launches4[k] + launches5[k]
-                + launches6[k] for k in kernels}
+    emit({"phase": "main_path", "path": 6, "launches": launches6, "t_s": elapsed()})
     check_path6_kernels(gt, dev, rng, p4, p6, record_err)
     del p6
+
+    # -- 5e. main path 7: triangular solves and incomplete factorizations ----------------
+    zero_counts()
+    p7 = main_path7(gt, dev, rng, crit, kernels, data, x64_ones, p4, C, P, x64_3, norm_a3,
+                    cg_iterations)
+    launches7 = {k: f.launches for k, f in kernels.items()}
+    check(all(launches7[k] > 0 for k in PATH7), f"a kernel of path 7 never ran: {launches7}")
+    emit({"phase": "main_path", "path": 7, "launches": launches7, "t_s": elapsed()})
+    launches = {k: launches1[k] + launches2[k] + launches3[k] + launches4[k] + launches5[k]
+                + launches6[k] + launches7[k] for k in kernels}
+    check_path7_kernels(gt, dev, rng, p7, record_err)
+    emit({"phase": "kernel_check", "path": 7, "done": True, "t_s": elapsed()})
+    del x64_ones, x64_3
 
     # -- 6. timings (printed, not checked) -------------------------------------------
     src = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
@@ -2449,6 +2919,8 @@ def main():
     time_path4(gt, dev, p4, rec, timing)
     time_path5(gt, dev, p4, rec, timing)
     time_path6(gt, dev, P, b3, rec, timing)
+    time_path7(gt, dev, p7, rec, timing)
+    timing["t_s"] = elapsed()
     emit(timing)
 
     # -- 7. result -----------------------------------------------------------------------

@@ -24,12 +24,20 @@ Ported so far:
 - slice 5: k-column whole-solve kernels for ``Bicgstab`` (2 to 8 columns)
   and ``Gmres``/``CbGmres`` (2 to 4), and the solvers ``Idr`` and
   ``Ir``/``Richardson``, each with a whole-solve kernel for one column on
-  a ``Dia`` (IR's kernel also runs fixed smoothing sweeps).
+  a ``Dia`` (IR's kernel also runs fixed smoothing sweeps);
+- slice 6: ``Bicgstab``, ``Cgs``, ``Gmres``/``CbGmres`` and ``Ir`` with a
+  whole-solve kernel for one column on a ``Pell``;
+- slice 7: triangular solves and incomplete factorizations:
+  ``solver.LowerTrs``/``UpperTrs`` (block_scan and sweeps, the sweeps in
+  one kernel), ``factorization.Ilu``/``Ic``/``ParIlu``/``ParIc``/
+  ``ParIlut``/``ParIct``/``Lu``, ``preconditioner.Ilu``/``Ic``/``Isai``,
+  ``Direct``, and whole-solve kernels for ``Cg`` and ``Bicgstab`` with an
+  ILU/IC preconditioner applied in the kernel on a ``Dia``.
 """
 
 __version__ = "0.1.0"
 
-from . import stop
+from . import factorization, preconditioner, solver, stop
 from .base import exceptions, types
 from .base.linop import Combination, Composition, LinOp, Perturbation
 from .base.matrix_data import DeviceMatrixData, MatrixData
@@ -44,6 +52,7 @@ from .matrix.well import Well
 from .preconditioner.jacobi import Jacobi
 from .solver.bicgstab import Bicg, Bicgstab, Cgs
 from .solver.cg import Cg, Fcg
+from .solver.direct import Direct
 from .solver.gmres import CbGmres, Gmres
 from .solver.idr import Idr
 from .solver.ir import Ir, Richardson
@@ -64,6 +73,7 @@ __all__ = [
     "DeviceMatrixData",
     "Dia",
     "Diagonal",
+    "Direct",
     "Fcg",
     "Gmres",
     "Identity",
@@ -79,7 +89,10 @@ __all__ = [
     "Well",
     "choose_format",
     "exceptions",
+    "factorization",
     "generators",
+    "preconditioner",
+    "solver",
     "stop",
     "types",
 ]

@@ -18,6 +18,7 @@ from .matrix.pell import Pell
 from .matrix.well import Well
 from .ops.pell import tile_ptr_from_steps
 from .preconditioner.jacobi import Jacobi
+from .solver.triangular import TriangularSolver
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -120,4 +121,24 @@ def bell_from_arrays(values, panel_ids, panel_valid, ent_flat, *, shape, block_r
         shape=tuple(int(s) for s in shape),
         block_rows=int(block_rows),
         nnz_stored=int(nnz_stored),
+    )
+
+
+def triangular_solver_from_arrays(diag, *, n, block, lower, unit_diag, algorithm, sweeps,
+                                  device, off_op=None, inv_diag_blocks=None, off_cols=None,
+                                  off_vals=None, off_lrow=None) -> TriangularSolver:
+    """A ``TriangularSolver`` from a JAX one's arrays, carried bit for bit:
+    'sweeps' takes the strict triangle ``off_op``, already carried over
+    (:func:`dia_from_arrays` or :func:`csr_from_arrays`); 'block_scan' the
+    inverted diagonal blocks and the per-block panels."""
+    def opt(a, dtype=None):
+        if a is None:
+            return None
+        return _tensor(a if dtype is None else np.asarray(a, dtype), device)
+
+    return TriangularSolver(
+        inv_diag_blocks=opt(inv_diag_blocks), off_csr=off_op, diag=_tensor(diag, device),
+        off_cols=opt(off_cols, np.int64), off_vals=opt(off_vals),
+        off_lrow=opt(off_lrow, np.int64), n=int(n), block=int(block), lower=bool(lower),
+        unit_diag=bool(unit_diag), algorithm=str(algorithm), sweeps=int(sweeps),
     )

@@ -49,6 +49,12 @@ class Dia(LinOp):
 
     read = from_matrix_data
 
+    @staticmethod
+    def from_csr(csr) -> "Dia":
+        """The ``Dia`` of a ``Csr``, on its device, with its values' dtype
+        (the host triples of bfloat16 values are float32)."""
+        return Dia.from_matrix_data(csr.to_matrix_data(), device=csr.device).astype(csr.dtype)
+
     @property
     def dtype(self):
         return self.diags.dtype
@@ -148,25 +154,40 @@ class Dia(LinOp):
     def to_matrix_data(self) -> MatrixData:
         """Host COO triples (bf16 storage exports as float32)."""
         n, m = self.shape
-        host = types.to_host(self.diags).reshape(self.num_diags, -1)
-        rows_l, cols_l, vals_l = [], [], []
-        r = np.arange(n)
-        for j, off in enumerate(self.offsets):
-            c = r + off
-            ok = (c >= 0) & (c < m)
-            v = host[j, :n][ok]
-            keep = v != 0
-            rows_l.append(r[ok][keep])
-            cols_l.append(c[ok][keep])
-            vals_l.append(v[keep])
-        return MatrixData.from_coo(
-            self.shape,
-            np.concatenate(rows_l) if rows_l else np.zeros(0, np.int64),
-            np.concatenate(cols_l) if cols_l else np.zeros(0, np.int64),
-            np.concatenate(vals_l) if vals_l else np.zeros(0, host.dtype),
-        ).sort_row_major()
+        host = types.to_host(self.diags).reshape(self.num_diags, -1)[:, :n]
+        # (n, nd) views: the offsets ascend, so reading them row by row
+        # gives row-major triples with no sort
+        cols = np.arange(n)[:, None] + np.asarray(self.offsets, np.int64)[None, :]
+        vals = host.T
+        keep = (cols >= 0) & (cols < m) & (vals != 0)
+        rows = np.broadcast_to(np.arange(n)[:, None], keep.shape)
+        return MatrixData.from_coo(self.shape, rows[keep], cols[keep], vals[keep])
 
     write = to_matrix_data
+
+    def to_scipy(self):
+        """scipy ``dia_matrix`` on the host, one shifted slice copy per
+        diagonal (scipy's DIA data is column-indexed, ours row-indexed);
+        bfloat16 widens to float32, as the JAX package's does (scipy has no
+        bfloat16)."""
+        import scipy.sparse as sps
+
+        n, m = self.shape
+        host = types.to_host(self.diags).reshape(self.num_diags, -1)
+        data = np.zeros((self.num_diags, m), host.dtype)
+        for k, off in enumerate(self.offsets):
+            c0, c1 = max(0, off), min(m, n + off)
+            if c1 > c0:
+                data[k, c0:c1] = host[k, c0 - off:c1 - off]
+        return sps.dia_matrix((data, np.asarray(self.offsets, np.int64)), shape=(n, m))
+
+    def to_csr(self, strategy="auto"):
+        """The ``Csr`` of the stored nonzeros, on the diagonals' device and
+        with their dtype (bfloat16 stays bfloat16, as in the JAX package)."""
+        from .csr import Csr
+
+        return Csr.from_matrix_data(self.to_matrix_data(), device=self.device,
+                                    strategy=strategy).astype(self.dtype)
 
     def to_dense(self):
         from .dense import Dense

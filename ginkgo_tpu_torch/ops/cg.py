@@ -48,12 +48,12 @@ def _sdiv(num, den):
 
 
 def _sqrt(v):
-    """float32 square root, correctly rounded as the kernels' sqrtf is:
-    taken in float64 and rounded once to float32, which is exact for a
-    square root (53 >= 2 * 24 + 2 bits).  PyTorch's float32 sqrt on the
-    CPU, where the plain versions do their scalar work, misrounds some
+    """Square root in v's real dtype, correctly rounded as the kernels'
+    sqrtf is: taken in float64 and rounded once to float32, which is exact
+    for a square root (53 >= 2 * 24 + 2 bits).  PyTorch's float32 sqrt on
+    the CPU, where the plain versions do their scalar work, misrounds some
     inputs by an ulp."""
-    return torch.sqrt(v.to(torch.float64)).to(torch.float32)
+    return torch.sqrt(v.to(torch.float64)).to(v.dtype)
 
 
 def _dots(a, b):

@@ -17,7 +17,10 @@ adds BiCG's A^H for K14); ``prepare_fused_pell`` a square ``Pell`` with
 float32 or bfloat16 values and S = 8, the layout both packages' fused
 kernels are routed to (K7, K18-K21), for one column.  ``fold_minv`` builds
 the A M operator that the fused BiCGSTAB and CGS kernels run on a Dia;
-on a Pell they apply M explicitly.
+on a Pell they apply M explicitly.  ``prepare_fused_dia_ilu`` takes an
+``IluPreconditioner`` of two 'sweeps' triangular solvers on Dia triangles
+in place of the diagonal one, for one column on such a Dia (kernels K23
+and K24, which apply M inside the solve).
 
 The TPU gates' VMEM/SMEM budgets and environment flags have no
 counterpart: the GPU kernels keep their state in device memory, so no
@@ -37,17 +40,40 @@ from ..ops.pell import FUSED_VALUE_DTYPES
 from ..preconditioner.jacobi import Jacobi
 from ..stop.criterion import analyze_simple_residual
 from .solver_base import SolveInfo, extract_max_iters, norm2
+from .triangular import TriangularSolver
 
 #: the slot layout the fused Pell kernel is routed to
 FUSED_PELL_S = 8
+#: most sweeps per triangle that the ILU whole-solve kernels are routed
+#: (ginkgo_tpu solver/_fused_gate.py:146)
+_MAX_FUSED_TRI_SWEEPS = 8
 
 
-def _prepare_common(solver, b, max_cols):
-    """Operator-independent checks; None or a partial ctx."""
+def _common_checks(solver, b, max_cols):
+    """Checks that neither the operator nor the preconditioner enters (the
+    JAX package's ``_common_checks``, _fused_gate.py:35); None or a partial
+    ctx."""
     if getattr(solver, "track_history", False):
         return None
     if not 1 <= b.shape[1] <= max_cols or b.dtype != torch.float32:
         return None
+    simple = analyze_simple_residual(solver.criterion)
+    if simple is None:
+        return None
+    tol, baseline, implicit, has_res = simple
+    return {
+        "A": solver.A,
+        "tol": tol,
+        "baseline": baseline,
+        "implicit": implicit,
+        "has_res": has_res,
+        "cap": extract_max_iters(solver.criterion),
+    }
+
+
+def _prepare_common(solver, b, max_cols):
+    """:func:`_common_checks` and a diagonal preconditioner; None or a
+    partial ctx with its inverse diagonal (None for the Identity)."""
     M = solver.preconditioner
     if isinstance(M, Identity):
         minv = None
@@ -57,19 +83,10 @@ def _prepare_common(solver, b, max_cols):
         minv = M.inv_diag
     else:
         return None
-    simple = analyze_simple_residual(solver.criterion)
-    if simple is None:
-        return None
-    tol, baseline, implicit, has_res = simple
-    return {
-        "A": solver.A,
-        "minv": minv,
-        "tol": tol,
-        "baseline": baseline,
-        "implicit": implicit,
-        "has_res": has_res,
-        "cap": extract_max_iters(solver.criterion),
-    }
+    ctx = _common_checks(solver, b, max_cols)
+    if ctx is not None:
+        ctx["minv"] = minv
+    return ctx
 
 
 def prepare_fused_dia(solver, b, max_cols=1):
@@ -122,6 +139,58 @@ def prepare_fused_pell(solver, b):
     if A.S != FUSED_PELL_S:
         return None
     return _prepare_common(solver, b, 1)
+
+
+def _fusable_dia(op, n):
+    """An n x n Dia with 1 to 64 float32/bfloat16 diagonals."""
+    return (isinstance(op, Dia) and op.shape == (n, n) and 1 <= op.num_diags <= MAX_DIAGS
+            and op.dtype in FUSED_DIAG_DTYPES)
+
+
+def prepare_fused_dia_ilu(solver, b):
+    """None or the ctx of the ILU-preconditioned whole-solve kernels K23
+    (CG) and K24 (BiCGSTAB): a square Dia operator with 1 to 64
+    float32/bfloat16 diagonals, an ``IluPreconditioner`` applied forward
+    (not ``reverse_apply``) whose two ``TriangularSolver``s run the 'sweeps'
+    algorithm with 0 to ``_MAX_FUSED_TRI_SWEEPS`` sweeps on such Dia strict
+    triangles of A's size, and :func:`_common_checks` for one column
+    (ginkgo_tpu solver/_fused_gate.py:149-201).  The ctx adds l_solver and
+    u_solver."""
+    # imported here: preconditioner/ilu.py imports the solver package
+    from ..preconditioner.ilu import IluPreconditioner
+
+    A = solver.A
+    n = A.shape[0]
+    if not _fusable_dia(A, n):
+        return None
+    M = solver.preconditioner
+    if not isinstance(M, IluPreconditioner) or M.reverse_apply:
+        return None
+    for t in (M.l_solver, M.u_solver):
+        if not isinstance(t, TriangularSolver) or t.algorithm != "sweeps":
+            return None
+        if not (0 <= t.sweeps <= _MAX_FUSED_TRI_SWEEPS and _fusable_dia(t.off_csr, n)):
+            return None
+    ctx = _common_checks(solver, b, 1)
+    if ctx is not None:
+        ctx.update(l_solver=M.l_solver, u_solver=M.u_solver)
+    return ctx
+
+
+def solve_fused_ilu(ctx, b, x0, run):
+    """(x, SolveInfo) of an ILU whole-solve kernel ``run`` (K23 or K24) on
+    the ctx of :func:`prepare_fused_dia_ilu`: the triangles' inverse
+    diagonals 1 / diag rounded to float32, as the JAX package's frames."""
+    A, lt, ut = ctx["A"], ctx["l_solver"], ctx["u_solver"]
+    r0 = b - A.apply(x0)
+    tol = tol_sq_eff(ctx, b, r0)
+    invdl = (1.0 / lt.diag).to(torch.float32).contiguous()
+    invdu = (1.0 / ut.diag).to(torch.float32).contiguous()
+    x, _r, it, mon, conv = run(A, lt.off_csr, ut.off_csr, invdl, invdu, r0[:, 0].contiguous(),
+                               x0[:, 0].contiguous(), sweeps_l=lt.sweeps, sweeps_u=ut.sweeps,
+                               tol_sq_eff=tol, max_iters=ctx["cap"],
+                               use_implicit=ctx["implicit"])
+    return x[:, None], fused_info(ctx, b, it, mon[None], conv[None])
 
 
 def fused_info(ctx, b, it, mon, conv):

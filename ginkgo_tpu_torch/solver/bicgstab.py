@@ -14,6 +14,10 @@ route that accepts it, in the JAX package's order (solver/bicgstab.py:
   BiCGSTAB's K19 (``ops/pell_cg.pell_bicgstab_fused``) or CGS's K20
   (``ops/pell_cg.pell_cgs_fused``), M applied explicitly (PELL values have
   no column fold).  BiCG has no Pell kernel, in the JAX package either;
+- BiCGSTAB with one float32 column on a ``Dia`` with an ``Ilu``
+  preconditioner whose two triangular solvers run 0 to 8 'sweeps' on
+  ``Dia`` triangles: K24 (``ops/cg_ilu.bicgstab_ilu_fused``), M applied
+  inside the kernel;
 - one float32 column on a ``Dia`` under the same gate: K12
   (``ops/bicgstab.bicgstab_fused``), K13 (``ops/cgs.cgs_fused``) or K14
   (``ops/cgs.bicg_fused``).  BiCGSTAB and CGS run on A M with the diagonal
@@ -23,9 +27,11 @@ route that accepts it, in the JAX package's order (solver/bicgstab.py:
   the JAX package's: more than 8 columns (CGS and BiCG: more than one;
   the JAX package has no k-column kernel for them), block Jacobi or any
   other preconditioner, BiCG on a ``Pell``, a ``Csr``/``Well``/``Bell``
-  operator.  The JAX package's ILU and multigrid fused routes are not
-  ported yet and stream here.  Per-column stop masks freeze converged
-  columns; the loop condition is read on the host once per iteration.
+  operator, an ILU preconditioner under CGS or BiCG (an ILU's sweeps on
+  ``Dia`` triangles then run in one K22 launch per triangle).  The JAX
+  package's multigrid fused routes are not ported yet and stream here.
+  Per-column stop masks freeze converged columns; the loop condition is
+  read on the host once per iteration.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import torch
 from ..base.linop import LinOp
 from ..ops.bicgstab import bicgstab_fused, bicgstab_fused_multi
 from ..ops.cg import MAX_FUSED_COLS
+from ..ops.cg_ilu import bicgstab_ilu_fused
 from ..ops.cgs import bicg_fused, cgs_fused
 from ..ops.pell_cg import pell_bicgstab_fused, pell_cgs_fused
 from ._fused_gate import (
@@ -47,7 +54,9 @@ from ._fused_gate import (
     fused_transpose_ok,
     kernel_inputs,
     prepare_fused_dia,
+    prepare_fused_dia_ilu,
     prepare_fused_pell,
+    solve_fused_ilu,
 )
 from .solver_base import (
     IterativeSolverMixin,
@@ -115,14 +124,18 @@ class Bicgstab(IterativeSolverMixin, LinOp):
         return fast if fast is not None else self._solve_streaming(b, x0)
 
     def _try_fused(self, b, x0):
-        """K12m for 2 to 8 columns; for one, K19 on a Pell, else K12 on A M
-        (the JAX package's order, solver/bicgstab.py:52-63, 277), or
-        None."""
+        """K12m for 2 to 8 columns; for one, K19 on a Pell, K24 with an ILU
+        preconditioner on a Dia, else K12 on A M (the JAX package's order,
+        solver/bicgstab.py:52-63, 176, 277), or None."""
         if b.shape[1] > 1:
             return _solve_fused(self, b, x0, bicgstab_fused_multi, fold=True,
                                 max_cols=MAX_FUSED_COLS)
-        return (_solve_fused_pell(self, b, x0, pell_bicgstab_fused)
-                or _solve_fused(self, b, x0, bicgstab_fused, fold=True))
+        fast = _solve_fused_pell(self, b, x0, pell_bicgstab_fused)
+        if fast is None:
+            ilu = prepare_fused_dia_ilu(self, b)
+            if ilu is not None:
+                return solve_fused_ilu(ilu, b, x0, bicgstab_ilu_fused)
+        return fast or _solve_fused(self, b, x0, bicgstab_fused, fold=True)
 
     def _solve_streaming(self, b, x0):
         """Right-preconditioned BiCGSTAB with the half-step check on s,

@@ -8,9 +8,15 @@ accepts it, in the JAX package's order (solver/cg.py:48-78):
   (``ops/cg.cg_fused_multi``), with per-column stopping;
 - one column on a ``Pell``: the whole-solve kernel K7
   (``ops/pell_cg.pell_cg_fused``);
+- one column on a ``Dia`` with an ``Ilu``/``Ic`` preconditioner whose two
+  triangular solvers run 0 to 8 'sweeps' on ``Dia`` triangles: the
+  whole-solve kernel K23 (``ops/cg_ilu.cg_ilu_fused``), M applied inside
+  it (CG only: Fcg streams, as in the JAX package, solver/cg.py:62-72);
 - one column on a ``Dia``: the whole-solve kernel K4 (``ops/cg.cg_fused``);
 - otherwise the streaming route (``_solve_streaming``): one SpMV kernel
-  launch per iteration (K1/K5 for one column, K3/K6 for k), with
+  launch per iteration (K1/K5 for one column, K3/K6 for k), and an ILU
+  preconditioner's sweeps in one K22 launch per triangle on ``Dia``
+  triangles, with
   per-column stop masks freezing converged columns.  Eager PyTorch
   evaluates the loop condition on the host, so this route syncs with the
   device once per iteration, as the reference Ginkgo does with its stop
@@ -31,8 +37,16 @@ from ..base import types
 from ..base.linop import LinOp
 from ..matrix.pell import Pell
 from ..ops.cg import MAX_FUSED_COLS, cg_fused, cg_fused_multi
+from ..ops.cg_ilu import cg_ilu_fused
 from ..ops.pell_cg import pell_cg_fused
-from ._fused_gate import fused_info, kernel_inputs, prepare_fused_dia, prepare_fused_pell
+from ._fused_gate import (
+    fused_info,
+    kernel_inputs,
+    prepare_fused_dia,
+    prepare_fused_dia_ilu,
+    prepare_fused_pell,
+    solve_fused_ilu,
+)
 from .solver_base import (
     IterativeSolverMixin,
     SolveInfo,
@@ -65,11 +79,17 @@ def _solve_fused(b, x0, ctx, flexible):
 
 def _try_fused(solver, b, x0, flexible):
     """(x, SolveInfo) from the first fused route whose gate accepts the
-    solve, or None."""
+    solve, or None.  The ILU route is plain CG's only, as in the JAX
+    package (Fcg passes ``flexible=True``)."""
     if b.shape[1] > 1:
         ctx = prepare_fused_dia(solver, b, max_cols=MAX_FUSED_COLS)
     else:
-        ctx = prepare_fused_pell(solver, b) or prepare_fused_dia(solver, b)
+        ctx = prepare_fused_pell(solver, b)
+        if ctx is None and not flexible:
+            ilu = prepare_fused_dia_ilu(solver, b)
+            if ilu is not None:
+                return solve_fused_ilu(ilu, b, x0, cg_ilu_fused)
+        ctx = ctx or prepare_fused_dia(solver, b)
     return None if ctx is None else _solve_fused(b, x0, ctx, flexible)
 
 

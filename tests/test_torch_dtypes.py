@@ -10,6 +10,13 @@ the JAX package's on the CPU.
   ``Well`` return the vector's.
 - Cg, Bicgstab, Ir, Gmres and Idr with a bfloat16 right-hand side on a
   bfloat16 ``Dia``: a bfloat16 x after the JAX package's iteration count.
+- Slice 7: ``Dia.to_csr`` and ``Dia.from_csr`` in the table above;
+  ``Dia.to_scipy`` widens bfloat16 to float32 in both packages; the factors
+  of every ported factorization of a float32, bfloat16 and float64 ``Dia``
+  (bfloat16 factors as float32, scipy having no bfloat16); the
+  ``TriangularSolver`` and ``IluPreconditioner`` of both algorithms, and
+  their products with float32, bfloat16 and float64 vectors (block_scan
+  computes in the vector's dtype, sweeps promote it with the factor's).
 """
 
 import numpy as np
@@ -45,7 +52,11 @@ def _operators(name, values):
                 gt.Dia.from_matrix_data(data, device="cpu").astype(tdt))
     JC = gko.matrix.csr.Csr.from_matrix_data(jd).astype(jdt)
     C = gt.Csr.from_matrix_data(data, device="cpu").astype(tdt)
+    JD = gko.matrix.dia.Dia.from_matrix_data(jd).astype(jdt)
+    D = gt.Dia.from_matrix_data(data, device="cpu").astype(tdt)
     return {
+        "dia.to_csr": lambda: (JD.to_csr(), D.to_csr()),
+        "dia.from_csr": lambda: (gko.matrix.dia.Dia.from_csr(JC), gt.Dia.from_csr(C)),
         "csr": lambda: (JC, C),
         "csr.to_dia": lambda: (JC.to_dia(), C.to_dia()),
         "csr.to_bell": lambda: (JC.to_bell(), C.to_bell()),
@@ -56,7 +67,7 @@ def _operators(name, values):
 
 
 FORMATS = ("dense", "csr", "dia", "csr.to_dia", "csr.to_bell", "bell.from_csr",
-           "pell.from_csr", "well.from_csr")
+           "pell.from_csr", "well.from_csr", "dia.to_csr", "dia.from_csr")
 
 
 @pytest.mark.parametrize("vector", sorted(DTYPES))
@@ -115,3 +126,49 @@ def test_bf16_solve_on_bf16_dia(name):
         jxf = np.asarray(jx, np.float32)
         np.testing.assert_allclose(px.float().numpy(), jxf, rtol=0,
                                    atol=4 * 2.0**-8 * np.abs(jxf).max())
+
+
+@pytest.mark.parametrize("values", sorted(DTYPES))
+def test_dia_to_scipy_dtype_matches_jax(values):
+    JD, D = _operators("dia", values)
+    js, ps = JD.to_scipy(), D.to_scipy()
+    assert ps.dtype == js.dtype
+    np.testing.assert_array_equal(ps.toarray(), js.toarray())
+
+
+FACTORIZATIONS = ("ParIlu", "ParIc", "Ilu", "Ic", "Lu", "ParIlut", "ParIct")
+
+
+@pytest.mark.parametrize("values", sorted(DTYPES))
+@pytest.mark.parametrize("name", FACTORIZATIONS)
+def test_factor_dtypes_match_jax(name, values):
+    JD, D = _operators("dia", values)
+    jf = getattr(gko.factorization, name)().generate(JD)
+    pf = getattr(gt.factorization, name)().generate(D)
+    for jop, op in ((jf.l_factor, pf.l_factor), (jf.u_factor, pf.u_factor)):
+        assert str(op.dtype).split(".")[-1] == str(jop.dtype)
+        assert op.shape == tuple(jop.shape)
+
+
+@pytest.mark.parametrize("vector", sorted(DTYPES))
+@pytest.mark.parametrize("values", sorted(DTYPES))
+@pytest.mark.parametrize("algorithm", ["block_scan", "sweeps"])
+def test_ilu_apply_dtypes_match_jax(algorithm, values, vector):
+    JD, D = _operators("dia", values)
+    kw = dict(algorithm=algorithm, sweeps=2)
+    JM = gko.preconditioner.Ilu.build(
+        l_solver_factory=gko.solver.LowerTrs.build(**kw),
+        u_solver_factory=gko.solver.UpperTrs.build(**kw)).generate(JD)
+    M = gt.preconditioner.Ilu.build(
+        l_solver_factory=gt.solver.LowerTrs.build(**kw),
+        u_solver_factory=gt.solver.UpperTrs.build(**kw)).generate(D)
+    for jop, op in ((JM, M), (JM.l_solver, M.l_solver), (JM.u_solver, M.u_solver)):
+        assert str(op.dtype).split(".")[-1] == str(jop.dtype)
+    jdt, tdt = DTYPES[vector]
+    x = np.random.default_rng(5).uniform(0.5, 1.5, (D.shape[0], 1)).astype(np.float32)
+    jy = JM.apply(jnp.asarray(x).astype(jdt))
+    y = M.apply(torch.from_numpy(x).to(tdt))
+    assert str(y.dtype).split(".")[-1] == str(jy.dtype)
+    tol = 2e-2 if "bfloat16" in str(jy.dtype) else 1e-5
+    np.testing.assert_allclose(y.double().numpy(), np.asarray(jy, np.float64), rtol=tol,
+                               atol=tol)
