@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``ginkgo_tpu_torch/csrc`` (one
-``nvcc`` per source, all started together) and drives the six paths of
+``nvcc`` per source, all started together) and drives the eight paths of
 the port that users call:
 
 - path 1 (slice 1): a 2-D Poisson matrix on a 2048 x 2048 grid (4,194,304
@@ -34,7 +34,13 @@ the port that users call:
   3 sweeps a triangle; the whole-solve kernel K23), path 4's ``Dia`` ->
   ``Bicgstab`` with ``Ilu`` (K24) and ``Gmres(30)`` with it (streaming,
   K22 per triangle), path 2's ``Csr`` -> ``Cg`` with ``Ic`` (K5 + K22), a
-  ``LowerTrs`` solve (K22), and at 64^2 ``Direct`` and ``Isai`` + ``Gmres``.
+  ``LowerTrs`` solve (K22), and at 64^2 ``Direct`` and ``Isai`` + ``Gmres``;
+- path 8 (slice 8): algebraic multigrid, ``Multigrid(max_levels=12)`` (Pgm,
+  FixedSmoother, Direct on 1024 coarse rows) on path 1's ``Dia`` ->
+  ``Cg``/``Fcg`` + MG (the whole-solve kernel K26) and ``Multigrid.solve``
+  (K27), each also through the streaming cycle (K1, K17 ``ir_smooth``), and
+  on path 4's ``Dia`` -> ``Bicgstab`` + MG (K28) and ``Gmres(30)`` + MG
+  (one K25 cycle per M apply).
 
 Phases, each of which raises on failure:
 
@@ -103,14 +109,23 @@ Phases, each of which raises on failure:
    K22-K24 against their plain versions at 24^2 and 64^2 (f32/bf16
    triangles and A, sweeps 0/1/3/8, equal iterations and x bit for bit, a
    NaN case each) and at 2048^2 under a cap;
-10. timings, printed and not checked: each kernel, its plain version and
+10. main path 8: the two 12-level hierarchies (the host seconds of each
+   level's aggregation and triple product, the dense coarse inverse), the
+   solves above held against path 1's and path 4's float64 solves (the
+   standalone solve, which stagnates, to a cap of 100 cycles, its residual
+   reported); then K25-K28 against their plain versions at 64^2 with V,
+   W, F and K cycles, the four mid_case values and float32/bfloat16
+   diagonals (equal iterations and x bit for bit, a NaN case each) and at
+   2048^2 under a cap, bit for bit too;
+11. timings, printed and not checked: each kernel, its plain version and
    the one PyTorch call that computes the same function, by the slope
    between two trip counts (CUDA events); CG, BiCGSTAB, CGS and BiCG time
    per iteration and GMRES(30) time per Arnoldi step, fused and
    streaming; the k-column BiCGSTAB and GMRES, IDR(2), IDR(4) and IR per
    iteration, and the smoother per sweep; BiCGSTAB, CGS, IR and GMRES(30)
    on the 160^3 ``Pell``; K23 and K24 per iteration and K22 per launch;
-   bounds; the copy bandwidth.
+   K25 per cycle beside the streaming cycle, K26/K28 per iteration and K27
+   per cycle; bounds; the copy bandwidth.
 
 The launch counters are set to 0 just before each main path and read just
 after it; every kernel of a path must have run there.  The last lines are
@@ -122,6 +137,7 @@ without the package beside it, the script fails and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib.metadata
 import json
 import subprocess
@@ -194,15 +210,21 @@ KERNEL_META = {
     "cg_ilu_fused": ("ginkgo_tpu_torch/csrc/trs_fused.cu", "ginkgo_tpu/ops/pallas_cg_ilu.py:268"),
     "bicgstab_ilu_fused": ("ginkgo_tpu_torch/csrc/trs_fused.cu",
                            "ginkgo_tpu/ops/pallas_cg_ilu.py:518"),
+    # K25-K28: one source, one shared cycle routine
+    "mg_vcycle": ("ginkgo_tpu_torch/csrc/mg_fused.cu", "ginkgo_tpu/ops/pallas_mg.py:689"),
+    "mg_cg_fused": ("ginkgo_tpu_torch/csrc/mg_fused.cu", "ginkgo_tpu/ops/pallas_mg.py:925"),
+    "mg_solve_fused": ("ginkgo_tpu_torch/csrc/mg_fused.cu", "ginkgo_tpu/ops/pallas_mg.py:1072"),
+    "mg_bicgstab_fused": ("ginkgo_tpu_torch/csrc/mg_fused.cu",
+                          "ginkgo_tpu/ops/pallas_mg.py:1349"),
 }
 PATH1 = ("dia_spmv", "dia_spmv_advanced", "dia_spmm", "cg_fused", "cg_fused_multi")
 PATH2 = ("pell_spmv", "pell_spmm", "pell_cg_fused")
 PATH3 = ("well_spmv", "well_spmm", "bell_spmv", "bell_spmm")
 PATH4 = ("bicgstab_fused", "cgs_fused", "bicg_fused", "gmres_fused")
-#: ir_smooth has no caller on a main path yet (multigrid's FixedSmoother
-#: waits for the multigrid slice): its launches are checked with the kernels
 PATH5 = ("bicgstab_fused_multi", "gmres_fused_multi", "idr_fused", "ir_fused")
 PATH7 = ("trs_fused", "cg_ilu_fused", "bicgstab_ilu_fused")
+#: ir_smooth runs every smoothing of the streaming multigrid cycle
+PATH8 = ("ir_smooth", "mg_vcycle", "mg_cg_fused", "mg_solve_fused", "mg_bicgstab_fused")
 #: path 4: GMRES(30), the restart length of the JAX bench's GMRES row
 KRYLOV_DIM = 30
 #: path 4: BiCGSTAB's cap on the Poisson matrix, about CG's 4217 iterations
@@ -2208,6 +2230,380 @@ def time_path7(gt, dev, p7, rec, timing):
     timing["slice7"] = out
 
 
+# -- path 8: algebraic multigrid ------------------------------------------------------
+
+#: path 8: levels of the multigrid hierarchy on the 2048^2 grids; 12 levels
+#: leave 1024 coarse rows, under the 1536-row cap of the dense coarse
+#: inverse that the fused routes need (the default 10 leave 4096)
+MG_LEVELS8 = 12
+#: path 8: the standalone multigrid solve's cycle cap (a float32 V(1,1)
+#: cycle of pairwise aggregation stagnates above 1e-6 on these matrices)
+MG_SOLVE_CAP8 = 100
+
+
+def mg_generate(gt, A, dev, **kw):
+    """(Multigrid, set-up row): the factory with MG_LEVELS8 levels on A, each
+    level's host seconds as its Pgm recorded them, and the dense coarse
+    inverse's seconds."""
+    t0 = time.perf_counter()
+    M = gt.Multigrid.build(max_levels=MG_LEVELS8, **kw).generate(A)
+    _sync(dev)
+    total = time.perf_counter() - t0
+    op = M.levels[-1].coarse_op
+    _, inv_s = _timed(lambda: gt.MultigridFactory._coarse_inverse(op, M.coarse_solver), dev)
+    h = M._fused_hierarchy()
+    check(h is not None and M.coarse_dense_inv is not None,
+          "path 8: the hierarchy does not take the fused multigrid kernels")
+    levels = [{"rows": lvl.fine_op.shape[0],
+               **{f"{k}_s": round(v, 3) for k, v in lvl.setup_seconds.items()}}
+              for lvl in M.levels]
+    row = {"generate_s": round(total, 3), "coarse_inverse_s": inv_s, "levels": levels,
+           "coarse_rows": op.shape[0], "strides": list(h.strides),
+           "diagonals": [len(o) for o in h.offsets],
+           "cycle_barriers": ops_barriers(h)}
+    return M, row
+
+
+def ops_barriers(h):
+    from ginkgo_tpu_torch.ops import mg as ops_mg
+
+    return ops_mg.barriers(h.passes[False][0])
+
+
+def main_path8(gt, dev, rng, crit, kernels, data1, x64_ones, p4, cg_iterations):
+    """Main path 8 through the entry points a user calls; every check raises.
+    A1 (path 1's 2048^2 Poisson ``Dia``) with ``Multigrid(max_levels=12)``
+    (Pgm, FixedSmoother V(1,1) at 0.9, Direct coarse solve through its dense
+    inverse): ``Cg`` + MG and ``Fcg`` + MG fused (K26) to 1e-6, fewer
+    iterations than CG's; ``Multigrid.solve`` fused (K27) to a cap of 100
+    cycles, its relative residual reported; the same three through the
+    streaming cycle (the hierarchy without its dense inverse: K1 products,
+    K17 ir_smooth for every smoothing, tensor transfers, Direct at the
+    coarse level).  A2 (path 4's convection-diffusion ``Dia``), its own
+    hierarchy: ``Bicgstab`` + MG fused (K28), and ``Gmres(30)`` + MG, whose
+    streaming loop runs each M apply in one K25 launch.  Every solution is
+    held against a float64 solve of its system where it converges."""
+    from ginkgo_tpu_torch import stop
+
+    A1, b1 = p4["A1"], p4["b1"]
+    norm1 = inf_norm(data1)
+    M1, row = mg_generate(gt, A1, dev)
+    emit({"phase": "main_path", "path": 8, "case": "setup_a1", **row})
+    A2, b2, ref2, norm2 = p4["A"], p4["b"], p4["refs"]["f32"], p4["norm_a"]
+    M2, row = mg_generate(gt, A2, dev)
+    emit({"phase": "main_path", "path": 8, "case": "setup_a2", **row})
+    M1s = M1.replace(coarse_dense_inv=None)  # the streaming cycle
+    check(M1s._fused_hierarchy() is None, "path 8: the streaming hierarchy is fused")
+
+    def launched(before, name):
+        return kernels[name].launches - before[name]
+
+    out = {"A1": A1, "b1": b1, "M1": M1, "M1s": M1s, "A2": A2, "b2": b2, "M2": M2}
+    runs = (("cg_mg", gt.Cg, A1, M1, b1, x64_ones, norm1, "mg_cg_fused", cg_iterations["a1"]),
+            ("fcg_mg", gt.Fcg, A1, M1, b1, x64_ones, norm1, "mg_cg_fused", cg_iterations["a1"]),
+            ("bicgstab_mg", gt.Bicgstab, A2, M2, b2, ref2, norm2, "mg_bicgstab_fused",
+             p4["iterations"]["bicgstab"]))
+    iterations = {}
+    for label, cls, A, M, b, ref, norm_a, kname, plain_its in runs:
+        solver = cls.build(criteria=crit, preconditioner=M).generate(A)
+        before = {k: f.launches for k, f in kernels.items()}
+        (x, info), solve_s = _timed(lambda: solver.solve(b), dev)
+        check(launched(before, kname) == 1 and launched(before, "mg_vcycle") == 0,
+              f"path 8: {label} did not run {kname} once")
+        check(bool(info.converged.all()), f"path 8: {label}: not converged")
+        its = iterations[label] = info.num_iterations
+        check(its < plain_its, f"path 8: {label}: {its} iterations, {plain_its} without MG")
+        emit({"phase": "main_path", "path": 8, "route": "fused", "case": label,
+              "iterations": its, "unpreconditioned_iterations": plain_its,
+              "residual_norm": float(info.residual_norm[0]),
+              **accuracy(A, x, b, ref, norm_a, f"path 8: {label}"), "solve_s": solve_s})
+    # the streaming cycle under CG and FCG
+    for label, cls in (("cg_mg", gt.Cg), ("fcg_mg", gt.Fcg)):
+        solver = cls.build(criteria=crit, preconditioner=M1s).generate(A1)
+        before = {k: f.launches for k, f in kernels.items()}
+        (x, info), solve_s = _timed(lambda: solver.solve(b1), dev)
+        its = info.num_iterations
+        smooth = launched(before, "ir_smooth")
+        check(not any(launched(before, k) for k in PATH8 if k != "ir_smooth")
+              and smooth >= 2 * len(M1s.levels) * its,
+              f"path 8: {label} streaming: {smooth} ir_smooth launches in {its} iterations")
+        check(bool(info.converged.all()) and abs(its - iterations[label]) <= max(2, its // 20),
+              f"path 8: {label} streaming: {its} iterations, fused {iterations[label]}")
+        emit({"phase": "main_path", "path": 8, "route": "streaming", "case": label,
+              "iterations": its, "ir_smooth_launches": smooth,
+              "dia_spmv_launches": launched(before, "dia_spmv"),
+              **accuracy(A1, x, b1, x64_ones, norm1, f"path 8: {label} streaming"),
+              "solve_s": solve_s})
+    # the standalone solve to its cap, fused (K27) and streaming
+    mg_crit = stop.combine([stop.Iteration(max_iters=MG_SOLVE_CAP8),
+                            stop.ResidualNorm(tolerance=TOL)])
+    bn = float(b1.norm())
+    for route, M, kname in (("fused", M1, "mg_solve_fused"), ("streaming", M1s, "ir_smooth")):
+        before = {k: f.launches for k, f in kernels.items()}
+        (x, info), solve_s = _timed(lambda: M.replace(criterion=mg_crit).solve(b1), dev)
+        check(launched(before, kname) >= 1 and bool(torch.isfinite(x).all()),
+              f"path 8: mg_solve {route} did not run {kname}")
+        relres = float((b1 - A1.apply(x)).norm()) / bn
+        out[f"mg_solve_{route}"] = (info.num_iterations, relres)
+        emit({"phase": "main_path", "path": 8, "route": route, "case": "mg_solve",
+              "iterations": info.num_iterations, "cap": MG_SOLVE_CAP8,
+              "converged": bool(info.converged.all()), "relres": relres,
+              "reported_residual_norm": float(info.residual_norm[0]),
+              f"{kname}_launches": launched(before, kname),
+              **accuracy(A1, x, b1, x64_ones, norm1, f"path 8: mg_solve {route}",
+                         bounded=False), "solve_s": solve_s})
+    f_it, f_res = out["mg_solve_fused"]
+    s_it, s_res = out["mg_solve_streaming"]
+    check(f_res < 0.5 and s_res < 0.5 and abs(np.log10(f_res / s_res)) < 1,
+          f"path 8: mg_solve relative residuals fused {f_res}, streaming {s_res}")
+    # GMRES(30) + MG on A2: streaming GMRES, each M apply one K25 launch
+    solver = gt.Gmres.build(criteria=crit, krylov_dim=KRYLOV_DIM, preconditioner=M2).generate(A2)
+    before = {k: f.launches for k, f in kernels.items()}
+    (x, info), solve_s = _timed(lambda: solver.solve(b2), dev)
+    k25 = launched(before, "mg_vcycle")
+    check(k25 >= info.num_iterations, f"path 8: gmres_mg: {k25} mg_vcycle launches in "
+          f"{info.num_iterations} steps")
+    converged = bool(info.converged.all())
+    check(info.num_iterations < p4["iterations"]["gmres"] or not converged,
+          f"path 8: gmres_mg: {info.num_iterations} steps")
+    emit({"phase": "main_path", "path": 8, "route": "streaming", "case": "gmres_mg",
+          "iterations": info.num_iterations, "converged": converged,
+          "unpreconditioned_iterations": p4["iterations"]["gmres"], "mg_vcycle_launches": k25,
+          **accuracy(A2, x, b2, ref2, norm2, "path 8: gmres_mg", bounded=converged),
+          "solve_s": solve_s})
+    out["iterations"] = iterations
+    return out
+
+
+def check_path8_kernels(gt, dev, rng, p8, record_err):
+    """K25-K28 against their plain versions on the card.  At 64^2 (the
+    Poisson matrix, 6 levels of at least 32 rows) with V, W, F and K cycles,
+    the four mid_case values under F, kcycle_rel_tol 0, 0.25 and +inf
+    under K and two sweeps under F 'both': K25 from zero and from a random
+    x, K26 (CG and FCG), K27 and K28, each twice: equal to itself, equal
+    iterations and x bit for bit; a NaN in b runs K26 to its cap of 25 on
+    both.  At 2048^2 on path 8's hierarchies, and on them with every
+    level's diagonals and A's rounded to bfloat16: one
+    K25 cycle, K26/K28 under a cap of CAP6 iterations, K27 under 5 cycles:
+    equal counts and x bit for bit, as at 64^2."""
+    from ginkgo_tpu_torch.ops import mg as ops_mg
+
+    def compare(name, what, kern, plain, cap=None):
+        t0 = time.perf_counter()
+        k = kern()
+        _sync(dev)
+        k_s = time.perf_counter() - t0
+        k2 = kern()
+        t0 = time.perf_counter()
+        p = plain()
+        _sync(dev)
+        p_s = time.perf_counter() - t0
+        if name == "mg_vcycle":
+            kx, kit, kmon, kconv, px, pit, pmon, pconv = k, 0, 0.0, True, p, 0, 0.0, True
+            same = torch.equal(k2, k)
+        else:
+            i_it, i_mon, i_conv = (1, 2, 3) if name == "mg_solve_fused" else (2, 3, 4)
+            kx, kit, kmon, kconv = k[0], int(k[i_it]), float(k[i_mon]), bool(k[i_conv])
+            px, pit, pmon, pconv = p[0], int(p[i_it]), float(p[i_mon]), bool(p[i_conv])
+            same = int(k2[i_it]) == kit and (torch.equal(k2[0], kx) or np.isnan(kmon))
+        check(same, f"{what}: the kernel differs from itself")
+        row = {"iters": kit, "plain_iters": pit, "s": round(k_s, 4), "plain_s": round(p_s, 4)}
+        if cap is not None and np.isnan(kmon):
+            check(kit == pit == cap and np.isnan(pmon) and not kconv and not pconv,
+                  f"{what}: with a NaN, {kit} / {pit} iterations, monitors {kmon} / {pmon}")
+            return row
+        err = record_err(name, kx, px)
+        row.update(bit_equal=bool(torch.equal(kx, px)), x_max_abs_err=err, converged=kconv)
+        check(kit == pit and kconv == pconv,
+              f"{what}: {kit} / {pit} iterations, converged {kconv} / {pconv}")
+        check(row["bit_equal"], f"{what}: x differs by {err}")
+        return row
+
+    def cases(A, h, b, x0, tol, cap, solve_cap):
+        z = torch.zeros_like(b)
+        kw = dict(tol_sq_eff=tol, max_iters=cap)
+        return {
+            "mg_vcycle": (lambda: ops_mg.mg_vcycle(h, b), lambda: ops_mg.mg_vcycle_reference(h, b)),
+            "mg_vcycle x0": (lambda: ops_mg.mg_vcycle(h, b, x0),
+                             lambda: ops_mg.mg_vcycle_reference(h, b, x0)),
+            "mg_cg_fused": (lambda: ops_mg.mg_cg_fused(A, h, b, z, **kw),
+                            lambda: ops_mg.mg_cg_solve_reference(A, h, b, z, **kw)),
+            "mg_cg_fused fcg": (lambda: ops_mg.mg_cg_fused(A, h, b, z, flexible=True, **kw),
+                                lambda: ops_mg.mg_cg_solve_reference(A, h, b, z, flexible=True,
+                                                                     **kw)),
+            "mg_solve_fused": (
+                lambda: ops_mg.mg_solve_fused(h, b, z, tol_sq_eff=tol, max_iters=solve_cap),
+                lambda: ops_mg.mg_solve_reference(h, b, z, tol_sq_eff=tol,
+                                                  max_iters=solve_cap)),
+            "mg_bicgstab_fused": (lambda: ops_mg.mg_bicgstab_fused(A, h, b, z, **kw),
+                                  lambda: ops_mg.mg_bicgstab_solve_reference(A, h, b, z, **kw)),
+        }
+
+    data = gt.generators.poisson_2d(SMALL, dtype=np.float32)
+    A = gt.Dia.from_matrix_data(data, device=dev)
+    b = torch.as_tensor(rng.uniform(0.5, 1.5, A.shape[0]).astype(np.float32), device=dev)
+    x0 = torch.as_tensor(rng.standard_normal(A.shape[0]).astype(np.float32), device=dev)
+    tol = torch.full((), (TOL * float(b.norm())) ** 2, dtype=torch.float32, device=dev)
+    configs = ([("v", "standalone", 0.25, 1), ("w", "standalone", 0.25, 1)]
+               + [("f", m, 0.25, 2 if m == "both" else 1)
+                  for m in ("standalone", "both", "pre_smoother", "post_smoother")]
+               + [("k", "standalone", rt, 1) for rt in (0.0, 0.25, float("inf"))])
+    for storage in ("f32", "bf16"):
+        Av = A if storage == "f32" else A.reduce_storage()
+        for cycle, mid, rt, iters in configs:
+            if storage == "bf16" and (cycle, mid) not in (("v", "standalone"),
+                                                          ("k", "standalone")):
+                continue
+            M = gt.Multigrid.build(max_levels=6, min_coarse_rows=32, cycle=cycle, mid_case=mid,
+                                   kcycle_rel_tol=rt, smoother_iters=iters).generate(Av)
+            h = M._fused_hierarchy()
+            check(h is not None, f"path 8: the 64^2 {cycle} hierarchy is not fused")
+            label = f"{storage} {cycle} {mid} rel_tol {rt} sweeps {iters}"
+            row = {"phase": "kernel_check", "path": 8, "matrix": f"poisson({SMALL})",
+                   "case": label, "levels": len(M.levels), "barriers": ops_barriers(h)}
+            for key, (kern, plain) in cases(Av, h, b, x0, tol, 300, 60).items():
+                name = key.split(" ")[0]
+                row[key] = compare(name, f"{key} {label}", kern, plain)
+            bn = b.clone()
+            bn[5] = float("nan")
+            for key in ("mg_cg_fused", "mg_bicgstab_fused"):
+                kern, plain = cases(Av, h, bn, x0, tol, 25, 25)[key]
+                row[f"{key} nan"] = compare(key, f"{key} nan {label}", kern, plain, cap=25)
+            emit(row)
+
+    row = {"phase": "kernel_check", "path": 8, "nside": NSIDE, "cap": CAP6}
+    for label, Am, M, bv in (("poisson", p8["A1"], p8["M1"], p8["b1"]),
+                             ("convdiff", p8["A2"], p8["M2"], p8["b2"])):
+        tolv = torch.full((), (TOL * float(bv.norm())) ** 2, dtype=torch.float32, device=dev)
+        xr = torch.as_tensor(rng.standard_normal(Am.shape[0]).astype(np.float32), device=dev)
+        h = M._fused_hierarchy()
+        for storage in ("f32", "bf16"):
+            if storage == "bf16":  # the same hierarchy with its diagonals rounded
+                Am = Am.reduce_storage()
+                h = dataclasses.replace(h, diags=tuple(d.to(torch.bfloat16) for d in h.diags),
+                                        _dev={})
+            for key, (kern, plain) in cases(Am, h, bv, xr, tolv, CAP6, 5).items():
+                if label == "convdiff" and key.startswith("mg_cg"):
+                    continue  # CG is for the symmetric matrix
+                row[f"{key} {label} {storage}"] = compare(
+                    key.split(" ")[0], f"{key} {label} {storage} {NSIDE}", kern, plain)
+    emit(row)
+
+
+def mg_cycle_cost(h, passes):
+    """(bytes of the hierarchy, bytes once per pass, float32 operations) of
+    one cycle of hierarchy h along the pass list (every jump falling
+    through).  The hierarchy, read once: each level's diagonals and inverse
+    diagonal, each coarse level's b and x, and the coarse inverse; level
+    0's b and x are the caller's vectors and are counted by the caller.
+    Once per pass: what each pass reads and writes."""
+    from ginkgo_tpu_torch.ops import mg as ops_mg
+
+    s = h.diags[0].element_size()
+    n, nd = h.sizes, [len(o) for o in h.offsets]
+    L = h.L
+    hier = (sum((nd[l] * s + 4) * n[l] for l in range(L)) + 8 * sum(n[1:])
+            + 4 * n[L] ** 2)
+    per_pass = flops = 0
+    for op, l, _, _ in passes:
+        if op == ops_mg.COARSE:
+            per_pass += 4 * n[L] ** 2 + 8 * n[L]
+            flops += 2 * n[L] ** 2
+            continue
+        if op == ops_mg.JUMP:
+            continue
+        a = nd[l] * s
+        rows_b, rows_f = {
+            ops_mg.SMOOTH_ZERO: (12, 2), ops_mg.SMOOTH: (a + 16, 2 * nd[l] + 4),
+            ops_mg.RESTRICT: (a + 8, 2 * nd[l] + 2), ops_mg.PROLONG: (8, 1),
+            ops_mg.VPASS: (a + 16, 2 * nd[l] + 6), ops_mg.S1: (20, 4),
+            ops_mg.WPASS: (a + 12, 2 * nd[l] + 6), ops_mg.COMB: (12, 3),
+            ops_mg.COPY: (8, 0)}[int(op)]
+        per_pass += rows_b * n[l] + (4 * n[l + 1] if op in (ops_mg.RESTRICT, ops_mg.PROLONG)
+                                     else 0)
+        flops += rows_f * n[l]
+    return hier, per_pass, flops
+
+
+def time_path8(gt, dev, p8, rec, timing):
+    """Times on path 8's 2048^2 hierarchies (12 levels), CUDA events.  K25
+    per cycle by the slope of chained launches, beside the streaming cycle
+    (one ``apply`` of the hierarchy without its dense inverse) and the
+    plain version; K26 (CG + MG on A1) and K28 (BiCGSTAB + MG on A2) per
+    iteration, K27 per cycle, each by the slope between whole solves of 20
+    and 100 iterations (cycles), beside the plain versions (between 5 and
+    25).  Bounds (NVIDIA's peak rates), each input read once and each output
+    written once a launch, cycle or iteration: the hierarchy of
+    ``mg_cycle_cost`` (A is its level 0) and the vectors of level 0 -- K25
+    b and x, 8 n; K27 b, x0 and x, 12 n; K26 x, r, p and z read and
+    written, 32 n, and K28 BiCGSTAB's 44 n, as K23 and K24 count them (r
+    and z, p and y are the cycles' b and x).  Operations: the cycle's, for
+    K26 2 nd_A + 12 a row more, for K28 a second cycle and 4 nd_A + 22,
+    for K27 a residual, 2 nd_A + 3.  ``bound_ms_per_pass`` counts what
+    every pass reads and writes, A's products and K28's two cycles too."""
+    from ginkgo_tpu_torch import stop
+    from ginkgo_tpu_torch.ops import mg as ops_mg
+
+    out = {"card": timing["card"]}
+    A1, b1, M1, M1s = p8["A1"], p8["b1"], p8["M1"], p8["M1s"]
+    h1 = M1._fused_hierarchy()
+    n = A1.shape[0]
+    hier, per_pass, flops = mg_cycle_cost(h1, h1.passes[False][0])
+    k_ms = slope_ms(lambda: ops_mg.mg_vcycle(h1, b1))
+    p_ms = slope_ms(lambda: ops_mg.mg_vcycle_reference(h1, b1), 2, 7, 2)
+    s_ms = slope_ms(lambda: M1s.apply(b1), 2, 7, 2)
+    rec["mg_vcycle"] = (k_ms, p_ms, None, hier + 8 * n, flops)
+    out["mg_vcycle"] = {"us": k_ms * 1e3, "plain_us": p_ms * 1e3, "streaming_us": s_ms * 1e3,
+                        "barriers": ops_barriers(h1), "bytes": hier + 8 * n,
+                        "bytes_per_pass": per_pass,
+                        "bound_ms_per_pass": bound(per_pass, flops)[0]}
+    z1 = torch.zeros_like(b1)
+    nd1 = A1.num_diags
+    A2, b2, M2 = p8["A2"], p8["b2"], p8["M2"]
+    h2 = M2._fused_hierarchy()
+    z2 = torch.zeros_like(b2)
+    nd2 = A2.num_diags
+    hier2, per_pass2, flops2 = mg_cycle_cost(h2, h2.passes[False][0])
+    for kname, cls, A, M, h, b, z, nbytes, nflops, nbytes_pp in (
+            ("mg_cg_fused", gt.Cg, A1, M1, h1, b1, z1, hier + 32 * n,
+             flops + (2 * nd1 + 12) * n, per_pass + (4 * nd1 + 32) * n),
+            ("mg_bicgstab_fused", gt.Bicgstab, A2, M2, h2, b2, z2, hier2 + 44 * n,
+             2 * flops2 + (4 * nd2 + 22) * n, 2 * per_pass2 + (8 * nd2 + 44) * n)):
+        solver = cls.build(criteria=[stop.Iteration(max_iters=1)], preconditioner=M).generate(A)
+
+        def fused(its, solver=solver, b=b):
+            solver.replace(criterion=stop.Iteration(max_iters=its)).solve(b)
+
+        plain_fn = (ops_mg.mg_cg_solve_reference if kname == "mg_cg_fused"
+                    else ops_mg.mg_bicgstab_solve_reference)
+
+        def plain(its, A=A, h=h, b=b, z=z, fn=plain_fn):
+            fn(A, h, b, z, tol_sq_eff=-1.0, max_iters=its)
+
+        f_ms, pl_ms = iter_ms(fused, 20, 100), iter_ms(plain, 5, 25)
+        rec[kname] = (f_ms, pl_ms, None, nbytes, nflops)
+        out[kname] = {"us_per_iteration": f_ms * 1e3, "plain_us": pl_ms * 1e3, "bytes": nbytes,
+                      "bound_ms_per_pass": bound(nbytes_pp, nflops)[0]}
+
+    def solve_fused(its):
+        ops_mg.mg_solve_fused(h1, b1, z1, tol_sq_eff=-1.0, max_iters=its)
+
+    def solve_plain(its):
+        ops_mg.mg_solve_reference(h1, b1, z1, tol_sq_eff=-1.0, max_iters=its)
+
+    _, per_pass_x0, flops_x0 = mg_cycle_cost(h1, h1.passes[True][0])
+    nbytes = hier + 12 * n
+    nflops = flops_x0 + (2 * nd1 + 3) * n
+    f_ms, pl_ms = iter_ms(solve_fused, 20, 100), iter_ms(solve_plain, 5, 25)
+    rec["mg_solve_fused"] = (f_ms, pl_ms, None, nbytes, nflops)
+    out["mg_solve_fused"] = {"us_per_cycle": f_ms * 1e3, "plain_us": pl_ms * 1e3,
+                             "bytes": nbytes, "barriers_per_cycle":
+                             ops_mg.barriers(h1.passes[True][0]) + 1,
+                             "bound_ms_per_pass": bound(per_pass_x0 + (4 * nd1 + 8) * n,
+                                                        nflops)[0]}
+    timing["slice8"] = out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check needs a GPU")
@@ -2222,6 +2618,7 @@ def main():
     from ginkgo_tpu_torch.ops import gmres as ops_gmres
     from ginkgo_tpu_torch.ops import idr as ops_idr
     from ginkgo_tpu_torch.ops import ir as ops_ir
+    from ginkgo_tpu_torch.ops import mg as ops_mg
     from ginkgo_tpu_torch.ops import pell as ops_pell
     from ginkgo_tpu_torch.ops import pell_cg as ops_pell_cg
     from ginkgo_tpu_torch.ops import trs as ops_trs
@@ -2259,6 +2656,10 @@ def main():
         "trs_fused": ops_trs.trs_fused,
         "cg_ilu_fused": ops_cg_ilu.cg_ilu_fused,
         "bicgstab_ilu_fused": ops_cg_ilu.bicgstab_ilu_fused,
+        "mg_vcycle": ops_mg.mg_vcycle,
+        "mg_cg_fused": ops_mg.mg_cg_fused,
+        "mg_solve_fused": ops_mg.mg_solve_fused,
+        "mg_bicgstab_fused": ops_mg.mg_bicgstab_fused,
     }
     max_err = {k: 0.0 for k in kernels}
 
@@ -2724,11 +3125,21 @@ def main():
     launches7 = {k: f.launches for k, f in kernels.items()}
     check(all(launches7[k] > 0 for k in PATH7), f"a kernel of path 7 never ran: {launches7}")
     emit({"phase": "main_path", "path": 7, "launches": launches7, "t_s": elapsed()})
-    launches = {k: launches1[k] + launches2[k] + launches3[k] + launches4[k] + launches5[k]
-                + launches6[k] + launches7[k] for k in kernels}
     check_path7_kernels(gt, dev, rng, p7, record_err)
     emit({"phase": "kernel_check", "path": 7, "done": True, "t_s": elapsed()})
-    del x64_ones, x64_3
+    del x64_3
+
+    # -- 5f. main path 8: algebraic multigrid -------------------------------------------
+    zero_counts()
+    p8 = main_path8(gt, dev, rng, crit, kernels, data, x64_ones, p4, cg_iterations)
+    launches8 = {k: f.launches for k, f in kernels.items()}
+    check(all(launches8[k] > 0 for k in PATH8), f"a kernel of path 8 never ran: {launches8}")
+    emit({"phase": "main_path", "path": 8, "launches": launches8, "t_s": elapsed()})
+    launches = {k: launches1[k] + launches2[k] + launches3[k] + launches4[k] + launches5[k]
+                + launches6[k] + launches7[k] + launches8[k] for k in kernels}
+    check_path8_kernels(gt, dev, rng, p8, record_err)
+    emit({"phase": "kernel_check", "path": 8, "done": True, "t_s": elapsed()})
+    del x64_ones
 
     # -- 6. timings (printed, not checked) -------------------------------------------
     src = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
@@ -2920,6 +3331,7 @@ def main():
     time_path5(gt, dev, p4, rec, timing)
     time_path6(gt, dev, P, b3, rec, timing)
     time_path7(gt, dev, p7, rec, timing)
+    time_path8(gt, dev, p8, rec, timing)
     timing["t_s"] = elapsed()
     emit(timing)
 

@@ -32,12 +32,18 @@ Ported so far:
   one kernel), ``factorization.Ilu``/``Ic``/``ParIlu``/``ParIc``/
   ``ParIlut``/``ParIct``/``Lu``, ``preconditioner.Ilu``/``Ic``/``Isai``,
   ``Direct``, and whole-solve kernels for ``Cg`` and ``Bicgstab`` with an
-  ILU/IC preconditioner applied in the kernel on a ``Dia``.
+  ILU/IC preconditioner applied in the kernel on a ``Dia``;
+- slice 8: algebraic multigrid: ``multigrid.Pgm``/``FixedCoarsening``,
+  ``solver.Multigrid`` (V/W/F/K cycles, ``FixedSmoother``, ``Direct`` on
+  the coarsest level) as a solver and as a preconditioner, with
+  whole-cycle and whole-solve kernels on an all-``Dia`` hierarchy (one
+  cycle; cycles to the stop test; ``Cg``/``Fcg`` and ``Bicgstab`` with the
+  cycle as M).
 """
 
 __version__ = "0.1.0"
 
-from . import factorization, preconditioner, solver, stop
+from . import factorization, multigrid, preconditioner, solver, stop
 from .base import exceptions, types
 from .base.linop import Combination, Composition, LinOp, Perturbation
 from .base.matrix_data import DeviceMatrixData, MatrixData
@@ -56,6 +62,7 @@ from .solver.direct import Direct
 from .solver.gmres import CbGmres, Gmres
 from .solver.idr import Idr
 from .solver.ir import Ir, Richardson
+from .solver.multigrid import FixedSmoother, Multigrid, MultigridFactory
 from .solver.solver_base import SolveInfo
 from .utils import generators
 
@@ -75,6 +82,7 @@ __all__ = [
     "Diagonal",
     "Direct",
     "Fcg",
+    "FixedSmoother",
     "Gmres",
     "Identity",
     "Idr",
@@ -82,6 +90,8 @@ __all__ = [
     "Jacobi",
     "LinOp",
     "MatrixData",
+    "Multigrid",
+    "MultigridFactory",
     "Pell",
     "Perturbation",
     "Richardson",
@@ -91,6 +101,7 @@ __all__ = [
     "exceptions",
     "factorization",
     "generators",
+    "multigrid",
     "preconditioner",
     "solver",
     "stop",

@@ -31,7 +31,8 @@ CUDA_DEFAULT_HOME = Path("/usr/local/cuda")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 #: every kernel library of the port, one ``csrc/<name>.cu`` each
 KERNELS = ("dia_spmv", "cg_fused", "pell_spmv", "pell_cg_fused", "well_spmv", "bell_spmv",
-           "bicgstab_fused", "cgs_fused", "gmres_fused", "idr_fused", "ir_fused", "trs_fused")
+           "bicgstab_fused", "cgs_fused", "gmres_fused", "idr_fused", "ir_fused", "trs_fused",
+           "mg_fused")
 
 # -fmad=false: every multiply and add rounds on its own, as PyTorch's
 # elementwise ops do, so a kernel and its plain version differ only in the

@@ -17,7 +17,17 @@ from .matrix.dia import Dia
 from .matrix.pell import Pell
 from .matrix.well import Well
 from .ops.pell import tile_ptr_from_steps
+from .multigrid.pgm import (
+    BandedProlongation,
+    BandedRestriction,
+    MultigridLevel,
+    Prolongation,
+    Restriction,
+)
 from .preconditioner.jacobi import Jacobi
+from .solver.direct import DirectFactory
+from .solver.multigrid import FixedSmoother, Multigrid
+from .stop.criterion import Iteration, ResidualNorm, combine
 from .solver.triangular import TriangularSolver
 
 
@@ -142,3 +152,49 @@ def triangular_solver_from_arrays(diag, *, n, block, lower, unit_diag, algorithm
         off_lrow=opt(off_lrow, np.int64), n=int(n), block=int(block), lower=bool(lower),
         unit_diag=bool(unit_diag), algorithm=str(algorithm), sweeps=int(sweeps),
     )
+
+
+def _transfer_pair(t, device):
+    """(restrict, prolong) from a transfer's arrays: ``stride``, ``deltas``
+    and ``delta`` for the banded pair, else ``agg``; and ``n_coarse``."""
+    nc = int(t["n_coarse"])
+    if "delta" in t:
+        delta = _tensor(np.asarray(t["delta"], np.int32), device)
+        ds = tuple(int(d) for d in t["deltas"])
+        stride = int(t["stride"])
+        return (BandedRestriction(delta=delta, deltas=ds, n_coarse=nc, stride=stride),
+                BandedProlongation(delta=delta, deltas=ds, n_coarse=nc, stride=stride))
+    agg = _tensor(np.asarray(t["agg"], np.int64), device)
+    return Restriction(agg=agg, n_coarse=nc), Prolongation(agg=agg, n_coarse=nc)
+
+
+def multigrid_from_arrays(fine_ops, coarse_op, transfers, dinvs, *, coarse_dense_inv=None,
+                          cycle="v", mid_case="standalone", kcycle_base=1, kcycle_rel_tol=0.25,
+                          smoother_iters=1, smoother_relax=0.9, criteria=None,
+                          device) -> Multigrid:
+    """A ``Multigrid`` from a JAX one's hierarchy: the level operators
+    ``fine_ops`` and the coarsest ``coarse_op``, already carried over (e.g.
+    :func:`dia_from_arrays`); per level the transfer's arrays (see
+    ``_transfer_pair``) and the smoother's inverse diagonal, carried bit for
+    bit; one ``FixedSmoother`` per level in every role, the default
+    ``Direct`` coarse solver generated from ``coarse_op``, and the JAX
+    package's dense coarse inverse (its (Rc 128)^2 transposed frame, or
+    None), cut to the coarse rows and transposed back."""
+    levels, smoothers = [], []
+    for l, A in enumerate(fine_ops):
+        R, P = _transfer_pair(transfers[l], device)
+        coarse = fine_ops[l + 1] if l + 1 < len(fine_ops) else coarse_op
+        levels.append(MultigridLevel(fine_op=A, restrict_op=R, prolong_op=P, coarse_op=coarse))
+        smoothers.append(FixedSmoother(A=A, dinv=_tensor(dinvs[l], device),
+                                       iters=int(smoother_iters), relax=float(smoother_relax)))
+    inv = None
+    if coarse_dense_inv is not None:
+        nc = coarse_op.shape[0]
+        inv = _tensor(np.asarray(coarse_dense_inv, np.float32)[:nc, :nc].T, device)
+    crit = combine(criteria) if criteria is not None else combine(
+        [Iteration(max_iters=100), ResidualNorm(tolerance=1e-8)])
+    smoothers = tuple(smoothers)
+    return Multigrid(levels=tuple(levels), pre_smoothers=smoothers, post_smoothers=smoothers,
+                     mid_smoothers=smoothers, coarse_solver=DirectFactory().generate(coarse_op),
+                     criterion=crit, coarse_dense_inv=inv, cycle=cycle, mid_case=mid_case,
+                     kcycle_base=int(kcycle_base), kcycle_rel_tol=float(kcycle_rel_tol))

@@ -20,7 +20,9 @@ the A M operator that the fused BiCGSTAB and CGS kernels run on a Dia;
 on a Pell they apply M explicitly.  ``prepare_fused_dia_ilu`` takes an
 ``IluPreconditioner`` of two 'sweeps' triangular solvers on Dia triangles
 in place of the diagonal one, for one column on such a Dia (kernels K23
-and K24, which apply M inside the solve).
+and K24, which apply M inside the solve); ``prepare_fused_mg`` a
+``Multigrid`` whose hierarchy the fused multigrid kernels take (K26 and
+K28, one cycle as M inside the solve).
 
 The TPU gates' VMEM/SMEM budgets and environment flags have no
 counterpart: the GPU kernels keep their state in device memory, so no
@@ -39,6 +41,7 @@ from ..ops.dia import MAX_DIAGS
 from ..ops.pell import FUSED_VALUE_DTYPES
 from ..preconditioner.jacobi import Jacobi
 from ..stop.criterion import analyze_simple_residual
+from .multigrid import Multigrid
 from .solver_base import SolveInfo, extract_max_iters, norm2
 from .triangular import TriangularSolver
 
@@ -190,6 +193,39 @@ def solve_fused_ilu(ctx, b, x0, run):
                                x0[:, 0].contiguous(), sweeps_l=lt.sweeps, sweeps_u=ut.sweeps,
                                tol_sq_eff=tol, max_iters=ctx["cap"],
                                use_implicit=ctx["implicit"])
+    return x[:, None], fused_info(ctx, b, it, mon[None], conv[None])
+
+
+def prepare_fused_mg(solver, b):
+    """None or the ctx of the multigrid-preconditioned whole-solve kernels
+    K26 (CG/FCG) and K28 (BiCGSTAB): a square Dia operator with 1 to 64
+    float32/bfloat16 diagonals, a ``Multigrid`` preconditioner whose
+    hierarchy passes its fused gate (``Multigrid._fused_hierarchy``) with
+    level 0 of A's rows, and :func:`_common_checks` for one column
+    (ginkgo_tpu solver/cg.py:289-320, solver/bicgstab.py:219-250).  The ctx
+    adds the hierarchy."""
+    A, M = solver.A, solver.preconditioner
+    if not isinstance(M, Multigrid) or not _fusable_dia(A, A.shape[0]):
+        return None
+    ctx = _common_checks(solver, b, 1)
+    if ctx is None:
+        return None
+    h = M._fused_hierarchy()
+    if h is None or h.sizes[0] != A.shape[0]:
+        return None
+    ctx["hierarchy"] = h
+    return ctx
+
+
+def solve_fused_mg(ctx, b, x0, run, **kw):
+    """(x, SolveInfo) of a multigrid whole-solve kernel ``run`` (K26 or
+    K28) on the ctx of :func:`prepare_fused_mg`."""
+    A = ctx["A"]
+    r0 = b - A.apply(x0)
+    tol = tol_sq_eff(ctx, b, r0)
+    x, _r, it, mon, conv = run(A, ctx["hierarchy"], r0[:, 0].contiguous(),
+                               x0[:, 0].contiguous(), tol_sq_eff=tol, max_iters=ctx["cap"],
+                               use_implicit=ctx["implicit"], **kw)
     return x[:, None], fused_info(ctx, b, it, mon[None], conv[None])
 
 

@@ -18,6 +18,9 @@ route that accepts it, in the JAX package's order (solver/bicgstab.py:
   preconditioner whose two triangular solvers run 0 to 8 'sweeps' on
   ``Dia`` triangles: K24 (``ops/cg_ilu.bicgstab_ilu_fused``), M applied
   inside the kernel;
+- BiCGSTAB with one float32 column on a ``Dia`` with a ``Multigrid``
+  preconditioner whose hierarchy the fused multigrid kernels take: K28
+  (``ops/mg.mg_bicgstab_fused``), one cycle from zero as M inside it;
 - one float32 column on a ``Dia`` under the same gate: K12
   (``ops/bicgstab.bicgstab_fused``), K13 (``ops/cgs.cgs_fused``) or K14
   (``ops/cgs.bicg_fused``).  BiCGSTAB and CGS run on A M with the diagonal
@@ -46,6 +49,7 @@ from ..base.linop import LinOp
 from ..ops.bicgstab import bicgstab_fused, bicgstab_fused_multi
 from ..ops.cg import MAX_FUSED_COLS
 from ..ops.cg_ilu import bicgstab_ilu_fused
+from ..ops.mg import mg_bicgstab_fused
 from ..ops.cgs import bicg_fused, cgs_fused
 from ..ops.pell_cg import pell_bicgstab_fused, pell_cgs_fused
 from ._fused_gate import (
@@ -55,8 +59,10 @@ from ._fused_gate import (
     kernel_inputs,
     prepare_fused_dia,
     prepare_fused_dia_ilu,
+    prepare_fused_mg,
     prepare_fused_pell,
     solve_fused_ilu,
+    solve_fused_mg,
 )
 from .solver_base import (
     IterativeSolverMixin,
@@ -125,8 +131,9 @@ class Bicgstab(IterativeSolverMixin, LinOp):
 
     def _try_fused(self, b, x0):
         """K12m for 2 to 8 columns; for one, K19 on a Pell, K24 with an ILU
-        preconditioner on a Dia, else K12 on A M (the JAX package's order,
-        solver/bicgstab.py:52-63, 176, 277), or None."""
+        preconditioner on a Dia, K28 with a Multigrid one, else K12 on A M
+        (the JAX package's order, solver/bicgstab.py:52-66, 176, 277), or
+        None."""
         if b.shape[1] > 1:
             return _solve_fused(self, b, x0, bicgstab_fused_multi, fold=True,
                                 max_cols=MAX_FUSED_COLS)
@@ -135,6 +142,9 @@ class Bicgstab(IterativeSolverMixin, LinOp):
             ilu = prepare_fused_dia_ilu(self, b)
             if ilu is not None:
                 return solve_fused_ilu(ilu, b, x0, bicgstab_ilu_fused)
+            mg = prepare_fused_mg(self, b)
+            if mg is not None:
+                return solve_fused_mg(mg, b, x0, mg_bicgstab_fused)
         return fast or _solve_fused(self, b, x0, bicgstab_fused, fold=True)
 
     def _solve_streaming(self, b, x0):

@@ -12,6 +12,10 @@ accepts it, in the JAX package's order (solver/cg.py:48-78):
   triangular solvers run 0 to 8 'sweeps' on ``Dia`` triangles: the
   whole-solve kernel K23 (``ops/cg_ilu.cg_ilu_fused``), M applied inside
   it (CG only: Fcg streams, as in the JAX package, solver/cg.py:62-72);
+- one column on a ``Dia`` with a ``Multigrid`` preconditioner whose
+  hierarchy the fused multigrid kernels take: the whole-solve kernel K26
+  (``ops/mg.mg_cg_fused``), one cycle from zero as M inside it, for Cg and
+  Fcg (solver/cg.py:73-78);
 - one column on a ``Dia``: the whole-solve kernel K4 (``ops/cg.cg_fused``);
 - otherwise the streaming route (``_solve_streaming``): one SpMV kernel
   launch per iteration (K1/K5 for one column, K3/K6 for k), and an ILU
@@ -38,14 +42,17 @@ from ..base.linop import LinOp
 from ..matrix.pell import Pell
 from ..ops.cg import MAX_FUSED_COLS, cg_fused, cg_fused_multi
 from ..ops.cg_ilu import cg_ilu_fused
+from ..ops.mg import mg_cg_fused
 from ..ops.pell_cg import pell_cg_fused
 from ._fused_gate import (
     fused_info,
     kernel_inputs,
     prepare_fused_dia,
     prepare_fused_dia_ilu,
+    prepare_fused_mg,
     prepare_fused_pell,
     solve_fused_ilu,
+    solve_fused_mg,
 )
 from .solver_base import (
     IterativeSolverMixin,
@@ -80,7 +87,8 @@ def _solve_fused(b, x0, ctx, flexible):
 def _try_fused(solver, b, x0, flexible):
     """(x, SolveInfo) from the first fused route whose gate accepts the
     solve, or None.  The ILU route is plain CG's only, as in the JAX
-    package (Fcg passes ``flexible=True``)."""
+    package (Fcg passes ``flexible=True``); the multigrid route serves
+    both."""
     if b.shape[1] > 1:
         ctx = prepare_fused_dia(solver, b, max_cols=MAX_FUSED_COLS)
     else:
@@ -89,6 +97,10 @@ def _try_fused(solver, b, x0, flexible):
             ilu = prepare_fused_dia_ilu(solver, b)
             if ilu is not None:
                 return solve_fused_ilu(ilu, b, x0, cg_ilu_fused)
+        if ctx is None:
+            mg = prepare_fused_mg(solver, b)
+            if mg is not None:
+                return solve_fused_mg(mg, b, x0, mg_cg_fused, flexible=flexible)
         ctx = ctx or prepare_fused_dia(solver, b)
     return None if ctx is None else _solve_fused(b, x0, ctx, flexible)
 

@@ -172,3 +172,85 @@ def test_ilu_apply_dtypes_match_jax(algorithm, values, vector):
     tol = 2e-2 if "bfloat16" in str(jy.dtype) else 1e-5
     np.testing.assert_allclose(y.double().numpy(), np.asarray(jy, np.float64), rtol=tol,
                                atol=tol)
+
+
+# -- slice 8: multigrid (step 0 of its port) --------------------------------------
+
+
+def _mg_pair(values, nside=16):
+    data, jd = _data(nside)
+    jdt, tdt = DTYPES[values]
+    JD = gko.matrix.dia.Dia.from_matrix_data(jd).astype(jdt)
+    D = gt.Dia.from_matrix_data(data, device="cpu").astype(tdt)
+    return JD, D
+
+
+@pytest.mark.parametrize("values", sorted(DTYPES))
+def test_pgm_coarse_and_smoother_dtypes_match_jax(values):
+    """The coarse operator out of ``PgmFactory.generate`` keeps the fine
+    dtype (bfloat16 included) and ``FixedSmoother.dinv`` takes A's."""
+    JD, D = _mg_pair(values)
+    jl = gko.multigrid.PgmFactory().generate(JD)
+    pl = gt.multigrid.PgmFactory().generate(D)
+    assert type(pl.coarse_op).__name__ == type(jl.coarse_op).__name__
+    assert str(pl.coarse_op.dtype).split(".")[-1] == str(jl.coarse_op.dtype)
+    from ginkgo_tpu.solver.multigrid import _fixed_smoother as jsmoother
+    from ginkgo_tpu_torch.solver.multigrid import _fixed_smoother
+
+    js, ps = jsmoother(JD), _fixed_smoother(D)
+    assert str(ps.dinv.dtype).split(".")[-1] == str(js.dinv.dtype)
+    np.testing.assert_array_equal(ps.dinv.double().numpy(), np.asarray(js.dinv, np.float64))
+
+
+@pytest.mark.parametrize("vector", sorted(DTYPES))
+@pytest.mark.parametrize("k", [1, 2])
+def test_transfer_dtypes_match_jax(vector, k):
+    JD, D = _mg_pair("f32")
+    jl = gko.multigrid.PgmFactory().generate(JD)
+    pl = gt.multigrid.PgmFactory().generate(D)
+    jdt, tdt = DTYPES[vector]
+    rng = np.random.default_rng(2)
+    for jop, op, n in ((jl.restrict_op, pl.restrict_op, D.shape[0]),
+                       (jl.prolong_op, pl.prolong_op, pl.restrict_op.n_coarse)):
+        x = rng.uniform(0.5, 1.5, (n, k)).astype(np.float32)
+        jy = jop.apply(jnp.asarray(x).astype(jdt))
+        y = op.apply(torch.from_numpy(x).to(tdt))
+        assert str(y.dtype).split(".")[-1] == str(jy.dtype)
+        assert y.shape == tuple(jy.shape)
+        tol = 1e-2 if vector == "bf16" else 1e-6
+        np.testing.assert_allclose(y.double().numpy(), np.asarray(jy, np.float64), rtol=tol)
+
+
+@pytest.mark.parametrize("vector", ["f32", "bf16"])
+@pytest.mark.parametrize("values", ["f32", "bf16"])
+def test_multigrid_apply_and_solve_dtypes_match_jax(values, vector):
+    """``Multigrid.apply`` (one cycle) and ``Multigrid.solve`` (Iteration(3))
+    on a float32 or bfloat16 ``Dia`` with a float32 or bfloat16 b.  A
+    bfloat16 b on a float32 ``Dia``: the cycle promotes to float32, and the
+    JAX package's solve loop, whose carry must keep b's dtype, raises; the
+    port returns x in the cycle's float32."""
+    JD, D = _mg_pair(values)
+    jm = gko.solver.Multigrid.build(criteria=[jstop.Iteration(max_iters=3)],
+                                    min_coarse_rows=16).generate(JD)
+    pm = gt.Multigrid.build(criteria=[stop.Iteration(max_iters=3)],
+                            min_coarse_rows=16).generate(D)
+    assert str(pm.dtype).split(".")[-1] == str(jm.dtype)
+    jdt, tdt = DTYPES[vector]
+    b = np.ones(D.shape[0], np.float32)
+    jy = jm.apply(jnp.asarray(b).astype(jdt))
+    y = pm.apply(torch.from_numpy(b).to(tdt))
+    assert str(y.dtype).split(".")[-1] == str(jy.dtype) and y.shape == tuple(jy.shape)
+    x, info = pm.solve(torch.from_numpy(b).to(tdt))
+    if (values, vector) == ("f32", "bf16"):
+        with pytest.raises(TypeError, match="carry"):
+            jm.solve(jnp.asarray(b).astype(jdt))
+        assert x.dtype == y.dtype == torch.float32
+        return
+    jx, jinfo = jm.solve(jnp.asarray(b).astype(jdt))
+    assert str(x.dtype).split(".")[-1] == str(jx.dtype) and x.shape == tuple(jx.shape)
+    assert int(info.iterations) == int(jinfo.iterations)
+    assert str(info.residual_norm.dtype).split(".")[-1] == str(jinfo.residual_norm.dtype)
+    tol = 5e-2 if "bfloat16" in (str(jx.dtype), str(jy.dtype)) else 1e-4
+    for got, want in ((y, jy), (x, jx)):
+        w = np.asarray(want, np.float64)
+        np.testing.assert_allclose(got.double().numpy(), w, rtol=0, atol=tol * np.abs(w).max())

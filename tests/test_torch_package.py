@@ -120,7 +120,8 @@ def test_kernel_sources_are_listed():
 
     assert _build.KERNELS == ("dia_spmv", "cg_fused", "pell_spmv", "pell_cg_fused",
                               "well_spmv", "bell_spmv", "bicgstab_fused", "cgs_fused",
-                              "gmres_fused", "idr_fused", "ir_fused", "trs_fused")
+                              "gmres_fused", "idr_fused", "ir_fused", "trs_fused",
+                              "mg_fused")
     for name in _build.KERNELS:
         assert (PKG / "csrc" / f"{name}.cu").is_file()
     for header in ("common", "coop", "pell"):
