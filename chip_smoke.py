@@ -71,7 +71,9 @@ Phases, each of which raises on failure:
    block-structured matrix returns a ``Bell``, applied to one column (K10)
    and four (K11) with float32 and bfloat16 panels and checked against a
    float64 product; then K8-K11 against their plain versions on the plans
-   of the path (K8/K9 at the chosen T and at T = 1);
+   of the path (K8/K9 at the chosen T, at T = 1 and on the 2^17 plan cut
+   into one-step chunks, each called twice for the same bits), with each
+   plan's chunks, split supertiles and scratch bytes;
 6. main path 4: the four solvers fused (K12-K15) with float32 and
    bfloat16 diagonals and with Jacobi, and streaming, each checked against
    a float64 solve of the system it solved; CbGmres "auto" (K15 with a
@@ -582,15 +584,18 @@ def main_path3(gt, dev, rng, crit, n_big=POWERLAW_ROWS, n_small=POWERLAW_SMALL,
 
 def check_path3_kernels(gt, dev, rng, p3, record_err):
     """K8-K11 against their plain versions on the plans of path 3: K8/K9 at
-    the chosen T (2^20 rows, float32 and float64 vectors; 2^17 rows) and
-    at T = 1 (2^17 rows, forced), K10/K11 with float32 and bfloat16
-    panels.  Kernel and plain version sum in the same order: equal bit for
-    bit is expected, and 1e-5 (float32) or 1e-12 (float64) relative is
-    required."""
+    the chosen T (2^20 rows, float32 and float64 vectors, the hub row's
+    supertile split into chunks; 2^17 rows), at T = 1 (2^17 rows, forced)
+    and on the 2^17 plan with one G-slot step a chunk (every supertile
+    split), each called twice; K10/K11 with float32 and bfloat16 panels.
+    Kernel and plain version walk the same work list in the same order:
+    equal bit for bit is expected, 1e-5 (float32) or 1e-12 (float64)
+    relative is required, and two calls of K8 or K9 must give the same
+    bits."""
     from ginkgo_tpu_torch.ops import bell as ops_bell
     from ginkgo_tpu_torch.ops import well as ops_well
 
-    def pair_check(label, A, pairs, vec):
+    def pair_check(label, A, pairs, vec, twice=False):
         x = torch.as_tensor(rng.standard_normal(A.shape[1]), dtype=vec, device=dev)
         X = torch.as_tensor(rng.standard_normal((A.shape[1], 4)), dtype=vec, device=dev)
         tol = 1e-12 if vec == torch.float64 else 1e-5
@@ -608,28 +613,56 @@ def check_path3_kernels(gt, dev, rng, p3, record_err):
             row[name + "_max_abs_err"] = err
             row[name + "_bit_equal"] = bool(torch.equal(got, want))
             row[name + "_first_call_s"] = round(k_s, 4)
+            if twice:
+                again = kern(A, v)
+                same = bool(torch.equal(got.view(torch.uint8), again.view(torch.uint8)))
+                check(same, f"{name}: two calls gave different bits ({label}, {vec})")
+                row[name + "_repeat_bit_equal"] = same
         return row
 
-    well_pairs = (("well_spmv", ops_well.well_spmv, ops_well.well_spmv_reference),
-                  ("well_spmm", ops_well.well_spmm, ops_well.well_spmm_reference))
+    def well_pairs(chunk):
+        return (("well_spmv", lambda A, v: ops_well.well_spmv(A, v, chunk),
+                 lambda A, v: ops_well.well_spmv_reference(A, v, chunk)),
+                ("well_spmm", lambda A, v: ops_well.well_spmm(A, v, chunk),
+                 lambda A, v: ops_well.well_spmm_reference(A, v, chunk)))
+
     bell_pairs = (("bell_spmv", ops_bell.bell_spmv, ops_bell.bell_spmv_reference),
                   ("bell_spmm", ops_bell.bell_spmm, ops_bell.bell_spmm_reference))
     W, Ws = p3["W"], p3["Ws"]
     t0 = time.perf_counter()
     W1 = gt.Well.from_csr(gt.Csr.from_matrix_data(p3["data_s"], device=dev), T=1)
     t1_s = time.perf_counter() - t0
-    for label, A, vec in ((f"powerlaw_laplacian({W.shape[0]}), T = {W.T}", W, torch.float32),
-                          (f"powerlaw_laplacian({W.shape[0]}), T = {W.T}", W, torch.float64),
-                          (f"powerlaw_laplacian({Ws.shape[0]}), T = {Ws.T}", Ws, torch.float32),
-                          (f"powerlaw_laplacian({W1.shape[0]}), T = 1", W1, torch.float32)):
-        row = pair_check(label, A, well_pairs, vec)
-        row.update({"T": A.T, "G": A.G, "inflation": A.inflation, "cells": A.values.numel()})
+    default = ops_well.CHUNK_SLOTS
+    for label, A, vec, chunk in (
+            (f"powerlaw_laplacian({W.shape[0]}), T = {W.T}", W, torch.float32, default),
+            (f"powerlaw_laplacian({W.shape[0]}), T = {W.T}", W, torch.float64, default),
+            (f"powerlaw_laplacian({Ws.shape[0]}), T = {Ws.T}", Ws, torch.float32, default),
+            (f"powerlaw_laplacian({W1.shape[0]}), T = 1", W1, torch.float32, default),
+            (f"powerlaw_laplacian({Ws.shape[0]}), T = {Ws.T}, chunk = G", Ws, torch.float32,
+             Ws.G)):
+        ch = ops_well.chunk_list(A, chunk)
+        if chunk != default:
+            check(len(ch.fold) == A.tile_ptr.shape[0] - 1,
+                  f"path 3: a {chunk}-slot chunk left a supertile whole ({label})")
+        row = pair_check(label, A, well_pairs(chunk), vec, twice=True)
+        row.update({"T": A.T, "G": A.G, "inflation": A.inflation, "cells": A.values.numel(),
+                    **chunk_figures(A, ch, vec)})
         if A is W1:
             row["plan_s"] = round(t1_s, 3)
         emit(row)
     del W1
     for Bv in (p3["Bop"], p3["Bop"].reduce_storage()):
         emit(pair_check(f"block_structured{BELL_BLOCKS}", Bv, bell_pairs, torch.float32))
+
+
+def chunk_figures(A, ch, vec):
+    """The K8/K9 work list of plan A and the scratch its partials take."""
+    from ginkgo_tpu_torch.ops.well import TILE_ROWS
+
+    part = ch.n_parts * A.T * TILE_ROWS * torch.empty((), dtype=vec).element_size()
+    return {"chunk_slots": ch.slots, "chunks": len(ch.work), "split_supertiles": len(ch.fold),
+            "max_supertile_slots": int(A.tile_ptr.diff().max()), "partials": ch.n_parts,
+            "scratch_bytes_k1": part, "scratch_bytes_k4": 4 * part}
 
 
 def path4_solvers(gt):
@@ -3249,13 +3282,16 @@ def main():
             })
         for name, (kern, plain, lib, nbytes, flops) in cases.items():
             k_ms = slope_ms(kern, 5, 25)
-            # the plain WELL versions take 3-6 s a call at 2^20 rows
             p_ms = slope_ms(plain, 1, 2, 1)
             gbs = nbytes / k_ms / 1e6
             timing[f"{name}_{storage}"] = {"ms": k_ms, "plain_ms": p_ms, "GBps": gbs,
                                            "frac_of_copy": gbs / copy_gbs}
             if storage == "f32":
                 rec[name] = (k_ms, p_ms, slope_ms(lib, 5, 25), nbytes, flops)
+    timing["well_chunks"] = {
+        **chunk_figures(W, ops_well.chunk_list(W), torch.float32),
+        "smem_bytes_k8": ops_well.block_smem_bytes(W, torch.float32),
+        "smem_bytes_k9_k4": ops_well.block_smem_bytes(W, torch.float32, 4)}
     # the CSR's own bound for the WELL kernels: 12 bytes a nonzero (value,
     # column index, gathered x) plus y, and x for the k columns
     timing["well_csr_bound_ms"] = {

@@ -23,12 +23,17 @@ the slots of supertile st are ``[tile_ptr[st], tile_ptr[st + 1])``, a whole
 number of G-slot steps.  :func:`choose_unstructured_plan` picks the cheaper
 of a PELL and a WELL plan as the JAX package does.
 
-K8 ``well_spmv`` and K9 ``well_spmm`` are ``csrc/well_spmv.cu``.  A wrapper
-takes the plain version only for a tensor on the CPU; on a CUDA tensor it
-launches the kernel or raises, and counts its launches in ``launches``.
-The operator argument ``A`` of the functions here is anything with
-``values, qidx, rt, tsb, bases, tile_ptr, T, G, shape``
-(``matrix.well.Well``).
+K8 ``well_spmv`` and K9 ``well_spmm`` are ``csrc/well_spmv.cu``.  They walk
+a *work list* (:func:`chunk_list`): each supertile is cut into chunks of
+whole G-slot steps, ``CHUNK_SLOTS`` slots each at most, so that a hub row's
+supertile spreads over many blocks.  A chunk of a supertile that is one
+chunk writes its rows; the chunks of a split supertile write partial sums,
+which a second launch adds in chunk order.  The plain versions walk the
+same list in the same order.  A wrapper takes the plain version only for
+a tensor on the CPU; on a CUDA tensor it launches the kernel or raises,
+and counts its calls in ``launches``.  The operator argument ``A`` of the
+functions here is anything with ``values, qidx, rt, tsb, bases, tile_ptr,
+T, G, shape`` (``matrix.well.Well``).
 """
 
 from __future__ import annotations
@@ -54,6 +59,9 @@ TILE_ROWS = SUBLANES * LANES  # 1024
 WIN_PANELS = SUBLANES  # a window is 8 panels of 128 columns
 #: most sub-tiles a supertile may have in the kernels (csrc/well_spmv.cu)
 MAX_KERNEL_T = 64
+#: most slots in one chunk of the K8/K9 work list, before it is rounded up
+#: to whole G-slot steps (``chunk_list``)
+CHUNK_SLOTS = 256
 
 # -- supertile cost model ------------------------------------------------------
 # The JAX package's constants, kept unchanged so that both planners choose
@@ -307,6 +315,62 @@ def choose_unstructured_plan(indptr, indices, values, shape, *, q_dtype=np.int8,
     return plan if alt.too_large else alt
 
 
+# -- the work list -------------------------------------------------------------------
+
+
+class WellChunks:
+    """The K8/K9 work list of a plan for one chunk length, built on the host
+    from ``tile_ptr``.
+
+    ``work`` (n_chunks, 4) int32 holds, per chunk in slot order: its
+    supertile, first slot, end slot and partial (-1 when its supertile is
+    one chunk, which then writes its rows itself).  ``fold`` (n_split, 3)
+    int32 holds, per split supertile: the supertile, its first partial and
+    its partial count; a supertile's partials are consecutive, in chunk
+    order.  ``slots`` is the chunk length, a whole number of G-slot steps."""
+
+    def __init__(self, tile_ptr: np.ndarray, G: int, chunk_slots: int):
+        tp = np.asarray(tile_ptr, np.int64)
+        start, end = tp[:-1], tp[1:]
+        if len(tp) < 2 or tp[0] != 0 or np.any(end < start) or np.any((end - start) % G):
+            raise ValueError("tile_ptr must start at 0 and give each supertile a "
+                             f"whole number of {G}-slot steps")
+        self.slots = C = -(-max(int(chunk_slots), 1) // G) * G
+        counts = np.maximum(-(-(end - start) // C), 1)
+        st = np.repeat(np.arange(len(start), dtype=np.int64), counts)
+        rank = np.arange(len(st)) - np.repeat(np.cumsum(counts) - counts, counts)
+        s0 = start[st] + rank * C
+        s1 = np.minimum(s0 + C, end[st])
+        split = counts[st] > 1
+        part = np.full(len(st), -1, np.int64)
+        part[split] = np.arange(int(split.sum()))
+        self.work = np.stack([st, s0, s1, part], axis=1).astype(np.int32)
+        self.rank = rank
+        first = split & (rank == 0)
+        self.fold = np.stack([st[first], part[first], counts[st[first]]], axis=1).astype(np.int32)
+        self.n_parts = int(split.sum())
+        self._on: dict = {}
+
+    def tensors(self, device):
+        """(work, fold) on ``device``, copied there once."""
+        key = str(device)
+        if key not in self._on:
+            self._on[key] = tuple(torch.from_numpy(a).to(device) for a in (self.work, self.fold))
+        return self._on[key]
+
+
+def chunk_list(A, chunk_slots: int = CHUNK_SLOTS) -> WellChunks:
+    """The work list of operator ``A`` for chunks of ``chunk_slots`` slots
+    (rounded up to whole G-slot steps), cached on ``A`` beside its dataclass
+    fields, so that it enters neither ``storage_bytes()`` nor the fields
+    that ``astype``/``reduce_storage`` copy (their new operator shares
+    ``tile_ptr`` and builds its own list once)."""
+    cache = vars(A).setdefault("_well_chunks", {})
+    if chunk_slots not in cache:
+        cache[chunk_slots] = WellChunks(A.tile_ptr.cpu().numpy(), A.G, chunk_slots)
+    return cache[chunk_slots]
+
+
 # -- plain versions ----------------------------------------------------------------
 
 
@@ -314,12 +378,15 @@ def _lib():
     lib = _build.load("well_spmv")
     if not hasattr(lib, "gk_typed"):
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # values, v_dtype, qidx, rt, tsb, bases, tile_ptr, NST, T, G
-        plan = [P, I, P, P, P, P, P, I, I, I]
+        # values, v_dtype, qidx, rt, tsb, bases, T, G, work, n_chunks, fold,
+        # n_split, partials
+        plan = [P, I, P, P, P, P, I, I, P, I, P, I, P]
         lib.well_spmv.argtypes = plan + [P, I, P, L, L, P]
         lib.well_spmm.argtypes = plan + [P, I, P, L, L, I, P]
         lib.well_spmv.restype = I
         lib.well_spmm.restype = I
+        lib.well_block_smem.argtypes = [I, I, I, I]
+        lib.well_block_smem.restype = I
         lib.gk_error_string.argtypes = [I]
         lib.gk_error_string.restype = ctypes.c_char_p
         lib.gk_typed = True
@@ -358,10 +425,13 @@ def _route_add(dst, contrib, sub):
     dst.scatter_add_(1, idx, contrib[:, None])
 
 
-def _supertiles(A, device):
-    start = A.tile_ptr[:-1].to(torch.int64).to(device)
-    count = A.tile_ptr[1:].to(torch.int64).to(device) - start
-    return start, count, int(count.max()) if count.numel() else 0
+def _chunks(A, chunk_slots, device):
+    """The work list, each chunk's first slot and slot count on ``device``,
+    and the longest chunk."""
+    ch = chunk_list(A, chunk_slots)
+    work = torch.from_numpy(ch.work).to(device=device, dtype=torch.int64)
+    count = work[:, 2] - work[:, 1]
+    return ch, work[:, 1], count, int((ch.work[:, 2] - ch.work[:, 1]).max())
 
 
 def _all_cells(A, x, acc):
@@ -371,50 +441,73 @@ def _all_cells(A, x, acc):
     return prod, (A.tsb.to(torch.int64).to(x.device) if A.T > 1 else None)
 
 
+def _fold(parts, ch, n_st):
+    """The rows of every supertile from its chunks' sums, (NST, T, 8, 128[,
+    k]): 0 + p0 + p1 + ... in chunk order, as the fold launch adds them (a
+    chunk's sum starts at +0.0 and only adds, so it is never -0.0, and 0 +
+    p0 is p0 bit for bit)."""
+    out = torch.zeros((n_st,) + parts.shape[1:], dtype=parts.dtype, device=parts.device)
+    st = torch.from_numpy(ch.work[:, 0].astype(np.int64)).to(parts.device)
+    for r in range(int(ch.rank.max()) + 1):
+        sel = torch.from_numpy(np.flatnonzero(ch.rank == r)).to(parts.device)
+        out[st[sel]] = out[st[sel]] + parts[sel]
+    return out
+
+
 def _rows(out, n_rows, k=None):
     """(NST, T, 8, 128[, k]) sub-tile blocks -> the first n_rows rows."""
     return (out.reshape(-1) if k is None else out.reshape(-1, k))[:n_rows]
 
 
-def well_spmv_reference(A, x):
-    """y = A x with plain tensor ops, in the kernel's order: the G slots of
-    a step sum into T step sums (each cell into the sum of its sub-tile),
-    and the step sums add into the output in step order."""
+def well_spmv_reference(A, x, chunk_slots: int = CHUNK_SLOTS):
+    """y = A x with plain tensor ops, in the kernel's order.  Inside a chunk
+    the TPU's order: the G slots of a step sum into T step sums (each cell
+    into the sum of its sub-tile), and the step sums add into the chunk's
+    sums in step order, each only where the step touched its sub-tile, as
+    the kernel folds them (an untouched step sum is +0.0 and changes
+    nothing).  Then the chunks of each supertile add in chunk order."""
     n_rows, n_cols = A.shape
     acc = torch.promote_types(x.dtype, torch.float32)
     T, G = A.T, A.G
-    start, count, max_count = _supertiles(A, x.device)
-    out = torch.zeros((count.shape[0], T, SUBLANES, LANES), dtype=acc, device=x.device)
+    ch, start, count, max_count = _chunks(A, chunk_slots, x.device)
+    parts = torch.zeros((count.shape[0], T, SUBLANES, LANES), dtype=acc, device=x.device)
     if n_cols > 0 and max_count:
         prod, sub = _all_cells(A, x, acc)
         for j in range(0, max_count, G):
             t = torch.nonzero(count > j).flatten()
             step = torch.zeros((t.shape[0], T, SUBLANES, LANES), dtype=acc, device=x.device)
+            touched = torch.zeros(step.shape, dtype=torch.bool, device=x.device)
             for g in range(G):
                 slots = start[t] + j + g
-                _route_add(step, prod[slots], None if sub is None else sub[slots])
-            out[t] = out[t] + step
-    return _rows(out, n_rows).to(x.dtype)
+                s = None if sub is None else sub[slots]
+                _route_add(step, prod[slots], s)
+                if s is None:
+                    touched[:, 0] = True
+                else:
+                    touched.scatter_(1, s[:, None], True)
+            parts[t] = torch.where(touched, parts[t] + step, parts[t])
+    return _rows(_fold(parts, ch, A.tile_ptr.shape[0] - 1), n_rows).to(x.dtype)
 
 
-def well_spmm_reference(A, X):
-    """Y = A X for X of shape (n_cols, k), in the TPU SpMM kernel's order:
-    each slot's products add straight into the output, slot by slot (no
-    step sum)."""
+def well_spmm_reference(A, X, chunk_slots: int = CHUNK_SLOTS):
+    """Y = A X for X of shape (n_cols, k), in the kernel's order: inside a
+    chunk the TPU SpMM kernel's, each slot's products added straight into
+    the sums, slot by slot (no step sum); then the chunks of each supertile
+    add in chunk order."""
     n_rows, n_cols = A.shape
     k = X.shape[1]
     acc = torch.promote_types(X.dtype, torch.float32)
-    start, count, max_count = _supertiles(A, X.device)
-    out = torch.zeros((count.shape[0], A.T, SUBLANES, LANES, k), dtype=acc, device=X.device)
+    ch, start, count, max_count = _chunks(A, chunk_slots, X.device)
+    parts = torch.zeros((count.shape[0], A.T, SUBLANES, LANES, k), dtype=acc, device=X.device)
     if n_cols > 0 and max_count:
         prod, sub = _all_cells(A, X, acc)
         for j in range(max_count):
             t = torch.nonzero(count > j).flatten()
             slots = start[t] + j
-            block = out[t]
+            block = parts[t]
             _route_add(block, prod[slots], None if sub is None else sub[slots])
-            out[t] = block
-    return _rows(out, n_rows, k).to(X.dtype)
+            parts[t] = block
+    return _rows(_fold(parts, ch, A.tile_ptr.shape[0] - 1), n_rows, k).to(X.dtype)
 
 
 # -- kernel wrappers -------------------------------------------------------------------
@@ -445,32 +538,50 @@ def _check_operands(A, x, what):
         raise ValueError(f"{what}: the plan's supertiles cover fewer than {A.shape[0]} rows")
     if not all(t.is_contiguous() for t in arrays):
         raise ValueError(f"{what}: plan arrays must be contiguous")
+    # the kernels stage slot rows into shared memory in 16-byte copies
+    if any(t.data_ptr() % 16 for t in [A.values] + int8_tiles):
+        raise ValueError(f"{what}: values, qidx, rt and tsb must be 16-byte aligned")
     if x.dtype not in VECTOR_DTYPES:
         raise TypeError(f"{what}: vectors must be float32/float64, got {x.dtype}")
     if x.shape[0] != A.shape[1] or not x.is_contiguous():
         raise ValueError(f"{what}: x must be contiguous with {A.shape[1]} rows")
 
 
-def _plan_args(A):
+def _launch_args(A, chunks, device, scratch):
+    """The plan, the work list and the partials' scratch as the C entry
+    points take them."""
+    work, fold = chunks.tensors(device)
+    if int(chunks.work[:, 2].max()) > A.values.shape[0]:
+        raise ValueError("tile_ptr reaches past the plan's slots")
     return (A.values.data_ptr(), DTYPE_CODE[A.values.dtype], A.qidx.data_ptr(),
             A.rt.data_ptr(), A.tsb.data_ptr() if A.T > 1 else None,
-            A.bases.data_ptr(), A.tile_ptr.data_ptr(), A.tile_ptr.shape[0] - 1,
-            A.T, A.G)
+            A.bases.data_ptr(), A.T, A.G, work.data_ptr(), work.shape[0],
+            fold.data_ptr(), fold.shape[0], None if scratch is None else scratch.data_ptr())
 
 
-def well_spmv(A, x):
-    """K8: y = A x for one right-hand side x of shape (n_cols,)."""
+def _scratch(A, chunks, x, k=1):
+    """Room for the partial sums of every chunk of a split supertile."""
+    if not chunks.n_parts:
+        return None
+    return torch.empty(chunks.n_parts * A.T * TILE_ROWS * k, dtype=x.dtype, device=x.device)
+
+
+def well_spmv(A, x, chunk_slots: int = CHUNK_SLOTS):
+    """K8: y = A x for one right-hand side x of shape (n_cols,).
+    ``chunk_slots`` sets the work list's chunks (tests force small ones)."""
     if on_cpu(x):
-        return well_spmv_reference(A, x)
+        return well_spmv_reference(A, x, chunk_slots)
     _check_operands(A, x, "well_spmv")
     if x.dim() != 1:
         raise ValueError("well_spmv: x must be 1-D")
     lib = _lib()
+    chunks = chunk_list(A, chunk_slots)
     y = torch.empty(A.shape[0], dtype=x.dtype, device=x.device)
+    scratch = _scratch(A, chunks, x)
     with torch.cuda.device(x.device):
         status = lib.well_spmv(
-            *_plan_args(A), x.data_ptr(), DTYPE_CODE[x.dtype], y.data_ptr(),
-            A.shape[0], A.shape[1], torch.cuda.current_stream().cuda_stream,
+            *_launch_args(A, chunks, x.device, scratch), x.data_ptr(), DTYPE_CODE[x.dtype],
+            y.data_ptr(), A.shape[0], A.shape[1], torch.cuda.current_stream().cuda_stream,
         )
     check_status(lib, status, "well_spmv")
     well_spmv.launches += 1
@@ -480,21 +591,24 @@ def well_spmv(A, x):
 well_spmv.launches = 0
 
 
-def well_spmm(A, X):
+def well_spmm(A, X, chunk_slots: int = CHUNK_SLOTS):
     """K9: Y = A X for X of shape (n_cols, k), row-major; the plan is read
-    once for every group of 4 columns."""
+    once for every group of up to 4 columns that fits a block's shared
+    memory.  ``chunk_slots`` as for ``well_spmv``."""
     if on_cpu(X):
-        return well_spmm_reference(A, X)
+        return well_spmm_reference(A, X, chunk_slots)
     _check_operands(A, X, "well_spmm")
     if X.dim() != 2:
         raise ValueError("well_spmm: X must be (n_cols, k)")
     lib = _lib()
     k = X.shape[1]
+    chunks = chunk_list(A, chunk_slots)
     Y = torch.empty((A.shape[0], k), dtype=X.dtype, device=X.device)
+    scratch = _scratch(A, chunks, X, k)
     with torch.cuda.device(X.device):
         status = lib.well_spmm(
-            *_plan_args(A), X.data_ptr(), DTYPE_CODE[X.dtype], Y.data_ptr(),
-            A.shape[0], A.shape[1], k, torch.cuda.current_stream().cuda_stream,
+            *_launch_args(A, chunks, X.device, scratch), X.data_ptr(), DTYPE_CODE[X.dtype],
+            Y.data_ptr(), A.shape[0], A.shape[1], k, torch.cuda.current_stream().cuda_stream,
         )
     check_status(lib, status, "well_spmm")
     well_spmm.launches += 1
@@ -502,6 +616,14 @@ def well_spmm(A, X):
 
 
 well_spmm.launches = 0
+
+
+def block_smem_bytes(A, x_dtype, k=0) -> int:
+    """Dynamic shared memory one K8 block (k = 0) or K9 block (k columns)
+    asks for on this plan, as ``csrc/well_spmv.cu`` sizes it; -1 when it
+    does not fit the current card."""
+    with torch.cuda.device(A.values.device):
+        return _lib().well_block_smem(DTYPE_CODE[A.values.dtype], DTYPE_CODE[x_dtype], A.T, k)
 
 
 def plan_spmv(A, x):

@@ -1,7 +1,7 @@
 """Packaging rules of the PyTorch port (ginkgo_tpu_torch).
 
-- Importing it pulls in no JAX and nothing of the JAX package; its sources
-  and chip_smoke.py import neither.
+- Importing it pulls in no JAX and nothing of the JAX package; its sources,
+  chip_smoke.py and well_bench.py import neither.
 - On CPU tensors every kernel wrapper runs its plain version, so a whole
   slice-1 run leaves the launch counters at 0.
 - The kernel modules import without nvcc, and building a kernel without
@@ -42,7 +42,8 @@ def _imported_modules(path):
 
 @pytest.mark.parametrize(
     "path",
-    sorted(p.relative_to(REPO).as_posix() for p in PKG.rglob("*.py")) + ["chip_smoke.py"],
+    sorted(p.relative_to(REPO).as_posix() for p in PKG.rglob("*.py"))
+    + ["chip_smoke.py", "well_bench.py"],
 )
 def test_sources_import_no_jax(path):
     for mod in _imported_modules(REPO / path):

@@ -1,0 +1,239 @@
+#!/usr/bin/env python3
+"""K8 ``well_spmv`` and K9 ``well_spmm`` on one NVIDIA GPU, at the shapes
+of ``chip_smoke.py``'s path 3a: the power-law Laplacian handed over as a
+``Csr`` and planned as a WELL (``Well.from_csr``, T and G by the planner).
+
+Run from the repository root:
+
+    python3 well_bench.py [--rows N] [--chunks 256,512] [--other DIR ...] [--check] [--profile]
+
+It prints JSON lines:
+
+- ``plan``: the plan's T, G, supertiles, slots and largest supertile, and
+  for each chunk length of ``--chunks`` the work list's chunks, split
+  supertiles, partials and scratch bytes;
+- ``build``: ptxas's report (registers, stack frame, spills) of each
+  kernel of ``csrc/well_spmv.cu``, this checkout's and each ``--other``'s,
+  and the dynamic shared memory a K8 and a K9 (k = 4) block asks for on
+  this plan;
+- ``check`` (with ``--check``): K8 and K9 against their plain versions on
+  small power-law plans (T = 1 to 64, G = 4 to 64, float32, float64 and
+  bfloat16 values, float32 and float64 vectors, k = 1 to 5, default and
+  forced small chunks), bit for bit, and two calls of each with the same
+  bits; it fails on any difference;
+- ``timing``: ms per call (CUDA events, the slope between 5 and 25 chained
+  calls) of K8 and K9 (k = 4, float32) for each chunk length, of the
+  kernels of each ``--other`` checkout of this repository on the same plan
+  (its own ``ginkgo_tpu_torch``, built from its own sources into its own
+  ``build/``), in turns (others, this, this, others), and of the library
+  calls ``torch.mv`` and ``torch.sparse.mm`` on the same Csr; the padded
+  plan's byte bound and the copy bandwidth;
+- ``profile`` (with ``--profile``): the device time of each kernel that
+  ten K8 and ten K9 calls launch (``torch.profiler``), by kernel name;
+- the card's name and power limit, as nvidia-smi reports them.
+
+Without a CUDA device it fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+import chip_smoke as cs
+
+
+def load_other(root: Path, tag: str):
+    """The ``ginkgo_tpu_torch`` package of another checkout, imported under
+    its own name so that both live in one process."""
+    name = f"gt_{tag}"
+    pkg = root / "ginkgo_tpu_torch"
+    spec = importlib.util.spec_from_file_location(name, pkg / "__init__.py",
+                                                  submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module(f"{name}.ops.well")
+
+
+def small_powerlaw(n, seed):
+    """A power-law pattern as ``chip_smoke.powerlaw_laplacian`` makes it,
+    with values of both signs (a general matrix, not SPD)."""
+    shape, r, c, v = cs.powerlaw_laplacian(n, seed=seed)
+    v = v * np.where(np.random.default_rng(seed).random(len(v)) < 0.5, -1.0, 1.0)
+    return shape, r, c, v.astype(np.float32)
+
+
+def run_checks(gt, ops_well, dev):
+    cases = [  # rows, T, G, chunk slots (None: the module's)
+        (4096, 1, 8, None), (4096, 1, 8, 8), (4096, 4, 8, 16), (8192, 4, 4, None),
+        (16384, 16, 64, 64), (16384, 16, 64, None), (32768, 32, 64, 64), (16384, 64, 8, 24),
+    ]
+    rng = np.random.default_rng(5)
+    rows, n_cmp = [], 0
+    for n, T, G, chunk in cases:
+        data = gt.MatrixData.from_coo(*small_powerlaw(n, seed=n + T)).sum_duplicates()
+        base = gt.Well.from_csr(gt.Csr.from_matrix_data(data, device=dev), T=T, G=G)
+        cs_ = ops_well.CHUNK_SLOTS if chunk is None else chunk
+        ch = ops_well.chunk_list(base, cs_)
+        for vals in (torch.float32, torch.float64, torch.bfloat16):
+            W = base.astype(vals)
+            for vec in (torch.float32, torch.float64):
+                x = torch.as_tensor(rng.standard_normal(n), dtype=vec, device=dev)
+                x[rng.integers(0, n, 3)] = float("nan")
+                x[rng.integers(0, n, 3)] = float("-inf")
+                x[rng.integers(0, n, 3)] = -0.0
+                outs = [(ops_well.well_spmv(W, x, cs_), ops_well.well_spmv(W, x, cs_),
+                         ops_well.well_spmv_reference(W, x, cs_), "k1")]
+                for k in (1, 2, 3, 4, 5):
+                    X = torch.as_tensor(rng.standard_normal((n, k)), dtype=vec, device=dev)
+                    X[rng.integers(0, n, 2), :] = float("nan")
+                    outs.append((ops_well.well_spmm(W, X, cs_), ops_well.well_spmm(W, X, cs_),
+                                 ops_well.well_spmm_reference(W, X, cs_), f"mm{k}"))
+                torch.cuda.synchronize()
+                for got, again, want, what in outs:
+                    n_cmp += 1
+                    same = bool(torch.equal(got.isnan(), want.isnan())) and bool(
+                        torch.equal(torch.nan_to_num(got), torch.nan_to_num(want)))
+                    twice = bool(torch.equal(got.view(torch.uint8), again.view(torch.uint8)))
+                    if not (same and twice):
+                        raise RuntimeError(
+                            f"well_bench: {what} differs (n {n}, T {T}, G {G}, chunk {cs_}, "
+                            f"values {vals}, vectors {vec}): bit_equal {same}, repeat {twice}, "
+                            f"max err {float((got.double() - want.double()).abs().nan_to_num().max())}")
+        rows.append({"rows": n, "T": base.T, "G": base.G, "chunk": ch.slots,
+                     "chunks": len(ch.work), "split": len(ch.fold)})
+    return {"phase": "check", "cases": rows, "comparisons": n_cmp, "all_bit_equal": True}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rows", type=int, default=cs.POWERLAW_ROWS)
+    ap.add_argument("--chunks", default="256", help="chunk lengths to time, comma-separated")
+    ap.add_argument("--other", action="append", default=[],
+                    help="another checkout of this repository whose kernels to time alongside")
+    ap.add_argument("--check", action="store_true", help="check the kernels on small plans first")
+    ap.add_argument("--profile", action="store_true", help="device time by kernel name")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("well_bench: torch.cuda.is_available() is False; this needs a GPU")
+    import ginkgo_tpu_torch as gt
+    from ginkgo_tpu_torch import _build
+    from ginkgo_tpu_torch.ops import well as ops_well
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    card = cs.smi_line()
+    others = {f"other{i}": load_other(Path(d).resolve(), f"other{i}")
+              for i, d in enumerate(args.other)}
+    t0 = time.perf_counter()
+    _build.build(["well_spmv"])
+    for mod in others.values():
+        mod._lib()
+    build_s = time.perf_counter() - t0
+    ptxas = _build.BUILD_LOG["well_spmv"]["ptxas"].splitlines()
+    if args.check:
+        cs.emit(run_checks(gt, ops_well, dev))
+
+    t0 = time.perf_counter()
+    data = gt.MatrixData.from_coo(*cs.powerlaw_laplacian(args.rows)).sum_duplicates()
+    C = gt.Csr.from_matrix_data(data, device=dev)
+    W = gt.Well.from_csr(C)
+    plan_s = time.perf_counter() - t0
+    n = W.shape[0]
+    chunks = [int(c) for c in args.chunks.split(",")]
+    stats = {}
+    for c in chunks:
+        ch = ops_well.chunk_list(W, c)
+        stats[c] = {"chunk_slots": ch.slots, "chunks": len(ch.work), "split_supertiles": len(ch.fold),
+                    "partials": ch.n_parts,
+                    "scratch_bytes_k1": ch.n_parts * W.T * ops_well.TILE_ROWS * 4,
+                    "scratch_bytes_k4": ch.n_parts * W.T * ops_well.TILE_ROWS * 16}
+    slots = W.tile_ptr.diff()
+    cs.emit({"phase": "plan", "rows": n, "nnz": data.nnz, "T": W.T, "G": W.G, "NST": W.NST,
+             "slots": W.values.shape[0], "max_supertile_slots": int(slots.max()),
+             "median_supertile_slots": float(slots.float().median()),
+             "plan_bytes": W.storage_bytes(), "plan_s": round(plan_s, 2), "chunks": stats})
+    cs.emit({"phase": "build", "build_s": round(build_s, 2), "ptxas": ptxas,
+             "ptxas_other": {tag: importlib.import_module(f"gt_{tag}._build")
+                             .BUILD_LOG["well_spmv"]["ptxas"].splitlines() for tag in others},
+             "smem_k8_f32": ops_well.block_smem_bytes(W, torch.float32),
+             "smem_k9_f32_k4": ops_well.block_smem_bytes(W, torch.float32, 4),
+             "smem_k8_f64": ops_well.block_smem_bytes(W, torch.float64),
+             "smem_k9_f64_k4": ops_well.block_smem_bytes(W, torch.float64, 4)})
+
+    rng = np.random.default_rng(cs.SEED)
+    x = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=dev)
+    X = torch.as_tensor(rng.standard_normal((n, 4)).astype(np.float32), device=dev)
+    y_ref = ops_well.well_spmv_reference(W, x)
+    Y_ref = ops_well.well_spmm_reference(W, X)
+    y, Y = ops_well.well_spmv(W, x), ops_well.well_spmm(W, X)
+    torch.cuda.synchronize()
+    check = {"k8_bit_equal": bool(torch.equal(y, y_ref)), "k9_bit_equal": bool(torch.equal(Y, Y_ref)),
+             "k8_max_abs_err": float((y - y_ref).abs().max()),
+             "k9_max_abs_err": float((Y - Y_ref).abs().max())}
+    del y_ref, Y_ref
+    src = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    copy_gbs = 2 * src.numel() / cs.slope_ms(lambda: dst.copy_(src)) / 1e6
+    del src, dst
+    lib = cs.library_csr(C)
+    nbytes = {"k8": W.storage_bytes() + 8 * n, "k9": W.storage_bytes() + 32 * n}
+    times = {}
+
+    def time_all(tag, mod, chunk=None):
+        kw = {} if chunk is None else {"chunk_slots": chunk}
+        for name, fn in (("k8", lambda: mod.well_spmv(W, x, **kw)),
+                         ("k9", lambda: mod.well_spmm(W, X, **kw))):
+            times.setdefault(f"{name}_{tag}", []).append(cs.slope_ms(fn, 5, 25))
+
+    order = list(others.items())
+    for turn in range(2):
+        if turn == 0:
+            for tag, mod in order:
+                time_all(tag, mod)
+        for c in chunks:
+            time_all(f"chunk{c}", ops_well, c)
+        if turn == 1:
+            for tag, mod in reversed(order):
+                time_all(tag, mod)
+    times["k8_torch_mv"] = [cs.slope_ms(lambda: torch.mv(lib, x), 5, 25)]
+    times["k9_torch_sparse_mm"] = [cs.slope_ms(lambda: torch.sparse.mm(lib, X), 5, 25)]
+    bound = {k: v / cs.PEAK_BYTES_S * 1e3 for k, v in nbytes.items()}
+    cs.emit({"phase": "timing", "card": card, "rows": n, "copy_GBps": copy_gbs, **check,
+             "ms": times, "bound_ms": bound,
+             "csr_bound_ms": {"k8": (12 * data.nnz + 4 * n) / cs.PEAK_BYTES_S * 1e3,
+                              "k9": (24 * data.nnz + 16 * n) / cs.PEAK_BYTES_S * 1e3},
+             "frac_of_copy": {k: nbytes[k[:2]] / min(v) / 1e6 / copy_gbs
+                              for k, v in times.items() if k[:2] in nbytes}})
+    if args.profile:
+        cs.emit(profile(ops_well, W, x, X))
+    print(card, flush=True)
+
+
+def profile(ops_well, W, x, X):
+    """Device microseconds per call of each kernel K8 and K9 launch."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    out = {"phase": "profile"}
+    for name, fn in (("k8", lambda: ops_well.well_spmv(W, x)), ("k9", lambda: ops_well.well_spmm(W, X))):
+        fn()
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        out[name] = {e.key[:60]: getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) / 10
+                     for e in prof.key_averages()}
+    return out
+
+
+if __name__ == "__main__":
+    main()
