@@ -51,8 +51,13 @@ Phases, each of which raises on failure:
    K4 at 64^2 and 2048^2, the k-RHS whole-solve K4m at 64^2 and 2048^2,
    the PELL SpMV/SpMM K5/K6 on poisson_3d(160) (S = 8, float32 and
    bfloat16/int8) and on an unstructured local-scatter pattern of 2^20
-   rows (S = "auto" and S = 8), the Pell whole-solve K7 at 24^3 and
-   160^3;
+   rows (S = "auto" and S = 8), K5 bit for bit; K5 and K10 bit for bit
+   and each twice on small plans and Bells that reach every branch of
+   their rings (``check_spmv_edges``: several steps a tile and none, rows
+   past the last tile's end, int32 lane indices, S = 16/32, bfloat16 and
+   float64 values, float64 vectors; BR = 8 to 128, K = 1 to 20, x cut
+   inside a panel, not 16-byte aligned, NaN in x[0:128] with padding
+   panels); the Pell whole-solve K7 at 24^3 and 160^3;
 3. main path 1: fused CG (K4) with float32 and bfloat16 diagonals and with
    Jacobi, the streaming CG route (K1), a 4-column solve (K4m) and an
    explicit streaming 4-column solve (K3), each checked against a float64
@@ -127,7 +132,9 @@ Phases, each of which raises on failure:
    iteration, and the smoother per sweep; BiCGSTAB, CGS, IR and GMRES(30)
    on the 160^3 ``Pell``; K23 and K24 per iteration and K22 per launch;
    K25 per cycle beside the streaming cycle, K26/K28 per iteration and K27
-   per cycle; bounds; the copy bandwidth.
+   per cycle; bounds; the copy bandwidth; K5's and K10's launch
+   (registers, shared memory a block, blocks an SM) and device time by
+   kernel name (torch.profiler) in their rows.
 
 The launch counters are set to 0 just before each main path and read just
 after it; every kernel of a path must have run there.  The last lines are
@@ -289,6 +296,36 @@ def slope_ms(fn, n1=10, n2=60, trials=3):
     t1 = min(events_ms(fn, n1) for _ in range(trials))
     t2 = min(events_ms(fn, n2) for _ in range(trials))
     return (t2 - t1) / (n2 - n1)
+
+
+def device_ms(fn, kernel, calls=10):
+    """Device ms per call of the kernels whose name holds ``kernel``
+    (torch.profiler): the kernel's own time, which the slope of chained
+    calls overstates when the host takes longer to launch a call than the
+    card to run it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+             for e in prof.key_averages() if kernel in e.key)
+    return us / calls / 1e3
+
+
+def host_us(fn, calls=200):
+    """Host microseconds a call takes to return (wrapper and launch)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def iter_ms(run, lo=200, hi=1000):
@@ -587,11 +624,11 @@ def check_path3_kernels(gt, dev, rng, p3, record_err):
     the chosen T (2^20 rows, float32 and float64 vectors, the hub row's
     supertile split into chunks; 2^17 rows), at T = 1 (2^17 rows, forced)
     and on the 2^17 plan with one G-slot step a chunk (every supertile
-    split), each called twice; K10/K11 with float32 and bfloat16 panels.
-    Kernel and plain version walk the same work list in the same order:
-    equal bit for bit is expected, 1e-5 (float32) or 1e-12 (float64)
-    relative is required, and two calls of K8 or K9 must give the same
-    bits."""
+    split), each called twice; K10/K11 with float32 and bfloat16 panels,
+    each called twice.  Kernel and plain version walk the same work list in
+    the same order: equal bit for bit is expected, 1e-5 (float32) or 1e-12
+    (float64) relative is required (K10: the same bits), and two calls must
+    give the same bits."""
     from ginkgo_tpu_torch.ops import bell as ops_bell
     from ginkgo_tpu_torch.ops import well as ops_well
 
@@ -608,8 +645,10 @@ def check_path3_kernels(gt, dev, rng, p3, record_err):
             k_s = time.perf_counter() - t0
             want = plain(A, v)
             err = record_err(name, got, want)
-            check(torch.allclose(got, want, rtol=tol, atol=tol),
-                  f"{name} differs from its plain version ({label}, {A.dtype}, {vec}): {err}")
+            # K10 keeps its plain version's summation order: the same bits
+            same = bit_equal(got, want) if name == "bell_spmv" else torch.allclose(
+                got, want, rtol=tol, atol=tol)
+            check(same, f"{name} differs from its plain version ({label}, {A.dtype}, {vec}): {err}")
             row[name + "_max_abs_err"] = err
             row[name + "_bit_equal"] = bool(torch.equal(got, want))
             row[name + "_first_call_s"] = round(k_s, 4)
@@ -652,7 +691,8 @@ def check_path3_kernels(gt, dev, rng, p3, record_err):
         emit(row)
     del W1
     for Bv in (p3["Bop"], p3["Bop"].reduce_storage()):
-        emit(pair_check(f"block_structured{BELL_BLOCKS}", Bv, bell_pairs, torch.float32))
+        emit(pair_check(f"block_structured{BELL_BLOCKS}", Bv, bell_pairs, torch.float32,
+                        twice=True))
 
 
 def chunk_figures(A, ch, vec):
@@ -663,6 +703,155 @@ def chunk_figures(A, ch, vec):
     return {"chunk_slots": ch.slots, "chunks": len(ch.work), "split_supertiles": len(ch.fold),
             "max_supertile_slots": int(A.tile_ptr.diff().max()), "partials": ch.n_parts,
             "scratch_bytes_k1": part, "scratch_bytes_k4": 4 * part}
+
+
+def bit_equal(a, b):
+    """The same dtype, shape and bits, NaN where the other has NaN (NaN
+    payloads aside): +0.0 and -0.0 differ."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    na, nb = a.isnan(), b.isnan()
+    if not torch.equal(na, nb):
+        return False
+    as_int = torch.int64 if a.element_size() == 8 else torch.int32
+    return torch.equal(a.masked_fill(na, 0).view(as_int), b.masked_fill(nb, 0).view(as_int))
+
+
+def without_tile(P, t):
+    """Pell P with the slots of tile t taken out: a tile with no slots,
+    whose rows K5 writes as 0 (the planners give every tile a step)."""
+    tp = P.tile_ptr.cpu().to(torch.int64)
+    a, b = int(tp[t]), int(tp[t + 1])
+    keep = torch.cat([torch.arange(a), torch.arange(b, P.values.shape[0])]).to(P.values.device)
+    tile_ptr = torch.cat([tp[:t + 1], tp[t + 1:] - (b - a)]).to(torch.int32)
+    return dataclasses.replace(P, values=P.values[keep], qidx=P.qidx[keep], bases=P.bases[keep],
+                               tile_ptr=tile_ptr.to(P.values.device),
+                               n_steps=P.n_steps - (b - a) // P.G)
+
+
+def with_padding_panel(shape, rows, cols, vals, BR):
+    """The pattern plus one more panel in row block 0, so that every other
+    row block gets a padding panel (id 0, zero values)."""
+    taken = set((cols[rows < BR] // 128).tolist())
+    extra = min(set(range(shape[1] // 128)) - taken)
+    r = np.arange(BR)
+    return (shape, np.concatenate([rows, r]), np.concatenate([cols, extra * 128 + r]),
+            np.concatenate([vals, np.ones(BR, np.float32)]))
+
+
+def pell_edge_plans(gt, dev):
+    """Small Pell plans that reach every branch of K5's ring: label ->
+    Pell (float32 values)."""
+    p13 = gt.Csr.from_matrix_data(gt.generators.poisson_3d(13, dtype=np.float32), device=dev)
+    sc = gt.Csr.from_matrix_data(gt.generators.local_scatter(1 << 16), device=dev)
+    rng = np.random.default_rng(3)
+    rr = np.repeat(np.arange(3000), 7)
+    cc = np.clip((rr * 0.7).astype(np.int64) + rng.integers(-300, 300, rr.size), 0, 2099)
+    rect = gt.Csr.from_matrix_data(gt.MatrixData.from_coo(
+        (3000, 2100), rr, cc, rng.standard_normal(rr.size).astype(np.float32)).sum_duplicates(),
+        device=dev)
+    P13 = gt.Pell.from_csr(p13)
+    return {
+        # 2197 rows: the last tile is partly past n_rows
+        "poisson_3d(13), S = 8, int8": P13,
+        "poisson_3d(13), S = 16, int32": gt.Pell.from_csr(p13, S=16, q_dtype=np.int32),
+        "poisson_3d(13), tile 1 without slots": without_tile(P13, 1),
+        # several G-slot steps a tile; G = 64 spans four stages a step
+        "local_scatter(2^16), G = 4": gt.Pell.from_csr(sc, G=4),
+        "local_scatter(2^16), S = auto, G = 64, int32": gt.Pell.from_csr(sc, S="auto", G=64,
+                                                                          q_dtype=np.int32),
+        "3000 x 2100, S = 32": gt.Pell.from_csr(rect, S=32),
+    }
+
+
+def bell_edge_operators(gt, dev):
+    """Small Bells that reach every branch of K10's ring: label -> Bell
+    (float32 panels)."""
+    out = {}
+    for NRB, gBR, K, NPC, n_cols, BR in (
+            (64, 8, 6, 40, None, 8),           # path 3b's BR and K
+            (40, 16, 3, 30, 30 * 128 - 75, 16),  # x cut inside a 16-byte piece
+            (20, 32, 5, 20, None, 32),
+            (50, 8, 1, 30, None, 8),           # K = 1
+            (9, 24, 4, 12, None, 24),          # BR divides no stage, nor a stage BR
+            (4, 128, 2, 12, None, 128),        # a panel spans two stages
+            (30, 16, 20, 40, None, 8)):        # a row block spans three stages
+        shape, r, c, v = block_structured(NRB, gBR, K, NPC)
+        if n_cols is not None:
+            keep = c < n_cols
+            shape, r, c, v = (shape[0], n_cols), r[keep], c[keep], v[keep]
+        data = gt.MatrixData.from_coo(shape, r, c, v).sum_duplicates()
+        out[f"block_structured({NRB}, {gBR}, {K}, {NPC}), {shape[0]} x {shape[1]}, BR = {BR}"] = (
+            gt.Bell.from_matrix_data(data, block_rows=BR, device=dev))
+    shape, r, c, v = block_structured(33, 8, 4, 24)
+    keep = r < 33 * 8 - 5  # n_rows not a multiple of BR
+    shape, r, c, v = with_padding_panel((33 * 8 - 5, shape[1]), r[keep], c[keep], v[keep], 8)
+    out["block_structured(33, 8, 4, 24), 259 rows, padding panels"] = gt.Bell.from_matrix_data(
+        gt.MatrixData.from_coo(shape, r, c, v).sum_duplicates(), block_rows=8, device=dev)
+    return out
+
+
+def check_spmv_edges(gt, dev, rng, record_err=None):
+    """K5 and K10 against their plain versions, bit for bit, on the plans
+    and Bells of ``pell_edge_plans`` and ``bell_edge_operators``: K5 with
+    float32, bfloat16 and float64 values and float32 and float64 vectors,
+    K10 with float32 and bfloat16 panels and an x that is 16-byte aligned
+    and one that is not; x holds NaN, Inf and -0.0 (K10: a NaN in x[0:128]
+    too, which reaches every padding panel).  Each kernel is called twice
+    and must give the same bits.  Returns the rows it emitted."""
+    from ginkgo_tpu_torch.ops import bell as ops_bell
+    from ginkgo_tpu_torch.ops import pell as ops_pell
+
+    def vector(n, dtype, offset=0):
+        base = torch.empty(n + offset, dtype=dtype, device=dev)
+        x = base[offset:]
+        x.copy_(torch.as_tensor(rng.standard_normal(n), dtype=dtype))
+        x[torch.as_tensor(rng.integers(0, n, 3), device=dev)] = float("nan")
+        x[torch.as_tensor(rng.integers(0, n, 2), device=dev)] = float("-inf")
+        x[torch.as_tensor(rng.integers(0, n, 3), device=dev)] = -0.0
+        return x
+
+    def run(name, kern, plain, A, x, label):
+        got, again = kern(A, x), kern(A, x)
+        want = plain(A, x)
+        _sync(dev)
+        if record_err is not None:
+            record_err(name, got.nan_to_num(), want.nan_to_num())
+        check(bit_equal(got, want), f"{name} differs from its plain version ({label})")
+        check(bit_equal(got, again), f"{name}: two calls gave different bits ({label})")
+
+    rows = []
+    for label, P in pell_edge_plans(gt, dev).items():
+        n_cases = 0
+        for vals in (torch.float32, torch.bfloat16, torch.float64):
+            Pv = P.astype(vals)
+            for vec in (torch.float32, torch.float64):
+                run("pell_spmv", ops_pell.pell_spmv, ops_pell.pell_spmv_reference, Pv,
+                    vector(P.shape[1], vec), f"{label}, {vals}, {vec}")
+                n_cases += 1
+        tiles = P.tile_ptr.diff()
+        rows.append({"phase": "kernel_check", "kernel": "pell_spmv", "matrix": label,
+                     "shape": list(P.shape), "S": P.S, "G": P.G, "qidx": str(P.qidx.dtype),
+                     "steps_per_tile_max": int(tiles.max()) // P.G,
+                     "empty_tiles": int((tiles == 0).sum()), "cases": n_cases,
+                     "bit_equal": True, "repeat_bit_equal": True})
+        emit(rows[-1])
+    for label, B in bell_edge_operators(gt, dev).items():
+        n_cases = 0
+        for Bv in (B, B.reduce_storage()):
+            for offset in (0, 1):  # a view one float past an aligned start
+                x = vector(B.shape[1], torch.float32, offset)
+                if offset:
+                    x[3] = float("nan")  # every padding panel reads it
+                run("bell_spmv", ops_bell.bell_spmv, ops_bell.bell_spmv_reference, Bv, x,
+                    f"{label}, {Bv.values.dtype}, x offset {offset}")
+                n_cases += 1
+        rows.append({"phase": "kernel_check", "kernel": "bell_spmv", "matrix": label,
+                     "shape": list(B.shape), "BR": B.block_rows, "K": B.values.shape[1],
+                     "padding_panels": int((B.panel_valid == 0).sum()), "cases": n_cases,
+                     "bit_equal": True, "repeat_bit_equal": True})
+        emit(rows[-1])
+    return rows
 
 
 def path4_solvers(gt):
@@ -2839,8 +3028,10 @@ def main():
                 ("pell_spmm", ops_pell.pell_spmm(P, X), ops_pell.pell_spmm_reference(P, X))):
             torch.cuda.synchronize()
             err = record_err(name, got, want)
-            check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
-                  f"{name} differs from its plain version ({label}, {P.dtype}): {err}")
+            # K5 keeps its plain version's summation order: the same bits
+            same = bit_equal(got, want) if name == "pell_spmv" else torch.allclose(
+                got, want, rtol=1e-5, atol=1e-5)
+            check(same, f"{name} differs from its plain version ({label}, {P.dtype}): {err}")
             row[name + "_max_abs_err"] = err
         emit(row)
 
@@ -2918,6 +3109,10 @@ def main():
         spmv_pair_check(f"local_scatter({SCATTER_ROWS})", Pv)
     del Cs, Ps_auto, Ps8, scatter
     ops_pell._PLAN_CACHE.clear()
+    t0 = time.perf_counter()
+    edges = check_spmv_edges(gt, dev, rng, record_err)
+    emit({"phase": "kernel_check", "kernels": ["pell_spmv", "bell_spmv"], "edge_cases": len(edges),
+          "s": round(time.perf_counter() - t0, 3)})
 
     crit = [stop.Iteration(max_iters=MAX_ITERS), stop.ResidualNorm(tolerance=TOL)]
 
@@ -3239,6 +3434,9 @@ def main():
             gbs = nbytes / k_ms / 1e6
             timing[f"{name}_{storage}"] = {"ms": k_ms, "plain_ms": p_ms, "GBps": gbs,
                                            "frac_of_copy": gbs / copy_gbs}
+            if name == "pell_spmv":
+                timing[f"{name}_{storage}"].update(
+                    device_ms=device_ms(kern, name), host_us_per_call=host_us(kern))
             if storage == "f32":
                 rec[name] = (k_ms, p_ms, slope_ms(lib), nbytes, flops)
     del lib3
@@ -3286,6 +3484,9 @@ def main():
             gbs = nbytes / k_ms / 1e6
             timing[f"{name}_{storage}"] = {"ms": k_ms, "plain_ms": p_ms, "GBps": gbs,
                                            "frac_of_copy": gbs / copy_gbs}
+            if name == "bell_spmv":
+                timing[f"{name}_{storage}"].update(
+                    device_ms=device_ms(kern, name), host_us_per_call=host_us(kern))
             if storage == "f32":
                 rec[name] = (k_ms, p_ms, slope_ms(lib, 5, 25), nbytes, flops)
     timing["well_chunks"] = {
@@ -3370,6 +3571,11 @@ def main():
     time_path8(gt, dev, p8, rec, timing)
     timing["t_s"] = elapsed()
     emit(timing)
+    # the launches of K5 and K10 on the main path's operators (float32), and
+    # their device time by kernel name
+    launch_info = {"pell_spmv": ops_pell.spmv_launch(P), "bell_spmv": ops_bell.spmv_launch(Bop)}
+    for name in launch_info:
+        launch_info[name]["device_ms"] = timing[f"{name}_f32"]["device_ms"]
 
     # -- 7. result -----------------------------------------------------------------------
     rows = []
@@ -3386,6 +3592,8 @@ def main():
             rows[-1]["csr_bound_ms"] = timing["well_csr_bound_ms"][name]
         if len(rec[name]) > 5:  # the Pell solvers: the plan read once per SpMV
             rows[-1]["bound_ms_plan_per_spmv"] = bound(rec[name][5], flops)[0]
+        if name in launch_info:  # the ring kernels: registers, shared memory, blocks an SM
+            rows[-1].update(launch_info[name])
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,13 @@
 // What the design does about it: one thread per output row, so a warp
 // reads 32 consecutive lanes of a slot's values and q rows (128 B of f32,
 // 32 B of int8) and gathers x from one panel; every row has one writer, no
-// atomics, and the sum runs in a fixed order.  The TPU kernel's scalar
+// atomics, and the sum runs in a fixed order.  Persistent blocks that stream
+// each tile's slots into a ring of shared memory by bulk asynchronous copies
+// were slower on an NVIDIA H100 80GB HBM3 at 700 W on poisson_3d(160)'s
+// plan, 145-210 us against this kernel's 147-151 in float32 and 145-200
+// against 128 in bfloat16 (well_bench.py; PERF.md): the x gathers, not the
+// plan stream, set K5's pace, and a ring that fills shared memory leaves
+// them less L1 and fewer warps.  The TPU kernel's scalar
 // prefetch of bases and step->tile maps becomes a per-block load of
 // tile_ptr and bases (the same address for a whole warp).  K6 reads each
 // cell once for up to GK_PELL_COLS right-hand sides, as the TPU kernel
@@ -94,6 +100,23 @@ static int launch_spmv(const PellPlanArgs& P, const void* x, void* y,
   pell_spmv_kernel<TV, TQ, TX><<<(unsigned)blocks, GK_PELL_THREADS, 0, stream>>>(
       P, (const TX*)x, (TX*)y, n_rows, n_cols);
   return (int)cudaGetLastError();
+}
+
+// K5's launch on this device for n_rows rows: out = {blocks, threads a block,
+// dynamic shared bytes a block (none), blocks an SM, registers a thread}.
+template <typename TV, typename TQ, typename TX>
+static int config_spmv(long long n_rows, int* out) {
+  cudaFuncAttributes attr;
+  int per_sm = 0;
+  cudaError_t e = cudaFuncGetAttributes(&attr, pell_spmv_kernel<TV, TQ, TX>);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pell_spmv_kernel<TV, TQ, TX>,
+                                                      GK_PELL_THREADS, 0);
+  if (e != cudaSuccess) return (int)e;
+  const int v[5] = {(int)((n_rows + GK_PELL_THREADS - 1) / GK_PELL_THREADS), GK_PELL_THREADS, 0,
+                    per_sm, attr.numRegs};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
+  return 0;
 }
 
 template <typename TV, typename TQ, typename TX>
@@ -178,4 +201,9 @@ extern "C" int pell_spmm(const void* values, int v_dtype, const void* qidx,
   GK_PELL_DISPATCH(x_dtype, v_dtype, q_dtype,
                    (launch_spmm<TV, TQ, TX>(P, X, Y, n_rows, n_cols, k,
                                             (cudaStream_t)stream)));
+}
+
+extern "C" int pell_spmv_config(int v_dtype, int q_dtype, int x_dtype, long long n_rows,
+                                int* out) {
+  GK_PELL_DISPATCH(x_dtype, v_dtype, q_dtype, (config_spmv<TV, TQ, TX>(n_rows, out)));
 }

@@ -62,6 +62,7 @@
 // chunk order: y = ((p0 + p1) + p2) ...; the plain versions in ops/well.py
 // take the same order.
 
+#include "async.cuh"
 #include "common.cuh"
 
 #define GK_WELL_SUB 8
@@ -97,35 +98,6 @@ struct WellStage {
 };
 
 extern __shared__ __align__(16) unsigned char gk_well_smem[];
-
-// The plan streams through L2 once: its copies are marked to be evicted
-// first, so that x (gathered many times) keeps its place in L2.
-__device__ __forceinline__ unsigned long long gk_evict_first() {
-  unsigned long long policy;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
-  return policy;
-}
-
-__device__ __forceinline__ void gk_cp16(void* dst, const void* src, unsigned long long policy) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "l"(policy)
-               : "memory");
-}
-
-__device__ __forceinline__ void gk_cp4(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void gk_cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void gk_cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Issue the copies of slots [slot0, slot0 + n) of sublane s into a stage;
 // every thread of the block takes a share.

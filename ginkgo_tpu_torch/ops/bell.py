@@ -12,7 +12,9 @@ take float32 vectors with float32 or bfloat16 panels, the types the JAX
 package sends to its Pallas kernels; ``matrix.bell.Bell.apply`` takes the
 JAX package's XLA-path arithmetic for every other type.  The sums run in a
 fixed order, kept by kernel and plain version alike: per panel a lane sum
-over l = 0..127 from 0, then the panel sums in panel order.  A wrapper
+over l = 0..127 from 0, then the panel sums in panel order.  K10 streams
+the panel rows and the x panels they read through a ring of shared memory
+in persistent blocks; :func:`spmv_launch` reports its launch.  A wrapper
 takes the plain version only for a tensor on the CPU; on a CUDA tensor it
 launches the kernel or raises, and counts its launches in ``launches``.
 The operator argument ``A`` is anything with ``values, panel_ids, shape``.
@@ -41,6 +43,8 @@ def _lib():
         lib.bell_spmm.argtypes = plan + [P, P, L, L, I, P]
         lib.bell_spmv.restype = I
         lib.bell_spmm.restype = I
+        lib.bell_spmv_config.argtypes = [I, I, I, L, P]
+        lib.bell_spmv_config.restype = I
         lib.gk_error_string.argtypes = [I]
         lib.gk_error_string.restype = ctypes.c_char_p
         lib.gk_typed = True
@@ -114,6 +118,23 @@ def _check_operands(A, x, what):
 def _panel_args(A):
     return (A.values.data_ptr(), DTYPE_CODE[A.values.dtype], A.panel_ids.data_ptr(),
             A.values.shape[1], A.values.shape[2])
+
+
+#: the fields of :func:`spmv_launch`, in the C entry point's order
+LAUNCH_FIELDS = ("blocks", "threads", "smem_bytes", "blocks_per_sm", "registers", "stage_rows",
+                 "stages")
+
+
+def spmv_launch(A):
+    """K10's launch on the current CUDA device for ``A``'s panels: the
+    persistent grid, threads and dynamic shared memory a block, blocks an
+    SM, registers a thread, panel rows a stage and stages of the ring."""
+    lib = _lib()
+    out = (ctypes.c_int * len(LAUNCH_FIELDS))()
+    status = lib.bell_spmv_config(DTYPE_CODE[A.values.dtype], A.values.shape[1],
+                                  A.values.shape[2], A.shape[0], out)
+    check_status(lib, status, "bell_spmv_config")
+    return dict(zip(LAUNCH_FIELDS, out))
 
 
 def bell_spmv(A, x):

@@ -209,6 +209,9 @@ def _lib():
         lib.pell_spmm.argtypes = plan + [P, I, P, L, L, I, P]
         lib.pell_spmv.restype = I
         lib.pell_spmm.restype = I
+        # v_dtype, q_dtype, x_dtype, n_rows, out
+        lib.pell_spmv_config.argtypes = [I, I, I, L, P]
+        lib.pell_spmv_config.restype = I
         lib.gk_error_string.argtypes = [I]
         lib.gk_error_string.restype = ctypes.c_char_p
         lib.gk_typed = True
@@ -324,6 +327,22 @@ def pell_plan_args(A):
     return (A.values.data_ptr(), DTYPE_CODE[A.values.dtype], A.qidx.data_ptr(),
             INDEX_CODE[A.qidx.dtype], A.bases.data_ptr(), A.tile_ptr.data_ptr(),
             A.S, A.G)
+
+
+#: the fields of :func:`spmv_launch`, in the C entry point's order
+LAUNCH_FIELDS = ("blocks", "threads", "smem_bytes", "blocks_per_sm", "registers")
+
+
+def spmv_launch(A, vec_dtype=torch.float32):
+    """K5's launch on the current CUDA device for plan ``A`` and vectors of
+    ``vec_dtype``: blocks, threads and dynamic shared memory a block,
+    blocks an SM and registers a thread."""
+    lib = _lib()
+    out = (ctypes.c_int * len(LAUNCH_FIELDS))()
+    status = lib.pell_spmv_config(DTYPE_CODE[A.values.dtype], INDEX_CODE[A.qidx.dtype],
+                                  DTYPE_CODE[vec_dtype], A.shape[0], out)
+    check_status(lib, status, "pell_spmv_config")
+    return dict(zip(LAUNCH_FIELDS, out))
 
 
 def pell_spmv(A, x):

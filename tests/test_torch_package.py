@@ -125,7 +125,7 @@ def test_kernel_sources_are_listed():
                               "mg_fused")
     for name in _build.KERNELS:
         assert (PKG / "csrc" / f"{name}.cu").is_file()
-    for header in ("common", "coop", "pell"):
+    for header in ("async", "common", "coop", "pell"):
         assert (PKG / "csrc" / f"{header}.cuh").is_file()
 
 

@@ -1,13 +1,19 @@
 #!/usr/bin/env python3
-"""K8 ``well_spmv`` and K9 ``well_spmm`` on one NVIDIA GPU, at the shapes
-of ``chip_smoke.py``'s path 3a: the power-law Laplacian handed over as a
-``Csr`` and planned as a WELL (``Well.from_csr``, T and G by the planner).
+"""A/B runs of the port's SpMV kernels on one NVIDIA GPU, at the shapes of
+``chip_smoke.py``'s main paths: K8 ``well_spmv`` and K9 ``well_spmm`` on
+path 3a (the power-law Laplacian handed over as a ``Csr`` and planned as a
+WELL, T and G by the planner), K5 ``pell_spmv`` on path 2's plan
+(``poisson_3d(160)`` as a ``Csr`` -> ``Pell.from_csr``, S = 8) and K10
+``bell_spmv`` on path 3b's ``Bell`` (``choose_format`` on
+``block_structured(2048, 16, 6, 256)``).
 
 Run from the repository root:
 
-    python3 well_bench.py [--rows N] [--chunks 256,512] [--other DIR ...] [--check] [--profile]
+    python3 well_bench.py [--kernels well,pell_spmv,bell_spmv] [--rows N] [--chunks 256,512]
+                          [--other DIR ...] [--check] [--profile]
 
-It prints JSON lines:
+``--kernels`` chooses what runs (default ``well``, K8/K9).  For ``well`` it
+prints JSON lines:
 
 - ``plan``: the plan's T, G, supertiles, slots and largest supertile, and
   for each chunk length of ``--chunks`` the work list's chunks, split
@@ -32,6 +38,25 @@ It prints JSON lines:
   ten K8 and ten K9 calls launch (``torch.profiler``), by kernel name;
 - the card's name and power limit, as nvidia-smi reports them.
 
+For ``pell_spmv`` and ``bell_spmv``:
+
+- ``build`` and ``launch``: ptxas's report of each kernel of the source,
+  this checkout's and each ``--other``'s, and the kernel's launch on the
+  main path's operator here (blocks, threads and dynamic shared memory a
+  block, blocks an SM, registers a thread, the ring's shape);
+- ``check`` (with ``--check``): ``chip_smoke.check_spmv_edges``, K5 and
+  K10 bit for bit against their plain versions on small plans and Bells
+  that reach every branch of their rings, each called twice;
+- ``timing``: ms per call (CUDA events, the slope between 5 and 25 chained
+  calls) with float32 and bfloat16 values, of this checkout's kernel and
+  of each ``--other``'s on the same operator and x, in turns (others,
+  this, this, others), and of ``torch.mv`` on the same ``Csr``; the bytes
+  a call must move, the bound and the share of the copy rate; whether the
+  kernel's y equals its plain version's bit for bit; the host microseconds
+  a call takes to return, each checkout's;
+- ``profile`` (with ``--profile``): the device time of each kernel that ten
+  calls launch, this checkout's and each ``--other``'s, by kernel name.
+
 Without a CUDA device it fails.
 """
 
@@ -41,12 +66,17 @@ import argparse
 import importlib.util
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
 import chip_smoke as cs
+
+
+#: the kernel library each choice of --kernels builds
+LIBRARY = {"well": "well_spmv", "pell_spmv": "pell_spmv", "bell_spmv": "bell_spmv"}
 
 
 def load_other(root: Path, tag: str):
@@ -59,7 +89,12 @@ def load_other(root: Path, tag: str):
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    return importlib.import_module(f"{name}.ops.well")
+    return mod
+
+
+def ops_of(pkg, kernel):
+    """The ops module of a package that holds ``kernel``'s wrapper."""
+    return importlib.import_module(f"{pkg.__name__}.ops.{LIBRARY[kernel].split('_')[0]}")
 
 
 def small_powerlaw(n, seed):
@@ -114,6 +149,8 @@ def run_checks(gt, ops_well, dev):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", default="well",
+                    help="comma-separated: well (K8/K9), pell_spmv (K5), bell_spmv (K10)")
     ap.add_argument("--rows", type=int, default=cs.POWERLAW_ROWS)
     ap.add_argument("--chunks", default="256", help="chunk lengths to time, comma-separated")
     ap.add_argument("--other", action="append", default=[],
@@ -121,22 +158,48 @@ def main():
     ap.add_argument("--check", action="store_true", help="check the kernels on small plans first")
     ap.add_argument("--profile", action="store_true", help="device time by kernel name")
     args = ap.parse_args()
+    kernels = args.kernels.split(",")
+    if not set(kernels) <= set(LIBRARY):
+        raise SystemExit(f"well_bench: --kernels takes {', '.join(LIBRARY)}")
     if not torch.cuda.is_available():
         raise SystemExit("well_bench: torch.cuda.is_available() is False; this needs a GPU")
     import ginkgo_tpu_torch as gt
     from ginkgo_tpu_torch import _build
-    from ginkgo_tpu_torch.ops import well as ops_well
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     card = cs.smi_line()
-    others = {f"other{i}": load_other(Path(d).resolve(), f"other{i}")
-              for i, d in enumerate(args.other)}
+    others_pkg = {f"other{i}": load_other(Path(d).resolve(), f"other{i}")
+                  for i, d in enumerate(args.other)}
     t0 = time.perf_counter()
-    _build.build(["well_spmv"])
-    for mod in others.values():
-        mod._lib()
-    build_s = time.perf_counter() - t0
+    builders = [_build] + [importlib.import_module(f"{pkg.__name__}._build")
+                           for pkg in others_pkg.values()]
+    with ThreadPoolExecutor(len(builders)) as pool:  # every checkout's nvcc runs at once
+        list(pool.map(lambda b: b.build([LIBRARY[k] for k in kernels]), builders))
+    cs.emit({"phase": "build", "build_s": round(time.perf_counter() - t0, 2)})
+    src = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    copy_gbs = 2 * src.numel() / cs.slope_ms(lambda: dst.copy_(src)) / 1e6
+    del src, dst
+    if args.check and {"pell_spmv", "bell_spmv"} & set(kernels):
+        t0 = time.perf_counter()
+        rows = cs.check_spmv_edges(gt, dev, np.random.default_rng(5))
+        cs.emit({"phase": "check", "kernels": ["pell_spmv", "bell_spmv"], "edge_cases": len(rows),
+                 "all_bit_equal": True, "s": round(time.perf_counter() - t0, 2)})
+    for k in kernels:
+        if k == "well":
+            bench_well(args, gt, dev, card, copy_gbs, others_pkg)
+        else:
+            bench_spmv(k, args, gt, dev, card, copy_gbs, others_pkg)
+    print(card, flush=True)
+
+
+def bench_well(args, gt, dev, card, copy_gbs, others_pkg):
+    """K8/K9 at path 3a's shapes: plan, build, timing and profile rows."""
+    from ginkgo_tpu_torch import _build
+    from ginkgo_tpu_torch.ops import well as ops_well
+
+    others = {tag: ops_of(pkg, "well") for tag, pkg in others_pkg.items()}
     ptxas = _build.BUILD_LOG["well_spmv"]["ptxas"].splitlines()
     if args.check:
         cs.emit(run_checks(gt, ops_well, dev))
@@ -160,7 +223,7 @@ def main():
              "slots": W.values.shape[0], "max_supertile_slots": int(slots.max()),
              "median_supertile_slots": float(slots.float().median()),
              "plan_bytes": W.storage_bytes(), "plan_s": round(plan_s, 2), "chunks": stats})
-    cs.emit({"phase": "build", "build_s": round(build_s, 2), "ptxas": ptxas,
+    cs.emit({"phase": "build", "ptxas": ptxas,
              "ptxas_other": {tag: importlib.import_module(f"gt_{tag}._build")
                              .BUILD_LOG["well_spmv"]["ptxas"].splitlines() for tag in others},
              "smem_k8_f32": ops_well.block_smem_bytes(W, torch.float32),
@@ -179,10 +242,6 @@ def main():
              "k8_max_abs_err": float((y - y_ref).abs().max()),
              "k9_max_abs_err": float((Y - Y_ref).abs().max())}
     del y_ref, Y_ref
-    src = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
-    dst = torch.empty_like(src)
-    copy_gbs = 2 * src.numel() / cs.slope_ms(lambda: dst.copy_(src)) / 1e6
-    del src, dst
     lib = cs.library_csr(C)
     nbytes = {"k8": W.storage_bytes() + 8 * n, "k9": W.storage_bytes() + 32 * n}
     times = {}
@@ -214,16 +273,90 @@ def main():
                               for k, v in times.items() if k[:2] in nbytes}})
     if args.profile:
         cs.emit(profile(ops_well, W, x, X))
-    print(card, flush=True)
 
 
-def profile(ops_well, W, x, X):
-    """Device microseconds per call of each kernel K8 and K9 launch."""
+def main_path_operator(gt, kernel, dev):
+    """The operator ``kernel`` takes on its main path, its ``Csr`` and a
+    label: path 2's 160^3 ``Pell`` for K5, path 3b's ``Bell`` for K10."""
+    if kernel == "pell_spmv":
+        C = gt.Csr.from_matrix_data(gt.generators.poisson_3d(cs.NSIDE3, dtype=np.float32),
+                                    device=dev)
+        return gt.Pell.from_csr(C), C, f"poisson_3d({cs.NSIDE3})"
+    data = gt.MatrixData.from_coo(*cs.block_structured(*cs.BELL_BLOCKS)).sum_duplicates()
+    A = gt.choose_format(data, device=dev)
+    if not isinstance(A, gt.Bell):
+        raise RuntimeError(f"well_bench: choose_format gave a {type(A).__name__}, not a Bell")
+    return A, gt.Csr.from_matrix_data(data, device=dev), f"block_structured{cs.BELL_BLOCKS}"
+
+
+def bench_spmv(kernel, args, gt, dev, card, copy_gbs, others_pkg):
+    """K5 or K10 on its main path's operator: build, launch, timing and
+    profile rows, against each other checkout's kernel in turns."""
+    from ginkgo_tpu_torch import _build
+
+    ops = ops_of(gt, kernel)
+    others = {tag: ops_of(pkg, kernel) for tag, pkg in others_pkg.items()}
+    t0 = time.perf_counter()
+    A, C, label = main_path_operator(gt, kernel, dev)
+    setup_s = time.perf_counter() - t0
+    lib_name = LIBRARY[kernel]
+    cs.emit({"phase": "build", "kernel": kernel,
+             "ptxas": _build.BUILD_LOG[lib_name]["ptxas"].splitlines(),
+             "ptxas_other": {tag: importlib.import_module(f"gt_{tag}._build")
+                             .BUILD_LOG[lib_name]["ptxas"].splitlines() for tag in others},
+             "launch": {"f32": ops.spmv_launch(A), "bf16": ops.spmv_launch(A.reduce_storage())}})
+    rng = np.random.default_rng(cs.SEED)
+    x = torch.as_tensor(rng.standard_normal(A.shape[1]).astype(np.float32), device=dev)
+    lib = cs.library_csr(C)
+    fn = getattr(ops, kernel)
+    times, bit_equal, nbytes = {}, {}, {}
+    for storage, Av in (("f32", A), ("bf16", A.reduce_storage())):
+        # bytes a call must move: the stored plan or panels, x read once, y
+        # written once
+        stored = (Av.storage_bytes() if kernel == "pell_spmv" else
+                  Av.values.numel() * Av.values.element_size() + Av.panel_ids.numel() * 4)
+        nbytes[storage] = stored + 4 * (A.shape[0] + A.shape[1])
+        y = fn(Av, x)
+        bit_equal[storage] = cs.bit_equal(y, getattr(ops, kernel + "_reference")(Av, x))
+        order = list(others.items())
+        for turn in range(2):
+            if turn == 0:
+                for tag, mod in order:
+                    times.setdefault(f"{storage}_{tag}", []).append(
+                        cs.slope_ms(lambda: getattr(mod, kernel)(Av, x), 5, 25))
+            times.setdefault(f"{storage}_this", []).append(cs.slope_ms(lambda: fn(Av, x), 5, 25))
+            if turn == 1:
+                for tag, mod in reversed(order):
+                    times[f"{storage}_{tag}"].append(
+                        cs.slope_ms(lambda: getattr(mod, kernel)(Av, x), 5, 25))
+    times["torch_mv"] = [cs.slope_ms(lambda: torch.mv(lib, x), 5, 25)]
+    host = {"this": cs.host_us(lambda: fn(A, x))}
+    for tag, mod in others.items():
+        host[tag] = cs.host_us(lambda mod=mod: getattr(mod, kernel)(A, x))
+    bound = {k: v / cs.PEAK_BYTES_S * 1e3 for k, v in nbytes.items()}
+    cs.emit({"phase": "timing", "kernel": kernel, "matrix": label, "card": card,
+             "shape": list(A.shape), "setup_s": round(setup_s, 2), "copy_GBps": copy_gbs,
+             "bit_equal": bit_equal, "ms": times, "host_us_per_call": host, "bytes": nbytes,
+             "bound_ms": bound,
+             "frac_of_copy": {k: nbytes[k.split("_")[0]] / min(v) / 1e6 / copy_gbs
+                              for k, v in times.items() if k.split("_")[0] in nbytes}})
+    if args.profile:
+        A_bf16 = A.reduce_storage()
+        calls = {"this": lambda: fn(A, x), "this_bf16": lambda: fn(A_bf16, x)}
+        for tag, mod in others.items():
+            calls[tag] = lambda mod=mod: getattr(mod, kernel)(A, x)
+            calls[tag + "_bf16"] = lambda mod=mod: getattr(mod, kernel)(A_bf16, x)
+        cs.emit({"phase": "profile", "kernel": kernel, **profile_calls(calls)})
+
+
+def profile_calls(calls):
+    """Device microseconds per call of each kernel that ten calls of each
+    function launch, by kernel name (``torch.profiler``)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    out = {"phase": "profile"}
-    for name, fn in (("k8", lambda: ops_well.well_spmv(W, x)), ("k9", lambda: ops_well.well_spmm(W, X))):
+    out = {}
+    for name, fn in calls.items():
         fn()
         torch.cuda.synchronize()
         with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -233,6 +366,12 @@ def profile(ops_well, W, x, X):
         out[name] = {e.key[:60]: getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) / 10
                      for e in prof.key_averages()}
     return out
+
+
+def profile(ops_well, W, x, X):
+    """Device microseconds per call of each kernel K8 and K9 launch."""
+    return {"phase": "profile", **profile_calls({"k8": lambda: ops_well.well_spmv(W, x),
+                                                  "k9": lambda: ops_well.well_spmm(W, X)})}
 
 
 if __name__ == "__main__":
