@@ -49,6 +49,12 @@ Phases, each of which raises on failure:
    shapes of the main paths (and at small sizes, where whole solves must
    take equal iteration counts): the DIA family K1-K3 and the whole-solve
    K4 at 64^2 and 2048^2, the k-RHS whole-solve K4m at 64^2 and 2048^2,
+   K4 and K4m on small banded operators that reach every branch of their
+   two-pass iteration (``check_cg_edges``: fewer rows than the grid has
+   threads and more, 1 and 64 diagonals, diagonals past both ends, K = 2
+   to 8, a NaN b, a zero b, max_iters 0 and 1, columns that stop at
+   iteration 1, FCG, implicit mode; equal iterations and per-column stop
+   iterations, frozen columns bit for bit),
    the PELL SpMV/SpMM K5/K6 on poisson_3d(160) (S = 8, float32 and
    bfloat16/int8) and on an unstructured local-scatter pattern of 2^20
    rows (S = "auto" and S = 8), K5 bit for bit; K5 and K10 bit for bit
@@ -851,6 +857,146 @@ def check_spmv_edges(gt, dev, rng, record_err=None):
                      "padding_panels": int((B.panel_valid == 0).sum()), "cases": n_cases,
                      "bit_equal": True, "repeat_bit_equal": True})
         emit(rows[-1])
+    return rows
+
+
+def cg_edge_operators(dev):
+    """Small SPD banded operators as (nd, n) float32 diagonals and offsets,
+    every padding slot (a row whose column falls outside [0, n)) NaN, so a
+    read past either end shows: a tridiagonal one at n = 1000 (fewer rows
+    than the grid has threads, not a multiple of 256) and at n = 250,001
+    (more), each with two diagonals past both ends; one diagonal at n =
+    777; 64 diagonals (0, +-1..+-31, and one past the end) at n = 3000."""
+    rng = np.random.default_rng(SEED + 11)
+
+    def build(n, coeffs, past=()):
+        """coeffs: {offset > 0: value} of a symmetric Toeplitz band, a
+        diagonal made dominant with a random part; past: offsets with no
+        column in range."""
+        offs = [0] + [s * o for o in sorted(coeffs) for s in (-1, 1)] + list(past)
+        D = np.zeros((len(offs), n), np.float32)
+        D[0] = 1.0 + 2.0 * sum(abs(c) for c in coeffs.values()) + rng.uniform(0, 1, n)
+        for d, o in enumerate(offs[1:], 1):
+            D[d] = coeffs.get(abs(o), 0.0)
+        rows = np.arange(n)
+        for d, o in enumerate(offs):
+            D[d, (rows + o < 0) | (rows + o >= n)] = np.nan
+        return torch.as_tensor(D, device=dev), tuple(offs)
+
+    return {
+        "tridiagonal(1000)": build(1000, {1: -1.0}, past=(-1000, 1003)),
+        "tridiagonal(250001)": build(250001, {1: -1.0}, past=(-250001, 250001)),
+        "diagonal(777)": build(777, {}),
+        "band64(3000)": build(3000, {o: -0.5 / o for o in range(1, 32)}, past=(3002,)),
+    }
+
+
+def check_cg_edges(gt, dev, rng, record_err=None):
+    """K4 and K4m against their plain versions on ``cg_edge_operators``,
+    with float32 and bfloat16 diagonals: K4 with Identity and Jacobi, CG and
+    FCG, exact and implicit; a NaN in b (both run to the cap), a zero b
+    (rho = 0), max_iters 0 and 1, a threshold that stops the solve at
+    iteration 1.  K4m with K = 2 to 8 columns of these kinds, in turn:
+    random, stopped at iteration 1, zero, NaN (runs to the cap), random,
+    a negative threshold (runs to the cap), random, stopped at 1; the four
+    modes each, and max_iters 0 and 1.  Each case must take the plain
+    version's iterations (K4m: and per-column stop iterations and stop
+    flags), hold every frozen column bit for bit, and x within 1e-5.
+    Returns the rows it emitted."""
+    from ginkgo_tpu_torch.ops import cg as ops_cg
+
+    cap = 60
+    modes = [(pre, flex, imp) for pre in ("identity", "jacobi") for flex in (False, True)
+             for imp in (False, True)]
+
+    def compare(name, got, want, label):
+        _sync(dev)
+        kx, pxx = got[0], want[0]
+        if record_err is not None:
+            record_err(name, kx.nan_to_num(), pxx.nan_to_num())
+        kit, pit = int(got[2]), int(want[2])
+        check(kit == pit, f"{name} {label}: {kit} vs {pit} iterations")
+        check(bool(torch.equal(got[4], want[4])), f"{name} {label}: stop flags differ")
+        if name == "cg_fused_multi":
+            kitc, pitc = got[5].tolist(), want[5].tolist()
+            check(kitc == pitc, f"{name} {label}: per-column iterations {kitc} vs {pitc}")
+            for c in range(kx.shape[1]):
+                if pitc[c] < pit:
+                    check(bit_equal(kx[:, c], pxx[:, c]), f"{name} {label}: frozen column {c} differs")
+        check(torch.allclose(kx, pxx, rtol=1e-5, atol=1e-5, equal_nan=True),
+              f"{name} {label}: x differs by {float((kx - pxx).abs().nan_to_num().max())}")
+        return kit
+
+    def columns(n, k):
+        """(n, k) right-hand sides and their squared thresholds."""
+        B = torch.as_tensor(rng.uniform(0.5, 1.5, (n, k)).astype(np.float32), device=dev)
+        tol = ((TOL * B.double().norm(dim=0)) ** 2).float()
+        for c in range(k):
+            kind = c % 8
+            if kind in (1, 7):
+                tol[c] = 1e30
+            elif kind == 2:
+                B[:, c] = 0.0
+                tol[c] = 0.0
+            elif kind == 3:
+                B[n // 3, c] = float("nan")
+            elif kind == 5:
+                tol[c] = -1.0
+        return B, tol
+
+    rows = []
+    for label, (D32, offs) in cg_edge_operators(dev).items():
+        n = D32.shape[1]
+        diag = D32[offs.index(0)]
+        for D in (D32, D32.to(torch.bfloat16)):
+            minv = {"identity": None, "jacobi": 1.0 / diag.to(D.dtype).float()}
+            b = torch.as_tensor(rng.uniform(0.5, 1.5, n).astype(np.float32), device=dev)
+            z = torch.zeros_like(b)
+            tol = torch.full((1,), (TOL * float(b.double().norm())) ** 2, device=dev)
+            iters = {}
+            cases = [(f"{pre}{' fcg' if flex else ''}{' implicit' if imp else ''}",
+                      b, minv[pre], tol, MAX_ITERS, flex, imp) for pre, flex, imp in modes]
+            nan_b = b.clone()
+            nan_b[n // 2] = float("nan")
+            cases += [("nan b", nan_b, None, tol, cap, False, False),
+                      ("zero b", z, None, torch.zeros(1, device=dev), MAX_ITERS, False, False),
+                      ("max_iters 0", b, None, tol, 0, False, False),
+                      ("max_iters 1", b, minv["jacobi"], tol, 1, True, False),
+                      ("stops at 1", b, None, torch.full((1,), 1e30, device=dev), MAX_ITERS,
+                       False, False)]
+            for what, rhs, mv, t, its, flex, imp in cases:
+                kw = dict(tol_sq_eff=t, max_iters=its, use_implicit=imp, flexible=flex)
+                kout = ops_cg.cg_fused(D, offs, rhs, z, mv, **kw)
+                pout = ops_cg.cg_solve_reference(D, offs, rhs, z, mv, **kw)
+                iters[what] = compare("cg_fused", kout, pout, f"{label} {D.dtype} {what}")
+            check(iters["nan b"] == cap and iters["zero b"] == 1 and iters["max_iters 0"] == 0
+                  and iters["max_iters 1"] == 1 and iters["stops at 1"] == 1,
+                  f"cg_fused {label}: edge iterations {iters}")
+            multi = {}
+            if label in ("tridiagonal(1000)", "band64(3000)") or D.dtype == torch.float32:
+                for k in range(2, 9):
+                    B, tk = columns(n, k)
+                    Z = torch.zeros_like(B)
+                    for pre, flex, imp in modes[::3] + [modes[5]]:
+                        kw = dict(tol_sq_eff=tk, max_iters=cap, use_implicit=imp, flexible=flex)
+                        what = f"k={k} {pre}{' fcg' if flex else ''}{' implicit' if imp else ''}"
+                        kout = ops_cg.cg_fused_multi(D, offs, B, Z, minv[pre], **kw)
+                        pout = ops_cg.cg_multi_solve_reference(D, offs, B, Z, minv[pre], **kw)
+                        multi[what] = compare("cg_fused_multi", kout, pout,
+                                              f"{label} {D.dtype} {what}")
+                    check(k < 4 or multi[what] == cap,
+                          f"cg_fused_multi {label}: k={k} with a NaN column stopped early")
+                B, tk = columns(n, 4)
+                for its in (0, 1):
+                    kw = dict(tol_sq_eff=tk, max_iters=its)
+                    multi[f"max_iters {its}"] = compare(
+                        "cg_fused_multi", ops_cg.cg_fused_multi(D, offs, B, torch.zeros_like(B), **kw),
+                        ops_cg.cg_multi_solve_reference(D, offs, B, torch.zeros_like(B), **kw),
+                        f"{label} {D.dtype} max_iters {its}")
+            rows.append({"phase": "kernel_check", "kernels": ["cg_fused", "cg_fused_multi"],
+                         "matrix": label, "diagonals": str(D.dtype), "rows": n, "nd": len(offs),
+                         "iterations": iters, "multi_iterations": multi})
+            emit(rows[-1])
     return rows
 
 
@@ -3014,6 +3160,10 @@ def main():
                   "frozen_columns": frozen, "x_max_abs_err": err, "x_rel_err": rel,
                   "s": round(k_s, 4), "plain_s": round(p_s, 4)})
         del A32, A, D
+    t0 = time.perf_counter()
+    edges = check_cg_edges(gt, dev, rng, record_err)
+    emit({"phase": "kernel_check", "kernels": ["cg_fused", "cg_fused_multi"],
+          "edge_operators": len(edges), "s": round(time.perf_counter() - t0, 3)})
 
     # -- 2b. the PELL kernels against their plain versions --------------------------
     def spmv_pair_check(label, P):
@@ -3576,6 +3726,9 @@ def main():
     launch_info = {"pell_spmv": ops_pell.spmv_launch(P), "bell_spmv": ops_bell.spmv_launch(Bop)}
     for name in launch_info:
         launch_info[name]["device_ms"] = timing[f"{name}_f32"]["device_ms"]
+    # K4's and K4m's (k = 4) cooperative grids with float32 diagonals
+    launch_info["cg_fused"] = ops_cg.cg_fused_launch(torch.float32, 1, dev)
+    launch_info["cg_fused_multi"] = ops_cg.cg_fused_launch(torch.float32, 4, dev)
 
     # -- 7. result -----------------------------------------------------------------------
     rows = []
@@ -3592,7 +3745,7 @@ def main():
             rows[-1]["csr_bound_ms"] = timing["well_csr_bound_ms"][name]
         if len(rec[name]) > 5:  # the Pell solvers: the plan read once per SpMV
             rows[-1]["bound_ms_plan_per_spmv"] = bound(rec[name][5], flops)[0]
-        if name in launch_info:  # the ring kernels: registers, shared memory, blocks an SM
+        if name in launch_info:  # registers, blocks an SM (the ring kernels: shared memory)
             rows[-1].update(launch_info[name])
     emit({"kernels": rows})
     print(card, flush=True)

@@ -86,6 +86,65 @@ __device__ __forceinline__ void grid_total(const double* part, double (&tot)[NV]
   __syncthreads();
 }
 
+// block_partial with the partials stored value-major,
+// part[c * gridDim.x + b] (K4m): after the barrier a warp then reads 32
+// consecutive doubles of one value, where the block-major layout spreads a
+// warp's load over 32 sectors at NV >= 4.
+template <int NV>
+__device__ __forceinline__ void block_partial_vm(double (&v)[NV], double* part,
+                                                 double (&sh)[NV][GK_CG_WARPS]) {
+  block_sum<NV>(v, sh);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int c = 0; c < NV; ++c) part[c * gridDim.x + blockIdx.x] = v[c];
+  }
+}
+
+// grid_total's sum, in grid_total's order (so with its bits), of partials
+// at part[b * b_stride + c * c_stride] (block-major: NV, 1; value-major: 1,
+// gridDim.x), only the first nv values read (the others sum to 0).  Each
+// thread loads B of its partials before it adds them, one L2 round trip
+// where grid_total's loop waits on one a partial: after a barrier every
+// block reads the same partials at once, and on the H100 K4's three folds
+// an iteration took 7 of its 124 us that way (PERF.md section 6).
+template <int NV, int B>
+__device__ __forceinline__ void grid_total_batch(const double* part, int b_stride,
+                                                 int c_stride, int nv, double (&tot)[NV],
+                                                 double (&sh)[NV][GK_CG_WARPS],
+                                                 double (&bc)[NV]) {
+  const int blocks = (int)gridDim.x;
+  double v[NV];
+#pragma unroll
+  for (int c = 0; c < NV; ++c) v[c] = 0.0;
+  for (int b0 = threadIdx.x; b0 < blocks; b0 += B * blockDim.x) {
+    double w[B][NV];
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      const int b = b0 + u * blockDim.x;
+#pragma unroll
+      for (int c = 0; c < NV; ++c)
+        w[u][c] = (b < blocks && c < nv) ? __ldcg(part + b * b_stride + c * c_stride) : 0.0;
+    }
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      if (b0 + u * (int)blockDim.x < blocks) {
+#pragma unroll
+        for (int c = 0; c < NV; ++c)
+          if (c < nv) v[c] += w[u][c];
+      }
+    }
+  }
+  block_sum<NV>(v, sh);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int c = 0; c < NV; ++c) bc[c] = v[c];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < NV; ++c) tot[c] = bc[c];
+  __syncthreads();
+}
+
 // Row i of a DIA product, sum_d D[d][i] * src[i + off_d] over the columns
 // in [0, n), summed in offset order from 0 as ops/dia.py's plain version
 // does.  `src` is float32, or bfloat16 (a GMRES basis) widened on read; it

@@ -5,7 +5,10 @@ right-hand side) and ``cg_vmem_solve_multi`` (K4m, 2 to 8 right-hand sides
 with per-column stopping).  The whole Krylov loop, with an Identity or
 inverse-diagonal preconditioner and the stop test, runs in one persistent
 cooperative CUDA kernel (``csrc/cg_fused.cu``); the iteration count never
-reaches the host during the solve.
+reaches the host during the solve.  K4m takes two passes and two grid
+barriers an iteration: it folds the direction update p = z + beta p into
+the next iteration's SpMV, with p in two alternating buffers.  K4 keeps
+three passes, which ran faster on the card at one column.
 
 Semantics, shared by the kernels and :func:`cg_loop_reference`:
 
@@ -139,25 +142,17 @@ def _lib():
     lib = _build.load("cg_fused")
     if not hasattr(lib, "gk_typed"):
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        offs, blocks = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)
-        lib.cg_fused_grid.argtypes = [I, blocks]
-        lib.cg_fused_multi_grid.argtypes = [I, I, blocks]
+        offs, ints = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)
+        lib.cg_fused_grid.argtypes = [I, I, ints]
+        lib.cg_fused_config.argtypes = [I, I, ints]
         lib.cg_fused_solve.argtypes = [
-            P, I, offs, I, L,  # diags, offsets, n
-            P, P, P, P,  # r0, x0, minv, tol_sq
-            I, I, I,  # max_iters, implicit, flexible
-            P, P, P, P, P, I,  # x, r, p, q, partials, blocks
-            P, P, P, P,  # it_out, mon_out, conv_out, stream
-        ]
-        lib.cg_fused_multi_solve.argtypes = [
             P, I, offs, I, L, I,  # diags, offsets, n, k
             P, P, P, P,  # r0, x0, minv, tol_sq
             I, I, I,  # max_iters, implicit, flexible
-            P, P, P, P, P, I,  # x, r, p, q, partials, blocks
+            P, P, P, P, P, P, I,  # x, r, p0, p1, q, partials, blocks
             P, P, P, P, P,  # it_out, mon_out, conv_out, itc_out, stream
         ]
-        for fn in (lib.cg_fused_grid, lib.cg_fused_multi_grid,
-                   lib.cg_fused_solve, lib.cg_fused_multi_solve):
+        for fn in (lib.cg_fused_grid, lib.cg_fused_config, lib.cg_fused_solve):
             fn.restype = I
         lib.gk_error_string.argtypes = [I]
         lib.gk_error_string.restype = ctypes.c_char_p
@@ -209,6 +204,52 @@ def check_fused_diags(diags, offsets, dev, what):
         raise ValueError(f"{what}: diags must be contiguous")
 
 
+#: cg_fused_launch's fields, in the order csrc/cg_fused.cu cg_fused_config writes them
+LAUNCH_FIELDS = ("blocks", "threads", "blocks_per_sm", "registers")
+
+
+def cg_fused_launch(diag_dtype=torch.float32, k=1, device=None):
+    """K4's (k = 1) or K4m's launch on a CUDA device: the cooperative
+    grid's blocks, threads a block, blocks an SM and registers a thread."""
+    lib = _lib()
+    out = (ctypes.c_int * len(LAUNCH_FIELDS))()
+    with torch.cuda.device(device):
+        status = lib.cg_fused_config(DTYPE_CODE[diag_dtype], k, out)
+    check_status(lib, status, "cg_fused_config")
+    return dict(zip(LAUNCH_FIELDS, out))
+
+
+def _launch(diags, offsets, r0, x0, minv, tol, max_iters, use_implicit, flexible):
+    """Run csrc/cg_fused.cu on checked operands: r0, x0 (n,) for K4 or
+    (n, k) for K4m, which alternates its direction between two buffers.
+    Returns (x, r, iterations, monitored_sq (k,), converged (k,),
+    stop_iterations (k,))."""
+    dev = r0.device
+    k = 1 if r0.dim() == 1 else r0.shape[1]
+    n = diags.shape[1]
+    lib = _lib()
+    code = DTYPE_CODE[diags.dtype]
+    blocks = coop_grid_blocks(lib, "cg_fused_grid", (code, k), dev)
+    x, r, p0, q = (torch.empty_like(r0) for _ in range(4))
+    p1 = p0 if k == 1 else torch.empty_like(r0)  # K4 keeps one direction buffer
+    part = torch.empty(4 * k * blocks, dtype=torch.float64, device=dev)
+    ints = torch.empty(1 + 2 * k, dtype=torch.int32, device=dev)  # it, conv, itc
+    mon = torch.empty(k, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        status = lib.cg_fused_solve(
+            diags.data_ptr(), code, offsets_array(offsets), len(offsets), n, k,
+            r0.data_ptr(), x0.data_ptr(),
+            None if minv is None else minv.data_ptr(), tol.data_ptr(),
+            min(int(max_iters), 2**31 - 1), int(bool(use_implicit)), int(bool(flexible)),
+            x.data_ptr(), r.data_ptr(), p0.data_ptr(), p1.data_ptr(), q.data_ptr(),
+            part.data_ptr(), blocks, ints.data_ptr(), mon.data_ptr(),
+            ints[1:].data_ptr(), ints[1 + k:].data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    check_status(lib, status, "cg_fused" if k == 1 else "cg_fused_multi")
+    return x, r, ints[0], mon, ints[1:1 + k] != 0, ints[1 + k:]
+
+
 def cg_fused(diags, offsets, r0, x0, minv=None, *, tol_sq_eff, max_iters,
              use_implicit=False, flexible=False):
     """K4: run CG (FCG with ``flexible=True``) to the stop test in one
@@ -227,30 +268,10 @@ def cg_fused(diags, offsets, r0, x0, minv=None, *, tol_sq_eff, max_iters,
     check_fused_diags(diags, offsets, dev, "cg_fused")
     n = diags.shape[1]
     check_solve_vectors("cg_fused", (n,), dev, (r0, x0), minv, tol, 1)
-    lib = _lib()
-    blocks = coop_grid_blocks(lib, "cg_fused_grid", (DTYPE_CODE[diags.dtype],), dev)
-    x = torch.empty_like(r0)
-    r = torch.empty_like(r0)
-    p = torch.empty_like(r0)
-    q = torch.empty_like(r0)
-    part = torch.empty(4 * blocks, dtype=torch.float64, device=dev)
-    it_conv = torch.empty(2, dtype=torch.int32, device=dev)
-    mon = torch.empty(1, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        status = lib.cg_fused_solve(
-            diags.data_ptr(), DTYPE_CODE[diags.dtype], offsets_array(offsets),
-            len(offsets), n, r0.data_ptr(), x0.data_ptr(),
-            None if minv is None else minv.data_ptr(), tol.data_ptr(),
-            min(int(max_iters), 2**31 - 1), int(bool(use_implicit)),
-            int(bool(flexible)),
-            x.data_ptr(), r.data_ptr(), p.data_ptr(), q.data_ptr(),
-            part.data_ptr(), blocks, it_conv.data_ptr(),
-            mon.data_ptr(), it_conv[1:].data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    check_status(lib, status, "cg_fused")
+    x, r, it, mon, conv, _ = _launch(diags, offsets, r0, x0, minv, tol, max_iters,
+                                     use_implicit, flexible)
     cg_fused.launches += 1
-    return x, r, it_conv[0], mon[0], it_conv[1] != 0
+    return x, r, it, mon[0], conv[0]
 
 
 cg_fused.launches = 0
@@ -277,31 +298,9 @@ def cg_fused_multi(diags, offsets, r0, x0, minv=None, *, tol_sq_eff, max_iters,
     check_fused_diags(diags, offsets, dev, "cg_fused_multi")
     n = diags.shape[1]
     check_solve_vectors("cg_fused_multi", (n, k), dev, (r0, x0), minv, tol, k)
-    lib = _lib()
-    code = DTYPE_CODE[diags.dtype]
-    blocks = coop_grid_blocks(lib, "cg_fused_multi_grid", (code, k), dev)
-    x = torch.empty_like(r0)
-    r = torch.empty_like(r0)
-    p = torch.empty_like(r0)
-    q = torch.empty_like(r0)
-    part = torch.empty(4 * k * blocks, dtype=torch.float64, device=dev)
-    ints = torch.empty(1 + 2 * k, dtype=torch.int32, device=dev)  # it, conv, itc
-    mon = torch.empty(k, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        status = lib.cg_fused_multi_solve(
-            diags.data_ptr(), code, offsets_array(offsets), len(offsets), n, k,
-            r0.data_ptr(), x0.data_ptr(),
-            None if minv is None else minv.data_ptr(), tol.data_ptr(),
-            min(int(max_iters), 2**31 - 1), int(bool(use_implicit)),
-            int(bool(flexible)),
-            x.data_ptr(), r.data_ptr(), p.data_ptr(), q.data_ptr(),
-            part.data_ptr(), blocks, ints.data_ptr(), mon.data_ptr(),
-            ints[1:].data_ptr(), ints[1 + k:].data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    check_status(lib, status, "cg_fused_multi")
+    out = _launch(diags, offsets, r0, x0, minv, tol, max_iters, use_implicit, flexible)
     cg_fused_multi.launches += 1
-    return x, r, ints[0], mon, ints[1:1 + k] != 0, ints[1 + k:]
+    return out
 
 
 cg_fused_multi.launches = 0

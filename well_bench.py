@@ -5,11 +5,14 @@ path 3a (the power-law Laplacian handed over as a ``Csr`` and planned as a
 WELL, T and G by the planner), K5 ``pell_spmv`` on path 2's plan
 (``poisson_3d(160)`` as a ``Csr`` -> ``Pell.from_csr``, S = 8) and K10
 ``bell_spmv`` on path 3b's ``Bell`` (``choose_format`` on
-``block_structured(2048, 16, 6, 256)``).
+``block_structured(2048, 16, 6, 256)``); and the whole-solve K4
+``cg_fused`` and K4m ``cg_fused_multi`` (k = 4) on path 1's
+``poisson_2d(2048)`` ``Dia``.
 
 Run from the repository root:
 
-    python3 well_bench.py [--kernels well,pell_spmv,bell_spmv] [--rows N] [--chunks 256,512]
+    python3 well_bench.py [--kernels well,pell_spmv,bell_spmv,cg_fused,cg_fused_multi]
+                          [--rows N] [--chunks 256,512] [--cg-columns 2,4,8]
                           [--other DIR ...] [--check] [--profile]
 
 ``--kernels`` chooses what runs (default ``well``, K8/K9).  For ``well`` it
@@ -57,6 +60,28 @@ For ``pell_spmv`` and ``bell_spmv``:
 - ``profile`` (with ``--profile``): the device time of each kernel that ten
   calls launch, this checkout's and each ``--other``'s, by kernel name.
 
+For ``cg_fused`` and ``cg_fused_multi``:
+
+- ``build``: ptxas's registers line of each kernel of ``csrc/cg_fused.cu``,
+  this checkout's and each ``--other``'s, and each one's launch with
+  float32 and bfloat16 diagonals (blocks of the cooperative grid, blocks
+  an SM, registers a thread);
+- ``check`` (with ``--check``): ``chip_smoke.check_cg_edges``, K4 and K4m
+  against their plain versions on small banded operators that reach every
+  branch of the two-pass iteration;
+- ``timing``, one row a case (k = 1 for K4, ``--cg-columns`` for K4m,
+  4 by default; float32 and bfloat16 diagonals; Identity and Jacobi; CG
+  and FCG): microseconds an
+  iteration by the slope between whole solves of 200 and 1000 iterations
+  (CUDA events), this checkout's and each ``--other``'s, in turns
+  (others, this, this, others); the bytes an iteration of the bound and of
+  the two- and three-pass designs, the bound and each kernel's share of
+  the copy rate by the bound's bytes and by its own design's; the solve to
+  1e-6 (b = ones, ``chip_smoke.rhs4``'s four columns, or k uniform ones)
+  by each checkout,
+  its seconds, iterations and per-column iterations, and whether this
+  checkout's x equals each other's bit for bit.
+
 Without a CUDA device it fails.
 """
 
@@ -76,7 +101,10 @@ import chip_smoke as cs
 
 
 #: the kernel library each choice of --kernels builds
-LIBRARY = {"well": "well_spmv", "pell_spmv": "pell_spmv", "bell_spmv": "bell_spmv"}
+LIBRARY = {"well": "well_spmv", "pell_spmv": "pell_spmv", "bell_spmv": "bell_spmv",
+           "cg_fused": "cg_fused", "cg_fused_multi": "cg_fused"}
+#: the whole-solve kernels of --kernels: K4 runs one column, K4m --cg-columns
+CG_KERNELS = ("cg_fused", "cg_fused_multi")
 
 
 def load_other(root: Path, tag: str):
@@ -150,13 +178,16 @@ def run_checks(gt, ops_well, dev):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", default="well",
-                    help="comma-separated: well (K8/K9), pell_spmv (K5), bell_spmv (K10)")
+                    help="comma-separated: well (K8/K9), pell_spmv (K5), bell_spmv (K10), "
+                         "cg_fused (K4), cg_fused_multi (K4m)")
     ap.add_argument("--rows", type=int, default=cs.POWERLAW_ROWS)
     ap.add_argument("--chunks", default="256", help="chunk lengths to time, comma-separated")
     ap.add_argument("--other", action="append", default=[],
                     help="another checkout of this repository whose kernels to time alongside")
     ap.add_argument("--check", action="store_true", help="check the kernels on small plans first")
     ap.add_argument("--profile", action="store_true", help="device time by kernel name")
+    ap.add_argument("--cg-columns", default="4",
+                    help="cg_fused_multi: the column counts to time, comma-separated (2 to 8)")
     args = ap.parse_args()
     kernels = args.kernels.split(",")
     if not set(kernels) <= set(LIBRARY):
@@ -186,10 +217,19 @@ def main():
         rows = cs.check_spmv_edges(gt, dev, np.random.default_rng(5))
         cs.emit({"phase": "check", "kernels": ["pell_spmv", "bell_spmv"], "edge_cases": len(rows),
                  "all_bit_equal": True, "s": round(time.perf_counter() - t0, 2)})
+    if args.check and set(CG_KERNELS) & set(kernels):
+        t0 = time.perf_counter()
+        rows = cs.check_cg_edges(gt, dev, np.random.default_rng(5))
+        cs.emit({"phase": "check", "kernels": ["cg_fused", "cg_fused_multi"],
+                 "edge_operators": len(rows), "s": round(time.perf_counter() - t0, 2)})
+    cg_kernels = [k for k in kernels if k in CG_KERNELS]
+    if cg_kernels:
+        bench_cg(cg_kernels, [int(k) for k in args.cg_columns.split(",")], gt, dev, card,
+                 copy_gbs, others_pkg)
     for k in kernels:
         if k == "well":
             bench_well(args, gt, dev, card, copy_gbs, others_pkg)
-        else:
+        elif k not in CG_KERNELS:
             bench_spmv(k, args, gt, dev, card, copy_gbs, others_pkg)
     print(card, flush=True)
 
@@ -347,6 +387,139 @@ def bench_spmv(kernel, args, gt, dev, card, copy_gbs, others_pkg):
             calls[tag] = lambda mod=mod: getattr(mod, kernel)(A, x)
             calls[tag + "_bf16"] = lambda mod=mod: getattr(mod, kernel)(A_bf16, x)
         cs.emit({"phase": "profile", "kernel": kernel, **profile_calls(calls)})
+
+
+def ptxas_registers(text):
+    """{mangled kernel name: ptxas's "Used N registers, ..." line and its
+    stack and spill line} of one build's ptxas report."""
+    out, name, spill = {}, None, ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name, spill = line.split("'")[1], ""
+        elif name and "spill stores" in line:
+            spill = "; " + line.strip()
+        elif name and "registers" in line:
+            out[name] = line.split("info    : ")[-1].strip() + spill
+            name = None
+    return out
+
+
+def cg_launch(mod, build_log, dtype, k, dev):
+    """The launch of a checkout's K4 (k = 1) or K4m kernel: blocks, blocks
+    an SM and registers.  A checkout without ``cg_fused_launch`` (the
+    three-pass design) gives its blocks from its grid query and its
+    registers from ptxas."""
+    if hasattr(mod, "cg_fused_launch"):
+        return mod.cg_fused_launch(dtype, k, dev)
+    lib = mod._lib()
+    code = mod.DTYPE_CODE[dtype]
+    blocks = (mod.coop_grid_blocks(lib, "cg_fused_grid", (code,), dev) if k == 1 else
+              mod.coop_grid_blocks(lib, "cg_fused_multi_grid", (code, k), dev))
+    token = "kernelIf" if dtype == torch.float32 else "kernelI13__nv_bfloat16"
+    regs = [line for name, line in ptxas_registers(build_log).items()
+            if token in name and ((f"Li{k}E" in name) if k > 1 else ("Li" not in name))]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return {"blocks": blocks, "blocks_per_sm": blocks // sms,
+            "registers": regs[0].split()[1] if regs else None}
+
+
+def design(mod, k):
+    """The pass design of a checkout's kernel at k columns: K4m is two-pass
+    where the checkout has ``cg_fused_launch``; K4 is three-pass in all."""
+    return "two_pass" if k > 1 and hasattr(mod, "cg_fused_launch") else "three_pass"
+
+
+def bench_cg(kernels, multi_columns, gt, dev, card, copy_gbs, others_pkg):
+    """K4 (k = 1) and K4m (k in ``multi_columns``) on path 1's
+    ``poisson_2d(2048)`` Dia:
+    build and launch rows, then each case's microseconds an iteration by the
+    slope between whole solves of 200 and 1000 iterations, this checkout's
+    kernel against each other checkout's in turns, and the solve to 1e-6
+    with its iterations and x against the first other checkout's bits."""
+    from ginkgo_tpu_torch import _build
+    from ginkgo_tpu_torch.ops import cg as ops_cg
+
+    others = {tag: ops_of(pkg, "cg_fused") for tag, pkg in others_pkg.items()}
+    logs = {"this": _build.BUILD_LOG["cg_fused"]["ptxas"]}
+    logs.update({tag: importlib.import_module(f"gt_{tag}._build").BUILD_LOG["cg_fused"]["ptxas"]
+                 for tag in others})
+    mods = {"this": ops_cg, **others}
+    columns = [1] * ("cg_fused" in kernels) + multi_columns * ("cg_fused_multi" in kernels)
+    A = gt.Dia.from_matrix_data(gt.generators.poisson_2d(cs.NSIDE, dtype=np.float32), device=dev)
+    n, nd = A.shape[0], len(A.offsets)
+    cs.emit({"phase": "build", "kernels": kernels,
+             "ptxas": {tag: ptxas_registers(log) for tag, log in logs.items()},
+             "launch": {tag: {f"{str(dt)[6:]}_k{k}": cg_launch(mod, logs[tag], dt, k, dev)
+                              for k in columns for dt in (torch.float32, torch.bfloat16)}
+                        for tag, mod in mods.items()}})
+    minv = 1.0 / A.extract_diagonal().values.float()
+    stop_never = torch.full((), -1.0, device=dev)
+    rng = np.random.default_rng(cs.SEED)
+    for k in columns:
+        if k == 1:
+            b = torch.ones(n, device=dev)
+        elif k == 4:
+            b = cs.rhs4(n, rng, dev)
+        else:
+            b = torch.as_tensor(rng.uniform(0.5, 1.5, (n, k)).astype(np.float32), device=dev)
+        z = torch.zeros_like(b)
+        tol = ((cs.TOL * b.double().norm(dim=0)) ** 2).float()
+        for storage, Av in (("f32", A), ("bf16", A.reduce_storage())):
+            for pre, mv in (("identity", None), ("jacobi", minv)):
+                for flexible in (False, True):
+                    case = f"k{k}_{storage}_{pre}{'_fcg' if flexible else ''}"
+
+                    def call(mod, its, tol=tol):
+                        fn = mod.cg_fused if k == 1 else mod.cg_fused_multi
+                        return fn(Av.diags, Av.offsets, b, z, mv, tol_sq_eff=tol, max_iters=its,
+                                  flexible=flexible)
+
+                    us = {}
+                    order = list(others.items())
+                    for turn in range(2):
+                        if turn == 0:
+                            for tag, mod in order:
+                                us.setdefault(tag, []).append(1e3 * cs.iter_ms(
+                                    lambda its, mod=mod: call(mod, its, stop_never)))
+                        us.setdefault("this", []).append(1e3 * cs.iter_ms(
+                            lambda its: call(ops_cg, its, stop_never)))
+                        if turn == 1:
+                            for tag, mod in reversed(order):
+                                us[tag].append(1e3 * cs.iter_ms(
+                                    lambda its, mod=mod: call(mod, its, stop_never)))
+                    solves, xs = {}, {}
+                    for tag, mod in mods.items():
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        out = call(mod, cs.MAX_ITERS)
+                        torch.cuda.synchronize()
+                        solves[tag] = {"s": time.perf_counter() - t0, "iterations": int(out[2]),
+                                       "converged": bool(out[4].all())}
+                        if k > 1:
+                            solves[tag]["column_iterations"] = out[5].tolist()
+                        xs[tag] = out[0]
+                    for tag in others:
+                        solves["this"][f"x_bit_equal_{tag}"] = cs.bit_equal(xs["this"], xs[tag])
+                    del xs
+                    # bytes an iteration: the bound's (diagonals, and x, r, p
+                    # read and written once each, the inverse diagonal read
+                    # once), this design's two passes and the three-pass
+                    # design's
+                    dsz = nd * Av.diags.element_size()
+                    jac = mv is not None
+                    nbytes = {"bound": (dsz + 24 * k + 4 * jac) * n,
+                              "two_pass": (dsz + 40 * k + 8 * jac) * n,
+                              "three_pass": (dsz + 44 * k + (8 if k == 1 else 12) * jac) * n}
+                    best = {tag: min(v) for tag, v in us.items()}
+                    cs.emit({"phase": "timing", "case": case, "card": card, "rows": n,
+                             "copy_GBps": copy_gbs, "us_per_iteration": us, "bytes": nbytes,
+                             "bound_us": nbytes["bound"] / cs.PEAK_BYTES_S * 1e6,
+                             "frac_of_copy_bound_bytes": {
+                                 tag: nbytes["bound"] / t / 1e3 / copy_gbs for tag, t in best.items()},
+                             "frac_of_copy_own_bytes": {
+                                 tag: nbytes[design(mods[tag], k)] / t / 1e3 / copy_gbs
+                                 for tag, t in best.items()},
+                             "solve_1e-6": solves})
 
 
 def profile_calls(calls):
