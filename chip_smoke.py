@@ -35,6 +35,9 @@ the port that users call:
   ``Bicgstab`` with ``Ilu`` (K24) and ``Gmres(30)`` with it (streaming,
   K22 per triangle), path 2's ``Csr`` -> ``Cg`` with ``Ic`` (K5 + K22), a
   ``LowerTrs`` solve (K22), and at 64^2 ``Direct`` and ``Isai`` + ``Gmres``;
+  K22 and K23 on the 2048^2 triangles take the pipelined walk (no grid
+  barrier in K22, four an iteration in K23), the 160^3 IC the barrier
+  routine;
 - path 8 (slice 8): algebraic multigrid, ``Multigrid(max_levels=12)`` (Pgm,
   FixedSmoother, Direct on 1024 coarse rows) on path 1's ``Dia`` ->
   ``Cg``/``Fcg`` + MG (the whole-solve kernel K26) and ``Multigrid.solve``
@@ -121,7 +124,13 @@ Phases, each of which raises on failure:
    ``Isai`` + ``Gmres`` at 64^2, each held against a float64 solve; then
    K22-K24 against their plain versions at 24^2 and 64^2 (f32/bf16
    triangles and A, sweeps 0/1/3/8, equal iterations and x bit for bit, a
-   NaN case each) and at 2048^2 under a cap;
+   NaN case each) and at 2048^2 under a cap (K22 bit for bit); K22 and K23
+   on edge triangles that reach every branch of the walk
+   (``check_trs_edges``: w = 1 to 2048, halos across many blocks, rings
+   that wrap, odd n, ranges shorter than their halo and longer than
+   several chunks, lower and upper
+   triangles, a w past the ring limit on the barrier route; bit for bit,
+   each twice), every launch's route printed;
 10. main path 8: the two 12-level hierarchies (the host seconds of each
    level's aggregation and triple product, the dense coarse inverse), the
    solves above held against path 1's and path 4's float64 solves (the
@@ -136,7 +145,8 @@ Phases, each of which raises on failure:
    per iteration and GMRES(30) time per Arnoldi step, fused and
    streaming; the k-column BiCGSTAB and GMRES, IDR(2), IDR(4) and IR per
    iteration, and the smoother per sweep; BiCGSTAB, CGS, IR and GMRES(30)
-   on the 160^3 ``Pell``; K23 and K24 per iteration and K22 per launch;
+   on the 160^3 ``Pell``; K23 and K24 per iteration and K22 per launch
+   (with its wrapper's host time a call); K22's and K23's routes;
    K25 per cycle beside the streaming cycle, K26/K28 per iteration and K27
    per cycle; bounds; the copy bandwidth; K5's and K10's launch
    (registers, shared memory a block, blocks an SM) and device time by
@@ -2232,7 +2242,12 @@ def main_path7(gt, dev, rng, crit, kernels, data1, x64_ones, p4, C3, P3, x64_3, 
     solution is held against a float64 solve of its system."""
     from ginkgo_tpu_torch import stop
     from ginkgo_tpu_torch.factorization import LuFactory, ParIc, ParIlu
+    from ginkgo_tpu_torch.ops import cg_ilu as ops_cg_ilu
+    from ginkgo_tpu_torch.ops import trs as ops_trs
     from ginkgo_tpu_torch.solver import LowerTrs
+
+    def routes(fn, before):
+        return {k: v - before[k] for k, v in fn.routes.items()}
 
     row = {"phase": "main_path", "path": 7, "case": "setup", "sweeps": SWEEPS7}
     A1 = p4["A1"]
@@ -2258,6 +2273,25 @@ def main_path7(gt, dev, rng, crit, kernels, data1, x64_ones, p4, C3, P3, x64_3, 
                   f"path 7: the {label} triangles are not Dias with {SWEEPS7} sweeps")
         row[f"{label}_triangle_offsets"] = [M.l_solver.off_csr.offsets,
                                             M.u_solver.off_csr.offsets]
+    # A1's IC and ILU triangles take the walk: K22 with no grid barrier, K23
+    # with four an iteration
+    for label, M in (("ic", M_ic), ("ilu", M_ilu)):
+        Tl, Tu = M.l_solver.off_csr, M.u_solver.off_csr
+        for side, T in (("l", Tl), ("u", Tu)):
+            launch = ops_trs.trs_fused_launch(T, SWEEPS7, dev)
+            check(launch["route"] == "pipelined" and launch["grid_barriers"] == 0
+                  and launch["unrolled"],
+                  f"path 7: A1's {label} {side} triangle takes the {launch['route']} route "
+                  f"(unrolled {launch['unrolled']})")
+            emit({"phase": "launch", "path": 7, "kernel": "trs_fused", "case": f"a1_{label}_{side}",
+                  **launch})
+        launch = ops_cg_ilu.cg_ilu_fused_launch(A1, Tl, Tu, SWEEPS7, SWEEPS7, dev)
+        check(launch["route"] == "pipelined" and launch["grid_barriers"] == 4
+              and launch["unrolled"],
+              f"path 7: K23 with A1's {label} takes the {launch['route']} route "
+              f"(unrolled {launch['unrolled']})")
+        emit({"phase": "launch", "path": 7, "kernel": "cg_ilu_fused", "case": f"a1_{label}",
+              **launch})
     A2, b2, refs2, norm2 = p4["A"], p4["b"], p4["refs"], p4["norm_a"]
     C2, row["a2_to_csr_s"] = _timed(A2.to_csr, dev)
     M2, row["a2_ilu_s"] = _timed(lambda: ilu_factories(gt, "ilu").generate(C2), dev)
@@ -2281,8 +2315,12 @@ def main_path7(gt, dev, rng, crit, kernels, data1, x64_ones, p4, C3, P3, x64_3, 
         bounded = criteria is crit
         solver = cls.build(criteria=criteria, preconditioner=M).generate(A)
         before = {k: f.launches for k, f in kernels.items()}
+        k23_routes = dict(ops_cg_ilu.cg_ilu_fused.routes)
         (x, info), solve_s = _timed(lambda: solver.solve(b), dev)
         check(kernels[kname].launches == before[kname] + 1, f"path 7: {label} did not run {kname}")
+        k23_routes = routes(ops_cg_ilu.cg_ilu_fused, k23_routes)
+        check(kname != "cg_ilu_fused" or k23_routes["pipelined"] == 1,
+              f"path 7: {label}: K23 took the routes {k23_routes}")
         check(kernels["trs_fused"].launches == before["trs_fused"],
               f"path 7: {label} ran trs_fused beside {kname}")
         check(bool(info.converged.all()) or not bounded, f"path 7: {label}: not converged")
@@ -2296,12 +2334,16 @@ def main_path7(gt, dev, rng, crit, kernels, data1, x64_ones, p4, C3, P3, x64_3, 
               "converged": bool(info.converged.all()),
               "residual_norm": float(info.residual_norm[0]),
               **accuracy(A, x, b, ref, norm_a, f"path 7: {label}", bounded=bounded),
-              "solve_s": solve_s})
+              "solve_s": solve_s, "cg_ilu_fused_routes": k23_routes})
         before = {k: f.launches for k, f in kernels.items()}
+        k22_routes = dict(ops_trs.trs_fused.routes)
         with torch.no_grad():
             (xs, sinfo), solve_s = _timed(
                 lambda: solver._solve_streaming(b[:, None], torch.zeros_like(b)[:, None]), dev)
         k22 = kernels["trs_fused"].launches - before["trs_fused"]
+        k22_routes = routes(ops_trs.trs_fused, k22_routes)
+        check(k22_routes["pipelined"] == k22,
+              f"path 7: {label} streaming: trs_fused took the routes {k22_routes}")
         per_iter = 2 if cls is gt.Cg else 4  # M applies: CG one, BiCGSTAB two an iteration
         check(kernels[kname].launches == before[kname] and k22 >= per_iter * sinfo.num_iterations,
               f"path 7: {label} streaming: {k22} trs_fused launches in "
@@ -2313,7 +2355,7 @@ def main_path7(gt, dev, rng, crit, kernels, data1, x64_ones, p4, C3, P3, x64_3, 
                   "iterations")
         emit({"phase": "main_path", "path": 7, "route": "streaming", "case": label,
               "iterations": sinfo.num_iterations, "converged": bool(sinfo.converged.all()),
-              "trs_fused_launches": k22,
+              "trs_fused_launches": k22, "trs_fused_routes": k22_routes,
               **accuracy(A, xs[:, 0], b, ref, norm_a, f"path 7: {label} streaming",
                          bounded=bounded),
               "solve_s": solve_s})
@@ -2341,9 +2383,11 @@ def main_path7(gt, dev, rng, crit, kernels, data1, x64_ones, p4, C3, P3, x64_3, 
     check(isinstance(M3.l_solver.off_csr, gt.Dia), "path 7: the 160^3 IC triangle is not a Dia")
     b3 = torch.ones(C3.shape[0], device=dev)
     before = {k: f.launches for k, f in kernels.items()}
+    k22_routes = dict(ops_trs.trs_fused.routes)
     (x, info), solve_s = _timed(
         lambda: gt.Cg.build(criteria=crit, preconditioner=M3).generate(P3).solve(b3), dev)
     k22 = kernels["trs_fused"].launches - before["trs_fused"]
+    k22_routes = routes(ops_trs.trs_fused, k22_routes)
     k5 = kernels["pell_spmv"].launches - before["pell_spmv"]
     check(k22 >= 2 * info.num_iterations and k5 >= info.num_iterations,
           f"path 7: cg_ic on the 160^3 system: {k22} trs_fused, {k5} pell_spmv launches")
@@ -2353,6 +2397,8 @@ def main_path7(gt, dev, rng, crit, kernels, data1, x64_ones, p4, C3, P3, x64_3, 
     emit({"phase": "main_path", "path": 7, "route": "streaming", "case": "poisson3d160_cg_ic",
           "ic_generate_s": ic3_s, "iterations": info.num_iterations,
           "unpreconditioned_iterations": cg_iterations["poisson3d160"], "trs_fused_launches": k22,
+          "trs_fused_routes": k22_routes,
+          "trs_fused_launch": ops_trs.trs_fused_launch(M3.l_solver.off_csr, SWEEPS7, dev),
           "pell_spmv_launches": k5, "triangle_offsets": M3.l_solver.off_csr.offsets,
           **accuracy(P3, x, b3, x64_3, norm3, "path 7: poisson3d160_cg_ic"),
           "solve_s": solve_s})
@@ -2403,6 +2449,168 @@ def _ilu_parts(M):
             (1.0 / ut.diag).float().contiguous())
 
 
+#: the neighbours of a grid point in the edge matrices' stencils, as
+#: (dx, dy, dz): the 5-point Laplacian (3-point on a line), the 9-point one
+#: and the 7-point one in 3D
+STENCILS = {
+    "5pt": ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0)),
+    "9pt": tuple((dx, dy, 0) for dy in (-1, 0, 1) for dx in (-1, 0, 1) if dx or dy),
+    "7pt": ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1)),
+}
+
+
+def grid_laplacian(dims, stencil="5pt"):
+    """The Laplacian of the stencil on the grid dims = (nx, ny, nz) (-1 a
+    neighbour inside the grid, the neighbour count on the diagonal; a line
+    of nx points where ny = nz = 1), as COO parts.  Row i = x + nx (y + ny
+    z), so a neighbour (dx, dy, dz) sits at offset dx + nx dy + nx ny dz."""
+    nx, ny, nz = dims
+    n = nx * ny * nz
+    i = np.arange(n)
+    x, y, z = i % nx, (i // nx) % ny, i // (nx * ny)
+    nbrs = [d for d in STENCILS[stencil] if (ny > 1 or d[1] == 0) and (nz > 1 or d[2] == 0)]
+    rows, cols, vals = [i], [i], [np.full(n, float(len(nbrs)))]
+    for dx, dy, dz in nbrs:
+        ok = ((x + dx >= 0) & (x + dx < nx) & (y + dy >= 0) & (y + dy < ny)
+              & (z + dz >= 0) & (z + dz < nz))
+        rows.append(i[ok])
+        cols.append(i[ok] + dx + nx * dy + nx * ny * dz)
+        vals.append(np.full(int(ok.sum()), -1.0))
+    return (n, n), np.concatenate(rows), np.concatenate(cols), np.concatenate(vals).astype(
+        np.float32)
+
+
+#: K22/K23 edge triangles (``check_trs_edges``): the grid and stencil of a
+#: Laplacian, its factorization, whether a walk at path 7's sweeps fits a
+#: block's shared memory, and whether the triangles' shapes run the kernels
+#: compiled for them through interior steps.  w = 1 on an odd n (a bfloat16
+#: diagonal starting mid-word), w = 31, w = 2048 (rings that wrap; at 264
+#: blocks every range is shorter than its halo, which crosses many blocks),
+#: w = 2047 on an odd n, w = 512 at 307,200 rows (own ranges of several
+#: chunks), w = 40,000 (past the ring limit: the barrier route).  Then
+#: ranges longer than their halo plus sweeps + 2 chunks, so that interior
+#: steps run, at up to three blocks an SM: 1, 2, 3 and 4 diagonals a
+#: triangle (w = 1 on a line of 3,000,001 rows, w = 512 on 1,536,000 rows
+#: of the 5-point stencil, w = 1600 on a 40 x 40 x 1000 grid of the 7-point
+#: one, w = 1001 on 1,600,000 rows of the 9-point one), each at 1 to 4
+#: sweeps.
+TRS_EDGE_GRIDS = (
+    ((999, 1, 1), "5pt", "ic", True, False), ((31, 40, 1), "5pt", "ilu", True, False),
+    ((2048, 3, 1), "5pt", "ic", True, False), ((2047, 5, 1), "5pt", "ilu", True, False),
+    ((512, 600, 1), "5pt", "ic", True, False), ((40000, 3, 1), "5pt", "ic", False, False),
+    ((3_000_001, 1, 1), "5pt", "ic", True, True), ((512, 3000, 1), "5pt", "ilu", True, True),
+    ((40, 40, 1000), "7pt", "ic", True, True), ((1000, 1600, 1), "9pt", "ic", True, True),
+)
+#: the sweep counts the edge checks run: K22's, and K23's (L, U) pairs; on
+#: the grids with interior steps every count the kernels are compiled for
+TRS_EDGE_SWEEPS = ((0, 1, 3, 8), ((3, 3), (0, 1), (8, 2)))
+TRS_INTERIOR_SWEEPS = ((1, 2, 3, 4), ((1, 1), (2, 2), (3, 3), (4, 4)))
+
+
+def check_trs_edges(gt, dev, rng, record_err=None):
+    """K22 and K23 against their plain versions, bit for bit and each
+    twice, on the triangles of ParIc/ParIlu of ``TRS_EDGE_GRIDS``: K22 on
+    the lower and the upper triangle, float32 and bfloat16, b with a -0.0
+    and with a NaN, at ``TRS_EDGE_SWEEPS`` (``TRS_INTERIOR_SWEEPS`` on the
+    grids with interior steps); K23 under a cap of 40 iterations, equal
+    counts and x and r bit for bit.  At path 7's 3 sweeps every launch takes
+    the walk, past the ring limit the barrier routine (so do 8 sweeps where
+    their rings outgrow a block, and K22 at 0 sweeps); both routes of both
+    kernels must run.  On the grids with interior steps every launch on the
+    walk must run the kernel compiled for its shape with interior steps in
+    every walk, and together they must reach every shape of 1 to 4
+    diagonals and 1 to 4 sweeps of both kernels.  Returns one row a grid."""
+    from ginkgo_tpu_torch.ops import cg_ilu as ops_cg_ilu
+    from ginkgo_tpu_torch.ops import trs as ops_trs
+
+    def interior(launch, what):
+        check(launch["unrolled"] and all(w["interior_steps"] > 0 for w in launch["walks"]),
+              f"{what}: the walk ran no interior step of the kernel compiled for its shape "
+              f"({launch})")
+
+    rows = []
+    seen = {"trs_fused": set(), "cg_ilu_fused": set()}
+    shapes = {"trs_fused": set(), "cg_ilu_fused": set()}
+    for dims, stencil, kind, walks, inner in TRS_EDGE_GRIDS:
+        want = "pipelined" if walks else "barrier"
+        k22_sweeps, k23_sweeps = TRS_INTERIOR_SWEEPS if inner else TRS_EDGE_SWEEPS
+        t0 = time.perf_counter()
+        A = gt.Dia.from_matrix_data(gt.MatrixData.from_coo(*grid_laplacian(dims, stencil)),
+                                    device=dev)
+        M = ilu_factories(gt, kind).generate(A)
+        Tl, Tu, invdl, invdu = _ilu_parts(M)
+        n = A.shape[0]
+        b = torch.as_tensor(rng.uniform(0.5, 1.5, n).astype(np.float32), device=dev)
+        b[5] = -0.0
+        bn = b.clone()
+        bn[n // 2] = float("nan")
+        z = torch.zeros_like(b)
+        tol = torch.full((), (TOL * float(b.norm())) ** 2, dtype=torch.float32, device=dev)
+        row = {"phase": "kernel_check", "kernels": ["trs_fused", "cg_ilu_fused"],
+               "grid": list(dims), "stencil": stencil, "kind": kind, "rows": n,
+               "offsets": [list(Tl.offsets), list(Tu.offsets)], "launches": {}}
+        n_cases = 0
+        for storage in (torch.float32, torch.bfloat16):
+            L, U = Tl.astype(storage), Tu.astype(storage)
+            tag = str(storage)[6:]
+            for side, T, invd in (("l", L, invdl), ("u", U, invdu)):
+                for sweeps in k22_sweeps:
+                    launch = ops_trs.trs_fused_launch(T, sweeps, dev)
+                    seen["trs_fused"].add(launch["route"])
+                    what = f"trs_fused {dims} {side} {tag} sweeps {sweeps}"
+                    if sweeps == SWEEPS7:
+                        check(launch["route"] == want,
+                              f"{what}: the {launch['route']} route, not the {want} one")
+                    if inner and launch["route"] == "pipelined":
+                        interior(launch, what)
+                        shapes["trs_fused"].add((len(T.offsets), sweeps))
+                    row["launches"][f"trs_fused {side} {tag} {sweeps}"] = launch
+                    for rhs in (b, bn):
+                        k1 = ops_trs.trs_fused(T, invd, rhs, sweeps=sweeps)
+                        k2 = ops_trs.trs_fused(T, invd, rhs, sweeps=sweeps)
+                        p = ops_trs.trs_reference(T, invd, rhs, sweeps=sweeps)
+                        if record_err is not None:
+                            record_err("trs_fused", k1, p)
+                        check(bit_equal(k1, p) and bit_equal(k1, k2),
+                              f"{what}: x differs from its plain version or from itself")
+                        n_cases += 1
+            for sl, su in k23_sweeps:
+                launch = ops_cg_ilu.cg_ilu_fused_launch(A, L, U, sl, su, dev)
+                seen["cg_ilu_fused"].add(launch["route"])
+                what = f"cg_ilu_fused {dims} {tag} sweeps {sl}/{su}"
+                if sl == su == SWEEPS7:
+                    check(launch["route"] == want,
+                          f"{what}: the {launch['route']} route, not the {want} one")
+                if inner and launch["route"] == "pipelined":
+                    interior(launch, what)
+                    shapes["cg_ilu_fused"].add((len(L.offsets), sl))
+                row["launches"][f"cg_ilu_fused {tag} {sl}/{su}"] = launch
+                kw = dict(sweeps_l=sl, sweeps_u=su, tol_sq_eff=tol, max_iters=40)
+                k1 = ops_cg_ilu.cg_ilu_fused(A, L, U, invdl, invdu, b, z, **kw)
+                k2 = ops_cg_ilu.cg_ilu_fused(A, L, U, invdl, invdu, b, z, **kw)
+                p = ops_cg_ilu.cg_ilu_reference(A, L, U, invdl, invdu, b, z, **kw)
+                if record_err is not None:
+                    record_err("cg_ilu_fused", k1[0], p[0])
+                its = (int(k1[2]), int(k2[2]), int(p[2]))
+                check(its[0] == its[1] == its[2] and bit_equal(k1[0], p[0])
+                      and bit_equal(k1[1], p[1]) and bit_equal(k1[0], k2[0]),
+                      f"{what}: iterations {its}, x or r differs from the plain version's or "
+                      f"from itself")
+                row.setdefault("cg_ilu_iterations", {})[f"{sl}/{su} {tag}"] = its[0]
+                n_cases += 1
+        row.update(cases=n_cases, bit_equal=True, s=round(time.perf_counter() - t0, 2))
+        emit(row)
+        rows.append(row)
+        del A, M, Tl, Tu, invdl, invdu, b, bn, z
+    check(all(v == {"pipelined", "barrier"} for v in seen.values()),
+          f"the edge checks did not reach both routes of K22 and K23: {seen}")
+    every = {(nd, sw) for nd in range(1, 5) for sw in range(1, 5)}
+    check(all(v == every for v in shapes.values()),
+          f"the edge checks did not run every compiled shape through interior steps: "
+          f"{ {k: sorted(every - v) for k, v in shapes.items()} }")
+    return rows
+
+
 def check_path7_kernels(gt, dev, rng, p7, record_err):
     """K22-K24 against their plain versions on the card.  At 24^2 and 64^2
     (the Poisson matrix with IC triangles for K22/K23 and with ILU ones for
@@ -2412,8 +2620,10 @@ def check_path7_kernels(gt, dev, rng, p7, record_err):
     x bit for bit; a NaN in b runs to the cap on both.  At 2048^2 (path 7's
     preconditioners, float32 and bfloat16 triangles) K23 and K24 under a cap
     of CAP6 iterations and K22 with 3 sweeps: equal counts, x within 1e-5
-    of its largest entry, bit_equal reported.  Every kernel runs twice and
-    must equal itself."""
+    of its largest entry (K22 bit for bit), bit_equal reported; then path
+    7's own launches, K22 on both triangles and K23 with 3 sweeps in both,
+    on the kernels compiled for their shape and bit for bit.  Every kernel
+    runs twice and must equal itself.  Then ``check_trs_edges``."""
     from ginkgo_tpu_torch.ops import cg_ilu as ops_cg_ilu
     from ginkgo_tpu_torch.ops import trs as ops_trs
 
@@ -2514,8 +2724,40 @@ def check_path7_kernels(gt, dev, rng, p7, record_err):
             for name, (kern, plain) in cases(A, M, b, tol, CAP6, SWEEPS7, storage,
                                              solvers).items():
                 key = f"{name} {label} tri {str(storage)[6:]}"
-                row[key] = compare(name, f"{key} {NSIDE}", kern, plain, exact=False)
+                row[key] = compare(name, f"{key} {NSIDE}", kern, plain,
+                                   exact=name == "trs_fused")
+            if "cg_ilu_fused" not in solvers:
+                continue
+            # path 7's own launches: both triangles through K22 and K23 at
+            # SWEEPS7 in both, on the kernels compiled for their shape
+            Tl, Tu, invdl, invdu = _ilu_parts(M)
+            L, U = Tl.astype(storage), Tu.astype(storage)
+            z = torch.zeros_like(b)
+            tag = f"{label} tri {str(storage)[6:]}"
+            for side, T, invd in (("l", L, invdl), ("u", U, invdu)):
+                launch = ops_trs.trs_fused_launch(T, SWEEPS7, dev)
+                check(launch["route"] == "pipelined" and launch["unrolled"]
+                      and launch["walks"][0]["interior_steps"] > 0,
+                      f"trs_fused {tag} {side} {NSIDE}: not the walk compiled for its shape "
+                      f"({launch})")
+                row[f"trs_fused {tag} {side} sweeps {SWEEPS7}"] = compare(
+                    "trs_fused", f"trs_fused {tag} {side} {NSIDE}",
+                    lambda T=T, invd=invd: ops_trs.trs_fused(T, invd, b, sweeps=SWEEPS7),
+                    lambda T=T, invd=invd: ops_trs.trs_reference(T, invd, b, sweeps=SWEEPS7),
+                    exact=True)
+            launch = ops_cg_ilu.cg_ilu_fused_launch(A, L, U, SWEEPS7, SWEEPS7, dev)
+            check(launch["route"] == "pipelined" and launch["unrolled"]
+                  and all(w["interior_steps"] > 0 for w in launch["walks"]),
+                  f"cg_ilu_fused {tag} {NSIDE}: not the walks compiled for their shape "
+                  f"({launch})")
+            kw = dict(sweeps_l=SWEEPS7, sweeps_u=SWEEPS7, tol_sq_eff=tol, max_iters=CAP6)
+            row[f"cg_ilu_fused {tag} sweeps {SWEEPS7}/{SWEEPS7}"] = compare(
+                "cg_ilu_fused", f"cg_ilu_fused {tag} {SWEEPS7}/{SWEEPS7} {NSIDE}",
+                lambda L=L, U=U: ops_cg_ilu.cg_ilu_fused(A, L, U, invdl, invdu, b, z, **kw),
+                lambda L=L, U=U: ops_cg_ilu.cg_ilu_reference(A, L, U, invdl, invdu, b, z, **kw),
+                exact=True)
     emit(row)
+    check_trs_edges(gt, dev, rng, record_err)
 
 
 def time_path7(gt, dev, p7, rec, timing):
@@ -2586,15 +2828,30 @@ def time_path7(gt, dev, p7, rec, timing):
     Tl, _, invdl, _ = _ilu_parts(M)
     b = p7["b1"]
     n = b.shape[0]
-    k_ms = slope_ms(lambda: ops_trs.trs_fused(Tl, invdl, b, sweeps=s))
+    k22 = lambda: ops_trs.trs_fused(Tl, invdl, b, sweeps=s)  # noqa: E731
+    k_ms = slope_ms(k22)
     p_ms = slope_ms(lambda: ops_trs.trs_reference(Tl, invdl, b, sweeps=s), 2, 7, 2)
     nbytes = (4 * Tl.num_diags + 12) * n
     flops = (s * (2 * Tl.num_diags + 2) + 1) * n
     rec["trs_fused"] = (k_ms, p_ms, None, nbytes, flops)
-    out["trs_fused"] = {"us": k_ms * 1e3, "plain_us": p_ms * 1e3, "bytes": nbytes,
-                        "GBps": nbytes / k_ms / 1e6,
+    # the slope of chained calls measures the kernel while the wrapper's host
+    # time a call stays below it
+    out["trs_fused"] = {"us": k_ms * 1e3, "host_us_per_call": host_us(k22),
+                        "plain_us": p_ms * 1e3, "bytes": nbytes, "GBps": nbytes / k_ms / 1e6,
                         "bound_ms_tri_per_sweep": bound((4 * Tl.num_diags * s + 12) * n,
                                                         flops)[0]}
+
+    def kernel_row(launch):
+        """The launch as fields of the kernel's row, whose "route" is the
+        kernel's language: the solve's route as "sweep_route"."""
+        row = dict(launch)
+        row["sweep_route"] = row.pop("route")
+        return row
+
+    out["launch"] = {
+        "trs_fused": kernel_row(ops_trs.trs_fused_launch(Tl, s, dev)),
+        "cg_ilu_fused": kernel_row(ops_cg_ilu.cg_ilu_fused_launch(p7["A1"], Tl, _ilu_parts(M)[1],
+                                                                  s, s, dev))}
     timing["slice7"] = out
 
 
@@ -3052,7 +3309,9 @@ def main():
           "nvcc": nvcc_ver, "triton": _dist_version("triton"), "card": card,
           "device": torch.cuda.get_device_name(0),
           "sm_count": torch.cuda.get_device_properties(0).multi_processor_count,
-          "kernel_build_s": round(build_s, 3), "ptxas_registers": regs})
+          "kernel_build_s": round(build_s, 3),
+          "library_build_s": {k: round(v["seconds"], 3) for k, v in _build.BUILD_LOG.items()},
+          "ptxas_registers": regs})
 
     # -- 2a. the DIA kernels and K4 / K4m against their plain versions -------------
     datas = {}
@@ -3729,6 +3988,8 @@ def main():
     # K4's and K4m's (k = 4) cooperative grids with float32 diagonals
     launch_info["cg_fused"] = ops_cg.cg_fused_launch(torch.float32, 1, dev)
     launch_info["cg_fused_multi"] = ops_cg.cg_fused_launch(torch.float32, 4, dev)
+    # K22's and K23's launches on A1's IC triangles
+    launch_info.update(timing["slice7"]["launch"])
 
     # -- 7. result -----------------------------------------------------------------------
     rows = []

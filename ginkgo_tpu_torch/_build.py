@@ -4,7 +4,10 @@ Each ``csrc/<name>.cu`` is a self-contained translation unit with a plain C
 interface.  On first use it is compiled by ``nvcc`` into a shared library
 (``-gencode arch=compute_90a,code=sm_90a``, Hopper) and loaded with
 ``ctypes``; :func:`build` compiles several sources at once, one ``nvcc``
-process each.  The library name carries a hash of the source and the flags,
+process each.  A source listed in ``PARTS`` is compiled in that many
+translation units at once, each with ``-DGK_PART=<i>`` (the source decides
+which kernels each part holds), and the objects are linked into its
+library.  The library name carries a hash of the source and the flags,
 so an edited source rebuilds and a stale library is never loaded.  Builds
 land in ``build/kernels/`` at the repository root (listed in
 ``.gitignore``); a library is written under a temporary name and renamed
@@ -33,6 +36,10 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 KERNELS = ("dia_spmv", "cg_fused", "pell_spmv", "pell_cg_fused", "well_spmv", "bell_spmv",
            "bicgstab_fused", "cgs_fused", "gmres_fused", "idr_fused", "ir_fused", "trs_fused",
            "mg_fused")
+#: sources compiled in parts, and their part counts: trs_fused.cu's 128
+#: kernels compiled for each walk shape (K22's and K23's) took 199 s in one
+#: nvcc process on the H100's host, beside 13 s without them
+PARTS = {"trs_fused": 6}
 
 # -fmad=false: every multiply and add rounds on its own, as PyTorch's
 # elementwise ops do, so a kernel and its plain version differ only in the
@@ -80,14 +87,33 @@ def _source_hash(src: Path) -> str:
     for hdr in sorted(CSRC.glob("*.cuh")):
         h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(str(PARTS.get(src.stem, 1)).encode())
     return h.hexdigest()[:16]
+
+
+def _commands(nvcc: str, name: str, out: Path):
+    """The nvcc commands that build ``csrc/<name>.cu`` into ``out``: one
+    that compiles and links it, or (``PARTS``) one a part that compiles it
+    into an object, all run at once, then one that links them."""
+    src = str(CSRC / f"{name}.cu")
+    parts = PARTS.get(name, 1)
+    if parts == 1:
+        return [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), src]], None
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [out.with_suffix(f".part{i}.o") for i in range(parts)]
+    compiles = [[nvcc, *flags, "-c", f"-DGK_PART={i}", "-I", str(CSRC), "-o", str(obj), src]
+                for i, obj in enumerate(objs)]
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(out),
+            *map(str, objs)]
+    return compiles, (link, objs)
 
 
 def build(names) -> dict[str, ctypes.CDLL]:
     """Return the loaded libraries built from ``csrc/<name>.cu`` for each
     name.  Every library without a build for its current source is
-    compiled first, all of them at once (one ``nvcc`` process each); the
-    call returns after every process it started has ended."""
+    compiled first, all of them at once (one ``nvcc`` process each, or
+    each part's); the call returns after every process it started has
+    ended."""
     names = list(dict.fromkeys(names))
     outs = {name: BUILD_DIR / f"lib{name}-{_source_hash(CSRC / f'{name}.cu')}.so"
             for name in names if name not in _LIBS}
@@ -98,20 +124,30 @@ def build(names) -> dict[str, ctypes.CDLL]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         for name in missing:
             tmp = outs[name].with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                   str(CSRC / f"{name}.cu")]
-            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.PIPE, text=True),
-                           tmp, time.perf_counter())
+            compiles, link = _commands(nvcc, name, tmp)
+            procs[name] = ([subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.PIPE, text=True)
+                            for cmd in compiles], link, tmp, time.perf_counter())
     records, errors = {}, []
-    for name, (proc, tmp, t0) in procs.items():
-        stdout, stderr = proc.communicate()
+    for name, (started, link, tmp, t0) in procs.items():
+        results = []
+        for proc in started:
+            out, err = proc.communicate()
+            results.append((proc.returncode, out, err))
+        if link is not None and all(rc == 0 for rc, _, _ in results):
+            cmd, objs = link
+            done = subprocess.run(cmd, capture_output=True, text=True)
+            results.append((done.returncode, done.stdout, done.stderr))
+            for obj in objs:
+                obj.unlink(missing_ok=True)
+        stderr = "".join(err for _, _, err in results)
         records[name] = {"seconds": time.perf_counter() - t0, "ptxas": stderr,
                          "path": str(outs[name])}
-        if proc.returncode != 0:
+        failed = [(rc, out, err) for rc, out, err in results if rc != 0]
+        if failed:
             tmp.unlink(missing_ok=True)
-            errors.append(f"nvcc failed on {name}.cu (rc {proc.returncode}):\n"
-                          f"{stdout}\n{stderr}")
+            errors.extend(f"nvcc failed on {name}.cu (rc {rc}):\n{out}\n{err}"
+                          for rc, out, err in failed)
         else:
             os.replace(tmp, outs[name])
     if errors:

@@ -1,6 +1,7 @@
 // Asynchronous copies from device memory into shared memory (cp.async,
 // sm_80 and later), shared by the kernels that stream a plan through a ring
-// of shared memory: K8/K9 (well_spmv.cu) and K10 (bell_spmv.cu).  Each
+// of shared memory: K8/K9 (well_spmv.cu), K10 (bell_spmv.cu) and the
+// pipelined sweep solves of K22/K23 (tri_walk.cuh).  Each
 // thread copies 16 or 4 bytes; a thread commits its copies into groups and
 // waits until at most N groups are still in flight, and a block barrier then
 // publishes them to the block.  A plan that streams through L2 once can copy
@@ -40,10 +41,18 @@ __device__ __forceinline__ void gk_cp4(void* dst, const void* src) {
                : "memory");
 }
 
-// 4 bytes from src, or 4 zero bytes when !in (src is then not read).
-__device__ __forceinline__ void gk_cp4_or_zero(void* dst, const void* src, bool in) {
+// The first `bytes` (0 to 4) of 4 bytes at src, the rest zero (src is not
+// read when bytes is 0).
+__device__ __forceinline__ void gk_cp4_n(void* dst, const void* src, int bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(gk_smem_addr(dst)),
-               "l"(src), "r"(in ? 4 : 0)
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// The first `bytes` (0 to 16) of 16 bytes at src, the rest zero, past L1.
+__device__ __forceinline__ void gk_cp16_n(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(gk_smem_addr(dst)),
+               "l"(src), "r"(bytes)
                : "memory");
 }
 

@@ -175,7 +175,7 @@ __device__ __forceinline__ void gk_bell_stage_load(unsigned char* st, const TV* 
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
           const bool in = col + jj < n_cols;
-          gk_cp4_or_zero(dst + jj, in ? x + col + jj : x, in);
+          gk_cp4_n(dst + jj, in ? x + col + jj : x, in ? 4 : 0);
         }
       }
     }

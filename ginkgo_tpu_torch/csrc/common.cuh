@@ -2,7 +2,8 @@
 //
 // Every translation unit that includes this header is built on its own into
 // a shared library with a plain C interface (see ginkgo_tpu_torch/_build.py),
-// so the extern "C" helpers below exist once per library.
+// so the extern "C" helpers below exist once per library; a library built
+// from several parts of its source (_build.PARTS) defines them in part 0.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -51,6 +52,8 @@ struct GkAcc<double> {
   static __device__ __forceinline__ double load(S v) { return gk_to_double(v); }
 };
 
+#if !defined(GK_PART) || GK_PART == 0
 extern "C" const char* gk_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
+#endif

@@ -23,10 +23,11 @@ __device__ __forceinline__ float gk_sdiv(float num, float den) {
   return den != 0.f ? num / den : 0.f;
 }
 
-// Sum NV values over the block; the result is valid in thread 0.
-template <int NV>
+// Sum NV values over the block of WARPS warps (GK_CG_WARPS in every kernel
+// but the sweep walk's K23, tri_walk.cuh); the result is valid in thread 0.
+template <int NV, int WARPS>
 __device__ __forceinline__ void block_sum(double (&v)[NV],
-                                          double (&sh)[NV][GK_CG_WARPS]) {
+                                          double (&sh)[NV][WARPS]) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
@@ -41,7 +42,7 @@ __device__ __forceinline__ void block_sum(double (&v)[NV],
   __syncthreads();
   if (warp == 0) {
 #pragma unroll
-    for (int c = 0; c < NV; ++c) v[c] = lane < GK_CG_WARPS ? sh[c][lane] : 0.0;
+    for (int c = 0; c < NV; ++c) v[c] = lane < WARPS ? sh[c][lane] : 0.0;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
 #pragma unroll
@@ -53,9 +54,9 @@ __device__ __forceinline__ void block_sum(double (&v)[NV],
 }
 
 // Write this block's NV partial sums to part[blockIdx.x * NV + c].
-template <int NV>
+template <int NV, int WARPS>
 __device__ __forceinline__ void block_partial(double (&v)[NV], double* part,
-                                              double (&sh)[NV][GK_CG_WARPS]) {
+                                              double (&sh)[NV][WARPS]) {
   block_sum<NV>(v, sh);
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -107,10 +108,10 @@ __device__ __forceinline__ void block_partial_vm(double (&v)[NV], double* part,
 // where grid_total's loop waits on one a partial: after a barrier every
 // block reads the same partials at once, and on the H100 K4's three folds
 // an iteration took 7 of its 124 us that way (PERF.md section 6).
-template <int NV, int B>
+template <int NV, int B, int WARPS>
 __device__ __forceinline__ void grid_total_batch(const double* part, int b_stride,
                                                  int c_stride, int nv, double (&tot)[NV],
-                                                 double (&sh)[NV][GK_CG_WARPS],
+                                                 double (&sh)[NV][WARPS],
                                                  double (&bc)[NV]) {
   const int blocks = (int)gridDim.x;
   double v[NV];
@@ -237,14 +238,14 @@ static int gk_coop_blocks(Kernel kernel, int* blocks, size_t smem = 0) {
   return 0;
 }
 
-// Launch `kernel(params)` cooperatively on `blocks` blocks with `smem` bytes
-// of dynamic shared memory.
+// Launch `kernel(params)` cooperatively on `blocks` blocks of `threads`
+// threads with `smem` bytes of dynamic shared memory.
 template <typename Kernel, typename Params>
 static int gk_coop_launch(Kernel kernel, const Params& params, int blocks,
-                          void* stream, size_t smem = 0) {
+                          void* stream, size_t smem = 0, int threads = GK_CG_THREADS) {
   void* args[] = {const_cast<Params*>(&params)};
   cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)kernel, dim3(blocks), dim3(GK_CG_THREADS), args, smem,
+      (const void*)kernel, dim3(blocks), dim3(threads), args, smem,
       (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -10,7 +10,11 @@ kernel: each triangular solve is ``_tri_sweeps`` (:54), x0 = D^{-1} rhs
 then ``sweeps`` Jacobi-Richardson sweeps x <- D^{-1}(rhs - N x), with the
 inverse diagonal multiplied in.  The whole Krylov loop, both M applies and
 the stop test run in one persistent cooperative CUDA kernel
-(``csrc/trs_fused.cu``, which also holds K22).
+(``csrc/trs_fused.cu``, which also holds K22).  K23 takes the pipelined
+walk (``csrc/tri_walk.cuh``, four grid barriers an iteration) where both
+triangles' shapes allow it (``ops/tri_walk.py``), the barrier routine (3 +
+sweeps_l + sweeps_u) otherwise; ``cg_ilu_fused.routes`` counts each.  K24
+always takes the barrier routine.
 
 Semantics, shared by the kernels and the plain versions:
 
@@ -34,6 +38,7 @@ import ctypes
 import torch
 
 from .. import _build
+from . import tri_walk
 from .cg import _dots, _sdiv, check_fused_diags, coop_grid_blocks
 from .dia import DTYPE_CODE, check_status, dia_spmv_reference, offsets_array, on_cpu
 
@@ -144,8 +149,6 @@ def _lib():
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         offs, blocks = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)
         vecs = ctypes.POINTER(ctypes.c_void_p)
-        lib.trs_fused_grid.argtypes = [I, blocks]
-        lib.cg_ilu_fused_grid.argtypes = [I, I, blocks]
         lib.bicgstab_ilu_fused_grid.argtypes = [I, I, blocks]
         lib.trs_fused_solve.argtypes = [P, I, offs, I, L, P, P, I, P, P, I, P]
         three_ops = [P, I, offs, I, P, offs, I, P, offs, I, I, L]  # A, L, U, t_dtype, n
@@ -159,8 +162,19 @@ def _lib():
             P, P, P, P, P, I, I, I, I,  # invdl, invdu, r0, x0, tol_sq, max_iters, sweeps, implicit
             vecs, P, I, P, P, P, P,  # vecs, part, blocks, it_out, mon_out, conv_out, stream
         ]
-        for fn in (lib.trs_fused_grid, lib.cg_ilu_fused_grid, lib.bicgstab_ilu_fused_grid,
-                   lib.trs_fused_solve, lib.cg_ilu_fused_solve, lib.bicgstab_ilu_fused_solve):
+        plan = ctypes.POINTER(ctypes.c_longlong)
+        lib.trs_fused_plan.argtypes = [I, offs, I, L, I, plan]
+        lib.cg_ilu_fused_plan.argtypes = [I, I, offs, I, offs, I, L, I, I, plan]
+        lib.trs_walk_solve.argtypes = [P, I, offs, I, L, P, P, I, P, I, P]
+        lib.cg_ilu_walk_solve.argtypes = three_ops + [
+            P, P, P, P, P,  # invdl, invdu, r0, x0, tol_sq
+            I, I, I, I,  # max_iters, sweeps_l, sweeps_u, implicit
+            vecs, P, I, P, P, P, P,  # vecs, part, blocks, it_out, mon_out, conv_out, stream
+        ]
+        for fn in (lib.bicgstab_ilu_fused_grid,
+                   lib.trs_fused_solve, lib.cg_ilu_fused_solve, lib.bicgstab_ilu_fused_solve,
+                   lib.trs_fused_plan, lib.cg_ilu_fused_plan, lib.trs_walk_solve,
+                   lib.cg_ilu_walk_solve):
             fn.restype = I
         lib.gk_error_string.argtypes = [I]
         lib.gk_error_string.restype = ctypes.c_char_p
@@ -203,6 +217,17 @@ def _ilu_operands(A, Tl, Tu, invdl, invdu, r0, x0, sweeps_l, sweeps_u, what):
     return dev, n, (DTYPE_CODE[A.diags.dtype], DTYPE_CODE[ld.dtype]), args, (ld, ud)
 
 
+def cg_ilu_fused_launch(A, Tl, Tu, sweeps_l, sweeps_u, device):
+    """K23's route and launch on a CUDA device (``ops/tri_walk.plan``):
+    "pipelined" where both triangles take the walk (four grid barriers an
+    iteration), else "barrier" (3 + sweeps_l + sweeps_u)."""
+    ld, ud = Tl.diags, Tu.diags
+    t_dtype = ld.dtype if ld.dtype == ud.dtype else torch.float32  # as _triangles widens
+    args = (DTYPE_CODE[A.diags.dtype], DTYPE_CODE[t_dtype], tuple(Tl.offsets), len(Tl.offsets),
+            tuple(Tu.offsets), len(Tu.offsets), A.shape[0], int(sweeps_l), int(sweeps_u))
+    return tri_walk.plan(_lib(), "cg_ilu_fused_plan", args, 2, device)
+
+
 def cg_ilu_fused(A, Tl, Tu, invdl, invdu, r0, x0, *, sweeps_l, sweeps_u, tol_sq_eff,
                  max_iters, use_implicit=False):
     """K23: ILU-preconditioned CG to the stop test in one kernel.  A: square
@@ -216,29 +241,47 @@ def cg_ilu_fused(A, Tl, Tu, invdl, invdu, r0, x0, *, sweeps_l, sweeps_u, tol_sq_
               max_iters=max_iters, use_implicit=use_implicit)
     if on_cpu(r0):
         return cg_ilu_reference(A, Tl, Tu, invdl, invdu, r0, x0, **kw)
-    dev, n, codes, args, _keep = _ilu_operands(A, Tl, Tu, invdl, invdu, r0, x0, sweeps_l,
-                                               sweeps_u, "cg_ilu_fused")
+    dev, n, _, args, _keep = _ilu_operands(A, Tl, Tu, invdl, invdu, r0, x0, sweeps_l,
+                                           sweeps_u, "cg_ilu_fused")
     tol = torch.as_tensor(tol_sq_eff, dtype=torch.float32, device=dev).reshape(1).contiguous()
     lib = _lib()
-    blocks = coop_grid_blocks(lib, "cg_ilu_fused_grid", codes, dev)
-    x, r, p, q, z, w1, w2 = (torch.empty_like(r0) for _ in range(7))
+    launch = cg_ilu_fused_launch(A, Tl, Tu, sweeps_l, sweeps_u, dev)
+    blocks = launch["blocks"]
     part = torch.empty(3 * blocks, dtype=torch.float64, device=dev)
     it_conv = torch.empty(2, dtype=torch.int32, device=dev)
     mon = torch.empty(1, dtype=torch.float32, device=dev)
+    head = (tol.data_ptr(), min(int(max_iters), 2**31 - 1), int(sweeps_l), int(sweeps_u),
+            int(bool(use_implicit)))
     with torch.cuda.device(dev):
-        status = lib.cg_ilu_fused_solve(
-            *args, tol.data_ptr(), min(int(max_iters), 2**31 - 1), int(sweeps_l),
-            int(sweeps_u), int(bool(use_implicit)),
-            x.data_ptr(), r.data_ptr(), p.data_ptr(), q.data_ptr(), z.data_ptr(),
-            w1.data_ptr(), w2.data_ptr(), part.data_ptr(), blocks, it_conv.data_ptr(),
-            mon.data_ptr(), it_conv[1:].data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if launch["route"] == "pipelined":
+            # the walks stage the triangles from 4-byte words, invdl, invdu,
+            # r0 and the buffers 16 bytes at a time
+            staged = [tri_walk.aligned(t) for t in (*_keep, invdl, invdu, r0)]
+            args[4], args[7] = staged[0].data_ptr(), staged[1].data_ptr()
+            args[12:15] = [t.data_ptr() for t in staged[2:]]
+            bufs = [torch.empty_like(r0) for _ in range(7)]  # x r r' p q z mid
+            vecs = (ctypes.c_void_p * 7)(*(t.data_ptr() for t in bufs))
+            status = lib.cg_ilu_walk_solve(
+                *args, *head, vecs, part.data_ptr(), blocks, it_conv.data_ptr(), mon.data_ptr(),
+                it_conv[1:].data_ptr(), stream,
+            )
+            x, r = bufs[0], bufs[1]
+        else:
+            x, r, p, q, z, w1, w2 = (torch.empty_like(r0) for _ in range(7))
+            status = lib.cg_ilu_fused_solve(
+                *args, *head, x.data_ptr(), r.data_ptr(), p.data_ptr(), q.data_ptr(), z.data_ptr(),
+                w1.data_ptr(), w2.data_ptr(), part.data_ptr(), blocks, it_conv.data_ptr(),
+                mon.data_ptr(), it_conv[1:].data_ptr(), stream,
+            )
     check_status(lib, status, "cg_ilu_fused")
     cg_ilu_fused.launches += 1
+    cg_ilu_fused.routes[launch["route"]] += 1
     return x, r, it_conv[0], mon[0], it_conv[1] != 0
 
 
 cg_ilu_fused.launches = 0
+cg_ilu_fused.routes = {"pipelined": 0, "barrier": 0}
 
 
 def bicgstab_ilu_fused(A, Tl, Tu, invdl, invdu, r0, x0, *, sweeps_l, sweeps_u, tol_sq_eff,

@@ -5,13 +5,15 @@ path 3a (the power-law Laplacian handed over as a ``Csr`` and planned as a
 WELL, T and G by the planner), K5 ``pell_spmv`` on path 2's plan
 (``poisson_3d(160)`` as a ``Csr`` -> ``Pell.from_csr``, S = 8) and K10
 ``bell_spmv`` on path 3b's ``Bell`` (``choose_format`` on
-``block_structured(2048, 16, 6, 256)``); and the whole-solve K4
+``block_structured(2048, 16, 6, 256)``); the whole-solve K4
 ``cg_fused`` and K4m ``cg_fused_multi`` (k = 4) on path 1's
-``poisson_2d(2048)`` ``Dia``.
+``poisson_2d(2048)`` ``Dia``; and K22 ``trs_fused`` and K23
+``cg_ilu_fused`` on path 7's IC and ILU of that ``Dia``.
 
 Run from the repository root:
 
-    python3 well_bench.py [--kernels well,pell_spmv,bell_spmv,cg_fused,cg_fused_multi]
+    python3 well_bench.py [--kernels well,pell_spmv,bell_spmv,cg_fused,cg_fused_multi,
+                                     trs_fused,cg_ilu_fused]
                           [--rows N] [--chunks 256,512] [--cg-columns 2,4,8]
                           [--other DIR ...] [--check] [--profile]
 
@@ -82,6 +84,34 @@ For ``cg_fused`` and ``cg_fused_multi``:
   its seconds, iterations and per-column iterations, and whether this
   checkout's x equals each other's bit for bit.
 
+For ``trs_fused`` and ``cg_ilu_fused`` (path 7's ParIc and ParIlu of the
+2048^2 Poisson ``Dia``, 3 sweeps a triangle):
+
+- ``build``: ptxas's registers line of each kernel of ``csrc/trs_fused.cu``,
+  this checkout's and each ``--other``'s;
+- ``check`` (with ``--check``): ``chip_smoke.check_trs_edges``, K22 and K23
+  bit for bit against their plain versions on edge triangles that reach
+  every branch of the walk;
+- ``probe``: on each checkout, K22's device time (``torch.profiler``, by
+  kernel name) at 0, 1, 2, 3, 4, 5 and 8 sweeps on A1's IC lower triangle
+  and on the 64^2 one (where a sweep pass costs next to nothing, so the
+  slope is a grid barrier's), K23's microseconds an iteration at 0/0 and
+  1/1 sweeps on the 64^2 triangles (three grid barriers and two folds, and
+  two passes and barriers more) and at 1/1, 2/2, 4/4 and 3/4 on A1's IC,
+  K22 at 0 sweeps at 64^2 (a launch's fixed cost: cooperative on the
+  barrier routine, plain on the walk), and where a checkout reports them
+  the route each of those launches takes;
+- ``timing``, one row a case (IC and ILU; float32 and bfloat16 triangles):
+  K22 on the lower and the upper triangle, by device time and by the slope
+  of chained calls; K23 in microseconds an iteration by the slope between
+  solves of 200 and 1000 iterations; this checkout's and each
+  ``--other``'s in turns (others, this, this, others); the launch (route, blocks, shared memory,
+  blocks an SM, registers); the bytes a row of the bound, of the walk (its
+  halo included) and of the barrier routine, and each checkout's share of
+  the copy rate measured in the same process; x against the first other
+  checkout's bits, and K23's solve to 1e-6 (ILU: to path 7's cap of 5000)
+  with its iterations.
+
 Without a CUDA device it fails.
 """
 
@@ -102,9 +132,12 @@ import chip_smoke as cs
 
 #: the kernel library each choice of --kernels builds
 LIBRARY = {"well": "well_spmv", "pell_spmv": "pell_spmv", "bell_spmv": "bell_spmv",
-           "cg_fused": "cg_fused", "cg_fused_multi": "cg_fused"}
+           "cg_fused": "cg_fused", "cg_fused_multi": "cg_fused", "trs_fused": "trs_fused",
+           "cg_ilu_fused": "trs_fused"}
 #: the whole-solve kernels of --kernels: K4 runs one column, K4m --cg-columns
 CG_KERNELS = ("cg_fused", "cg_fused_multi")
+#: K22 and K23, the kernels of the sweep solve
+TRS_KERNELS = ("trs_fused", "cg_ilu_fused")
 
 
 def load_other(root: Path, tag: str):
@@ -179,7 +212,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", default="well",
                     help="comma-separated: well (K8/K9), pell_spmv (K5), bell_spmv (K10), "
-                         "cg_fused (K4), cg_fused_multi (K4m)")
+                         "cg_fused (K4), cg_fused_multi (K4m), trs_fused (K22), "
+                         "cg_ilu_fused (K23)")
     ap.add_argument("--rows", type=int, default=cs.POWERLAW_ROWS)
     ap.add_argument("--chunks", default="256", help="chunk lengths to time, comma-separated")
     ap.add_argument("--other", action="append", default=[],
@@ -203,11 +237,13 @@ def main():
     others_pkg = {f"other{i}": load_other(Path(d).resolve(), f"other{i}")
                   for i, d in enumerate(args.other)}
     t0 = time.perf_counter()
-    builders = [_build] + [importlib.import_module(f"{pkg.__name__}._build")
+    build_mods = [_build] + [importlib.import_module(f"{pkg.__name__}._build")
                            for pkg in others_pkg.values()]
-    with ThreadPoolExecutor(len(builders)) as pool:  # every checkout's nvcc runs at once
-        list(pool.map(lambda b: b.build([LIBRARY[k] for k in kernels]), builders))
-    cs.emit({"phase": "build", "build_s": round(time.perf_counter() - t0, 2)})
+    with ThreadPoolExecutor(len(build_mods)) as pool:  # every checkout's nvcc runs at once
+        list(pool.map(lambda b: b.build([LIBRARY[k] for k in kernels]), build_mods))
+    cs.emit({"phase": "build", "build_s": round(time.perf_counter() - t0, 2),
+             "library_s": [{k: round(v["seconds"], 2) for k, v in b.BUILD_LOG.items()}
+                           for b in build_mods]})
     src = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     dst = torch.empty_like(src)
     copy_gbs = 2 * src.numel() / cs.slope_ms(lambda: dst.copy_(src)) / 1e6
@@ -222,14 +258,23 @@ def main():
         rows = cs.check_cg_edges(gt, dev, np.random.default_rng(5))
         cs.emit({"phase": "check", "kernels": ["cg_fused", "cg_fused_multi"],
                  "edge_operators": len(rows), "s": round(time.perf_counter() - t0, 2)})
+    if args.check and set(TRS_KERNELS) & set(kernels):
+        t0 = time.perf_counter()
+        rows = cs.check_trs_edges(gt, dev, np.random.default_rng(5))
+        cs.emit({"phase": "check", "kernels": list(TRS_KERNELS), "edge_grids": len(rows),
+                 "cases": sum(r["cases"] for r in rows), "all_bit_equal": True,
+                 "s": round(time.perf_counter() - t0, 2)})
     cg_kernels = [k for k in kernels if k in CG_KERNELS]
     if cg_kernels:
         bench_cg(cg_kernels, [int(k) for k in args.cg_columns.split(",")], gt, dev, card,
                  copy_gbs, others_pkg)
+    trs_kernels = [k for k in kernels if k in TRS_KERNELS]
+    if trs_kernels:
+        bench_trs(trs_kernels, gt, dev, card, copy_gbs, others_pkg)
     for k in kernels:
         if k == "well":
             bench_well(args, gt, dev, card, copy_gbs, others_pkg)
-        elif k not in CG_KERNELS:
+        elif k not in CG_KERNELS and k not in TRS_KERNELS:
             bench_spmv(k, args, gt, dev, card, copy_gbs, others_pkg)
     print(card, flush=True)
 
@@ -520,6 +565,236 @@ def bench_cg(kernels, multi_columns, gt, dev, card, copy_gbs, others_pkg):
                                  tag: nbytes[design(mods[tag], k)] / t / 1e3 / copy_gbs
                                  for tag, t in best.items()},
                              "solve_1e-6": solves})
+
+
+def walk_bytes(T, walk, sweeps, blocks, vectors):
+    """Bytes one walk (a launch's ``walks`` entry) over the triangle T moves
+    at ``blocks`` ranges of rows: each block reads the diagonals, ``vectors``
+    vectors and invd of its rows and of its halo once, and one float a row
+    is written."""
+    n = T.shape[0]
+    per_row = len(T.offsets) * T.diags.element_size() + 4 * (vectors + 1)
+    span = -(-n // blocks)
+    sw = sweeps * walk["width"]
+    rows = 0
+    for a in range(0, n, span):
+        ln = min(span, n - a)
+        if walk["direction"] > 0:
+            rows += a + ln - (max(0, a - sw) & ~3)
+        else:
+            rows += ((min(n, a + ln + sw) + 3) & ~3) - a
+    return rows * per_row + 4 * n
+
+
+def trs_launch_of(mod, tag, T, sweeps, dev, logs):
+    """A checkout's K22 launch: its own report where it has one (the walk's
+    checkouts), else the barrier routine's grid and ptxas's registers."""
+    if hasattr(mod, "trs_fused_launch"):
+        return mod.trs_fused_launch(T, sweeps, dev)
+    lib = mod._lib()
+    code = mod.DTYPE_CODE[T.diags.dtype]
+    token = "trs_fused_kernelIf" if T.diags.dtype == torch.float32 else "trs_fused_kernelI13"
+    regs = [line for name, line in ptxas_registers(logs[tag]).items() if token in name]
+    return {"route": "barrier", "blocks": mod.coop_grid_blocks(lib, "trs_fused_grid", (code,), dev),
+            "registers": regs[0].split()[1] if regs else None, "grid_barriers": sweeps}
+
+
+def cg_ilu_launch_of(mod, tag, A, L, U, sweeps, dev, logs):
+    """A checkout's K23 launch, as :func:`trs_launch_of`."""
+    if hasattr(mod, "cg_ilu_fused_launch"):
+        return mod.cg_ilu_fused_launch(A, L, U, sweeps, sweeps, dev)
+    lib = mod._lib()
+    codes = (mod.DTYPE_CODE[A.diags.dtype], mod.DTYPE_CODE[L.diags.dtype])
+    token = "cg_ilu_fused_kernelIf" + ("f" if L.diags.dtype == torch.float32 else "13")
+    regs = [line for name, line in ptxas_registers(logs[tag]).items() if token in name]
+    return {"route": "barrier",
+            "blocks": mod.coop_grid_blocks(lib, "cg_ilu_fused_grid", codes, dev),
+            "registers": regs[0].split()[1] if regs else None,
+            "grid_barriers": 3 + 2 * sweeps}
+
+
+def in_turns(measure, others):
+    """measure(tag) for each other checkout and this one, in turns: others,
+    this, this, others."""
+    for tag in others:
+        measure(tag)
+    measure("this")
+    measure("this")
+    for tag in reversed(list(others)):
+        measure(tag)
+
+
+def bench_trs(kernels, gt, dev, card, copy_gbs, others_pkg):
+    """K22 and K23 on path 7's IC and ILU of the 2048^2 Poisson Dia (3
+    sweeps a triangle): build, probe and timing rows, this checkout's
+    kernels against each other checkout's in turns."""
+    from ginkgo_tpu_torch import _build
+    from ginkgo_tpu_torch.factorization import ParIc, ParIlu
+    from ginkgo_tpu_torch.ops import cg_ilu as ops_cg_ilu
+    from ginkgo_tpu_torch.ops import trs as ops_trs
+
+    s = cs.SWEEPS7
+    mods = {"this": (ops_trs, ops_cg_ilu)}
+    logs = {"this": _build.BUILD_LOG["trs_fused"]["ptxas"]}
+    for tag, pkg in others_pkg.items():
+        mods[tag] = (importlib.import_module(f"{pkg.__name__}.ops.trs"),
+                     importlib.import_module(f"{pkg.__name__}.ops.cg_ilu"))
+        logs[tag] = importlib.import_module(f"{pkg.__name__}._build").BUILD_LOG["trs_fused"]["ptxas"]
+    others = [tag for tag in mods if tag != "this"]
+    cs.emit({"phase": "build", "kernels": kernels,
+             "ptxas": {tag: ptxas_registers(log) for tag, log in logs.items()}})
+
+    t0 = time.perf_counter()
+    A1 = gt.Dia.from_matrix_data(gt.generators.poisson_2d(cs.NSIDE, dtype=np.float32), device=dev)
+    C1 = A1.to_csr()
+    precs = {"ic": cs.ilu_factories(gt, "ic").generate(ParIc().generate(C1)),
+             "ilu": cs.ilu_factories(gt, "ilu").generate(ParIlu().generate(C1))}
+    del C1
+    A64 = gt.Dia.from_matrix_data(gt.generators.poisson_2d(cs.SMALL, dtype=np.float32),
+                                  device=dev)
+    M64 = cs.ilu_factories(gt, "ic").generate(A64)
+    n = A1.shape[0]
+    b = torch.ones(n, device=dev)
+    z = torch.zeros_like(b)
+    never = torch.full((), -1.0, device=dev)
+    cs.emit({"phase": "setup", "rows": n, "setup_s": round(time.perf_counter() - t0, 2)})
+
+    # probes: a sweep pass and a grid barrier (K22's device time against its
+    # sweeps at 2048^2 and at 64^2), the folds (K23 at 64^2), a launch's
+    # fixed cost (K22 at 0 sweeps at 64^2); K22 and K23 at 2048^2 at sweep
+    # counts beside path 7's: the kernels compiled for 1 to 4 sweeps, and
+    # the walk with runtime counts (K22 at 5, K23 at 3 and 4)
+    Tl, Tu, invdl, invdu = cs._ilu_parts(precs["ic"])
+    T64l, T64u, inv64l, inv64u = cs._ilu_parts(M64)
+    b64 = torch.ones(A64.shape[0], device=dev)
+    probe = {"phase": "probe", "card": card, "sweeps": [0, 1, 2, 3, 4, 5, 8],
+             "k23_sweeps_2048": [(1, 1), (2, 2), (4, 4), (3, 4)]}
+    for tag, (mt, mc) in mods.items():
+        def k22_us(T, invd, rhs, sw, mt=mt):
+            return 1e3 * cs.device_ms(lambda: mt.trs_fused(T, invd, rhs, sweeps=sw), "trs_")
+
+        def k23_us(A, L, U, il, iu, rhs, sw, mc=mc):
+            return 1e3 * cs.iter_ms(lambda its: mc.cg_ilu_fused(
+                A, L, U, il, iu, rhs, torch.zeros_like(rhs), sweeps_l=sw[0], sweeps_u=sw[1],
+                tol_sq_eff=never, max_iters=its))
+
+        big = {sw: k22_us(Tl, invdl, b, sw) for sw in probe["sweeps"]}
+        small = {sw: k22_us(T64l, inv64l, b64, sw) for sw in probe["sweeps"]}
+        k23 = {f"{k}/{k}": k23_us(A64, T64l, T64u, inv64l, inv64u, b64, (k, k)) for k in (0, 1)}
+        k23_big = {f"{sl}/{su}": k23_us(A1, Tl, Tu, invdl, invdu, b, (sl, su))
+                   for sl, su in probe["k23_sweeps_2048"]}
+        barrier = (small[8] - small[0]) / 8
+        probe[tag] = {"k22_device_us_2048": big, "k22_device_us_64": small,
+                      "k23_us_per_iteration_64": k23, "k23_us_per_iteration_2048": k23_big,
+                      "us_per_sweep_2048": (big[8] - big[0]) / 8,
+                      "us_per_sweep_64": barrier,
+                      "fold_us": (k23["0/0"] - 3 * barrier) / 2,
+                      "launch_us_64_0_sweeps": small[0]}
+        if hasattr(mt, "trs_fused_launch"):
+            probe[tag]["k22_routes_2048"] = {
+                sw: [mt.trs_fused_launch(Tl, sw, dev)[k] for k in ("route", "unrolled")]
+                for sw in probe["sweeps"]}
+            probe[tag]["k23_routes_2048"] = {
+                f"{sl}/{su}": [mc.cg_ilu_fused_launch(A1, Tl, Tu, sl, su, dev)[k]
+                               for k in ("route", "unrolled")]
+                for sl, su in probe["k23_sweeps_2048"]}
+    cs.emit(probe)
+
+    for kind, M in precs.items():
+        Tl, Tu, invdl, invdu = cs._ilu_parts(M)
+        for storage in (torch.float32, torch.bfloat16):
+            L, U = Tl.astype(storage), Tu.astype(storage)
+            esz = L.diags.element_size()
+            case = f"{kind}_{str(storage)[6:]}"
+            if "trs_fused" in kernels:
+                for side, T, invd in (("l", L, invdl), ("u", U, invdu)):
+                    dev_us, slope_us = {}, {}
+
+                    def measure(tag, T=T, invd=invd, dev_us=dev_us, slope_us=slope_us):
+                        fn = (lambda: mods[tag][0].trs_fused(T, invd, b, sweeps=s))
+                        dev_us.setdefault(tag, []).append(1e3 * cs.device_ms(fn, "trs_"))
+                        slope_us.setdefault(tag, []).append(1e3 * cs.slope_ms(fn))
+
+                    in_turns(measure, others)
+                    launches = {tag: trs_launch_of(mods[tag][0], tag, T, s, dev, logs)
+                                for tag in mods}
+                    x = ops_trs.trs_fused(T, invd, b, sweeps=s)
+                    bits = {"plain": cs.bit_equal(x, ops_trs.trs_reference(T, invd, b, sweeps=s))}
+                    bits.update({tag: cs.bit_equal(x, mods[tag][0].trs_fused(T, invd, b, sweeps=s))
+                                 for tag in others})
+                    nd = len(T.offsets)
+                    own = {}
+                    for key, launch in launches.items():
+                        if launch["route"] == "pipelined":
+                            own[key] = walk_bytes(T, launch["walks"][0], s, launch["blocks"], 1)
+                        else:
+                            own[key] = (12 + s * (nd * esz + 16)) * n
+                    nbytes = (nd * esz + 12) * n
+                    best = {k: min(v) for k, v in dev_us.items()}
+                    cs.emit({"phase": "timing", "kernel": "trs_fused", "case": f"{case}_{side}",
+                             "card": card, "rows": n, "sweeps": s, "copy_GBps": copy_gbs,
+                             "device_us": dev_us, "slope_us": slope_us, "launch": launches,
+                             "bit_equal": bits, "bytes_bound": nbytes, "bytes_own": own,
+                             "bytes_per_row_own": {k: v / n for k, v in own.items()},
+                             "bound_us": nbytes / cs.PEAK_BYTES_S * 1e6,
+                             "frac_of_copy_bound_bytes": {
+                                 k: nbytes / t / 1e3 / copy_gbs for k, t in best.items()},
+                             "frac_of_copy_own_bytes": {
+                                 k: own[k] / t / 1e3 / copy_gbs for k, t in best.items()}})
+            if "cg_ilu_fused" in kernels:
+                us = {}
+
+                def measure(tag, L=L, U=U, invdl=invdl, invdu=invdu, us=us):
+                    mc = mods[tag][1]
+                    us.setdefault(tag, []).append(1e3 * cs.iter_ms(lambda its: mc.cg_ilu_fused(
+                        A1, L, U, invdl, invdu, b, z, sweeps_l=s, sweeps_u=s, tol_sq_eff=never,
+                        max_iters=its)))
+
+                in_turns(measure, others)
+                launches = {tag: cg_ilu_launch_of(mods[tag][1], tag, A1, L, U, s, dev, logs)
+                            for tag in mods}
+                tol = torch.full((), (cs.TOL * float(b.norm())) ** 2, device=dev)
+                cap = cs.MAX_ITERS if kind == "ic" else cs.A1_CG_ILU_CAP
+                solves, xs = {}, {}
+                for tag, (_, mc) in mods.items():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = mc.cg_ilu_fused(A1, L, U, invdl, invdu, b, z, sweeps_l=s, sweeps_u=s,
+                                          tol_sq_eff=tol, max_iters=cap)
+                    torch.cuda.synchronize()
+                    solves[tag] = {"s": time.perf_counter() - t0, "iterations": int(out[2]),
+                                   "converged": bool(out[4])}
+                    xs[tag] = out[0]
+                for tag in others:
+                    solves["this"][f"x_bit_equal_{tag}"] = cs.bit_equal(xs["this"], xs[tag])
+                del xs
+                nd_a, nd_t = len(A1.offsets), len(L.offsets) + len(U.offsets)
+                # bytes an iteration: the bound's (A's and the triangles'
+                # diagonals, x, r and p read and written, invdl and invdu read
+                # once); the walk's four passes (q = A p; x, the L walk on r
+                # and q with its halo, r and mid written; the U walk on mid, z
+                # written, r.z; p) and the barrier routine's nine
+                nbytes = {"bound": (4 * nd_a + esz * nd_t + 32) * n,
+                          "barrier": (4 * nd_a + 8 + 24 + 2 * (12 + s * (esz * nd_t // 2 + 16))
+                                      + 8 + 12) * n}
+                for key, launch in launches.items():
+                    if launch["route"] == "pipelined":
+                        wl, wu = launch["walks"]
+                        nbytes[key] = ((4 * nd_a + 8) * n + 12 * n
+                                       + walk_bytes(L, wl, s, launch["blocks"], 2) + 4 * n
+                                       + walk_bytes(U, wu, s, launch["blocks"], 1)
+                                       + 8 * n + 12 * n)
+                best = {k: min(v) for k, v in us.items()}
+                cs.emit({"phase": "timing", "kernel": "cg_ilu_fused", "case": case, "card": card,
+                         "rows": n, "sweeps": s, "copy_GBps": copy_gbs, "us_per_iteration": us,
+                         "launch": launches, "bytes": nbytes,
+                         "bound_us": nbytes["bound"] / cs.PEAK_BYTES_S * 1e6,
+                         "frac_of_copy_bound_bytes": {
+                             k: nbytes["bound"] / t / 1e3 / copy_gbs for k, t in best.items()},
+                         "frac_of_copy_own_bytes": {
+                             k: nbytes[k if k in nbytes else "barrier"] / t / 1e3 / copy_gbs
+                             for k, t in best.items()},
+                         "solve_1e-6": solves})
 
 
 def profile_calls(calls):
