@@ -92,8 +92,14 @@ Phases, each of which raises on failure:
    bfloat16 diagonals and with Jacobi, and streaming, each checked against
    a float64 solve of the system it solved; CbGmres "auto" (K15 with a
    bfloat16 basis) and "integer" (streaming); BiCGSTAB on the Poisson
-   matrix fused and streaming; then K12-K15 against their plain versions
-   on the path's matrix, with a NaN case each;
+   matrix fused and streaming (K12 on its ring route); then K12-K15
+   against their plain versions on the path's matrix, with a NaN case
+   each; K12 on edge operators that reach every branch of its ring route
+   (``check_bicgstab_edges``: w = 0, 1, 2047 and 2048, ranges shorter than
+   their halo and longer than several chunks, n not a multiple of the
+   chunk, a w past the ring's limit on the five-pass kernel, the half step,
+   a NaN b, bfloat16 diagonals, Jacobi, implicit mode; x, r and the
+   monitor bit for bit);
 7. main path 5: on the operator of path 4, Bicgstab and Gmres(30) with
    four columns fused (K12m, K15m) with float32 and bfloat16 diagonals and
    with Jacobi, CbGmres "auto" (K15m with a bfloat16 basis) and both
@@ -104,7 +110,11 @@ Phases, each of which raises on failure:
    BiCGSTAB, k = 5 GMRES, IDR(5), IR with the implicit criterion, k = 4
    CGS) at 64^2, by launch counters; then K12m, K15m, K16, K17 and the
    smoother ir_smooth against their plain versions at 64^2 and 2048^2,
-   equal bit for bit, with a NaN case each;
+   equal bit for bit, with a NaN case each; K15m on edge cases
+   (``check_gmres_multi_edges``: 64^2 and 700^2, k = 2 to 4, m = 1, 2, 30
+   and 50, a float32 and a bfloat16 basis, Jacobi, a column that stops
+   inside a cycle, a NaN column; equal step counts and per-column stop
+   iterations, x bit for bit);
 8. main path 6: on path 4's operator as a ``Pell`` (S = 8, from the
    ``Csr``), Bicgstab, Cgs, Gmres(30) and Ir fused (K19, K20, K18, K21)
    with float32 and bfloat16 values and with Jacobi (IR: Jacobi with both
@@ -1060,12 +1070,15 @@ def main_path4(gt, dev, rng, crit, kernels, data1, x64_ones, nside=NSIDE):
                                    ("f32_jacobi", A, gt.Jacobi.build(max_block_size=1), "f32")):
             solver = cls.build(criteria=crit, preconditioner=pre, **params).generate(Av)
             before = kern.launches
+            rings = getattr(kern, "routes", {}).get("ring", 0)
             t0 = time.perf_counter()
             x, info = solver.solve(b)
             _sync(dev)
             solve_s = time.perf_counter() - t0
             label = f"path 4: {name} {case}"
             check(kern.launches == before + 1, f"{label} did not run {kname}")
+            check(kname != "bicgstab_fused" or kern.routes["ring"] == rings + 1,
+                  f"{label}: K12 did not take its ring route")
             check(bool(info.converged.all()), f"{label}: not converged")
             check(x.shape == (n,), f"{label}: bad x")
             if case == "f32":
@@ -1120,6 +1133,7 @@ def main_path4(gt, dev, rng, crit, kernels, data1, x64_ones, nside=NSIDE):
            "matrix": f"poisson_2d({NSIDE})", "cap": A1_BICGSTAB_CAP}
     for route in ("fused", "streaming"):
         before = kernels["bicgstab_fused"].launches
+        rings = kernels["bicgstab_fused"].routes["ring"]
         t0 = time.perf_counter()
         with torch.no_grad():
             x, info = (solver.solve(b1[:, None]) if route == "fused"
@@ -1127,7 +1141,8 @@ def main_path4(gt, dev, rng, crit, kernels, data1, x64_ones, nside=NSIDE):
                                                                               device=dev)))
         _sync(dev)
         label = f"path 4: bicgstab on poisson_2d({NSIDE}) {route}"
-        check((kernels["bicgstab_fused"].launches == before + 1) == (route == "fused"),
+        check((kernels["bicgstab_fused"].launches == before + 1) == (route == "fused")
+              and kernels["bicgstab_fused"].routes["ring"] == rings + (route == "fused"),
               f"{label}: wrong route")
         row[route] = {"iterations": info.num_iterations,
                       "converged": bool(info.converged.all()),
@@ -1229,6 +1244,166 @@ def check_path4_kernels(gt, dev, rng, p4, record_err, max_iters=MAX_ITERS):
               f"{key} with a NaN: {kit} / {pit} iterations, monitors {kmon} / {pmon}")
         row[key] = {"iters": kit, "plain_iters": pit}
     emit(row)
+
+
+def banded_grid(nx, ny, coeffs, jitter=True, seed=SEED + 13):
+    """A nonsymmetric diagonally dominant 5-point operator on an nx x ny
+    grid (offsets +-1 and +-nx; +-1 alone when ny is 1), coefficients
+    (diagonal, west/south, east/north), a zero coefficient leaving its
+    diagonals out, with a seeded jitter in [0, 0.5) of the diagonal.
+    Returns COO parts."""
+    n = nx * ny
+    i = np.arange(n)
+    ix, iy = i % nx, i // nx
+    diag, lo, hi = coeffs
+    extra = np.random.default_rng(seed).uniform(0.0, 0.5, n) if jitter else np.zeros(n)
+    rows, cols, vals = [i], [i], [diag + extra]
+    for on, keep, off, v in ((nx > 1, ix > 0, -1, lo), (nx > 1, ix < nx - 1, 1, hi),
+                             (ny > 1, iy > 0, -nx, lo), (ny > 1, iy < ny - 1, nx, hi)):
+        if on and v != 0.0:
+            rows.append(i[keep])
+            cols.append(i[keep] + off)
+            vals.append(np.full(int(keep.sum()), v))
+    return ((n, n), np.concatenate(rows), np.concatenate(cols),
+            np.concatenate(vals).astype(np.float32))
+
+
+#: K12 edge operators (``check_bicgstab_edges``): label -> grid (nx, ny),
+#: coefficients and jitter.  w = 0 (2 I: s = 0 in the first half step), w = 1 at
+#: n not a multiple of the walk's chunk, w = 2047 and 2048 with ranges
+#: shorter than the halo, w = 2048 with ranges of several chunks, and w =
+#: 16000, whose ring does not fit a block (the five-pass kernel).
+BICGSTAB_EDGES = {
+    "2I(5000)": ((1, 5000), (2.0, 0.0, 0.0), False),
+    "line(3001)": ((3001, 1), (2.6, -1.3, -0.7), True),
+    "grid(2047x5)": ((2047, 5), (4.5, -1.3, -0.7), True),
+    "grid(2048x6)": ((2048, 6), (4.5, -1.3, -0.7), True),
+    "grid(2048x150)": ((2048, 150), (4.5, -1.3, -0.7), True),
+    "grid(16000x3)": ((16000, 3), (4.5, -1.3, -0.7), True),
+}
+
+
+def check_bicgstab_edges(gt, dev, rng, record_err=None):
+    """K12 against its plain version on ``BICGSTAB_EDGES``: float32 and
+    bfloat16 diagonals, the Identity and a seeded inverse diagonal folded
+    into A M (Jacobi), exact and implicit mode, and a NaN in b (both run to
+    the cap).  Each case must take its route (the ring, or the five-pass
+    kernel past the ring's limit), the plain version's iterations, and x, r
+    and the monitor bit for bit; the 2 I operator must stop in the first
+    half step.  Returns the rows it emitted."""
+    from ginkgo_tpu_torch.ops import bicgstab as ops_bicgstab
+    from ginkgo_tpu_torch.solver._fused_gate import fold_minv
+
+    kern = ops_bicgstab.bicgstab_fused
+    rows = []
+    for label, (grid, coeffs, jitter) in BICGSTAB_EDGES.items():
+        A = gt.Dia.from_matrix_data(gt.MatrixData.from_coo(*banded_grid(*grid, coeffs, jitter)),
+                                    device=dev)
+        n = A.shape[0]
+        b = torch.as_tensor(rng.uniform(0.5, 1.5, n).astype(np.float32), device=dev)
+        z = torch.zeros_like(b)
+        tol = torch.full((), (TOL * float(b.norm())) ** 2, dtype=torch.float32, device=dev)
+        minv = torch.as_tensor(rng.uniform(0.15, 0.3, n).astype(np.float32), device=dev)
+        nan_b = b.clone()
+        nan_b[n // 2] = float("nan")
+        row = {"phase": "kernel_check", "kernel": "bicgstab_fused", "matrix": label, "rows": n,
+               "width": max(abs(o) for o in A.offsets),
+               "launch": ops_bicgstab.bicgstab_fused_launch(A.diags, A.offsets, dev)}
+        for storage, Av in (("f32", A), ("bf16", A.reduce_storage())):
+            plan = ops_bicgstab.ring_plan(Av.offsets, n, Av.diags.element_size())
+            route = "ring" if plan else "barrier"
+            check((route == "barrier") == (label == "grid(16000x3)"),
+                  f"bicgstab_fused {label} {storage}: the {route} route")
+            for pre_label, pre in (("identity", None), ("jacobi", minv)):
+                D = Av.diags if pre is None else fold_minv(Av, pre)
+                for what, rhs, cap, imp in (("exact", b, 500, False), ("implicit", b, 500, True),
+                                            ("nan b", nan_b, 7, False)):
+                    if what != "exact" and (storage, pre_label) != ("f32", "identity"):
+                        continue
+                    kw = dict(tol_sq_eff=tol, max_iters=cap, use_implicit=imp)
+                    before = kern.routes[route]
+                    got = kern(D, Av.offsets, rhs, z, pre, **kw)
+                    want = ops_bicgstab.bicgstab_solve_reference(D, Av.offsets, rhs, z, pre, **kw)
+                    _sync(dev)
+                    case = f"bicgstab_fused {label} {storage} {pre_label} {what}"
+                    check(kern.routes[route] == before + 1, f"{case}: not the {route} route")
+                    kit, pit = int(got[2]), int(want[2])
+                    if record_err is not None and what != "nan b":
+                        record_err("bicgstab_fused", got[0], want[0])
+                    check(kit == pit, f"{case}: {kit} vs {pit} iterations")
+                    check(bit_equal(got[0], want[0]) and bit_equal(got[1], want[1])
+                          and bit_equal(got[3], want[3]), f"{case}: x, r or the monitor differs")
+                    if what == "nan b":
+                        check(kit == cap and not bool(got[4]), f"{case}: stopped at {kit}")
+                    else:
+                        check(bool(got[4]), f"{case}: not converged")
+                    if label == "2I(5000)" and what == "exact" and pre is None:
+                        check(kit == 1, f"{case}: {kit} iterations, not the first half step")
+                    row[f"{storage} {pre_label} {what}"] = kit
+        rows.append(row)
+        emit(row)
+    return rows
+
+
+def check_gmres_multi_edges(gt, dev, rng, record_err=None):
+    """K15m against its plain version on A2's operator at 64^2 (fewer
+    tiles than the grid has blocks) and 700^2 (490,000 rows, several tiles
+    a block, not a multiple of a tile): k = 2, 3, 4 columns, m = 1, 2, 30
+    and 50, a float32 and a bfloat16 basis, the Identity and Jacobi, columns
+    that stop at different steps (one inside a cycle another runs on in),
+    and a NaN column that runs to the cap while the others stop.  Each case
+    must take the plain version's iterations and per-column stop
+    iterations, and x bit for bit (the NaN case: the other columns).
+    Returns the rows it emitted."""
+    from ginkgo_tpu_torch.ops import gmres as ops_gmres
+
+    ops = {nside: gt.Dia.from_matrix_data(gt.MatrixData.from_coo(*convdiff_2d(nside)),
+                                          device=dev) for nside in (SMALL, 700)}
+    cases = [  # (nside, k, m, basis, Jacobi, cap, NaN column)
+        (SMALL, 2, 1, torch.float32, False, 400, None),
+        (SMALL, 3, 2, torch.bfloat16, True, 400, None),
+        (SMALL, 4, 30, torch.float32, False, 400, None),
+        (SMALL, 4, 30, torch.float32, False, 25, 2),
+        (SMALL, 3, 50, torch.bfloat16, False, 400, None),
+        (700, 4, 50, torch.bfloat16, False, 400, None),
+        (700, 2, 30, torch.float32, True, 400, None),
+        (700, 3, 30, torch.bfloat16, False, 120, 0),
+    ]
+    rows = []
+    for nside, k, m, basis, jacobi, cap, nan_col in cases:
+        A = ops[nside]
+        n = A.shape[0]
+        B = rhs4(n, rng, dev)[:, :k].contiguous()
+        if nan_col is not None:
+            B[n // 3, nan_col] = float("nan")
+        tol = ((TOL * B.norm(dim=0)) ** 2).contiguous()
+        minv = 1.0 / A.extract_diagonal().values.float() if jacobi else None
+        Z = torch.zeros_like(B)
+        kw = dict(m=m, tol_sq_eff=tol, max_iters=cap, basis_dtype=basis)
+        got = ops_gmres.gmres_fused_multi(A.diags, A.offsets, B, Z, minv, **kw)
+        want = ops_gmres.gmres_solve_multi_reference(A.diags, A.offsets, B, Z, minv, **kw)
+        _sync(dev)
+        case = (f"gmres_fused_multi {nside}^2 k={k} m={m} {str(basis)[6:]} basis"
+                f"{' jacobi' if jacobi else ''}{' nan' if nan_col is not None else ''}")
+        kit, pit = int(got[1]), int(want[1])
+        kitc, pitc = got[4].tolist(), want[4].tolist()
+        check(kit == pit and kitc == pitc, f"{case}: {kit} / {pit} steps, {kitc} / {pitc}")
+        check(got[3].tolist() == want[3].tolist(), f"{case}: stop flags differ")
+        cols = [c for c in range(k) if c != nan_col]
+        check(all(bit_equal(got[0][:, c], want[0][:, c]) for c in cols),
+              f"{case}: x differs by {float((got[0] - want[0])[:, cols].abs().max())}")
+        if nan_col is not None:
+            check(kitc[nan_col] == cap and not bool(got[3][nan_col]),
+                  f"{case}: the NaN column stopped at {kitc[nan_col]}")
+        elif record_err is not None:
+            record_err("gmres_fused_multi", got[0], want[0])
+        mid = any(c < kit and (c - 1) // m == (d - 1) // m for c in kitc for d in kitc if d > c)
+        rows.append({"phase": "kernel_check", "kernel": "gmres_fused_multi", "case": case,
+                     "steps": kit, "column_steps": kitc, "mid_cycle_stop": mid})
+        emit(rows[-1])
+    check(any(r["mid_cycle_stop"] for r in rows),
+          "gmres_fused_multi edges: no column stopped inside a cycle another ran on in")
+    return rows
 
 
 def time_path4(gt, dev, p4, rec, timing):
@@ -3736,6 +3911,7 @@ def main():
     check(all(launches4[k] > 0 for k in PATH4), f"a kernel of path 4 never ran: {launches4}")
     emit({"phase": "main_path", "path": 4, "launches": launches4, "t_s": elapsed()})
     check_path4_kernels(gt, dev, rng, p4, record_err)
+    check_bicgstab_edges(gt, dev, rng, record_err)
 
     # -- 5c. main path 5: k columns, IDR and IR on a Dia -------------------------------
     zero_counts()
@@ -3744,6 +3920,7 @@ def main():
     check(all(launches5[k] > 0 for k in PATH5), f"a kernel of path 5 never ran: {launches5}")
     emit({"phase": "main_path", "path": 5, "launches": launches5, "t_s": elapsed()})
     check_path5_kernels(gt, dev, rng, p4, p5, kernels, record_err)
+    check_gmres_multi_edges(gt, dev, rng, record_err)
     del p5
 
     # -- 5d. main path 6: the Krylov solvers on a Pell (Csr -> Pell) -------------------

@@ -8,7 +8,10 @@
 // the operator before the launch (solver/_fused_gate.fold_minv: diagonal d
 // scaled by minv at column i + off_d and rounded back to the diagonals'
 // dtype), so the kernel runs on A M and applies minv only in the x update,
-// y = minv p and z = minv s.
+// y = minv p and z = minv s.  K12 has two routes, chosen from the offsets
+// alone (ops/bicgstab.ring_plan): the ring route (bicgstab_ring_kernel,
+// below), three passes an iteration, where its ring fits a block's shared
+// memory; else the five-pass kernel of this header (bicgstab_fused_kernel).
 //
 // K19 replaces ginkgo_tpu/ops/pallas_pell_cg.py pell_bicgstab_vmem_solve
 // (_pell_bicgstab_kernel, :313): the same loop on a Pell.  PELL values have
@@ -46,6 +49,11 @@
 //   - the loop runs while it < max_iters && !(mon <= tol_sq): a NaN monitor
 //     keeps iterating; zero denominators give 0 (gk_sdiv).
 
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "async.cuh"
 #include "coop.cuh"
 #include "pell.cuh"
 
@@ -68,6 +76,10 @@ struct BicgstabParams {
   float* t;
   float* p;
   float* s;
+  float* p1;      // the ring route: p and v alternate between P.p, P.p1 and P.v, P.v1
+  float* v1;
+  int ring_rows;  // the ring route's ring (a power of two) and w = max |offset|
+  int width;
   double* part;  // 6 * gridDim.x (6 K gridDim.x in K12m) per-block partial sums
   int* it_out;
   float* mon_out;   // (K,) in K12m
@@ -196,6 +208,402 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
     }
     grid.sync();
     grid_total<2>(part_u, tot2, sh2, bc2);
+    mon = P.implicit ? fabsf(rho_new) : (float)tot2[1];
+    rho_old = rho_new;
+    alpha = alpha_new;
+    omega = half_done ? 1.f : omega_new;
+    rho_new = (float)tot2[0];
+    ++it;
+  }
+
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *P.it_out = it;
+    *P.mon_out = mon;
+    *P.conv_out = (mon <= tol_sq) ? 1 : 0;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K12's ring route on a Dia: three passes and three grid barriers an
+// iteration where bicgstab_fused_kernel takes five.
+//
+// Each block owns the contiguous rows [a, a+len) (len a multiple of 8, the
+// last block's shorter) and keeps that range in every pass.  Passes A and B
+// are walks over the range plus a halo of w = max |offset| rows on each
+// side, [lo, hi), C = GK_BCG_CHUNK rows a step:
+//   A: form p_new = r + beta (p_old - omega v_old) on every row of the walk,
+//      into a ring of shared memory (and to device memory on the own rows),
+//      and v = (A M) p_new on the own rows from the ring; partial <rr, v>.
+//   B: form s = r - alpha v on every row of the walk into the ring, and
+//      t = (A M) s on the own rows; partial s.s, t.s and t.t in one fold,
+//      after which the half step and omega are decided.
+//   C: x += alpha (M p) + omega (M s) and r = s - omega t on the own rows,
+//      s formed again from r and v (the same operands, the same bits);
+//      partial <rr, r> and r.r.
+// A halo row is formed by every block that reads it, from vectors that no
+// block writes in that pass: p and v alternate between two buffers (pass A
+// reads p_old and v_old on its halo while their owners write p_new and
+// v_new), and r changes only in pass C.  Every value is formed from the
+// five-pass kernel's operands in its order, and each product row as
+// gk_dia_row sums it (from +0.0, the diagonals in offset order, a column
+// outside [0, n) skipped), so only the order of the float64 dot sums
+// differs from it.
+//
+// The walk.  Step t forms chunk t (positions [tC, tC + C) of the walk, row
+// lo + position, lo a multiple of 4) and takes the product of the own chunk
+// c = t - L, L = ceil((H + w) / C) + 1 (H = a - lo): every position that
+// chunk reads was formed in an earlier step, and one block barrier a step
+// orders them.  The ring holds ring_rows positions, a power of two >= 2w +
+// 3C, indexed by position mod ring_rows: the 2w + C positions a step reads
+// and the chunk it writes never meet (ops/bicgstab.ring_plan, and the CPU
+// model in tests/test_torch_bicgstab_order.py).  A step's inputs (the
+// vectors its rows are formed from; the diagonals and rr of the rows it
+// multiplies) stream into a ring of GK_BCG_STAGES stages by cp.async,
+// GK_BCG_PREFETCH steps ahead of the step that reads them, so that a step
+// never waits on device memory: the vectors 16 bytes at a time past L1
+// (other blocks rewrote them since the last grid barrier), the diagonals,
+// constant during a launch, 16 bytes at a time where n sizeof(TD) is a
+// multiple of 16, else 4 (a diagonal's chunk may start mid-word).  A first form without the stages, each step's
+// loads issued at the end of the one before, waited on device memory every
+// step and lost to the five-pass kernel (PERF.md section 6).
+//
+// Bytes a row and iteration in float32 (nd diagonals of TD): A reads r,
+// p_old, v_old (the halo's too), the diagonals and rr and writes p_new and
+// v; B reads r and v (the halo's too) and the diagonals and writes t; C
+// reads x, r, p, v, t, rr and writes x and r: 2 nd sizeof(TD) + 64, plus the
+// halo's 20 B a row times 2w / len, plus 4 with minv.  The partials are
+// value-major (coop.cuh block_partial_vm) and each fold loads them at once
+// (grid_total_batch).
+
+// Rows a walk step forms (and the rows of a product chunk).  On the H100
+// 1024 rows beat 512 (PERF.md section 6).
+#define GK_BCG_CHUNK 1024
+// Steps the copies run ahead of the step that reads them, and the stages of
+// the input ring: 2 beat 1 and 3.
+#define GK_BCG_PREFETCH 2
+#define GK_BCG_STAGES (GK_BCG_PREFETCH + 1)
+// Most rows of the ring: 128 KB of shared memory a block.
+#define GK_BCG_MAX_RING 32768
+
+// Bytes of one diagonal's chunk in a stage: C values and the 4-byte word a
+// bfloat16 chunk that starts mid-word needs, rounded up to 16.
+__host__ __device__ inline int gk_bcg_diag_bytes(int esz) {
+  return (GK_BCG_CHUNK * esz + 4 + 15) & ~15;
+}
+
+// A stage: up to four vectors of C floats (a pass's formed vectors, then
+// rr), then nd diagonals of esz bytes.
+__host__ __device__ inline long long gk_bcg_slot(int nd, int esz) {
+  return 16LL * GK_BCG_CHUNK + (long long)nd * gk_bcg_diag_bytes(esz);
+}
+
+// Dynamic shared memory of the ring route: the ring, then the stages.
+__host__ __device__ inline long long gk_bcg_smem(int ring_rows, int nd, int esz) {
+  return 4LL * ring_rows + GK_BCG_STAGES * gk_bcg_slot(nd, esz);
+}
+
+// Pass A's rows: p_new = r + beta (p_old - omega v_old) from the staged r,
+// p_old, v_old, written to device memory on the own rows.
+struct GkBcgFormP {
+  static constexpr int NV = 3;
+  const float* src[NV];  // r, p_old, v_old
+  float* p_new;
+  float beta, omega;
+  __device__ __forceinline__ float value(const float* st, int e) const {
+    return st[e] + beta * (st[GK_BCG_CHUNK + e] - omega * st[2 * GK_BCG_CHUNK + e]);
+  }
+  __device__ __forceinline__ void own(int i, float v) const { p_new[i] = v; }
+};
+
+// Pass B's rows: s = r - alpha v from the staged r and v, kept in the ring
+// alone.
+struct GkBcgFormS {
+  static constexpr int NV = 2;
+  const float* src[NV];  // r, v
+  float alpha;
+  __device__ __forceinline__ float value(const float* st, int e) const {
+    return st[e] - alpha * st[GK_BCG_CHUNK + e];
+  }
+  __device__ __forceinline__ void own(int, float) const {}
+};
+
+// One walk over the block's rows [a, a+len) (a a multiple of 8; see above):
+// form.value on every row of [lo, hi); on every own row i, use(i, (A M)
+// ring at row i, ring at row i, aux[i]) (aux nullptr: 0).  ND > 0: compiled
+// for ND diagonals.  smem: the ring of ring_rows floats, then the stages.
+// Call with the whole block; on return every copy has landed and every
+// thread has left the walk's shared memory.
+template <typename TD, int ND, typename Form, typename Use>
+__device__ __forceinline__ void gk_bcg_walk(const GkDiaOp<TD>& op, int w, int ring_rows, int a,
+                                            int len, char* smem, const Form& form,
+                                            const float* aux, Use use) {
+  constexpr int C = GK_BCG_CHUNK;
+  constexpr int RPT = GK_BCG_CHUNK / GK_CG_THREADS;
+  constexpr int NDA = ND > 0 ? ND : 1;
+  constexpr int esz = (int)sizeof(TD);
+  const int n = (int)op.n;
+  const int nd = ND > 0 ? ND : op.offs.nd;
+  const int lo = (a - w > 0 ? a - w : 0) & ~3;
+  const int hi = a + len + w < n ? a + len + w : n;
+  const int H = a - lo, total = hi - lo;
+  const int nF = (total + C - 1) / C, nS = (len + C - 1) / C;
+  const int lag = (H + w + C - 1) / C + 1;
+  const int mask = ring_rows - 1;
+  const int tid = threadIdx.x;
+  float* ring = reinterpret_cast<float*>(smem);
+  char* stages = smem + 4LL * ring_rows;
+  const int dbytes = gk_bcg_diag_bytes(esz);
+  const int slot = (int)gk_bcg_slot(nd, esz);
+  // the diagonals move 16 bytes a copy where every chunk of every diagonal
+  // starts on 16 bytes (n esz a multiple of 16; chunks start on multiples of
+  // 8 rows), else 4 bytes a copy
+  const bool wide = (n * esz) % 16 == 0 && (uintptr_t)op.diags % 16 == 0;
+  // |offset| of each diagonal, and where its chunk starts in its staged
+  // words (the same for every chunk: chunks start on multiples of 4 rows)
+  int off[NDA], dsh[NDA];
+#pragma unroll
+  for (int d = 0; d < NDA; ++d) {
+    off[d] = (int)op.offs.off[d];
+    dsh[d] = esz == 4 ? 0 : (d & n & 1) * 2;
+  }
+
+  // the inputs of step t into its stage: the vectors of formed chunk t and
+  // rr and the diagonals of product chunk t - lag
+  auto issue = [&](int t) {
+    char* dst = stages + (t % GK_BCG_STAGES) * slot;
+    auto vec = [&](char* to, const float* src, int r0) {
+      for (int u = tid; u < C / 4; u += GK_CG_THREADS) {
+        const int r = r0 + 4 * u;
+        const int nb = r < n ? (n - r < 4 ? n - r : 4) * 4 : 0;
+        gk_cp16_n(to + 16 * u, nb ? src + r : src, nb);
+      }
+    };
+    if (t < nF) {
+#pragma unroll
+      for (int m = 0; m < Form::NV; ++m) vec(dst + m * C * 4, form.src[m], lo + t * C);
+    }
+    const int c = t - lag;
+    if (c >= 0 && c < nS) {
+      const int i0 = a + c * C;
+      if (aux) vec(dst + 3 * C * 4, aux, i0);
+      const long long lo_b = (long long)(uintptr_t)op.diags;
+      const long long hi_b = lo_b + (long long)nd * n * esz;
+      if (wide) {
+        // every diagonal's chunk starts on 16 bytes: 16 bytes a copy
+        for (int d = 0; d < nd; ++d) {
+          const long long g0 = lo_b + ((long long)d * n + i0) * esz;
+          for (int u = tid; u < C * esz / 16; u += GK_CG_THREADS) {
+            const long long g = g0 + 16LL * u;
+            const int nb = g < hi_b ? (int)(hi_b - g < 16 ? hi_b - g : 16) : 0;
+            gk_cp16_n(dst + 16 * C + d * dbytes + 16 * u,
+                      nb ? (const void*)(uintptr_t)g : (const void*)op.diags, nb);
+          }
+        }
+      } else {
+        const int words = C * esz / 4 + (esz < 4 ? 1 : 0);
+        for (int d = 0; d < nd; ++d) {
+          const long long g0 = (lo_b + ((long long)d * n + i0) * esz) & ~3LL;
+          for (int u = tid; u < words; u += GK_CG_THREADS) {
+            const long long g = g0 + 4LL * u;
+            const int nb = (g >= lo_b && g < hi_b) ? (int)(hi_b - g < 4 ? hi_b - g : 4) : 0;
+            gk_cp4_n(dst + 16 * C + d * dbytes + 4 * u,
+                     nb ? (const void*)(uintptr_t)g : (const void*)op.diags, nb);
+          }
+        }
+      }
+    }
+  };
+
+  for (int t = 0; t < GK_BCG_PREFETCH; ++t) {
+    issue(t);
+    gk_cp_commit();
+  }
+  for (int t = 0; t < nS + lag; ++t) {
+    // stage t has landed, the positions formed in step t - 1 are in the
+    // ring, and every thread has left stage t - 1
+    gk_cp_wait<GK_BCG_PREFETCH - 1>();
+    __syncthreads();
+    issue(t + GK_BCG_PREFETCH);  // into stage t - 1's place
+    gk_cp_commit();
+    const char* st = stages + (t % GK_BCG_STAGES) * slot;
+    const float* sv = reinterpret_cast<const float*>(st);
+    const int c = t - lag;
+    if (c >= 0) {
+#pragma unroll
+      for (int u = 0; u < RPT; ++u) {
+        const int e = u * GK_CG_THREADS + tid;
+        const int i = a + c * C + e;
+        if (i >= a + len) continue;
+        float acc = 0.f;
+        auto term = [&](int d, int od, int sh) {
+          const int j = i + od;
+          if (j >= 0 && j < n)
+            acc += GkAcc<float>::load(
+                       reinterpret_cast<const TD*>(st + 16 * C + d * dbytes + sh)[e]) *
+                   ring[(j - lo) & mask];
+        };
+        if constexpr (ND > 0) {
+#pragma unroll
+          for (int d = 0; d < ND; ++d) term(d, off[d], dsh[d]);
+        } else {
+          for (int d = 0; d < nd; ++d)
+            term(d, (int)op.offs.off[d], esz == 4 ? 0 : (d & n & 1) * 2);
+        }
+        use(i, acc, ring[(i - lo) & mask], sv[3 * C + e]);
+      }
+    }
+    if (t < nF) {
+#pragma unroll
+      for (int u = 0; u < RPT; ++u) {
+        const int e = u * GK_CG_THREADS + tid;
+        const int pos = t * C + e;
+        if (pos < total) {
+          const float v = form.value(sv, e);
+          ring[pos & mask] = v;
+          const int row = lo + pos;
+          if (row >= a && row < a + len) form.own(row, v);
+        }
+      }
+    }
+  }
+  gk_cp_wait<0>();
+  __syncthreads();
+}
+
+template <typename TD, int ND>
+__global__ void __launch_bounds__(GK_CG_THREADS)
+    bicgstab_ring_kernel(const BicgstabParams<GkDiaOp<TD>> P) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  __shared__ double sh1[1][GK_CG_WARPS];
+  __shared__ double sh2[2][GK_CG_WARPS];
+  __shared__ double sh3[3][GK_CG_WARPS];
+  __shared__ double bc1[1];
+  __shared__ double bc2[2];
+  __shared__ double bc3[3];
+
+  const int n = (int)P.n;
+  const int G = gridDim.x;
+  const int span = ((n + G - 1) / G + 7) & ~7;
+  const int a = (int)blockIdx.x * span < n ? (int)blockIdx.x * span : n;
+  const int len = n - a < span ? n - a : span;
+  const int w = P.width, R = P.ring_rows;
+  double* part_a = P.part;          // [G]     <rr, v>
+  double* part_b = P.part + G;      // [3][G]  s.s, t.s, t.t
+  double* part_c = P.part + 4 * G;  // [2][G]  <rr, r>, r.r (and the init)
+  float* __restrict__ x = P.x;
+  float* __restrict__ r = P.r;
+  float* __restrict__ rr = P.rr;
+  float* __restrict__ t = P.t;
+  float* const pb[2] = {P.p, P.p1};
+  float* const vb[2] = {P.v, P.v1};
+  const float* __restrict__ minv = P.minv;
+
+  // init: x = x0, r = rr = r0, p = v = 0 (the first p_old and v_old); rho =
+  // <r0, r0>
+  {
+    double acc[2] = {0.0, 0.0};
+    for (int i = a + threadIdx.x; i < a + len; i += GK_CG_THREADS) {
+      const float ri = P.r0[i];
+      x[i] = P.x0[i];
+      r[i] = ri;
+      rr[i] = ri;
+      P.v[i] = 0.f;
+      P.p[i] = 0.f;
+      acc[0] += (double)ri * ri;
+    }
+    block_partial_vm<2>(acc, part_c, sh2);
+  }
+  grid.sync();
+  double tot1[1], tot2[2], tot3[3];
+  grid_total_batch<2, 4>(part_c, 1, G, 1, tot2, sh2, bc2);
+  float rho_new = (float)tot2[0];
+  float rho_old = 1.f, alpha = 1.f, omega = 1.f;
+
+  const float tol_sq = *P.tol_sq;
+  int it = 0;
+  float mon = CUDART_INF_F;
+  while (it < P.max_iters && !(mon <= tol_sq)) {
+    const float beta = gk_sdiv(rho_new * alpha, rho_old * omega);
+    const int cur = it & 1;
+    float* p_new = pb[cur ^ 1];
+    float* v_new = vb[cur ^ 1];
+
+    // pass A: p_new = r + beta (p_old - omega v_old); v = (A M) p_new;
+    // partial <rr, v>
+    {
+      double acc[1] = {0.0};
+      const GkBcgFormP form{{r, pb[cur], vb[cur]}, p_new, beta, omega};
+      gk_bcg_walk<TD, ND>(P.op, w, R, a, len, smem, form, rr,
+                          [&](int i, float vi, float, float rri) {
+                            v_new[i] = vi;
+                            acc[0] += (double)rri * vi;
+                          });
+      block_partial_vm<1>(acc, part_a, sh1);
+    }
+    grid.sync();
+    grid_total_batch<1, 4>(part_a, 1, G, 1, tot1, sh1, bc1);
+    const float alpha_new = gk_sdiv(rho_new, (float)tot1[0]);
+
+    // pass B: s = r - alpha v; t = (A M) s; partial s.s, t.s, t.t
+    {
+      double acc[3] = {0.0, 0.0, 0.0};
+      const GkBcgFormS form{{r, v_new}, alpha_new};
+      gk_bcg_walk<TD, ND>(P.op, w, R, a, len, smem, form, nullptr,
+                          [&](int i, float ti, float si, float) {
+                            t[i] = ti;
+                            acc[0] += (double)si * si;
+                            acc[1] += (double)ti * si;
+                            acc[2] += (double)ti * ti;
+                          });
+      block_partial_vm<3>(acc, part_b, sh3);
+    }
+    grid.sync();
+    grid_total_batch<3, 4>(part_b, 1, G, 3, tot3, sh3, bc3);
+    const bool half_done = (P.implicit ? fabsf(rho_new) : (float)tot3[0]) <= tol_sq;
+    const float omega_new = half_done ? 0.f : gk_sdiv((float)tot3[1], (float)tot3[2]);
+
+    // pass C: x += alpha (M p) + omega (M s); r = s - omega t; partial
+    // <rr, r> (the next rho) and r.r
+    {
+      // rows in groups of RPT a thread, every load of a group before its
+      // arithmetic, so that the group's loads overlap
+      constexpr int RPT = 8;
+      double acc[2] = {0.0, 0.0};
+      for (int i0 = a; i0 < a + len; i0 += RPT * GK_CG_THREADS) {
+        float xi[RPT], pi[RPT], vi[RPT], ri[RPT], ti[RPT], rri[RPT], mi[RPT];
+#pragma unroll
+        for (int u = 0; u < RPT; ++u) {
+          const int i = i0 + u * GK_CG_THREADS + threadIdx.x;
+          if (i < a + len) {
+            xi[u] = x[i];
+            pi[u] = __ldcg(p_new + i);
+            vi[u] = __ldcg(v_new + i);
+            ri[u] = r[i];
+            ti[u] = t[i];
+            rri[u] = rr[i];
+            mi[u] = minv ? minv[i] : 1.f;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < RPT; ++u) {
+          const int i = i0 + u * GK_CG_THREADS + threadIdx.x;
+          if (i >= a + len) continue;
+          const float si = ri[u] - alpha_new * vi[u];
+          const float yi = minv ? mi[u] * pi[u] : pi[u];
+          const float zi = minv ? mi[u] * si : si;
+          x[i] = xi[u] + alpha_new * yi + omega_new * zi;
+          const float rn = si - omega_new * ti[u];
+          r[i] = rn;
+          acc[0] += (double)rri[u] * rn;
+          acc[1] += (double)rn * rn;
+        }
+      }
+      block_partial_vm<2>(acc, part_c, sh2);
+    }
+    grid.sync();
+    grid_total_batch<2, 4>(part_c, 1, G, 2, tot2, sh2, bc2);
     mon = P.implicit ? fabsf(rho_new) : (float)tot2[1];
     rho_old = rho_new;
     alpha = alpha_new;
@@ -469,6 +877,10 @@ static BicgstabParams<Op> bicgstab_params(
   P.t = t;
   P.p = p;
   P.s = s;
+  P.p1 = nullptr;
+  P.v1 = nullptr;
+  P.ring_rows = 0;
+  P.width = 0;
   P.part = part;
   P.it_out = it_out;
   P.mon_out = mon_out;
@@ -477,8 +889,8 @@ static BicgstabParams<Op> bicgstab_params(
   return P;
 }
 
-// Blocks of the cooperative grid (the wrapper sizes the partial sums, 6
-// doubles per block, from it).
+// Blocks of the five-pass kernel's cooperative grid (the wrapper sizes the
+// partial sums, 6 doubles per block, from it).
 extern "C" int bicgstab_fused_grid(int d_dtype, int* blocks) {
   if (d_dtype == GK_F32) return gk_coop_blocks(bicgstab_fused_kernel<GkDiaOp<float>>, blocks);
   if (d_dtype == GK_BF16)
@@ -486,13 +898,80 @@ extern "C" int bicgstab_fused_grid(int d_dtype, int* blocks) {
   return (int)cudaErrorInvalidValue;
 }
 
+// f(kernel, (TD*)nullptr) on the ring kernel for the diagonals' dtype TD
+// and count: compiled for the 3 and 5 diagonals of 1-D and 2-D stencils,
+// else with a runtime count.
+template <typename F>
+static int bicgstab_ring_dispatch(int d_dtype, int nd, F f) {
+#define GK_RING_ND(TD)                                                   \
+  switch (nd) {                                                          \
+    case 3: return f(bicgstab_ring_kernel<TD, 3>, (TD*)nullptr);         \
+    case 5: return f(bicgstab_ring_kernel<TD, 5>, (TD*)nullptr);         \
+    default: return f(bicgstab_ring_kernel<TD, 0>, (TD*)nullptr);        \
+  }
+  if (d_dtype == GK_F32) GK_RING_ND(float)
+  if (d_dtype == GK_BF16) GK_RING_ND(__nv_bfloat16)
+#undef GK_RING_ND
+  return (int)cudaErrorInvalidValue;
+}
+
+// The ring route's launch for nd diagonals of d_dtype and a ring of
+// ring_rows rows, into out: blocks of the cooperative grid, threads a
+// block, dynamic shared memory a block, blocks an SM, registers a thread.
+// The route itself is chosen from the offsets by ops/bicgstab.ring_plan.
+extern "C" int bicgstab_ring_config(int d_dtype, int nd, int ring_rows, long long* out) {
+  if (nd < 1 || nd > GK_MAX_DIAGS || ring_rows < 1 || ring_rows > GK_BCG_MAX_RING ||
+      (ring_rows & (ring_rows - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long smem = gk_bcg_smem(ring_rows, nd, d_dtype == GK_BF16 ? 2 : 4);
+  return bicgstab_ring_dispatch(d_dtype, nd, [&](auto kernel, auto*) {
+    GkOccupancy o;
+    const int e = gk_occupancy(kernel, smem, GK_CG_THREADS, &o);
+    if (e != 0) return e;
+    if (o.per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    const long long v[5] = {(long long)o.per_sm * o.sms, GK_CG_THREADS, smem, o.per_sm,
+                            o.regs};
+    for (int i = 0; i < 5; ++i) out[i] = v[i];
+    return 0;
+  });
+}
+
+// K12 on a Dia: the ring route where ring_rows > 0 (p1 and v1 the second
+// direction and product buffers, s unused), else the five-pass kernel (p1
+// and v1 unused).  The ring must be a power of two >= 2 w + 3 C rows (w =
+// max |offset|) within GK_BCG_MAX_RING, as ring_plan sizes it.
 extern "C" int bicgstab_fused_solve(
     const void* diags, int d_dtype, const long long* offsets, int nd, long long n,
     const float* r0, const float* x0, const float* minv, const float* tol_sq,
     int max_iters, int implicit, float* x, float* r, float* rr, float* v,
-    float* t, float* p, float* s, double* part, int blocks, int* it_out,
-    float* mon_out, int* conv_out, void* stream) {
+    float* t, float* p, float* s, float* p1, float* v1, int ring_rows, double* part,
+    int blocks, int* it_out, float* mon_out, int* conv_out, void* stream) {
   if (nd < 1 || nd > GK_MAX_DIAGS || blocks < 1) return (int)cudaErrorInvalidValue;
+  if (ring_rows > 0) {
+    long long w = 0;
+    for (int d = 0; d < nd; ++d) {
+      const long long m = offsets[d] < 0 ? -offsets[d] : offsets[d];
+      w = m > w ? m : w;
+    }
+    if (ring_rows > GK_BCG_MAX_RING || (ring_rows & (ring_rows - 1)) != 0 ||
+        ring_rows < 2 * w + 3LL * GK_BCG_CHUNK || n + ring_rows >= (1LL << 30) ||
+        !p1 || !v1)
+      return (int)cudaErrorInvalidValue;
+    const long long smem = gk_bcg_smem(ring_rows, nd, d_dtype == GK_BF16 ? 2 : 4);
+    return bicgstab_ring_dispatch(d_dtype, nd, [&](auto kernel, auto* tag) {
+      using TD = std::remove_pointer_t<decltype(tag)>;
+      auto P = bicgstab_params(gk_dia_op<TD>(diags, offsets, nd, n), n, r0, x0, minv, tol_sq,
+                               max_iters, implicit, x, r, rr, v, t, p, s, part, it_out,
+                               mon_out, conv_out, nullptr);
+      P.p1 = p1;
+      P.v1 = v1;
+      P.ring_rows = ring_rows;
+      P.width = (int)w;
+      const int e = gk_smem_optin(kernel, smem);
+      if (e != 0) return e;
+      return gk_coop_launch(kernel, P, blocks, stream, (size_t)smem);
+    });
+  }
 #define GK_DIA_LAUNCH(TD)                                                              \
   gk_coop_launch(bicgstab_fused_kernel<GkDiaOp<TD>>,                                   \
                  bicgstab_params(gk_dia_op<TD>(diags, offsets, nd, n), n, r0, x0, minv, \

@@ -238,6 +238,41 @@ static int gk_coop_blocks(Kernel kernel, int* blocks, size_t smem = 0) {
   return 0;
 }
 
+// Opt `kernel` in to smem bytes of dynamic shared memory a block (above the
+// 48 KB every kernel may use without asking).
+template <typename Kernel>
+static int gk_smem_optin(Kernel kernel, long long smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+}
+
+// A kernel's blocks an SM at smem bytes of dynamic shared memory and
+// `threads` threads a block (0 where smem exceeds what a block may opt in
+// to), its registers a thread, and the SMs.
+struct GkOccupancy {
+  int per_sm, regs, sms;
+};
+
+template <typename Kernel>
+static int gk_occupancy(Kernel kernel, long long smem, int threads, GkOccupancy* o) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&o->sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return (int)e;
+  o->regs = attr.numRegs;
+  o->per_sm = 0;
+  if (smem > (long long)optin - (long long)attr.sharedSizeBytes) return 0;
+  const int st = gk_smem_optin(kernel, smem);
+  if (st != 0) return st;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o->per_sm, kernel, threads,
+                                                            (size_t)smem);
+}
+
 // Launch `kernel(params)` cooperatively on `blocks` blocks of `threads`
 // threads with `smem` bytes of dynamic shared memory.
 template <typename Kernel, typename Params>

@@ -49,6 +49,8 @@
 //   - !(mon <= tol_sq) as the test, so a NaN keeps iterating; 1/0 norms
 //     take 1 (inv_beta, inv_h), zero pivots give y = 0.
 
+#include <type_traits>
+
 #include "coop.cuh"
 #include "pell.cuh"
 
@@ -58,8 +60,9 @@ namespace cg = cooperative_groups;
 // 4 (m^2 + 7 m + 3) bytes of shared memory, under the 48 KB a block gets
 // without opting in (ops/gmres.py MAX_FUSED_KRYLOV_DIM).
 #define GK_GMRES_MAX_M 100
-// K15m keeps that state per column, 4 k (m^2 + 7 m + 3) bytes: m <= 50
-// stays under 48 KB for k = 4 (ops/gmres.py MAX_FUSED_KRYLOV_DIM_MULTI).
+// K15m keeps that state per column, 4 k (m^2 + 7 m + 3) bytes, beside its
+// warps' running dot sums (gmres_multi_smem): 58,704 bytes at m = 50 and
+// k = 4 (ops/gmres.py MAX_FUSED_KRYLOV_DIM_MULTI).
 #define GK_GMRES_MULTI_MAX_M 50
 
 template <typename Op>
@@ -336,26 +339,218 @@ __global__ void __launch_bounds__(GK_CG_THREADS) gmres_fused_kernel(const GmresP
 //   - The true residual of every column then decides `done` (done only
 //     grows): a column whose in-cycle stop the true residual does not
 //     confirm runs on in the next cycle.  The first `done` comes from r0.
-// Bytes per Arnoldi step: K15's with every vector K columns wide; the
-// diagonals are read once for all K.
+//
+// What bounds it on the H100: bytes, the basis rows above all.  Arnoldi
+// step j of CGS2 reads basis rows 0..j in each of its two dot phases and
+// two subtractions.  The passes of a step go over the rows in tiles of
+// GK_CG_THREADS * GK_GMRES_TILE_ROWS rows, a thread GK_GMRES_TILE_ROWS rows
+// of a tile, the same rows in every pass of the step:
+//   A: u = M A V_j, kept in registers and written once, and the first dots
+//      <V_i, u> for i = 0..j, each basis row read once;
+//   B: u -= h1_i V_i in i order, written once, then the second dots, each
+//      basis row read again while the tile's rows are still in L2;
+//   C: u -= h2_i V_i in i order, and u.u;
+//   D: V_{j+1} = u / |u|.
+// A row's K values move as one access: 16 bytes for float32 at K = 4, 8 for
+// K = 2 or bfloat16 at K = 4, 4 for bfloat16 at K = 2, K scalars at K = 3
+// (GkRowK).  The dots are float64: a thread sums its rows' products, a warp
+// folds them by shuffles into its own running sums in shared memory once a
+// tile and dot, and the block adds its warps' sums in a fixed order into
+// one partial a dot and column, which sum_dots_cols folds after the
+// barrier.  Bytes a row and step (float32 basis, K = 4, nd diagonals of
+// TD): nd sizeof(TD) + 128 + 64 (j + 1) (A: V_j, u out, j + 1 basis rows;
+// B and C: u in and out, the basis rows, twice in B; D: u in, V_{j+1}
+// out), 48 (j + 1) of them from device memory where pass B's second read
+// of a basis row comes from L2.
+// Rows a thread takes of a tile: on the H100 4 beat 2 and 8 (PERF.md
+// section 6).
+#define GK_GMRES_TILE_ROWS 4
+
+// Row e of a row-major (n, K) array of T (float32 or bfloat16) as K floats,
+// and back (a bfloat16 rounded to nearest even, as gk_store).  load_cg
+// reads past L1: rows that other blocks wrote since the last grid barrier.
+template <typename T, int K>
+struct GkRowK {
+  static constexpr int BYTES = K * (int)sizeof(T);
+  static __device__ __forceinline__ void load_cg(const T* base, long long e, float (&out)[K]) {
+    const T* row = base + e * K;
+    if constexpr (std::is_same<T, float>::value && BYTES == 16) {
+      const float4 a = __ldcg(reinterpret_cast<const float4*>(row));
+      out[0] = a.x;
+      out[1] = a.y;
+      out[2] = a.z;
+      out[3] = a.w;
+    } else if constexpr (std::is_same<T, float>::value && BYTES == 8) {
+      const float2 a = __ldcg(reinterpret_cast<const float2*>(row));
+      out[0] = a.x;
+      out[1] = a.y;
+    } else if constexpr (!std::is_same<T, float>::value && (BYTES == 8 || BYTES == 4)) {
+      unsigned w[BYTES / 4];
+      if constexpr (BYTES == 8) {
+        const uint2 a = __ldcg(reinterpret_cast<const uint2*>(row));
+        w[0] = a.x;
+        w[1] = a.y;
+      } else {
+        w[0] = __ldcg(reinterpret_cast<const unsigned*>(row));
+      }
+#pragma unroll
+      for (int c = 0; c < K; ++c)
+        out[c] = __uint_as_float((c & 1) ? (w[c / 2] & 0xffff0000u) : (w[c / 2] << 16));
+    } else {
+#pragma unroll
+      for (int c = 0; c < K; ++c) out[c] = gk_to_float(__ldcg(row + c));
+    }
+  }
+  static __device__ __forceinline__ void store(T* base, long long e, const float (&in)[K]) {
+    T* row = base + e * K;
+    if constexpr (std::is_same<T, float>::value && BYTES == 16) {
+      *reinterpret_cast<float4*>(row) = make_float4(in[0], in[1], in[2], in[3]);
+    } else if constexpr (std::is_same<T, float>::value && BYTES == 8) {
+      *reinterpret_cast<float2*>(row) = make_float2(in[0], in[1]);
+    } else if constexpr (!std::is_same<T, float>::value && (BYTES == 8 || BYTES == 4)) {
+      unsigned w[BYTES / 4];
+#pragma unroll
+      for (int q = 0; q < BYTES / 4; ++q) {
+        const __nv_bfloat16 lo = __float2bfloat16(in[2 * q]);
+        const __nv_bfloat16 hi = __float2bfloat16(in[2 * q + 1]);
+        w[q] = (unsigned)*reinterpret_cast<const unsigned short*>(&lo) |
+               ((unsigned)*reinterpret_cast<const unsigned short*>(&hi) << 16);
+      }
+      if constexpr (BYTES == 8)
+        *reinterpret_cast<uint2*>(row) = make_uint2(w[0], w[1]);
+      else
+        *reinterpret_cast<unsigned*>(row) = w[0];
+    } else {
+#pragma unroll
+      for (int c = 0; c < K; ++c) gk_store(row + c, in[c]);
+    }
+  }
+};
+
+// Row i of a DIA product on the K columns of a row-major (n, K) source of
+// TS, gk_dia_row_cols's sums with each source row read as one access.
+template <typename TD, typename TS, int K>
+__device__ __forceinline__ void gk_dia_row_rows(const TD* __restrict__ D, const GkOffsets& offs,
+                                                long long n, long long i, const TS* src,
+                                                float (&acc)[K]) {
+#pragma unroll
+  for (int c = 0; c < K; ++c) acc[c] = 0.f;
+  for (int d = 0; d < offs.nd; ++d) {
+    const long long j = i + offs.off[d];
+    if (j >= 0 && j < n) {
+      const float v = GkAcc<float>::load(D[d * n + i]);
+      float s[K];
+      GkRowK<TS, K>::load_cg(src, j, s);
+#pragma unroll
+      for (int c = 0; c < K; ++c) acc[c] += v * s[c];
+    }
+  }
+}
+
+// The rows of a tile of an Arnoldi step's passes: row q of this thread in
+// tile tt.
+__device__ __forceinline__ long long gk_tile_row(long long tt, int q) {
+  return (tt * GK_GMRES_TILE_ROWS + q) * GK_CG_THREADS + threadIdx.x;
+}
+
+// This thread's rows of tile tt of the basis row Vi (rows past n: none read).
 template <typename TV, int K>
-__device__ __forceinline__ void basis_dots_cols(const TV* V, const float* u, int j,
-                                                long long n, double* part,
-                                                double (&sh)[K][GK_CG_WARPS]) {
-  const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
+__device__ __forceinline__ void gk_tile_load(const TV* Vi, long long n, long long tt,
+                                             float (&v)[GK_GMRES_TILE_ROWS][K]) {
+#pragma unroll
+  for (int q = 0; q < GK_GMRES_TILE_ROWS; ++q) {
+    const long long row = gk_tile_row(tt, q);
+    if (row < n) GkRowK<TV, K>::load_cg(Vi, row, v[q]);
+  }
+}
+
+// The dots <V_i, u> of one tile for i = 0..j, u the thread's rows in
+// float64 (rows past n hold 0 and read no basis row): each warp adds its
+// fold of every dot to its running sums ws[i * K + c].  Basis row i + 1's
+// loads are issued before row i's arithmetic.
+template <typename TV, int K>
+__device__ __forceinline__ void gk_tile_dots(const TV* V, long long n, int j, long long tt,
+                                             const double (&ud)[GK_GMRES_TILE_ROWS][K],
+                                             double* ws) {
+  const int lane = threadIdx.x & 31;
+  float nx[GK_GMRES_TILE_ROWS][K];
+  gk_tile_load<TV, K>(V, n, tt, nx);
   for (int i = 0; i <= j; ++i) {
-    const TV* Vi = V + (long long)i * n * K;
+    float vi[GK_GMRES_TILE_ROWS][K];
+#pragma unroll
+    for (int q = 0; q < GK_GMRES_TILE_ROWS; ++q) {
+#pragma unroll
+      for (int c = 0; c < K; ++c) vi[q][c] = nx[q][c];
+    }
+    if (i < j) gk_tile_load<TV, K>(V + (long long)(i + 1) * n * K, n, tt, nx);
     double acc[K];
 #pragma unroll
     for (int c = 0; c < K; ++c) acc[c] = 0.0;
-    for (long long r = t0; r < n; r += stride) {
 #pragma unroll
-      for (int c = 0; c < K; ++c)
-        acc[c] += (double)gk_to_float(__ldcg(Vi + r * K + c)) * (double)u[r * K + c];
+    for (int q = 0; q < GK_GMRES_TILE_ROWS; ++q) {
+      if (gk_tile_row(tt, q) < n) {
+#pragma unroll
+        for (int c = 0; c < K; ++c) acc[c] += (double)vi[q][c] * ud[q][c];
+      }
     }
-    block_partial<K>(acc, part + (long long)i * gridDim.x * K, sh);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int c = 0; c < K; ++c) acc[c] += __shfl_down_sync(0xffffffffu, acc[c], o);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < K; ++c) ws[i * K + c] += acc[c];
+    }
   }
+}
+
+// u -= h_i V_i for i = 0..j in i order on the thread's rows of tile tt
+// (h[c] column c's coefficients), basis row i + 1's loads issued before row
+// i's arithmetic.
+template <typename TV, int K>
+__device__ __forceinline__ void gk_tile_subtract(const TV* V, long long n, int j, long long tt,
+                                                 float* const (&h)[K],
+                                                 float (&uk)[GK_GMRES_TILE_ROWS][K]) {
+  float nx[GK_GMRES_TILE_ROWS][K];
+  gk_tile_load<TV, K>(V, n, tt, nx);
+  for (int i = 0; i <= j; ++i) {
+    float vi[GK_GMRES_TILE_ROWS][K];
+#pragma unroll
+    for (int q = 0; q < GK_GMRES_TILE_ROWS; ++q) {
+#pragma unroll
+      for (int c = 0; c < K; ++c) vi[q][c] = nx[q][c];
+    }
+    if (i < j) gk_tile_load<TV, K>(V + (long long)(i + 1) * n * K, n, tt, nx);
+    float hi[K];
+#pragma unroll
+    for (int c = 0; c < K; ++c) hi[c] = h[c][i];
+#pragma unroll
+    for (int q = 0; q < GK_GMRES_TILE_ROWS; ++q) {
+      if (gk_tile_row(tt, q) < n) {
+#pragma unroll
+        for (int c = 0; c < K; ++c) uk[q][c] = uk[q][c] - hi[c] * vi[q][c];
+      }
+    }
+  }
+}
+
+// After the pass's tiles: the block's partial of dot (i, c), its warps'
+// running sums added in warp order, to part[(i * gridDim.x + b) * K + c]
+// (sum_dots_cols's layout); then every warp's sums are zeroed for the next
+// pass.  Call with the whole block.
+template <int K>
+__device__ __forceinline__ void gk_block_dots(double* wsum, int stride, int j, double* part) {
+  __syncthreads();
+  for (int e = threadIdx.x; e < (j + 1) * K; e += GK_CG_THREADS) {
+    double s = 0.0;
+#pragma unroll
+    for (int w = 0; w < GK_CG_WARPS; ++w) s += wsum[w * stride + e];
+    part[((long long)(e / K) * gridDim.x + blockIdx.x) * K + e % K] = s;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < GK_CG_WARPS * stride; e += GK_CG_THREADS) wsum[e] = 0.0;
+  __syncthreads();
 }
 
 template <int K>
@@ -393,6 +588,12 @@ struct GmresMultiParams {
   int* itc_out;   // (K,)
 };
 
+// Floats of K15m's per-column scalar state, rounded up to whole doubles; the
+// warps' running dot sums follow it (gmres_multi_smem).
+__host__ __device__ inline int gmres_multi_state_floats(int k, int m) {
+  return (k * (m * m + 7 * m + 3) + 1) & ~1;
+}
+
 template <typename TD, typename TV, int K>
 __global__ void __launch_bounds__(GK_CG_THREADS)
     gmres_fused_multi_kernel(const GmresMultiParams P) {
@@ -418,6 +619,11 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
     y[c] = sn[c] + m;
     Rm[c] = y[c] + m;
   }
+  // the warps' running dot sums: warp w's at wsum[w * (m + 1) K ..]
+  const int ws_stride = (m + 1) * K;
+  double* wsum = reinterpret_cast<double*>(sm + gmres_multi_state_floats(K, m));
+  double* ws = wsum + (threadIdx.x >> 5) * ws_stride;
+  for (int e = threadIdx.x; e < GK_CG_WARPS * ws_stride; e += GK_CG_THREADS) wsum[e] = 0.0;
 
   const TD* __restrict__ D = static_cast<const TD*>(P.diags);
   TV* V = static_cast<TV*>(P.V);
@@ -425,6 +631,8 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
   const long long nK = n * K;
   const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long ntiles = (n + (long long)GK_CG_THREADS * GK_GMRES_TILE_ROWS - 1) /
+                           ((long long)GK_CG_THREADS * GK_GMRES_TILE_ROWS);
   const int G = gridDim.x;
   double* part_b = P.part;                                // [m + 1][G][K] basis dots
   double* part_r = P.part + (long long)(m + 1) * G * K;  // [G][2K] r.r, z.z
@@ -443,6 +651,7 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
     for (int c = 0; c < 2 * K; ++c) acc[c] = 0.0;
     for (long long k = t0; k < n; k += stride) {
       float ax[K];
+      // x0 is the caller's: read as scalars, whatever its alignment
       gk_dia_row_cols<TD, float, K>(D, P.offs, n, k, P.x0, ax);
       const float mk = minv ? minv[k] : 1.f;
 #pragma unroll
@@ -486,12 +695,14 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
     }
     for (long long k = t0; k < n; k += stride) {
       const float mk = minv ? minv[k] : 1.f;
+      float v0[K];
 #pragma unroll
       for (int c = 0; c < K; ++c) {
-        const long long e = k * K + c;
-        const float zk = minv ? mk * u[e] : u[e];
-        gk_store(V + e, zk * inv_beta[c]);
+        const float uk = u[k * K + c];
+        const float zk = minv ? mk * uk : uk;
+        v0[c] = zk * inv_beta[c];
       }
+      GkRowK<TV, K>::store(V, k, v0);
     }
     if (threadIdx.x == 0) {
 #pragma unroll
@@ -513,16 +724,29 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
     }
     int j = 0;
     while (any_act && j < m) {
-      // U = M A V_j; first dots <V_i, u>
+      // pass A: U = M A V_j; first dots <V_i, u>
       const TV* Vj = V + (long long)j * nK;
-      for (long long k = t0; k < n; k += stride) {
-        float av[K];
-        gk_dia_row_cols<TD, TV, K>(D, P.offs, n, k, Vj, av);
-        const float mk = minv ? minv[k] : 1.f;
+      for (long long tt = blockIdx.x; tt < ntiles; tt += G) {
+        double ud[GK_GMRES_TILE_ROWS][K];
 #pragma unroll
-        for (int c = 0; c < K; ++c) u[k * K + c] = minv ? mk * av[c] : av[c];
+        for (int q = 0; q < GK_GMRES_TILE_ROWS; ++q) {
+          const long long row = gk_tile_row(tt, q);
+          float uk[K];
+#pragma unroll
+          for (int c = 0; c < K; ++c) uk[c] = 0.f;
+          if (row < n) {
+            gk_dia_row_rows<TD, TV, K>(D, P.offs, n, row, Vj, uk);
+            const float mk = minv ? minv[row] : 1.f;
+#pragma unroll
+            for (int c = 0; c < K; ++c) uk[c] = minv ? mk * uk[c] : uk[c];
+            GkRowK<float, K>::store(u, row, uk);
+          }
+#pragma unroll
+          for (int c = 0; c < K; ++c) ud[q][c] = uk[c];
+        }
+        gk_tile_dots<TV, K>(V, n, j, tt, ud, ws);
       }
-      basis_dots_cols<TV, K>(V, u, j, n, part_b, shK);
+      gk_block_dots<K>(wsum, ws_stride, j, part_b);
       grid.sync();
       sum_dots_cols<K>(part_b, P.hd, j, shK, bcK);
       grid.sync();
@@ -532,18 +756,28 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
       }
       __syncthreads();
 
-      // first subtraction u -= h1_i V_i in i order; second dots
-      for (long long k = t0; k < n; k += stride) {
+      // pass B: u -= h1_i V_i in i order; second dots
+      for (long long tt = blockIdx.x; tt < ntiles; tt += G) {
+        float uk[GK_GMRES_TILE_ROWS][K];
 #pragma unroll
-        for (int c = 0; c < K; ++c) {
-          const long long e = k * K + c;
-          float uk = u[e];
-          for (int i = 0; i <= j; ++i)
-            uk = uk - h1[c][i] * gk_to_float(__ldcg(V + (long long)i * nK + e));
-          u[e] = uk;
+        for (int q = 0; q < GK_GMRES_TILE_ROWS; ++q) {
+          const long long row = gk_tile_row(tt, q);
+#pragma unroll
+          for (int c = 0; c < K; ++c) uk[q][c] = 0.f;
+          if (row < n) GkRowK<float, K>::load_cg(u, row, uk[q]);
         }
+        gk_tile_subtract<TV, K>(V, n, j, tt, h1, uk);
+        double ud[GK_GMRES_TILE_ROWS][K];
+#pragma unroll
+        for (int q = 0; q < GK_GMRES_TILE_ROWS; ++q) {
+          const long long row = gk_tile_row(tt, q);
+          if (row < n) GkRowK<float, K>::store(u, row, uk[q]);
+#pragma unroll
+          for (int c = 0; c < K; ++c) ud[q][c] = uk[q][c];
+        }
+        gk_tile_dots<TV, K>(V, n, j, tt, ud, ws);
       }
-      basis_dots_cols<TV, K>(V, u, j, n, part_b, shK);
+      gk_block_dots<K>(wsum, ws_stride, j, part_b);
       grid.sync();
       sum_dots_cols<K>(part_b, P.hd, j, shK, bcK);
       grid.sync();
@@ -553,20 +787,29 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
       }
       __syncthreads();
 
-      // second subtraction; partial u.u
+      // pass C: u -= h2_i V_i in i order; partial u.u
       {
         double acc[K];
 #pragma unroll
         for (int c = 0; c < K; ++c) acc[c] = 0.0;
-        for (long long k = t0; k < n; k += stride) {
+        for (long long tt = blockIdx.x; tt < ntiles; tt += G) {
+          float uk[GK_GMRES_TILE_ROWS][K];
 #pragma unroll
-          for (int c = 0; c < K; ++c) {
-            const long long e = k * K + c;
-            float uk = u[e];
-            for (int i = 0; i <= j; ++i)
-              uk = uk - h2[c][i] * gk_to_float(__ldcg(V + (long long)i * nK + e));
-            u[e] = uk;
-            acc[c] += (double)uk * uk;
+          for (int q = 0; q < GK_GMRES_TILE_ROWS; ++q) {
+            const long long row = gk_tile_row(tt, q);
+#pragma unroll
+            for (int c = 0; c < K; ++c) uk[q][c] = 0.f;
+            if (row < n) GkRowK<float, K>::load_cg(u, row, uk[q]);
+          }
+          gk_tile_subtract<TV, K>(V, n, j, tt, h2, uk);
+#pragma unroll
+          for (int q = 0; q < GK_GMRES_TILE_ROWS; ++q) {
+            const long long row = gk_tile_row(tt, q);
+            if (row < n) {
+              GkRowK<float, K>::store(u, row, uk[q]);
+#pragma unroll
+              for (int c = 0; c < K; ++c) acc[c] += (double)uk[q][c] * uk[q][c];
+            }
           }
         }
         block_partial<K>(acc, part_n, shK);
@@ -622,11 +865,20 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
         any_act = any_act || act[c];
       }
 
-      // V_{j+1} = u / |u| in every column
+      // pass D: V_{j+1} = u / |u| in every column
       TV* Vn = V + (long long)(j + 1) * nK;
-      for (long long k = t0; k < n; k += stride) {
+      for (long long tt = blockIdx.x; tt < ntiles; tt += G) {
 #pragma unroll
-        for (int c = 0; c < K; ++c) gk_store(Vn + k * K + c, u[k * K + c] * inv_h[c]);
+        for (int q = 0; q < GK_GMRES_TILE_ROWS; ++q) {
+          const long long row = gk_tile_row(tt, q);
+          if (row < n) {
+            float uk[K];
+            GkRowK<float, K>::load_cg(u, row, uk);
+#pragma unroll
+            for (int c = 0; c < K; ++c) uk[c] = uk[c] * inv_h[c];
+            GkRowK<TV, K>::store(Vn, row, uk);
+          }
+        }
       }
       ++it;
       ++j;
@@ -653,14 +905,17 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
 
     // x += y_i V_i in i order over the shared steps
     for (long long k = t0; k < n; k += stride) {
+      float xk[K];
 #pragma unroll
-      for (int c = 0; c < K; ++c) {
-        const long long e = k * K + c;
-        float xk = x[e];
-        for (int i = 0; i < steps; ++i)
-          xk = xk + y[c][i] * gk_to_float(__ldcg(V + (long long)i * nK + e));
-        x[e] = xk;
+      for (int c = 0; c < K; ++c) xk[c] = x[k * K + c];
+      for (int i = 0; i < steps; ++i) {
+        float vi[K];
+        GkRowK<TV, K>::load_cg(V + (long long)i * nK, k, vi);
+#pragma unroll
+        for (int c = 0; c < K; ++c) xk[c] = xk[c] + y[c][i] * vi[c];
       }
+#pragma unroll
+      for (int c = 0; c < K; ++c) x[k * K + c] = xk[c];
     }
     grid.sync();
 
@@ -671,7 +926,7 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
       for (int c = 0; c < 2 * K; ++c) acc[c] = 0.0;
       for (long long k = t0; k < n; k += stride) {
         float ax[K];
-        gk_dia_row_cols<TD, float, K>(D, P.offs, n, k, x, ax);
+        gk_dia_row_rows<TD, float, K>(D, P.offs, n, k, x, ax);
         const float mk = minv ? minv[k] : 1.f;
 #pragma unroll
         for (int c = 0; c < K; ++c) {
@@ -834,9 +1089,19 @@ extern "C" int pell_gmres_fused_solve(
     default: return (int)cudaErrorInvalidValue;  \
   }
 
+// K15m's dynamic shared memory: the per-column scalar state and the warps'
+// running dot sums, 8 GK_CG_WARPS (m + 1) k bytes (opted in above 48 KB).
+static size_t gmres_multi_smem(int k, int m) {
+  return sizeof(float) * (size_t)gmres_multi_state_floats(k, m) +
+         sizeof(double) * GK_CG_WARPS * (size_t)(m + 1) * k;
+}
+
 template <int K>
 static int multi_grid(int d_dtype, int v_dtype, size_t smem, int* blocks) {
-#define GK_GRID(TD, TV) gk_coop_blocks(gmres_fused_multi_kernel<TD, TV, K>, blocks, smem)
+#define GK_GRID(TD, TV)                                                           \
+  (gk_smem_optin(gmres_fused_multi_kernel<TD, TV, K>, (long long)smem) != 0        \
+       ? (int)cudaErrorInvalidValue                                               \
+       : gk_coop_blocks(gmres_fused_multi_kernel<TD, TV, K>, blocks, smem))
   GK_GMRES_DISPATCH(d_dtype, v_dtype, GK_GRID)
 #undef GK_GRID
 }
@@ -844,17 +1109,19 @@ static int multi_grid(int d_dtype, int v_dtype, size_t smem, int* blocks) {
 template <int K>
 static int multi_launch(int d_dtype, int v_dtype, const GmresMultiParams& P, size_t smem,
                         int blocks, void* stream) {
-#define GK_LAUNCH(TD, TV) \
-  gk_coop_launch(gmres_fused_multi_kernel<TD, TV, K>, P, blocks, stream, smem)
+#define GK_LAUNCH(TD, TV)                                                          \
+  (gk_smem_optin(gmres_fused_multi_kernel<TD, TV, K>, (long long)smem) != 0         \
+       ? (int)cudaErrorInvalidValue                                                \
+       : gk_coop_launch(gmres_fused_multi_kernel<TD, TV, K>, P, blocks, stream, smem))
   GK_GMRES_DISPATCH(d_dtype, v_dtype, GK_LAUNCH)
 #undef GK_LAUNCH
 }
 
 // Blocks of K15m's cooperative grid for the dtypes, k columns and the
-// Krylov dimension m (the per-column shared memory, k gmres_smem(m)).
+// Krylov dimension m (which size the shared memory, gmres_multi_smem).
 extern "C" int gmres_fused_multi_grid(int d_dtype, int v_dtype, int k, int m, int* blocks) {
   if (m < 1 || m > GK_GMRES_MULTI_MAX_M) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)k * gmres_smem(m);
+  const size_t smem = gmres_multi_smem(k, m);
 #define GK_GRID_K(K) multi_grid<K>(d_dtype, v_dtype, smem, blocks)
   GK_GMRES_SWITCH_K(k, GK_GRID_K)
 #undef GK_GRID_K
@@ -888,7 +1155,7 @@ extern "C" int gmres_fused_multi_solve(
   P.rr_out = rr_out;
   P.conv_out = conv_out;
   P.itc_out = itc_out;
-  const size_t smem = (size_t)k * gmres_smem(m);
+  const size_t smem = gmres_multi_smem(k, m);
 #define GK_LAUNCH_K(K) multi_launch<K>(d_dtype, v_dtype, P, smem, blocks, stream)
   GK_GMRES_SWITCH_K(k, GK_LAUNCH_K)
 #undef GK_LAUNCH_K

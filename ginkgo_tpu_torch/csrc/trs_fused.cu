@@ -917,39 +917,6 @@ extern "C" int bicgstab_ilu_fused_solve(
 #define GK_PLAN_HEAD 9
 #define GK_PLAN_WALK 5
 
-template <typename Kernel>
-static int gk_walk_prepare(Kernel kernel, long long smem) {
-  if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-}
-
-// A kernel's blocks an SM at smem bytes of dynamic shared memory and
-// `threads` threads a block (0 where smem exceeds what a block may opt in
-// to), its registers a thread, and the SMs.
-struct GkOccupancy {
-  int per_sm, regs, sms;
-};
-
-template <typename Kernel>
-static int gk_occupancy(Kernel kernel, long long smem, int threads, GkOccupancy* o) {
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&o->sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaFuncAttributes attr;
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
-  if (e != cudaSuccess) return (int)e;
-  o->regs = attr.numRegs;
-  o->per_sm = 0;
-  if (smem > (long long)optin - (long long)attr.sharedSizeBytes) return 0;
-  const int st = gk_walk_prepare(kernel, smem);
-  if (st != 0) return st;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o->per_sm, kernel, threads,
-                                                            (size_t)smem);
-}
-
 // The plan's head: route (1 the walk, 0 the barrier routine), blocks,
 // threads a block, rows a walk step, dynamic shared memory a block, blocks
 // an SM, registers a thread, grid barriers (K22 a launch, K23 an
@@ -1047,7 +1014,7 @@ static int trs_walk_launch(const void* diags, const long long* offsets, int nd, 
   P.b = b;
   P.x = x;
   const void* kernel = trs_walk_fn<TT>(W.dir, nd, sweeps);
-  int e = gk_walk_prepare(kernel, smem);
+  int e = gk_smem_optin(kernel, smem);
   if (e != 0) return e;
   void* args[] = {&P};
   e = (int)cudaLaunchKernel((const void*)kernel, dim3(blocks), dim3(GK_TRS_WALK_THREADS), args,
@@ -1178,7 +1145,7 @@ static int cg_ilu_walk_launch(const void* a_diags, const long long* a_offsets, i
   P.mon_out = mon_out;
   P.conv_out = conv_out;
   const void* kernel = cg_ilu_walk_fn<TA, TT>(l_nd, u_nd, sweeps_l, sweeps_u);
-  const int e = gk_walk_prepare(kernel, smem);
+  const int e = gk_smem_optin(kernel, smem);
   if (e != 0) return e;
   return gk_coop_launch(kernel, P, blocks, stream, (size_t)smem, GK_CG_ILU_WALK_THREADS);
 }

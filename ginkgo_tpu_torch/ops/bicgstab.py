@@ -11,6 +11,14 @@ diagonal M folded into the operator: ``diags`` hold A M
 update.  The whole loop, with the half-step check on s and the stop test,
 runs in one persistent cooperative CUDA kernel (``csrc/bicgstab_fused.cu``).
 
+K12 has two routes, chosen from the offsets alone by :func:`ring_plan`:
+the ring route, three passes and three grid barriers an iteration, each
+block walking its own rows and a halo of w = max |offset| rows on each
+side through a ring of shared memory; or, where the ring does not fit a
+block (w above 6,656 rows with five float32 diagonals), the five-pass
+kernel that K19 and K12m share in form.  Both give the plain version's
+bits; ``bicgstab_fused.routes`` counts the launches of each route.
+
 Semantics, shared by the kernel and :func:`bicgstab_solve_reference`:
 
 - shadow residual rr = r0, rho = <r0, r0>, p = v = 0, and the carried
@@ -33,6 +41,7 @@ The loop runs while it < max_iters and any column is active.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -46,6 +55,49 @@ from .cg import (
     coop_grid_blocks,
 )
 from .dia import DTYPE_CODE, check_status, dia_spmv_reference, offsets_array, on_cpu
+
+#: rows a step of K12's ring walk forms (csrc/bicgstab_fused.cu GK_BCG_CHUNK)
+RING_CHUNK = 1024
+#: stages of the walk's input ring (GK_BCG_STAGES)
+RING_STAGES = 3
+#: most rows of K12's ring (GK_BCG_MAX_RING)
+RING_MAX_ROWS = 32768
+#: most dynamic shared memory the ring route asks for: an H100 block's
+#: 227 KB, less 2 KB for the kernel's static shared memory
+RING_MAX_SMEM = 227 * 1024 - 2048
+
+
+@dataclass(frozen=True)
+class RingPlan:
+    """K12's ring: w = max |offset|; the rows of the ring, a power of two
+    >= 2 w + 3 C (the 2 w + C positions a walk step reads and the C it
+    writes never share a place); the dynamic shared memory of the ring and
+    the stages of the input ring (``gk_bcg_smem``)."""
+
+    width: int
+    ring_rows: int
+    smem: int
+    chunk: int = RING_CHUNK
+
+
+def ring_smem(ring_rows, nd, diag_size):
+    """Shared memory of the ring route (``gk_bcg_smem``): the ring, then
+    RING_STAGES stages of four vectors and nd diagonals of a chunk each."""
+    diag_bytes = (RING_CHUNK * diag_size + 4 + 15) & ~15
+    return 4 * ring_rows + RING_STAGES * (16 * RING_CHUNK + nd * diag_bytes)
+
+
+def ring_plan(offsets, n, diag_size=4):
+    """K12's route for a Dia with these offsets, n rows and diagonals of
+    ``diag_size`` bytes: its ring, or None where the ring and its stages
+    would outgrow a block's shared memory (the five-pass kernel then
+    runs)."""
+    width = max(abs(int(o)) for o in offsets)
+    rows = 1 << (2 * width + 3 * RING_CHUNK - 1).bit_length()
+    smem = ring_smem(rows, len(offsets), diag_size)
+    if rows > RING_MAX_ROWS or smem > RING_MAX_SMEM or n + rows >= 2**30:
+        return None
+    return RingPlan(width, rows, smem)
 
 
 def bicgstab_loop_reference(spmv, r0, x0, minv=None, *, tol_sq_eff, max_iters,
@@ -165,11 +217,13 @@ def _lib():
         offs, blocks = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)
         lib.bicgstab_fused_grid.argtypes = [I, blocks]
         lib.bicgstab_fused_multi_grid.argtypes = [I, I, blocks]
+        lib.bicgstab_ring_config.argtypes = [I, I, I, ctypes.POINTER(L)]
         lib.bicgstab_fused_solve.argtypes = [
             P, I, offs, I, L,  # diags, offsets, n
             P, P, P, P,  # r0, x0, minv, tol_sq
             I, I,  # max_iters, implicit
             P, P, P, P, P, P, P,  # x, r, rr, v, t, p, s
+            P, P, I,  # p1, v1, ring rows (0: the five-pass kernel)
             P, I,  # partials, blocks
             P, P, P, P,  # it_out, mon_out, conv_out, stream
         ]
@@ -190,7 +244,7 @@ def _lib():
             P, I,  # partials, blocks
             P, P, P, P,  # it_out, mon_out, conv_out, stream
         ]
-        for fn in (lib.bicgstab_fused_grid, lib.bicgstab_fused_solve,
+        for fn in (lib.bicgstab_fused_grid, lib.bicgstab_ring_config, lib.bicgstab_fused_solve,
                    lib.bicgstab_fused_multi_grid, lib.bicgstab_fused_multi_solve,
                    lib.pell_bicgstab_fused_grid, lib.pell_bicgstab_fused_solve):
             fn.restype = I
@@ -198,6 +252,38 @@ def _lib():
         lib.gk_error_string.restype = ctypes.c_char_p
         lib.gk_typed = True
     return lib
+
+
+#: bicgstab_fused_launch's figures, in the order bicgstab_ring_config writes them
+LAUNCH_FIELDS = ("blocks", "threads", "smem", "blocks_per_sm", "registers")
+_LAUNCHES: dict = {}
+
+
+def bicgstab_fused_launch(diags, offsets, device):
+    """K12's route and launch for these diagonals on a CUDA device, asked
+    once per (dtype, offsets, n, device): "route" ("ring" or "barrier"),
+    the grid's blocks, threads a block, dynamic shared memory a block,
+    blocks an SM and registers a thread (the ring route's), the ring's rows
+    and width, and the grid barriers an iteration."""
+    n = diags.shape[1]
+    key = (diags.dtype, tuple(int(o) for o in offsets), n, device.index)
+    if key not in _LAUNCHES:
+        lib = _lib()
+        code = DTYPE_CODE[diags.dtype]
+        plan = ring_plan(offsets, n, diags.element_size())
+        if plan is None:
+            blocks = coop_grid_blocks(lib, "bicgstab_fused_grid", (code,), device)
+            launch = {"route": "barrier", "blocks": blocks, "ring_rows": 0, "width": 0,
+                      "grid_barriers": 5}
+        else:
+            out = (ctypes.c_longlong * len(LAUNCH_FIELDS))()
+            with torch.cuda.device(device):
+                status = lib.bicgstab_ring_config(code, len(offsets), plan.ring_rows, out)
+            check_status(lib, status, "bicgstab_ring_config")
+            launch = {"route": "ring", **dict(zip(LAUNCH_FIELDS, out)),
+                      "ring_rows": plan.ring_rows, "width": plan.width, "grid_barriers": 3}
+        _LAUNCHES[key] = launch
+    return _LAUNCHES[key]
 
 
 def bicgstab_fused(diags, offsets, r0, x0, minv=None, *, tol_sq_eff, max_iters,
@@ -218,28 +304,38 @@ def bicgstab_fused(diags, offsets, r0, x0, minv=None, *, tol_sq_eff, max_iters,
     n = diags.shape[1]
     check_solve_vectors("bicgstab_fused", (n,), dev, (r0, x0), minv, tol, 1)
     lib = _lib()
-    code = DTYPE_CODE[diags.dtype]
-    blocks = coop_grid_blocks(lib, "bicgstab_fused_grid", (code,), dev)
-    x, r, rr, v, t, p, s = (torch.empty_like(r0) for _ in range(7))
-    part = torch.empty(6 * blocks, dtype=torch.float64, device=dev)
+    launch = bicgstab_fused_launch(diags, offsets, dev)
+    ring = launch["route"] == "ring"
+    x, r, rr, v, t, p = (torch.empty_like(r0) for _ in range(6))
+    # the ring route alternates p and v between two buffers and keeps s in
+    # shared memory; the five-pass kernel writes s
+    s, p1, v1 = (torch.empty_like(r0), None, None) if not ring else (
+        None, torch.empty_like(r0), torch.empty_like(r0))
+    part = torch.empty(6 * launch["blocks"], dtype=torch.float64, device=dev)
     it_conv = torch.empty(2, dtype=torch.int32, device=dev)
     mon = torch.empty(1, dtype=torch.float32, device=dev)
+
+    def ptr(a):
+        return None if a is None else a.data_ptr()
+
     with torch.cuda.device(dev):
         status = lib.bicgstab_fused_solve(
-            diags.data_ptr(), code, offsets_array(offsets), len(offsets), n,
-            r0.data_ptr(), x0.data_ptr(), None if minv is None else minv.data_ptr(),
-            tol.data_ptr(), min(int(max_iters), 2**31 - 1), int(bool(use_implicit)),
+            diags.data_ptr(), DTYPE_CODE[diags.dtype], offsets_array(offsets), len(offsets), n,
+            r0.data_ptr(), x0.data_ptr(), ptr(minv), tol.data_ptr(),
+            min(int(max_iters), 2**31 - 1), int(bool(use_implicit)),
             x.data_ptr(), r.data_ptr(), rr.data_ptr(), v.data_ptr(), t.data_ptr(),
-            p.data_ptr(), s.data_ptr(), part.data_ptr(), blocks, it_conv.data_ptr(),
-            mon.data_ptr(), it_conv[1:].data_ptr(),
+            p.data_ptr(), ptr(s), ptr(p1), ptr(v1), launch["ring_rows"], part.data_ptr(),
+            launch["blocks"], it_conv.data_ptr(), mon.data_ptr(), it_conv[1:].data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     check_status(lib, status, "bicgstab_fused")
     bicgstab_fused.launches += 1
+    bicgstab_fused.routes[launch["route"]] += 1
     return x, r, it_conv[0], mon[0], it_conv[1] != 0
 
 
 bicgstab_fused.launches = 0
+bicgstab_fused.routes = {"ring": 0, "barrier": 0}
 
 
 def bicgstab_fused_multi(diags, offsets, r0, x0, minv=None, *, tol_sq_eff, max_iters,

@@ -34,7 +34,11 @@ once, :func:`gmres_loop_reference` over an SpMV.  K18 (:func:`pell_gmres_fused`,
 ``_gmres_core`` over the Pell SpMV, in the same CUDA kernel templated on its
 operator.
 
-K15m runs k columns through one Arnoldi step counter j.  Each column has
+K15m runs k columns through one Arnoldi step counter j.  Each step goes
+over the rows in tiles, a thread's rows kept in registers through a pass:
+the product u = M A V_j with the first dots (each basis row read once),
+the first subtraction with the second dots, the second subtraction with
+u.u, then V_{j+1}; a row's k values move as one access.  Each column has
 its own g, rotations and R factor; a column's QR freezes once it stops
 (its basis row is still written).  In a cycle a column stays active while
 ``not (g[j+1]^2 <= tol_sq_eff) and it < max_iters``; the back-substitution
@@ -64,10 +68,11 @@ BASIS_DTYPES = (torch.float32, torch.bfloat16)
 MAX_FUSED_KRYLOV_DIM = 100
 #: most columns K15m takes (the JAX package's k-column GMRES has the same cap)
 MAX_FUSED_GMRES_COLS = 4
-#: largest Krylov dimension K15m takes: 4 k (m^2 + 7 m + 3) bytes of
-#: per-column scalar state in shared memory stay under the 48 KB a block
-#: gets without opting in for k = 4 (csrc/gmres_fused.cu GK_GMRES_MULTI_MAX_M).
-#: The JAX package's gate is a VMEM fit instead; a larger m streams here.
+#: largest Krylov dimension K15m takes (csrc/gmres_fused.cu
+#: GK_GMRES_MULTI_MAX_M): 4 k (m^2 + 7 m + 3) bytes of per-column scalar
+#: state in shared memory, beside 64 (m + 1) k bytes of the warps' running
+#: dot sums.  The JAX package's gate is a VMEM fit instead; a larger m
+#: streams here.
 MAX_FUSED_KRYLOV_DIM_MULTI = 50
 
 

@@ -112,6 +112,26 @@ For ``trs_fused`` and ``cg_ilu_fused`` (path 7's ParIc and ParIlu of the
   checkout's bits, and K23's solve to 1e-6 (ILU: to path 7's cap of 5000)
   with its iterations.
 
+For ``bicgstab_fused`` (K12) and ``gmres_fused_multi`` (K15m, k = 4, m = 30)
+on path 1's ``poisson_2d(2048)`` ``Dia``:
+
+- ``build``: ptxas's registers and spills of each kernel of their sources,
+  this checkout's and each ``--other``'s;
+- ``check`` (with ``--check``): ``chip_smoke.check_bicgstab_edges`` and
+  ``check_gmres_multi_edges``, bit for bit against the plain versions;
+- ``timing``, one row a case (K12: float32, bfloat16 and Jacobi; K15m: a
+  float32 and a bfloat16 basis): microseconds an iteration (Arnoldi step)
+  by the slope between whole solves of 200 and 1000 iterations (60 and
+  240 steps), this checkout's and each ``--other``'s in turns; the launch
+  (route, blocks, blocks an SM, shared memory, registers); the bytes of the
+  bound and of each design; x against the other checkouts and the plain
+  version (K12: the solve to 1e-6 under path 4's cap of 5000; K15m: 90
+  steps on A1, and a solve to 1e-6 on path 4's A2 with each column's stop
+  step);
+- ``bicgstab_fused_multi`` (K12m, k = 4) and ``gmres_fused`` (K15, m = 30,
+  float32 basis), which share those sources: the same slope in turns and x
+  against the other checkouts.
+
 Without a CUDA device it fails.
 """
 
@@ -133,11 +153,17 @@ import chip_smoke as cs
 #: the kernel library each choice of --kernels builds
 LIBRARY = {"well": "well_spmv", "pell_spmv": "pell_spmv", "bell_spmv": "bell_spmv",
            "cg_fused": "cg_fused", "cg_fused_multi": "cg_fused", "trs_fused": "trs_fused",
-           "cg_ilu_fused": "trs_fused"}
+           "cg_ilu_fused": "trs_fused", "bicgstab_fused": "bicgstab_fused",
+           "gmres_fused_multi": "gmres_fused", "bicgstab_fused_multi": "bicgstab_fused",
+           "gmres_fused": "gmres_fused"}
 #: the whole-solve kernels of --kernels: K4 runs one column, K4m --cg-columns
 CG_KERNELS = ("cg_fused", "cg_fused_multi")
 #: K22 and K23, the kernels of the sweep solve
 TRS_KERNELS = ("trs_fused", "cg_ilu_fused")
+
+#: K12 and K15m, the kernels of the slice-13 redesign, and K12m and K15,
+#: which share their sources and are timed to show them unchanged
+KRYLOV_KERNELS = ("bicgstab_fused", "gmres_fused_multi", "bicgstab_fused_multi", "gmres_fused")
 
 
 def load_other(root: Path, tag: str):
@@ -213,7 +239,8 @@ def main():
     ap.add_argument("--kernels", default="well",
                     help="comma-separated: well (K8/K9), pell_spmv (K5), bell_spmv (K10), "
                          "cg_fused (K4), cg_fused_multi (K4m), trs_fused (K22), "
-                         "cg_ilu_fused (K23)")
+                         "cg_ilu_fused (K23), bicgstab_fused (K12), gmres_fused_multi (K15m), "
+                         "bicgstab_fused_multi (K12m), gmres_fused (K15)")
     ap.add_argument("--rows", type=int, default=cs.POWERLAW_ROWS)
     ap.add_argument("--chunks", default="256", help="chunk lengths to time, comma-separated")
     ap.add_argument("--other", action="append", default=[],
@@ -264,6 +291,16 @@ def main():
         cs.emit({"phase": "check", "kernels": list(TRS_KERNELS), "edge_grids": len(rows),
                  "cases": sum(r["cases"] for r in rows), "all_bit_equal": True,
                  "s": round(time.perf_counter() - t0, 2)})
+    if args.check and "bicgstab_fused" in kernels:
+        t0 = time.perf_counter()
+        rows = cs.check_bicgstab_edges(gt, dev, np.random.default_rng(5))
+        cs.emit({"phase": "check", "kernels": ["bicgstab_fused"], "edge_operators": len(rows),
+                 "all_bit_equal": True, "s": round(time.perf_counter() - t0, 2)})
+    if args.check and "gmres_fused_multi" in kernels:
+        t0 = time.perf_counter()
+        rows = cs.check_gmres_multi_edges(gt, dev, np.random.default_rng(5))
+        cs.emit({"phase": "check", "kernels": ["gmres_fused_multi"], "edge_cases": len(rows),
+                 "all_bit_equal": True, "s": round(time.perf_counter() - t0, 2)})
     cg_kernels = [k for k in kernels if k in CG_KERNELS]
     if cg_kernels:
         bench_cg(cg_kernels, [int(k) for k in args.cg_columns.split(",")], gt, dev, card,
@@ -271,10 +308,13 @@ def main():
     trs_kernels = [k for k in kernels if k in TRS_KERNELS]
     if trs_kernels:
         bench_trs(trs_kernels, gt, dev, card, copy_gbs, others_pkg)
+    krylov_kernels = [k for k in kernels if k in KRYLOV_KERNELS]
+    if krylov_kernels:
+        bench_krylov(krylov_kernels, gt, dev, card, copy_gbs, others_pkg)
     for k in kernels:
         if k == "well":
             bench_well(args, gt, dev, card, copy_gbs, others_pkg)
-        elif k not in CG_KERNELS and k not in TRS_KERNELS:
+        elif k not in CG_KERNELS + TRS_KERNELS + KRYLOV_KERNELS:
             bench_spmv(k, args, gt, dev, card, copy_gbs, others_pkg)
     print(card, flush=True)
 
@@ -795,6 +835,231 @@ def bench_trs(kernels, gt, dev, card, copy_gbs, others_pkg):
                              k: nbytes[k if k in nbytes else "barrier"] / t / 1e3 / copy_gbs
                              for k, t in best.items()},
                          "solve_1e-6": solves})
+
+
+def bench_unchanged(kernels, mods, others, A1, dev, card):
+    """K12m (k = 4) and K15 (m = 30, float32 basis) on A1: microseconds an
+    iteration (step) in turns, and x against the other checkouts."""
+    n = A1.shape[0]
+    B1 = cs.rhs4(n, np.random.default_rng(cs.SEED + 5), dev)
+    b1 = torch.ones(n, device=dev)
+    calls = {
+        "bicgstab_fused_multi": (lambda mod, its: mod.bicgstab_fused_multi(
+            A1.diags, A1.offsets, B1, torch.zeros_like(B1), None,
+            tol_sq_eff=torch.full((4,), -1.0, device=dev), max_iters=its), (200, 1000), 300),
+        "gmres_fused": (lambda mod, its: mod.gmres_fused(
+            A1.diags, A1.offsets, b1, torch.zeros_like(b1), None, m=cs.KRYLOV_DIM,
+            tol_sq_eff=torch.full((), -1.0, device=dev), max_iters=its), (60, 240), 90),
+    }
+    module = {"bicgstab_fused_multi": "bicgstab_fused", "gmres_fused": "gmres_fused_multi"}
+    for kernel in kernels:
+        call, (lo, hi), its = calls[kernel]
+        us = {}
+
+        def measure(tag):
+            mod = mods[tag][module[kernel]]
+            us.setdefault(tag, []).append(1e3 * cs.iter_ms(lambda i: call(mod, i), lo, hi))
+
+        in_turns(measure, others)
+        xs = {tag: call(mods[tag][module[kernel]], its)[0] for tag in mods}
+        cs.emit({"phase": "timing", "kernel": kernel, "case": "a1_f32", "card": card,
+                 "us_per_iteration": us, "iterations_for_bits": its,
+                 "x_bit_equal": {tag: cs.bit_equal(xs["this"], xs[tag]) for tag in others}})
+
+
+def ring_halo_rows(n, width, blocks):
+    """Rows the ring route's walks form beyond the blocks' own: each block's
+    halo of up to w rows on each side of its range."""
+    span = -(-n // blocks)
+    rows = 0
+    for a in range(0, n, span):
+        ln = min(span, n - a)
+        rows += (min(n, a + ln + width) - max(0, a - width)) - ln
+    return rows
+
+
+def krylov_launch(mod, kernel, diags, offsets, dev):
+    """A checkout's K12 launch where it reports one (the ring route's
+    checkouts), else its five-pass grid."""
+    if kernel == "bicgstab_fused" and hasattr(mod, "bicgstab_fused_launch"):
+        return mod.bicgstab_fused_launch(diags, offsets, dev)
+    if kernel == "bicgstab_fused":
+        code = mod.DTYPE_CODE[diags.dtype]
+        return {"route": "barrier", "grid_barriers": 5,
+                "blocks": mod.coop_grid_blocks(mod._lib(), "bicgstab_fused_grid", (code,), dev)}
+    return {}
+
+
+def bench_krylov(kernels, gt, dev, card, copy_gbs, others_pkg):
+    """K12 on path 1's ``poisson_2d(2048)`` Dia (float32, bfloat16, Jacobi)
+    and K15m (k = 4, m = 30, float32 and bfloat16 basis): build rows, then
+    each case's microseconds an iteration (K12) or Arnoldi step (K15m) by
+    the slope between whole solves, this checkout's against each other's
+    in turns, and x and the iteration counts against the other checkouts
+    and the plain version; K12m and K15 where asked for
+    (:func:`bench_unchanged`).  Device time by kernel name is not taken:
+    ``torch.profiler`` read these long cooperative launches short by up to
+    half in some readings on the H100."""
+    from ginkgo_tpu_torch import _build
+    from ginkgo_tpu_torch.ops import bicgstab as ops_bicgstab
+    from ginkgo_tpu_torch.ops import gmres as ops_gmres
+    from ginkgo_tpu_torch.solver._fused_gate import fold_minv
+
+    libs = sorted({LIBRARY[k] for k in kernels})
+    logs = {"this": {lib: _build.BUILD_LOG[lib]["ptxas"] for lib in libs}}
+    for tag, pkg in others_pkg.items():
+        b = importlib.import_module(f"{pkg.__name__}._build")
+        logs[tag] = {lib: b.BUILD_LOG[lib]["ptxas"] for lib in libs}
+    mods = {"this": {"bicgstab_fused": ops_bicgstab, "gmres_fused_multi": ops_gmres}}
+    for tag, pkg in others_pkg.items():
+        mods[tag] = {"bicgstab_fused": importlib.import_module(f"{pkg.__name__}.ops.bicgstab"),
+                     "gmres_fused_multi": importlib.import_module(f"{pkg.__name__}.ops.gmres")}
+    others = [tag for tag in mods if tag != "this"]
+    tokens = {"bicgstab_fused": ("bicgstab_fused_kernel", "bicgstab_ring_kernel"),
+              "gmres_fused_multi": ("gmres_fused_multi_kernel",),
+              "bicgstab_fused_multi": ("bicgstab_fused_multi_kernel",),
+              "gmres_fused": ("gmres_fused_kernelI7GkDiaOp",)}
+    cs.emit({"phase": "build", "kernels": kernels,
+             "ptxas": {tag: {k: line for lib, log in lg.items()
+                             for k, line in ptxas_registers(log).items()
+                             if any(tok in k for kern in kernels for tok in tokens[kern])}
+                       for tag, lg in logs.items()}})
+    A1 = gt.Dia.from_matrix_data(gt.generators.poisson_2d(cs.NSIDE, dtype=np.float32), device=dev)
+    n, nd = A1.shape[0], len(A1.offsets)
+    b1 = torch.ones(n, device=dev)
+    z1 = torch.zeros_like(b1)
+    never = torch.full((), -1.0, device=dev)
+    minv = 1.0 / A1.extract_diagonal().values.float()
+    unchanged = [k for k in ("bicgstab_fused_multi", "gmres_fused") if k in kernels]
+    if unchanged:
+        bench_unchanged(unchanged, mods, others, A1, dev, card)
+    if "bicgstab_fused" in kernels:
+        for case, D, mv in (("f32", A1.diags, None), ("bf16", A1.reduce_storage().diags, None),
+                            ("jacobi", fold_minv(A1, minv), minv)):
+            def solve(tag, its, tol=never, D=D, mv=mv):
+                return mods[tag]["bicgstab_fused"].bicgstab_fused(
+                    D, A1.offsets, b1, z1, mv, tol_sq_eff=tol, max_iters=its)
+
+            us = {}
+
+            def measure(tag):
+                us.setdefault(tag, []).append(1e3 * cs.iter_ms(lambda its: solve(tag, its)))
+
+            in_turns(measure, others)
+            launches = {tag: krylov_launch(mods[tag]["bicgstab_fused"], "bicgstab_fused", D,
+                                           A1.offsets, dev) for tag in mods}
+            tol = torch.full((), (cs.TOL * float(b1.norm())) ** 2, device=dev)
+            solves, xs = {}, {}
+            for tag in mods:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = solve(tag, cs.A1_BICGSTAB_CAP, tol)
+                torch.cuda.synchronize()
+                solves[tag] = {"s": time.perf_counter() - t0, "iterations": int(out[2]),
+                               "converged": bool(out[4])}
+                xs[tag] = out[0]
+            plain = ops_bicgstab.bicgstab_solve_reference(
+                D, A1.offsets, b1, z1, mv, tol_sq_eff=tol, max_iters=cs.A1_BICGSTAB_CAP)
+            solves["plain"] = {"iterations": int(plain[2])}
+            solves["this"]["x_bit_equal_plain"] = cs.bit_equal(xs["this"], plain[0])
+            for tag in others:
+                solves["this"][f"x_bit_equal_{tag}"] = cs.bit_equal(xs["this"], xs[tag])
+            del xs, plain
+            # bytes an iteration: the bound's (the diagonals, rr and minv read
+            # once; x, r, p and v read and written once), the five-pass
+            # kernel's and the ring route's (its halo rows formed again)
+            dsz = nd * D.element_size()
+            jac = 4 * (mv is not None)
+            nbytes = {"bound": (dsz + 36) * n + jac * n,
+                      "five_pass": (2 * dsz + 72) * n + 2 * jac * n}
+            for tag, launch in launches.items():
+                if launch.get("route") == "ring":
+                    halo = ring_halo_rows(n, launch["width"], launch["blocks"])
+                    nbytes[tag] = (2 * dsz + 64 + jac) * n + 20 * halo
+            best = {tag: min(v) for tag, v in us.items()}
+            cs.emit({"phase": "timing", "kernel": "bicgstab_fused", "case": case, "card": card,
+                     "rows": n, "copy_GBps": copy_gbs, "us_per_iteration": us,
+                     "launch": launches, "bytes": nbytes,
+                     "bound_us": nbytes["bound"] / cs.PEAK_BYTES_S * 1e6,
+                     "frac_of_copy_bound_bytes": {
+                         tag: nbytes["bound"] / t / 1e3 / copy_gbs for tag, t in best.items()},
+                     "frac_of_copy_own_bytes": {
+                         tag: nbytes.get(tag, nbytes["five_pass"]) / t / 1e3 / copy_gbs
+                         for tag, t in best.items()},
+                     "solve_1e-6": solves})
+    if "gmres_fused_multi" in kernels:
+        k, m = 4, cs.KRYLOV_DIM
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        launch = {}
+        for tag in mods:
+            mod = mods[tag]["gmres_fused_multi"]
+            for basis in (torch.float32, torch.bfloat16):
+                blocks = mod.coop_grid_blocks(mod._lib(), "gmres_fused_multi_grid",
+                                              (0, mod.DTYPE_CODE[basis], k, m), dev)
+                launch[f"{tag}_{str(basis)[6:]}"] = {"blocks": blocks,
+                                                     "blocks_per_sm": blocks // sms}
+        cs.emit({"phase": "launch", "kernel": "gmres_fused_multi", "k": k, "m": m,
+                 "launch": launch})
+        B1 = cs.rhs4(n, np.random.default_rng(cs.SEED + 5), dev)
+        Z1 = torch.zeros_like(B1)
+        never4 = torch.full((k,), -1.0, device=dev)
+        A2 = gt.Dia.from_matrix_data(gt.MatrixData.from_coo(*cs.convdiff_2d(cs.NSIDE)),
+                                     device=dev)
+        B2 = cs.rhs4(n, np.random.default_rng(cs.SEED + 6), dev)
+        tol2 = ((cs.TOL * B2.norm(dim=0)) ** 2).contiguous()
+        for label, basis, vb in (("f32", torch.float32, 4), ("bf16", torch.bfloat16, 2)):
+            def solve(tag, its, A=A1, B=B1, tol=never4, basis=basis):
+                return mods[tag]["gmres_fused_multi"].gmres_fused_multi(
+                    A.diags, A.offsets, B, torch.zeros_like(B), None, m=m, tol_sq_eff=tol,
+                    max_iters=its, basis_dtype=basis)
+
+            us = {}
+
+            def measure(tag):
+                us.setdefault(tag, []).append(1e3 * cs.iter_ms(lambda its: solve(tag, its),
+                                                               60, 240))
+
+            in_turns(measure, others)
+            # bits: 90 steps (three cycles) on A1, and a solve to 1e-6 on A2 whose
+            # columns stop at different steps
+            runs = {tag: solve(tag, 90) for tag in mods}
+            plain = ops_gmres.gmres_solve_multi_reference(
+                A1.diags, A1.offsets, B1, Z1, None, m=m, tol_sq_eff=never4, max_iters=90,
+                basis_dtype=basis)
+            bits = {"a1_90_steps_plain": cs.bit_equal(runs["this"][0], plain[0])}
+            bits.update({f"a1_90_steps_{tag}": cs.bit_equal(runs["this"][0], runs[tag][0])
+                         for tag in others})
+            del runs, plain
+            solves = {tag: solve(tag, cs.MAX_ITERS, A2, B2, tol2) for tag in mods}
+            plain = ops_gmres.gmres_solve_multi_reference(
+                A2.diags, A2.offsets, B2, torch.zeros_like(B2), None, m=m, tol_sq_eff=tol2,
+                max_iters=cs.MAX_ITERS, basis_dtype=basis)
+            stops = {tag: out[4].tolist() for tag, out in solves.items()}
+            stops["plain"] = plain[4].tolist()
+            bits["a2_solve_plain"] = cs.bit_equal(solves["this"][0], plain[0])
+            bits.update({f"a2_solve_{tag}": cs.bit_equal(solves["this"][0], solves[tag][0])
+                         for tag in others})
+            del solves, plain
+            # bytes a step, averaged over a cycle: the bound's (chip_smoke
+            # time_path5's model), and this design's passes (A: the diagonals,
+            # V_j, u written, the basis rows; B: u in and out, the basis rows
+            # twice; C: u in and out, the basis rows; D: u, V_{j+1}) with pass
+            # B's second read of the basis rows counted and not
+            row = vb * k
+            own = [sum((4 * nd + 96 + 2 * row + reads * row * (j + 1)) * n for j in range(m)) / m
+                   for reads in (4, 3)]
+            cycle_bytes = (sum((4 * nd + (j + 2) * vb * k) * n for j in range(m))
+                           + (4 * nd + (m * vb + 12) * k) * n)
+            nbytes = {"bound": cycle_bytes / m, "this_design": own[0],
+                      "this_design_second_read_from_l2": own[1]}
+            best = {tag: min(v) for tag, v in us.items()}
+            cs.emit({"phase": "timing", "kernel": "gmres_fused_multi", "case": f"k4_m30_{label}",
+                     "card": card, "rows": n, "copy_GBps": copy_gbs, "us_per_step": us,
+                     "bytes_per_step": nbytes,
+                     "bound_us": nbytes["bound"] / cs.PEAK_BYTES_S * 1e6,
+                     "frac_of_copy_bound_bytes": {
+                         tag: nbytes["bound"] / t / 1e3 / copy_gbs for tag, t in best.items()},
+                     "bit_equal": bits, "a2_stop_iterations": stops})
 
 
 def profile_calls(calls):
