@@ -15,8 +15,8 @@ the port that users call:
   (4,096,000 rows, 28,518,400 nonzeros) handed over as a ``Csr`` ->
   ``Pell`` -> ``Cg``/``Fcg``;
 - path 3 (slice 3): a locality-free SPD system, the JAX bench's power-law
-  pattern at 2^20 rows made symmetric (a shifted graph Laplacian L + I,
-  about 11.35M nonzeros), handed over as a ``Csr`` whose "auto" strategy
+  pattern at 2^18 rows made symmetric (a shifted graph Laplacian L + I,
+  about 2.82M nonzeros), handed over as a ``Csr`` whose "auto" strategy
   takes the WELL plan -> ``Cg``; ``choose_format`` -> ``Well`` at 2^17;
   and a 32768^2 block-structured matrix -> ``choose_format`` -> ``Bell``;
 - path 4 (slice 4): a nonsymmetric convection-diffusion operator on the
@@ -66,7 +66,11 @@ Phases, each of which raises on failure:
    past the last tile's end, int32 lane indices, S = 16/32, bfloat16 and
    float64 values, float64 vectors; BR = 8 to 128, K = 1 to 20, x cut
    inside a panel, not 16-byte aligned, NaN in x[0:128] with padding
-   panels); the Pell whole-solve K7 at 24^3 and 160^3;
+   panels); the Pell whole-solve K7 at 24^3 and 160^3 (iterations, x, r
+   and the monitor bit for bit) and on small Pells that reach every
+   branch of its chunks (``check_pell_cg_edges``: S = 1, 3, 8 and 16, G =
+   4, n not a multiple of a chunk or a tile, 63 chunks, bfloat16 values,
+   int32 lane indices, Jacobi, FCG, implicit mode, a NaN b; bit for bit);
 3. main path 1: fused CG (K4) with float32 and bfloat16 diagonals and with
    Jacobi, the streaming CG route (K1), a 4-column solve (K4m) and an
    explicit streaming 4-column solve (K3), each checked against a float64
@@ -125,7 +129,11 @@ Phases, each of which raises on failure:
    K18-K21 against their plain versions on a 24^3 shifted Poisson and the
    64^2 operator (float32/bfloat16 values, int8/int32 lane indices, equal
    iterations and x bit for bit, a NaN case each, IR's zero-sweep case)
-   and at 2048^2 under a cap;
+   and at 2048^2 under a cap; K15 and K18 on edge cases
+   (``check_gmres_edges``: fewer tiles than blocks, n not a multiple of 4,
+   m = 1, 2, 5, 30 and 100, a stop inside a cycle after a restart, a NaN
+   b, a bfloat16 basis, Jacobi, bfloat16 Pell values, int32 lane indices;
+   equal steps, x and the true r.r bit for bit);
 9. main path 7: ``Dia.to_csr``, ParIc and ParIlu on A1 (two ParIlu runs
    bit-identical), the IC and ILU sweep preconditioners, ``Cg`` with each
    fused (K23) and streaming (K1 + K22), ``Bicgstab`` with A2's ILU fused
@@ -163,8 +171,10 @@ Phases, each of which raises on failure:
    kernel name (torch.profiler) in their rows.
 
 The launch counters are set to 0 just before each main path and read just
-after it; every kernel of a path must have run there.  The last lines are
-the kernels' JSON record, the card's name and power limit as nvidia-smi
+after it; every kernel of a path must have run there.  Each phase ends
+with a ``stamp`` line (seconds since the start), and a ``phases`` line
+before the kernels' lists the ten slowest.  The last lines are the
+kernels' JSON record, the card's name and power limit as nvidia-smi
 reports them, and ``{"ok": true, ...}``.  Without a CUDA device, or
 without the package beside it, the script fails and prints no result.
 """
@@ -187,9 +197,13 @@ SMALL = 64
 NSIDE3 = 160
 SMALL3 = 24
 SCATTER_ROWS = 1 << 20
-#: path 3: the power-law system at the size of the JAX package's
-#: multi-million-row WELL figure, and at the JAX bench's own size
+#: the power-law system at the size of the JAX package's multi-million-row
+#: WELL figure (``well_bench.py`` times K8/K9 there), path 3a's size, and
+#: the JAX bench's own size (path 3's ``choose_format``).  Path 3a runs at
+#: 2^18 rows: at 2^20 its host set-up (the "auto" statistics and the WELL
+#: plan) took about 143 s of the run's 900 s budget.
 POWERLAW_ROWS = 1 << 20
+PATH3_ROWS = 1 << 18
 POWERLAW_SMALL = 1 << 17
 #: path 3: row blocks, rows per block, panels per block and column panels
 #: of the JAX package's BELL figure (32768^2, 7.55M nonzeros)
@@ -267,6 +281,13 @@ A1_BICGSTAB_CAP = 5000
 #: path 6: the iteration cap of the full-width kernel-against-plain checks
 CAP6 = 20
 EPS32 = float(np.finfo(np.float32).eps)
+#: the timings' trip counts where the default's 200 and 1000 iterations are
+#: more than a figure needs: the plain versions (their times are no
+#: yardstick of a kernel: a short slope serves; GMRES steps apart) and the
+#: host-bound streaming routes
+PLAIN_TRIPS = (10, 50)
+PLAIN_GMRES_TRIPS = (30, 60)
+STREAM_TRIPS = (50, 250)
 
 
 _T0 = time.perf_counter()
@@ -275,6 +296,26 @@ _T0 = time.perf_counter()
 def elapsed():
     """Seconds since the script started, for the budget of the run."""
     return round(time.perf_counter() - _T0, 1)
+
+
+#: (phase, seconds since the start at its end), in the order of the run
+_STAMPS = []
+
+
+def stamp(phase):
+    """Mark the end of a phase of the run: a line with the seconds since the
+    start; the last lines list the slowest phases (:func:`slowest_phases`)."""
+    _STAMPS.append((phase, elapsed()))
+    emit({"phase": "stamp", "what": phase, "t_s": _STAMPS[-1][1]})
+
+
+def slowest_phases(count=10):
+    """The ``count`` phases that took longest, with their seconds."""
+    spans, t_prev = [], 0.0
+    for phase, t in _STAMPS:
+        spans.append((round(t - t_prev, 1), phase))
+        t_prev = t
+    return [{"phase": p, "s": dt} for dt, p in sorted(spans, reverse=True)[:count]]
 
 
 def check(cond, what):
@@ -491,7 +532,7 @@ def _sync(dev):
         torch.cuda.synchronize()
 
 
-def main_path3(gt, dev, rng, crit, n_big=POWERLAW_ROWS, n_small=POWERLAW_SMALL,
+def main_path3(gt, dev, rng, crit, n_big=PATH3_ROWS, n_small=POWERLAW_SMALL,
                bell_blocks=BELL_BLOCKS):
     """Main path 3 through the entry points a user calls; every check
     raises.  Returns the operators that the kernel checks and the timings
@@ -647,7 +688,7 @@ def main_path3(gt, dev, rng, crit, n_big=POWERLAW_ROWS, n_small=POWERLAW_SMALL,
 
 def check_path3_kernels(gt, dev, rng, p3, record_err):
     """K8-K11 against their plain versions on the plans of path 3: K8/K9 at
-    the chosen T (2^20 rows, float32 and float64 vectors, the hub row's
+    the chosen T (2^18 rows, float32 and float64 vectors, the hub row's
     supertile split into chunks; 2^17 rows), at T = 1 (2^17 rows, forced)
     and on the 2^17 plan with one G-slot step a chunk (every supertile
     split), each called twice; K10/K11 with float32 and bfloat16 panels,
@@ -1406,14 +1447,166 @@ def check_gmres_multi_edges(gt, dev, rng, record_err=None):
     return rows
 
 
+def pell_cg_edge_operators(gt, dev):
+    """Small SPD Pells that reach every branch of K7's chunks: label ->
+    Pell (float32 values).  The shifted 3-D Poisson matrix at 13^3 (2197
+    rows: not a multiple of a chunk, nor of S x 128) with S = 8 (each chunk
+    one tile), S = 8 with G = 4 (several G-slot steps a tile), S = 16 with
+    int32 lane indices (a chunk half a tile), S = 1 and S = 3 (chunks over
+    several tiles: the rows one at a time); and at 40^3 (64,000 rows, 63
+    chunks) with S = 8."""
+    C13 = gt.Csr.from_matrix_data(shifted_poisson_3d(gt, 13), device=dev)
+    C40 = gt.Csr.from_matrix_data(shifted_poisson_3d(gt, 40, seed=9), device=dev)
+    return {
+        "poisson_3d_shifted(13), S = 8": gt.Pell.from_csr(C13),
+        "poisson_3d_shifted(13), S = 8, G = 4": gt.Pell.from_csr(C13, G=4),
+        "poisson_3d_shifted(13), S = 16, int32": gt.Pell.from_csr(C13, S=16, q_dtype=np.int32),
+        "poisson_3d_shifted(13), S = 1": gt.Pell.from_csr(C13, S=1),
+        "poisson_3d_shifted(13), S = 3, G = 8": gt.Pell.from_csr(C13, S=3, G=8),
+        "poisson_3d_shifted(40), S = 8": gt.Pell.from_csr(C40),
+    }
+
+
+def check_pell_cg_edges(gt, dev, rng, record_err=None):
+    """K7 against its plain version on ``pell_cg_edge_operators``, float32
+    and bfloat16 values: CG with the Identity and with Jacobi, FCG with
+    Jacobi, implicit mode, and a NaN in b (both run to the cap).  Each case
+    must take the plain version's iterations and stop flag, and x, r and
+    the monitor bit for bit.  Returns the rows it emitted."""
+    from ginkgo_tpu_torch.ops import pell_cg as ops_pc
+
+    cap = 7
+    rows = []
+    for label, P32 in pell_cg_edge_operators(gt, dev).items():
+        n = P32.shape[0]
+        b = torch.as_tensor(rng.uniform(0.5, 1.5, n).astype(np.float32), device=dev)
+        z = torch.zeros_like(b)
+        tol = torch.full((), (TOL * float(b.double().norm())) ** 2, device=dev)
+        nan_b = b.clone()
+        nan_b[n // 2] = float("nan")
+        row = {"phase": "kernel_check", "kernel": "pell_cg_fused", "matrix": label, "rows": n,
+               "S": P32.S, "G": P32.G, "qidx": str(P32.qidx.dtype)}
+        for storage, P in (("f32", P32), ("bf16", P32.astype(torch.bfloat16))):
+            minv = (1.0 / P.extract_diagonal().values.float()).contiguous()
+            for what, rhs, mv, its, imp, flex in (
+                    ("identity", b, None, MAX_ITERS, False, False),
+                    ("jacobi", b, minv, MAX_ITERS, False, False),
+                    ("jacobi fcg", b, minv, MAX_ITERS, False, True),
+                    ("implicit", b, None, MAX_ITERS, True, False),
+                    ("nan b", nan_b, None, cap, False, False)):
+                kw = dict(tol_sq_eff=tol, max_iters=its, use_implicit=imp, flexible=flex)
+                got = ops_pc.pell_cg_fused(P, rhs, z, mv, **kw)
+                want = ops_pc.pell_cg_solve_reference(P, rhs, z, mv, **kw)
+                _sync(dev)
+                case = f"pell_cg_fused {label} {storage} {what}"
+                kit, pit = int(got[2]), int(want[2])
+                check(kit == pit and bool(got[4]) == bool(want[4]),
+                      f"{case}: {kit} / {pit} iterations, converged {bool(got[4])} / "
+                      f"{bool(want[4])}")
+                check(bit_equal(got[0], want[0]) and bit_equal(got[1], want[1])
+                      and bit_equal(got[3], want[3]), f"{case}: x, r or the monitor differs")
+                if what == "nan b":
+                    check(kit == cap and not bool(got[4]), f"{case}: stopped at {kit}")
+                else:
+                    check(bool(got[4]), f"{case}: not converged")
+                    if record_err is not None:
+                        record_err("pell_cg_fused", got[0], want[0])
+                row[f"{storage} {what}"] = kit
+        rows.append(row)
+        emit(row)
+    return rows
+
+
+def check_gmres_edges(gt, dev, rng, record_err=None):
+    """K15 and K18 against their plain versions at small sizes: K15 on A2's
+    operator at 64^2 (fewer tiles than the grid has blocks) and 701^2
+    (491,401 rows, not a multiple of a tile nor of 4), K18 on it at 64^2 as
+    a Pell and on the shifted 3-D Poisson matrix at 23^3 (12,167 rows) and
+    24^3; m = 1, 2, 5, 30 and 100, a float32 and a bfloat16 basis, the
+    Identity and Jacobi, bfloat16 Pell values and int32 lane indices, and a
+    NaN in b (both run to the cap).  Each case must take the plain
+    version's steps and stop flag, and x and the true r.r bit for bit;
+    among the solves that converge one must restart and stop inside a later
+    cycle.  Returns the rows it emitted."""
+    from ginkgo_tpu_torch.ops import gmres as ops_gmres
+
+    dia = {nside: gt.Dia.from_matrix_data(gt.MatrixData.from_coo(*convdiff_2d(nside)),
+                                          device=dev) for nside in (SMALL, 701)}
+    C64 = gt.Csr.from_matrix_data(gt.MatrixData.from_coo(*convdiff_2d(SMALL)), device=dev)
+    C23 = gt.Csr.from_matrix_data(shifted_poisson_3d(gt, SMALL3 - 1), device=dev)
+    C24 = gt.Csr.from_matrix_data(shifted_poisson_3d(gt, SMALL3), device=dev)
+    pell = {
+        f"convdiff_2d({SMALL}), f32/i8": gt.Pell.from_csr(C64),
+        f"convdiff_2d({SMALL}), bf16/i32": gt.Pell.from_csr(
+            C64, q_dtype=np.int32).astype(torch.bfloat16),
+        f"poisson_3d_shifted({SMALL3 - 1}), f32/i32": gt.Pell.from_csr(C23, q_dtype=np.int32),
+        f"poisson_3d_shifted({SMALL3}), bf16/i8": gt.Pell.from_csr(C24).reduce_storage(),
+    }
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # (kernel, operator, m, basis, Jacobi, cap, NaN in b)
+        ("gmres_fused", SMALL, 1, f32, False, 400, False),
+        ("gmres_fused", SMALL, 2, bf16, True, 400, False),
+        ("gmres_fused", SMALL, 30, f32, False, 400, False),
+        ("gmres_fused", SMALL, 100, f32, True, 400, False),
+        ("gmres_fused", SMALL, 30, f32, False, 25, True),
+        ("gmres_fused", 701, 30, bf16, False, 400, False),
+        ("gmres_fused", 701, 30, f32, True, 400, False),
+        ("pell_gmres_fused", f"convdiff_2d({SMALL}), f32/i8", 30, f32, False, 400, False),
+        ("pell_gmres_fused", f"convdiff_2d({SMALL}), bf16/i32", 5, bf16, True, 400, False),
+        ("pell_gmres_fused", f"poisson_3d_shifted({SMALL3 - 1}), f32/i32", 100, f32, False, 400,
+         False),
+        ("pell_gmres_fused", f"poisson_3d_shifted({SMALL3 - 1}), f32/i32", 1, f32, True, 400,
+         False),
+        ("pell_gmres_fused", f"poisson_3d_shifted({SMALL3}), bf16/i8", 2, bf16, False, 25, True),
+    ]
+    rows = []
+    for kernel, op, m, basis, jacobi, cap, nan in cases:
+        A = dia[op] if kernel == "gmres_fused" else pell[op]
+        n = A.shape[0]
+        b = torch.as_tensor(rng.uniform(0.5, 1.5, n).astype(np.float32), device=dev)
+        if nan:
+            b[n // 3] = float("nan")
+        z = torch.zeros_like(b)
+        tol = torch.full((), (TOL * float(b.double().nan_to_num().norm())) ** 2, device=dev)
+        minv = (1.0 / A.extract_diagonal().values.float()).contiguous() if jacobi else None
+        kw = dict(m=m, tol_sq_eff=tol, max_iters=cap, basis_dtype=basis)
+        if kernel == "gmres_fused":
+            got = ops_gmres.gmres_fused(A.diags, A.offsets, b, z, minv, **kw)
+            want = ops_gmres.gmres_solve_reference(A.diags, A.offsets, b, z, minv, **kw)
+        else:
+            got = ops_gmres.pell_gmres_fused(A, b, z, minv, **kw)
+            want = ops_gmres.pell_gmres_solve_reference(A, b, z, minv, **kw)
+        _sync(dev)
+        case = (f"{kernel} {op if isinstance(op, str) else f'convdiff_2d({op})'} m={m} "
+                f"{str(basis)[6:]} basis{' jacobi' if jacobi else ''}{' nan' if nan else ''}")
+        kit, pit = int(got[1]), int(want[1])
+        kconv, pconv = bool(got[3]), bool(want[3])
+        check(kit == pit and kconv == pconv,
+              f"{case}: {kit} / {pit} steps, converged {kconv} / {pconv}")
+        if nan:
+            check(kit == cap and not kconv, f"{case}: stopped at {kit}")
+        else:
+            check(bit_equal(got[0], want[0]) and bit_equal(got[2], want[2]),
+                  f"{case}: x or the true r.r differs (x by "
+                  f"{float((got[0] - want[0]).abs().max())})")
+            if record_err is not None and kconv:
+                record_err(kernel, got[0], want[0])
+        rows.append({"phase": "kernel_check", "kernel": kernel, "case": case, "rows": n, "m": m,
+                     "steps": kit, "converged": kconv, "true_rr": float(got[2])})
+        emit(rows[-1])
+    check(any(r["converged"] and r["steps"] > r["m"] and r["steps"] % r["m"] != 0 for r in rows),
+          "gmres edges: no solve restarted and stopped inside a later cycle")
+    return rows
+
+
 def time_path4(gt, dev, p4, rec, timing):
     """Per-iteration times on A1 (the 2048^2 Poisson matrix of path 1) by
-    the slope between whole solves: K12-K14 fused and streaming between
-    Iteration(200) and Iteration(1000), their plain versions between 50
-    and 250; K15 per Arnoldi step between Iteration(60) and Iteration(240)
-    (the JAX bench's trip counts, two and eight restart cycles of 30) with
-    a float32 and a bfloat16 basis, streaming too, the plain version
-    between 30 and 90.
+    the slope between whole solves: K12-K14 fused between Iteration(200)
+    and Iteration(1000), streaming between 50 and 250 (STREAM_TRIPS), their
+    plain versions between 10 and 50 (PLAIN_TRIPS); K15 per Arnoldi step
+    between Iteration(60) and Iteration(240) (the JAX bench's trip counts,
+    two and eight restart cycles of 30) with a float32 and a bfloat16
+    basis, streaming too, the plain version between 30 and 60.
 
     Bounds per iteration (each input read once, each output written once,
     the iteration's carried vectors in and out): BiCGSTAB and CGS read the
@@ -1469,8 +1662,8 @@ def time_path4(gt, dev, p4, rec, timing):
     }
     out = {"matrix": f"poisson_2d({NSIDE})", "card": timing["card"]}
     for name, (nbytes, flops) in per_iter.items():
-        f_ms, s_ms = iter_ms(fused(name)), iter_ms(streaming(name))
-        p_ms = iter_ms(plains[name], 50, 250)
+        f_ms, s_ms = iter_ms(fused(name)), iter_ms(streaming(name), *STREAM_TRIPS)
+        p_ms = iter_ms(plains[name], *PLAIN_TRIPS)
         kname = path4_solvers(gt)[name][2]
         rec[kname] = (f_ms, p_ms, None, nbytes, flops)
         out[kname] = {"fused_us": f_ms * 1e3, "streaming_us": s_ms * 1e3, "plain_us": p_ms * 1e3,
@@ -1485,7 +1678,7 @@ def time_path4(gt, dev, p4, rec, timing):
                      "GBps": cycle_bytes / m / ms / 1e6}
         if label == "f32":
             gm["streaming_us_per_step"] = iter_ms(streaming("gmres"), 60, 240) * 1e3
-            p_ms = iter_ms(plains["gmres"], 30, 90)
+            p_ms = iter_ms(plains["gmres"], *PLAIN_GMRES_TRIPS)
             gm["plain_us_per_step"] = p_ms * 1e3
             rec["gmres_fused"] = (ms, p_ms, None, cycle_bytes / m, cycle_flops / m)
     out["gmres_fused"] = gm
@@ -1930,9 +2123,9 @@ def time_path5(gt, dev, p4, rec, timing):
     out = {"matrix": f"poisson_2d({NSIDE})", "card": timing["card"]}
     # K12m
     f_ms = iter_ms(fused("bicgstab", B1))
-    s_ms = iter_ms(streaming("bicgstab", B1))
+    s_ms = iter_ms(streaming("bicgstab", B1), *STREAM_TRIPS)
     p_ms = iter_ms(lambda its: ops_bicgstab.bicgstab_solve_multi_reference(
-        A1.diags, A1.offsets, B1, Z, None, tol_sq_eff=-1.0, max_iters=its), 50, 250)
+        A1.diags, A1.offsets, B1, Z, None, tol_sq_eff=-1.0, max_iters=its), *PLAIN_TRIPS)
     nbytes, flops = (4 * nd + 36 * k) * n, (4 * nd + 22) * k * n
     rec["bicgstab_fused_multi"] = (f_ms, p_ms, None, nbytes, flops)
     out["bicgstab_fused_multi_k4"] = {"fused_us": f_ms * 1e3, "streaming_us": s_ms * 1e3,
@@ -1950,7 +2143,7 @@ def time_path5(gt, dev, p4, rec, timing):
         if label == "f32":
             gm["streaming_us_per_step"] = iter_ms(streaming("gmres", B1), 30, 90) * 1e3
             p_ms = iter_ms(lambda its: ops_gmres.gmres_solve_multi_reference(
-                A1.diags, A1.offsets, B1, Z, None, m=m, tol_sq_eff=-1.0, max_iters=its), 30, 90)
+                A1.diags, A1.offsets, B1, Z, None, m=m, tol_sq_eff=-1.0, max_iters=its), *PLAIN_GMRES_TRIPS)
             gm["plain_us_per_step"] = p_ms * 1e3
             rec["gmres_fused_multi"] = (ms, p_ms, None, cycle_bytes / m, cycle_flops / m)
     out["gmres_fused_multi_k4"] = gm
@@ -1972,10 +2165,10 @@ def time_path5(gt, dev, p4, rec, timing):
     # K17 per sweep, and the smoother
     nbytes = (4 * nd + 24) * n
     f_ms = iter_ms(fused("ir", b1))
-    s_ms = iter_ms(streaming("ir", b1[:, None]))
+    s_ms = iter_ms(streaming("ir", b1[:, None]), *STREAM_TRIPS)
     p_ms = iter_ms(lambda its: ops_ir.ir_solve_reference(
         A1.diags, A1.offsets, b1, z, inv_diag, omega=1.0, tol_sq_eff=-1.0, max_iters=its),
-        50, 250)
+        *PLAIN_TRIPS)
     rec["ir_fused"] = (f_ms, p_ms, None, nbytes, (2 * nd + 6) * n)
     out["ir_fused"] = {"fused_us": f_ms * 1e3, "streaming_us": s_ms * 1e3,
                        "plain_us": p_ms * 1e3, "GBps": nbytes / f_ms / 1e6}
@@ -2339,8 +2532,8 @@ def time_path6(gt, dev, P, b3, rec, timing):
     out = {"matrix": f"poisson_3d({NSIDE3})", "card": timing["card"], "plan_bytes": plan,
            "cells": cells}
     for name, (nbytes, nbytes_spmv, flops) in per_iter.items():
-        f_ms, s_ms = iter_ms(fused(name)), iter_ms(streaming(name))
-        p_ms = iter_ms(plains[name], 50, 250)
+        f_ms, s_ms = iter_ms(fused(name)), iter_ms(streaming(name), *STREAM_TRIPS)
+        p_ms = iter_ms(plains[name], *PLAIN_TRIPS)
         kname = path6_solvers(gt)[name][2]
         rec[kname] = (f_ms, p_ms, None, nbytes, flops, nbytes_spmv)
         x, info = capped(name, 1000).solve(b3)
@@ -2357,7 +2550,7 @@ def time_path6(gt, dev, P, b3, rec, timing):
                      "GBps": cycle_bytes / m / ms / 1e6}
         if label == "f32":
             gm["streaming_us_per_step"] = iter_ms(streaming("gmres"), 60, 240) * 1e3
-            p_ms = iter_ms(plains["gmres"], 30, 90)
+            p_ms = iter_ms(plains["gmres"], *PLAIN_GMRES_TRIPS)
             gm["plain_us_per_step"] = p_ms * 1e3
             rec["pell_gmres_fused"] = (ms, p_ms, None, cycle_bytes / m, cycle_flops / m,
                                        cycle_bytes / m)
@@ -2939,7 +3132,8 @@ def time_path7(gt, dev, p7, rec, timing):
     """Per-iteration times by the slope between whole solves with
     Iteration-only criteria: K23 with path 7's IC on A1 and K24 with its
     ILU on A2, between Iteration(200) and Iteration(1000), each beside its
-    streaming route (K1 + K22) and its plain version (between 50 and 250);
+    streaming route (K1 + K22, between 50 and 250) and its plain version
+    (between 10 and 50);
     K22 per launch (3 sweeps on A1's IC lower triangle, slope of chained
     launches) beside its plain version.
 
@@ -2993,8 +3187,8 @@ def time_path7(gt, dev, p7, rec, timing):
         nbytes = (4 * (A.num_diags + nd_t) + vec_bytes) * n
         nbytes_sweep = (4 * A.num_diags + 4 * s * nd_t + vec_bytes) * n
         flops = n_m * (2 * A.num_diags * n + tri_flops(M, n)) + vec_flops * n
-        f_ms, st_ms = iter_ms(fused), iter_ms(streaming)
-        p_ms = iter_ms(plain, 50, 250)
+        f_ms, st_ms = iter_ms(fused), iter_ms(streaming, *STREAM_TRIPS)
+        p_ms = iter_ms(plain, *PLAIN_TRIPS)
         rec[kname] = (f_ms, p_ms, None, nbytes, flops)
         out[kname] = {"fused_us": f_ms * 1e3, "streaming_us": st_ms * 1e3, "plain_us": p_ms * 1e3,
                       "bytes": nbytes, "GBps": nbytes / f_ms / 1e6,
@@ -3487,6 +3681,7 @@ def main():
           "kernel_build_s": round(build_s, 3),
           "library_build_s": {k: round(v["seconds"], 3) for k, v in _build.BUILD_LOG.items()},
           "ptxas_registers": regs})
+    stamp("build")
 
     # -- 2a. the DIA kernels and K4 / K4m against their plain versions -------------
     datas = {}
@@ -3599,6 +3794,8 @@ def main():
     emit({"phase": "kernel_check", "kernels": ["cg_fused", "cg_fused_multi"],
           "edge_operators": len(edges), "s": round(time.perf_counter() - t0, 3)})
 
+    stamp("check K1-K4m at 64^2 and 2048^2, K4/K4m edges")
+
     # -- 2b. the PELL kernels against their plain versions --------------------------
     def spmv_pair_check(label, P):
         n = P.shape[0]
@@ -3619,7 +3816,7 @@ def main():
             row[name + "_max_abs_err"] = err
         emit(row)
 
-    def pell_cg_check(label, P, pre, small):
+    def pell_cg_check(label, P, pre):
         n = P.shape[0]
         b = torch.ones(n, device=dev)
         tol_sq = torch.full((), (TOL * float(np.sqrt(n))) ** 2, dtype=torch.float32, device=dev)
@@ -3627,29 +3824,27 @@ def main():
         if pre == "jacobi":
             minv = 1.0 / P.extract_diagonal().values.float()
         t0 = time.perf_counter()
-        kx, _, kit, _, kconv = ops_pell_cg.pell_cg_fused(
+        kx, kr, kit, kmon, kconv = ops_pell_cg.pell_cg_fused(
             P, b, torch.zeros_like(b), minv, tol_sq_eff=tol_sq, max_iters=MAX_ITERS)
         torch.cuda.synchronize()
         k_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        px, _, pit, _, pconv = ops_pell_cg.pell_cg_solve_reference(
+        px, pr, pit, pmon, pconv = ops_pell_cg.pell_cg_solve_reference(
             P, b, torch.zeros_like(b), minv, tol_sq_eff=tol_sq, max_iters=MAX_ITERS)
         torch.cuda.synchronize()
         p_s = time.perf_counter() - t0
         kit, pit = int(kit), int(pit)
         err = record_err("pell_cg_fused", kx, px)
-        rel = float((kx - px).norm() / px.norm())
         what = f"pell_cg_fused {label} {P.dtype} {pre}"
         check(bool(kconv) and bool(pconv), f"{what}: not converged")
-        if small:
-            check(kit == pit, f"{what}: {kit} vs {pit} iterations")
-            check(torch.allclose(kx, px, rtol=1e-5, atol=1e-5), f"{what}: x differs by {err}")
-        else:
-            check(abs(kit - pit) <= 0.01 * pit, f"{what}: {kit} vs {pit} iterations")
-            check(rel <= 1e-3, f"{what}: x differs by {rel} relative")
+        # the kernel and its plain version differ only in the order of their
+        # float64 dot sums: the same iterations, x, r and monitor bit for bit
+        check(kit == pit, f"{what}: {kit} vs {pit} iterations")
+        check(bit_equal(kx, px) and bit_equal(kr, pr) and bit_equal(kmon, pmon),
+              f"{what}: x, r or the monitor differs (x by {err})")
         emit({"phase": "kernel_check", "kernel": "pell_cg_fused", "matrix": label,
               "values": str(P.dtype), "preconditioner": pre, "iters": kit, "plain_iters": pit,
-              "x_max_abs_err": err, "x_rel_err": rel, "s": round(k_s, 4),
+              "x_max_abs_err": err, "bit_equal": True, "s": round(k_s, 4),
               "plain_s": round(p_s, 4)})
 
     data3s = gt.generators.poisson_3d(SMALL3, dtype=np.float32)
@@ -3657,7 +3852,12 @@ def main():
     for Pv in (P, P.reduce_storage()):
         spmv_pair_check(f"poisson_3d({SMALL3})", Pv)
         for pre in ("identity", "jacobi"):
-            pell_cg_check(f"poisson_3d({SMALL3})", Pv, pre, small=True)
+            pell_cg_check(f"poisson_3d({SMALL3})", Pv, pre)
+    t0 = time.perf_counter()
+    edges = check_pell_cg_edges(gt, dev, rng, record_err)
+    emit({"phase": "kernel_check", "kernels": ["pell_cg_fused"], "edge_operators": len(edges),
+          "s": round(time.perf_counter() - t0, 3), "t_s": elapsed()})
+    stamp("check K5-K7 at 24^3, K7 edges")
 
     t0 = time.perf_counter()
     data3 = gt.generators.poisson_3d(NSIDE3, dtype=np.float32)
@@ -3676,7 +3876,7 @@ def main():
           "cells": P3.values.numel(), "plan_bytes": P3.storage_bytes()})
     for Pv in (P3, P3.reduce_storage()):
         spmv_pair_check(f"poisson_3d({NSIDE3})", Pv)
-        pell_cg_check(f"poisson_3d({NSIDE3})", Pv, "identity", small=False)
+        pell_cg_check(f"poisson_3d({NSIDE3})", Pv, "identity")
 
     t0 = time.perf_counter()
     scatter = gt.generators.local_scatter(SCATTER_ROWS)
@@ -3693,10 +3893,12 @@ def main():
         spmv_pair_check(f"local_scatter({SCATTER_ROWS})", Pv)
     del Cs, Ps_auto, Ps8, scatter
     ops_pell._PLAN_CACHE.clear()
+    stamp("check K5-K7 at 160^3, K5/K6 on local_scatter")
     t0 = time.perf_counter()
     edges = check_spmv_edges(gt, dev, rng, record_err)
     emit({"phase": "kernel_check", "kernels": ["pell_spmv", "bell_spmv"], "edge_cases": len(edges),
           "s": round(time.perf_counter() - t0, 3)})
+    stamp("K5/K10 edges")
 
     crit = [stop.Iteration(max_iters=MAX_ITERS), stop.ResidualNorm(tolerance=TOL)]
 
@@ -3789,6 +3991,7 @@ def main():
     check(all(launches1[k] > 0 for k in PATH1), f"a kernel of path 1 never ran: {launches1}")
     emit({"phase": "main_path", "path": 1, "launches": launches1, "t_s": elapsed(),
           "bnorm": bnorm})
+    stamp("path 1")
     x64_ones = X64[:, 0].clone()  # path 4 solves the same system with BiCGSTAB
     del X64
 
@@ -3893,6 +4096,7 @@ def main():
     launches2 = {k: f.launches for k, f in kernels.items()}
     check(all(launches2[k] > 0 for k in PATH2), f"a kernel of path 2 never ran: {launches2}")
     emit({"phase": "main_path", "path": 2, "launches": launches2, "t_s": elapsed()})
+    stamp("path 2")
     x64_3 = X64[:, 0].clone()  # path 7 solves the same system with an IC preconditioner
     del X64
 
@@ -3902,7 +4106,9 @@ def main():
     launches3 = {k: f.launches for k, f in kernels.items()}
     check(all(launches3[k] > 0 for k in PATH3), f"a kernel of path 3 never ran: {launches3}")
     emit({"phase": "main_path", "path": 3, "launches": launches3, "t_s": elapsed()})
+    stamp("path 3")
     check_path3_kernels(gt, dev, rng, p3, record_err)
+    stamp("check K8-K11")
 
     # -- 5b. main path 4: the nonsymmetric Krylov solvers on a Dia -----------------------
     zero_counts()
@@ -3910,8 +4116,11 @@ def main():
     launches4 = {k: f.launches for k, f in kernels.items()}
     check(all(launches4[k] > 0 for k in PATH4), f"a kernel of path 4 never ran: {launches4}")
     emit({"phase": "main_path", "path": 4, "launches": launches4, "t_s": elapsed()})
+    stamp("path 4")
     check_path4_kernels(gt, dev, rng, p4, record_err)
+    stamp("check K12-K15")
     check_bicgstab_edges(gt, dev, rng, record_err)
+    stamp("K12 edges")
 
     # -- 5c. main path 5: k columns, IDR and IR on a Dia -------------------------------
     zero_counts()
@@ -3919,8 +4128,11 @@ def main():
     launches5 = {k: f.launches for k, f in kernels.items()}
     check(all(launches5[k] > 0 for k in PATH5), f"a kernel of path 5 never ran: {launches5}")
     emit({"phase": "main_path", "path": 5, "launches": launches5, "t_s": elapsed()})
+    stamp("path 5")
     check_path5_kernels(gt, dev, rng, p4, p5, kernels, record_err)
+    stamp("check K12m, K15m, K16, K17")
     check_gmres_multi_edges(gt, dev, rng, record_err)
+    stamp("K15m edges")
     del p5
 
     # -- 5d. main path 6: the Krylov solvers on a Pell (Csr -> Pell) -------------------
@@ -3929,8 +4141,15 @@ def main():
     launches6 = {k: f.launches for k, f in kernels.items()}
     check(all(launches6[k] > 0 for k in PATH6), f"a kernel of path 6 never ran: {launches6}")
     emit({"phase": "main_path", "path": 6, "launches": launches6, "t_s": elapsed()})
+    stamp("path 6")
     check_path6_kernels(gt, dev, rng, p4, p6, record_err)
+    stamp("check K18-K21")
     del p6
+    t0 = time.perf_counter()
+    edges = check_gmres_edges(gt, dev, rng, record_err)
+    emit({"phase": "kernel_check", "kernels": ["gmres_fused", "pell_gmres_fused"],
+          "edge_cases": len(edges), "s": round(time.perf_counter() - t0, 3), "t_s": elapsed()})
+    stamp("K15/K18 edges")
 
     # -- 5e. main path 7: triangular solves and incomplete factorizations ----------------
     zero_counts()
@@ -3939,7 +4158,9 @@ def main():
     launches7 = {k: f.launches for k, f in kernels.items()}
     check(all(launches7[k] > 0 for k in PATH7), f"a kernel of path 7 never ran: {launches7}")
     emit({"phase": "main_path", "path": 7, "launches": launches7, "t_s": elapsed()})
+    stamp("path 7")
     check_path7_kernels(gt, dev, rng, p7, record_err)
+    stamp("check K22-K24")
     emit({"phase": "kernel_check", "path": 7, "done": True, "t_s": elapsed()})
     del x64_3
 
@@ -3949,10 +4170,12 @@ def main():
     launches8 = {k: f.launches for k, f in kernels.items()}
     check(all(launches8[k] > 0 for k in PATH8), f"a kernel of path 8 never ran: {launches8}")
     emit({"phase": "main_path", "path": 8, "launches": launches8, "t_s": elapsed()})
+    stamp("path 8")
     launches = {k: launches1[k] + launches2[k] + launches3[k] + launches4[k] + launches5[k]
                 + launches6[k] + launches7[k] + launches8[k] for k in kernels}
     check_path8_kernels(gt, dev, rng, p8, record_err)
     emit({"phase": "kernel_check", "path": 8, "done": True, "t_s": elapsed()})
+    stamp("check K25-K28")
     del x64_ones
 
     # -- 6. timings (printed, not checked) -------------------------------------------
@@ -4085,6 +4308,7 @@ def main():
         "well_spmv": (12 * nnz_pl + 4 * n_pl) / PEAK_BYTES_S * 1e3,
         "well_spmm": (8 * nnz_pl + 4 * 4 * nnz_pl + 16 * n_pl) / PEAK_BYTES_S * 1e3}
     del lib_pl, lib_b
+    stamp("timing K1-K3, K5, K6, K8-K11")
 
     def streaming_well(its):
         gt.Cg.build(criteria=[stop.Iteration(max_iters=its)]).generate(W).solve(p3["b"])
@@ -4143,18 +4367,21 @@ def main():
     }
     timing["cg_us_per_iter"] = {}
     for name, (fz, st, pl, nbytes, flops) in per_iter.items():
-        f_ms, s_ms = iter_ms(fz), iter_ms(st)
-        p_ms = iter_ms(pl, 50, 250)
+        f_ms, s_ms = iter_ms(fz), iter_ms(st, *STREAM_TRIPS)
+        p_ms = iter_ms(pl, *PLAIN_TRIPS)
         rec[name] = (f_ms, p_ms, None, nbytes, flops)
         timing["cg_us_per_iter"][name] = {"fused": f_ms * 1e3, "streaming": s_ms * 1e3,
                                           "plain": p_ms * 1e3,
                                           "GBps": nbytes / f_ms / 1e6}
     timing["cg_iteration_gap_2048"] = gaps
-    time_path4(gt, dev, p4, rec, timing)
-    time_path5(gt, dev, p4, rec, timing)
-    time_path6(gt, dev, P, b3, rec, timing)
-    time_path7(gt, dev, p7, rec, timing)
-    time_path8(gt, dev, p8, rec, timing)
+    stamp("timing K4, K4m, K7, streaming CG on the Well")
+    for step, run in (("timing K12-K15", lambda: time_path4(gt, dev, p4, rec, timing)),
+                      ("timing K12m, K15m, K16, K17", lambda: time_path5(gt, dev, p4, rec, timing)),
+                      ("timing K18-K21 on 160^3", lambda: time_path6(gt, dev, P, b3, rec, timing)),
+                      ("timing K22-K24", lambda: time_path7(gt, dev, p7, rec, timing)),
+                      ("timing K25-K28", lambda: time_path8(gt, dev, p8, rec, timing))):
+        run()
+        stamp(step)
     timing["t_s"] = elapsed()
     emit(timing)
     # the launches of K5 and K10 on the main path's operators (float32), and
@@ -4167,6 +4394,11 @@ def main():
     launch_info["cg_fused_multi"] = ops_cg.cg_fused_launch(torch.float32, 4, dev)
     # K22's and K23's launches on A1's IC triangles
     launch_info.update(timing["slice7"]["launch"])
+    # K7's on the 160^3 Pell, K15's on A2 and K18's on the 160^3 Pell (m =
+    # 30, a float32 basis)
+    launch_info["pell_cg_fused"] = ops_pell_cg.pell_cg_fused_launch(P, dev)
+    launch_info["gmres_fused"] = ops_gmres.gmres_fused_launch(p4["A"], KRYLOV_DIM, device=dev)
+    launch_info["pell_gmres_fused"] = ops_gmres.gmres_fused_launch(P, KRYLOV_DIM, device=dev)
 
     # -- 7. result -----------------------------------------------------------------------
     rows = []
@@ -4185,6 +4417,7 @@ def main():
             rows[-1]["bound_ms_plan_per_spmv"] = bound(rec[name][5], flops)[0]
         if name in launch_info:  # registers, blocks an SM (the ring kernels: shared memory)
             rows[-1].update(launch_info[name])
+    emit({"phase": "phases", "t_s": elapsed(), "slowest": slowest_phases()})
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,8 +38,9 @@ KERNELS = ("dia_spmv", "cg_fused", "pell_spmv", "pell_cg_fused", "well_spmv", "b
            "mg_fused")
 #: sources compiled in parts, and their part counts: trs_fused.cu's 128
 #: kernels compiled for each walk shape (K22's and K23's) took 199 s in one
-#: nvcc process on the H100's host, beside 13 s without them
-PARTS = {"trs_fused": 6}
+#: nvcc process on the H100's host, beside 13 s without them; gmres_fused.cu
+#: holds K15's, K18's and K15m's 36 kernels, one part each
+PARTS = {"trs_fused": 6, "gmres_fused": 3}
 
 # -fmad=false: every multiply and add rounds on its own, as PyTorch's
 # elementwise ops do, so a kernel and its plain version differ only in the

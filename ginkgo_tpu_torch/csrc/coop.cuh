@@ -149,9 +149,9 @@ __device__ __forceinline__ void grid_total_batch(const double* part, int b_strid
 // Row i of a DIA product, sum_d D[d][i] * src[i + off_d] over the columns
 // in [0, n), summed in offset order from 0 as ops/dia.py's plain version
 // does.  `src` is float32, or bfloat16 (a GMRES basis) widened on read; it
-// is read with __ldcg: the whole-solve kernels rewrite it between passes,
-// and a row of another block must never come from a stale L1 line.
-template <typename TD, typename TS>
+// is read with __ldcg (LDCG), or with plain loads where every write to it
+// came before the last grid barrier (grid.sync() invalidates L1).
+template <bool LDCG = true, typename TD, typename TS>
 __device__ __forceinline__ float gk_dia_row(const TD* __restrict__ D,
                                             const GkOffsets& offs, long long n,
                                             long long i, const TS* src) {
@@ -159,7 +159,7 @@ __device__ __forceinline__ float gk_dia_row(const TD* __restrict__ D,
   for (int d = 0; d < offs.nd; ++d) {
     const long long j = i + offs.off[d];
     if (j >= 0 && j < n)
-      acc += GkAcc<float>::load(D[d * n + i]) * gk_to_float(__ldcg(src + j));
+      acc += GkAcc<float>::load(D[d * n + i]) * gk_to_float(LDCG ? __ldcg(src + j) : src[j]);
   }
   return acc;
 }
@@ -170,7 +170,7 @@ __device__ __forceinline__ float gk_dia_row(const TD* __restrict__ D,
 // A Dia: (nd, n) diagonals and their offsets; for BiCGSTAB and CGS they
 // are A M with the preconditioner folded in (solver/_fused_gate.fold_minv).
 // The Pell operator is pell.cuh's GkPellOp.
-template <typename TD>
+template <typename TD, bool LDCG = true>
 struct GkDiaOp {
   const TD* diags;
   GkOffsets offs;
@@ -178,16 +178,16 @@ struct GkDiaOp {
 
   template <typename TS>
   __device__ __forceinline__ float row(long long i, const TS* src) const {
-    return gk_dia_row(diags, offs, n, i, src);
+    return gk_dia_row<LDCG>(diags, offs, n, i, src);
   }
 };
 
 // The Dia operator of the C entry points' arguments (nd in [1, GK_MAX_DIAGS],
 // which the entry points check).
-template <typename TD>
-static GkDiaOp<TD> gk_dia_op(const void* diags, const long long* offsets, int nd,
-                             long long n) {
-  GkDiaOp<TD> op;
+template <typename TD, bool LDCG = true>
+static GkDiaOp<TD, LDCG> gk_dia_op(const void* diags, const long long* offsets, int nd,
+                                   long long n) {
+  GkDiaOp<TD, LDCG> op;
   op.diags = static_cast<const TD*>(diags);
   op.offs.nd = nd;
   for (int d = 0; d < nd; ++d) op.offs.off[d] = offsets[d];

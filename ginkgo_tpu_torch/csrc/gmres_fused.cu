@@ -18,22 +18,45 @@
 //
 // What bounds it on the H100: bytes.  The basis, (m + 1) x n in float32 or
 // bfloat16 (the CB-GMRES reduce1/reduce2 storage), lives in device memory:
-// 520 MB in float32 at 4.19M rows and m = 30.  Arnoldi step j reads the
-// j + 1 basis rows four times (the dots and the subtraction of each of the
-// two Gram-Schmidt passes), so the bytes per step grow with j; a bfloat16
-// basis halves them.
+// 520 MB in float32 at 4.19M rows and m = 30.  Arnoldi step j of CGS2
+// reads the j + 1 basis rows in each of its two dot phases and two
+// subtractions, so the bytes per step grow with j; a bfloat16 basis halves
+// them.
 //
-// What the design does about it, and the order of every operation:
-//   - K4's cooperative design: the grid is what the SMs hold at once, the
-//     loop runs inside the kernel, grid-wide barriers separate the passes,
-//     each row belongs to one thread in every pass, and the vectors read
-//     across rows (the basis row being multiplied, x in the residual) are
-//     loaded with __ldcg.
-//   - Per Arnoldi step six barriers: after the product u = M A V_j with the
-//     first dots <V_i, u>; after the dots are summed (one block per i, in
-//     the fixed order of coop.cuh); after the first subtraction with the
-//     second dots; after those are summed; after the second subtraction
-//     with u.u; and after V_{j+1} = u / |u| is stored.
+// What the design does about it: K15m's tiled passes (below) at one
+// column, a row being 4 consecutive elements.  The basis and u hold n4 = n
+// rounded up to 4 elements a row (those from n zero), taken as n4 / 4 rows
+// of 4: a thread's row moves as one 16-byte access of a float32 basis (8
+// of a bfloat16 one), where one element a thread moved 4 (2) and the
+// kernel waited on its loads.  The passes of a step go over the rows of 4
+// in tiles of GK_CG_THREADS * GK_GMRES1_TILE_ROWS, the same rows for a
+// thread in every pass of the step:
+//   A: u = M A V_j for the thread's 4 elements (gk_rows4: a Pell's four
+//      rows share one walk over their tile's slots), kept in registers and
+//      written once, and the first dots <V_i, u> for i = 0..j, each basis
+//      row read once, row i + 1's loads issued before row i's arithmetic
+//      (gk_tile_dot_rows);
+//   B: u -= h1_i V_i in i order, written once, then the second dots, from
+//      row j down to 0, so the rows the subtraction read last are read
+//      again first, while still in L2;
+//   C: u -= h2_i V_i in i order, and u.u;
+//   D: V_{j+1} = u / |u|.
+// The dots are float64: a thread sums its elements' products, a warp folds
+// them by shuffles into its own running sums in shared memory once a tile
+// and dot, the block adds its warps' sums in a fixed order into one
+// partial a dot (gk_block_dots), and after a grid barrier one block a dot
+// folds the partials in coop.cuh's fixed order, loading them at once
+// (sum_dots_cols); every block then reads the sums.  Six grid barriers a
+// step, as before: after pass A, after the first sums, after pass B, after
+// the second sums, after pass C, after pass D.  Bytes a row and step
+// (float32 basis, nd diagonals of TD): 4 nd + 32 + 16 (j + 1), 12 (j + 1)
+// of them from device memory where pass B's second read of a basis row
+// comes from L2; a Pell reads its plan (sizeof(value) + sizeof(q) a cell)
+// in place of the diagonals.  The gathers of the operator's rows are plain
+// loads (GmresDiaOp, GmresPellOp).  The rest of a cycle (V_0, the x update,
+// the true residual) runs once a cycle, an element a thread grid-stride.
+//
+// The order of every operation, as the TPU kernel's:
 //   - CGS2 as the TPU kernel (:233-266): all dots, then all subtractions,
 //     twice; per element u -= h_i V_i in i order.
 //   - The Givens rotations, the new rotation (phase = sign(a) for real
@@ -56,14 +79,24 @@
 
 namespace cg = cooperative_groups;
 
-// Most Krylov dimensions the kernel takes: its scalar state lives in
-// 4 (m^2 + 7 m + 3) bytes of shared memory, under the 48 KB a block gets
-// without opting in (ops/gmres.py MAX_FUSED_KRYLOV_DIM).
+// Most Krylov dimensions the kernel takes: its scalar state, 4 (m^2 + 7 m
+// + 3) bytes, and its warps' running dot sums, 64 (m + 1) bytes, live in
+// shared memory, 49,280 bytes at m = 100 (opted in above 48 KB;
+// ops/gmres.py MAX_FUSED_KRYLOV_DIM).
 #define GK_GMRES_MAX_M 100
 // K15m keeps that state per column, 4 k (m^2 + 7 m + 3) bytes, beside its
 // warps' running dot sums (gmres_multi_smem): 58,704 bytes at m = 50 and
 // k = 4 (ops/gmres.py MAX_FUSED_KRYLOV_DIM_MULTI).
 #define GK_GMRES_MULTI_MAX_M 50
+
+// K15's and K18's rows of 4 elements a thread takes of a tile, and the
+// blocks an SM their launch bounds ask the compiler to leave room for (64
+// registers a thread): on the H100 two rows at 4 blocks an SM beat one row
+// (by up to 20% a step with a bfloat16 basis), rows left to the compiler
+// (103-122 registers, 2 blocks an SM; 25-37% slower) and 5 or 6 blocks an
+// SM (PERF.md section 6).
+#define GK_GMRES1_TILE_ROWS 2
+#define GK_GMRES1_MIN_BLOCKS 4
 
 template <typename Op>
 struct GmresParams {
@@ -76,8 +109,8 @@ struct GmresParams {
   int max_iters;
   int m;
   float* x;
-  float* u;
-  void* V;       // (m + 1, n) basis
+  float* u;      // (n4,)
+  void* V;       // (m + 1, n4) basis, n4 = n rounded up to 4
   double* part;  // (m + 4) * gridDim.x per-block partial sums
   double* hd;    // (m + 1) summed dots
   int* it_out;
@@ -88,235 +121,6 @@ struct GmresParams {
 __device__ __forceinline__ void gk_store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void gk_store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
-}
-
-// Partial sums of <V_i, u> over this block's rows for i = 0..j, block b's
-// at part[i * gridDim.x + b].
-template <typename TV>
-__device__ __forceinline__ void basis_dots(const TV* V, const float* u, int j,
-                                           long long n, double* part,
-                                           double (&sh)[1][GK_CG_WARPS]) {
-  const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (int i = 0; i <= j; ++i) {
-    const TV* Vi = V + (long long)i * n;
-    double acc[1] = {0.0};
-    for (long long k = t0; k < n; k += stride)
-      acc[0] += (double)gk_to_float(__ldcg(Vi + k)) * (double)u[k];
-    block_partial<1>(acc, part + (long long)i * gridDim.x, sh);
-  }
-}
-
-// After a grid barrier: hd[i] = the total of the partials of dot i, summed
-// by one block in the fixed order of grid_total, for i = 0..j.
-__device__ __forceinline__ void sum_dots(const double* part, double* hd, int j,
-                                         double (&sh)[1][GK_CG_WARPS],
-                                         double (&bc)[1]) {
-  for (int i = blockIdx.x; i <= j; i += gridDim.x) {
-    double tot[1];
-    grid_total<1>(part + (long long)i * gridDim.x, tot, sh, bc);
-    if (threadIdx.x == 0) hd[i] = tot[0];
-  }
-}
-
-template <typename Op, typename TV>
-__global__ void __launch_bounds__(GK_CG_THREADS) gmres_fused_kernel(const GmresParams<Op> P) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ double sh1[1][GK_CG_WARPS];
-  __shared__ double sh2[2][GK_CG_WARPS];
-  __shared__ double bc1[1];
-  __shared__ double bc2[2];
-  __shared__ int sm_active;
-  extern __shared__ float sm[];
-  const int m = P.m;
-  float* h1 = sm;            // [m + 1] first-pass dots
-  float* h2 = h1 + (m + 1);  // [m + 1] second-pass dots
-  float* g = h2 + (m + 1);   // [m + 1] rotated right-hand side
-  float* cs = g + (m + 1);   // [m]
-  float* sn = cs + m;        // [m]
-  float* y = sn + m;         // [m]
-  float* Rm = y + m;         // [m][m + 1]: row j is column j of R
-
-  TV* V = static_cast<TV*>(P.V);
-  const long long n = P.n;
-  const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const int G = gridDim.x;
-  double* part_b = P.part;                     // [m + 1][G] basis dots
-  double* part_r = P.part + (long long)(m + 1) * G;  // [G][2] r.r, z.z
-  double* part_n = part_r + 2 * G;             // [G] u.u
-  float* x = P.x;
-  float* __restrict__ u = P.u;
-  const float* __restrict__ minv = P.minv;
-  const float tol_sq = *P.tol_sq;
-
-  // init: x = x0, u = b - A x0; partial r.r and z.z with z = M u
-  {
-    double acc[2] = {0.0, 0.0};
-    for (long long k = t0; k < n; k += stride) {
-      x[k] = P.x0[k];
-      const float rk = P.b[k] - P.op.row(k, P.x0);
-      u[k] = rk;
-      const float zk = minv ? minv[k] * rk : rk;
-      acc[0] += (double)rk * rk;
-      acc[1] += (double)zk * zk;
-    }
-    block_partial<2>(acc, part_r, sh2);
-  }
-  grid.sync();
-  double tot2[2], tot1[1];
-  grid_total<2>(part_r, tot2, sh2, bc2);
-  float rr = (float)tot2[0];
-  float beta_sq = (float)tot2[1];
-  bool done = (rr <= tol_sq) && (tol_sq >= 0.f);
-  int it = 0;
-
-  while (!done && it < P.max_iters) {
-    // cycle start: V_0 = z / |z| with z = M u (u holds the true residual)
-    const float beta = sqrtf(beta_sq);
-    const float inv_beta = beta > 0.f ? 1.f / beta : 1.f;
-    for (long long k = t0; k < n; k += stride) {
-      const float zk = minv ? minv[k] * u[k] : u[k];
-      gk_store(V + k, zk * inv_beta);
-    }
-    if (threadIdx.x == 0) {
-      for (int i = 0; i <= m; ++i) g[i] = 0.f;
-      g[0] = beta;
-      for (int i = 0; i < m; ++i) cs[i] = sn[i] = 0.f;
-      for (int i = 0; i < m * (m + 1); ++i) Rm[i] = 0.f;
-    }
-    grid.sync();
-
-    int j = 0;
-    bool active = !(rr <= tol_sq);
-    while (active && j < m) {
-      // u = M A V_j; first dots <V_i, u>
-      const TV* Vj = V + (long long)j * n;
-      for (long long k = t0; k < n; k += stride) {
-        const float acc = P.op.row(k, Vj);
-        u[k] = minv ? minv[k] * acc : acc;
-      }
-      basis_dots(V, u, j, n, part_b, sh1);
-      grid.sync();
-      sum_dots(part_b, P.hd, j, sh1, bc1);
-      grid.sync();
-      if (threadIdx.x <= j) h1[threadIdx.x] = (float)__ldcg(P.hd + threadIdx.x);
-      __syncthreads();
-
-      // first subtraction u -= h1_i V_i in i order; second dots
-      for (long long k = t0; k < n; k += stride) {
-        float uk = u[k];
-        for (int i = 0; i <= j; ++i)
-          uk = uk - h1[i] * gk_to_float(__ldcg(V + (long long)i * n + k));
-        u[k] = uk;
-      }
-      basis_dots(V, u, j, n, part_b, sh1);
-      grid.sync();
-      sum_dots(part_b, P.hd, j, sh1, bc1);
-      grid.sync();
-      if (threadIdx.x <= j) h2[threadIdx.x] = (float)__ldcg(P.hd + threadIdx.x);
-      __syncthreads();
-
-      // second subtraction; partial u.u
-      {
-        double acc[1] = {0.0};
-        for (long long k = t0; k < n; k += stride) {
-          float uk = u[k];
-          for (int i = 0; i <= j; ++i)
-            uk = uk - h2[i] * gk_to_float(__ldcg(V + (long long)i * n + k));
-          u[k] = uk;
-          acc[0] += (double)uk * uk;
-        }
-        block_partial<1>(acc, part_n, sh1);
-      }
-      grid.sync();
-      grid_total<1>(part_n, tot1, sh1, bc1);
-      const float hnext = sqrtf((float)tot1[0]);
-      const float inv_h = hnext > 0.f ? 1.f / hnext : 1.f;
-
-      // the Givens chain on the new Hessenberg column, by thread 0
-      if (threadIdx.x == 0) {
-        float* h = h1;  // h = h1 + h2 in place, h[j + 1] = |u|
-        for (int i = 0; i <= j; ++i) h[i] = h1[i] + h2[i];
-        h[j + 1] = hnext;
-        for (int i = 0; i < j; ++i) {
-          const float hi = h[i], hi1 = h[i + 1];
-          h[i] = cs[i] * hi + sn[i] * hi1;
-          h[i + 1] = -sn[i] * hi + cs[i] * hi1;
-        }
-        const float a = h[j], bb = h[j + 1];
-        const float denom = sqrtf(a * a + bb * bb);
-        const float c = denom > 0.f ? fabsf(a) / denom : 1.f;
-        const float phase = fabsf(a) > 0.f ? (a > 0.f ? 1.f : -1.f) : 1.f;
-        const float s = denom > 0.f ? phase * bb / denom : 0.f;
-        h[j] = c * a + s * bb;
-        h[j + 1] = 0.f;
-        const float gj = g[j];
-        g[j + 1] = -s * gj;
-        g[j] = c * gj;
-        for (int i = 0; i <= m; ++i) Rm[j * (m + 1) + i] = i <= j ? h[i] : 0.f;
-        cs[j] = c;
-        sn[j] = s;
-        const float res_sq = g[j + 1] * g[j + 1];
-        sm_active = (!(res_sq <= tol_sq) && it + 1 < P.max_iters) ? 1 : 0;
-      }
-      __syncthreads();
-      active = sm_active != 0;
-
-      // V_{j+1} = u / |u|
-      TV* Vn = V + (long long)(j + 1) * n;
-      for (long long k = t0; k < n; k += stride) gk_store(Vn + k, u[k] * inv_h);
-      ++it;
-      ++j;
-      grid.sync();
-    }
-    const int steps = j;
-
-    // back-substitution R y = g on the first `steps` columns, by thread 0
-    if (threadIdx.x == 0) {
-      for (int i = 0; i < m; ++i) y[i] = 0.f;
-      for (int i = steps - 1; i >= 0; --i) {
-        float acc = 0.f;
-        for (int k = i + 1; k < steps; ++k) acc = acc + Rm[k * (m + 1) + i] * y[k];
-        const float diag = Rm[i * (m + 1) + i];
-        y[i] = diag != 0.f ? (g[i] - acc) / diag : 0.f;
-      }
-    }
-    __syncthreads();
-
-    // x += y_i V_i in i order
-    for (long long k = t0; k < n; k += stride) {
-      float xk = x[k];
-      for (int i = 0; i < steps; ++i)
-        xk = xk + y[i] * gk_to_float(__ldcg(V + (long long)i * n + k));
-      x[k] = xk;
-    }
-    grid.sync();
-
-    // the true residual u = b - A x; partial r.r and z.z
-    {
-      double acc[2] = {0.0, 0.0};
-      for (long long k = t0; k < n; k += stride) {
-        const float rk = P.b[k] - P.op.row(k, x);
-        u[k] = rk;
-        const float zk = minv ? minv[k] * rk : rk;
-        acc[0] += (double)rk * rk;
-        acc[1] += (double)zk * zk;
-      }
-      block_partial<2>(acc, part_r, sh2);
-    }
-    grid.sync();
-    grid_total<2>(part_r, tot2, sh2, bc2);
-    rr = (float)tot2[0];
-    beta_sq = (float)tot2[1];
-    done = (rr <= tol_sq) && (tol_sq >= 0.f);
-  }
-
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    *P.it_out = it;
-    *P.rr_out = rr;
-    *P.conv_out = done ? 1 : 0;
-  }
 }
 
 // k-column restarted GMRES(m) with per-column stopping: kernel K15m.
@@ -362,8 +166,8 @@ __global__ void __launch_bounds__(GK_CG_THREADS) gmres_fused_kernel(const GmresP
 // B and C: u in and out, the basis rows, twice in B; D: u in, V_{j+1}
 // out), 48 (j + 1) of them from device memory where pass B's second read
 // of a basis row comes from L2.
-// Rows a thread takes of a tile: on the H100 4 beat 2 and 8 (PERF.md
-// section 6).
+// K15m's rows a thread takes of a tile: on the H100 4 beat 2 and 8 at k = 4
+// (PERF.md section 6).
 #define GK_GMRES_TILE_ROWS 4
 
 // Row e of a row-major (n, K) array of T (float32 or bfloat16) as K floats,
@@ -447,20 +251,91 @@ __device__ __forceinline__ void gk_dia_row_rows(const TD* __restrict__ D, const 
   }
 }
 
-// The rows of a tile of an Arnoldi step's passes: row q of this thread in
-// tile tt.
+// The rows of a tile of an Arnoldi step's passes, T rows a thread: row q
+// of this thread in tile tt.
+template <int T>
 __device__ __forceinline__ long long gk_tile_row(long long tt, int q) {
-  return (tt * GK_GMRES_TILE_ROWS + q) * GK_CG_THREADS + threadIdx.x;
+  return (tt * T + q) * GK_CG_THREADS + threadIdx.x;
 }
 
 // This thread's rows of tile tt of the basis row Vi (rows past n: none read).
-template <typename TV, int K>
+template <typename TV, int K, int T>
 __device__ __forceinline__ void gk_tile_load(const TV* Vi, long long n, long long tt,
-                                             float (&v)[GK_GMRES_TILE_ROWS][K]) {
+                                             float (&v)[T][K]) {
 #pragma unroll
-  for (int q = 0; q < GK_GMRES_TILE_ROWS; ++q) {
-    const long long row = gk_tile_row(tt, q);
+  for (int q = 0; q < T; ++q) {
+    const long long row = gk_tile_row<T>(tt, q);
     if (row < n) GkRowK<TV, K>::load_cg(Vi, row, v[q]);
+  }
+}
+
+// One dot of a tile: the thread's products vi[q][c] ud[q][c] summed over its
+// rows q < n in order, folded over the warp by shuffles, added by lane 0
+// to the warp's running sums ws[c].
+template <int K, int T>
+__device__ __forceinline__ void gk_warp_dots(const float (&vi)[T][K], const double (&ud)[T][K],
+                                             long long n, long long tt, double* ws) {
+  double acc[K];
+#pragma unroll
+  for (int c = 0; c < K; ++c) acc[c] = 0.0;
+#pragma unroll
+  for (int q = 0; q < T; ++q) {
+    if (gk_tile_row<T>(tt, q) < n) {
+#pragma unroll
+      for (int c = 0; c < K; ++c) acc[c] += (double)vi[q][c] * ud[q][c];
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int c = 0; c < K; ++c) acc[c] += __shfl_down_sync(0xffffffffu, acc[c], o);
+  }
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int c = 0; c < K; ++c) ws[c] += acc[c];
+  }
+}
+
+// gk_warp_dots of one dot over all K values of a row: the thread's
+// products summed over its rows q < n, each row's values in order c = 0..K-1,
+// then folded over the warp, lane 0 adding the fold to ws[0].
+template <int K, int T>
+__device__ __forceinline__ void gk_warp_dot_rows(const float (&vi)[T][K],
+                                                 const double (&ud)[T][K], long long n,
+                                                 long long tt, double* ws) {
+  double acc = 0.0;
+#pragma unroll
+  for (int q = 0; q < T; ++q) {
+    if (gk_tile_row<T>(tt, q) < n) {
+#pragma unroll
+      for (int c = 0; c < K; ++c) acc += (double)vi[q][c] * ud[q][c];
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
+  if ((threadIdx.x & 31) == 0) ws[0] += acc;
+}
+
+// The one-column dots <V_i, u> of one tile, a row being K consecutive
+// elements (gk_warp_dot_rows), for i = 0..j, or from j down to 0 (`down`:
+// pass B, whose subtraction has just read the later rows); basis row i's
+// successor's loads issued before row i's arithmetic.
+template <typename TV, int K, int T>
+__device__ __forceinline__ void gk_tile_dot_rows(const TV* V, long long n, int j, long long tt,
+                                                 const double (&ud)[T][K], double* ws,
+                                                 bool down) {
+  float nx[T][K];
+  gk_tile_load<TV, K, T>(V + (long long)(down ? j : 0) * n * K, n, tt, nx);
+  for (int k = 0; k <= j; ++k) {
+    const int i = down ? j - k : k;
+    float vi[T][K];
+#pragma unroll
+    for (int q = 0; q < T; ++q) {
+#pragma unroll
+      for (int c = 0; c < K; ++c) vi[q][c] = nx[q][c];
+    }
+    if (k < j) gk_tile_load<TV, K, T>(V + (long long)(down ? i - 1 : i + 1) * n * K, n, tt, nx);
+    gk_warp_dot_rows<K, T>(vi, ud, n, tt, ws + i);
   }
 }
 
@@ -468,66 +343,45 @@ __device__ __forceinline__ void gk_tile_load(const TV* Vi, long long n, long lon
 // float64 (rows past n hold 0 and read no basis row): each warp adds its
 // fold of every dot to its running sums ws[i * K + c].  Basis row i + 1's
 // loads are issued before row i's arithmetic.
-template <typename TV, int K>
+template <typename TV, int K, int T>
 __device__ __forceinline__ void gk_tile_dots(const TV* V, long long n, int j, long long tt,
-                                             const double (&ud)[GK_GMRES_TILE_ROWS][K],
-                                             double* ws) {
-  const int lane = threadIdx.x & 31;
-  float nx[GK_GMRES_TILE_ROWS][K];
-  gk_tile_load<TV, K>(V, n, tt, nx);
+                                             const double (&ud)[T][K], double* ws) {
+  float nx[T][K];
+  gk_tile_load<TV, K, T>(V, n, tt, nx);
   for (int i = 0; i <= j; ++i) {
-    float vi[GK_GMRES_TILE_ROWS][K];
+    float vi[T][K];
 #pragma unroll
-    for (int q = 0; q < GK_GMRES_TILE_ROWS; ++q) {
+    for (int q = 0; q < T; ++q) {
 #pragma unroll
       for (int c = 0; c < K; ++c) vi[q][c] = nx[q][c];
     }
-    if (i < j) gk_tile_load<TV, K>(V + (long long)(i + 1) * n * K, n, tt, nx);
-    double acc[K];
-#pragma unroll
-    for (int c = 0; c < K; ++c) acc[c] = 0.0;
-#pragma unroll
-    for (int q = 0; q < GK_GMRES_TILE_ROWS; ++q) {
-      if (gk_tile_row(tt, q) < n) {
-#pragma unroll
-        for (int c = 0; c < K; ++c) acc[c] += (double)vi[q][c] * ud[q][c];
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-#pragma unroll
-      for (int c = 0; c < K; ++c) acc[c] += __shfl_down_sync(0xffffffffu, acc[c], o);
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int c = 0; c < K; ++c) ws[i * K + c] += acc[c];
-    }
+    if (i < j) gk_tile_load<TV, K, T>(V + (long long)(i + 1) * n * K, n, tt, nx);
+    gk_warp_dots<K, T>(vi, ud, n, tt, ws + i * K);
   }
 }
 
 // u -= h_i V_i for i = 0..j in i order on the thread's rows of tile tt
 // (h[c] column c's coefficients), basis row i + 1's loads issued before row
 // i's arithmetic.
-template <typename TV, int K>
+template <typename TV, int K, int T>
 __device__ __forceinline__ void gk_tile_subtract(const TV* V, long long n, int j, long long tt,
-                                                 float* const (&h)[K],
-                                                 float (&uk)[GK_GMRES_TILE_ROWS][K]) {
-  float nx[GK_GMRES_TILE_ROWS][K];
-  gk_tile_load<TV, K>(V, n, tt, nx);
+                                                 float* const (&h)[K], float (&uk)[T][K]) {
+  float nx[T][K];
+  gk_tile_load<TV, K, T>(V, n, tt, nx);
   for (int i = 0; i <= j; ++i) {
-    float vi[GK_GMRES_TILE_ROWS][K];
+    float vi[T][K];
 #pragma unroll
-    for (int q = 0; q < GK_GMRES_TILE_ROWS; ++q) {
+    for (int q = 0; q < T; ++q) {
 #pragma unroll
       for (int c = 0; c < K; ++c) vi[q][c] = nx[q][c];
     }
-    if (i < j) gk_tile_load<TV, K>(V + (long long)(i + 1) * n * K, n, tt, nx);
+    if (i < j) gk_tile_load<TV, K, T>(V + (long long)(i + 1) * n * K, n, tt, nx);
     float hi[K];
 #pragma unroll
     for (int c = 0; c < K; ++c) hi[c] = h[c][i];
 #pragma unroll
-    for (int q = 0; q < GK_GMRES_TILE_ROWS; ++q) {
-      if (gk_tile_row(tt, q) < n) {
+    for (int q = 0; q < T; ++q) {
+      if (gk_tile_row<T>(tt, q) < n) {
 #pragma unroll
         for (int c = 0; c < K; ++c) uk[q][c] = uk[q][c] - hi[c] * vi[q][c];
       }
@@ -553,17 +407,352 @@ __device__ __forceinline__ void gk_block_dots(double* wsum, int stride, int j, d
   __syncthreads();
 }
 
+// After a grid barrier: hd[i * K + c] = the total of the partials of dot
+// (i, c), folded by one block for each i in grid_total's order (so with its
+// bits), the block's partials loaded at once (coop.cuh grid_total_batch).
 template <int K>
 __device__ __forceinline__ void sum_dots_cols(const double* part, double* hd, int j,
                                               double (&sh)[K][GK_CG_WARPS],
                                               double (&bc)[K]) {
   for (int i = blockIdx.x; i <= j; i += gridDim.x) {
     double tot[K];
-    grid_total<K>(part + (long long)i * gridDim.x * K, tot, sh, bc);
+    grid_total_batch<K, K <= 3 ? 4 : 2>(part + (long long)i * gridDim.x * K, K, 1, K, tot, sh,
+                                        bc);
     if (threadIdx.x == 0) {
 #pragma unroll
       for (int c = 0; c < K; ++c) hd[i * K + c] = tot[c];
     }
+  }
+}
+
+// Rows e0 .. e0 + 3 of the operator's product with src (rows from n: 0),
+// each summed as op.row sums it.  A Dia takes the four rows diagonal by
+// diagonal; a Pell's four rows are lanes l .. l + 3 (l a multiple of 4) of
+// one sublane of one tile, so they walk the tile's slots once, each slot's
+// base read once and the rows' value, lane index and gather loads issued
+// before their sums (pell.cuh's order a row).
+template <typename TD, bool LDCG, typename TS>
+__device__ __forceinline__ void gk_rows4(const GkDiaOp<TD, LDCG>& op, long long e0, long long n,
+                                         const TS* src, float (&out)[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) out[k] = 0.f;
+  for (int d = 0; d < op.offs.nd; ++d) {
+    const long long off = op.offs.off[d];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const long long i = e0 + k, c = i + off;
+      if (i < n && c >= 0 && c < n)
+        out[k] += GkAcc<float>::load(op.diags[d * n + i]) *
+                  gk_to_float(LDCG ? __ldcg(src + c) : src[c]);
+    }
+  }
+}
+
+template <typename TV, typename TQ, bool LDCG, typename TS>
+__device__ __forceinline__ void gk_rows4(const GkPellOp<TV, TQ, LDCG>& op, long long e0,
+                                         long long n, const TS* src, float (&out)[4]) {
+  const int S = op.S, G = op.G;
+  const long long t = e0 / ((long long)S * GK_LANES);
+  const int s = (int)((e0 / GK_LANES) % S);
+  const int l = (int)(e0 % GK_LANES);
+  const int end = op.tile_ptr[t + 1];
+  float total[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int slot0 = op.tile_ptr[t]; slot0 < end; slot0 += G) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int g = 0; g < G; ++g) {
+      const long long slot = slot0 + g;
+      const long long cell = (slot * S + s) * GK_LANES + l;
+      const long long panel = ((long long)op.bases[slot] - (S - 1) + s) * GK_LANES;
+      float v[4], xv[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const long long c = panel + (int)op.qidx[cell + k];
+        v[k] = GkAcc<float>::load(op.values[cell + k]);
+        xv[k] = 0.f;
+        if (c >= 0 && c < op.n_cols) {
+          const float x = gk_to_float(LDCG ? __ldcg(src + c) : src[c]);
+          xv[k] = op.cminv ? op.cminv[c] * x : x;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[k] += v[k] * xv[k];
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) total[k] += acc[k];
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) out[k] = e0 + k < n ? total[k] : 0.f;
+}
+
+// Floats of K15's scalar state (h1, h2, g, cs, sn, y, R), rounded up to
+// whole doubles; the warps' running dot sums follow it (gmres_smem).
+__host__ __device__ inline int gmres_state_floats(int m) { return (m * m + 7 * m + 3 + 1) & ~1; }
+
+// K15 and K18: the one-column solve in tiled passes (see the header).  The
+// basis and u hold n4 = n rounded up to 4 elements a row, the elements from
+// n zero, and a pass takes them as n4 / 4 rows of 4 (GkRowK<T, 4>).
+template <typename Op, typename TV>
+__global__ void __launch_bounds__(GK_CG_THREADS, GK_GMRES1_MIN_BLOCKS)
+    gmres_fused_kernel(const GmresParams<Op> P) {
+  constexpr int T = GK_GMRES1_TILE_ROWS;
+  cg::grid_group grid = cg::this_grid();
+  __shared__ double sh1[1][GK_CG_WARPS];
+  __shared__ double sh2[2][GK_CG_WARPS];
+  __shared__ double bc1[1];
+  __shared__ double bc2[2];
+  __shared__ int sm_active;
+  extern __shared__ float sm[];
+  const int m = P.m;
+  float* h1 = sm;            // [m + 1] first-pass dots
+  float* h2 = h1 + (m + 1);  // [m + 1] second-pass dots
+  float* g = h2 + (m + 1);   // [m + 1] rotated right-hand side
+  float* cs = g + (m + 1);   // [m]
+  float* sn = cs + m;        // [m]
+  float* y = sn + m;         // [m]
+  float* Rm = y + m;         // [m][m + 1]: row j is column j of R
+  // the warps' running dot sums: warp w's at wsum[w * (m + 1) ..]
+  double* wsum = reinterpret_cast<double*>(sm + gmres_state_floats(m));
+  double* ws = wsum + (threadIdx.x >> 5) * (m + 1);
+  for (int e = threadIdx.x; e < GK_CG_WARPS * (m + 1); e += GK_CG_THREADS) wsum[e] = 0.0;
+  float* const hh1[4] = {h1, h1, h1, h1};
+  float* const hh2[4] = {h2, h2, h2, h2};
+
+  TV* V = static_cast<TV*>(P.V);
+  const long long n = P.n;
+  const long long n4 = (n + 3) & ~3LL;
+  const long long nv = n4 / 4;  // rows of 4 elements
+  const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long ntiles = (nv + (long long)GK_CG_THREADS * T - 1) / ((long long)GK_CG_THREADS * T);
+  const int G = gridDim.x;
+  double* part_b = P.part;                           // [m + 1][G] basis dots
+  double* part_r = P.part + (long long)(m + 1) * G;  // [2][G] r.r, z.z
+  double* part_n = part_r + 2 * G;                   // [G] u.u
+  float* x = P.x;
+  float* __restrict__ u = P.u;
+  const float* __restrict__ minv = P.minv;
+  const float tol_sq = *P.tol_sq;
+
+  // init: x = x0, u = b - A x0; partial r.r and z.z with z = M u
+  {
+    double acc[2] = {0.0, 0.0};
+    for (long long k = t0; k < n; k += stride) {
+      x[k] = P.x0[k];
+      const float rk = P.b[k] - P.op.row(k, P.x0);
+      u[k] = rk;
+      const float zk = minv ? minv[k] * rk : rk;
+      acc[0] += (double)rk * rk;
+      acc[1] += (double)zk * zk;
+    }
+    block_partial_vm<2>(acc, part_r, sh2);
+  }
+  grid.sync();
+  double tot2[2], tot1[1];
+  grid_total_batch<2, 4>(part_r, 1, G, 2, tot2, sh2, bc2);
+  float rr = (float)tot2[0];
+  float beta_sq = (float)tot2[1];
+  bool done = (rr <= tol_sq) && (tol_sq >= 0.f);
+  int it = 0;
+
+  while (!done && it < P.max_iters) {
+    // cycle start: V_0 = z / |z| with z = M u (u holds the true residual),
+    // the elements from n zero
+    const float beta = sqrtf(beta_sq);
+    const float inv_beta = beta > 0.f ? 1.f / beta : 1.f;
+    for (long long k = t0; k < n4; k += stride) {
+      float v0 = 0.f;
+      if (k < n) v0 = (minv ? minv[k] * u[k] : u[k]) * inv_beta;
+      gk_store(V + k, v0);
+    }
+    if (threadIdx.x == 0) {
+      for (int i = 0; i <= m; ++i) g[i] = 0.f;
+      g[0] = beta;
+      for (int i = 0; i < m; ++i) cs[i] = sn[i] = 0.f;
+      for (int i = 0; i < m * (m + 1); ++i) Rm[i] = 0.f;
+    }
+    grid.sync();
+
+    int j = 0;
+    bool active = !(rr <= tol_sq);
+    while (active && j < m) {
+      // pass A: u = M A V_j; first dots <V_i, u>
+      const TV* Vj = V + (long long)j * n4;
+      for (long long tt = blockIdx.x; tt < ntiles; tt += G) {
+        double ud[T][4];
+#pragma unroll
+        for (int q = 0; q < T; ++q) {
+          const long long r = gk_tile_row<T>(tt, q);
+          float uk[4] = {0.f, 0.f, 0.f, 0.f};
+          if (r < nv) {
+            gk_rows4(P.op, 4 * r, n, Vj, uk);
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              if (minv && 4 * r + c < n) uk[c] = minv[4 * r + c] * uk[c];
+            GkRowK<float, 4>::store(u, r, uk);
+          }
+#pragma unroll
+          for (int c = 0; c < 4; ++c) ud[q][c] = uk[c];
+        }
+        gk_tile_dot_rows<TV, 4, T>(V, nv, j, tt, ud, ws, false);
+      }
+      gk_block_dots<1>(wsum, m + 1, j, part_b);
+      grid.sync();
+      sum_dots_cols<1>(part_b, P.hd, j, sh1, bc1);
+      grid.sync();
+      if (threadIdx.x <= j) h1[threadIdx.x] = (float)__ldcg(P.hd + threadIdx.x);
+      __syncthreads();
+
+      // pass B: u -= h1_i V_i in i order; second dots
+      for (long long tt = blockIdx.x; tt < ntiles; tt += G) {
+        float uk[T][4];
+#pragma unroll
+        for (int q = 0; q < T; ++q) {
+          const long long r = gk_tile_row<T>(tt, q);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) uk[q][c] = 0.f;
+          if (r < nv) GkRowK<float, 4>::load_cg(u, r, uk[q]);
+        }
+        gk_tile_subtract<TV, 4, T>(V, nv, j, tt, hh1, uk);
+        double ud[T][4];
+#pragma unroll
+        for (int q = 0; q < T; ++q) {
+          if (gk_tile_row<T>(tt, q) < nv) GkRowK<float, 4>::store(u, gk_tile_row<T>(tt, q), uk[q]);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) ud[q][c] = uk[q][c];
+        }
+        gk_tile_dot_rows<TV, 4, T>(V, nv, j, tt, ud, ws, true);
+      }
+      gk_block_dots<1>(wsum, m + 1, j, part_b);
+      grid.sync();
+      sum_dots_cols<1>(part_b, P.hd, j, sh1, bc1);
+      grid.sync();
+      if (threadIdx.x <= j) h2[threadIdx.x] = (float)__ldcg(P.hd + threadIdx.x);
+      __syncthreads();
+
+      // pass C: u -= h2_i V_i in i order; partial u.u
+      {
+        double acc[1] = {0.0};
+        for (long long tt = blockIdx.x; tt < ntiles; tt += G) {
+          float uk[T][4];
+#pragma unroll
+          for (int q = 0; q < T; ++q) {
+            const long long r = gk_tile_row<T>(tt, q);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) uk[q][c] = 0.f;
+            if (r < nv) GkRowK<float, 4>::load_cg(u, r, uk[q]);
+          }
+          gk_tile_subtract<TV, 4, T>(V, nv, j, tt, hh2, uk);
+#pragma unroll
+          for (int q = 0; q < T; ++q) {
+            const long long r = gk_tile_row<T>(tt, q);
+            if (r < nv) {
+              GkRowK<float, 4>::store(u, r, uk[q]);
+#pragma unroll
+              for (int c = 0; c < 4; ++c) acc[0] += (double)uk[q][c] * uk[q][c];
+            }
+          }
+        }
+        block_partial<1>(acc, part_n, sh1);
+      }
+      grid.sync();
+      grid_total_batch<1, 4>(part_n, 1, 1, 1, tot1, sh1, bc1);
+      const float hnext = sqrtf((float)tot1[0]);
+      const float inv_h = hnext > 0.f ? 1.f / hnext : 1.f;
+
+      // the Givens chain on the new Hessenberg column, by thread 0
+      if (threadIdx.x == 0) {
+        float* h = h1;  // h = h1 + h2 in place, h[j + 1] = |u|
+        for (int i = 0; i <= j; ++i) h[i] = h1[i] + h2[i];
+        h[j + 1] = hnext;
+        for (int i = 0; i < j; ++i) {
+          const float hi = h[i], hi1 = h[i + 1];
+          h[i] = cs[i] * hi + sn[i] * hi1;
+          h[i + 1] = -sn[i] * hi + cs[i] * hi1;
+        }
+        const float a = h[j], bb = h[j + 1];
+        const float denom = sqrtf(a * a + bb * bb);
+        const float c = denom > 0.f ? fabsf(a) / denom : 1.f;
+        const float phase = fabsf(a) > 0.f ? (a > 0.f ? 1.f : -1.f) : 1.f;
+        const float s = denom > 0.f ? phase * bb / denom : 0.f;
+        h[j] = c * a + s * bb;
+        h[j + 1] = 0.f;
+        const float gj = g[j];
+        g[j + 1] = -s * gj;
+        g[j] = c * gj;
+        for (int i = 0; i <= m; ++i) Rm[j * (m + 1) + i] = i <= j ? h[i] : 0.f;
+        cs[j] = c;
+        sn[j] = s;
+        const float res_sq = g[j + 1] * g[j + 1];
+        sm_active = (!(res_sq <= tol_sq) && it + 1 < P.max_iters) ? 1 : 0;
+      }
+      __syncthreads();
+      active = sm_active != 0;
+
+      // pass D: V_{j+1} = u / |u|
+      TV* Vn = V + (long long)(j + 1) * n4;
+      for (long long tt = blockIdx.x; tt < ntiles; tt += G) {
+#pragma unroll
+        for (int q = 0; q < T; ++q) {
+          const long long r = gk_tile_row<T>(tt, q);
+          if (r < nv) {
+            float uk[4];
+            GkRowK<float, 4>::load_cg(u, r, uk);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) uk[c] = uk[c] * inv_h;
+            GkRowK<TV, 4>::store(Vn, r, uk);
+          }
+        }
+      }
+      ++it;
+      ++j;
+      grid.sync();
+    }
+    const int steps = j;
+
+    // back-substitution R y = g on the first `steps` columns, by thread 0
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < m; ++i) y[i] = 0.f;
+      for (int i = steps - 1; i >= 0; --i) {
+        float acc = 0.f;
+        for (int k = i + 1; k < steps; ++k) acc = acc + Rm[k * (m + 1) + i] * y[k];
+        const float diag = Rm[i * (m + 1) + i];
+        y[i] = diag != 0.f ? (g[i] - acc) / diag : 0.f;
+      }
+    }
+    __syncthreads();
+
+    // x += y_i V_i in i order
+    for (long long k = t0; k < n; k += stride) {
+      float xk = x[k];
+      for (int i = 0; i < steps; ++i)
+        xk = xk + y[i] * gk_to_float(__ldcg(V + (long long)i * n4 + k));
+      x[k] = xk;
+    }
+    grid.sync();
+
+    // the true residual u = b - A x; partial r.r and z.z
+    {
+      double acc[2] = {0.0, 0.0};
+      for (long long k = t0; k < n; k += stride) {
+        const float rk = P.b[k] - P.op.row(k, x);
+        u[k] = rk;
+        const float zk = minv ? minv[k] * rk : rk;
+        acc[0] += (double)rk * rk;
+        acc[1] += (double)zk * zk;
+      }
+      block_partial_vm<2>(acc, part_r, sh2);
+    }
+    grid.sync();
+    grid_total_batch<2, 4>(part_r, 1, G, 2, tot2, sh2, bc2);
+    rr = (float)tot2[0];
+    beta_sq = (float)tot2[1];
+    done = (rr <= tol_sq) && (tol_sq >= 0.f);
+  }
+
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *P.it_out = it;
+    *P.rr_out = rr;
+    *P.conv_out = done ? 1 : 0;
   }
 }
 
@@ -730,7 +919,7 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
         double ud[GK_GMRES_TILE_ROWS][K];
 #pragma unroll
         for (int q = 0; q < GK_GMRES_TILE_ROWS; ++q) {
-          const long long row = gk_tile_row(tt, q);
+          const long long row = gk_tile_row<GK_GMRES_TILE_ROWS>(tt, q);
           float uk[K];
 #pragma unroll
           for (int c = 0; c < K; ++c) uk[c] = 0.f;
@@ -744,7 +933,7 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
 #pragma unroll
           for (int c = 0; c < K; ++c) ud[q][c] = uk[c];
         }
-        gk_tile_dots<TV, K>(V, n, j, tt, ud, ws);
+        gk_tile_dots<TV, K, GK_GMRES_TILE_ROWS>(V, n, j, tt, ud, ws);
       }
       gk_block_dots<K>(wsum, ws_stride, j, part_b);
       grid.sync();
@@ -761,21 +950,21 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
         float uk[GK_GMRES_TILE_ROWS][K];
 #pragma unroll
         for (int q = 0; q < GK_GMRES_TILE_ROWS; ++q) {
-          const long long row = gk_tile_row(tt, q);
+          const long long row = gk_tile_row<GK_GMRES_TILE_ROWS>(tt, q);
 #pragma unroll
           for (int c = 0; c < K; ++c) uk[q][c] = 0.f;
           if (row < n) GkRowK<float, K>::load_cg(u, row, uk[q]);
         }
-        gk_tile_subtract<TV, K>(V, n, j, tt, h1, uk);
+        gk_tile_subtract<TV, K, GK_GMRES_TILE_ROWS>(V, n, j, tt, h1, uk);
         double ud[GK_GMRES_TILE_ROWS][K];
 #pragma unroll
         for (int q = 0; q < GK_GMRES_TILE_ROWS; ++q) {
-          const long long row = gk_tile_row(tt, q);
+          const long long row = gk_tile_row<GK_GMRES_TILE_ROWS>(tt, q);
           if (row < n) GkRowK<float, K>::store(u, row, uk[q]);
 #pragma unroll
           for (int c = 0; c < K; ++c) ud[q][c] = uk[q][c];
         }
-        gk_tile_dots<TV, K>(V, n, j, tt, ud, ws);
+        gk_tile_dots<TV, K, GK_GMRES_TILE_ROWS>(V, n, j, tt, ud, ws);
       }
       gk_block_dots<K>(wsum, ws_stride, j, part_b);
       grid.sync();
@@ -796,15 +985,15 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
           float uk[GK_GMRES_TILE_ROWS][K];
 #pragma unroll
           for (int q = 0; q < GK_GMRES_TILE_ROWS; ++q) {
-            const long long row = gk_tile_row(tt, q);
+            const long long row = gk_tile_row<GK_GMRES_TILE_ROWS>(tt, q);
 #pragma unroll
             for (int c = 0; c < K; ++c) uk[q][c] = 0.f;
             if (row < n) GkRowK<float, K>::load_cg(u, row, uk[q]);
           }
-          gk_tile_subtract<TV, K>(V, n, j, tt, h2, uk);
+          gk_tile_subtract<TV, K, GK_GMRES_TILE_ROWS>(V, n, j, tt, h2, uk);
 #pragma unroll
           for (int q = 0; q < GK_GMRES_TILE_ROWS; ++q) {
-            const long long row = gk_tile_row(tt, q);
+            const long long row = gk_tile_row<GK_GMRES_TILE_ROWS>(tt, q);
             if (row < n) {
               GkRowK<float, K>::store(u, row, uk[q]);
 #pragma unroll
@@ -870,7 +1059,7 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
       for (long long tt = blockIdx.x; tt < ntiles; tt += G) {
 #pragma unroll
         for (int q = 0; q < GK_GMRES_TILE_ROWS; ++q) {
-          const long long row = gk_tile_row(tt, q);
+          const long long row = gk_tile_row<GK_GMRES_TILE_ROWS>(tt, q);
           if (row < n) {
             float uk[K];
             GkRowK<float, K>::load_cg(u, row, uk);
@@ -962,7 +1151,12 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
   }
 }
 
-static size_t gmres_smem(int m) { return sizeof(float) * ((size_t)m * m + 7 * (size_t)m + 3); }
+// The library is built from three translation units at once
+// (ginkgo_tpu_torch/_build.py PARTS): part 0 holds K15's entry points, part
+// 1 K18's, part 2 K15m's, and each compiles the kernels it launches.
+#ifndef GK_PART
+#define GK_PART 0
+#endif
 
 #define GK_GMRES_DISPATCH(d_dtype, v_dtype, CALL)                                    \
   if (d_dtype == GK_F32 && v_dtype == GK_F32) return CALL(float, float);             \
@@ -971,6 +1165,24 @@ static size_t gmres_smem(int m) { return sizeof(float) * ((size_t)m * m + 7 * (s
   if (d_dtype == GK_BF16 && v_dtype == GK_BF16)                                      \
     return CALL(__nv_bfloat16, __nv_bfloat16);                                       \
   return (int)cudaErrorInvalidValue;
+
+#if GK_PART <= 1
+// K15's dynamic shared memory: the scalar state and the warps' running dot
+// sums, 8 GK_CG_WARPS (m + 1) bytes (opted in above 48 KB).
+static size_t gmres_smem(int m) {
+  return sizeof(float) * (size_t)gmres_state_floats(m) +
+         sizeof(double) * GK_CG_WARPS * (size_t)(m + 1);
+}
+
+// The operators K15 and K18 are instantiated on.
+// Their gathers are plain loads: every write to the vector a pass gathers
+// from (V_j, x) came before the last grid barrier, and the four rows of a
+// thread read neighbouring elements, which L1 then holds (K18 ran 14%
+// faster a step than with __ldcg, K15 the same; PERF.md section 6).
+template <typename TD>
+using GmresDiaOp = GkDiaOp<TD, false>;
+template <typename TVal, typename TQ>
+using GmresPellOp = GkPellOp<TVal, TQ, false>;
 
 template <typename Op>
 static GmresParams<Op> gmres_params(const Op& op, long long n, const float* b,
@@ -998,14 +1210,55 @@ static GmresParams<Op> gmres_params(const Op& op, long long n, const float* b,
   return P;
 }
 
+// Blocks of K15's or K18's cooperative grid at Krylov dimension m; with
+// `out`, its launch: {blocks, threads a block, blocks an SM, registers a
+// thread, dynamic shared bytes a block, rows of 4 elements a thread takes
+// of a tile}.
+template <typename Op, typename TV>
+static int gmres_grid_of(int m, int* blocks, int* out = nullptr) {
+  const size_t smem = gmres_smem(m);
+  GkOccupancy o;
+  const int st = gk_occupancy(gmres_fused_kernel<Op, TV>, (long long)smem, GK_CG_THREADS, &o);
+  if (st != 0) return st;
+  if (o.per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  if (blocks) {
+    const int e = gk_coop_blocks(gmres_fused_kernel<Op, TV>, blocks, smem);
+    if (e != 0) return e;
+  }
+  if (out) {
+    const int v[6] = {o.per_sm * o.sms, GK_CG_THREADS, o.per_sm, o.regs, (int)smem,
+                      GK_GMRES1_TILE_ROWS};
+    for (int i = 0; i < 6; ++i) out[i] = v[i];
+  }
+  return 0;
+}
+
+template <typename Op, typename TV>
+static int gmres_launch_of(const GmresParams<Op>& P, int blocks, void* stream) {
+  const size_t smem = gmres_smem(P.m);
+  const int st = gk_smem_optin(gmres_fused_kernel<Op, TV>, (long long)smem);
+  if (st != 0) return st;
+  return gk_coop_launch(gmres_fused_kernel<Op, TV>, P, blocks, stream, smem);
+}
+
+#endif  // GK_PART <= 1
+
+#if GK_PART == 0
 // Blocks of the cooperative grid for the diagonals' and the basis' dtypes
 // and the Krylov dimension m (which sizes the shared memory).
 extern "C" int gmres_fused_grid(int d_dtype, int v_dtype, int m, int* blocks) {
   if (m < 1 || m > GK_GMRES_MAX_M) return (int)cudaErrorInvalidValue;
-  const size_t smem = gmres_smem(m);
-#define GK_GRID(TD, TV) gk_coop_blocks(gmres_fused_kernel<GkDiaOp<TD>, TV>, blocks, smem)
+#define GK_GRID(TD, TV) gmres_grid_of<GmresDiaOp<TD>, TV>(m, blocks)
   GK_GMRES_DISPATCH(d_dtype, v_dtype, GK_GRID)
 #undef GK_GRID
+}
+
+// K15's launch (gmres_grid_of's six values).
+extern "C" int gmres_fused_config(int d_dtype, int v_dtype, int m, int* out) {
+  if (m < 1 || m > GK_GMRES_MAX_M) return (int)cudaErrorInvalidValue;
+#define GK_CONFIG(TD, TV) gmres_grid_of<GmresDiaOp<TD>, TV>(m, nullptr, out)
+  GK_GMRES_DISPATCH(d_dtype, v_dtype, GK_CONFIG)
+#undef GK_CONFIG
 }
 
 extern "C" int gmres_fused_solve(
@@ -1015,22 +1268,24 @@ extern "C" int gmres_fused_solve(
     double* hd, int blocks, int* it_out, float* rr_out, int* conv_out, void* stream) {
   if (nd < 1 || nd > GK_MAX_DIAGS || blocks < 1 || m < 1 || m > GK_GMRES_MAX_M)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = gmres_smem(m);
-#define GK_LAUNCH(TD, TV)                                                                 \
-  gk_coop_launch(gmres_fused_kernel<GkDiaOp<TD>, TV>,                                     \
-                 gmres_params(gk_dia_op<TD>(diags, offsets, nd, n), n, b, x0, minv, tol_sq, \
-                              max_iters, m, V, x, u, part, hd, it_out, rr_out, conv_out), \
-                 blocks, stream, smem)
+#define GK_LAUNCH(TD, TV)                                                                  \
+  gmres_launch_of<GmresDiaOp<TD>, TV>(                                                     \
+      gmres_params(gk_dia_op<TD, false>(diags, offsets, nd, n), n, b, x0,                 \
+                   minv, tol_sq, max_iters, m, V, x, u, part, hd, it_out, rr_out,          \
+                   conv_out),                                                              \
+      blocks, stream)
   GK_GMRES_DISPATCH(d_dtype, v_dtype, GK_LAUNCH)
 #undef GK_LAUNCH
 }
 
+#endif  // GK_PART == 0
+
+#if GK_PART == 1
 template <typename TVal, typename TQ>
-static int pell_gmres_grid(int v_dtype, size_t smem, int* blocks) {
-  if (v_dtype == GK_F32)
-    return gk_coop_blocks(gmres_fused_kernel<GkPellOp<TVal, TQ>, float>, blocks, smem);
+static int pell_gmres_grid(int v_dtype, int m, int* blocks, int* out) {
+  if (v_dtype == GK_F32) return gmres_grid_of<GmresPellOp<TVal, TQ>, float>(m, blocks, out);
   if (v_dtype == GK_BF16)
-    return gk_coop_blocks(gmres_fused_kernel<GkPellOp<TVal, TQ>, __nv_bfloat16>, blocks, smem);
+    return gmres_grid_of<GmresPellOp<TVal, TQ>, __nv_bfloat16>(m, blocks, out);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1039,8 +1294,14 @@ static int pell_gmres_grid(int v_dtype, size_t smem, int* blocks) {
 extern "C" int pell_gmres_fused_grid(int val_dtype, int q_dtype, int v_dtype, int m,
                                      int* blocks) {
   if (m < 1 || m > GK_GMRES_MAX_M) return (int)cudaErrorInvalidValue;
-  const size_t smem = gmres_smem(m);
-  GK_PELL_VQ_DISPATCH(val_dtype, q_dtype, (pell_gmres_grid<TV, TQ>)(v_dtype, smem, blocks));
+  GK_PELL_VQ_DISPATCH(val_dtype, q_dtype, (pell_gmres_grid<TV, TQ>)(v_dtype, m, blocks, nullptr));
+}
+
+// K18's launch (gmres_grid_of's six values).
+extern "C" int pell_gmres_fused_config(int val_dtype, int q_dtype, int v_dtype, int m,
+                                       int* out) {
+  if (m < 1 || m > GK_GMRES_MAX_M) return (int)cudaErrorInvalidValue;
+  GK_PELL_VQ_DISPATCH(val_dtype, q_dtype, (pell_gmres_grid<TV, TQ>)(v_dtype, m, nullptr, out));
 }
 
 template <typename TVal, typename TQ>
@@ -1050,16 +1311,13 @@ static int pell_gmres_launch(const void* values, const void* qidx, const int* ba
                              int max_iters, int m, void* V, int v_dtype, float* x, float* u,
                              double* part, double* hd, int blocks, int* it_out,
                              float* rr_out, int* conv_out, void* stream) {
-  const GmresParams<GkPellOp<TVal, TQ>> P = gmres_params(
-      gk_pell_op<TVal, TQ>(values, qidx, bases, tile_ptr, S, G, n, nullptr), n, b, x0, minv,
-      tol_sq, max_iters, m, V, x, u, part, hd, it_out, rr_out, conv_out);
-  const size_t smem = gmres_smem(m);
+  const GmresParams<GmresPellOp<TVal, TQ>> P = gmres_params(
+      gk_pell_op<TVal, TQ, false>(values, qidx, bases, tile_ptr, S, G, n, nullptr),
+      n, b, x0, minv, tol_sq, max_iters, m, V, x, u, part, hd, it_out, rr_out, conv_out);
   if (v_dtype == GK_F32)
-    return gk_coop_launch(gmres_fused_kernel<GkPellOp<TVal, TQ>, float>, P, blocks, stream,
-                          smem);
+    return gmres_launch_of<GmresPellOp<TVal, TQ>, float>(P, blocks, stream);
   if (v_dtype == GK_BF16)
-    return gk_coop_launch(gmres_fused_kernel<GkPellOp<TVal, TQ>, __nv_bfloat16>, P, blocks,
-                          stream, smem);
+    return gmres_launch_of<GmresPellOp<TVal, TQ>, __nv_bfloat16>(P, blocks, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1081,6 +1339,9 @@ extern "C" int pell_gmres_fused_solve(
                                                   conv_out, stream));
 }
 
+#endif  // GK_PART == 1
+
+#if GK_PART == 2
 #define GK_GMRES_SWITCH_K(k, CALL_K)             \
   switch (k) {                                   \
     case 2: return CALL_K(2);                    \
@@ -1160,3 +1421,4 @@ extern "C" int gmres_fused_multi_solve(
   GK_GMRES_SWITCH_K(k, GK_LAUNCH_K)
 #undef GK_LAUNCH_K
 }
+#endif  // GK_PART == 2

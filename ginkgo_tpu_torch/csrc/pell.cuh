@@ -61,14 +61,15 @@ __device__ __forceinline__ TA gk_pell_row(const TV* __restrict__ values,
 }
 
 // A square Pell as the operator of a templated whole-solve kernel (see
-// coop.cuh GkDiaOp): row(i, src) gathers src with __ldcg, widened to
-// float32 (a bfloat16 GMRES basis).  With `cminv` the gathered value is
-// cminv[c] * src[c], one float32 product, so the row is that of A M with
-// M = diag(cminv) applied explicitly: the same rounding as the TPU
-// kernels' staged w = M p (pallas_pell_cg.py, _pell_bicgstab_kernel and
-// _pell_cgs_kernel), and no pass or barrier of its own.  PELL values have
-// no column fold, so BiCGSTAB and CGS on a Pell take M this way.
-template <typename TV, typename TQ>
+// coop.cuh GkDiaOp): row(i, src) gathers src with __ldcg (LDCG; else plain
+// loads, as coop.cuh gk_dia_row), widened to float32 (a bfloat16 GMRES
+// basis).  With `cminv` the gathered value is cminv[c] * src[c], one
+// float32 product, so the row is that of A M with M = diag(cminv) applied
+// explicitly: the same rounding as the TPU kernels' staged w = M p
+// (pallas_pell_cg.py, _pell_bicgstab_kernel and _pell_cgs_kernel), and no
+// pass or barrier of its own.  PELL values have no column fold, so
+// BiCGSTAB and CGS on a Pell take M this way.
+template <typename TV, typename TQ, bool LDCG = true>
 struct GkPellOp {
   const TV* values;
   const TQ* qidx;
@@ -84,7 +85,7 @@ struct GkPellOp {
     const float* m = cminv;
     return gk_pell_row_with<float>(values, qidx, bases, tile_ptr, S, G, i, n_cols,
                                    [&](long long c) -> float {
-                                     const float v = gk_to_float(__ldcg(src + c));
+                                     const float v = gk_to_float(LDCG ? __ldcg(src + c) : src[c]);
                                      return m ? m[c] * v : v;
                                    });
   }
@@ -119,11 +120,11 @@ struct GkPellOp {
   } while (0)
 
 // The Pell operator of the C entry points' plan arguments.
-template <typename TV, typename TQ>
-static GkPellOp<TV, TQ> gk_pell_op(const void* values, const void* qidx, const int* bases,
-                                   const int* tile_ptr, int S, int G, long long n,
-                                   const float* cminv) {
-  GkPellOp<TV, TQ> op;
+template <typename TV, typename TQ, bool LDCG = true>
+static GkPellOp<TV, TQ, LDCG> gk_pell_op(const void* values, const void* qidx,
+                                         const int* bases, const int* tile_ptr, int S, int G,
+                                         long long n, const float* cminv) {
+  GkPellOp<TV, TQ, LDCG> op;
   op.values = static_cast<const TV*>(values);
   op.qidx = static_cast<const TQ*>(qidx);
   op.bases = bases;

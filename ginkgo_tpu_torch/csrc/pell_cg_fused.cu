@@ -13,15 +13,26 @@
 // bytes) and gathers p, and the vector passes move 44 bytes a row (52 with
 // an inverse diagonal), as in K4 (cg_fused.cu).
 //
-// What the design does about it: K4's design (coop.cuh).  The grid is
-// sized as occupancy x SM count and launched cooperatively; the three
-// passes are separated by grid barriers; float64 per-block partials are
-// summed by every block in one fixed order.  Rows are dealt grid-stride,
-// one thread per row, so the SpMV walks the tiles of tile_ptr grid-stride
-// and every row belongs to the same thread in every pass: x, r and q are
-// only read back by the thread that wrote them, and p, which the SpMV
-// gathers across rows, is read with __ldcg.  The row sum is pell.cuh's, in
-// the TPU kernel's order (_make_pell_spmv, pallas_pell_cg.py:67-101).
+// What the design does about it: K4's design (coop.cuh), with the SpMV
+// pass at K5's footing (pell_spmv.cu).  The grid is sized as occupancy x
+// SM count and launched cooperatively; the three passes are separated by
+// grid barriers; float64 per-block partials, stored value-major, are
+// summed by every block in one fixed order, each thread loading its
+// partials at once (coop.cuh grid_total_batch).  The rows go in chunks of
+// GK_CG_THREADS * GK_PELL_CG_ROWS rows, dealt to the blocks in turn; a
+// thread takes GK_PELL_CG_ROWS rows of a chunk, 256 apart (gk_chunk_row),
+// the same rows in every pass, so x, r, q and p are only read back at
+// their own rows by the thread that wrote them.  Where a chunk lies in one
+// PELL tile (S a multiple of 8) the tile's slot range and each slot's base
+// are read once for the thread's rows, the row index math is 32-bit, and
+// the rows' value, lane index and gather loads of a slot are issued before
+// their sums; other S take the rows one at a time (pell.cuh's row).  The
+// gathers of p are plain loads, as K5's: they hit L1 where the cells of a
+// warp read the same lines, and grid.sync() invalidates L1 (CCTL.IVALL
+// after its fence in the SASS), so no line of an earlier pass survives a
+// barrier.  The row sum is pell.cuh's, in the TPU kernel's order
+// (_make_pell_spmv, pallas_pell_cg.py:67-101): G slots into a step sum,
+// then the step sums in slot order.
 //
 // Semantics kept from _pell_cg_kernel (pallas_pell_cg.py:104-220), the same
 // as K4's: the monitor starts at +inf; the loop runs while it < max_iters
@@ -34,6 +45,14 @@
 
 namespace cg = cooperative_groups;
 
+// Rows a thread takes of a chunk; a chunk is GK_PELL_CG_CHUNK rows, eight
+// 128-row panels, so it lies in one tile when S is a multiple of 8.  On the
+// H100 (PERF.md section 6) 4 rows a thread at 64 registers and 4 blocks an
+// SM beat one row a thread grid-stride at 6 to 8 blocks an SM, and beat 4
+// rows held to 40 registers and 6 blocks an SM.
+#define GK_PELL_CG_ROWS 4
+#define GK_PELL_CG_CHUNK (GK_CG_THREADS * GK_PELL_CG_ROWS)
+
 struct PellCgParams {
   const void* values;
   const void* qidx;
@@ -41,7 +60,7 @@ struct PellCgParams {
   const int* tile_ptr;
   int S;
   int G;
-  long long n;
+  int n;
   const float* r0;
   const float* x0;
   const float* minv;    // nullptr: Identity
@@ -59,8 +78,88 @@ struct PellCgParams {
   int* conv_out;
 };
 
+// Row q of this thread in chunk c.
+__device__ __forceinline__ int gk_chunk_row(int c, int q) {
+  return (c * GK_PELL_CG_ROWS + q) * GK_CG_THREADS + threadIdx.x;
+}
+
+// f(i) for each of this thread's rows i < n, in the same order every pass.
+template <typename F>
+__device__ __forceinline__ void gk_own_rows(int n, F f) {
+  const int chunks = (n + GK_PELL_CG_CHUNK - 1) / GK_PELL_CG_CHUNK;
+  for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
+#pragma unroll
+    for (int q = 0; q < GK_PELL_CG_ROWS; ++q) {
+      const int i = gk_chunk_row(c, q);
+      if (i < n) f(i);
+    }
+  }
+}
+
+// q = A p on the thread's rows of chunk c (rows past n: computed and not
+// used; the plan's tiles cover them).
 template <typename TV, typename TQ>
-__global__ void __launch_bounds__(GK_CG_THREADS)
+__device__ __forceinline__ void gk_chunk_spmv(const PellCgParams& P, const TV* __restrict__ values,
+                                              const TQ* __restrict__ qidx, const float* p, int c,
+                                              float (&out)[GK_PELL_CG_ROWS]) {
+  const int S = P.S, G = P.G, n = P.n;
+  if (S % 8 == 0) {
+    // one tile: sublanes s0, s0 + 2, s0 + 4, s0 + 6 of lane l
+    const int l = threadIdx.x & (GK_LANES - 1);
+    const int panel0 = c * (GK_PELL_CG_CHUNK / GK_LANES);
+    const int t = panel0 / S;
+    const int s0 = panel0 - t * S + (threadIdx.x >> 7);
+    const int end = P.tile_ptr[t + 1];
+    float total[GK_PELL_CG_ROWS];
+#pragma unroll
+    for (int q = 0; q < GK_PELL_CG_ROWS; ++q) total[q] = 0.f;
+    for (int slot0 = P.tile_ptr[t]; slot0 < end; slot0 += G) {
+      float acc[GK_PELL_CG_ROWS];
+#pragma unroll
+      for (int q = 0; q < GK_PELL_CG_ROWS; ++q) acc[q] = 0.f;
+      for (int g = 0; g < G; ++g) {
+        const int slot = slot0 + g;
+        const int panel = P.bases[slot] - (S - 1) + s0;
+        const long long cell0 = ((long long)slot * S + s0) * GK_LANES + l;
+        float v[GK_PELL_CG_ROWS], xv[GK_PELL_CG_ROWS];
+#pragma unroll
+        for (int q = 0; q < GK_PELL_CG_ROWS; ++q) {
+          const long long cell = cell0 + 2 * q * GK_LANES;
+          const int col = (panel + 2 * q) * GK_LANES + (int)qidx[cell];
+          v[q] = GkAcc<float>::load(values[cell]);
+          xv[q] = (col >= 0 && col < n) ? p[col] : 0.f;
+        }
+#pragma unroll
+        for (int q = 0; q < GK_PELL_CG_ROWS; ++q) acc[q] += v[q] * xv[q];
+      }
+#pragma unroll
+      for (int q = 0; q < GK_PELL_CG_ROWS; ++q) total[q] += acc[q];
+    }
+#pragma unroll
+    for (int q = 0; q < GK_PELL_CG_ROWS; ++q) out[q] = total[q];
+  } else {
+#pragma unroll
+    for (int q = 0; q < GK_PELL_CG_ROWS; ++q) {
+      const int i = gk_chunk_row(c, q);
+      out[q] = i < n ? gk_pell_row_with<float>(values, qidx, P.bases, P.tile_ptr, S, G, i, n,
+                                               [&](long long col) -> float { return p[(int)col]; })
+                     : 0.f;
+    }
+  }
+}
+
+// After a grid barrier: the total of NV value-major partials
+// (block_partial_vm), nv of them read.
+template <int NV>
+__device__ __forceinline__ void gk_fold(const double* part, int nv, double (&tot)[NV],
+                                        double (&sh)[NV][GK_CG_WARPS], double (&bc)[NV]) {
+  grid_total_batch<NV, 4>(part, 1, gridDim.x, nv, tot, sh, bc);
+}
+
+// The launch bounds name 1 block an SM: with the thread count alone nvcc
+// held the kernel to 44 registers (5 blocks an SM), 7% slower on the H100.
+template <typename TV, typename TQ>
+__global__ void __launch_bounds__(GK_CG_THREADS, 1)
     pell_cg_fused_kernel(const PellCgParams P) {
   cg::grid_group grid = cg::this_grid();
   __shared__ double sh1[1][GK_CG_WARPS];
@@ -68,13 +167,11 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
   __shared__ double bc1[1];
   __shared__ double bc3[3];
 
-  const TV* values = static_cast<const TV*>(P.values);
-  const TQ* qidx = static_cast<const TQ*>(P.qidx);
-  const long long n = P.n;
-  const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  double* part1 = P.part;              // [gridDim.x]     p.q
-  double* part3 = P.part + gridDim.x;  // [gridDim.x][3]  rho, r.r, rho_t
+  const TV* __restrict__ values = static_cast<const TV*>(P.values);
+  const TQ* __restrict__ qidx = static_cast<const TQ*>(P.qidx);
+  const int n = P.n;
+  double* part1 = P.part;              // p.q
+  double* part3 = P.part + gridDim.x;  // rho, r.r, rho_t
   float* __restrict__ x = P.x;
   float* __restrict__ r = P.r;
   float* p = P.p;
@@ -84,7 +181,7 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
   // init: x = x0, r = r0, p = z = M r; rho = r.z
   {
     double s[3] = {0.0, 0.0, 0.0};
-    for (long long i = t0; i < n; i += stride) {
+    gk_own_rows(n, [&](int i) {
       const float ri = P.r0[i];
       const float zi = minv ? minv[i] * ri : ri;
       x[i] = P.x0[i];
@@ -92,12 +189,12 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
       p[i] = zi;
       s[0] += (double)ri * zi;
       s[1] += (double)ri * ri;
-    }
-    block_partial<3>(s, part3, sh3);
+    });
+    block_partial_vm<3>(s, part3, sh3);
   }
   grid.sync();
   double tot3[3];
-  grid_total<3>(part3, tot3, sh3, bc3);
+  gk_fold<3>(part3, 2, tot3, sh3, bc3);
   float rho = (float)tot3[0];
 
   const float tol_sq = *P.tol_sq;
@@ -107,25 +204,32 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
     // pass 1: q = A p over the PELL slots, partial p.q
     {
       double s[1] = {0.0};
-      for (long long i = t0; i < n; i += stride) {
-        const float acc = gk_pell_row<float, true>(
-            values, qidx, P.bases, P.tile_ptr, P.S, P.G, p, i, n);
-        q[i] = acc;
-        s[0] += (double)__ldcg(p + i) * acc;
+      const int chunks = (n + GK_PELL_CG_CHUNK - 1) / GK_PELL_CG_CHUNK;
+      for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
+        float acc[GK_PELL_CG_ROWS];
+        gk_chunk_spmv<TV, TQ>(P, values, qidx, p, c, acc);
+#pragma unroll
+        for (int k = 0; k < GK_PELL_CG_ROWS; ++k) {
+          const int i = gk_chunk_row(c, k);
+          if (i < n) {
+            q[i] = acc[k];
+            s[0] += (double)p[i] * acc[k];
+          }
+        }
       }
-      block_partial<1>(s, part1, sh1);
+      block_partial_vm<1>(s, part1, sh1);
     }
     grid.sync();
     double tot1[1];
-    grid_total<1>(part1, tot1, sh1, bc1);
+    gk_fold<1>(part1, 1, tot1, sh1, bc1);
     const float alpha = gk_sdiv(rho, (float)tot1[0]);
 
     // pass 2: x += alpha p, r -= alpha q; partial rho_new, r.r and, for
     // FCG, the Polak-Ribiere numerator (r_new - r_old).z_new
     {
       double s[3] = {0.0, 0.0, 0.0};
-      for (long long i = t0; i < n; i += stride) {
-        const float pi = __ldcg(p + i);
+      gk_own_rows(n, [&](int i) {
+        const float pi = p[i];
         x[i] = x[i] + alpha * pi;
         const float ro = r[i];
         const float rn = ro - alpha * q[i];
@@ -134,21 +238,21 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
         s[0] += (double)rn * zi;
         s[1] += (double)rn * rn;
         if (P.flexible) s[2] += (double)(rn - ro) * zi;
-      }
-      block_partial<3>(s, part3, sh3);
+      });
+      block_partial_vm<3>(s, part3, sh3);
     }
     grid.sync();
-    grid_total<3>(part3, tot3, sh3, bc3);
+    gk_fold<3>(part3, P.flexible ? 3 : 2, tot3, sh3, bc3);
     const float rho_new = (float)tot3[0];
     const float rr_new = (float)tot3[1];
     const float beta = gk_sdiv(P.flexible ? (float)tot3[2] : rho_new, rho);
 
     // pass 3: p = z + beta p (z recomputed from r)
-    for (long long i = t0; i < n; i += stride) {
+    gk_own_rows(n, [&](int i) {
       const float ri = r[i];
       const float zi = minv ? minv[i] * ri : ri;
-      p[i] = zi + beta * __ldcg(p + i);
-    }
+      p[i] = zi + beta * p[i];
+    });
     mon = P.implicit ? fabsf(rho) : rr_new;
     rho = rho_new;
     ++it;
@@ -169,6 +273,22 @@ extern "C" int pell_cg_fused_grid(int v_dtype, int q_dtype, int* blocks) {
                       gk_coop_blocks(pell_cg_fused_kernel<TV, TQ>, blocks));
 }
 
+template <typename TV, typename TQ>
+static int pell_cg_config(int* out) {
+  GkOccupancy o;
+  const int st = gk_occupancy(pell_cg_fused_kernel<TV, TQ>, 0, GK_CG_THREADS, &o);
+  if (st != 0) return st;
+  const int v[4] = {o.per_sm * o.sms, GK_CG_THREADS, o.per_sm, o.regs};
+  for (int i = 0; i < 4; ++i) out[i] = v[i];
+  return 0;
+}
+
+// K7's launch on this device: out = {blocks of the cooperative grid,
+// threads a block, blocks an SM, registers a thread}.
+extern "C" int pell_cg_fused_config(int v_dtype, int q_dtype, int* out) {
+  GK_PELL_VQ_DISPATCH(v_dtype, q_dtype, (pell_cg_config<TV, TQ>)(out));
+}
+
 extern "C" int pell_cg_fused_solve(
     const void* values, int v_dtype, const void* qidx, int q_dtype,
     const int* bases, const int* tile_ptr, int S, int G, long long n,
@@ -176,7 +296,9 @@ extern "C" int pell_cg_fused_solve(
     int max_iters, int implicit, int flexible, float* x, float* r, float* p,
     float* q, double* part, int blocks, int* it_out, float* mon_out,
     int* conv_out, void* stream) {
-  if (S < 1 || G < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
+  // rows are 32-bit, with room for a chunk past the last row
+  if (S < 1 || G < 1 || blocks < 1 || n < 0 || n > 0x7fffffffLL - GK_PELL_CG_CHUNK)
+    return (int)cudaErrorInvalidValue;
   PellCgParams P;
   P.values = values;
   P.qidx = qidx;
@@ -184,7 +306,7 @@ extern "C" int pell_cg_fused_solve(
   P.tile_ptr = tile_ptr;
   P.S = S;
   P.G = G;
-  P.n = n;
+  P.n = (int)n;
   P.r0 = r0;
   P.x0 = x0;
   P.minv = minv;

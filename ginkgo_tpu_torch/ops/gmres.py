@@ -32,7 +32,10 @@ once, :func:`gmres_loop_reference` over an SpMV.  K18 (:func:`pell_gmres_fused`,
 ``ginkgo_tpu/ops/pallas_gmres.py`` ``pell_gmres_vmem_solve``,
 ``_gmres_pell_kernel`` :857) is K15 on a square Pell: the same
 ``_gmres_core`` over the Pell SpMV, in the same CUDA kernel templated on its
-operator.
+operator.  The kernel runs each Arnoldi step in K15m's tiled passes (below)
+at one column, a thread's row being 4 consecutive elements that move as
+one access: the basis and u it gets hold n rounded up to 4 elements a row
+(``_basis_and_u``).
 
 K15m runs k columns through one Arnoldi step counter j.  Each step goes
 over the rows in tiles, a thread's rows kept in registers through a pass:
@@ -314,9 +317,12 @@ def _lib():
             P, P, P, P, I,  # x, u, partials, summed dots, blocks
             P, P, P, P,  # it_out, rr_out, conv_out, stream
         ]
-        for fn in (lib.gmres_fused_grid, lib.gmres_fused_solve,
+        lib.gmres_fused_config.argtypes = [I, I, I, blocks]
+        lib.pell_gmres_fused_config.argtypes = [I, I, I, I, blocks]
+        for fn in (lib.gmres_fused_grid, lib.gmres_fused_solve, lib.gmres_fused_config,
                    lib.gmres_fused_multi_grid, lib.gmres_fused_multi_solve,
-                   lib.pell_gmres_fused_grid, lib.pell_gmres_fused_solve):
+                   lib.pell_gmres_fused_grid, lib.pell_gmres_fused_solve,
+                   lib.pell_gmres_fused_config):
             fn.restype = I
         lib.gk_error_string.argtypes = [I]
         lib.gk_error_string.restype = ctypes.c_char_p
@@ -324,11 +330,43 @@ def _lib():
     return lib
 
 
+#: the fields of :func:`gmres_fused_launch`, in the C entry points' order
+LAUNCH_FIELDS = ("blocks", "threads", "blocks_per_sm", "registers", "smem_bytes", "tile_rows")
+
+
+def gmres_fused_launch(A, m, basis_dtype=torch.float32, device=None):
+    """K15's launch for a Dia A (its diagonals' dtype), or K18's for a Pell
+    (its values' and lane indices' dtypes), at Krylov dimension m with a
+    basis of basis_dtype on a CUDA device: the cooperative grid's blocks,
+    threads a block, blocks an SM, registers a thread, dynamic shared bytes
+    a block and the rows of 4 elements a thread takes of a tile."""
+    lib = _lib()
+    out = (ctypes.c_int * len(LAUNCH_FIELDS))()
+    with torch.cuda.device(device):
+        if hasattr(A, "qidx"):
+            status = lib.pell_gmres_fused_config(DTYPE_CODE[A.values.dtype],
+                                                 INDEX_CODE[A.qidx.dtype],
+                                                 DTYPE_CODE[basis_dtype], int(m), out)
+        else:
+            status = lib.gmres_fused_config(DTYPE_CODE[A.diags.dtype], DTYPE_CODE[basis_dtype],
+                                            int(m), out)
+    check_status(lib, status, "gmres_fused_config")
+    return dict(zip(LAUNCH_FIELDS, out))
+
+
 def _check_m_basis(what, m, basis_dtype):
     if not 1 <= m <= MAX_FUSED_KRYLOV_DIM:
         raise ValueError(f"{what}: takes 1 <= m <= {MAX_FUSED_KRYLOV_DIM}, got {m}")
     if basis_dtype not in BASIS_DTYPES:
         raise TypeError(f"{what}: the basis must be float32/bfloat16, got {basis_dtype}")
+
+
+def _basis_and_u(m, n, basis_dtype, dev):
+    """K15's and K18's basis and u: rows of n rounded up to 4 elements,
+    which the kernel takes 4 at a time."""
+    n4 = -(-n // 4) * 4
+    return (torch.empty((m + 1, n4), dtype=basis_dtype, device=dev),
+            torch.empty(n4, dtype=torch.float32, device=dev))
 
 
 def gmres_fused(diags, offsets, b, x0, minv=None, *, m, tol_sq_eff, max_iters,
@@ -354,9 +392,8 @@ def gmres_fused(diags, offsets, b, x0, minv=None, *, m, tol_sq_eff, max_iters,
     lib = _lib()
     dcode, vcode = DTYPE_CODE[diags.dtype], DTYPE_CODE[basis_dtype]
     blocks = coop_grid_blocks(lib, "gmres_fused_grid", (dcode, vcode, m), dev)
-    V = torch.empty((m + 1, n), dtype=basis_dtype, device=dev)
+    V, u = _basis_and_u(m, n, basis_dtype, dev)
     x = torch.empty_like(b)
-    u = torch.empty_like(b)
     part = torch.empty((m + 4) * blocks, dtype=torch.float64, device=dev)
     hd = torch.empty(m + 1, dtype=torch.float64, device=dev)
     it_conv = torch.empty(2, dtype=torch.int32, device=dev)
@@ -398,9 +435,8 @@ def pell_gmres_fused(A, b, x0, minv=None, *, m, tol_sq_eff, max_iters,
     lib = _lib()
     codes = (DTYPE_CODE[A.values.dtype], INDEX_CODE[A.qidx.dtype], DTYPE_CODE[basis_dtype])
     blocks = coop_grid_blocks(lib, "pell_gmres_fused_grid", (*codes, m), dev)
-    V = torch.empty((m + 1, n), dtype=basis_dtype, device=dev)
+    V, u = _basis_and_u(m, n, basis_dtype, dev)
     x = torch.empty_like(b)
-    u = torch.empty_like(b)
     part = torch.empty((m + 4) * blocks, dtype=torch.float64, device=dev)
     hd = torch.empty(m + 1, dtype=torch.float64, device=dev)
     it_conv = torch.empty(2, dtype=torch.int32, device=dev)

@@ -107,12 +107,31 @@ def _lib():
             P, P, P, P, P, I,  # x, r, p, q, partials, blocks
             P, P, P, P,  # it_out, mon_out, conv_out, stream
         ]
+        lib.pell_cg_fused_config.argtypes = [I, I, ctypes.POINTER(ctypes.c_int)]
         lib.pell_cg_fused_grid.restype = I
+        lib.pell_cg_fused_config.restype = I
         lib.pell_cg_fused_solve.restype = I
         lib.gk_error_string.argtypes = [I]
         lib.gk_error_string.restype = ctypes.c_char_p
         lib.gk_typed = True
     return lib
+
+
+#: the fields of :func:`pell_cg_fused_launch`, in the C entry point's order
+LAUNCH_FIELDS = ("blocks", "threads", "blocks_per_sm", "registers")
+
+
+def pell_cg_fused_launch(A, device=None):
+    """K7's launch for the value and lane-index dtypes of the Pell A on a
+    CUDA device: the cooperative grid's blocks, threads a block, blocks an
+    SM and registers a thread."""
+    lib = _lib()
+    out = (ctypes.c_int * len(LAUNCH_FIELDS))()
+    with torch.cuda.device(device):
+        status = lib.pell_cg_fused_config(DTYPE_CODE[A.values.dtype], INDEX_CODE[A.qidx.dtype],
+                                          out)
+    check_status(lib, status, "pell_cg_fused_config")
+    return dict(zip(LAUNCH_FIELDS, out))
 
 
 def _prepare(A, vec, tol_sq_eff, what):

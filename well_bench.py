@@ -7,13 +7,17 @@ WELL, T and G by the planner), K5 ``pell_spmv`` on path 2's plan
 ``bell_spmv`` on path 3b's ``Bell`` (``choose_format`` on
 ``block_structured(2048, 16, 6, 256)``); the whole-solve K4
 ``cg_fused`` and K4m ``cg_fused_multi`` (k = 4) on path 1's
-``poisson_2d(2048)`` ``Dia``; and K22 ``trs_fused`` and K23
-``cg_ilu_fused`` on path 7's IC and ILU of that ``Dia``.
+``poisson_2d(2048)`` ``Dia``; K22 ``trs_fused`` and K23
+``cg_ilu_fused`` on path 7's IC and ILU of that ``Dia``; K12, K15m and K12m
+on that ``Dia``; and K7 ``pell_cg_fused`` and K18 ``pell_gmres_fused`` on
+path 2's 160^3 ``Pell``, K15 ``gmres_fused`` on path 4's A2.
 
 Run from the repository root:
 
     python3 well_bench.py [--kernels well,pell_spmv,bell_spmv,cg_fused,cg_fused_multi,
-                                     trs_fused,cg_ilu_fused]
+                                     trs_fused,cg_ilu_fused,bicgstab_fused,
+                                     gmres_fused_multi,bicgstab_fused_multi,
+                                     pell_cg_fused,gmres_fused,pell_gmres_fused]
                           [--rows N] [--chunks 256,512] [--cg-columns 2,4,8]
                           [--other DIR ...] [--check] [--profile]
 
@@ -128,9 +132,28 @@ on path 1's ``poisson_2d(2048)`` ``Dia``:
   version (K12: the solve to 1e-6 under path 4's cap of 5000; K15m: 90
   steps on A1, and a solve to 1e-6 on path 4's A2 with each column's stop
   step);
-- ``bicgstab_fused_multi`` (K12m, k = 4) and ``gmres_fused`` (K15, m = 30,
-  float32 basis), which share those sources: the same slope in turns and x
-  against the other checkouts.
+- ``bicgstab_fused_multi`` (K12m, k = 4), which shares those sources: the
+  same slope in turns and x against the other checkouts.
+
+For ``pell_cg_fused`` (K7 on path 2's 160^3 ``Pell``: float32 and bfloat16
+values, Jacobi), ``gmres_fused`` (K15 on path 4's A2) and
+``pell_gmres_fused`` (K18 on the 160^3 ``Pell``), m = 30 with a float32 and
+a bfloat16 basis:
+
+- ``build``: ptxas's registers and spills of each kernel, this checkout's
+  and each ``--other``'s, and the count of each memory-order opcode in K7's
+  SASS (``cuobjdump -sass``: the L1 invalidation of its grid barriers);
+- ``check`` (with ``--check``): ``chip_smoke.check_pell_cg_edges`` and
+  ``check_gmres_edges``, bit for bit against the plain versions;
+- ``timing``, one row a case: microseconds an iteration (K7) or Arnoldi
+  step by the slope between whole solves of 200 and 1000 iterations (60
+  and 240 steps) in turns, beside the kernel's device time by name at the
+  same trip counts (``torch.profiler``, which reads these long launches
+  short or as 0 at times: the slope is the figure); the launch (blocks,
+  blocks an SM, registers); the bytes of the bound and of the design; x,
+  the iterations and the monitor against the plain version and the other
+  checkouts (K7: the solve to 1e-6; GMRES: 90 steps, and the solve to 1e-6
+  on A2, K18 on A2 as a ``Pell``).
 
 Without a CUDA device it fails.
 """
@@ -139,6 +162,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -155,15 +179,19 @@ LIBRARY = {"well": "well_spmv", "pell_spmv": "pell_spmv", "bell_spmv": "bell_spm
            "cg_fused": "cg_fused", "cg_fused_multi": "cg_fused", "trs_fused": "trs_fused",
            "cg_ilu_fused": "trs_fused", "bicgstab_fused": "bicgstab_fused",
            "gmres_fused_multi": "gmres_fused", "bicgstab_fused_multi": "bicgstab_fused",
-           "gmres_fused": "gmres_fused"}
+           "gmres_fused": "gmres_fused", "pell_cg_fused": "pell_cg_fused",
+           "pell_gmres_fused": "gmres_fused"}
 #: the whole-solve kernels of --kernels: K4 runs one column, K4m --cg-columns
 CG_KERNELS = ("cg_fused", "cg_fused_multi")
 #: K22 and K23, the kernels of the sweep solve
 TRS_KERNELS = ("trs_fused", "cg_ilu_fused")
 
-#: K12 and K15m, the kernels of the slice-13 redesign, and K12m and K15,
-#: which share their sources and are timed to show them unchanged
-KRYLOV_KERNELS = ("bicgstab_fused", "gmres_fused_multi", "bicgstab_fused_multi", "gmres_fused")
+#: K12 and K15m, the kernels of the slice-13 redesign, and K12m, which
+#: shares their sources and is timed to show it unchanged
+KRYLOV_KERNELS = ("bicgstab_fused", "gmres_fused_multi", "bicgstab_fused_multi")
+#: K7 (CG on a Pell) and the one-column GMRES kernel, K15 on a Dia and K18
+#: on a Pell, at their main paths' shapes
+SOLVE_KERNELS = ("pell_cg_fused", "gmres_fused", "pell_gmres_fused")
 
 
 def load_other(root: Path, tag: str):
@@ -240,7 +268,8 @@ def main():
                     help="comma-separated: well (K8/K9), pell_spmv (K5), bell_spmv (K10), "
                          "cg_fused (K4), cg_fused_multi (K4m), trs_fused (K22), "
                          "cg_ilu_fused (K23), bicgstab_fused (K12), gmres_fused_multi (K15m), "
-                         "bicgstab_fused_multi (K12m), gmres_fused (K15)")
+                         "bicgstab_fused_multi (K12m), pell_cg_fused (K7), gmres_fused (K15), "
+                         "pell_gmres_fused (K18)")
     ap.add_argument("--rows", type=int, default=cs.POWERLAW_ROWS)
     ap.add_argument("--chunks", default="256", help="chunk lengths to time, comma-separated")
     ap.add_argument("--other", action="append", default=[],
@@ -296,6 +325,17 @@ def main():
         rows = cs.check_bicgstab_edges(gt, dev, np.random.default_rng(5))
         cs.emit({"phase": "check", "kernels": ["bicgstab_fused"], "edge_operators": len(rows),
                  "all_bit_equal": True, "s": round(time.perf_counter() - t0, 2)})
+    if args.check and "pell_cg_fused" in kernels:
+        t0 = time.perf_counter()
+        rows = cs.check_pell_cg_edges(gt, dev, np.random.default_rng(5))
+        cs.emit({"phase": "check", "kernels": ["pell_cg_fused"], "edge_operators": len(rows),
+                 "all_bit_equal": True, "s": round(time.perf_counter() - t0, 2)})
+    if args.check and {"gmres_fused", "pell_gmres_fused"} & set(kernels):
+        t0 = time.perf_counter()
+        rows = cs.check_gmres_edges(gt, dev, np.random.default_rng(5))
+        cs.emit({"phase": "check", "kernels": ["gmres_fused", "pell_gmres_fused"],
+                 "edge_cases": len(rows), "all_bit_equal": True,
+                 "s": round(time.perf_counter() - t0, 2)})
     if args.check and "gmres_fused_multi" in kernels:
         t0 = time.perf_counter()
         rows = cs.check_gmres_multi_edges(gt, dev, np.random.default_rng(5))
@@ -311,10 +351,13 @@ def main():
     krylov_kernels = [k for k in kernels if k in KRYLOV_KERNELS]
     if krylov_kernels:
         bench_krylov(krylov_kernels, gt, dev, card, copy_gbs, others_pkg)
+    solve_kernels = [k for k in kernels if k in SOLVE_KERNELS]
+    if solve_kernels:
+        bench_solves(solve_kernels, gt, dev, card, copy_gbs, others_pkg)
     for k in kernels:
         if k == "well":
             bench_well(args, gt, dev, card, copy_gbs, others_pkg)
-        elif k not in CG_KERNELS + TRS_KERNELS + KRYLOV_KERNELS:
+        elif k not in CG_KERNELS + TRS_KERNELS + KRYLOV_KERNELS + SOLVE_KERNELS:
             bench_spmv(k, args, gt, dev, card, copy_gbs, others_pkg)
     print(card, flush=True)
 
@@ -838,20 +881,16 @@ def bench_trs(kernels, gt, dev, card, copy_gbs, others_pkg):
 
 
 def bench_unchanged(kernels, mods, others, A1, dev, card):
-    """K12m (k = 4) and K15 (m = 30, float32 basis) on A1: microseconds an
-    iteration (step) in turns, and x against the other checkouts."""
+    """K12m (k = 4) on A1: microseconds an iteration in turns, and x against
+    the other checkouts."""
     n = A1.shape[0]
     B1 = cs.rhs4(n, np.random.default_rng(cs.SEED + 5), dev)
-    b1 = torch.ones(n, device=dev)
     calls = {
         "bicgstab_fused_multi": (lambda mod, its: mod.bicgstab_fused_multi(
             A1.diags, A1.offsets, B1, torch.zeros_like(B1), None,
             tol_sq_eff=torch.full((4,), -1.0, device=dev), max_iters=its), (200, 1000), 300),
-        "gmres_fused": (lambda mod, its: mod.gmres_fused(
-            A1.diags, A1.offsets, b1, torch.zeros_like(b1), None, m=cs.KRYLOV_DIM,
-            tol_sq_eff=torch.full((), -1.0, device=dev), max_iters=its), (60, 240), 90),
     }
-    module = {"bicgstab_fused_multi": "bicgstab_fused", "gmres_fused": "gmres_fused_multi"}
+    module = {"bicgstab_fused_multi": "bicgstab_fused"}
     for kernel in kernels:
         call, (lo, hi), its = calls[kernel]
         us = {}
@@ -917,8 +956,7 @@ def bench_krylov(kernels, gt, dev, card, copy_gbs, others_pkg):
     others = [tag for tag in mods if tag != "this"]
     tokens = {"bicgstab_fused": ("bicgstab_fused_kernel", "bicgstab_ring_kernel"),
               "gmres_fused_multi": ("gmres_fused_multi_kernel",),
-              "bicgstab_fused_multi": ("bicgstab_fused_multi_kernel",),
-              "gmres_fused": ("gmres_fused_kernelI7GkDiaOp",)}
+              "bicgstab_fused_multi": ("bicgstab_fused_multi_kernel",)}
     cs.emit({"phase": "build", "kernels": kernels,
              "ptxas": {tag: {k: line for lib, log in lg.items()
                              for k, line in ptxas_registers(log).items()
@@ -930,7 +968,7 @@ def bench_krylov(kernels, gt, dev, card, copy_gbs, others_pkg):
     z1 = torch.zeros_like(b1)
     never = torch.full((), -1.0, device=dev)
     minv = 1.0 / A1.extract_diagonal().values.float()
-    unchanged = [k for k in ("bicgstab_fused_multi", "gmres_fused") if k in kernels]
+    unchanged = [k for k in ("bicgstab_fused_multi",) if k in kernels]
     if unchanged:
         bench_unchanged(unchanged, mods, others, A1, dev, card)
     if "bicgstab_fused" in kernels:
@@ -1060,6 +1098,208 @@ def bench_krylov(kernels, gt, dev, card, copy_gbs, others_pkg):
                      "frac_of_copy_bound_bytes": {
                          tag: nbytes["bound"] / t / 1e3 / copy_gbs for tag, t in best.items()},
                      "bit_equal": bits, "a2_stop_iterations": stops})
+
+
+def sass_ops(lib_path, token):
+    """{kernel: {SASS opcode: count}} of the memory-order opcodes (CCTL,
+    MEMBAR, ERRBAR, the LDG forms) in the kernels of a built library whose
+    mangled name holds ``token`` (``cuobjdump -sass``): whether a grid
+    barrier invalidates L1 (CCTL.IVALL after its fence) and how the kernel
+    loads."""
+    from ginkgo_tpu_torch import _build
+
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True,
+                          text=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            name = name if token in name else None
+            if name:
+                out[name] = {}
+        elif name:
+            for word in line.replace(";", " ").split():
+                if word.startswith(("CCTL", "MEMBAR", "ERRBAR", "LDG")):
+                    out[name][word] = out[name].get(word, 0) + 1
+    return out
+
+
+def solve_launch(mod, kernel, A, m, basis, dev):
+    """A checkout's launch of K7 (m, basis unused), K15 or K18 where it
+    reports one, else the blocks of its cooperative grid."""
+    if kernel == "pell_cg_fused":
+        if hasattr(mod, "pell_cg_fused_launch"):
+            return mod.pell_cg_fused_launch(A, dev)
+        codes = (mod.DTYPE_CODE[A.values.dtype], mod.INDEX_CODE[A.qidx.dtype])
+        return {"blocks": mod.coop_grid_blocks(mod._lib(), "pell_cg_fused_grid", codes, dev)}
+    if hasattr(mod, "gmres_fused_launch"):
+        return mod.gmres_fused_launch(A, m, basis, dev)
+    vcode = mod.DTYPE_CODE[basis]
+    if kernel == "gmres_fused":
+        codes = ("gmres_fused_grid", (mod.DTYPE_CODE[A.diags.dtype], vcode, m))
+    else:
+        codes = ("pell_gmres_fused_grid", (mod.DTYPE_CODE[A.values.dtype],
+                                           mod.INDEX_CODE[A.qidx.dtype], vcode, m))
+    return {"blocks": mod.coop_grid_blocks(mod._lib(), *codes, dev)}
+
+
+def bench_solves(kernels, gt, dev, card, copy_gbs, others_pkg):
+    """K7 on path 2's 160^3 ``Pell`` (float32, bfloat16 values, Jacobi), K15
+    on path 4's A2 and K18 on the 160^3 ``Pell`` (m = 30, a float32 and a
+    bfloat16 basis): build rows (ptxas, and for K7 the SASS of its grid
+    barrier), then each case's microseconds an iteration (Arnoldi step) by
+    the slope between whole solves of 200 and 1000 iterations (60 and 240
+    steps) in turns, beside the device time of the kernel by name at the
+    same trip counts; the launch, the bytes of the bound and of each
+    design; x, the iterations (steps), the monitor (true r.r) against the
+    plain version and the other checkouts: K7's solve to 1e-6, GMRES's 90
+    steps and its solve to 1e-6 on A2 (K18: A2 as a ``Pell``)."""
+    from ginkgo_tpu_torch import _build
+    from ginkgo_tpu_torch.ops import gmres as ops_gmres
+    from ginkgo_tpu_torch.ops import pell_cg as ops_pc
+
+    pkgs = {"this": gt, **others_pkg}
+    mods = {tag: {"pell_cg_fused": importlib.import_module(f"{pkg.__name__}.ops.pell_cg"),
+                  "gmres": importlib.import_module(f"{pkg.__name__}.ops.gmres")}
+            for tag, pkg in pkgs.items()}
+    others = [tag for tag in mods if tag != "this"]
+    logs = {tag: importlib.import_module(f"{pkg.__name__}._build").BUILD_LOG
+            for tag, pkg in pkgs.items()}
+    tokens = {"pell_cg_fused": "pell_cg_fused_kernel",
+              "gmres_fused": "gmres_fused_kernelI7GkDiaOp",
+              "pell_gmres_fused": "gmres_fused_kernelI8GkPellOp"}
+    cs.emit({"phase": "build", "kernels": kernels,
+             "ptxas": {tag: {k: line for kern in kernels
+                             for k, line in ptxas_registers(lg[LIBRARY[kern]]["ptxas"]).items()
+                             if tokens[kern] in k} for tag, lg in logs.items()},
+             "sass": {tag: sass_ops(lg["pell_cg_fused"]["path"], tokens["pell_cg_fused"])
+                      for tag, lg in logs.items()} if "pell_cg_fused" in kernels else {}})
+    m = cs.KRYLOV_DIM
+    t0 = time.perf_counter()
+    C3 = gt.Csr.from_matrix_data(gt.generators.poisson_3d(cs.NSIDE3, dtype=np.float32),
+                                 device=dev)
+    P3 = gt.Pell.from_csr(C3)
+    del C3
+    n3 = P3.shape[0]
+    b3 = torch.ones(n3, device=dev)
+    data2 = gt.MatrixData.from_coo(*cs.convdiff_2d(cs.NSIDE))
+    A2 = gt.Dia.from_matrix_data(data2, device=dev)
+    n2 = A2.shape[0]
+    b2 = torch.as_tensor(np.random.default_rng(cs.SEED + 7).uniform(0.5, 1.5, n2)
+                         .astype(np.float32), device=dev)
+    P2 = gt.Pell.from_csr(gt.Csr.from_matrix_data(data2, device=dev)) \
+        if "pell_gmres_fused" in kernels else None
+    cs.emit({"phase": "setup", "s": round(time.perf_counter() - t0, 2), "rows_160": n3,
+             "rows_a2": n2, "plan_bytes": P3.storage_bytes()})
+    never = torch.full((), -1.0, device=dev)
+
+    def measure_all(call, lo, hi, token):
+        """The slope in turns, and the device slope by kernel name."""
+        us, dev_us = {}, {}
+
+        def measure(tag):
+            us.setdefault(tag, []).append(1e3 * cs.iter_ms(lambda its: call(tag, its), lo, hi))
+
+        in_turns(measure, others)
+        for tag in mods:
+            t_lo = cs.device_ms(lambda: call(tag, lo), token, calls=2)
+            t_hi = cs.device_ms(lambda: call(tag, hi), token, calls=2)
+            dev_us[tag] = 1e3 * (t_hi - t_lo) / (hi - lo)
+        return us, dev_us
+
+    def emit_timing(kernel, case, rows, us, dev_us, nbytes, launches, bits):
+        best = {tag: min(v) for tag, v in us.items()}
+        cs.emit({"phase": "timing", "kernel": kernel, "case": case, "card": card, "rows": rows,
+                 "copy_GBps": copy_gbs, "us_per_iteration": us, "device_us_per_iteration": dev_us,
+                 "launch": launches, "bytes": nbytes,
+                 "bound_us": nbytes["bound"] / cs.PEAK_BYTES_S * 1e6,
+                 "frac_of_copy_bound_bytes": {
+                     tag: nbytes["bound"] / t / 1e3 / copy_gbs for tag, t in best.items()},
+                 "frac_of_copy_own_bytes": {
+                     tag: nbytes["design"] / t / 1e3 / copy_gbs for tag, t in best.items()},
+                 **bits})
+
+    if "pell_cg_fused" in kernels:
+        minv3 = (1.0 / P3.extract_diagonal().values.float()).contiguous()
+        z3 = torch.zeros_like(b3)
+        tol3 = torch.full((), (cs.TOL * float(b3.norm())) ** 2, device=dev)
+        for case, P, mv in (("f32", P3, None), ("bf16", P3.reduce_storage(), None),
+                            ("jacobi", P3, minv3)):
+            plan = P.storage_bytes()
+            def call(tag, its, tol=never, P=P, mv=mv):
+                return mods[tag]["pell_cg_fused"].pell_cg_fused(P, b3, z3, mv, tol_sq_eff=tol,
+                                                                max_iters=its)
+
+            us, dev_us = measure_all(call, 200, 1000, tokens["pell_cg_fused"])
+            launches = {tag: solve_launch(mods[tag]["pell_cg_fused"], "pell_cg_fused", P, m, None,
+                                          dev) for tag in mods}
+            outs = {tag: call(tag, cs.MAX_ITERS, tol3) for tag in mods}
+            plain = ops_pc.pell_cg_solve_reference(P, b3, z3, mv, tol_sq_eff=tol3,
+                                                   max_iters=cs.MAX_ITERS)
+            bits = {"iterations": {tag: int(o[2]) for tag, o in outs.items()}}
+            bits["iterations"]["plain"] = int(plain[2])
+            bits["bit_equal_plain"] = {tag: cs.bit_equal(o[0], plain[0]) and cs.bit_equal(
+                o[1], plain[1]) and cs.bit_equal(o[3], plain[3]) for tag, o in outs.items()}
+            bits["x_bit_equal_this"] = {tag: cs.bit_equal(outs["this"][0], outs[tag][0])
+                                        for tag in others}
+            del outs, plain
+            # bytes an iteration: the bound's (the plan once; x, r, p read and
+            # written once; the inverse diagonal read once) and the three
+            # passes' (1: the plan, p gathered, q out; 2: p, q, x and r in and
+            # out; 3: r in, p in and out; the inverse diagonal in 2 and 3)
+            jac = mv is not None
+            nbytes = {"bound": plan + (24 + 4 * jac) * n3, "design": plan + (44 + 8 * jac) * n3}
+            emit_timing("pell_cg_fused", case, n3, us, dev_us, nbytes, launches, bits)
+
+    gm_cases = [(k, label, basis) for k in ("gmres_fused", "pell_gmres_fused") if k in kernels
+                for label, basis in (("f32", torch.float32), ("bf16", torch.bfloat16))]
+    for kernel, label, basis in gm_cases:
+        A, b, A_1e6, b_1e6 = ((A2, b2, A2, b2) if kernel == "gmres_fused" else (P3, b3, P2, b2))
+
+        def call(tag, its, A=A, b=b, tol=never, kernel=kernel, basis=basis):
+            g = mods[tag]["gmres"]
+            kw = dict(m=m, tol_sq_eff=tol, max_iters=its, basis_dtype=basis)
+            if kernel == "gmres_fused":
+                return g.gmres_fused(A.diags, A.offsets, b, torch.zeros_like(b), None, **kw)
+            return g.pell_gmres_fused(A, b, torch.zeros_like(b), None, **kw)
+
+        def plain(A, b, its, tol=never, kernel=kernel, basis=basis):
+            kw = dict(m=m, tol_sq_eff=tol, max_iters=its, basis_dtype=basis)
+            if kernel == "gmres_fused":
+                return ops_gmres.gmres_solve_reference(A.diags, A.offsets, b, torch.zeros_like(b),
+                                                       None, **kw)
+            return ops_gmres.pell_gmres_solve_reference(A, b, torch.zeros_like(b), None, **kw)
+
+        us, dev_us = measure_all(call, 60, 240, tokens[kernel])
+        launches = {tag: solve_launch(mods[tag]["gmres"], kernel, A, m, basis, dev)
+                    for tag in mods}
+        outs = {tag: call(tag, 90) for tag in mods}
+        want = plain(A, b, 90)
+        bits = {"steps_90_x_bit_equal_plain": {tag: cs.bit_equal(o[0], want[0])
+                                               for tag, o in outs.items()}}
+        tol = torch.full((), (cs.TOL * float(b_1e6.norm())) ** 2, device=dev)
+        outs = {tag: call(tag, cs.MAX_ITERS, A_1e6, b_1e6, tol) for tag in mods}
+        want = plain(A_1e6, b_1e6, cs.MAX_ITERS, tol)
+        bits["solve_1e-6_a2"] = {
+            "steps": {**{tag: int(o[1]) for tag, o in outs.items()}, "plain": int(want[1])},
+            "x_and_rr_bit_equal_plain": {tag: cs.bit_equal(o[0], want[0])
+                                         and cs.bit_equal(o[2], want[2]) for tag, o in outs.items()}}
+        del outs, want
+        # bytes a step, averaged over a cycle: the bound's (chip_smoke
+        # time_path4's and time_path6's model) and this design's passes (A:
+        # the operator, V_j, u out, the basis rows; B: u in and out, the basis
+        # rows twice; C: u in and out, the basis rows; D: u in, V_{j+1} out),
+        # pass B's second read of the basis rows counted and not
+        vb = basis.itemsize
+        n = A.shape[0]
+        op = (A.storage_bytes() / n if kernel == "pell_gmres_fused"
+              else 4 * len(A.offsets))
+        cycle = (sum((op + (j + 2) * vb) * n for j in range(m)) + (op + m * vb + 12) * n) / m
+        own = [sum((op + 24 + 2 * vb + reads * vb * (j + 1)) * n for j in range(m)) / m
+               for reads in (4, 3)]
+        nbytes = {"bound": cycle, "design": own[0], "design_second_read_from_l2": own[1]}
+        emit_timing(kernel, f"m30_{label}", n, us, dev_us, nbytes, launches, bits)
 
 
 def profile_calls(calls):
