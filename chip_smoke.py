@@ -114,7 +114,12 @@ Phases, each of which raises on failure:
    BiCGSTAB, k = 5 GMRES, IDR(5), IR with the implicit criterion, k = 4
    CGS) at 64^2, by launch counters; then K12m, K15m, K16, K17 and the
    smoother ir_smooth against their plain versions at 64^2 and 2048^2,
-   equal bit for bit, with a NaN case each; K15m on edge cases
+   equal bit for bit, with a NaN case each; K12m on edge operators
+   (``check_bicgstab_multi_edges``: w = 1, 2047 and 16000, k = 2, 3, 4
+   and 8, bfloat16 diagonals, Jacobi, implicit mode, a column that stops
+   early while a NaN column runs to the cap; equal iterations and stop
+   iterations, x and r bit for bit, an implicit monitor within the float64
+   order's bound); K15m on edge cases
    (``check_gmres_multi_edges``: 64^2 and 700^2, k = 2 to 4, m = 1, 2, 30
    and 50, a float32 and a bfloat16 basis, Jacobi, a column that stops
    inside a cycle, a NaN column; equal step counts and per-column stop
@@ -153,10 +158,12 @@ Phases, each of which raises on failure:
    level's aggregation and triple product, the dense coarse inverse), the
    solves above held against path 1's and path 4's float64 solves (the
    standalone solve, which stagnates, to a cap of 100 cycles, its residual
-   reported); then K25-K28 against their plain versions at 64^2 with V,
-   W, F and K cycles, the four mid_case values and float32/bfloat16
-   diagonals (equal iterations and x bit for bit, a NaN case each) and at
-   2048^2 under a cap, bit for bit too;
+   reported); a 12-level V(1,1) cycle must take 2 L + 1 = 25 grid
+   barriers (one fused restriction and one fused prolongation a level);
+   then K25-K28 against their plain versions at 64^2 with V, W, F and K
+   cycles, the four mid_case values, float32/bfloat16 diagonals and pass
+   lists that fuse in part (``check_mg_edges``; equal iterations and x bit
+   for bit, a NaN case each) and at 2048^2 under a cap, bit for bit too;
 11. timings, printed and not checked: each kernel, its plain version and
    the one PyTorch call that computes the same function, by the slope
    between two trip counts (CUDA events); CG, BiCGSTAB, CGS and BiCG time
@@ -165,8 +172,9 @@ Phases, each of which raises on failure:
    iteration, and the smoother per sweep; BiCGSTAB, CGS, IR and GMRES(30)
    on the 160^3 ``Pell``; K23 and K24 per iteration and K22 per launch
    (with its wrapper's host time a call); K22's and K23's routes;
-   K25 per cycle beside the streaming cycle, K26/K28 per iteration and K27
-   per cycle; bounds; the copy bandwidth; K5's and K10's launch
+   K25 per cycle beside the streaming cycle, K26/K28 per iteration (with
+   their grid barriers an iteration) and K27 per cycle; bounds; the copy
+   bandwidth; K5's and K10's launch
    (registers, shared memory a block, blocks an SM) and device time by
    kernel name (torch.profiler) in their rows.
 
@@ -1384,6 +1392,185 @@ def check_bicgstab_edges(gt, dev, rng, record_err=None):
         rows.append(row)
         emit(row)
     return rows
+
+
+def implicit_monitor_within_bound(got, want, stops, total, r_final, residual_after, rr):
+    """Implicit-mode monitors of a k-column solve against the plain
+    version's, where x and r are bit for bit: column c's monitor is
+    |<rr, r>|, a float64 sum rounded to float32, and the kernel sums it in
+    another order (declared).  Two sums of the same float32 products differ
+    by at most 2 n u sum |rr_i r_i| (u = 2^-53), and rounding to float32
+    adds one ulp; near the stop the sum cancels to 1e-10 of its terms, so
+    the float64 order shows in float32.  The r of column c: its final r
+    where it stopped before the last of the ``total`` iterations (its rho
+    was updated in its stop iteration), else the r that entered that
+    iteration, the plain version's after ``residual_after(total - 1)``,
+    bit for bit."""
+    n = rr.shape[0]
+    for c, stop in enumerate(stops):
+        if bit_equal(got[c], want[c]):
+            continue
+        r_in = (r_final if stop < total else residual_after(stop - 1))[:, c].double()
+        terms = float((rr[:, c].double() * r_in).abs().sum())
+        ulp = float(torch.nextafter(want[c].abs(), torch.tensor(float("inf"),
+                                                                device=want.device))
+                    - want[c].abs())
+        if not abs(float(got[c]) - float(want[c])) <= 2 * n * 2.0**-53 * terms + ulp:
+            return False
+    return True
+
+
+#: K12m edge operators (``check_bicgstab_multi_edges``): the K12 edges that
+#: give rows past both ends at w = 1 and w = 2047, and a w past K12's ring
+BICGSTAB_MULTI_EDGES = ("line(3001)", "grid(2047x5)", "grid(16000x3)")
+
+
+def check_bicgstab_multi_edges(gt, dev, rng, record_err=None):
+    """K12m against its plain version on ``BICGSTAB_MULTI_EDGES`` at k = 2,
+    3, 4 and 8 (8-byte rows, scalar rows, 16-byte rows and two of them):
+    float32 and bfloat16 diagonals, a seeded inverse diagonal folded into A
+    M, implicit mode, and a run in which column 0 stops early (a loose
+    threshold) and column 1 carries a NaN and runs to the cap, so the other
+    columns stay frozen from their stops.  Equal iterations and per-column
+    stop iterations, x, r and the monitors bit for bit.  Returns the rows
+    it emitted."""
+    from ginkgo_tpu_torch.ops import bicgstab as ops_bicgstab
+    from ginkgo_tpu_torch.solver._fused_gate import fold_minv
+
+    kern = ops_bicgstab.bicgstab_fused_multi
+    rows = []
+    for label in BICGSTAB_MULTI_EDGES:
+        grid, coeffs, jitter = BICGSTAB_EDGES[label]
+        A = gt.Dia.from_matrix_data(gt.MatrixData.from_coo(*banded_grid(*grid, coeffs, jitter)),
+                                    device=dev)
+        n = A.shape[0]
+        minv = torch.as_tensor(rng.uniform(0.15, 0.3, n).astype(np.float32), device=dev)
+        row = {"phase": "kernel_check", "kernel": "bicgstab_fused_multi", "matrix": label,
+               "rows": n, "width": max(abs(o) for o in A.offsets)}
+        for k in (2, 3, 4, 8):
+            B = torch.as_tensor(rng.uniform(0.5, 1.5, (n, k)).astype(np.float32), device=dev)
+            Z = torch.zeros_like(B)
+            tol = ((TOL * B.norm(dim=0)) ** 2).contiguous()
+            loose = tol.clone()
+            loose[0] = float(B[:, 0].norm()) ** 2 * 1e-2
+            Bn = B.clone()
+            Bn[n // 3, 1] = float("nan")
+            cases = [("f32 identity", A, None, B, tol, 500, False),
+                     ("bf16 identity", A.reduce_storage(), None, B, tol, 500, False),
+                     ("f32 jacobi", A, minv, B, tol, 500, False),
+                     ("f32 identity implicit", A, None, B, tol, 500, True),
+                     ("f32 frozen and nan", A, None, Bn, loose, 40, False)]
+            for what, Av, pre, rhs, tl, cap, imp in cases:
+                D = Av.diags if pre is None else fold_minv(Av, pre)
+                kw = dict(tol_sq_eff=tl, max_iters=cap, use_implicit=imp)
+                got = kern(D, Av.offsets, rhs, Z, pre, **kw)
+                want = ops_bicgstab.bicgstab_solve_multi_reference(D, Av.offsets, rhs, Z, pre,
+                                                                   **kw)
+                _sync(dev)
+                case = f"bicgstab_fused_multi {label} k={k} {what}"
+                kit, pit = int(got[2]), int(want[2])
+                kitc, pitc = got[5].tolist(), want[5].tolist()
+                if record_err is not None and "nan" not in what:
+                    record_err("bicgstab_fused_multi", got[0], want[0])
+                check(kit == pit and kitc == pitc, f"{case}: {kit} / {pit} iterations, "
+                      f"{kitc} / {pitc}")
+                same_x, same_r = bit_equal(got[0], want[0]), bit_equal(got[1], want[1])
+                mon_ok = bit_equal(got[3], want[3])
+                if imp and not mon_ok:
+                    mon_ok = implicit_monitor_within_bound(
+                        got[3], want[3], kitc, kit, want[1],
+                        lambda its: ops_bicgstab.bicgstab_solve_multi_reference(
+                            D, Av.offsets, rhs, Z, pre, **dict(kw, max_iters=its))[1], rhs)
+                check(same_x and same_r and mon_ok,
+                      f"{case}: x equal {same_x}, r equal {same_r}, monitors "
+                      f"{got[3].tolist()} / {want[3].tolist()}")
+                conv = got[4].tolist()
+                if "nan" in what:
+                    rest = [c for c in range(k) if c != 1]
+                    check(kit == cap and kitc[1] == cap and not conv[1]
+                          and all(conv[c] for c in rest) and kitc[0] < cap,
+                          f"{case}: stops {kitc}, converged {conv}")
+                else:
+                    check(all(conv), f"{case}: not converged ({conv})")
+                row[f"k={k} {what}"] = kitc
+        rows.append(row)
+        emit(row)
+    return rows
+
+
+def check_bicgstab_multi_order(gt, dev, A):
+    """K12m against its plain version where the declared float64 dot order
+    can show: 8 columns on A2 at 2048^2 (4.2M rows, so each dot's two
+    orders part by more than at the edges' sizes), float32 and bfloat16
+    diagonals and a seeded inverse diagonal folded into A M, solved to
+    1e-6.  The iterations and every column's stop iteration must be equal
+    and every column converged.  x and r are the plain version's bit for
+    bit unless a dot, summed in the two orders, rounds to two float32
+    scalars: then the first iteration at which x or r part (both solves
+    rerun to fewer iterations, bisected) and whether the monitors r.r
+    parted in the iteration before it are recorded, and each column's true
+    residual ||b - A x|| (float64) must be at most twice the plain
+    version's or the threshold, whichever is larger.  Returns the row it
+    emitted."""
+    from ginkgo_tpu_torch.ops import bicgstab as ops_bicgstab
+    from ginkgo_tpu_torch.ops import dia as ops_dia
+    from ginkgo_tpu_torch.solver._fused_gate import fold_minv
+
+    n, k = A.shape[0], 8
+    rng = np.random.default_rng(SEED + 9)
+    minv = torch.as_tensor(rng.uniform(0.15, 0.3, n).astype(np.float32), device=dev)
+    B = torch.as_tensor(rng.uniform(0.5, 1.5, (n, k)).astype(np.float32), device=dev)
+    Z = torch.zeros_like(B)
+    tol = ((TOL * B.norm(dim=0)) ** 2).contiguous()
+    row = {"phase": "kernel_check", "kernel": "bicgstab_fused_multi",
+           "matrix": f"convdiff_2d({NSIDE})", "k": k}
+    for what, Av, pre in (("f32", A, None), ("bf16", A.reduce_storage(), None),
+                          ("jacobi", A, minv)):
+        D = Av.diags if pre is None else fold_minv(Av, pre)
+
+        def run(fn, its, D=D, Av=Av, pre=pre):
+            return fn(D, Av.offsets, B, Z, pre, tol_sq_eff=tol, max_iters=its)
+
+        got = run(ops_bicgstab.bicgstab_fused_multi, MAX_ITERS)
+        want = run(ops_bicgstab.bicgstab_solve_multi_reference, MAX_ITERS)
+        _sync(dev)
+        case = f"bicgstab_fused_multi {row['matrix']} k={k} {what}"
+        kit, pit = int(got[2]), int(want[2])
+        kitc, pitc = got[5].tolist(), want[5].tolist()
+        check(kit == pit and kitc == pitc, f"{case}: {kit} / {pit} iterations, {kitc} / {pitc}")
+        check(all(got[4].tolist()) and all(want[4].tolist()), f"{case}: not converged")
+        same = bit_equal(got[0], want[0]) and bit_equal(got[1], want[1])
+        out = {"column_iters": kitc, "bit_equal": same}
+        if not same:
+            def parted(its):
+                g = run(ops_bicgstab.bicgstab_fused_multi, its)
+                w = run(ops_bicgstab.bicgstab_solve_multi_reference, its)
+                return not (bit_equal(g[0], w[0]) and bit_equal(g[1], w[1])), g[3], w[3]
+
+            lo, hi = 0, kit  # x and r equal after lo iterations, parted after hi
+            while hi - lo > 1:
+                mid = (lo + hi) // 2
+                lo, hi = (lo, mid) if parted(mid)[0] else (mid, hi)
+            _, gmon, wmon = parted(lo) if lo > 0 else (None, None, None)
+            Ad = Av.diags.double()
+
+            def true_res(x, Ad=Ad, Av=Av):
+                return (B.double() - ops_dia.dia_spmm_reference(Ad, Av.offsets, x.double(), n)
+                        ).norm(dim=0)
+
+            kres, pres = true_res(got[0]), true_res(want[0])
+            bound = 2 * torch.maximum(pres, tol.double().sqrt())
+            out.update(first_parted_iteration=hi,
+                       monitors_parted_before=None if gmon is None else not bit_equal(gmon, wmon),
+                       x_max_rel_diff=float(((got[0] - want[0]).norm(dim=0)
+                                             / want[0].norm(dim=0)).max()),
+                       true_residual=kres.tolist(), plain_true_residual=pres.tolist())
+            check(bool((kres <= bound).all()),
+                  f"{case}: true residuals {kres.tolist()} over twice the plain version's "
+                  f"{pres.tolist()} or the threshold")
+        row[what] = out
+    emit(row)
+    return row
 
 
 def check_gmres_multi_edges(gt, dev, rng, record_err=None):
@@ -3254,7 +3441,10 @@ def mg_generate(gt, A, dev, **kw):
     row = {"generate_s": round(total, 3), "coarse_inverse_s": inv_s, "levels": levels,
            "coarse_rows": op.shape[0], "strides": list(h.strides),
            "diagonals": [len(o) for o in h.offsets],
-           "cycle_barriers": ops_barriers(h)}
+           "cycle_barriers": ops_barriers(h), "mg_cg_fused_barriers": solver_barriers("mg_cg_fused", h)}
+    # V(1,1): one fused restriction and one fused prolongation a level
+    check(row["cycle_barriers"] == 2 * h.L + 1,
+          f"path 8: {row['cycle_barriers']} barriers a {h.L}-level cycle, not {2 * h.L + 1}")
     return M, row
 
 
@@ -3262,6 +3452,15 @@ def ops_barriers(h):
     from ginkgo_tpu_torch.ops import mg as ops_mg
 
     return ops_mg.barriers(h.passes[False][0])
+
+
+def solver_barriers(kernel, h):
+    """K26's or K28's grid barriers an iteration on h's pass list from zero
+    (``ops/mg.mg_cg_barriers``, ``ops/mg.mg_bicgstab_barriers``)."""
+    from ginkgo_tpu_torch.ops import mg as ops_mg
+
+    count = ops_mg.mg_cg_barriers if kernel == "mg_cg_fused" else ops_mg.mg_bicgstab_barriers
+    return count(h.passes[False][0])
 
 
 def main_path8(gt, dev, rng, crit, kernels, data1, x64_ones, p4, cg_iterations):
@@ -3369,69 +3568,86 @@ def main_path8(gt, dev, rng, crit, kernels, data1, x64_ones, p4, cg_iterations):
     return out
 
 
-def check_path8_kernels(gt, dev, rng, p8, record_err):
-    """K25-K28 against their plain versions on the card.  At 64^2 (the
-    Poisson matrix, 6 levels of at least 32 rows) with V, W, F and K cycles,
-    the four mid_case values under F, kcycle_rel_tol 0, 0.25 and +inf
-    under K and two sweeps under F 'both': K25 from zero and from a random
-    x, K26 (CG and FCG), K27 and K28, each twice: equal to itself, equal
-    iterations and x bit for bit; a NaN in b runs K26 to its cap of 25 on
-    both.  At 2048^2 on path 8's hierarchies, and on them with every
-    level's diagonals and A's rounded to bfloat16: one
-    K25 cycle, K26/K28 under a cap of CAP6 iterations, K27 under 5 cycles:
-    equal counts and x bit for bit, as at 64^2."""
+def mg_kernel_cases(A, h, b, x0, tol, cap, solve_cap):
+    """{case: (kernel call, plain call)} of K25 (from zero and from x0),
+    K26 (CG, FCG), K27 and K28 on hierarchy h and operator A."""
+    from ginkgo_tpu_torch.ops import mg as ops_mg
+
+    z = torch.zeros_like(b)
+    kw = dict(tol_sq_eff=tol, max_iters=cap)
+    return {
+        "mg_vcycle": (lambda: ops_mg.mg_vcycle(h, b), lambda: ops_mg.mg_vcycle_reference(h, b)),
+        "mg_vcycle x0": (lambda: ops_mg.mg_vcycle(h, b, x0),
+                         lambda: ops_mg.mg_vcycle_reference(h, b, x0)),
+        "mg_cg_fused": (lambda: ops_mg.mg_cg_fused(A, h, b, z, **kw),
+                        lambda: ops_mg.mg_cg_solve_reference(A, h, b, z, **kw)),
+        "mg_cg_fused fcg": (lambda: ops_mg.mg_cg_fused(A, h, b, z, flexible=True, **kw),
+                            lambda: ops_mg.mg_cg_solve_reference(A, h, b, z, flexible=True,
+                                                                 **kw)),
+        "mg_solve_fused": (
+            lambda: ops_mg.mg_solve_fused(h, b, z, tol_sq_eff=tol, max_iters=solve_cap),
+            lambda: ops_mg.mg_solve_reference(h, b, z, tol_sq_eff=tol, max_iters=solve_cap)),
+        "mg_bicgstab_fused": (lambda: ops_mg.mg_bicgstab_fused(A, h, b, z, **kw),
+                              lambda: ops_mg.mg_bicgstab_solve_reference(A, h, b, z, **kw)),
+    }
+
+
+def mg_compare(dev, record_err, name, what, kern, plain, cap=None):
+    """One K25-K28 case: the kernel twice (equal to itself), then its plain
+    version: equal iterations and x bit for bit, or with a NaN in b (cap
+    given) both at the cap with NaN monitors.  Returns the case's row."""
+    t0 = time.perf_counter()
+    k = kern()
+    _sync(dev)
+    k_s = time.perf_counter() - t0
+    k2 = kern()
+    t0 = time.perf_counter()
+    p = plain()
+    _sync(dev)
+    p_s = time.perf_counter() - t0
+    if name == "mg_vcycle":
+        kx, kit, kmon, kconv, px, pit, pmon, pconv = k, 0, 0.0, True, p, 0, 0.0, True
+        same = torch.equal(k2, k)
+    else:
+        i_it, i_mon, i_conv = (1, 2, 3) if name == "mg_solve_fused" else (2, 3, 4)
+        kx, kit, kmon, kconv = k[0], int(k[i_it]), float(k[i_mon]), bool(k[i_conv])
+        px, pit, pmon, pconv = p[0], int(p[i_it]), float(p[i_mon]), bool(p[i_conv])
+        same = int(k2[i_it]) == kit and (torch.equal(k2[0], kx) or np.isnan(kmon))
+    check(same, f"{what}: the kernel differs from itself")
+    row = {"iters": kit, "plain_iters": pit, "s": round(k_s, 4), "plain_s": round(p_s, 4)}
+    if cap is not None and np.isnan(kmon):
+        check(kit == pit == cap and np.isnan(pmon) and not kconv and not pconv,
+              f"{what}: with a NaN, {kit} / {pit} iterations, monitors {kmon} / {pmon}")
+        return row
+    err = record_err(name, kx, px) if record_err is not None else float(
+        (kx.double() - px.double()).abs().max())
+    row.update(bit_equal=bool(torch.equal(kx, px)), x_max_abs_err=err, converged=kconv)
+    check(kit == pit and kconv == pconv,
+          f"{what}: {kit} / {pit} iterations, converged {kconv} / {pconv}")
+    check(row["bit_equal"], f"{what}: x differs by {err}")
+    return row
+
+
+def check_mg_edges(gt, dev, rng, record_err=None):
+    """K25-K28 against their plain versions at 64^2 (the Poisson matrix, 6
+    levels of at least 32 rows) with V, W, F and K cycles, the four
+    mid_case values under F, kcycle_rel_tol 0, 0.25 and +inf under K and
+    two sweeps under F 'both', float32 diagonals, and bfloat16 ones under
+    V and under K at each rel_tol; on pass lists that fuse in part
+    (``PARTIAL_FUSION8``: two pre-sweeps, so no fused restriction; no
+    post-sweep, so no fused prolongation; a W-cycle without pre-sweeps; a
+    K-cycle); and V-cycles, float32 and bfloat16, on a line of 4096 rows
+    and the 9-point Laplacian at 64^2, whose levels of 3 and 9 diagonals
+    run the cycle's generic pass.  K25 from zero and from a random x, K26
+    (CG and FCG), K27 and K28, each twice: equal to itself, equal
+    iterations and x bit for bit; a NaN in b runs K26 and K28 to their cap
+    of 25 on both."""
     from ginkgo_tpu_torch.ops import mg as ops_mg
 
     def compare(name, what, kern, plain, cap=None):
-        t0 = time.perf_counter()
-        k = kern()
-        _sync(dev)
-        k_s = time.perf_counter() - t0
-        k2 = kern()
-        t0 = time.perf_counter()
-        p = plain()
-        _sync(dev)
-        p_s = time.perf_counter() - t0
-        if name == "mg_vcycle":
-            kx, kit, kmon, kconv, px, pit, pmon, pconv = k, 0, 0.0, True, p, 0, 0.0, True
-            same = torch.equal(k2, k)
-        else:
-            i_it, i_mon, i_conv = (1, 2, 3) if name == "mg_solve_fused" else (2, 3, 4)
-            kx, kit, kmon, kconv = k[0], int(k[i_it]), float(k[i_mon]), bool(k[i_conv])
-            px, pit, pmon, pconv = p[0], int(p[i_it]), float(p[i_mon]), bool(p[i_conv])
-            same = int(k2[i_it]) == kit and (torch.equal(k2[0], kx) or np.isnan(kmon))
-        check(same, f"{what}: the kernel differs from itself")
-        row = {"iters": kit, "plain_iters": pit, "s": round(k_s, 4), "plain_s": round(p_s, 4)}
-        if cap is not None and np.isnan(kmon):
-            check(kit == pit == cap and np.isnan(pmon) and not kconv and not pconv,
-                  f"{what}: with a NaN, {kit} / {pit} iterations, monitors {kmon} / {pmon}")
-            return row
-        err = record_err(name, kx, px)
-        row.update(bit_equal=bool(torch.equal(kx, px)), x_max_abs_err=err, converged=kconv)
-        check(kit == pit and kconv == pconv,
-              f"{what}: {kit} / {pit} iterations, converged {kconv} / {pconv}")
-        check(row["bit_equal"], f"{what}: x differs by {err}")
-        return row
+        return mg_compare(dev, record_err, name, what, kern, plain, cap)
 
-    def cases(A, h, b, x0, tol, cap, solve_cap):
-        z = torch.zeros_like(b)
-        kw = dict(tol_sq_eff=tol, max_iters=cap)
-        return {
-            "mg_vcycle": (lambda: ops_mg.mg_vcycle(h, b), lambda: ops_mg.mg_vcycle_reference(h, b)),
-            "mg_vcycle x0": (lambda: ops_mg.mg_vcycle(h, b, x0),
-                             lambda: ops_mg.mg_vcycle_reference(h, b, x0)),
-            "mg_cg_fused": (lambda: ops_mg.mg_cg_fused(A, h, b, z, **kw),
-                            lambda: ops_mg.mg_cg_solve_reference(A, h, b, z, **kw)),
-            "mg_cg_fused fcg": (lambda: ops_mg.mg_cg_fused(A, h, b, z, flexible=True, **kw),
-                                lambda: ops_mg.mg_cg_solve_reference(A, h, b, z, flexible=True,
-                                                                     **kw)),
-            "mg_solve_fused": (
-                lambda: ops_mg.mg_solve_fused(h, b, z, tol_sq_eff=tol, max_iters=solve_cap),
-                lambda: ops_mg.mg_solve_reference(h, b, z, tol_sq_eff=tol,
-                                                  max_iters=solve_cap)),
-            "mg_bicgstab_fused": (lambda: ops_mg.mg_bicgstab_fused(A, h, b, z, **kw),
-                                  lambda: ops_mg.mg_bicgstab_solve_reference(A, h, b, z, **kw)),
-        }
+    cases = mg_kernel_cases
 
     data = gt.generators.poisson_2d(SMALL, dtype=np.float32)
     A = gt.Dia.from_matrix_data(data, device=dev)
@@ -3445,6 +3661,7 @@ def check_path8_kernels(gt, dev, rng, p8, record_err):
     for storage in ("f32", "bf16"):
         Av = A if storage == "f32" else A.reduce_storage()
         for cycle, mid, rt, iters in configs:
+            # bfloat16: the V-cycle and the K-cycle at every rel_tol
             if storage == "bf16" and (cycle, mid) not in (("v", "standalone"),
                                                           ("k", "standalone")):
                 continue
@@ -3464,7 +3681,80 @@ def check_path8_kernels(gt, dev, rng, p8, record_err):
                 kern, plain = cases(Av, h, bn, x0, tol, 25, 25)[key]
                 row[f"{key} nan"] = compare(key, f"{key} nan {label}", kern, plain, cap=25)
             emit(row)
+    # pass lists that fuse in part: more pre-sweeps than one (no fused
+    # restriction), no post-sweep (no fused prolongation), a K-cycle with
+    # both
+    for cycle, itp, ito in PARTIAL_FUSION8:
+        M = gt.Multigrid.build(max_levels=6, min_coarse_rows=32, cycle=cycle).generate(A)
+        h0 = M._fused_hierarchy()
+        plan = dict(h0.plan, lv=[dict(e, itp=itp, ito=ito, itm=ito) for e in h0.plan["lv"]])
+        h = dataclasses.replace(h0, plan=plan, _dev={}, passes={
+            u: ops_mg.compile_passes(plan, use_x0=u) for u in (False, True)})
+        ops = h.passes[False][0][:, 0]
+        label = f"f32 {cycle} pre-sweeps {itp} post-sweeps {ito}"
+        row = {"phase": "kernel_check", "path": 8, "matrix": f"poisson({SMALL})",
+               "case": label, "levels": len(M.levels), "barriers": ops_barriers(h),
+               "restrict_zero": int((ops == ops_mg.RESTRICT_ZERO).sum()),
+               "prolong_smooth": int((ops == ops_mg.PROLONG_SMOOTH).sum()),
+               "lead_barrier": ops_mg.lead_barrier(h.passes[False][0])}
+        for key, (kern, plain) in cases(A, h, b, x0, tol, 300, 60).items():
+            row[key] = compare(key.split(" ")[0], f"{key} {label}", kern, plain)
+        emit(row)
+    # levels of other than 5 diagonals, which run the cycle's generic pass
+    # (csrc/mg_fused.cu GK_MG_ND)
+    rng_o = np.random.default_rng(SEED + 21)
+    for label, coo in (("line(4096)", banded_grid(4096, 1, (2.0, -1.0, -1.0), False)),
+                       (f"9-point({SMALL})", nine_point(SMALL))):
+        Ao = gt.Dia.from_matrix_data(gt.MatrixData.from_coo(*coo), device=dev)
+        no = Ao.shape[0]
+        bo = torch.as_tensor(rng_o.uniform(0.5, 1.5, no).astype(np.float32), device=dev)
+        xo = torch.as_tensor(rng_o.standard_normal(no).astype(np.float32), device=dev)
+        tolo = torch.full((), (TOL * float(bo.norm())) ** 2, dtype=torch.float32, device=dev)
+        for storage in ("f32", "bf16"):
+            Av = Ao if storage == "f32" else Ao.reduce_storage()
+            M = gt.Multigrid.build(max_levels=6, min_coarse_rows=32).generate(Av)
+            h = M._fused_hierarchy()
+            nds = [len(o) for o in h.offsets] if h is not None else []
+            check(h is not None and 5 not in nds,
+                  f"path 8: the {label} hierarchy is not fused, or has 5-diagonal levels ({nds})")
+            what = f"{storage} v {label}"
+            row = {"phase": "kernel_check", "path": 8, "matrix": label, "case": what,
+                   "levels": len(M.levels), "diagonals": nds, "barriers": ops_barriers(h)}
+            for key, (kern, plain) in cases(Av, h, bo, xo, tolo, 300, 60).items():
+                row[key] = compare(key.split(" ")[0], f"{key} {what}", kern, plain)
+            emit(row)
 
+
+def nine_point(nside):
+    """The 9-point Laplacian on an nside x nside grid (8 on the diagonal,
+    -1 to each of the eight neighbours).  Returns COO parts."""
+    n = nside * nside
+    i = np.arange(n)
+    ix, iy = i % nside, i // nside
+    rows, cols, vals = [i], [i], [np.full(n, 8.0)]
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            keep = (ix + dx >= 0) & (ix + dx < nside) & (iy + dy >= 0) & (iy + dy < nside)
+            if dx or dy:
+                rows.append(i[keep])
+                cols.append(i[keep] + dx + dy * nside)
+                vals.append(np.full(int(keep.sum()), -1.0))
+    return ((n, n), np.concatenate(rows), np.concatenate(cols),
+            np.concatenate(vals).astype(np.float32))
+
+
+def check_path8_kernels(gt, dev, rng, p8, record_err):
+    """K25-K28 against their plain versions on the card: the 64^2 cases of
+    ``check_mg_edges``, then at 2048^2 on path 8's hierarchies, and on them
+    with every level's diagonals and A's rounded to bfloat16: one K25
+    cycle, K26/K28 under a cap of CAP6 iterations, K27 under 5 cycles:
+    equal counts and x bit for bit, as at 64^2."""
+    check_mg_edges(gt, dev, rng, record_err)
+
+    def compare(name, what, kern, plain, cap=None):
+        return mg_compare(dev, record_err, name, what, kern, plain, cap)
+
+    cases = mg_kernel_cases
     row = {"phase": "kernel_check", "path": 8, "nside": NSIDE, "cap": CAP6}
     for label, Am, M, bv in (("poisson", p8["A1"], p8["M1"], p8["b1"]),
                              ("convdiff", p8["A2"], p8["M2"], p8["b2"])):
@@ -3482,6 +3772,11 @@ def check_path8_kernels(gt, dev, rng, p8, record_err):
                 row[f"{key} {label} {storage}"] = compare(
                     key.split(" ")[0], f"{key} {label} {storage} {NSIDE}", kern, plain)
     emit(row)
+
+
+#: the 64^2 hierarchies whose pass lists fuse in part (cycle, pre-sweeps,
+#: post-sweeps) in ``check_path8_kernels``
+PARTIAL_FUSION8 = (("v", 2, 1), ("v", 1, 0), ("w", 0, 2), ("k", 2, 1))
 
 
 def mg_cycle_cost(h, passes):
@@ -3512,9 +3807,10 @@ def mg_cycle_cost(h, passes):
             ops_mg.RESTRICT: (a + 8, 2 * nd[l] + 2), ops_mg.PROLONG: (8, 1),
             ops_mg.VPASS: (a + 16, 2 * nd[l] + 6), ops_mg.S1: (20, 4),
             ops_mg.WPASS: (a + 12, 2 * nd[l] + 6), ops_mg.COMB: (12, 3),
-            ops_mg.COPY: (8, 0)}[int(op)]
-        per_pass += rows_b * n[l] + (4 * n[l + 1] if op in (ops_mg.RESTRICT, ops_mg.PROLONG)
-                                     else 0)
+            ops_mg.COPY: (8, 0), ops_mg.RESTRICT_ZERO: (a + 12, 4 * nd[l] + 4),
+            ops_mg.PROLONG_SMOOTH: (a + 16, 3 * nd[l] + 5)}[int(op)]
+        coarse = (ops_mg.RESTRICT, ops_mg.PROLONG, ops_mg.RESTRICT_ZERO, ops_mg.PROLONG_SMOOTH)
+        per_pass += rows_b * n[l] + (4 * n[l + 1] if op in coarse else 0)
         flops += rows_f * n[l]
     return hier, per_pass, flops
 
@@ -3577,7 +3873,8 @@ def time_path8(gt, dev, p8, rec, timing):
         f_ms, pl_ms = iter_ms(fused, 20, 100), iter_ms(plain, 5, 25)
         rec[kname] = (f_ms, pl_ms, None, nbytes, nflops)
         out[kname] = {"us_per_iteration": f_ms * 1e3, "plain_us": pl_ms * 1e3, "bytes": nbytes,
-                      "bound_ms_per_pass": bound(nbytes_pp, nflops)[0]}
+                      "bound_ms_per_pass": bound(nbytes_pp, nflops)[0],
+                      "barriers_per_iteration": solver_barriers(kname, h)}
 
     def solve_fused(its):
         ops_mg.mg_solve_fused(h1, b1, z1, tol_sq_eff=-1.0, max_iters=its)
@@ -4131,6 +4428,9 @@ def main():
     stamp("path 5")
     check_path5_kernels(gt, dev, rng, p4, p5, kernels, record_err)
     stamp("check K12m, K15m, K16, K17")
+    check_bicgstab_multi_edges(gt, dev, rng, record_err)
+    check_bicgstab_multi_order(gt, dev, p4["A"])
+    stamp("K12m edges")
     check_gmres_multi_edges(gt, dev, rng, record_err)
     stamp("K15m edges")
     del p5

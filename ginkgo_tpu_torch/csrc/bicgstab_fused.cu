@@ -76,7 +76,7 @@ struct BicgstabParams {
   float* t;
   float* p;
   float* s;
-  float* p1;      // the ring route: p and v alternate between P.p, P.p1 and P.v, P.v1
+  float* p1;      // the ring route and K12m: p and v alternate between P.p, P.p1 and P.v, P.v1
   float* v1;
   int ring_rows;  // the ring route's ring (a power of two) and w = max |offset|
   int width;
@@ -623,72 +623,140 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
 //
 // Replaces ginkgo_tpu/ops/pallas_bicgstab.py bicgstab_vmem_solve_multi
 // (_bicgstab_multi_kernel, :202-426): K columns (2 <= K <= 8) solved
-// together in K12's five passes, the vectors (n, K) row-major as K4m's, so
-// each diagonal value is read once per row for all K columns.  Every scalar
-// of K12 is a K-vector, and every reduction carries K (passes 2, 3) or 2 K
-// (passes 4, 5) float64 partials per block.  Per column, as the
-// reference's stopping-status-masked step kernels:
-//   - a stopped column keeps p, v, x and r: the update is a select on the
-//     write, so a frozen column's x and r stay bit-identical from the
-//     iteration it stopped; s and t are still computed for it, with
-//     alpha_eff = omega_eff = 0, and its carried rho, alpha and omega stay;
+// together, the vectors (n, K) row-major as K4m's (cg_fused.cu), so each
+// diagonal value is read once a row for all K columns and a row of K
+// columns moves as one access (GkRow: 8 bytes at K = 2, 16 at K = 4, two
+// 16-byte accesses at K = 8, K scalars at K = 3, 5, 6, 7).  Every scalar of
+// K12 is a K-vector.  Three passes and three grid barriers an iteration,
+// the order of K12's ring route:
+//
+//   A: P_new = R + beta (P_old - omega V_old) formed at every column a row
+//      gathers, V = (A M) P_new on the own row; P_new and V written on the
+//      own row; partial <rr, v>.
+//   B: S = R - alpha V formed at every column a row gathers, T = (A M) S on
+//      the own row; partial s.s, t.s and t.t in one fold, after which the
+//      half step and omega are decided.
+//   C: X += alpha (M P) + omega (M S) and R = S - omega T on the own row, S
+//      formed again from R and V (the same operands, the same bits);
+//      partial <rr, r> and r.r.
+//
+// A gathered row is formed by every thread that reads it, from vectors no
+// thread writes in that pass: P and V alternate between two buffers (pass A
+// reads P_old and V_old across rows while P_new and V are written), R
+// changes only in pass C, and each pass ends at a grid barrier, which
+// invalidates L1 (PERF.md section 6), so the gathers are plain loads.
+//
+// Per column, as the reference's stopping-status-masked step kernels:
+//   - a stopped column keeps p, v, x and r bit for bit from its stop: pass A
+//     forms P_new = P_old and takes V = V_old in it (a select, so a NaN of
+//     the discarded value never reaches it), pass C writes its old x and r;
+//     s and t are still computed for it, with alpha_eff = omega_eff = 0, and
+//     its carried rho, alpha and omega stay;
 //   - the half step fires per column (s.s, or |rho| in implicit mode, at
 //     the threshold): omega = 0, carried as 1;
 //   - each column records the iteration at which it stopped (itc);
-//   - every monitor starts at +inf, so the first iteration always runs,
-//     and the loop runs while it < max_iters and any column is active.
-// Bytes per iteration: 2 nd sizeof(TD) n + 72 K n (80 K n with minv, read
-// once per row for the K columns: + 4 n).
+//   - every monitor starts at +inf, so the first iteration always runs, and
+//     the loop runs while it < max_iters and any column is active; a column
+//     stays active while ~(mon <= tol).
+//
+// Bytes a row and iteration (nd diagonals of TD): A reads the diagonals, R,
+// P_old, V_old and rr and writes P_new and V; B reads the diagonals, R and V
+// and writes T; C reads X, R, P, V, T and rr and writes X and R:
+// 2 nd sizeof(TD) + 68 K, plus 4 with minv (the five-pass design moved
+// 2 nd sizeof(TD) + 72 K in 4-byte accesses).  A gathered row at offset +-1
+// hits L1 or L2.  The partials are value-major (coop.cuh block_partial_vm)
+// and each fold loads them at once (grid_total_batch).  The kernel is held
+// at K4m's blocks an SM (coop.cuh GK_CG_MULTI_MIN_BLOCKS).
+
+// Pass A's row j: p_new = r + beta (p_old - omega v_old) in an active
+// column, p_old in a stopped one; v_old of the row in vo.  The rows are
+// plain loads: no thread writes them in the pass, and the grid barrier
+// before it invalidates L1 (__ldcg ran 3-4% slower at K = 2 and 4, and
+// spilled at K = 8, 50% slower).
+template <int K>
+__device__ __forceinline__ void gk_bcg_form_p(const float* r, const float* p_old,
+                                              const float* v_old, const float (&beta)[K],
+                                              const float (&omega)[K], const bool (&act)[K],
+                                              long long j, float (&out)[K], float (&vo)[K]) {
+  float rj[K];
+  GkRow<K>::load(r, j, rj);
+  GkRow<K>::load(p_old, j, out);
+  GkRow<K>::load(v_old, j, vo);
+#pragma unroll
+  for (int c = 0; c < K; ++c)
+    if (act[c]) out[c] = rj[c] + beta[c] * (out[c] - omega[c] * vo[c]);
+}
+
+// Pass B's row j: s = r - alpha_eff v in every column.
+template <int K>
+__device__ __forceinline__ void gk_bcg_form_s(const float* r, const float* v,
+                                              const float (&alpha_eff)[K], long long j,
+                                              float (&out)[K]) {
+  float vj[K];
+  GkRow<K>::load(r, j, out);
+  GkRow<K>::load(v, j, vj);
+#pragma unroll
+  for (int c = 0; c < K; ++c) out[c] = out[c] - alpha_eff[c] * vj[c];
+}
+
 template <typename TD, int K>
-__global__ void __launch_bounds__(GK_CG_THREADS)
+__global__ void __launch_bounds__(GK_CG_THREADS, GK_CG_MULTI_MIN_BLOCKS(K))
     bicgstab_fused_multi_kernel(const BicgstabParams<GkDiaOp<TD>> P) {
   cg::grid_group grid = cg::this_grid();
   __shared__ double sh1[K][GK_CG_WARPS];
   __shared__ double sh2[2 * K][GK_CG_WARPS];
+  __shared__ double sh3[3 * K][GK_CG_WARPS];
   __shared__ double bc1[K];
   __shared__ double bc2[2 * K];
+  __shared__ double bc3[3 * K];
 
   const TD* __restrict__ D = P.op.diags;
   const long long n = P.n;
+  const int nd = P.op.offs.nd;
   const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
   const int G = gridDim.x;
-  double* part_rv = P.part;              // [G][K]   <rr, v>
-  double* part_ss = P.part + G * K;      // [G][K]   s.s
-  double* part_t = P.part + 2 * G * K;   // [G][2K]  t.s, t.t
-  double* part_u = P.part + 4 * G * K;   // [G][2K]  <rr, r>, r.r (and the init)
+  double* part_a = P.part;              // [K][G]   <rr, v>
+  double* part_b = P.part + K * G;      // [3K][G]  s.s, t.s, t.t
+  double* part_c = P.part + 4 * K * G;  // [2K][G]  <rr, r>, r.r (and the init)
   float* __restrict__ x = P.x;
   float* __restrict__ r = P.r;
   float* __restrict__ rr = P.rr;
-  float* __restrict__ v = P.v;
   float* __restrict__ t = P.t;
-  float* p = P.p;
-  float* s = P.s;
+  float* const pb[2] = {P.p, P.p1};
+  float* const vb[2] = {P.v, P.v1};
   const float* __restrict__ minv = P.minv;
 
-  // init: X = X0, R = RR = R0, P = V = 0; rho_c = <r0_c, r0_c>
+  // init: X = X0, R = RR = R0, P = V = 0 (the first P_old and V_old); rho_c =
+  // <r0_c, r0_c>
   {
     double acc[2 * K];
 #pragma unroll
     for (int c = 0; c < 2 * K; ++c) acc[c] = 0.0;
+    float zero[K];
+#pragma unroll
+    for (int c = 0; c < K; ++c) zero[c] = 0.f;
     for (long long i = t0; i < n; i += stride) {
+      // the caller's r0 and x0 need not be 16-byte aligned
+      float ri[K], xi[K];
 #pragma unroll
       for (int c = 0; c < K; ++c) {
-        const long long e = i * K + c;
-        const float ri = P.r0[e];
-        x[e] = P.x0[e];
-        r[e] = ri;
-        rr[e] = ri;
-        v[e] = 0.f;
-        p[e] = 0.f;
-        acc[c] += (double)ri * ri;
+        ri[c] = P.r0[i * K + c];
+        xi[c] = P.x0[i * K + c];
       }
+      GkRow<K>::store(x, i, xi);
+      GkRow<K>::store(r, i, ri);
+      GkRow<K>::store(rr, i, ri);
+      GkRow<K>::store(P.v, i, zero);
+      GkRow<K>::store(P.p, i, zero);
+#pragma unroll
+      for (int c = 0; c < K; ++c) acc[c] += (double)ri[c] * ri[c];
     }
-    block_partial<2 * K>(acc, part_u, sh2);
+    block_partial_vm<2 * K>(acc, part_c, sh2);
   }
   grid.sync();
-  double tot1[K], tot2[2 * K];
-  grid_total<2 * K>(part_u, tot2, sh2, bc2);
+  double tot1[K], tot2[2 * K], tot3[3 * K];
+  grid_total_batch<2 * K, GK_CG_FOLD_BATCH(2 * K)>(part_c, 1, G, K, tot2, sh2, bc2);
   float rho_new[K], rho_old[K], alpha[K], omega[K], tol[K], mon[K];
   bool act[K];
   int itc[K];
@@ -711,37 +779,47 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
     float beta[K];
 #pragma unroll
     for (int c = 0; c < K; ++c) beta[c] = gk_sdiv(rho_new[c] * alpha[c], rho_old[c] * omega[c]);
+    const int cur = it & 1;
+    const float* p_old = pb[cur];
+    const float* v_old = vb[cur];
+    float* p_new = pb[cur ^ 1];
+    float* v_new = vb[cur ^ 1];
 
-    // pass 1: P = R + beta (P - omega V) in the active columns
-    for (long long i = t0; i < n; i += stride) {
-#pragma unroll
-      for (int c = 0; c < K; ++c) {
-        const long long e = i * K + c;
-        if (act[c]) p[e] = r[e] + beta[c] * (__ldcg(p + e) - omega[c] * v[e]);
-      }
-    }
-    grid.sync();
-
-    // pass 2: V = (A M) P in the active columns; partial <rr, v>
+    // pass A: P_new formed at every gathered row; V = (A M) P_new in the
+    // active columns, V_old in the stopped ones; partial <rr, v>
     {
       double acc[K];
 #pragma unroll
       for (int c = 0; c < K; ++c) acc[c] = 0.0;
       for (long long i = t0; i < n; i += stride) {
         float av[K];
-        gk_dia_row_cols<TD, float, K>(D, P.op.offs, n, i, p, av);
+#pragma unroll
+        for (int c = 0; c < K; ++c) av[c] = 0.f;
+        for (int d = 0; d < nd; ++d) {
+          const long long j = i + P.op.offs.off[d];
+          if (j >= 0 && j < n) {
+            const float a = GkAcc<float>::load(D[d * n + i]);
+            float pj[K], vj[K];
+            gk_bcg_form_p<K>(r, p_old, v_old, beta, omega, act, j, pj, vj);
+#pragma unroll
+            for (int c = 0; c < K; ++c) av[c] += a * pj[c];
+          }
+        }
+        float pi[K], vi[K], rri[K];
+        gk_bcg_form_p<K>(r, p_old, v_old, beta, omega, act, i, pi, vi);
+        GkRow<K>::load(rr, i, rri);
 #pragma unroll
         for (int c = 0; c < K; ++c) {
-          const long long e = i * K + c;
-          const float vi = act[c] ? av[c] : v[e];
-          v[e] = vi;
-          acc[c] += (double)rr[e] * vi;
+          if (act[c]) vi[c] = av[c];
+          acc[c] += (double)rri[c] * vi[c];
         }
+        GkRow<K>::store(p_new, i, pi);
+        GkRow<K>::store(v_new, i, vi);
       }
-      block_partial<K>(acc, part_rv, sh1);
+      block_partial_vm<K>(acc, part_a, sh1);
     }
     grid.sync();
-    grid_total<K>(part_rv, tot1, sh1, bc1);
+    grid_total_batch<K, GK_CG_FOLD_BATCH(K)>(part_a, 1, G, K, tot1, sh1, bc1);
     float alpha_new[K], alpha_eff[K];
 #pragma unroll
     for (int c = 0; c < K; ++c) {
@@ -749,56 +827,51 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
       alpha_eff[c] = act[c] ? alpha_new[c] : 0.f;
     }
 
-    // pass 3: S = R - alpha_eff V in every column; partial s.s
+    // pass B: S formed at every gathered row; T = (A M) S; partial s.s, t.s,
+    // t.t
     {
-      double acc[K];
+      double acc[3 * K];
 #pragma unroll
-      for (int c = 0; c < K; ++c) acc[c] = 0.0;
-      for (long long i = t0; i < n; i += stride) {
-#pragma unroll
-        for (int c = 0; c < K; ++c) {
-          const long long e = i * K + c;
-          const float si = r[e] - alpha_eff[c] * v[e];
-          s[e] = si;
-          acc[c] += (double)si * si;
-        }
-      }
-      block_partial<K>(acc, part_ss, sh1);
-    }
-    grid.sync();
-    grid_total<K>(part_ss, tot1, sh1, bc1);
-    bool half_done[K];
-#pragma unroll
-    for (int c = 0; c < K; ++c)
-      half_done[c] = act[c] && ((P.implicit ? fabsf(rho_new[c]) : (float)tot1[c]) <= tol[c]);
-
-    // pass 4: T = (A M) S; partial t.s, t.t
-    {
-      double acc[2 * K];
-#pragma unroll
-      for (int c = 0; c < 2 * K; ++c) acc[c] = 0.0;
+      for (int c = 0; c < 3 * K; ++c) acc[c] = 0.0;
       for (long long i = t0; i < n; i += stride) {
         float at[K];
-        gk_dia_row_cols<TD, float, K>(D, P.op.offs, n, i, s, at);
+#pragma unroll
+        for (int c = 0; c < K; ++c) at[c] = 0.f;
+        for (int d = 0; d < nd; ++d) {
+          const long long j = i + P.op.offs.off[d];
+          if (j >= 0 && j < n) {
+            const float a = GkAcc<float>::load(D[d * n + i]);
+            float sj[K];
+            gk_bcg_form_s<K>(r, v_new, alpha_eff, j, sj);
+#pragma unroll
+            for (int c = 0; c < K; ++c) at[c] += a * sj[c];
+          }
+        }
+        float si[K];
+        gk_bcg_form_s<K>(r, v_new, alpha_eff, i, si);
+        GkRow<K>::store(t, i, at);
 #pragma unroll
         for (int c = 0; c < K; ++c) {
-          const long long e = i * K + c;
-          t[e] = at[c];
-          const float si = __ldcg(s + e);
-          acc[c] += (double)at[c] * si;
-          acc[K + c] += (double)at[c] * at[c];
+          acc[c] += (double)si[c] * si[c];
+          acc[K + c] += (double)at[c] * si[c];
+          acc[2 * K + c] += (double)at[c] * at[c];
         }
       }
-      block_partial<2 * K>(acc, part_t, sh2);
+      block_partial_vm<3 * K>(acc, part_b, sh3);
     }
     grid.sync();
-    grid_total<2 * K>(part_t, tot2, sh2, bc2);
+    grid_total_batch<3 * K, GK_CG_FOLD_BATCH(3 * K)>(part_b, 1, G, 3 * K, tot3, sh3, bc3);
+    bool half_done[K];
     float omega_eff[K];
 #pragma unroll
-    for (int c = 0; c < K; ++c)
-      omega_eff[c] = (act[c] && !half_done[c]) ? gk_sdiv((float)tot2[c], (float)tot2[K + c]) : 0.f;
+    for (int c = 0; c < K; ++c) {
+      half_done[c] = act[c] && ((P.implicit ? fabsf(rho_new[c]) : (float)tot3[c]) <= tol[c]);
+      omega_eff[c] = (act[c] && !half_done[c])
+                         ? gk_sdiv((float)tot3[K + c], (float)tot3[2 * K + c])
+                         : 0.f;
+    }
 
-    // pass 5: X += alpha (M P) + omega (M S), R = S - omega T in the active
+    // pass C: X += alpha (M P) + omega (M S), R = S - omega T in the active
     // columns; partial <rr, r> (the next rho) and r.r
     {
       double acc[2 * K];
@@ -806,27 +879,32 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
       for (int c = 0; c < 2 * K; ++c) acc[c] = 0.0;
       for (long long i = t0; i < n; i += stride) {
         const float mi = minv ? minv[i] : 1.f;
+        float xi[K], ri[K], pi[K], vi[K], ti[K], rri[K];
+        GkRow<K>::load(x, i, xi);
+        GkRow<K>::load(r, i, ri);
+        GkRow<K>::load(p_new, i, pi);
+        GkRow<K>::load(v_new, i, vi);
+        GkRow<K>::load(t, i, ti);
+        GkRow<K>::load(rr, i, rri);
 #pragma unroll
         for (int c = 0; c < K; ++c) {
-          const long long e = i * K + c;
-          float ri = r[e];
+          const float si = ri[c] - alpha_eff[c] * vi[c];
           if (act[c]) {
-            const float pi = __ldcg(p + e);
-            const float si = __ldcg(s + e);
-            const float yi = minv ? mi * pi : pi;
+            const float yi = minv ? mi * pi[c] : pi[c];
             const float zi = minv ? mi * si : si;
-            x[e] = x[e] + alpha_eff[c] * yi + omega_eff[c] * zi;
-            ri = si - omega_eff[c] * t[e];
-            r[e] = ri;
+            xi[c] = xi[c] + alpha_eff[c] * yi + omega_eff[c] * zi;
+            ri[c] = si - omega_eff[c] * ti[c];
           }
-          acc[c] += (double)rr[e] * ri;
-          acc[K + c] += (double)ri * ri;
+          acc[c] += (double)rri[c] * ri[c];
+          acc[K + c] += (double)ri[c] * ri[c];
         }
+        GkRow<K>::store(x, i, xi);
+        GkRow<K>::store(r, i, ri);
       }
-      block_partial<2 * K>(acc, part_u, sh2);
+      block_partial_vm<2 * K>(acc, part_c, sh2);
     }
     grid.sync();
-    grid_total<2 * K>(part_u, tot2, sh2, bc2);
+    grid_total_batch<2 * K, GK_CG_FOLD_BATCH(2 * K)>(part_c, 1, G, 2 * K, tot2, sh2, bc2);
 #pragma unroll
     for (int c = 0; c < K; ++c) {
       mon[c] = P.implicit ? fabsf(rho_new[c]) : (float)tot2[K + c];
@@ -1035,15 +1113,15 @@ template <typename TD, int K>
 static int multi_launch(const void* diags, const long long* offsets, int nd, long long n,
                         const float* r0, const float* x0, const float* minv,
                         const float* tol_sq, int max_iters, int implicit, float* x, float* r,
-                        float* rr, float* v, float* t, float* p, float* s, double* part,
-                        int blocks, int* it_out, float* mon_out, int* conv_out,
+                        float* rr, float* v, float* t, float* p, float* p1, float* v1,
+                        double* part, int blocks, int* it_out, float* mon_out, int* conv_out,
                         int* itc_out, void* stream) {
-  return gk_coop_launch(
-      bicgstab_fused_multi_kernel<TD, K>,
-      bicgstab_params(gk_dia_op<TD>(diags, offsets, nd, n), n, r0, x0, minv, tol_sq,
-                      max_iters, implicit, x, r, rr, v, t, p, s, part, it_out, mon_out,
-                      conv_out, itc_out),
-      blocks, stream);
+  auto P = bicgstab_params(gk_dia_op<TD>(diags, offsets, nd, n), n, r0, x0, minv, tol_sq,
+                           max_iters, implicit, x, r, rr, v, t, p, nullptr, part, it_out,
+                           mon_out, conv_out, itc_out);
+  P.p1 = p1;
+  P.v1 = v1;
+  return gk_coop_launch(bicgstab_fused_multi_kernel<TD, K>, P, blocks, stream);
 }
 
 #define GK_SWITCH_K(k, CALL_K)                   \
@@ -1066,17 +1144,19 @@ extern "C" int bicgstab_fused_multi_grid(int d_dtype, int k, int* blocks) {
 #undef GK_GRID_K
 }
 
+// K12m: vectors (n, k) row-major; p and p1, v and v1 the two buffers of the
+// direction and of its product.
 extern "C" int bicgstab_fused_multi_solve(
     const void* diags, int d_dtype, const long long* offsets, int nd, long long n, int k,
     const float* r0, const float* x0, const float* minv, const float* tol_sq,
     int max_iters, int implicit, float* x, float* r, float* rr, float* v,
-    float* t, float* p, float* s, double* part, int blocks, int* it_out,
+    float* t, float* p, float* p1, float* v1, double* part, int blocks, int* it_out,
     float* mon_out, int* conv_out, int* itc_out, void* stream) {
-  if (nd < 1 || nd > GK_MAX_DIAGS || blocks < 1) return (int)cudaErrorInvalidValue;
+  if (nd < 1 || nd > GK_MAX_DIAGS || blocks < 1 || !p1 || !v1) return (int)cudaErrorInvalidValue;
 #define GK_LAUNCH_TD_K(TD, K)                                                             \
   multi_launch<TD, K>(diags, offsets, nd, n, r0, x0, minv, tol_sq, max_iters, implicit, x, \
-                      r, rr, v, t, p, s, part, blocks, it_out, mon_out, conv_out, itc_out,   \
-                      stream)
+                      r, rr, v, t, p, p1, v1, part, blocks, it_out, mon_out, conv_out,       \
+                      itc_out, stream)
 #define GK_LAUNCH_F32_K(K) GK_LAUNCH_TD_K(float, K)
 #define GK_LAUNCH_BF16_K(K) GK_LAUNCH_TD_K(__nv_bfloat16, K)
   if (d_dtype == GK_F32) GK_SWITCH_K(k, GK_LAUNCH_F32_K)

@@ -92,72 +92,6 @@ struct CgParams {
   int* itc_out;    // (K,) iteration at which each column stopped (K4m)
 };
 
-// Row i of a row-major (n, K) float32 vector as K registers.  The vectors
-// that use it are the wrapper's own allocations, aligned to 256 bytes, so a
-// row of K = 2, 4 or 8 floats is 8- or 16-byte aligned.
-template <int K>
-struct GkRow {
-  // from L2: rows that other blocks wrote since the last grid barrier
-  static __device__ __forceinline__ void load_cg(const float* v, long long i,
-                                                 float (&out)[K]) {
-    const float* row = v + i * K;
-    if constexpr (K == 2) {
-      const float2 a = __ldcg(reinterpret_cast<const float2*>(row));
-      out[0] = a.x;
-      out[1] = a.y;
-    } else if constexpr (K % 4 == 0) {
-#pragma unroll
-      for (int c = 0; c < K; c += 4) {
-        const float4 a = __ldcg(reinterpret_cast<const float4*>(row + c));
-        out[c] = a.x;
-        out[c + 1] = a.y;
-        out[c + 2] = a.z;
-        out[c + 3] = a.w;
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < K; ++c) out[c] = __ldcg(row + c);
-    }
-  }
-  // a row this thread wrote itself
-  static __device__ __forceinline__ void load(const float* v, long long i,
-                                              float (&out)[K]) {
-    const float* row = v + i * K;
-    if constexpr (K == 2) {
-      const float2 a = *reinterpret_cast<const float2*>(row);
-      out[0] = a.x;
-      out[1] = a.y;
-    } else if constexpr (K % 4 == 0) {
-#pragma unroll
-      for (int c = 0; c < K; c += 4) {
-        const float4 a = *reinterpret_cast<const float4*>(row + c);
-        out[c] = a.x;
-        out[c + 1] = a.y;
-        out[c + 2] = a.z;
-        out[c + 3] = a.w;
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < K; ++c) out[c] = row[c];
-    }
-  }
-  static __device__ __forceinline__ void store(float* v, long long i,
-                                               const float (&in)[K]) {
-    float* row = v + i * K;
-    if constexpr (K == 2) {
-      *reinterpret_cast<float2*>(row) = make_float2(in[0], in[1]);
-    } else if constexpr (K % 4 == 0) {
-#pragma unroll
-      for (int c = 0; c < K; c += 4)
-        *reinterpret_cast<float4*>(row + c) =
-            make_float4(in[c], in[c + 1], in[c + 2], in[c + 3]);
-    } else {
-#pragma unroll
-      for (int c = 0; c < K; ++c) row[c] = in[c];
-    }
-  }
-};
-
 // p_new at row j: z_j + beta p_old[j] in a column whose direction is
 // updated, p_old[j] in a frozen one (z = minv r, or r).
 template <int K>
@@ -174,10 +108,6 @@ __device__ __forceinline__ void gk_cg_direction(
     if (upd[c]) out[c] = zj + beta[c] * out[c];
   }
 }
-
-// Partials each thread loads at once in a fold (coop.cuh grid_total_batch):
-// 4 up to 3 values, 2 up to 6, else 1, within the registers the passes use.
-#define GK_CG_FOLD_BATCH(NV) ((NV) <= 3 ? 4 : (NV) <= 6 ? 2 : 1)
 
 // K4: the three-pass solve at one column (see the header).
 template <typename TD>
@@ -332,13 +262,6 @@ __device__ __forceinline__ void gk_cg_pass_a(const CgParams& P, const float* p_o
     for (int c = 0; c < K; ++c) s[c] += (double)pi[c] * acc[c];
   }
 }
-
-// Blocks an SM that K4m's registers must leave room for: 5 at K = 2 (48
-// registers), 4 at K = 3 and 4 (64), 3 at K = 5 (80), 2 at K = 6 to 8
-// (128), the three-pass kernel's occupancy.  Left to itself the compiler
-// took 111 registers at K = 4 (2 blocks an SM, 21% slower on the card) and
-// 149-188 at K = 5 to 8 (1 block an SM).
-#define GK_CG_MULTI_MIN_BLOCKS(K) ((K) == 2 ? 5 : (K) <= 4 ? 4 : (K) == 5 ? 3 : 2)
 
 template <typename TD, int K>
 __global__ void __launch_bounds__(GK_CG_THREADS, GK_CG_MULTI_MIN_BLOCKS(K))

@@ -146,6 +146,11 @@ __device__ __forceinline__ void grid_total_batch(const double* part, int b_strid
   __syncthreads();
 }
 
+// Partials each thread loads at once in a fold (grid_total_batch) of K4,
+// K4m and K12m: 4 up to 3 values, 2 up to 6, else 1, within the registers
+// the passes use.
+#define GK_CG_FOLD_BATCH(NV) ((NV) <= 3 ? 4 : (NV) <= 6 ? 2 : 1)
+
 // Row i of a DIA product, sum_d D[d][i] * src[i + off_d] over the columns
 // in [0, n), summed in offset order from 0 as ops/dia.py's plain version
 // does.  `src` is float32, or bfloat16 (a GMRES basis) widened on read; it
@@ -194,6 +199,79 @@ static GkDiaOp<TD, LDCG> gk_dia_op(const void* diags, const long long* offsets, 
   op.n = n;
   return op;
 }
+
+// Blocks an SM that K4m's and K12m's registers must leave room for: 5 at
+// K = 2 (48 registers), 4 at K = 3 and 4 (64), 3 at K = 5 (80), 2 at K = 6
+// to 8 (128), K4m's three-pass kernel's occupancy.  Left to itself the
+// compiler took 111 registers for K4m at K = 4 (2 blocks an SM, 21% slower
+// on the card) and 149-188 at K = 5 to 8 (1 block an SM).
+#define GK_CG_MULTI_MIN_BLOCKS(K) ((K) == 2 ? 5 : (K) <= 4 ? 4 : (K) == 5 ? 3 : 2)
+
+// Row i of a row-major (n, K) float32 vector as K registers (K4m, K12m).
+// The vectors that use it are the wrappers' own allocations, aligned to 256
+// bytes, so a row of K = 2, 4 or 8 floats is 8- or 16-byte aligned.
+template <int K>
+struct GkRow {
+  // from L2: rows that other blocks wrote since the last grid barrier
+  static __device__ __forceinline__ void load_cg(const float* v, long long i,
+                                                 float (&out)[K]) {
+    const float* row = v + i * K;
+    if constexpr (K == 2) {
+      const float2 a = __ldcg(reinterpret_cast<const float2*>(row));
+      out[0] = a.x;
+      out[1] = a.y;
+    } else if constexpr (K % 4 == 0) {
+#pragma unroll
+      for (int c = 0; c < K; c += 4) {
+        const float4 a = __ldcg(reinterpret_cast<const float4*>(row + c));
+        out[c] = a.x;
+        out[c + 1] = a.y;
+        out[c + 2] = a.z;
+        out[c + 3] = a.w;
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < K; ++c) out[c] = __ldcg(row + c);
+    }
+  }
+  // a row this thread wrote itself
+  static __device__ __forceinline__ void load(const float* v, long long i,
+                                              float (&out)[K]) {
+    const float* row = v + i * K;
+    if constexpr (K == 2) {
+      const float2 a = *reinterpret_cast<const float2*>(row);
+      out[0] = a.x;
+      out[1] = a.y;
+    } else if constexpr (K % 4 == 0) {
+#pragma unroll
+      for (int c = 0; c < K; c += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(row + c);
+        out[c] = a.x;
+        out[c + 1] = a.y;
+        out[c + 2] = a.z;
+        out[c + 3] = a.w;
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < K; ++c) out[c] = row[c];
+    }
+  }
+  static __device__ __forceinline__ void store(float* v, long long i,
+                                               const float (&in)[K]) {
+    float* row = v + i * K;
+    if constexpr (K == 2) {
+      *reinterpret_cast<float2*>(row) = make_float2(in[0], in[1]);
+    } else if constexpr (K % 4 == 0) {
+#pragma unroll
+      for (int c = 0; c < K; c += 4)
+        *reinterpret_cast<float4*>(row + c) =
+            make_float4(in[c], in[c + 1], in[c + 2], in[c + 3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < K; ++c) row[c] = in[c];
+    }
+  }
+};
 
 // Row i of a DIA product on the K columns of a row-major (n, K) source,
 // each diagonal value read once for all K columns; every column is summed

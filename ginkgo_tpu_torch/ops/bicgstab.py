@@ -16,7 +16,7 @@ the ring route, three passes and three grid barriers an iteration, each
 block walking its own rows and a halo of w = max |offset| rows on each
 side through a ring of shared memory; or, where the ring does not fit a
 block (w above 6,656 rows with five float32 diagonals), the five-pass
-kernel that K19 and K12m share in form.  Both give the plain version's
+kernel that K19 shares in form.  Both give the plain version's
 bits; ``bicgstab_fused.routes`` counts the launches of each route.
 
 Semantics, shared by the kernel and :func:`bicgstab_solve_reference`:
@@ -35,7 +35,11 @@ K12m keeps these per column, as the reference's stopping-status-masked
 step kernels do: a stopped column keeps p, v, x and r (a select on the
 write) and its carried scalars; s and t are still computed for it, with
 alpha and omega taken as 0; it records the iteration at which it stopped.
-The loop runs while it < max_iters and any column is active.
+The loop runs while it < max_iters and any column is active.  K12m runs the
+ring route's three passes an iteration without a ring: each row gathers
+its neighbours' r, p_old and v_old (pass A) or r and v (pass B) and forms
+p_new or s at each, rows of k columns moving as one access; p and v
+alternate between two buffers.
 """
 
 from __future__ import annotations
@@ -231,7 +235,7 @@ def _lib():
             P, I, offs, I, L, I,  # diags, offsets, n, k
             P, P, P, P,  # r0, x0, minv, tol_sq
             I, I,  # max_iters, implicit
-            P, P, P, P, P, P, P,  # x, r, rr, v, t, p, s
+            P, P, P, P, P, P, P, P,  # x, r, rr, v, t, p, p1, v1
             P, I,  # partials, blocks
             P, P, P, P, P,  # it_out, mon_out, conv_out, itc_out, stream
         ]
@@ -363,7 +367,7 @@ def bicgstab_fused_multi(diags, offsets, r0, x0, minv=None, *, tol_sq_eff, max_i
     lib = _lib()
     code = DTYPE_CODE[diags.dtype]
     blocks = coop_grid_blocks(lib, "bicgstab_fused_multi_grid", (code, k), dev)
-    x, r, rr, v, t, p, s = (torch.empty_like(r0) for _ in range(7))
+    x, r, rr, v, t, p, p1, v1 = (torch.empty_like(r0) for _ in range(8))
     part = torch.empty(6 * k * blocks, dtype=torch.float64, device=dev)
     ints = torch.empty(1 + 2 * k, dtype=torch.int32, device=dev)  # it, conv, itc
     mon = torch.empty(k, dtype=torch.float32, device=dev)
@@ -373,7 +377,7 @@ def bicgstab_fused_multi(diags, offsets, r0, x0, minv=None, *, tol_sq_eff, max_i
             r0.data_ptr(), x0.data_ptr(), None if minv is None else minv.data_ptr(),
             tol.data_ptr(), min(int(max_iters), 2**31 - 1), int(bool(use_implicit)),
             x.data_ptr(), r.data_ptr(), rr.data_ptr(), v.data_ptr(), t.data_ptr(),
-            p.data_ptr(), s.data_ptr(), part.data_ptr(), blocks, ints.data_ptr(),
+            p.data_ptr(), p1.data_ptr(), v1.data_ptr(), part.data_ptr(), blocks, ints.data_ptr(),
             mon.data_ptr(), ints[1:].data_ptr(), ints[1 + k:].data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )

@@ -29,7 +29,24 @@ into passes, each one loop over a level's rows followed by a grid barrier:
   no barrier), ``WPASS`` (gamma = c1.w, beta = c2.w, zeta = c2.b with
   w = A c2) and ``COMB`` (kcycle_step_2's combination);
 - ``COPY`` moves level 0's x back into its first buffer after a cycle
-  from a given x whose sweep count is odd.
+  from a given x whose sweep count is odd;
+- ``RESTRICT_ZERO`` (a ``SMOOTH_ZERO`` followed by the ``RESTRICT`` of its
+  x on the same level): the restriction forms x = w (dinv b) at each
+  column it gathers for r = b - A x, and writes x on its fine rows f0 and
+  f1 (and on any fine row no coarse row takes);
+- ``PROLONG_SMOOTH`` (a ``PROLONG`` followed by the ``SMOOTH`` of its x on
+  the same level): the sweep forms x + x_c[p(j)] at each column j it
+  gathers and writes its result into the other buffer, as ``SMOOTH``
+  does; the row is the ``PROLONG``'s (level, the coarse buffer, the fine
+  buffer) with the sweep's relaxation factor.
+
+:func:`compile_passes` fuses each such pair where it stands in the list
+(:func:`fuse_passes`; never across a ``JUMP`` target), so a 12-level
+V(1,1) cycle takes 25 passes where 49.  Each element goes through the
+float operations of the two passes in their order, so the fused list
+gives the unfused list's bits.  A fused first pass reads level 0's b
+across rows: a solver that wrote b just before the cycle puts a grid
+barrier before it (:func:`lead_barrier`).
 
 A visit from a zero guess starts in the buffer that makes it end in the
 first one, so both sides of a K-cycle jump leave every level's x where the
@@ -54,9 +71,9 @@ from .cg import _dots, _sdiv, check_fused_diags, coop_grid_blocks
 from .dia import DTYPE_CODE, check_status, dia_spmv_reference, offsets_array, on_cpu
 
 (SMOOTH_ZERO, SMOOTH, RESTRICT, PROLONG, COARSE, VPASS, S1, JUMP, WPASS, COMB,
- COPY) = range(11)
+ COPY, RESTRICT_ZERO, PROLONG_SMOOTH) = range(13)
 PASS_NAMES = ("smooth_zero", "smooth", "restrict", "prolong", "coarse", "vpass", "s1",
-              "jump", "wpass", "comb", "copy")
+              "jump", "wpass", "comb", "copy", "restrict_zero", "prolong_smooth")
 #: most levels the kernels take (csrc/mg_fused.cu MG_MAX_LEVELS)
 MAX_LEVELS = 32
 #: most level visits of one cycle that the fused routes take (the JAX
@@ -197,15 +214,77 @@ def compile_passes(plan, use_x0=False):
     visit(0, mode, True, True, not use_x0)
     if cur[0] != 0:
         emit(COPY, 0, 1, 0)
+    # the last pass writes level 0's first buffer (K26 sums r.z in it)
+    op, l, _, dst = out[-1][:4]
+    assert l == 0 and op in (SMOOTH, PROLONG, COPY) and dst == 0
     passes = np.array([r[:4] for r in out], np.int32).reshape(-1, 4)
     relax = np.array([r[4] for r in out], np.float32)
-    return passes, relax
+    return fuse_passes(passes, relax)
+
+
+def fuse_passes(passes, relax):
+    """The list with each ``SMOOTH_ZERO`` + ``RESTRICT`` and each ``PROLONG``
+    + ``SMOOTH`` pair on one level (the second pass reading the x the first
+    wrote) as one pass, JUMP targets moved to their passes' new places.  A
+    pair whose second pass a JUMP lands on stays two passes."""
+    targets = {int(p[2]) for p in passes if p[0] == JUMP}
+    out, rel, new_at = [], [], []
+    i = 0
+    while i < len(passes):
+        new_at.append(len(out))
+        op, l, src, dst = (int(v) for v in passes[i])
+        if i + 1 < len(passes) and i + 1 not in targets:
+            op2, l2, src2, dst2 = (int(v) for v in passes[i + 1])
+            if op == SMOOTH_ZERO and op2 == RESTRICT and l2 == l and src2 == dst:
+                out.append([RESTRICT_ZERO, l, src, dst])
+                rel.append(relax[i])
+                new_at.append(len(out) - 1)
+                i += 2
+                continue
+            if (op == PROLONG and op2 == SMOOTH and l2 == l and src2 == dst
+                    and dst2 == 1 - dst):
+                out.append([PROLONG_SMOOTH, l, src, dst])
+                rel.append(relax[i + 1])
+                new_at.append(len(out) - 1)
+                i += 2
+                continue
+        out.append([op, l, src, dst])
+        rel.append(relax[i])
+        i += 1
+    new_at.append(len(out))
+    for row in out:
+        if row[0] == JUMP:
+            row[2] = new_at[row[2]]
+    return (np.array(out, np.int32).reshape(-1, 4), np.array(rel, np.float32))
 
 
 def barriers(passes) -> int:
     """Grid barriers of a pass list when every jump falls through (JUMP
     rows take none)."""
     return int(np.count_nonzero(passes[:, 0] != JUMP))
+
+
+def mg_cg_barriers(passes) -> int:
+    """K26's grid barriers an iteration on this pass list: the cycle's, one
+    before it where it starts by restricting r (:func:`lead_barrier`), one
+    after q = A p and one after p's update (r.z is summed in the cycle's
+    last pass)."""
+    return barriers(passes) + lead_barrier(passes) + 2
+
+
+def mg_bicgstab_barriers(passes) -> int:
+    """K28's grid barriers an iteration on this pass list: two cycles', one
+    before each where it starts by restricting (its b, p or s, was just
+    written: :func:`lead_barrier`), and three."""
+    return 2 * (barriers(passes) + lead_barrier(passes)) + 3
+
+
+def lead_barrier(passes) -> bool:
+    """Whether the list's first pass reads level 0's b across rows (a
+    restriction), so that a solver that has just written b puts a grid
+    barrier before the cycle (csrc/mg_fused.cu gk_mg_cycle)."""
+    return len(passes) > 0 and int(passes[0][0]) in (RESTRICT_ZERO, RESTRICT) \
+        and int(passes[0][1]) == 0
 
 
 @dataclasses.dataclass(eq=False)
@@ -295,20 +374,26 @@ def _run_passes(h: MgHierarchy, b0, x0=None):
         if op == JUMP:
             pc = pc + 1 if bool(ks[l]["g2"] > h.krt2 * ks[l]["bb"]) else src
             continue
-        if op == SMOOTH_ZERO:
+        if op in (SMOOTH_ZERO, RESTRICT_ZERO):
             x[l][dst] = w * (h.dinv[l] * b[l])
         elif op == SMOOTH:
             xs = x[l][src]
             x[l][dst] = xs + w * (h.dinv[l] * (b[l] - A(l, xs)))
-        elif op == RESTRICT:
-            p = pairs(b[l] - A(l, x[l][src]), h.strides[l], sizes[l + 1])
+        # a RESTRICT_ZERO row ran its sweep above and restricts here
+        if op in (RESTRICT, RESTRICT_ZERO):
+            xs = x[l][dst if op == RESTRICT_ZERO else src]
+            p = pairs(b[l] - A(l, xs), h.strides[l], sizes[l + 1])
             b[l + 1] = (p[:, 0, :] + p[:, 1, :]).reshape(-1)[:sizes[l + 1]]
-        elif op == PROLONG:
+        elif op in (PROLONG, PROLONG_SMOOTH):
             S, n = h.strides[l], sizes[l]
             nb = -(-n // (2 * S))
             xc = torch.nn.functional.pad(x[l + 1][src], (0, nb * S - sizes[l + 1]))
             add = xc.reshape(nb, 1, S).expand(nb, 2, S).reshape(-1)[:n]
-            x[l][dst] = x[l][dst] + add
+            xp = x[l][dst] + add
+            if op == PROLONG:
+                x[l][dst] = xp
+            else:  # the sweep from the prolonged x, into the other buffer
+                x[l][1 - dst] = xp + w * (h.dinv[l] * (b[l] - A(l, xp)))
         elif op == COARSE:
             x[L][0] = (h.minv.to(torch.float64) @ b[L].to(torch.float64)).to(torch.float32)
         elif op == VPASS:
@@ -497,6 +582,8 @@ def _device_state(h: MgHierarchy, dev):
             raise ValueError("multigrid: dinv must be (n_l,) float32 on the diagonals' device")
     if h.minv.device != dev or h.minv.shape != (sizes[L], sizes[L]):
         raise ValueError("multigrid: minv must be (n_L, n_L) float32 on the device")
+    if sizes[0] > 2**30 or any(2 * S > 2**30 for S in h.strides):
+        raise ValueError("multigrid: the kernels take at most 2^30 rows (32-bit row indices)")
     offs = torch.tensor([o for off in h.offsets for o in off], dtype=torch.int64, device=dev)
     kmode = h.plan["mode"] == "k"
     plan_len = []

@@ -29,6 +29,12 @@ odd n; NaN in b; bfloat16 diagonals; Jacobi folded into A M; implicit
 mode.  The dot products are float64 sums rounded to float32, summed as the
 plain version sums them: the kernel's float64 order differs and is not
 under test here.
+
+K12m (``bicgstab_fused_multi_kernel``) runs the same three passes at k
+columns without a ring: each row forms p_new or s at every neighbour it
+gathers, from vectors no row writes in that pass (``multi_loop``), and a
+stopped column selects its old p and v; it must equal
+``bicgstab_solve_multi_reference`` bit for bit, stop iterations included.
 """
 
 import re
@@ -329,3 +335,129 @@ def test_model_catches_a_short_ring():
     with pytest.raises(AssertionError, match="ring place|another position"):
         ring_loop(A.diags, A.offsets, b, torch.zeros(n), None, tol_sq_eff=F32(0.0), max_iters=1,
                   use_implicit=False, blocks=2, ring_rows=4096)
+
+
+# -- K12m: the three passes at k columns ------------------------------------------------
+
+
+def multi_loop(diags, offsets, R0, X0, minv, *, tol_sq_eff, max_iters, use_implicit):
+    """K12m (``bicgstab_fused_multi_kernel``), pass by pass: each row of k
+    columns gathers its neighbours and forms p_new (pass A) or s (pass B)
+    at each from vectors that no row writes in that pass; p and v in two
+    buffers, the new ones NaN until written; a stopped column selects
+    p_old and v_old.  Returns what bicgstab_solve_multi_reference does."""
+    n, k = R0.shape
+    D = diags.to(torch.float32).numpy()
+    tol = np.broadcast_to(np.asarray(tol_sq_eff, F32).reshape(-1), (k,)).astype(F32)
+    mv = None if minv is None else minv.numpy()[:, None]
+    x, r, rr = X0.numpy().copy(), R0.numpy().copy(), R0.numpy().copy()
+    pb = [np.zeros((n, k), F32), np.full((n, k), np.nan, F32)]
+    vb = [np.zeros((n, k), F32), np.full((n, k), np.nan, F32)]
+
+    def dots(a, b):
+        return _dots(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+
+    def sdiv(a, b):
+        return _sdiv(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+
+    def gathered_product(form, written):
+        """Row i: sum over the diagonals in offset order, from +0.0, of
+        D[d, i] times the row i + off formed by ``form`` (columns outside
+        [0, n) skipped); ``written`` are the buffers the pass writes, which
+        ``form`` must not read."""
+        acc = np.zeros((n, k), F32)
+        for d, off in enumerate(offsets):
+            i = np.arange(n)
+            j = i + off
+            m = (j >= 0) & (j < n)
+            acc[i[m]] = acc[i[m]] + D[d, i[m], None] * form(j[m], written)
+        return acc
+
+    rho_new = dots(r, r)
+    rho_old = alpha = omega = np.ones(k, F32)
+    act = np.ones(k, bool)
+    itc = np.zeros(k, np.int32)
+    mon = np.full(k, np.inf, F32)
+    it = 0
+    while it < max_iters and act.any():
+        beta = sdiv(rho_new * alpha, rho_old * omega)
+        cur = it & 1
+        p_old, v_old, p_new, v_new = pb[cur], vb[cur], pb[cur ^ 1], vb[cur ^ 1]
+        p_new[:] = np.nan
+        v_new[:] = np.nan
+
+        def form_p(j, written):
+            assert not any(buf is p_old or buf is v_old or buf is r for buf in written)
+            return np.where(act, r[j] + beta * (p_old[j] - omega * v_old[j]), p_old[j])
+
+        av = gathered_product(form_p, (p_new, v_new))
+        p_new[:] = form_p(np.arange(n), (p_new, v_new))
+        v_new[:] = np.where(act, av, v_old)
+        alpha_new = np.where(act, sdiv(rho_new, dots(rr, v_new)), alpha)
+        alpha_eff = np.where(act, alpha_new, F32(0))
+
+        def form_s(j, written):
+            assert not any(buf is r or buf is v_new for buf in written)
+            return r[j] - alpha_eff * v_new[j]
+
+        t = gathered_product(form_s, ())
+        s = form_s(np.arange(n), ())
+        half = act & ((np.abs(rho_new) if use_implicit else dots(s, s)) <= tol)
+        omega_eff = np.where(act & ~half, sdiv(dots(t, s), dots(t, t)), F32(0))
+        # pass C: s formed again from r and v on the own rows
+        y = p_new if mv is None else mv * p_new
+        z = s if mv is None else mv * s
+        x = np.where(act, x + alpha_eff * y + omega_eff * z, x)
+        r = np.where(act, s - omega_eff * t, r)
+        rho_next = dots(rr, r)
+        mon = np.abs(rho_new) if use_implicit else dots(r, r)
+        itc = np.where(act, it + 1, itc).astype(np.int32)
+        omega = np.where(act, np.where(half, F32(1), omega_eff), omega)
+        rho_old, alpha = rho_new, alpha_new
+        rho_new = np.where(act, rho_next, rho_new)
+        act = act & ~(mon <= tol)
+        it += 1
+    return x, r, it, mon, mon <= tol, itc
+
+
+MULTI_CASES = [
+    # (label, grid, coefficients, k, storage, Jacobi, implicit, cap)
+    ("k2_w1", (1500, 1), (2.6, -1.3, -0.7), 2, "f32", False, False, 80),
+    ("k4_w31", (31, 40), (4.5, -1.3, -0.7), 4, "f32", True, False, 80),
+    ("k4_w31_bf16_implicit", (31, 40), (4.5, -1.3, -0.7), 4, "bf16", False, True, 80),
+    ("k8_w64", (64, 20), (4.5, -1.3, -0.7), 8, "f32", False, False, 60),
+]
+
+
+@pytest.mark.parametrize("label,grid,coeffs,k,storage,jacobi,implicit,cap", MULTI_CASES,
+                         ids=[c[0] for c in MULTI_CASES])
+def test_multi_schedule_matches_plain_version(label, grid, coeffs, k, storage, jacobi, implicit,
+                                              cap):
+    """K12m's three-pass order equals ``bicgstab_solve_multi_reference`` bit
+    for bit: x, r, the iteration count, each column's monitor and stop
+    iteration.  Column 0 stops early (a loose threshold), column 1 carries
+    a NaN and runs to the cap, so the other columns stay frozen from their
+    stops for the rest of the run."""
+    A = grid_operator(*grid, coeffs)
+    if storage == "bf16":
+        A = A.astype(torch.bfloat16)
+    n = A.shape[0]
+    rng = np.random.default_rng(n + k)
+    B = torch.from_numpy(rng.uniform(0.5, 1.5, (n, k)).astype(F32))
+    B[n // 3, 1] = float("nan")
+    minv = torch.from_numpy(rng.uniform(0.15, 0.3, n).astype(F32)) if jacobi else None
+    diags = A.diags if minv is None else fold_minv(A, minv)
+    tol = ((1e-6 * B.double().norm(dim=0)) ** 2).float()
+    tol[0] = float(B[:, 0].norm()) ** 2 * 1e-2
+    kw = dict(tol_sq_eff=tol, max_iters=cap, use_implicit=implicit)
+    Z = torch.zeros(n, k)
+    x, r, it, mon, conv, itc = multi_loop(diags, A.offsets, B, Z, minv, **kw)
+    wx, wr, wit, wmon, wconv, witc = ops_bicgstab.bicgstab_solve_multi_reference(
+        diags, A.offsets, B, Z, minv, **kw)
+    assert it == int(wit) == cap
+    assert np.array_equal(itc, witc.numpy()) and np.array_equal(conv, wconv.numpy())
+    assert same_bits(mon, wmon.numpy())
+    assert same_bits(x, wx.numpy()) and same_bits(r, wr.numpy())
+    assert itc[0] < cap and itc[1] == cap and not conv[1]
+    rest = [c for c in range(k) if c != 1]
+    assert conv[rest].all() and itc[0] < itc[rest[1:]].min(initial=cap)

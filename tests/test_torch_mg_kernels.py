@@ -157,9 +157,12 @@ def test_plan_visits_and_stash_match_jax(cycle, rel_tol):
     # one COARSE pass a coarsest visit, one RESTRICT and one PROLONG a
     # level visit; a K-cycle's second inner solve is in the list once,
     # behind its jump
+    # (a fused RESTRICT_ZERO or PROLONG_SMOOTH row counts as its restriction
+    # or prolongation)
     counts = np.bincount(passes[:, 0], minlength=len(ops_mg.PASS_NAMES))
-    assert counts[ops_mg.RESTRICT] == counts[ops_mg.PROLONG]
-    assert counts[ops_mg.COARSE] + counts[ops_mg.RESTRICT] == jplan["visits"]
+    restricts = counts[ops_mg.RESTRICT] + counts[ops_mg.RESTRICT_ZERO]
+    assert restricts == counts[ops_mg.PROLONG] + counts[ops_mg.PROLONG_SMOOTH]
+    assert counts[ops_mg.COARSE] + restricts == jplan["visits"]
 
 
 def test_route_48_strides_take_k25():
@@ -238,3 +241,111 @@ def test_hierarchy_gate_declines():
     assert pm.replace(post_smoothers=(same,) + pm.post_smoothers[1:])._fused_hierarchy()
     csr_level = pm.levels[0].replace(fine_op=pm.levels[0].fine_op.to_csr())
     assert pm.replace(levels=(csr_level,) + pm.levels[1:])._fused_hierarchy() is None
+
+
+# -- the fused pass list ----------------------------------------------------------------
+
+
+def _unfused(passes, relax):
+    """The list with each fused row written out as the two passes it fuses
+    (RESTRICT_ZERO: SMOOTH_ZERO then RESTRICT of its x; PROLONG_SMOOTH:
+    PROLONG then the sweep from its x into the other buffer), JUMP targets
+    moved along."""
+    out, rel, at = [], [], []
+    for i, row in enumerate(passes.tolist()):
+        op, l, src, dst = row
+        at.append(len(out))
+        if op == ops_mg.RESTRICT_ZERO:
+            out += [[ops_mg.SMOOTH_ZERO, l, src, dst], [ops_mg.RESTRICT, l, dst, 0]]
+            rel += [relax[i], 0.0]
+        elif op == ops_mg.PROLONG_SMOOTH:
+            out += [[ops_mg.PROLONG, l, src, dst], [ops_mg.SMOOTH, l, dst, 1 - dst]]
+            rel += [0.0, relax[i]]
+        else:
+            out.append(row)
+            rel.append(relax[i])
+    at.append(len(out))
+    for row in out:
+        if row[0] == ops_mg.JUMP:
+            row[2] = at[row[2]]
+    return np.array(out, np.int32), np.array(rel, np.float32)
+
+
+def _meta(L, itp, ito):
+    return [dict(iters_pre=itp, relax_pre=0.9, iters_post=ito, relax_post=0.8,
+                 iters_mid=ito, relax_mid=0.7)] * L
+
+
+def test_twelve_level_vcycle_takes_25_barriers():
+    """A 12-level V(1,1) cycle from zero: one RESTRICT_ZERO and one
+    PROLONG_SMOOTH a level and the coarse solve, 25 passes and grid
+    barriers where the unfused list took 49; the first pass restricts
+    level 0, so a solver that has just written b waits once before it."""
+    passes, relax = ops_mg.compile_passes(ops_mg.build_cycle_plan(_meta(12, 1, 1)))
+    assert passes[:, 0].tolist() == ([ops_mg.RESTRICT_ZERO] * 12 + [ops_mg.COARSE]
+                                     + [ops_mg.PROLONG_SMOOTH] * 12)
+    assert passes[:, 1].tolist() == list(range(12)) + [12] + list(range(11, -1, -1))
+    assert ops_mg.barriers(passes) == 25
+    assert ops_mg.barriers(_unfused(passes, relax)[0]) == 49
+    assert ops_mg.lead_barrier(passes)
+    assert relax.tolist() == [np.float32(0.9)] * 12 + [0.0] + [np.float32(0.8)] * 12
+    # from a given x, level 0 sweeps before it restricts: no fusion there
+    x0 = ops_mg.compile_passes(ops_mg.build_cycle_plan(_meta(12, 1, 1)), use_x0=True)[0]
+    assert x0[:2, 0].tolist() == [ops_mg.SMOOTH, ops_mg.RESTRICT]
+    assert ops_mg.barriers(x0) == 26 and not ops_mg.lead_barrier(x0)
+
+
+@pytest.mark.parametrize("itp, ito, cg, bicgstab", [
+    (1, 1, 25 + 1 + 2, 2 * (25 + 1) + 3),
+    (2, 1, 49 + 2, 2 * 49 + 3),  # a sweep, another, then the restriction: no lead barrier
+    (1, 0, 25 + 1 + 2, 2 * (25 + 1) + 3),  # unfused prolongations, one pass each
+])
+def test_solver_barriers_an_iteration(itp, ito, cg, bicgstab):
+    """K26's and K28's grid barriers an iteration on a 12-level cycle: the
+    cycle's, one before each cycle whose first pass restricts level 0 (a
+    fused first sweep), and K26's two and K28's three of their own."""
+    passes, _ = ops_mg.compile_passes(ops_mg.build_cycle_plan(_meta(12, itp, ito)))
+    assert ops_mg.mg_cg_barriers(passes) == cg
+    assert ops_mg.mg_bicgstab_barriers(passes) == bicgstab
+
+
+_HIERARCHY = {}
+
+
+def _small_hierarchy(cycle):
+    if cycle not in _HIERARCHY:
+        A = gt.Dia.from_matrix_data(gt.generators.poisson_2d(32, dtype=np.float32), device="cpu")
+        M = gt.Multigrid.build(max_levels=4, min_coarse_rows=32, cycle=cycle).generate(A)
+        _HIERARCHY[cycle] = M._fused_hierarchy()
+    return _HIERARCHY[cycle]
+
+
+@pytest.mark.parametrize("ito", [0, 1, 2])
+@pytest.mark.parametrize("itp", [0, 1, 2])
+@pytest.mark.parametrize("cycle", ["v", "w", "f", "k"])
+def test_fused_list_equals_unfused_bits(cycle, itp, ito):
+    """``_run_passes`` on the fused list gives the bits of the same list
+    with every fused row written out again, from zero and from a given x,
+    on the 4-level poisson_2d(32) hierarchy; the fused list has as many
+    barriers fewer as it has fused rows, and its JUMP targets land on the
+    pass after the second inner solve."""
+    import dataclasses
+
+    h = _small_hierarchy(cycle)
+    plan = dict(h.plan, lv=[dict(e, itp=itp, ito=ito, itm=ito) for e in h.plan["lv"]])
+    n = h.sizes[0]
+    b = torch.from_numpy(_rhs(n, seed=11))
+    x0 = torch.from_numpy(_rhs(n, seed=12))
+    for use_x0 in (False, True):
+        passes, relax = ops_mg.compile_passes(plan, use_x0=use_x0)
+        unf = _unfused(passes, relax)
+        fused_rows = np.isin(passes[:, 0], (ops_mg.RESTRICT_ZERO, ops_mg.PROLONG_SMOOTH)).sum()
+        assert ops_mg.barriers(unf[0]) == ops_mg.barriers(passes) + fused_rows
+        assert fused_rows > 0 or (itp > 1 and ito == 0)
+        for row in passes[passes[:, 0] == ops_mg.JUMP]:
+            assert passes[row[2] - 1, 0] == ops_mg.COMB
+        got = ops_mg._run_passes(dataclasses.replace(h, plan=plan, passes={use_x0: (passes, relax)}),
+                                 b, x0 if use_x0 else None)
+        want = ops_mg._run_passes(dataclasses.replace(h, plan=plan, passes={use_x0: unf}),
+                                  b, x0 if use_x0 else None)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -9,17 +9,20 @@ WELL, T and G by the planner), K5 ``pell_spmv`` on path 2's plan
 ``cg_fused`` and K4m ``cg_fused_multi`` (k = 4) on path 1's
 ``poisson_2d(2048)`` ``Dia``; K22 ``trs_fused`` and K23
 ``cg_ilu_fused`` on path 7's IC and ILU of that ``Dia``; K12, K15m and K12m
-on that ``Dia``; and K7 ``pell_cg_fused`` and K18 ``pell_gmres_fused`` on
-path 2's 160^3 ``Pell``, K15 ``gmres_fused`` on path 4's A2.
+on that ``Dia``; K7 ``pell_cg_fused`` and K18 ``pell_gmres_fused`` on
+path 2's 160^3 ``Pell``, K15 ``gmres_fused`` on path 4's A2; and the
+multigrid kernels K25-K28 on path 8's hierarchies.
 
 Run from the repository root:
 
     python3 well_bench.py [--kernels well,pell_spmv,bell_spmv,cg_fused,cg_fused_multi,
                                      trs_fused,cg_ilu_fused,bicgstab_fused,
                                      gmres_fused_multi,bicgstab_fused_multi,
-                                     pell_cg_fused,gmres_fused,pell_gmres_fused]
+                                     pell_cg_fused,gmres_fused,pell_gmres_fused,
+                                     mg_cg_fused]
                           [--rows N] [--chunks 256,512] [--cg-columns 2,4,8]
-                          [--other DIR ...] [--check] [--profile]
+                          [--bicgstab-columns 2,4,8] [--other DIR ...] [--check]
+                          [--profile]
 
 ``--kernels`` chooses what runs (default ``well``, K8/K9).  For ``well`` it
 prints JSON lines:
@@ -132,8 +135,30 @@ on path 1's ``poisson_2d(2048)`` ``Dia``:
   version (K12: the solve to 1e-6 under path 4's cap of 5000; K15m: 90
   steps on A1, and a solve to 1e-6 on path 4's A2 with each column's stop
   step);
-- ``bicgstab_fused_multi`` (K12m, k = 4), which shares those sources: the
-  same slope in turns and x against the other checkouts.
+- ``bicgstab_fused_multi`` (K12m): ``check`` (with ``--check``)
+  ``chip_smoke.check_bicgstab_multi_edges``; ``build``: ptxas's lines of
+  its kernels and each checkout's launch (blocks, blocks an SM, registers,
+  grid barriers an iteration); ``timing``, one row a case (each k of
+  ``--bicgstab-columns``; float32, bfloat16, Jacobi): microseconds an
+  iteration on A1 by the slope between solves of 200 and 1000 iterations
+  in turns, the bytes of the bound and of the three- and five-pass
+  designs, and x, r and each column's stop iteration of the solve to 1e-6
+  on path 5's A2 against the plain version and the other checkouts.
+
+For ``mg_cg_fused`` (K26, with K25, K27 and K28, which share its cycle):
+
+- ``check`` (with ``--check``): ``chip_smoke.check_mg_edges``, K25-K28 bit
+  for bit at 64^2 on every cycle shape and on pass lists that fuse in
+  part;
+- ``build`` and ``setup``: ptxas's lines and blocks an SM of each kernel,
+  and each checkout's grid barriers a cycle and K26's an iteration, each
+  on its own pass list;
+- ``timing``, one row a kernel and hierarchy (the 64^2 hierarchy, path 8's
+  A1 and A2): K25 per cycle by the slope of chained launches, K26 (CG and
+  FCG), K27 and K28 by the slope between solves of 20 and 100 iterations
+  (cycles), in turns; the bound's bytes and each checkout's pass bytes; x
+  against the plain version and the other checkouts (K25 one cycle, K27
+  20 cycles, K26 and K28 the solves to 1e-6, with their iterations).
 
 For ``pell_cg_fused`` (K7 on path 2's 160^3 ``Pell``: float32 and bfloat16
 values, Jacobi), ``gmres_fused`` (K15 on path 4's A2) and
@@ -180,15 +205,16 @@ LIBRARY = {"well": "well_spmv", "pell_spmv": "pell_spmv", "bell_spmv": "bell_spm
            "cg_ilu_fused": "trs_fused", "bicgstab_fused": "bicgstab_fused",
            "gmres_fused_multi": "gmres_fused", "bicgstab_fused_multi": "bicgstab_fused",
            "gmres_fused": "gmres_fused", "pell_cg_fused": "pell_cg_fused",
-           "pell_gmres_fused": "gmres_fused"}
+           "pell_gmres_fused": "gmres_fused", "mg_cg_fused": "mg_fused"}
 #: the whole-solve kernels of --kernels: K4 runs one column, K4m --cg-columns
 CG_KERNELS = ("cg_fused", "cg_fused_multi")
 #: K22 and K23, the kernels of the sweep solve
 TRS_KERNELS = ("trs_fused", "cg_ilu_fused")
 
-#: K12 and K15m, the kernels of the slice-13 redesign, and K12m, which
-#: shares their sources and is timed to show it unchanged
-KRYLOV_KERNELS = ("bicgstab_fused", "gmres_fused_multi", "bicgstab_fused_multi")
+#: K12 and K15m: the ring route and the tiled GMRES passes
+KRYLOV_KERNELS = ("bicgstab_fused", "gmres_fused_multi")
+#: K26 and the multigrid kernels that share its cycle (K25, K27, K28)
+MG_KERNELS = ("mg_cg_fused",)
 #: K7 (CG on a Pell) and the one-column GMRES kernel, K15 on a Dia and K18
 #: on a Pell, at their main paths' shapes
 SOLVE_KERNELS = ("pell_cg_fused", "gmres_fused", "pell_gmres_fused")
@@ -269,7 +295,7 @@ def main():
                          "cg_fused (K4), cg_fused_multi (K4m), trs_fused (K22), "
                          "cg_ilu_fused (K23), bicgstab_fused (K12), gmres_fused_multi (K15m), "
                          "bicgstab_fused_multi (K12m), pell_cg_fused (K7), gmres_fused (K15), "
-                         "pell_gmres_fused (K18)")
+                         "pell_gmres_fused (K18), mg_cg_fused (K26, with K25, K27, K28)")
     ap.add_argument("--rows", type=int, default=cs.POWERLAW_ROWS)
     ap.add_argument("--chunks", default="256", help="chunk lengths to time, comma-separated")
     ap.add_argument("--other", action="append", default=[],
@@ -278,6 +304,8 @@ def main():
     ap.add_argument("--profile", action="store_true", help="device time by kernel name")
     ap.add_argument("--cg-columns", default="4",
                     help="cg_fused_multi: the column counts to time, comma-separated (2 to 8)")
+    ap.add_argument("--bicgstab-columns", default="2,4,8",
+                    help="bicgstab_fused_multi: the column counts to time, comma-separated")
     args = ap.parse_args()
     kernels = args.kernels.split(",")
     if not set(kernels) <= set(LIBRARY):
@@ -336,6 +364,17 @@ def main():
         cs.emit({"phase": "check", "kernels": ["gmres_fused", "pell_gmres_fused"],
                  "edge_cases": len(rows), "all_bit_equal": True,
                  "s": round(time.perf_counter() - t0, 2)})
+    if args.check and "bicgstab_fused_multi" in kernels:
+        t0 = time.perf_counter()
+        rows = cs.check_bicgstab_multi_edges(gt, dev, np.random.default_rng(5))
+        cs.emit({"phase": "check", "kernels": ["bicgstab_fused_multi"], "edge_operators": len(rows),
+                 "all_bit_equal": True, "s": round(time.perf_counter() - t0, 2)})
+    if args.check and "mg_cg_fused" in kernels:
+        t0 = time.perf_counter()
+        cs.check_mg_edges(gt, dev, np.random.default_rng(5))
+        cs.emit({"phase": "check", "kernels": ["mg_vcycle", "mg_cg_fused", "mg_solve_fused",
+                                               "mg_bicgstab_fused"],
+                 "all_bit_equal": True, "s": round(time.perf_counter() - t0, 2)})
     if args.check and "gmres_fused_multi" in kernels:
         t0 = time.perf_counter()
         rows = cs.check_gmres_multi_edges(gt, dev, np.random.default_rng(5))
@@ -351,13 +390,19 @@ def main():
     krylov_kernels = [k for k in kernels if k in KRYLOV_KERNELS]
     if krylov_kernels:
         bench_krylov(krylov_kernels, gt, dev, card, copy_gbs, others_pkg)
+    if "bicgstab_fused_multi" in kernels:
+        bench_bicgstab_multi([int(k) for k in args.bicgstab_columns.split(",")], gt, dev, card,
+                             copy_gbs, others_pkg)
+    if "mg_cg_fused" in kernels:
+        bench_mg(gt, dev, card, copy_gbs, others_pkg)
     solve_kernels = [k for k in kernels if k in SOLVE_KERNELS]
     if solve_kernels:
         bench_solves(solve_kernels, gt, dev, card, copy_gbs, others_pkg)
     for k in kernels:
         if k == "well":
             bench_well(args, gt, dev, card, copy_gbs, others_pkg)
-        elif k not in CG_KERNELS + TRS_KERNELS + KRYLOV_KERNELS + SOLVE_KERNELS:
+        elif k not in (CG_KERNELS + TRS_KERNELS + KRYLOV_KERNELS + SOLVE_KERNELS + MG_KERNELS
+                       + ("bicgstab_fused_multi",)):
             bench_spmv(k, args, gt, dev, card, copy_gbs, others_pkg)
     print(card, flush=True)
 
@@ -880,30 +925,286 @@ def bench_trs(kernels, gt, dev, card, copy_gbs, others_pkg):
                          "solve_1e-6": solves})
 
 
-def bench_unchanged(kernels, mods, others, A1, dev, card):
-    """K12m (k = 4) on A1: microseconds an iteration in turns, and x against
-    the other checkouts."""
-    n = A1.shape[0]
-    B1 = cs.rhs4(n, np.random.default_rng(cs.SEED + 5), dev)
-    calls = {
-        "bicgstab_fused_multi": (lambda mod, its: mod.bicgstab_fused_multi(
-            A1.diags, A1.offsets, B1, torch.zeros_like(B1), None,
-            tol_sq_eff=torch.full((4,), -1.0, device=dev), max_iters=its), (200, 1000), 300),
-    }
-    module = {"bicgstab_fused_multi": "bicgstab_fused"}
-    for kernel in kernels:
-        call, (lo, hi), its = calls[kernel]
-        us = {}
+#: K12m's design and grid barriers an iteration by checkout tag: this
+#: checkout runs three passes; each ``--other`` is taken for the five-pass
+#: kernel that came before the three-pass one
+MULTI_DESIGN = {"this": ("three_pass", 3)}
+MULTI_OTHER_DESIGN = ("five_pass", 5)
 
-        def measure(tag):
-            mod = mods[tag][module[kernel]]
-            us.setdefault(tag, []).append(1e3 * cs.iter_ms(lambda i: call(mod, i), lo, hi))
 
-        in_turns(measure, others)
-        xs = {tag: call(mods[tag][module[kernel]], its)[0] for tag in mods}
-        cs.emit({"phase": "timing", "kernel": kernel, "case": "a1_f32", "card": card,
-                 "us_per_iteration": us, "iterations_for_bits": its,
-                 "x_bit_equal": {tag: cs.bit_equal(xs["this"], xs[tag]) for tag in others}})
+def multi_launch_of(tag, mod, dtype, k, dev, logs):
+    """A checkout's K12m launch: its grid's blocks and blocks an SM,
+    ptxas's registers, and its grid barriers an iteration (``MULTI_DESIGN``)."""
+    code = mod.DTYPE_CODE[dtype]
+    token = ("multi_kernelIfLi" if dtype == torch.float32 else "multi_kernelI13__nv_bfloat16Li")
+    regs = [line for name, line in ptxas_registers(logs).items() if f"{token}{k}E" in name]
+    blocks = mod.coop_grid_blocks(mod._lib(), "bicgstab_fused_multi_grid", (code, k), dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return {"blocks": blocks, "blocks_per_sm": blocks // sms,
+            "grid_barriers": MULTI_DESIGN.get(tag, MULTI_OTHER_DESIGN)[1],
+            "registers": regs[0].split()[1] if regs else None}
+
+
+def bench_bicgstab_multi(columns, gt, dev, card, copy_gbs, others_pkg):
+    """K12m on path 1's ``poisson_2d(2048)`` Dia at each k of ``columns``
+    (float32 and bfloat16 diagonals, Jacobi folded into A M): the launch of
+    each checkout, then microseconds an iteration by the slope between
+    whole solves of 200 and 1000 iterations in turns, the bytes of the
+    bound and of each design, and x, r and the per-column stop iterations
+    of the solve to 1e-6 on path 5's A2 (k uniform columns; Jacobi: a
+    seeded inverse diagonal folded into A M) against the other checkouts
+    and the plain version."""
+    from ginkgo_tpu_torch import _build
+    from ginkgo_tpu_torch.ops import bicgstab as ops_bicgstab
+    from ginkgo_tpu_torch.solver._fused_gate import fold_minv
+
+    mods = {"this": ops_bicgstab, **{tag: ops_of(pkg, "bicgstab_fused_multi")
+                                     for tag, pkg in others_pkg.items()}}
+    others = [tag for tag in mods if tag != "this"]
+    logs = {"this": _build.BUILD_LOG["bicgstab_fused"]["ptxas"]}
+    logs.update({tag: importlib.import_module(f"{pkg.__name__}._build")
+                 .BUILD_LOG["bicgstab_fused"]["ptxas"] for tag, pkg in others_pkg.items()})
+    cs.emit({"phase": "build", "kernel": "bicgstab_fused_multi",
+             "ptxas": {tag: {k: line for k, line in ptxas_registers(log).items()
+                             if "bicgstab_fused_multi_kernel" in k} for tag, log in logs.items()},
+             "launch": {tag: {f"{str(dt)[6:]}_k{k}": multi_launch_of(tag, mod, dt, k, dev, logs[tag])
+                              for k in columns for dt in (torch.float32, torch.bfloat16)}
+                        for tag, mod in mods.items()}})
+    A1 = gt.Dia.from_matrix_data(gt.generators.poisson_2d(cs.NSIDE, dtype=np.float32), device=dev)
+    A2 = gt.Dia.from_matrix_data(gt.MatrixData.from_coo(*cs.convdiff_2d(cs.NSIDE)), device=dev)
+    n, nd = A1.shape[0], len(A1.offsets)
+    minv = 1.0 / A1.extract_diagonal().values.float()
+    minv2 = torch.as_tensor(np.random.default_rng(cs.SEED + 9).uniform(0.15, 0.3, n)
+                            .astype(np.float32), device=dev)
+    rng = np.random.default_rng(cs.SEED + 5)
+    for k in columns:
+        B = (cs.rhs4(n, rng, dev) if k == 4 else
+             torch.as_tensor(rng.uniform(0.5, 1.5, (n, k)).astype(np.float32), device=dev))
+        B2 = torch.as_tensor(rng.uniform(0.5, 1.5, (n, k)).astype(np.float32), device=dev)
+        tol2 = ((cs.TOL * B2.norm(dim=0)) ** 2).contiguous()
+        Z = torch.zeros_like(B)
+        never = torch.full((k,), -1.0, device=dev)
+        for case, D, mv in (("f32", A1.diags, None), ("bf16", A1.reduce_storage().diags, None),
+                            ("jacobi", fold_minv(A1, minv), minv)):
+            def solve(tag, its, D=D, mv=mv):
+                return mods[tag].bicgstab_fused_multi(D, A1.offsets, B, Z, mv, tol_sq_eff=never,
+                                                      max_iters=its)
+
+            us = {}
+
+            def measure(tag):
+                us.setdefault(tag, []).append(1e3 * cs.iter_ms(lambda its: solve(tag, its)))
+
+            in_turns(measure, others)
+            # bits: the solve to 1e-6 on path 5's A2 (A1's float32 BiCGSTAB
+            # does not reach it, and past convergence a column iterates on
+            # round-off, where the declared float64 dot order shows)
+            D2 = {"f32": A2.diags, "bf16": A2.reduce_storage().diags,
+                  "jacobi": fold_minv(A2, minv2)}[case]
+            mv2 = minv2 if mv is not None else None
+            runs = {tag: mods[tag].bicgstab_fused_multi(D2, A2.offsets, B2, Z, mv2, tol_sq_eff=tol2,
+                                                        max_iters=cs.MAX_ITERS) for tag in mods}
+            plain = mods["this"].bicgstab_solve_multi_reference(
+                D2, A2.offsets, B2, Z, mv2, tol_sq_eff=tol2, max_iters=cs.MAX_ITERS)
+            runs["plain"] = plain
+            bits = {tag: cs.bit_equal(runs["this"][0], runs[tag][0])
+                    and cs.bit_equal(runs["this"][1], runs[tag][1])
+                    and runs["this"][5].tolist() == runs[tag][5].tolist()
+                    for tag in ["plain"] + others}
+            stops = {tag: out[5].tolist() for tag, out in runs.items()}
+            del runs, plain
+            # bytes an iteration: the bound's (the diagonals, rr and minv read
+            # once; x, r, p and v read and written once), this three-pass
+            # design's and the five-pass design's
+            dsz = nd * D.element_size()
+            jac = 4 * (mv is not None)
+            nbytes = {"bound": (dsz + 36 * k + jac) * n,
+                      "three_pass": (2 * dsz + 68 * k + jac) * n,
+                      "five_pass": (2 * dsz + 72 * k + jac) * n}
+            best = {tag: min(v) for tag, v in us.items()}
+
+            cs.emit({"phase": "timing", "kernel": "bicgstab_fused_multi", "case": f"k{k}_{case}",
+                     "card": card, "rows": n, "copy_GBps": copy_gbs, "us_per_iteration": us,
+                     "bytes": nbytes, "bound_us": nbytes["bound"] / cs.PEAK_BYTES_S * 1e6,
+                     "frac_of_copy_bound_bytes": {
+                         tag: nbytes["bound"] / t / 1e3 / copy_gbs for tag, t in best.items()},
+                     "frac_of_copy_own_bytes": {
+                         tag: nbytes[MULTI_DESIGN.get(tag, MULTI_OTHER_DESIGN)[0]] / t / 1e3
+                         / copy_gbs for tag, t in best.items()},
+                     "a2_stop_iterations": stops, "a2_x_r_stops_equal": bits})
+
+
+def mg_hierarchy_of(mod, h):
+    """Another checkout's own MgHierarchy of h's arrays and cycle, with the
+    pass lists its own compiler makes (this checkout's: h itself)."""
+    if mod.__name__ == "ginkgo_tpu_torch.ops.mg":
+        return h
+    meta = [dict(iters_pre=e["itp"], relax_pre=e["rp"], iters_post=e["ito"],
+                 relax_post=e["ro"], iters_mid=e["itm"], relax_mid=e["rm"])
+            for e in h.plan["lv"]]
+    return mod.make_hierarchy(list(h.diags), list(h.offsets), list(h.dinv), list(h.strides),
+                              h.minv, meta, mode=h.plan["mode"], mid_case=h.plan["mid_case"],
+                              kcycle_rel_tol=h.plan["krt"])
+
+
+def mg_barriers(mod, h):
+    """A checkout's grid barriers of one cycle from zero (its pass list) and
+    of K26's iteration (``ops/mg.mg_cg_barriers`` where the checkout has it,
+    else the cycle's and three)."""
+    passes = h.passes[False][0]
+    if hasattr(mod, "mg_cg_barriers"):
+        return {"cycle": mod.barriers(passes), "mg_cg_fused": mod.mg_cg_barriers(passes)}
+    return {"cycle": mod.barriers(passes), "mg_cg_fused": mod.barriers(passes) + 3}
+
+
+def bench_mg(gt, dev, card, copy_gbs, others_pkg):
+    """K26 (CG and FCG + MG on path 8's A1 hierarchy, 12 levels) and the
+    kernels that share its cycle: K25 (one cycle, the slope of chained
+    launches), K27 (cycles, the slope between 20 and 100) and K28 (BiCGSTAB +
+    MG on A2's hierarchy); K26 and K28 by the slope between solves of 20
+    and 100 iterations.  Each checkout runs its own pass lists on the same
+    hierarchy arrays, in turns.  The same four at 64^2 (6 levels), where a
+    pass moves next to nothing, give each design's fixed cost a barrier.
+    Rows: the build (ptxas, blocks an SM), the barriers, the timings with
+    the bytes of the bound and of each checkout's passes, and x against the
+    plain version and the other checkouts (K25: one cycle; K26: the solve
+    to 1e-6; K27: 20 cycles; K28: the solve to 1e-6)."""
+    from ginkgo_tpu_torch import _build
+    from ginkgo_tpu_torch.ops import mg as ops_mg
+
+    mods = {"this": ops_mg, **{tag: ops_of(pkg, "mg_cg_fused")
+                               for tag, pkg in others_pkg.items()}}
+    others = [tag for tag in mods if tag != "this"]
+    logs = {"this": _build.BUILD_LOG["mg_fused"]["ptxas"]}
+    logs.update({tag: importlib.import_module(f"{pkg.__name__}._build")
+                 .BUILD_LOG["mg_fused"]["ptxas"] for tag, pkg in others_pkg.items()})
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    launch = {}
+    for tag, mod in mods.items():
+        lib, f32 = mod._lib(), mod.DTYPE_CODE[torch.float32]
+        launch[tag] = {name: mod.coop_grid_blocks(lib, f"{name}_grid", codes, dev) // sms
+                       for name, codes in (("mg_vcycle", (f32,)), ("mg_solve_fused", (f32,)),
+                                           ("mg_cg_fused", (f32, f32)),
+                                           ("mg_bicgstab_fused", (f32, f32)))}
+    cs.emit({"phase": "build", "kernels": ["mg_vcycle", "mg_cg_fused", "mg_solve_fused",
+                                           "mg_bicgstab_fused"],
+             "ptxas": {tag: ptxas_registers(log) for tag, log in logs.items()},
+             "blocks_per_sm": launch})
+    t0 = time.perf_counter()
+    A1 = gt.Dia.from_matrix_data(gt.generators.poisson_2d(cs.NSIDE, dtype=np.float32), device=dev)
+    A2 = gt.Dia.from_matrix_data(gt.MatrixData.from_coo(*cs.convdiff_2d(cs.NSIDE)), device=dev)
+    A64 = gt.Dia.from_matrix_data(gt.generators.poisson_2d(cs.SMALL, dtype=np.float32),
+                                  device=dev)
+    hs = {"a1": gt.Multigrid.build(max_levels=cs.MG_LEVELS8).generate(A1)._fused_hierarchy(),
+          "a2": gt.Multigrid.build(max_levels=cs.MG_LEVELS8).generate(A2)._fused_hierarchy(),
+          "64": gt.Multigrid.build(max_levels=6, min_coarse_rows=32).generate(A64)
+          ._fused_hierarchy()}
+    own = {tag: {key: mg_hierarchy_of(mod, h) for key, h in hs.items()}
+           for tag, mod in mods.items()}
+    cs.emit({"phase": "setup", "s": round(time.perf_counter() - t0, 2),
+             "levels": {key: h.L for key, h in hs.items()},
+             "diagonals": {key: [len(o) for o in h.offsets] for key, h in hs.items()},
+             "barriers": {tag: {key: mg_barriers(mods[tag], hh) for key, hh in own[tag].items()}
+                          for tag in mods}})
+    rng = np.random.default_rng(cs.SEED + 8)
+    rhs = {"a1": torch.ones(A1.shape[0], device=dev),
+           "a2": torch.as_tensor(rng.uniform(0.5, 1.5, A2.shape[0]).astype(np.float32),
+                                 device=dev),
+           "64": torch.ones(A64.shape[0], device=dev)}
+    ops = {"a1": A1, "a2": A2, "64": A64}
+    never = torch.full((), -1.0, device=dev)
+
+    def runs(key):
+        """{kernel case: call(tag, its)} on hierarchy ``key``."""
+        A, b = ops[key], rhs[key]
+        z = torch.zeros_like(b)
+
+        def cg(flexible):
+            return lambda tag, its, tol=never: mods[tag].mg_cg_fused(
+                A, own[tag][key], b, z, tol_sq_eff=tol, max_iters=its, flexible=flexible)
+
+        out = {"mg_vcycle": lambda tag, its: mods[tag].mg_vcycle(own[tag][key], b),
+               "mg_solve_fused": lambda tag, its, tol=never: mods[tag].mg_solve_fused(
+                   own[tag][key], b, z, tol_sq_eff=tol, max_iters=its)}
+        if key != "a2":
+            out["mg_cg_fused"] = cg(False)
+            out["mg_cg_fused fcg"] = cg(True)
+        if key != "a1":
+            out["mg_bicgstab_fused"] = lambda tag, its, tol=never: mods[tag].mg_bicgstab_fused(
+                A, own[tag][key], b, z, tol_sq_eff=tol, max_iters=its)
+        return out
+
+    for key in ("64", "a1", "a2"):
+        h = hs[key]
+        n = h.sizes[0]
+        nd_a = len(ops[key].offsets)
+        for case, call in runs(key).items():
+            us = {}
+
+            def measure(tag, call=call, case=case):
+                if case == "mg_vcycle":
+                    t = cs.slope_ms(lambda: call(tag, 1))
+                else:
+                    t = cs.iter_ms(lambda its: call(tag, its), 20, 100)
+                us.setdefault(tag, []).append(1e3 * t)
+
+            in_turns(measure, others)
+            # bits: one cycle, 20 cycles of K27, the K26/K28 solves to 1e-6
+            b = rhs[key]
+            tol = torch.full((), (cs.TOL * float(b.norm())) ** 2, device=dev)
+            z = torch.zeros_like(b)
+            if case == "mg_vcycle":
+                got = {tag: call(tag, 1) for tag in mods}
+                plain = ops_mg.mg_vcycle_reference(h, b)
+                iters = {}
+            elif case == "mg_solve_fused":
+                got = {tag: call(tag, 20) for tag in mods}
+                plain = ops_mg.mg_solve_reference(h, b, z, tol_sq_eff=never, max_iters=20)
+                iters = {}
+            else:
+                got = {tag: call(tag, 500, tol) for tag in mods}
+                if case.startswith("mg_cg"):
+                    plain = ops_mg.mg_cg_solve_reference(ops[key], h, b, z, tol_sq_eff=tol,
+                                                         max_iters=500,
+                                                         flexible=case.endswith("fcg"))
+                else:
+                    plain = ops_mg.mg_bicgstab_solve_reference(ops[key], h, b, z,
+                                                               tol_sq_eff=tol, max_iters=500)
+                iters = {tag: int(out[2]) for tag, out in got.items()}
+                iters["plain"] = int(plain[2])
+
+            def x_of(out):
+                return out if case == "mg_vcycle" else out[0]
+
+            bits = {"plain": cs.bit_equal(x_of(got["this"]), x_of(plain))}
+            bits.update({tag: cs.bit_equal(x_of(got["this"]), x_of(got[tag])) for tag in others})
+            del got, plain
+            # bytes: the bound's (the hierarchy once, and level 0's vectors as
+            # chip_smoke.time_path8 counts them) and each checkout's passes
+            hh = own["this"][key]
+            hier, _, _ = cs.mg_cycle_cost(hh, hh.passes[False][0])
+            vec = {"mg_vcycle": 8, "mg_solve_fused": 12, "mg_cg_fused": 32,
+                   "mg_cg_fused fcg": 32, "mg_bicgstab_fused": 44}[case] * n
+            per_pass = {}
+            for tag in mods:
+                ht = own[tag][key]
+                _, pp, _ = cs.mg_cycle_cost(ht, ht.passes[case == "mg_solve_fused"][0])
+                if case.startswith("mg_cg"):
+                    pp += (4 * nd_a + 32) * n
+                elif case == "mg_bicgstab_fused":
+                    pp = 2 * pp + (8 * nd_a + 44) * n
+                elif case == "mg_solve_fused":
+                    pp += (4 * nd_a + 8) * n
+                per_pass[tag] = pp
+            best = {tag: min(v) for tag, v in us.items()}
+            cs.emit({"phase": "timing", "kernel": case.split(" ")[0], "case": f"{key} {case}",
+                     "card": card, "rows": n, "levels": h.L, "copy_GBps": copy_gbs,
+                     "us": us, "bound_bytes": hier + vec,
+                     "bound_us": (hier + vec) / cs.PEAK_BYTES_S * 1e6,
+                     "pass_bytes": per_pass,
+                     "frac_of_copy_pass_bytes": {
+                         tag: per_pass[tag] / t / 1e3 / copy_gbs for tag, t in best.items()},
+                     "iterations": iters, "x_bit_equal": bits})
 
 
 def ring_halo_rows(n, width, blocks):
@@ -935,8 +1236,7 @@ def bench_krylov(kernels, gt, dev, card, copy_gbs, others_pkg):
     each case's microseconds an iteration (K12) or Arnoldi step (K15m) by
     the slope between whole solves, this checkout's against each other's
     in turns, and x and the iteration counts against the other checkouts
-    and the plain version; K12m and K15 where asked for
-    (:func:`bench_unchanged`).  Device time by kernel name is not taken:
+    and the plain version.  Device time by kernel name is not taken:
     ``torch.profiler`` read these long cooperative launches short by up to
     half in some readings on the H100."""
     from ginkgo_tpu_torch import _build
@@ -955,8 +1255,7 @@ def bench_krylov(kernels, gt, dev, card, copy_gbs, others_pkg):
                      "gmres_fused_multi": importlib.import_module(f"{pkg.__name__}.ops.gmres")}
     others = [tag for tag in mods if tag != "this"]
     tokens = {"bicgstab_fused": ("bicgstab_fused_kernel", "bicgstab_ring_kernel"),
-              "gmres_fused_multi": ("gmres_fused_multi_kernel",),
-              "bicgstab_fused_multi": ("bicgstab_fused_multi_kernel",)}
+              "gmres_fused_multi": ("gmres_fused_multi_kernel",)}
     cs.emit({"phase": "build", "kernels": kernels,
              "ptxas": {tag: {k: line for lib, log in lg.items()
                              for k, line in ptxas_registers(log).items()
@@ -968,9 +1267,6 @@ def bench_krylov(kernels, gt, dev, card, copy_gbs, others_pkg):
     z1 = torch.zeros_like(b1)
     never = torch.full((), -1.0, device=dev)
     minv = 1.0 / A1.extract_diagonal().values.float()
-    unchanged = [k for k in ("bicgstab_fused_multi",) if k in kernels]
-    if unchanged:
-        bench_unchanged(unchanged, mods, others, A1, dev, card)
     if "bicgstab_fused" in kernels:
         for case, D, mv in (("f32", A1.diags, None), ("bf16", A1.reduce_storage().diags, None),
                             ("jacobi", fold_minv(A1, minv), minv)):
