@@ -293,9 +293,9 @@ EPS32 = float(np.finfo(np.float32).eps)
 #: more than a figure needs: the plain versions (their times are no
 #: yardstick of a kernel: a short slope serves; GMRES steps apart) and the
 #: host-bound streaming routes
-PLAIN_TRIPS = (10, 50)
-PLAIN_GMRES_TRIPS = (30, 60)
-STREAM_TRIPS = (50, 250)
+PLAIN_TRIPS = (5, 25)
+PLAIN_GMRES_TRIPS = (15, 30)
+STREAM_TRIPS = (25, 125)
 
 
 _T0 = time.perf_counter()
@@ -1704,6 +1704,141 @@ def check_pell_cg_edges(gt, dev, rng, record_err=None):
     return rows
 
 
+def check_pell_ir_edges(gt, dev, rng, record_err=None):
+    """K21 against its plain version on ``pell_cg_edge_operators`` (S = 1,
+    3, 8 and 16, G = 4, int32 lane indices, n not a multiple of a chunk,
+    63 chunks), float32 and bfloat16 values: Jacobi (relaxation 1.0) to
+    the threshold, the Identity (0.15) under a cap of 10 sweeps, 0, 1 and
+    2 sweeps from a seeded x0, zero sweeps (x0 the Jacobi solve's x, whose
+    r0 meets the threshold) and a NaN in b (both run to the cap).  Each
+    case must take the plain version's sweeps and stop flag, and x, r and
+    r.r bit for bit, twice.  Returns the rows it emitted."""
+    from ginkgo_tpu_torch.ops import pell_cg as ops_pc
+
+    rows = []
+    for label, P32 in pell_cg_edge_operators(gt, dev).items():
+        n = P32.shape[0]
+        b = torch.as_tensor(rng.uniform(0.5, 1.5, n).astype(np.float32), device=dev)
+        x0 = torch.as_tensor(rng.uniform(-0.1, 0.1, n).astype(np.float32), device=dev)
+        z = torch.zeros_like(b)
+        tol = torch.full((), (TOL * float(b.double().norm())) ** 2, device=dev)
+        nan_b = b.clone()
+        nan_b[n // 2] = float("nan")
+        row = {"phase": "kernel_check", "kernel": "pell_ir_fused", "matrix": label, "rows": n,
+               "S": P32.S, "G": P32.G, "qidx": str(P32.qidx.dtype)}
+        for storage, P in (("f32", P32), ("bf16", P32.astype(torch.bfloat16))):
+            minv = (1.0 / P.extract_diagonal().values.float()).contiguous()
+
+            def run(what, rhs, start, mv, omega, cap, P=P, storage=storage):
+                kw = dict(omega=omega, tol_sq_eff=tol, max_iters=cap)
+                kw = dict(kw, with_residual=True)
+                got = ops_pc.pell_ir_fused(P, rhs, start, mv, **kw)
+                again = ops_pc.pell_ir_fused(P, rhs, start, mv, **kw)
+                want = ops_pc.pell_ir_solve_reference(P, rhs, start, mv, **kw)
+                _sync(dev)
+                case = f"pell_ir_fused {label} {storage} {what}"
+                kit, pit = int(got[2]), int(want[2])
+                check(kit == pit == int(again[2]) and bool(got[4]) == bool(want[4]),
+                      f"{case}: {kit} / {pit} sweeps, converged {bool(got[4])} / "
+                      f"{bool(want[4])}")
+                check(all(bit_equal(got[j], want[j]) and bit_equal(got[j], again[j])
+                          for j in (0, 1, 3)), f"{case}: x, r or r.r differs")
+                if what == "nan b":
+                    check(kit == cap and not bool(got[4]), f"{case}: stopped at {kit}")
+                elif cap <= 10:
+                    check(kit == cap, f"{case}: {kit} sweeps")
+                if record_err is not None and what != "nan b":
+                    record_err("pell_ir_fused", got[0], want[0])
+                row[f"{storage} {what}"] = kit
+                return got
+
+            got = run("jacobi", b, z, minv, 1.0, MAX_ITERS)
+            check(bool(got[4]) and int(got[2]) > 0,
+                  f"pell_ir_fused {label} {storage} jacobi: not converged")
+            x = got[0]
+            # the Jacobi solve's x meets the threshold: no sweep from it
+            got = run("zero sweeps", b, x, minv, 1.0, MAX_ITERS)
+            check(int(got[2]) == 0 and bool(got[4]) and bit_equal(got[0], x),
+                  f"pell_ir_fused {label} {storage}: sweeps from an x0 that meets the threshold")
+            run("identity", b, z, None, 0.15, 10)
+            run("0 sweeps", b, x0, minv, 1.0, 0)
+            run("1 sweep", b, x0, None, 0.15, 1)
+            run("2 sweeps", b, x0, minv, 1.0, 2)
+            run("nan b", nan_b, z, minv, 1.0, 7)
+        rows.append(row)
+        emit(row)
+    return rows
+
+
+#: K16 edge operators (``check_idr_edges``): label -> grid (nx, ny) and
+#: coefficients of ``banded_grid``: n below the grid's threads, n not a
+#: multiple of a block, and 2048 x 150 rows (several rows a thread).
+IDR_EDGES = {
+    "line(3001)": ((3001, 1), (2.6, -1.3, -0.7)),
+    "grid(64x64)": ((64, 64), (4.5, -1.3, -0.7)),
+    "grid(2048x150)": ((2048, 150), (4.5, -1.3, -0.7)),
+}
+
+
+def check_idr_edges(gt, dev, rng, record_err=None):
+    """K16 against its plain version on ``IDR_EDGES`` at s = 1, 2 and 4:
+    float32 diagonals with the Identity and with a seeded inverse diagonal,
+    bfloat16 diagonals with the Identity, to the threshold; 0 and 1 outer
+    iterations; an r0 that already meets the threshold (no iteration); a
+    NaN in b (both run to the cap).  Each case must take the plain
+    version's iterations and stop flag, and x, r and the monitor bit for
+    bit, twice.  Returns the rows it emitted."""
+    from ginkgo_tpu_torch.ops import idr as ops_idr
+
+    rows = []
+    for label, (grid, coeffs) in IDR_EDGES.items():
+        A = gt.Dia.from_matrix_data(gt.MatrixData.from_coo(*banded_grid(*grid, coeffs)),
+                                    device=dev)
+        n = A.shape[0]
+        b = torch.as_tensor(rng.uniform(0.5, 1.5, n).astype(np.float32), device=dev)
+        z = torch.zeros_like(b)
+        tol = torch.full((), (TOL * float(b.norm())) ** 2, dtype=torch.float32, device=dev)
+        minv = torch.as_tensor(rng.uniform(0.15, 0.3, n).astype(np.float32), device=dev)
+        nan_b = b.clone()
+        nan_b[n // 2] = float("nan")
+        tiny = b * 1e-8  # r0 at the threshold
+        row = {"phase": "kernel_check", "kernel": "idr_fused", "matrix": label, "rows": n}
+        for sdim in (1, 2, 4):
+            P = gt.Idr.build(criteria=None, subspace_dim=sdim).generate(A).P
+            for what, Av, r0, rhs, mv, cap in (
+                    ("f32 identity", A, b, b, None, 500), ("f32 jacobi", A, b, b, minv, 500),
+                    ("bf16 identity", A.reduce_storage(), b, b, None, 500),
+                    ("0 iterations", A, b, b, minv, 0), ("1 iteration", A, b, b, None, 1),
+                    ("converged r0", A, tiny, b, minv, 500), ("nan b", A, nan_b, nan_b, None, 7)):
+                kw = dict(kappa=0.7, tol_sq_eff=tol, max_iters=cap)
+                args = (Av.diags, Av.offsets, P, r0, z, rhs, mv)
+                got = ops_idr.idr_fused(*args, **kw)
+                again = ops_idr.idr_fused(*args, **kw)
+                want = ops_idr.idr_solve_reference(*args, **kw)
+                _sync(dev)
+                case = f"idr_fused {label} s={sdim} {what}"
+                kit, pit = int(got[2]), int(want[2])
+                check(kit == pit == int(again[2]) and bool(got[4]) == bool(want[4]),
+                      f"{case}: {kit} / {pit} iterations, converged {bool(got[4])} / "
+                      f"{bool(want[4])}")
+                check(all(bit_equal(got[j], want[j]) and bit_equal(got[j], again[j])
+                          for j in (0, 1, 3)), f"{case}: x, r or the monitor differs")
+                if what == "nan b":
+                    check(kit == cap and not bool(got[4]), f"{case}: stopped at {kit}")
+                elif what == "converged r0":
+                    check(kit == 0 and bool(got[4]), f"{case}: {kit} iterations")
+                elif cap <= 1:
+                    check(kit == cap, f"{case}: {kit} iterations")
+                else:
+                    check(bool(got[4]), f"{case}: not converged")
+                if record_err is not None and what != "nan b":
+                    record_err("idr_fused", got[0], want[0])
+                row[f"s={sdim} {what}"] = kit
+        rows.append(row)
+        emit(row)
+    return rows
+
+
 def check_gmres_edges(gt, dev, rng, record_err=None):
     """K15 and K18 against their plain versions at small sizes: K15 on A2's
     operator at 64^2 (fewer tiles than the grid has blocks) and 701^2
@@ -1789,11 +1924,12 @@ def check_gmres_edges(gt, dev, rng, record_err=None):
 def time_path4(gt, dev, p4, rec, timing):
     """Per-iteration times on A1 (the 2048^2 Poisson matrix of path 1) by
     the slope between whole solves: K12-K14 fused between Iteration(200)
-    and Iteration(1000), streaming between 50 and 250 (STREAM_TRIPS), their
-    plain versions between 10 and 50 (PLAIN_TRIPS); K15 per Arnoldi step
+    and Iteration(1000), streaming between 25 and 125 (STREAM_TRIPS), their
+    plain versions between 5 and 25 (PLAIN_TRIPS); K15 per Arnoldi step
     between Iteration(60) and Iteration(240) (the JAX bench's trip counts,
     two and eight restart cycles of 30) with a float32 and a bfloat16
-    basis, streaming too, the plain version between 30 and 60.
+    basis, streaming between 30 and 90, the plain version between 15 and
+    30.
 
     Bounds per iteration (each input read once, each output written once,
     the iteration's carried vectors in and out): BiCGSTAB and CGS read the
@@ -1864,7 +2000,7 @@ def time_path4(gt, dev, p4, rec, timing):
         gm[label] = {"fused_us_per_step": ms * 1e3, "bytes_per_step": cycle_bytes / m,
                      "GBps": cycle_bytes / m / ms / 1e6}
         if label == "f32":
-            gm["streaming_us_per_step"] = iter_ms(streaming("gmres"), 60, 240) * 1e3
+            gm["streaming_us_per_step"] = iter_ms(streaming("gmres"), 30, 90) * 1e3
             p_ms = iter_ms(plains["gmres"], *PLAIN_GMRES_TRIPS)
             gm["plain_us_per_step"] = p_ms * 1e3
             rec["gmres_fused"] = (ms, p_ms, None, cycle_bytes / m, cycle_flops / m)
@@ -2342,7 +2478,7 @@ def time_path5(gt, dev, p4, rec, timing):
         s_ms = iter_ms(streaming(name, b1), 20, 100)
         p_ms = iter_ms(lambda its, P=P: ops_idr.idr_solve_reference(
             A1.diags, A1.offsets, P, b1, z, b1, None, kappa=0.7, tol_sq_eff=-1.0,
-            max_iters=its), 20, 100)
+            max_iters=its), 10, 50)
         nbytes = (4 * nd + 20 * sdim + 20) * n
         flops = (2 * nd * (sdim + 2) + 7 * sdim * sdim + 6 * sdim + 11) * n
         if sdim == 2:  # the kernels line carries Idr's default subspace
@@ -2665,7 +2801,7 @@ def time_path6(gt, dev, P, b3, rec, timing):
     between Iteration(200) and Iteration(1000), K21 (scalar Jacobi,
     relaxation 1.0) per sweep the same, K18 per Arnoldi step between 60
     and 240 (m = 30, float32 and bfloat16 bases); each beside its streaming
-    route and its plain version (fewer trips).  The true residual of the
+    route (GMRES between 30 and 90) and its plain version (fewer trips).  The true residual of the
     longer run is reported, not bounded: in float32 BiCGSTAB on a Poisson
     matrix with b = ones stagnates before 1e-6 (ROADMAP, "Not faults").
 
@@ -2673,8 +2809,9 @@ def time_path6(gt, dev, P, b3, rec, timing):
     once (the plan's bytes once, as the Dia rows count the diagonals once),
     and beside them the plan read once per SpMV: BiCGSTAB and CGS plan +
     36 n bytes (rr in; x, r and two carried vectors in and out), 4 cells +
-    22 n (CGS 19 n) operations, two SpMVs; IR plan + 24 n (b, minv in; x,
-    r in and out), 2 cells + 6 n, one SpMV; GMRES per step K15's cycle
+    22 n (CGS 19 n) operations, two SpMVs; IR plan + 16 n (x gathered
+    once, b and minv in, x out: a sweep uses r at once on the rows that form
+    it and stores none), 2 cells + 6 n, one SpMV; GMRES per step K15's cycle
     model with the plan in place of the diagonals, one SpMV."""
     from ginkgo_tpu_torch import stop
     from ginkgo_tpu_torch.ops import gmres as ops_gmres
@@ -2714,7 +2851,7 @@ def time_path6(gt, dev, P, b3, rec, timing):
     per_iter = {
         "bicgstab": (plan + 36 * n, 2 * plan + 36 * n, 4 * cells + 22 * n),
         "cgs": (plan + 36 * n, 2 * plan + 36 * n, 4 * cells + 19 * n),
-        "ir": (plan + 24 * n, plan + 24 * n, 2 * cells + 6 * n),
+        "ir": (plan + 16 * n, plan + 16 * n, 2 * cells + 6 * n),
     }
     out = {"matrix": f"poisson_3d({NSIDE3})", "card": timing["card"], "plan_bytes": plan,
            "cells": cells}
@@ -2736,7 +2873,7 @@ def time_path6(gt, dev, P, b3, rec, timing):
         gm[label] = {"fused_us_per_step": ms * 1e3, "bytes_per_step": cycle_bytes / m,
                      "GBps": cycle_bytes / m / ms / 1e6}
         if label == "f32":
-            gm["streaming_us_per_step"] = iter_ms(streaming("gmres"), 60, 240) * 1e3
+            gm["streaming_us_per_step"] = iter_ms(streaming("gmres"), 30, 90) * 1e3
             p_ms = iter_ms(plains["gmres"], *PLAIN_GMRES_TRIPS)
             gm["plain_us_per_step"] = p_ms * 1e3
             rec["pell_gmres_fused"] = (ms, p_ms, None, cycle_bytes / m, cycle_flops / m,
@@ -3319,8 +3456,8 @@ def time_path7(gt, dev, p7, rec, timing):
     """Per-iteration times by the slope between whole solves with
     Iteration-only criteria: K23 with path 7's IC on A1 and K24 with its
     ILU on A2, between Iteration(200) and Iteration(1000), each beside its
-    streaming route (K1 + K22, between 50 and 250) and its plain version
-    (between 10 and 50);
+    streaming route (K1 + K22, between 25 and 125) and its plain version
+    (between 5 and 25);
     K22 per launch (3 sweeps on A1's IC lower triangle, slope of chained
     launches) beside its plain version.
 
@@ -4433,6 +4570,8 @@ def main():
     stamp("K12m edges")
     check_gmres_multi_edges(gt, dev, rng, record_err)
     stamp("K15m edges")
+    check_idr_edges(gt, dev, rng, record_err)
+    stamp("K16 edges")
     del p5
 
     # -- 5d. main path 6: the Krylov solvers on a Pell (Csr -> Pell) -------------------
@@ -4450,6 +4589,8 @@ def main():
     emit({"phase": "kernel_check", "kernels": ["gmres_fused", "pell_gmres_fused"],
           "edge_cases": len(edges), "s": round(time.perf_counter() - t0, 3), "t_s": elapsed()})
     stamp("K15/K18 edges")
+    check_pell_ir_edges(gt, dev, rng, record_err)
+    stamp("K21 edges")
 
     # -- 5e. main path 7: triangular solves and incomplete factorizations ----------------
     zero_counts()

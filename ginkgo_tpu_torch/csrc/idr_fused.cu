@@ -17,14 +17,26 @@
 // products.
 //
 // What the design does about it: K4's (cg_fused.cu).  Every row belongs to
-// one thread in every pass, so passes that read only their own rows (u,
-// r -= beta g, x += beta u, v = M r, x += om v) follow each other without a
-// barrier; a barrier comes before a product (which reads its source across
-// rows, with __ldcg) and with every reduction.  The biorthogonalization is
-// sequential, as the TPU kernel's (:163-187): alpha_i is a dot on the g
-// already reduced by alpha_0..alpha_{i-1}, so each is one grid reduction,
-// fused with the subtraction that precedes it.  u_new lives in U[kk]
-// itself (the TPU kernel stages it and copies it there).  Dot products are
+// one thread in every pass, so passes that read only their own rows follow
+// each other without a barrier; a barrier comes before a product (which
+// reads its source across rows) and with every reduction.  The
+// biorthogonalization is sequential, as the TPU kernel's (:163-187):
+// alpha_i is a dot on the g already reduced by alpha_0..alpha_{i-1}, so
+// each is one grid reduction, fused with the subtraction of G that precedes
+// it.  Every update that no reduction waits for is deferred to the next
+// pass that reads the rows anyway, in the plain version's order, so each
+// element rounds as before:
+//   - U[kk] -= alpha_ib U[ib] (ib = 0..kk-1, in order) and r -= beta_kk
+//     G[kk] run in the next own-row pass: the u pass of step kk + 1, or,
+//     after the last step, the pass before the dimension-reduction product;
+//   - x += beta_0 U[0], ..., x += beta_{s-1} U[s-1], x += om v run in one
+//     pass before the replacement, so x is read and written once an outer
+//     iteration (U[kk] is final once step kk ends);
+//   - v = M r is never stored: t = A v gathers minv[c] * r[c], one float32
+//     product as w = M r was, and the x pass forms minv r again.
+// The products gather with plain loads: every source was written before
+// the last grid barrier, which invalidates L1.  u_new lives in U[kk] itself
+// (the TPU kernel stages it and copies it there).  Dot products are
 // float64 per-block partials that every block sums in one fixed order
 // (coop.cuh); consecutive reductions use the two halves of the partial
 // buffer in turn.
@@ -61,7 +73,6 @@ struct IdrParams {
   float* r;
   float* G;      // (S, n)
   float* U;      // (S, n)
-  float* w;      // v = M r, the source of the omega step's product
   double* part;  // 2 * max(S + 1, 3) * gridDim.x per-block partial sums
   int* it_out;
   float* mon_out;
@@ -71,7 +82,8 @@ struct IdrParams {
 // One grid reduction of NV values.  Reductions use the two halves of the
 // partial buffer in turn (q counts them): a block writes reduction q + 2's
 // partials only after the barrier of reduction q + 1, which no block
-// reaches before it has read reduction q's.
+// reaches before it has read reduction q's.  The fold loads a thread's
+// partials at once (coop.cuh grid_total_batch, grid_total's order).
 template <int NV>
 __device__ __forceinline__ void idr_reduce(cg::grid_group& grid, double (&acc)[NV],
                                            double* part, int half, int& q,
@@ -81,12 +93,72 @@ __device__ __forceinline__ void idr_reduce(cg::grid_group& grid, double (&acc)[N
   double* buf = part + (long long)(q & 1) * half * gridDim.x;
   block_partial<NV>(acc, buf, sh);
   grid.sync();
-  grid_total<NV>(buf, tot, sh, bc);
+  grid_total_batch<NV, GK_CG_FOLD_BATCH(NV)>(buf, NV, 1, NV, tot, sh, bc);
   ++q;
 }
 
+// Rows a thread takes at once in every pass: its rows are t0, t0 + stride,
+// ... as one row a thread grid-stride, in that order (so the float64 sums
+// keep their order), GK_IDR_ROWS of them a trip.  On the H100 (PERF.md
+// section 6) 2 beat 1 by 0.3% at s = 2 and 2.7% at s = 4; 4 lost at s = 2.
+#define GK_IDR_ROWS 2
+
+// f(i) for this thread's rows i < n, in order, GK_IDR_ROWS a trip.
+template <typename F>
+__device__ __forceinline__ void idr_rows(long long n, long long t0, long long stride, F f) {
+  long long i = t0;
+  for (; i + (GK_IDR_ROWS - 1) * stride < n; i += GK_IDR_ROWS * stride) {
+#pragma unroll
+    for (int q = 0; q < GK_IDR_ROWS; ++q) f(i + q * stride);
+  }
+  for (; i < n; i += stride) f(i);
+}
+
+// Row i of A (M src), minv[c] * src[c] gathered as one float32 product (or
+// src[c] with the Identity), summed as gk_dia_row sums.
+template <typename TD>
+__device__ __forceinline__ float idr_row_m(const TD* __restrict__ D, const GkOffsets& offs,
+                                           long long n, long long i, const float* src,
+                                           const float* __restrict__ minv) {
+  float acc = 0.f;
+  for (int d = 0; d < offs.nd; ++d) {
+    const long long j = i + offs.off[d];
+    if (j >= 0 && j < n) {
+      const float v = minv ? minv[j] * src[j] : src[j];
+      acc += GkAcc<float>::load(D[d * n + i]) * v;
+    }
+  }
+  return acc;
+}
+
+// r -= beta G[kk] and U[kk] -= alpha_ib U[ib] for ib < kk, in order: the
+// updates step kk leaves to the next own-row pass.  Returns the new r_i.
+template <int S>
+__device__ __forceinline__ float idr_settle(int kk, long long i, long long n, float* r,
+                                            const float* G, float* U, float beta,
+                                            const float (&alpha)[S]) {
+  const float ri = r[i] - beta * G[kk * n + i];
+  r[i] = ri;
+  if (kk > 0) {
+    float ui = U[kk * n + i];
+#pragma unroll
+    for (int ib = 0; ib < S - 1; ++ib)
+      if (ib < kk) ui = ui - alpha[ib] * U[ib * n + i];
+    U[kk * n + i] = ui;
+  }
+  return ri;
+}
+
+// Blocks an SM that K16's registers must leave room for, at each s: the
+// occupancy the kernel had before its updates were deferred (40, 48 and 64
+// registers).  Left to itself the compiler took 64 registers at s = 2 and
+// 128 at s = 4 (4 and 2 blocks an SM), 8% and 52% slower on the H100 than
+// held (PERF.md section 6); 3 blocks an SM at s = 4 lost 17%.
+#define GK_IDR_MIN_BLOCKS(S) ((S) == 1 ? 6 : (S) == 2 ? 5 : 4)
+
 template <typename TD, int S>
-__global__ void __launch_bounds__(GK_CG_THREADS) idr_fused_kernel(const IdrParams A) {
+__global__ void __launch_bounds__(GK_CG_THREADS, GK_IDR_MIN_BLOCKS(S))
+    idr_fused_kernel(const IdrParams A) {
   cg::grid_group grid = cg::this_grid();
   constexpr int HALF = S + 1 > 3 ? S + 1 : 3;
   __shared__ double sh1[1][GK_CG_WARPS];
@@ -104,11 +176,12 @@ __global__ void __launch_bounds__(GK_CG_THREADS) idr_fused_kernel(const IdrParam
   const long long stride = (long long)gridDim.x * blockDim.x;
   const float* __restrict__ P = A.P;
   const float* __restrict__ minv = A.minv;
-  float* x = A.x;  // the replacement's product reads it across rows
+  // x, r and U[kk] are read across rows by a product, always through
+  // these pointers
+  float* __restrict__ x = A.x;
   float* __restrict__ r = A.r;
   float* __restrict__ G = A.G;
-  float* U = A.U;  // U[kk] is the source of g = A u
-  float* w = A.w;
+  float* __restrict__ U = A.U;
   const float tol_sq = *A.tol_sq;
   const float kappa = A.kappa;
   int q = 0;
@@ -119,7 +192,7 @@ __global__ void __launch_bounds__(GK_CG_THREADS) idr_fused_kernel(const IdrParam
     double acc[S + 1];
 #pragma unroll
     for (int j = 0; j <= S; ++j) acc[j] = 0.0;
-    for (long long i = t0; i < n; i += stride) {
+    idr_rows(n, t0, stride, [&](long long i) {
       const float ri = A.r0[i];
       x[i] = A.x0[i];
       r[i] = ri;
@@ -130,7 +203,7 @@ __global__ void __launch_bounds__(GK_CG_THREADS) idr_fused_kernel(const IdrParam
         acc[j] += (double)P[j * n + i] * ri;
       }
       acc[S] += (double)ri * ri;
-    }
+    });
     idr_reduce<S + 1>(grid, acc, A.part, HALF, q, tS1, shS1, bcS1);
   }
   float f[S], Mm[S * S];
@@ -144,6 +217,8 @@ __global__ void __launch_bounds__(GK_CG_THREADS) idr_fused_kernel(const IdrParam
   int it = 0;
 
   while (it < A.max_iters && !(mon <= tol_sq)) {
+    float beta[S];   // beta_kk of each step, for the x pass
+    float alpha[S];  // the alphas of the last step, for its deferred U update
 #pragma unroll
     for (int kk = 0; kk < S; ++kk) {
       // c: forward substitution on M[kk:, kk:] c = f[kk:]
@@ -158,9 +233,11 @@ __global__ void __launch_bounds__(GK_CG_THREADS) idr_fused_kernel(const IdrParam
         csol[i] = gk_sdiv(acc, Mm[i * S + i]);
       }
 
-      // u = om M (r - sum_j c_j G_j) + sum_j c_j U_j, into U[kk]
-      for (long long i = t0; i < n; i += stride) {
+      // step kk - 1's updates, then u = om M (r - sum_j c_j G_j) +
+      // sum_j c_j U_j into U[kk]
+      idr_rows(n, t0, stride, [&](long long i) {
         float vi = r[i];
+        if (kk > 0) vi = idr_settle<S>(kk - 1, i, n, r, G, U, beta[kk > 0 ? kk - 1 : 0], alpha);
 #pragma unroll
         for (int j = kk; j < S; ++j) vi = vi - csol[j] * G[j * n + i];
         if (minv) vi = minv[i] * vi;
@@ -168,7 +245,7 @@ __global__ void __launch_bounds__(GK_CG_THREADS) idr_fused_kernel(const IdrParam
 #pragma unroll
         for (int j = kk; j < S; ++j) ui = ui + csol[j] * U[j * n + i];
         U[kk * n + i] = ui;
-      }
+      });
       grid.sync();
 
       // g = A u into G[kk]; then the biorthogonalization against
@@ -179,79 +256,72 @@ __global__ void __launch_bounds__(GK_CG_THREADS) idr_fused_kernel(const IdrParam
         double acc[S];
 #pragma unroll
         for (int j = 0; j < S; ++j) acc[j] = 0.0;
-        for (long long i = t0; i < n; i += stride) {
-          const float gi = gk_dia_row(D, A.offs, n, i, U + kk * n);
+        idr_rows(n, t0, stride, [&](long long i) {
+          const float gi = gk_dia_row<false>(D, A.offs, n, i, U + kk * n);
           G[kk * n + i] = gi;
 #pragma unroll
           for (int j = 0; j < S; ++j) acc[j] += (double)P[j * n + i] * gi;
-        }
+        });
         idr_reduce<S>(grid, acc, A.part, HALF, q, mcol, shS, bcS);
       } else {
         double pg[1];
         {
           double acc[1] = {0.0};
-          for (long long i = t0; i < n; i += stride) {
-            const float gi = gk_dia_row(D, A.offs, n, i, U + kk * n);
+          idr_rows(n, t0, stride, [&](long long i) {
+            const float gi = gk_dia_row<false>(D, A.offs, n, i, U + kk * n);
             G[kk * n + i] = gi;
             acc[0] += (double)P[i] * gi;
-          }
+          });
           idr_reduce<1>(grid, acc, A.part, HALF, q, pg, sh1, bc1);
         }
 #pragma unroll
         for (int ib = 0; ib < kk; ++ib) {
-          const float alpha = gk_sdiv((float)pg[0], Mm[ib * S + ib]);
+          alpha[ib] = gk_sdiv((float)pg[0], Mm[ib * S + ib]);
           if (ib + 1 < kk) {
             double acc[1] = {0.0};
-            for (long long i = t0; i < n; i += stride) {
-              const float gi = G[kk * n + i] - alpha * G[ib * n + i];
+            idr_rows(n, t0, stride, [&](long long i) {
+              const float gi = G[kk * n + i] - alpha[ib] * G[ib * n + i];
               G[kk * n + i] = gi;
-              U[kk * n + i] = U[kk * n + i] - alpha * U[ib * n + i];
               acc[0] += (double)P[(ib + 1) * n + i] * gi;
-            }
+            });
             idr_reduce<1>(grid, acc, A.part, HALF, q, pg, sh1, bc1);
           } else {
             double acc[S];
 #pragma unroll
             for (int j = 0; j < S; ++j) acc[j] = 0.0;
-            for (long long i = t0; i < n; i += stride) {
-              const float gi = G[kk * n + i] - alpha * G[ib * n + i];
+            idr_rows(n, t0, stride, [&](long long i) {
+              const float gi = G[kk * n + i] - alpha[ib] * G[ib * n + i];
               G[kk * n + i] = gi;
-              U[kk * n + i] = U[kk * n + i] - alpha * U[ib * n + i];
 #pragma unroll
               for (int j = 0; j < S; ++j) acc[j] += (double)P[j * n + i] * gi;
-            }
+            });
             idr_reduce<S>(grid, acc, A.part, HALF, q, mcol, shS, bcS);
           }
         }
       }
 #pragma unroll
       for (int i = kk; i < S; ++i) Mm[i * S + kk] = (float)mcol[i];
-      const float beta = gk_sdiv(f[kk], Mm[kk * S + kk]);
-
-      // r -= beta g; x += beta u (own rows: the next pass reads only its
-      // own rows, so no barrier)
-      for (long long i = t0; i < n; i += stride) {
-        r[i] = r[i] - beta * G[kk * n + i];
-        x[i] = x[i] + beta * U[kk * n + i];
-      }
+      beta[kk] = gk_sdiv(f[kk], Mm[kk * S + kk]);
 #pragma unroll
-      for (int j = kk + 1; j < S; ++j) f[j] = f[j] - beta * Mm[j * S + kk];
+      for (int j = kk + 1; j < S; ++j) f[j] = f[j] - beta[kk] * Mm[j * S + kk];
       f[kk] = 0.f;
     }
 
-    // the dimension-reduction step: v = M r; t = A v; t.t, t.r, r.r
-    for (long long i = t0; i < n; i += stride) w[i] = minv ? minv[i] * r[i] : r[i];
+    // the last step's updates; then the dimension-reduction step: t = A M r;
+    // t.t, t.r, r.r
+    idr_rows(n, t0, stride,
+             [&](long long i) { idr_settle<S>(S - 1, i, n, r, G, U, beta[S - 1], alpha); });
     grid.sync();
     double t3[3];
     {
       double acc[3] = {0.0, 0.0, 0.0};
-      for (long long i = t0; i < n; i += stride) {
-        const float ti = gk_dia_row(D, A.offs, n, i, w);
+      idr_rows(n, t0, stride, [&](long long i) {
+        const float ti = idr_row_m(D, A.offs, n, i, r, minv);
         const float ri = r[i];
         acc[0] += (double)ti * ti;
         acc[1] += (double)ti * ri;
         acc[2] += (double)ri * ri;
-      }
+      });
       idr_reduce<3>(grid, acc, A.part, HALF, q, t3, sh3, bc3);
     }
     const float tt = (float)t3[0], tr = (float)t3[1], rr = (float)t3[2];
@@ -259,21 +329,27 @@ __global__ void __launch_bounds__(GK_CG_THREADS) idr_fused_kernel(const IdrParam
     const float rho = fabsf(gk_sdiv(tr, sqrtf(tt) * sqrtf(rr)));
     om = rho < kappa ? om_raw * gk_sdiv(kappa, rho) : om_raw;
 
-    // x += om v; then the residual replacement r = b - A x with f = P r
-    // and the monitor r.r
-    for (long long i = t0; i < n; i += stride) x[i] = x[i] + om * w[i];
+    // x += beta_kk U[kk] for each step, then x += om M r; then the residual
+    // replacement r = b - A x with f = P r and the monitor r.r
+    idr_rows(n, t0, stride, [&](long long i) {
+      float xi = x[i];
+#pragma unroll
+      for (int kk = 0; kk < S; ++kk) xi = xi + beta[kk] * U[kk * n + i];
+      const float vi = minv ? minv[i] * r[i] : r[i];
+      x[i] = xi + om * vi;
+    });
     grid.sync();
     {
       double acc[S + 1];
 #pragma unroll
       for (int j = 0; j <= S; ++j) acc[j] = 0.0;
-      for (long long i = t0; i < n; i += stride) {
-        const float ri = A.b[i] - gk_dia_row(D, A.offs, n, i, x);
+      idr_rows(n, t0, stride, [&](long long i) {
+        const float ri = A.b[i] - gk_dia_row<false>(D, A.offs, n, i, x);
         r[i] = ri;
 #pragma unroll
         for (int j = 0; j < S; ++j) acc[j] += (double)P[j * n + i] * ri;
         acc[S] += (double)ri * ri;
-      }
+      });
       idr_reduce<S + 1>(grid, acc, A.part, HALF, q, tS1, shS1, bcS1);
     }
 #pragma unroll
@@ -326,7 +402,7 @@ extern "C" int idr_fused_solve(const void* diags, int d_dtype, const long long* 
                                const float* r0, const float* x0, const float* b,
                                const float* minv, const float* tol_sq, float kappa,
                                int max_iters, float* x, float* r, float* G, float* U,
-                               float* w, double* part, int blocks, int* it_out,
+                               double* part, int blocks, int* it_out,
                                float* mon_out, int* conv_out, void* stream) {
   if (nd < 1 || nd > GK_MAX_DIAGS || blocks < 1) return (int)cudaErrorInvalidValue;
   IdrParams p;
@@ -346,7 +422,6 @@ extern "C" int idr_fused_solve(const void* diags, int d_dtype, const long long* 
   p.r = r;
   p.G = G;
   p.U = U;
-  p.w = w;
   p.part = part;
   p.it_out = it_out;
   p.mon_out = mon_out;

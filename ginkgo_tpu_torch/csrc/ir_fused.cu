@@ -1,6 +1,6 @@
 // Whole-solve IR / Richardson (damped Jacobi) in one persistent cooperative
 // kernel: kernel K17 of the PyTorch port, with two entry points over one set
-// of passes.
+// of passes; and K21, the same sweeps on a Pell, in a kernel of its own.
 //
 // Replaces ginkgo_tpu/ops/pallas_ir.py, one TPU site (_common_call, :211)
 // for two kernels that share _make_passes (:63-88):
@@ -31,14 +31,28 @@
 // rr the post-sweep r.r (a NaN keeps sweeping); the reported rr is the last
 // sweep's, or r0's when max_iters = 0.
 //
-// The passes are templated on the operator (coop.cuh GkDiaOp, pell.cuh
-// GkPellOp): on a Pell, ir_fused_kernel is K21 (pell_ir_fused_solve), which
-// replaces ginkgo_tpu/ops/pallas_pell_cg.py pell_ir_vmem_solve
-// (_pell_ir_kernel, :794).  That TPU kernel's monitor starts at the r.r of
-// r0 = b - A x0, not at +inf, so a solve whose r0 already meets the
-// threshold runs no sweep (the template flag kMonitorFromR0); every other
-// rule is K17's.  A sweep moves the plan once (values, lane indices, bases)
-// and the vectors as K17 does.
+// K21 (pell_ir_fused_solve, pell_ir_fused_kernel) replaces
+// ginkgo_tpu/ops/pallas_pell_cg.py pell_ir_vmem_solve (_pell_ir_kernel,
+// :794).  That TPU kernel's monitor starts at the r.r of r0 = b - A x0, not
+// at +inf, so a solve whose r0 already meets the threshold runs no sweep;
+// every other rule is K17's.  Bound: the plan once (values, lane indices,
+// bases), x gathered once, b and minv in and x_{j+1} out: plan + 12 n bytes
+// a sweep, 16 n with Jacobi.  r is not stored in the sweep: r_j is used at
+// once on the rows that form it.
+// Design: one pass and one grid barrier a sweep, at K7's footing
+// (pell.cuh GkPellChunks: chunks of 4 rows a thread, 32-bit rows, the
+// tile's slots read once a chunk, plain gathers).  Pass j reads x_j across
+// rows and, on its own rows, forms r_j = b - A x_j, writes x_{j+1} = x_j +
+// omega M r_j into the other of two x buffers and adds r_j.r_j to its
+// partial; then the reduction barrier and the stop test.  With one barrier
+// a sweep a fast block writes sweep j + 1's partials while a slow one may
+// still sum sweep j's, so the partials alternate between two halves of the
+// buffer.  The first pass reads x0 itself; on exit the result is the x the
+// last pass read (its r.r with it), and that pass's x_{j+1} is discarded.
+// After the last barrier each thread copies its own rows of the result
+// into the output buffer where it is not there, and, where the caller asks
+// for r, forms r = b - A x there once as the sweeps formed it.  The
+// float64 r.r sums in K7's chunk order (pell_cg_fused.cu).
 
 #include "coop.cuh"
 #include "pell.cuh"
@@ -90,7 +104,7 @@ __device__ __forceinline__ double ir_residual(const IrParams<Op>& P) {
   return acc;
 }
 
-template <typename Op, bool kMonitorFromR0>
+template <typename Op>
 __global__ void __launch_bounds__(GK_CG_THREADS) ir_fused_kernel(const IrParams<Op> P) {
   cg::grid_group grid = cg::this_grid();
   __shared__ double sh1[1][GK_CG_WARPS];
@@ -108,7 +122,7 @@ __global__ void __launch_bounds__(GK_CG_THREADS) ir_fused_kernel(const IrParams<
   float rr = (float)tot[0];
 
   const float tol_sq = *P.tol_sq;
-  float mon = kMonitorFromR0 ? rr : CUDART_INF_F;
+  float mon = CUDART_INF_F;
   int it = 0;
   while (it < P.iters && !(mon <= tol_sq)) {
     ir_update(P);
@@ -167,10 +181,10 @@ __global__ void __launch_bounds__(GK_CG_THREADS) ir_smooth_kernel(const IrParams
 extern "C" int ir_fused_grid(int d_dtype, int* blocks) {
   int a = 0, b = 0, e = 0;
   if (d_dtype == GK_F32) {
-    if ((e = gk_coop_blocks(ir_fused_kernel<GkDiaOp<float>, false>, &a)) != 0) return e;
+    if ((e = gk_coop_blocks(ir_fused_kernel<GkDiaOp<float>>, &a)) != 0) return e;
     if ((e = gk_coop_blocks(ir_smooth_kernel<GkDiaOp<float>>, &b)) != 0) return e;
   } else if (d_dtype == GK_BF16) {
-    if ((e = gk_coop_blocks(ir_fused_kernel<GkDiaOp<__nv_bfloat16>, false>, &a)) != 0) return e;
+    if ((e = gk_coop_blocks(ir_fused_kernel<GkDiaOp<__nv_bfloat16>>, &a)) != 0) return e;
     if ((e = gk_coop_blocks(ir_smooth_kernel<GkDiaOp<__nv_bfloat16>>, &b)) != 0) return e;
   } else {
     return (int)cudaErrorInvalidValue;
@@ -201,8 +215,8 @@ static IrParams<Op> ir_params(const Op& op, long long n, const float* b, const f
   return P;
 }
 
-// The stop-test entry points' launch (K17 on a Dia, K21 on a Pell).
-template <typename Op, bool kMonitorFromR0>
+// K17's stop-test launch.
+template <typename Op>
 static int ir_solve_launch(const Op& op, long long n, const float* b, const float* x0,
                            const float* minv, const float* tol_sq, float omega, int max_iters,
                            float* x, float* r, double* part, int blocks, int* it_out,
@@ -213,7 +227,7 @@ static int ir_solve_launch(const Op& op, long long n, const float* b, const floa
   P.it_out = it_out;
   P.rr_out = rr_out;
   P.conv_out = conv_out;
-  return gk_coop_launch(ir_fused_kernel<Op, kMonitorFromR0>, P, blocks, stream);
+  return gk_coop_launch(ir_fused_kernel<Op>, P, blocks, stream);
 }
 
 extern "C" int ir_fused_solve(const void* diags, int d_dtype, const long long* offsets,
@@ -224,9 +238,9 @@ extern "C" int ir_fused_solve(const void* diags, int d_dtype, const long long* o
   if (nd < 1 || nd > GK_MAX_DIAGS || max_iters < 0 || blocks < 1 || x0 == nullptr)
     return (int)cudaErrorInvalidValue;
 #define GK_DIA_LAUNCH(TD)                                                                  \
-  ir_solve_launch<GkDiaOp<TD>, false>(gk_dia_op<TD>(diags, offsets, nd, n), n, b, x0, minv, \
-                                      tol_sq, omega, max_iters, x, r, part, blocks, it_out, \
-                                      rr_out, conv_out, stream)
+  ir_solve_launch<GkDiaOp<TD>>(gk_dia_op<TD>(diags, offsets, nd, n), n, b, x0, minv, tol_sq, \
+                               omega, max_iters, x, r, part, blocks, it_out, rr_out,        \
+                               conv_out, stream)
   if (d_dtype == GK_F32) return GK_DIA_LAUNCH(float);
   if (d_dtype == GK_BF16) return GK_DIA_LAUNCH(__nv_bfloat16);
 #undef GK_DIA_LAUNCH
@@ -252,38 +266,154 @@ extern "C" int ir_smooth(const void* diags, int d_dtype, const long long* offset
   return (int)cudaErrorInvalidValue;
 }
 
-// K21: blocks of the Pell form's cooperative grid (one double of partial
-// sums per block).
-extern "C" int pell_ir_fused_grid(int v_dtype, int q_dtype, int* blocks) {
-  GK_PELL_VQ_DISPATCH(v_dtype, q_dtype,
-                      gk_coop_blocks(ir_fused_kernel<GkPellOp<TV, TQ>, true>, blocks));
+// K21's rows: K7's chunks (pell_cg_fused.cu).
+using IrChunks = GkPellChunks<GK_CG_THREADS>;
+
+struct PellIrParams {
+  const void* values;
+  const void* qidx;
+  const int* bases;
+  const int* tile_ptr;
+  int S;
+  int G;
+  int n;
+  const float* b;
+  const float* x0;
+  const float* minv;    // nullptr: Identity
+  const float* tol_sq;  // device scalar
+  float omega;
+  int max_iters;
+  float* x;      // x_j for odd j, and the result
+  float* xb;     // x_j for even j >= 2
+  float* r;      // nullptr: r not asked for
+  double* part;  // 2 * gridDim.x per-block partial sums, used in turn
+  int* it_out;
+  float* rr_out;
+  int* conv_out;
+};
+
+// As K7's, the launch bounds name 1 block an SM, so that nvcc takes the
+// registers of K7's 4 blocks an SM rather than holding them to its own
+// choice.
+template <typename TV, typename TQ>
+__global__ void __launch_bounds__(GK_CG_THREADS, 1) pell_ir_fused_kernel(const PellIrParams P) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ double sh1[1][GK_CG_WARPS];
+  __shared__ double bc1[1];
+
+  const TV* __restrict__ values = static_cast<const TV*>(P.values);
+  const TQ* __restrict__ qidx = static_cast<const TQ*>(P.qidx);
+  const int n = P.n;
+  const float* __restrict__ b = P.b;
+  const float* __restrict__ minv = P.minv;
+  const float omega = P.omega;
+  const float tol_sq = *P.tol_sq;
+  const int chunks = (n + IrChunks::kChunk - 1) / IrChunks::kChunk;
+
+  // pass j reads src = x_j across rows and writes dst = x_{j+1}
+  const float* src = P.x0;
+  float* dst = P.x;
+  int it = 0;
+  float rr;
+  for (;;) {
+    double s[1] = {0.0};
+    for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
+      float ax[GK_PELL_CHUNK_ROWS];
+      IrChunks::spmv<TV, TQ>(values, qidx, P.bases, P.tile_ptr, P.S, P.G, n, src, c, ax);
+#pragma unroll
+      for (int q = 0; q < GK_PELL_CHUNK_ROWS; ++q) {
+        const int i = IrChunks::row(c, q);
+        if (i < n) {
+          const float ri = b[i] - ax[q];
+          const float di = minv ? minv[i] * ri : ri;
+          dst[i] = src[i] + omega * di;
+          s[0] += (double)ri * ri;
+        }
+      }
+    }
+    double* part = P.part + (it & 1) * gridDim.x;
+    block_partial_vm<1>(s, part, sh1);
+    grid.sync();
+    double tot[1];
+    grid_total_batch<1, 4>(part, 1, gridDim.x, 1, tot, sh1, bc1);
+    rr = (float)tot[0];
+    if (!(it < P.max_iters && !(rr <= tol_sq))) break;
+    ++it;
+    src = dst;
+    dst = (it & 1) ? P.xb : P.x;
+  }
+
+  // the result is x_it, the last pass's source: x0 (it = 0), P.x (it odd)
+  // or P.xb.  The last pass read it before the barrier and nothing writes
+  // it after, so each thread copies its own rows into P.x where it is not
+  // there, and forms r = b - A x_it on them where r is asked for
+  const bool copy = src != P.x;
+  if (P.r != nullptr) {
+    float* __restrict__ r = P.r;
+    for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
+      float ax[GK_PELL_CHUNK_ROWS];
+      IrChunks::spmv<TV, TQ>(values, qidx, P.bases, P.tile_ptr, P.S, P.G, n, src, c, ax);
+#pragma unroll
+      for (int q = 0; q < GK_PELL_CHUNK_ROWS; ++q) {
+        const int i = IrChunks::row(c, q);
+        if (i < n) {
+          r[i] = b[i] - ax[q];
+          if (copy) P.x[i] = src[i];
+        }
+      }
+    }
+  } else if (copy) {
+    IrChunks::own_rows(n, [&](int i) { P.x[i] = src[i]; });
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *P.it_out = it;
+    *P.rr_out = rr;
+    *P.conv_out = (rr <= tol_sq) ? 1 : 0;
+  }
 }
 
-template <typename TV, typename TQ>
-static int pell_ir_launch(const void* values, const void* qidx, const int* bases,
-                          const int* tile_ptr, int S, int G, long long n, const float* b,
-                          const float* x0, const float* minv, const float* tol_sq,
-                          float omega, int max_iters, float* x, float* r, double* part,
-                          int blocks, int* it_out, float* rr_out, int* conv_out,
-                          void* stream) {
-  return ir_solve_launch<GkPellOp<TV, TQ>, true>(
-      gk_pell_op<TV, TQ>(values, qidx, bases, tile_ptr, S, G, n, nullptr), n, b, x0, minv,
-      tol_sq, omega, max_iters, x, r, part, blocks, it_out, rr_out, conv_out, stream);
+// K21: blocks of the cooperative grid (two doubles of partial sums a
+// block).
+extern "C" int pell_ir_fused_grid(int v_dtype, int q_dtype, int* blocks) {
+  GK_PELL_VQ_DISPATCH(v_dtype, q_dtype,
+                      gk_coop_blocks(pell_ir_fused_kernel<TV, TQ>, blocks));
 }
 
 // K21: IR/Richardson sweeps on a square Pell (values float32/bfloat16, lane
-// indices int8/int32) to the stop test, the monitor starting at r0's r.r.
+// indices int8/int32) to the stop test, the monitor starting at r0's r.r;
+// x and xb are the two x buffers, x the result; r (nullptr: none) b - A x.
 extern "C" int pell_ir_fused_solve(const void* values, int v_dtype, const void* qidx,
                                    int q_dtype, const int* bases, const int* tile_ptr, int S,
                                    int G, long long n, const float* b, const float* x0,
                                    const float* minv, const float* tol_sq, float omega,
-                                   int max_iters, float* x, float* r, double* part,
+                                   int max_iters, float* x, float* xb, float* r, double* part,
                                    int blocks, int* it_out, float* rr_out, int* conv_out,
                                    void* stream) {
-  if (S < 1 || G < 1 || max_iters < 0 || blocks < 1 || x0 == nullptr)
+  // rows are 32-bit, with room for a chunk past the last row
+  if (S < 1 || G < 1 || max_iters < 0 || blocks < 1 || x0 == nullptr || n < 0 ||
+      n > 0x7fffffffLL - IrChunks::kChunk)
     return (int)cudaErrorInvalidValue;
+  PellIrParams P;
+  P.values = values;
+  P.qidx = qidx;
+  P.bases = bases;
+  P.tile_ptr = tile_ptr;
+  P.S = S;
+  P.G = G;
+  P.n = (int)n;
+  P.b = b;
+  P.x0 = x0;
+  P.minv = minv;
+  P.tol_sq = tol_sq;
+  P.omega = omega;
+  P.max_iters = max_iters;
+  P.x = x;
+  P.xb = xb;
+  P.r = r;
+  P.part = part;
+  P.it_out = it_out;
+  P.rr_out = rr_out;
+  P.conv_out = conv_out;
   GK_PELL_VQ_DISPATCH(v_dtype, q_dtype,
-                      (pell_ir_launch<TV, TQ>)(values, qidx, bases, tile_ptr, S, G, n, b, x0,
-                                               minv, tol_sq, omega, max_iters, x, r, part,
-                                               blocks, it_out, rr_out, conv_out, stream));
+                      gk_coop_launch(pell_ir_fused_kernel<TV, TQ>, P, blocks, stream));
 }

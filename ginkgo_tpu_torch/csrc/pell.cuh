@@ -1,5 +1,6 @@
 // The PELL slot sum of one output row, shared by K5 (pell_spmv.cu), K7
-// (pell_cg_fused.cu) and the Pell forms of K12, K13, K15 and K17 (K18-K21).
+// (pell_cg_fused.cu), K21 (ir_fused.cu) and the Pell forms of K12, K13 and
+// K15 (K18-K20); and the chunked row schedule of K7 and K21.
 //
 // Plan layout (ginkgo_tpu_torch/ops/pell.py PellPlan): values and qidx are
 // (slots, S, 128); bases is (slots,); tile_ptr (NT + 1) delimits the slots
@@ -88,6 +89,108 @@ struct GkPellOp {
                                      const float v = gk_to_float(LDCG ? __ldcg(src + c) : src[c]);
                                      return m ? m[c] * v : v;
                                    });
+  }
+};
+
+// Rows a thread takes of a chunk in K7 and K21, who walk the same chunks; a
+// chunk is 256 * GK_PELL_CHUNK_ROWS rows, eight 128-row panels, so it lies
+// in one tile when S is a multiple of 8.  On the H100 (PERF.md section 6)
+// 4 rows a thread at 64 registers and 4 blocks an SM beat one row a thread
+// grid-stride at 6 to 8 blocks an SM in K7, and beat 4 rows held to 40
+// registers and 6 blocks an SM.
+#define GK_PELL_CHUNK_ROWS 4
+
+// The row schedule of K7 and K21 (GkPellChunks<THREADS>): the rows go in
+// chunks of THREADS * R rows (R = GK_PELL_CHUNK_ROWS), dealt to the blocks
+// in turn; a thread takes R rows of a chunk, THREADS apart (row), the same
+// rows in every pass, so a vector written at a row is only read back there
+// by the thread that wrote it.  Where a chunk lies in one PELL tile (S a
+// multiple of 8: a chunk is at most eight 128-row panels, aligned to its
+// size), spmv reads the tile's slot range and each slot's base once for
+// the thread's rows, does the row index math in 32 bits, and issues the
+// rows' value, lane index and gather loads of a slot before their sums;
+// other S take the rows one at a time (gk_pell_row_with).  The gathers are
+// plain loads: the kernels call spmv only on a source that every block
+// wrote before the last grid barrier, and grid.sync() invalidates L1.
+// Rows are 32-bit: the callers take n <= 2^31 - 1 - THREADS * R.
+template <int THREADS>
+struct GkPellChunks {
+  static constexpr int R = GK_PELL_CHUNK_ROWS;
+  static constexpr int kChunk = THREADS * R;
+  static_assert((8 * GK_LANES) % kChunk == 0 && kChunk % THREADS == 0 && THREADS % GK_LANES == 0,
+                "a chunk lies in one tile of any S that is a multiple of 8");
+
+  // Row q of this thread in chunk c.
+  static __device__ __forceinline__ int row(int c, int q) {
+    return (c * R + q) * THREADS + threadIdx.x;
+  }
+
+  // f(i) for each of this thread's rows i < n, in the same order every pass.
+  template <typename F>
+  static __device__ __forceinline__ void own_rows(int n, F f) {
+    const int chunks = (n + kChunk - 1) / kChunk;
+    for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int i = row(c, q);
+        if (i < n) f(i);
+      }
+    }
+  }
+
+  // out = (A src) on the thread's rows of chunk c (rows past n: computed
+  // and not used where the plan's tiles cover them, else 0).
+  template <typename TV, typename TQ>
+  static __device__ __forceinline__ void spmv(const TV* __restrict__ values,
+                                              const TQ* __restrict__ qidx, const int* bases,
+                                              const int* tile_ptr, int S, int G, int n,
+                                              const float* src, int c, float (&out)[R]) {
+    if (S % 8 == 0) {
+      // one tile: sublanes s0, s0 + T/128, ... of lane l
+      constexpr int kStep = THREADS / GK_LANES;
+      const int l = threadIdx.x & (GK_LANES - 1);
+      const int panel0 = c * (kChunk / GK_LANES);
+      const int t = panel0 / S;
+      const int s0 = panel0 - t * S + threadIdx.x / GK_LANES;
+      const int end = tile_ptr[t + 1];
+      float total[R];
+#pragma unroll
+      for (int q = 0; q < R; ++q) total[q] = 0.f;
+      for (int slot0 = tile_ptr[t]; slot0 < end; slot0 += G) {
+        float acc[R];
+#pragma unroll
+        for (int q = 0; q < R; ++q) acc[q] = 0.f;
+        for (int g = 0; g < G; ++g) {
+          const int slot = slot0 + g;
+          const int panel = bases[slot] - (S - 1) + s0;
+          const long long cell0 = ((long long)slot * S + s0) * GK_LANES + l;
+          float v[R], xv[R];
+#pragma unroll
+          for (int q = 0; q < R; ++q) {
+            const long long cell = cell0 + kStep * q * GK_LANES;
+            const int col = (panel + kStep * q) * GK_LANES + (int)qidx[cell];
+            v[q] = GkAcc<float>::load(values[cell]);
+            xv[q] = (col >= 0 && col < n) ? src[col] : 0.f;
+          }
+#pragma unroll
+          for (int q = 0; q < R; ++q) acc[q] += v[q] * xv[q];
+        }
+#pragma unroll
+        for (int q = 0; q < R; ++q) total[q] += acc[q];
+      }
+#pragma unroll
+      for (int q = 0; q < R; ++q) out[q] = total[q];
+    } else {
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int i = row(c, q);
+        out[q] = i < n ? gk_pell_row_with<float>(values, qidx, bases, tile_ptr, S, G, i, n,
+                                                 [&](long long col) -> float {
+                                                   return src[(int)col];
+                                                 })
+                       : 0.f;
+      }
+    }
   }
 };
 

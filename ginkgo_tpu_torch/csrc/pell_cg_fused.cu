@@ -19,9 +19,9 @@
 // grid barriers; float64 per-block partials, stored value-major, are
 // summed by every block in one fixed order, each thread loading its
 // partials at once (coop.cuh grid_total_batch).  The rows go in chunks of
-// GK_CG_THREADS * GK_PELL_CG_ROWS rows, dealt to the blocks in turn; a
-// thread takes GK_PELL_CG_ROWS rows of a chunk, 256 apart (gk_chunk_row),
-// the same rows in every pass, so x, r, q and p are only read back at
+// GK_CG_THREADS * GK_PELL_CHUNK_ROWS rows, dealt to the blocks in turn; a
+// thread takes GK_PELL_CHUNK_ROWS rows of a chunk, 256 apart (pell.cuh
+// GkPellChunks), the same rows in every pass, so x, r, q and p are only read back at
 // their own rows by the thread that wrote them.  Where a chunk lies in one
 // PELL tile (S a multiple of 8) the tile's slot range and each slot's base
 // are read once for the thread's rows, the row index math is 32-bit, and
@@ -45,13 +45,7 @@
 
 namespace cg = cooperative_groups;
 
-// Rows a thread takes of a chunk; a chunk is GK_PELL_CG_CHUNK rows, eight
-// 128-row panels, so it lies in one tile when S is a multiple of 8.  On the
-// H100 (PERF.md section 6) 4 rows a thread at 64 registers and 4 blocks an
-// SM beat one row a thread grid-stride at 6 to 8 blocks an SM, and beat 4
-// rows held to 40 registers and 6 blocks an SM.
-#define GK_PELL_CG_ROWS 4
-#define GK_PELL_CG_CHUNK (GK_CG_THREADS * GK_PELL_CG_ROWS)
+using CgChunks = GkPellChunks<GK_CG_THREADS>;
 
 struct PellCgParams {
   const void* values;
@@ -77,76 +71,6 @@ struct PellCgParams {
   float* mon_out;
   int* conv_out;
 };
-
-// Row q of this thread in chunk c.
-__device__ __forceinline__ int gk_chunk_row(int c, int q) {
-  return (c * GK_PELL_CG_ROWS + q) * GK_CG_THREADS + threadIdx.x;
-}
-
-// f(i) for each of this thread's rows i < n, in the same order every pass.
-template <typename F>
-__device__ __forceinline__ void gk_own_rows(int n, F f) {
-  const int chunks = (n + GK_PELL_CG_CHUNK - 1) / GK_PELL_CG_CHUNK;
-  for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
-#pragma unroll
-    for (int q = 0; q < GK_PELL_CG_ROWS; ++q) {
-      const int i = gk_chunk_row(c, q);
-      if (i < n) f(i);
-    }
-  }
-}
-
-// q = A p on the thread's rows of chunk c (rows past n: computed and not
-// used; the plan's tiles cover them).
-template <typename TV, typename TQ>
-__device__ __forceinline__ void gk_chunk_spmv(const PellCgParams& P, const TV* __restrict__ values,
-                                              const TQ* __restrict__ qidx, const float* p, int c,
-                                              float (&out)[GK_PELL_CG_ROWS]) {
-  const int S = P.S, G = P.G, n = P.n;
-  if (S % 8 == 0) {
-    // one tile: sublanes s0, s0 + 2, s0 + 4, s0 + 6 of lane l
-    const int l = threadIdx.x & (GK_LANES - 1);
-    const int panel0 = c * (GK_PELL_CG_CHUNK / GK_LANES);
-    const int t = panel0 / S;
-    const int s0 = panel0 - t * S + (threadIdx.x >> 7);
-    const int end = P.tile_ptr[t + 1];
-    float total[GK_PELL_CG_ROWS];
-#pragma unroll
-    for (int q = 0; q < GK_PELL_CG_ROWS; ++q) total[q] = 0.f;
-    for (int slot0 = P.tile_ptr[t]; slot0 < end; slot0 += G) {
-      float acc[GK_PELL_CG_ROWS];
-#pragma unroll
-      for (int q = 0; q < GK_PELL_CG_ROWS; ++q) acc[q] = 0.f;
-      for (int g = 0; g < G; ++g) {
-        const int slot = slot0 + g;
-        const int panel = P.bases[slot] - (S - 1) + s0;
-        const long long cell0 = ((long long)slot * S + s0) * GK_LANES + l;
-        float v[GK_PELL_CG_ROWS], xv[GK_PELL_CG_ROWS];
-#pragma unroll
-        for (int q = 0; q < GK_PELL_CG_ROWS; ++q) {
-          const long long cell = cell0 + 2 * q * GK_LANES;
-          const int col = (panel + 2 * q) * GK_LANES + (int)qidx[cell];
-          v[q] = GkAcc<float>::load(values[cell]);
-          xv[q] = (col >= 0 && col < n) ? p[col] : 0.f;
-        }
-#pragma unroll
-        for (int q = 0; q < GK_PELL_CG_ROWS; ++q) acc[q] += v[q] * xv[q];
-      }
-#pragma unroll
-      for (int q = 0; q < GK_PELL_CG_ROWS; ++q) total[q] += acc[q];
-    }
-#pragma unroll
-    for (int q = 0; q < GK_PELL_CG_ROWS; ++q) out[q] = total[q];
-  } else {
-#pragma unroll
-    for (int q = 0; q < GK_PELL_CG_ROWS; ++q) {
-      const int i = gk_chunk_row(c, q);
-      out[q] = i < n ? gk_pell_row_with<float>(values, qidx, P.bases, P.tile_ptr, S, G, i, n,
-                                               [&](long long col) -> float { return p[(int)col]; })
-                     : 0.f;
-    }
-  }
-}
 
 // After a grid barrier: the total of NV value-major partials
 // (block_partial_vm), nv of them read.
@@ -181,7 +105,7 @@ __global__ void __launch_bounds__(GK_CG_THREADS, 1)
   // init: x = x0, r = r0, p = z = M r; rho = r.z
   {
     double s[3] = {0.0, 0.0, 0.0};
-    gk_own_rows(n, [&](int i) {
+    CgChunks::own_rows(n, [&](int i) {
       const float ri = P.r0[i];
       const float zi = minv ? minv[i] * ri : ri;
       x[i] = P.x0[i];
@@ -204,13 +128,13 @@ __global__ void __launch_bounds__(GK_CG_THREADS, 1)
     // pass 1: q = A p over the PELL slots, partial p.q
     {
       double s[1] = {0.0};
-      const int chunks = (n + GK_PELL_CG_CHUNK - 1) / GK_PELL_CG_CHUNK;
+      const int chunks = (n + CgChunks::kChunk - 1) / CgChunks::kChunk;
       for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
-        float acc[GK_PELL_CG_ROWS];
-        gk_chunk_spmv<TV, TQ>(P, values, qidx, p, c, acc);
+        float acc[GK_PELL_CHUNK_ROWS];
+        CgChunks::spmv<TV, TQ>(values, qidx, P.bases, P.tile_ptr, P.S, P.G, n, p, c, acc);
 #pragma unroll
-        for (int k = 0; k < GK_PELL_CG_ROWS; ++k) {
-          const int i = gk_chunk_row(c, k);
+        for (int k = 0; k < GK_PELL_CHUNK_ROWS; ++k) {
+          const int i = CgChunks::row(c, k);
           if (i < n) {
             q[i] = acc[k];
             s[0] += (double)p[i] * acc[k];
@@ -228,7 +152,7 @@ __global__ void __launch_bounds__(GK_CG_THREADS, 1)
     // FCG, the Polak-Ribiere numerator (r_new - r_old).z_new
     {
       double s[3] = {0.0, 0.0, 0.0};
-      gk_own_rows(n, [&](int i) {
+      CgChunks::own_rows(n, [&](int i) {
         const float pi = p[i];
         x[i] = x[i] + alpha * pi;
         const float ro = r[i];
@@ -248,7 +172,7 @@ __global__ void __launch_bounds__(GK_CG_THREADS, 1)
     const float beta = gk_sdiv(P.flexible ? (float)tot3[2] : rho_new, rho);
 
     // pass 3: p = z + beta p (z recomputed from r)
-    gk_own_rows(n, [&](int i) {
+    CgChunks::own_rows(n, [&](int i) {
       const float ri = r[i];
       const float zi = minv ? minv[i] * ri : ri;
       p[i] = zi + beta * p[i];
@@ -297,7 +221,7 @@ extern "C" int pell_cg_fused_solve(
     float* q, double* part, int blocks, int* it_out, float* mon_out,
     int* conv_out, void* stream) {
   // rows are 32-bit, with room for a chunk past the last row
-  if (S < 1 || G < 1 || blocks < 1 || n < 0 || n > 0x7fffffffLL - GK_PELL_CG_CHUNK)
+  if (S < 1 || G < 1 || blocks < 1 || n < 0 || n > 0x7fffffffLL - CgChunks::kChunk)
     return (int)cudaErrorInvalidValue;
   PellCgParams P;
   P.values = values;

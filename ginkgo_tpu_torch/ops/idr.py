@@ -25,6 +25,13 @@ Semantics, shared by the kernel and :func:`idr_solve_reference`:
   update; om *= kappa / rho when rho < kappa; x += om v;
 - residual replacement: r = b - A x, then f = P r and the monitor r.r;
   ``iterations`` counts outer iterations.
+
+The kernel runs the same element operations in the same order, but
+defers each update that no reduction waits for to the next pass that
+reads those rows: r -= beta g and u -= alpha_i U_i into the next step's u
+pass, x += beta U and x += om v into one pass before the replacement, and
+v = M r is gathered inside t = A v rather than stored
+(``tests/test_torch_idr_order.py``).
 """
 
 from __future__ import annotations
@@ -130,7 +137,7 @@ def _lib():
             P, I, offs, I, L, I,  # diags, offsets, n, s
             P, P, P, P, P, P,  # P, r0, x0, b, minv, tol_sq
             F, I,  # kappa, max_iters
-            P, P, P, P, P,  # x, r, G, U, w
+            P, P, P, P,  # x, r, G, U
             P, I,  # partials, blocks
             P, P, P, P,  # it_out, mon_out, conv_out, stream
         ]
@@ -164,7 +171,7 @@ def idr_fused(diags, offsets, P, r0, x0, b, minv=None, *, kappa, tol_sq_eff, max
     lib = _lib()
     code = DTYPE_CODE[diags.dtype]
     blocks = coop_grid_blocks(lib, "idr_fused_grid", (code, s), dev)
-    x, r, w = (torch.empty_like(r0) for _ in range(3))
+    x, r = torch.empty_like(r0), torch.empty_like(r0)
     G = torch.empty((s, n), dtype=torch.float32, device=dev)
     U = torch.empty((s, n), dtype=torch.float32, device=dev)
     # two halves used in turn, each max(s + 1, 3) doubles a block
@@ -177,7 +184,7 @@ def idr_fused(diags, offsets, P, r0, x0, b, minv=None, *, kappa, tol_sq_eff, max
             P.data_ptr(), r0.data_ptr(), x0.data_ptr(), b.data_ptr(),
             None if minv is None else minv.data_ptr(), tol.data_ptr(),
             float(kappa), min(int(max_iters), 2**31 - 1),
-            x.data_ptr(), r.data_ptr(), G.data_ptr(), U.data_ptr(), w.data_ptr(),
+            x.data_ptr(), r.data_ptr(), G.data_ptr(), U.data_ptr(),
             part.data_ptr(), blocks, it_conv.data_ptr(), mon.data_ptr(),
             it_conv[1:].data_ptr(), torch.cuda.current_stream().cuda_stream,
         )

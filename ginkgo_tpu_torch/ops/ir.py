@@ -18,7 +18,9 @@ first sweep always runs, and the loop runs while it < max_iters and
 keeps sweeping); the reported r.r is the last sweep's, or r0's when
 max_iters is 0.  The sweep loop exists once, :func:`ir_loop_reference`
 over an SpMV; K21's plain version (``ops/pell_cg.py``) runs it on a Pell,
-with the monitor starting at r0's r.r as the TPU Pell kernel's does.
+with the monitor starting at r0's r.r as the TPU Pell kernel's does.  K21
+is a kernel of its own in the same source (one pass a sweep, K7's rows);
+its entry points load with K17's library.
 """
 
 from __future__ import annotations
@@ -125,7 +127,7 @@ def _lib():
         lib.pell_ir_fused_solve.argtypes = [
             P, I, P, I, P, P, I, I, L,  # values, qidx, bases, tile_ptr, S, G, n
             P, P, P, P, F, I,  # b, x0, minv, tol_sq, omega, max_iters
-            P, P, P, I,  # x, r, partials, blocks
+            P, P, P, P, I,  # x, xb, r, partials, blocks
             P, P, P, P,  # it_out, rr_out, conv_out, stream
         ]
         for fn in (lib.ir_fused_grid, lib.ir_fused_solve, lib.ir_smooth,

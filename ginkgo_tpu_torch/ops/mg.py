@@ -79,9 +79,19 @@ MAX_LEVELS = 32
 #: most level visits of one cycle that the fused routes take (the JAX
 #: package's cap, solver/multigrid.py:440; a W-cycle grows exponentially)
 MAX_VISITS = 96
+#: rows the kernels index with 32-bit integers: level 0's count, and twice
+#: each restriction stride, at most (csrc/mg_fused.cu)
+MAX_KERNEL_ROWS = 2**30
 #: int64 fields of one level of the kernels' level table (mg_fused.cu
 #: MgLevel): diags, offs, dinv, xa, xb, b, r, k, n, nd, stride, unused
 _LEVEL_FIELDS = 12
+
+
+def rows_fit(n0: int, strides) -> bool:
+    """Whether a hierarchy of ``n0`` fine rows and these restriction
+    strides lies within the kernels' 32-bit row indices; the fused gate
+    declines one that does not, and the cycle streams."""
+    return n0 <= MAX_KERNEL_ROWS and all(2 * s <= MAX_KERNEL_ROWS for s in strides)
 
 
 def visit_count(L: int, mode: str) -> int:
@@ -582,7 +592,7 @@ def _device_state(h: MgHierarchy, dev):
             raise ValueError("multigrid: dinv must be (n_l,) float32 on the diagonals' device")
     if h.minv.device != dev or h.minv.shape != (sizes[L], sizes[L]):
         raise ValueError("multigrid: minv must be (n_L, n_L) float32 on the device")
-    if sizes[0] > 2**30 or any(2 * S > 2**30 for S in h.strides):
+    if not rows_fit(sizes[0], h.strides):
         raise ValueError("multigrid: the kernels take at most 2^30 rows (32-bit row indices)")
     offs = torch.tensor([o for off in h.offsets for o in off], dtype=torch.int64, device=dev)
     kmode = h.plan["mode"] == "k"

@@ -8,12 +8,18 @@ TPU kernels: ``pell_cg_vmem_solve`` (``_pell_cg_kernel``),
 ``pell_ir_vmem_solve`` (``_pell_ir_kernel``, :794).  The Krylov loop of a
 general unstructured matrix, its slot SpMV, an Identity or
 inverse-diagonal preconditioner and the stop test run in one persistent
-cooperative CUDA kernel.  K7 is ``csrc/pell_cg_fused.cu``; K19, K20 and K21
-are the Dia kernels K12, K13 and K17 instantiated on the Pell operator
-(``csrc/bicgstab_fused.cu``, ``cgs_fused.cu``, ``ir_fused.cu``, pell.cuh
-``GkPellOp``), so each loop exists once, as do its plain versions
+cooperative CUDA kernel.  K7 is ``csrc/pell_cg_fused.cu``; K19 and K20 are
+the Dia kernels K12 and K13 instantiated on the Pell operator
+(``csrc/bicgstab_fused.cu``, ``cgs_fused.cu``, pell.cuh ``GkPellOp``), so
+each loop exists once; K21 is a kernel of its own in ``csrc/ir_fused.cu``
+(one pass and one grid barrier a sweep on K7's chunked rows, pell.cuh
+``GkPellChunks``).  The plain versions are the loops over an SpMV callable
 (``ops/bicgstab.bicgstab_loop_reference``, ``ops/cgs.cgs_loop_reference``,
-``ops/ir.ir_loop_reference``) over an SpMV callable.
+``ops/ir.ir_loop_reference``).
+
+K7 and K21 index rows in 32 bits, a chunk of :data:`CHUNK_ROWS` rows past
+the last: :func:`chunk_rows_fit` says whether a Pell of n rows fits, and
+the solvers' routes decline one that does not.
 
 What differs on a Pell, as in the TPU kernels:
 
@@ -48,6 +54,18 @@ from .cgs import cgs_loop_reference
 from .dia import DTYPE_CODE, check_status, on_cpu
 from .ir import ir_loop_reference
 from .pell import INDEX_CODE, check_fused_pell, pell_plan_args, pell_spmv_reference
+
+
+#: rows of a chunk of K7 and K21 (256 threads x 4 rows; csrc/pell.cuh
+#: GK_PELL_CHUNK_ROWS)
+CHUNK_ROWS = 1024
+#: most rows K7 and K21 take: their rows are 32-bit, with a chunk past the last
+MAX_CHUNKED_ROWS = 2**31 - 1 - CHUNK_ROWS
+
+
+def chunk_rows_fit(n: int) -> bool:
+    """Whether K7's and K21's 32-bit rows reach an n-row Pell."""
+    return n <= MAX_CHUNKED_ROWS
 
 
 def _explicit(A, minv):
@@ -85,14 +103,16 @@ def pell_cgs_solve_reference(A, r0, x0, minv=None, *, tol_sq_eff, max_iters,
                               max_iters=max_iters, use_implicit=use_implicit)
 
 
-def pell_ir_solve_reference(A, b, x0, minv=None, *, omega, tol_sq_eff, max_iters):
+def pell_ir_solve_reference(A, b, x0, minv=None, *, omega, tol_sq_eff, max_iters,
+                            with_residual=False):
     """K21's plain version.  A: a square Pell; b, x0, minv: (n,) float32.
-    Returns (x, iterations int32, r.r float32, converged)."""
-    x, _r, it, rr, conv = ir_loop_reference(
+    Returns (x, r, iterations int32, r.r float32, converged), r = b - A x
+    with ``with_residual``, else None."""
+    x, r, it, rr, conv = ir_loop_reference(
         lambda v: pell_spmv_reference(A, v), b, x0, minv, omega=omega,
         tol_sq_eff=tol_sq_eff, max_iters=max_iters, monitor_from_r0=True,
     )
-    return x, it, rr, conv
+    return x, r if with_residual else None, it, rr, conv
 
 
 def _lib():
@@ -254,38 +274,40 @@ def pell_cgs_fused(A, r0, x0, minv=None, *, tol_sq_eff, max_iters, use_implicit=
 pell_cgs_fused.launches = 0
 
 
-def pell_ir_fused(A, b, x0, minv=None, *, omega, tol_sq_eff, max_iters):
+def pell_ir_fused(A, b, x0, minv=None, *, omega, tol_sq_eff, max_iters, with_residual=False):
     """K21: run IR/Richardson sweeps on a square Pell to the stop test in
     one kernel, the monitor starting at r0's r.r (no sweep when r0 meets
     the threshold).  b, x0, minv: (n,) float32; omega: the relaxation
     factor; tol_sq_eff: the squared absolute threshold on r.r (negative:
-    run to max_iters), a float32 device scalar.  Returns (x, iterations
-    int32, r.r float32, converged bool) as device tensors."""
+    run to max_iters), a float32 device scalar.  Returns (x, r, iterations
+    int32, r.r float32, converged bool) as device tensors; r = b - A x is
+    formed once, after the last sweep, with ``with_residual``, else None."""
     if on_cpu(b):
         return pell_ir_solve_reference(A, b, x0, minv, omega=omega, tol_sq_eff=tol_sq_eff,
-                                       max_iters=max_iters)
+                                       max_iters=max_iters, with_residual=with_residual)
     dev = b.device
     n, codes, tol = _prepare(A, b, tol_sq_eff, "pell_ir_fused")
     check_solve_vectors("pell_ir_fused", (n,), dev, (b, x0), minv, tol, 1)
     lib = _ir._lib()
     blocks = coop_grid_blocks(lib, "pell_ir_fused_grid", codes, dev)
-    x = torch.empty_like(b)
-    r = torch.empty_like(b)
-    part = torch.empty(blocks, dtype=torch.float64, device=dev)
+    x, xb = torch.empty_like(b), torch.empty_like(b)
+    r = torch.empty_like(b) if with_residual else None
+    # two halves used in turn, one double a block each
+    part = torch.empty(2 * blocks, dtype=torch.float64, device=dev)
     it_conv = torch.empty(2, dtype=torch.int32, device=dev)
     rr = torch.empty(1, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         status = lib.pell_ir_fused_solve(
             *pell_plan_args(A), n, b.data_ptr(), x0.data_ptr(),
             None if minv is None else minv.data_ptr(), tol.data_ptr(), float(omega),
-            min(int(max_iters), 2**31 - 1), x.data_ptr(), r.data_ptr(), part.data_ptr(),
-            blocks, it_conv.data_ptr(), rr.data_ptr(), it_conv[1:].data_ptr(),
+            min(int(max_iters), 2**31 - 1), x.data_ptr(), xb.data_ptr(),
+            None if r is None else r.data_ptr(),
+            part.data_ptr(), blocks, it_conv.data_ptr(), rr.data_ptr(), it_conv[1:].data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     check_status(lib, status, "pell_ir_fused")
     pell_ir_fused.launches += 1
-    it, rr_out, conv = _status(it_conv, rr)
-    return x, it, rr_out, conv
+    return (x, r, *_status(it_conv, rr))
 
 
 pell_ir_fused.launches = 0

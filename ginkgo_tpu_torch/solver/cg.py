@@ -6,7 +6,8 @@ accepts it, in the JAX package's order (solver/cg.py:48-78):
 
 - k > 1 columns on a ``Dia``: the k-RHS fused kernel K4m
   (``ops/cg.cg_fused_multi``), with per-column stopping;
-- one column on a ``Pell``: the whole-solve kernel K7
+- one column on a ``Pell`` within K7's 32-bit rows
+  (``ops/pell_cg.chunk_rows_fit``): the whole-solve kernel K7
   (``ops/pell_cg.pell_cg_fused``);
 - one column on a ``Dia`` with an ``Ilu``/``Ic`` preconditioner whose two
   triangular solvers run 0 to 8 'sweeps' on ``Dia`` triangles: the
@@ -43,7 +44,7 @@ from ..matrix.pell import Pell
 from ..ops.cg import MAX_FUSED_COLS, cg_fused, cg_fused_multi
 from ..ops.cg_ilu import cg_ilu_fused
 from ..ops.mg import mg_cg_fused
-from ..ops.pell_cg import pell_cg_fused
+from ..ops.pell_cg import chunk_rows_fit, pell_cg_fused
 from ._fused_gate import (
     fused_info,
     kernel_inputs,
@@ -93,6 +94,8 @@ def _try_fused(solver, b, x0, flexible):
         ctx = prepare_fused_dia(solver, b, max_cols=MAX_FUSED_COLS)
     else:
         ctx = prepare_fused_pell(solver, b)
+        if ctx is not None and not chunk_rows_fit(ctx["A"].shape[0]):
+            return None  # beyond K7's 32-bit rows: the streaming route
         if ctx is None and not flexible:
             ilu = prepare_fused_dia_ilu(solver, b)
             if ilu is not None:

@@ -9,7 +9,8 @@ A solve takes the first route that accepts it, in the JAX package's order
 
 - one float32 column on a square S = 8 ``Pell`` with an Identity,
   Diagonal or scalar Jacobi inner solver and a criterion that is not
-  implicit (IR has no rho): the whole-solve kernel K21
+  implicit (IR has no rho), within the kernel's 32-bit rows
+  (``ops/pell_cg.chunk_rows_fit``): the whole-solve kernel K21
   (``ops/pell_cg.pell_ir_fused``).  Its monitor starts at r0's r.r, as the
   JAX package's Pell kernel's does, so an initial guess that already meets
   the tolerance runs no sweep, where the Dia kernel and the streaming loop
@@ -30,7 +31,7 @@ import torch
 from ..base.linop import LinOp
 from ..matrix.pell import Pell
 from ..ops.ir import ir_fused
-from ..ops.pell_cg import pell_ir_fused
+from ..ops.pell_cg import chunk_rows_fit, pell_ir_fused
 from ._fused_gate import kernel_inputs, prepare_fused_dia, prepare_fused_pell
 from .solver_base import IterativeSolverMixin, SolveInfo, extract_max_iters, masked_cols
 
@@ -64,11 +65,13 @@ class Ir(IterativeSolverMixin, LinOp):
         if ctx is None or ctx["implicit"]:
             return None
         A = ctx["A"]
+        if isinstance(A, Pell) and not chunk_rows_fit(A.shape[0]):
+            return None
         _r0, minv, tol = kernel_inputs(ctx, b, x0)
         b1, x01 = b[:, 0].contiguous(), x0[:, 0].contiguous()
         kw = {"omega": self.relaxation_factor, "tol_sq_eff": tol, "max_iters": ctx["cap"]}
         if isinstance(A, Pell):
-            x, it, rr, conv = pell_ir_fused(A, b1, x01, minv, **kw)
+            x, _r, it, rr, conv = pell_ir_fused(A, b1, x01, minv, **kw)
         else:
             x, _r, it, rr, conv = ir_fused(A.diags, A.offsets, b1, x01, minv, **kw)
         if ctx["has_res"]:

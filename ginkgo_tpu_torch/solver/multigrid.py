@@ -15,7 +15,9 @@ version runs, and the card route alike):
   bfloat16 diagonals, ``FixedSmoother``s with equal iterations and
   relaxation in every role, ``BandedRestriction``/``BandedProlongation``
   pairs with deltas == (0,) and equal strides, and the default ``Direct``
-  coarse solver with its dense inverse (at most 1536 coarse rows).  One
+  coarse solver with its dense inverse (at most 1536 coarse rows), and
+  the kernels' 32-bit rows (``ops/mg.rows_fit``: at most 2^30 fine rows
+  and 2 S <= 2^30 for every stride S).  One
   float32 column: ``apply``/``cycle_apply`` run one cycle in kernel K25
   (``ops/mg.mg_vcycle``), ``solve`` with a simple residual criterion runs
   the cycles and the stop test in K27 (``ops/mg.mg_solve_fused``); ``Cg``/
@@ -310,6 +312,8 @@ class Multigrid(LinOp):
             meta.append(dict(iters_pre=pre.iters, relax_pre=pre.relax, iters_post=pre.iters,
                              relax_post=pre.relax, iters_mid=pre.iters, relax_mid=pre.relax))
         if tuple(inv.shape) != (n, n):
+            return None
+        if not ops_mg.rows_fit(self.levels[0].fine_op.shape[0], strides):
             return None
         plan = ops_mg.build_cycle_plan(meta, self.cycle, self.mid_case, self.kcycle_base,
                                        self.kcycle_rel_tol)

@@ -349,3 +349,42 @@ def test_fused_list_equals_unfused_bits(cycle, itp, ito):
         want = ops_mg._run_passes(dataclasses.replace(h, plan=plan, passes={use_x0: unf}),
                                   b, x0 if use_x0 else None)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# -- the kernels' 32-bit rows -----------------------------------------------------------
+
+
+def test_rows_fit_on_level_sizes_and_strides():
+    """The kernels index rows in 32 bits: level 0 at most 2^30 rows, and
+    2 S <= 2^30 for every restriction stride S.  Path 8's 2048^2 hierarchy
+    (12 levels; strides 1 and nside / 2 in turn) fits."""
+    lim = ops_mg.MAX_KERNEL_ROWS
+    assert lim == 2**30
+    path8 = [1024 >> (l // 2) if l % 2 else 1 for l in range(11)]
+    assert ops_mg.rows_fit(2048 * 2048, path8)
+    assert ops_mg.rows_fit(lim, [lim // 2])
+    assert not ops_mg.rows_fit(lim + 1, path8)
+    assert not ops_mg.rows_fit(lim, [1, lim // 2 + 1])
+    assert not ops_mg.rows_fit(2048 * 2048, path8 + [lim])
+
+
+def test_gate_declines_beyond_kernel_rows(monkeypatch):
+    """A hierarchy beyond the kernels' rows makes the fused gate return None
+    and the cycle streams, as the JAX package's does; the kernels' operand
+    set-up keeps its own raise.  The limit is lowered here so that the
+    32^2 hierarchy (1024 fine rows) lies beyond it."""
+    _, jm = _jax_mg()
+    pm = _carry(jm)
+    h = pm._fused_hierarchy()
+    assert h is not None and h.sizes[0] == 1024
+    monkeypatch.setattr(ops_mg, "MAX_KERNEL_ROWS", 1023)
+    with pytest.raises(ValueError, match="32-bit row indices"):
+        ops_mg._device_state(h, torch.device("cpu"))
+    fresh = pm.replace(mid_case=pm.mid_case)
+    assert fresh._fused_hierarchy() is None
+    b = torch.from_numpy(_rhs(1024))[:, None]
+    x = fresh.cycle_apply(b, torch.zeros_like(b), x_is_zero=True)
+    want = fresh._run_cycle(0, b, torch.zeros_like(b), fresh.cycle)
+    assert torch.equal(x, want)
+    monkeypatch.setattr(ops_mg, "MAX_KERNEL_ROWS", 1024)
+    assert pm.replace(mid_case=pm.mid_case)._fused_hierarchy() is not None

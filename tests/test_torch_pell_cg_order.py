@@ -3,7 +3,7 @@ plain version its CUDA kernel is checked against.
 
 The kernel (``csrc/pell_cg_fused.cu``) runs CG / FCG in three passes a
 iteration with grid barriers between them.  Its rows go in chunks of 256 *
-R rows (R = ``GK_PELL_CG_ROWS``), dealt to the blocks in turn (chunk c to
+R rows (R = ``GK_PELL_CHUNK_ROWS``, ``pell.cuh``), dealt to the blocks in turn (chunk c to
 block c mod B); a thread takes rows c 256 R + q 256 + t for q = 0 .. R - 1,
 the same rows in every pass.  Each row's SpMV sum runs in ``pell.cuh``'s
 order, tile by tile: the G slots of a step sum into a step sum from 0, the
@@ -45,9 +45,9 @@ from ginkgo_tpu_torch.utils import generators
 F32, F64 = np.float32, np.float64
 LANES, THREADS, WARPS = 128, 256, 8
 
-_SOURCE = (Path(ginkgo_tpu_torch.__file__).parent / "csrc" / "pell_cg_fused.cu").read_text()
-#: rows a thread takes of a chunk: the kernel's own constant
-ROWS = int(re.search(r"#define GK_PELL_CG_ROWS (\d+)", _SOURCE).group(1))
+_SOURCE = (Path(ginkgo_tpu_torch.__file__).parent / "csrc" / "pell.cuh").read_text()
+#: rows a thread takes of a chunk: the kernels' own constant
+ROWS = int(re.search(r"#define GK_PELL_CHUNK_ROWS (\d+)", _SOURCE).group(1))
 CHUNK = THREADS * ROWS
 
 

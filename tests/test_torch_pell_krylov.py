@@ -192,15 +192,16 @@ def test_pell_ir_reference_matches_pallas(case):
         JP, _frame(b, Rf), _frame(x0, Rf), None if minv is None else _frame(minv, Rf),
         omega=c["omega"], tol_sq_eff=tol, max_iters=max_iters, interpret=True)
     t = torch.from_numpy
-    x, it, rr, conv = ops_pell_cg.pell_ir_solve_reference(
+    x, r_out, it, rr, conv = ops_pell_cg.pell_ir_solve_reference(
         P, t(b), t(x0), None if minv is None else t(minv), omega=c["omega"],
-        tol_sq_eff=float(tol), max_iters=max_iters)
+        tol_sq_eff=float(tol), max_iters=max_iters, with_residual=True)
     assert it.dtype == torch.int32 and rr.dtype == torch.float32
     jx = np.asarray(jx).reshape(-1)[: P.shape[0]]
     _assert_parity(it, jit_, x.numpy(), jx, conv, jconv, c, max_iters)
     # the reported r.r is that of the returned x's residual b - A x, in
     # float32 as the kernel forms it
     r = t(b) - ops_pell_cg.pell_spmv_reference(P, x)
+    assert torch.equal(r_out, r)
     assert torch.equal(rr, (r.double() @ r.double()).float())
     if case == "zero_sweeps":
         # the Pell kernel's monitor starts at r0's r.r: no sweep, x = x0;
@@ -267,7 +268,7 @@ def test_pell_wrappers_take_plain_version_on_cpu(name):
         kw = dict(m=10, tol_sq_eff=1e-8, max_iters=100)
     elif name == "ir":
         fused, plain = ops_pell_cg.pell_ir_fused, ops_pell_cg.pell_ir_solve_reference
-        kw = dict(omega=1.0, tol_sq_eff=1e-8, max_iters=100)
+        kw = dict(omega=1.0, tol_sq_eff=1e-8, max_iters=100, with_residual=True)
     else:
         fused = getattr(ops_pell_cg, f"pell_{name}_fused")
         plain = getattr(ops_pell_cg, f"pell_{name}_solve_reference")

@@ -19,7 +19,7 @@ Run from the repository root:
                                      trs_fused,cg_ilu_fused,bicgstab_fused,
                                      gmres_fused_multi,bicgstab_fused_multi,
                                      pell_cg_fused,gmres_fused,pell_gmres_fused,
-                                     mg_cg_fused]
+                                     mg_cg_fused,pell_ir_fused,idr_fused]
                           [--rows N] [--chunks 256,512] [--cg-columns 2,4,8]
                           [--bicgstab-columns 2,4,8] [--other DIR ...] [--check]
                           [--profile]
@@ -180,6 +180,24 @@ a bfloat16 basis:
   checkouts (K7: the solve to 1e-6; GMRES: 90 steps, and the solve to 1e-6
   on A2, K18 on A2 as a ``Pell``).
 
+For ``pell_ir_fused`` (K21 on path 2's 160^3 ``Pell``: float32 and
+bfloat16 values with the Identity at relaxation 0.15, and Jacobi at 1.0)
+and ``idr_fused`` (K16 on path 1's ``poisson_2d(2048)`` ``Dia`` at s = 2
+and s = 4, ``chip_smoke.time_path5``'s shapes):
+
+- ``build``: ptxas's registers and spills of each kernel of
+  ``csrc/ir_fused.cu`` and ``csrc/idr_fused.cu``, this checkout's and each
+  ``--other``'s, and each one's cooperative grid;
+- ``check`` (with ``--check``): ``chip_smoke.check_pell_ir_edges`` and
+  ``check_idr_edges``, bit for bit against the plain versions;
+- ``timing``, one row a case: microseconds a sweep (K21) or an outer
+  iteration (K16) by the slope between whole solves of 200 and 1000, in
+  turns (others, this, this, others); K21's streaming loop (K5 and tensor
+  ops, one host sync a sweep) beside it, this checkout's; the bytes of the
+  bound and of each design; x, r, the sweeps (iterations) and the monitor
+  against the plain version and the other checkouts: K21 300 sweeps on
+  the 160^3 ``Pell``, K16 the solve to 1e-6 on path 4's A2.
+
 Without a CUDA device it fails.
 """
 
@@ -205,7 +223,8 @@ LIBRARY = {"well": "well_spmv", "pell_spmv": "pell_spmv", "bell_spmv": "bell_spm
            "cg_ilu_fused": "trs_fused", "bicgstab_fused": "bicgstab_fused",
            "gmres_fused_multi": "gmres_fused", "bicgstab_fused_multi": "bicgstab_fused",
            "gmres_fused": "gmres_fused", "pell_cg_fused": "pell_cg_fused",
-           "pell_gmres_fused": "gmres_fused", "mg_cg_fused": "mg_fused"}
+           "pell_gmres_fused": "gmres_fused", "mg_cg_fused": "mg_fused",
+           "pell_ir_fused": "ir_fused", "idr_fused": "idr_fused"}
 #: the whole-solve kernels of --kernels: K4 runs one column, K4m --cg-columns
 CG_KERNELS = ("cg_fused", "cg_fused_multi")
 #: K22 and K23, the kernels of the sweep solve
@@ -218,6 +237,9 @@ MG_KERNELS = ("mg_cg_fused",)
 #: K7 (CG on a Pell) and the one-column GMRES kernel, K15 on a Dia and K18
 #: on a Pell, at their main paths' shapes
 SOLVE_KERNELS = ("pell_cg_fused", "gmres_fused", "pell_gmres_fused")
+#: K21 (IR on a Pell) and K16 (IDR(s) on a Dia), at path 6's and path 5's
+#: shapes
+SWEEP_KERNELS = ("pell_ir_fused", "idr_fused")
 
 
 def load_other(root: Path, tag: str):
@@ -295,7 +317,8 @@ def main():
                          "cg_fused (K4), cg_fused_multi (K4m), trs_fused (K22), "
                          "cg_ilu_fused (K23), bicgstab_fused (K12), gmres_fused_multi (K15m), "
                          "bicgstab_fused_multi (K12m), pell_cg_fused (K7), gmres_fused (K15), "
-                         "pell_gmres_fused (K18), mg_cg_fused (K26, with K25, K27, K28)")
+                         "pell_gmres_fused (K18), mg_cg_fused (K26, with K25, K27, K28), "
+                         "pell_ir_fused (K21), idr_fused (K16)")
     ap.add_argument("--rows", type=int, default=cs.POWERLAW_ROWS)
     ap.add_argument("--chunks", default="256", help="chunk lengths to time, comma-separated")
     ap.add_argument("--other", action="append", default=[],
@@ -380,6 +403,16 @@ def main():
         rows = cs.check_gmres_multi_edges(gt, dev, np.random.default_rng(5))
         cs.emit({"phase": "check", "kernels": ["gmres_fused_multi"], "edge_cases": len(rows),
                  "all_bit_equal": True, "s": round(time.perf_counter() - t0, 2)})
+    if args.check and "pell_ir_fused" in kernels:
+        t0 = time.perf_counter()
+        rows = cs.check_pell_ir_edges(gt, dev, np.random.default_rng(5))
+        cs.emit({"phase": "check", "kernels": ["pell_ir_fused"], "edge_operators": len(rows),
+                 "all_bit_equal": True, "s": round(time.perf_counter() - t0, 2)})
+    if args.check and "idr_fused" in kernels:
+        t0 = time.perf_counter()
+        rows = cs.check_idr_edges(gt, dev, np.random.default_rng(5))
+        cs.emit({"phase": "check", "kernels": ["idr_fused"], "edge_operators": len(rows),
+                 "all_bit_equal": True, "s": round(time.perf_counter() - t0, 2)})
     cg_kernels = [k for k in kernels if k in CG_KERNELS]
     if cg_kernels:
         bench_cg(cg_kernels, [int(k) for k in args.cg_columns.split(",")], gt, dev, card,
@@ -398,11 +431,14 @@ def main():
     solve_kernels = [k for k in kernels if k in SOLVE_KERNELS]
     if solve_kernels:
         bench_solves(solve_kernels, gt, dev, card, copy_gbs, others_pkg)
+    sweep_kernels = [k for k in kernels if k in SWEEP_KERNELS]
+    if sweep_kernels:
+        bench_sweeps(sweep_kernels, gt, dev, card, copy_gbs, others_pkg)
     for k in kernels:
         if k == "well":
             bench_well(args, gt, dev, card, copy_gbs, others_pkg)
         elif k not in (CG_KERNELS + TRS_KERNELS + KRYLOV_KERNELS + SOLVE_KERNELS + MG_KERNELS
-                       + ("bicgstab_fused_multi",)):
+                       + SWEEP_KERNELS + ("bicgstab_fused_multi",)):
             bench_spmv(k, args, gt, dev, card, copy_gbs, others_pkg)
     print(card, flush=True)
 
@@ -1596,6 +1632,190 @@ def bench_solves(kernels, gt, dev, card, copy_gbs, others_pkg):
                for reads in (4, 3)]
         nbytes = {"bound": cycle, "design": own[0], "design_second_read_from_l2": own[1]}
         emit_timing(kernel, f"m30_{label}", n, us, dev_us, nbytes, launches, bits)
+
+
+def idr_vectors(s, jacobi, deferred):
+    """n-long float32 vectors one IDR(s) outer iteration reads or writes in
+    K16's passes (the diagonals apart): the deferred design (x once, r -=
+    beta g and U -= alpha U folded into the next pass, no w) or the
+    parent's (a pass each).  A product's gathered source counts once."""
+    j = int(jacobi)
+    total = 0
+    for kk in range(s):
+        u = 1 + 2 * (s - kk) + j + 1  # r, G and U rows kk.., minv, U[kk] out
+        if deferred and kk > 0:  # step kk - 1: G[kk - 1] in, r out, U[kk - 1]
+            u += 2 + (2 + (kk - 1) if kk > 1 else 0)
+        product = 2 + (s if kk == 0 else 1)  # U[kk] gathered, G[kk] out, P rows
+        alphas = sum(3 + (0 if deferred else 3) + (1 if ib + 1 < kk else s)
+                     for ib in range(kk))
+        update = 0 if deferred else 6  # r in and out, G[kk], x in and out, U[kk]
+        total += u + product + alphas + update
+    if deferred:
+        settle = 3 + (2 + (s - 1) if s > 1 else 0)
+        tail = 1 + j + (2 + s + 1 + j)  # t = A M r; x in and out, U, r, minv
+    else:
+        settle = 0
+        tail = (1 + j + 1) + 2 + (2 + 1)  # w = M r; t = A w, r; x += om w
+    return total + settle + tail + 3 + s  # the replacement: x, b, r out, P
+
+
+def bench_sweeps(kernels, gt, dev, card, copy_gbs, others_pkg):
+    """K21 on path 2's 160^3 ``Pell`` (float32 and bfloat16 values with the
+    Identity at relaxation 0.15, Jacobi at 1.0) a sweep, and K16 on path
+    1's ``poisson_2d(2048)`` ``Dia`` at s = 2 and s = 4 an outer iteration:
+    build rows (ptxas, grids), then each case's microseconds by the slope
+    between whole solves of 200 and 1000 in turns, the bytes of the bound
+    and of the design, and the bits against the plain version and the
+    other checkouts."""
+    from ginkgo_tpu_torch import stop
+    from ginkgo_tpu_torch.ops import idr as ops_idr
+    from ginkgo_tpu_torch.ops import pell_cg as ops_pc
+
+    pkgs = {"this": gt, **others_pkg}
+    mods = {tag: {"pell_cg": importlib.import_module(f"{pkg.__name__}.ops.pell_cg"),
+                  "ir": importlib.import_module(f"{pkg.__name__}.ops.ir"),
+                  "idr": importlib.import_module(f"{pkg.__name__}.ops.idr")}
+            for tag, pkg in pkgs.items()}
+    others = [tag for tag in mods if tag != "this"]
+    logs = {tag: importlib.import_module(f"{pkg.__name__}._build").BUILD_LOG
+            for tag, pkg in pkgs.items()}
+    tokens = {"pell_ir_fused": "pell_ir_fused_kernel", "idr_fused": "idr_fused_kernel"}
+    tokens_parent = {"pell_ir_fused": "ir_fused_kernelI8GkPellOp", "idr_fused": "idr_fused_kernel"}
+    cs.emit({"phase": "build", "kernels": kernels,
+             "ptxas": {tag: {k: line for kern in kernels
+                             for k, line in ptxas_registers(lg[LIBRARY[kern]]["ptxas"]).items()
+                             if tokens[kern] in k or tokens_parent[kern] in k}
+                       for tag, lg in logs.items()}})
+    never = torch.full((), -1.0, device=dev)
+
+    def bits_of(out):
+        """(x, r or None, count, monitor, converged) of either checkout's
+        output: the parent's K21 returns no r."""
+        if len(out) == 4:
+            return out[0], None, int(out[1]), out[2], bool(out[3])
+        return out[0], out[1], int(out[2]), out[3], bool(out[4])
+
+    def same(a, b):
+        return (cs.bit_equal(a[0], b[0]) and (a[1] is None or b[1] is None
+                                              or cs.bit_equal(a[1], b[1]))
+                and a[2] == b[2] and cs.bit_equal(a[3], b[3]) and a[4] == b[4])
+
+    def timing_row(kernel, case, rows, us, nbytes, extra):
+        best = {tag: min(v) for tag, v in us.items()}
+        cs.emit({"phase": "timing", "kernel": kernel, "case": case, "card": card, "rows": rows,
+                 "copy_GBps": copy_gbs, "us": us, "bytes": nbytes,
+                 "bound_us": nbytes["bound"] / cs.PEAK_BYTES_S * 1e6,
+                 "frac_of_copy_bound_bytes": {
+                     tag: nbytes["bound"] / t / 1e3 / copy_gbs for tag, t in best.items()},
+                 "frac_of_copy_own_bytes": {
+                     tag: nbytes["this" if tag == "this" else "parent_design"] / t / 1e3 / copy_gbs
+                     for tag, t in best.items()}, **extra})
+
+    if "pell_ir_fused" in kernels:
+        t0 = time.perf_counter()
+        C3 = gt.Csr.from_matrix_data(gt.generators.poisson_3d(cs.NSIDE3, dtype=np.float32),
+                                     device=dev)
+        P3 = gt.Pell.from_csr(C3)
+        del C3
+        n3 = P3.shape[0]
+        b3, z3 = torch.ones(n3, device=dev), torch.zeros(n3, device=dev)
+        minv3 = (1.0 / P3.extract_diagonal().values.float()).contiguous()
+        tol3 = torch.full((), (cs.TOL * float(b3.norm())) ** 2, device=dev)
+        cs.emit({"phase": "setup", "kernel": "pell_ir_fused", "s": round(time.perf_counter() - t0, 2),
+                 "rows": n3, "plan_bytes": P3.storage_bytes(),
+                 "blocks": {tag: m["pell_cg"].coop_grid_blocks(
+                     m["ir"]._lib(), "pell_ir_fused_grid",
+                     (m["pell_cg"].DTYPE_CODE[torch.float32], m["pell_cg"].INDEX_CODE[torch.int8]),
+                     dev) for tag, m in mods.items()}})
+        jac = gt.Jacobi.build(max_block_size=1)
+        for case, P, mv, omega in (("f32", P3, None, 0.15), ("bf16", P3.reduce_storage(), None, 0.15),
+                                   ("jacobi", P3, minv3, 1.0)):
+            def call(tag, its, tol=never, P=P, mv=mv, omega=omega):
+                # r is formed for the bits check only, and only this
+                # checkout's K21 takes the flag
+                kw = {"with_residual": True} if tol is not never and tag == "this" else {}
+                return mods[tag]["pell_cg"].pell_ir_fused(P, b3, z3, mv, omega=omega,
+                                                          tol_sq_eff=tol, max_iters=its, **kw)
+
+            us = {}
+
+            def measure(tag, call=call):
+                us.setdefault(tag, []).append(1e3 * cs.iter_ms(lambda its: call(tag, its)))
+
+            in_turns(measure, others)
+            extra = {}
+            if case == "jacobi":
+                ir = gt.Ir.build(criteria=[stop.Iteration(max_iters=1)], preconditioner=jac,
+                                 relaxation_factor=1.0).generate(P3)
+
+                def streaming(its):
+                    with torch.no_grad():
+                        ir.replace(criterion=stop.Iteration(max_iters=its))._solve_streaming(
+                            b3[:, None], z3[:, None])
+
+                extra["streaming_us_this"] = 1e3 * cs.iter_ms(streaming, *cs.STREAM_TRIPS)
+            outs = {tag: bits_of(call(tag, 300, tol3)) for tag in mods}
+            plain = bits_of(ops_pc.pell_ir_solve_reference(P, b3, z3, mv, omega=omega,
+                                                           tol_sq_eff=tol3, max_iters=300,
+                                                           with_residual=True))
+            extra["sweeps_300"] = {**{tag: o[2] for tag, o in outs.items()}, "plain": plain[2]}
+            extra["bit_equal_plain"] = {tag: same(o, plain) for tag, o in outs.items()}
+            extra["x_bit_equal_this"] = {tag: same(outs["this"], o) for tag, o in outs.items()}
+            del outs, plain
+            # bytes a sweep: the bound (the plan; x gathered once, b and
+            # minv in; x out: r is used at once on the rows that form it),
+            # this design's (the same: x_j's own rows are the gathered
+            # lines), the parent's two passes (x, r in and out, minv, b; x
+            # read again by the update)
+            plan, jb = P.storage_bytes(), 4 * (mv is not None)
+            nbytes = {"bound": plan + (12 + jb) * n3, "this": plan + (12 + jb) * n3,
+                      "parent_design": plan + (24 + jb) * n3}
+            timing_row("pell_ir_fused", case, n3, us, nbytes, extra)
+        del P3, b3, z3, minv3
+
+    if "idr_fused" in kernels:
+        A1 = gt.Dia.from_matrix_data(gt.generators.poisson_2d(cs.NSIDE, dtype=np.float32),
+                                     device=dev)
+        n, nd = A1.shape[0], len(A1.offsets)
+        b1, z1 = torch.ones(n, device=dev), torch.zeros(n, device=dev)
+        data2 = gt.MatrixData.from_coo(*cs.convdiff_2d(cs.NSIDE))
+        A2 = gt.Dia.from_matrix_data(data2, device=dev)
+        b2 = torch.as_tensor(np.random.default_rng(cs.SEED + 7).uniform(0.5, 1.5, n)
+                             .astype(np.float32), device=dev)
+        tol2 = torch.full((), (cs.TOL * float(b2.norm())) ** 2, device=dev)
+        for sdim in (2, 4):
+            crit = [stop.Iteration(max_iters=1)]
+            P1 = gt.Idr.build(criteria=crit, subspace_dim=sdim).generate(A1).P
+            P2 = gt.Idr.build(criteria=crit, subspace_dim=sdim).generate(A2).P
+            cs.emit({"phase": "setup", "kernel": "idr_fused", "s": sdim, "blocks": {
+                tag: m["idr"].coop_grid_blocks(m["idr"]._lib(), "idr_fused_grid",
+                                               (m["idr"].DTYPE_CODE[torch.float32], sdim), dev)
+                for tag, m in mods.items()}})
+
+            def call(tag, its, A=A1, P=P1, b=b1, tol=never):
+                return mods[tag]["idr"].idr_fused(A.diags, A.offsets, P, b, z1, b, None,
+                                                  kappa=0.7, tol_sq_eff=tol, max_iters=its)
+
+            us = {}
+
+            def measure(tag, call=call):
+                us.setdefault(tag, []).append(1e3 * cs.iter_ms(lambda its: call(tag, its)))
+
+            in_turns(measure, others)
+            outs = {tag: bits_of(call(tag, cs.MAX_ITERS, A2, P2, b2, tol2)) for tag in mods}
+            plain = bits_of(ops_idr.idr_solve_reference(A2.diags, A2.offsets, P2, b2, z1, b2, None,
+                                                        kappa=0.7, tol_sq_eff=tol2,
+                                                        max_iters=cs.MAX_ITERS))
+            extra = {"solve_1e-6_a2": {**{tag: o[2] for tag, o in outs.items()},
+                                       "plain": plain[2]},
+                     "bit_equal_plain": {tag: same(o, plain) for tag, o in outs.items()},
+                     "x_bit_equal_this": {tag: same(outs["this"], o) for tag, o in outs.items()}}
+            del outs, plain
+            diag = 4 * nd * (sdim + 2) * n  # s + 2 products read the diagonals
+            nbytes = {"bound": (4 * nd + 20 * sdim + 20) * n,
+                      "this": diag + 4 * n * idr_vectors(sdim, False, True),
+                      "parent_design": diag + 4 * n * idr_vectors(sdim, False, False)}
+            timing_row("idr_fused", f"s{sdim}", n, us, nbytes, extra)
 
 
 def profile_calls(calls):
