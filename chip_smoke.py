@@ -138,7 +138,11 @@ Phases, each of which raises on failure:
    (``check_gmres_edges``: fewer tiles than blocks, n not a multiple of 4,
    m = 1, 2, 5, 30 and 100, a stop inside a cycle after a restart, a NaN
    b, a bfloat16 basis, Jacobi, bfloat16 Pell values, int32 lane indices;
-   equal steps, x and the true r.r bit for bit);
+   equal steps, x and the true r.r bit for bit); K21, K19 and K20 on K7's
+   edge Pells (``check_pell_ir_edges``, ``check_pell_bicgstab_cgs_edges``:
+   float32 and bfloat16 values, the Identity and Jacobi to the threshold,
+   caps of 0, 1 and 2, a NaN b, K19's half step on 2 I, implicit mode;
+   each case twice, x, r and the monitor bit for bit);
 9. main path 7: ``Dia.to_csr``, ParIc and ParIlu on A1 (two ParIlu runs
    bit-identical), the IC and ILU sweep preconditioners, ``Cg`` with each
    fused (K23) and streaming (K1 + K22), ``Bicgstab`` with A2's ILU fused
@@ -254,7 +258,8 @@ KERNEL_META = {
     # one TPU site (_common_call) for both kernels of pallas_ir.py
     "ir_fused": ("ginkgo_tpu_torch/csrc/ir_fused.cu", "ginkgo_tpu/ops/pallas_ir.py:232"),
     "ir_smooth": ("ginkgo_tpu_torch/csrc/ir_fused.cu", "ginkgo_tpu/ops/pallas_ir.py:232"),
-    # K18-K21: the Dia kernels' sources, instantiated on the Pell operator
+    # K18: K15's source on the Pell operator; K19-K21: kernels of their own on
+    # K7's chunked rows, beside the Dia kernels
     "pell_gmres_fused": ("ginkgo_tpu_torch/csrc/gmres_fused.cu",
                          "ginkgo_tpu/ops/pallas_gmres.py:984"),
     "pell_bicgstab_fused": ("ginkgo_tpu_torch/csrc/bicgstab_fused.cu",
@@ -1767,6 +1772,78 @@ def check_pell_ir_edges(gt, dev, rng, record_err=None):
             run("nan b", nan_b, z, minv, 1.0, 7)
         rows.append(row)
         emit(row)
+    return rows
+
+
+def check_pell_bicgstab_cgs_edges(gt, dev, rng, record_err=None):
+    """K19 and K20 against their plain versions on ``pell_cg_edge_operators``
+    (S = 1, 3, 8 and 16, G = 4, int32 lane indices, n not a multiple of a
+    chunk, 63 chunks) and on 2 I at 5000 rows (s = 0 in the first
+    iteration: BiCGSTAB's half step), float32 and bfloat16 values: the
+    Identity and Jacobi to the threshold, implicit mode, caps of 0, 1 and 2
+    iterations, and a NaN in b (run to the cap).  Each kernel runs each
+    case twice; both runs must take the plain version's iterations and stop
+    flag, and x, r and the monitor bit for bit.  Returns the rows it
+    emitted."""
+    from ginkgo_tpu_torch.ops import pell_cg as ops_pc
+
+    kernels = {"pell_bicgstab_fused": (ops_pc.pell_bicgstab_fused,
+                                       ops_pc.pell_bicgstab_solve_reference),
+               "pell_cgs_fused": (ops_pc.pell_cgs_fused, ops_pc.pell_cgs_solve_reference)}
+    ops = dict(pell_cg_edge_operators(gt, dev))
+    two = np.arange(5000)
+    ops["2I(5000), S = 8"] = gt.Pell.from_csr(gt.Csr.from_matrix_data(gt.MatrixData.from_coo(
+        (5000, 5000), two, two, np.full(5000, 2.0, np.float32)), device=dev))
+    rows = []
+    for label, P32 in ops.items():
+        n = P32.shape[0]
+        b = torch.as_tensor(rng.uniform(0.5, 1.5, n).astype(np.float32), device=dev)
+        z = torch.zeros_like(b)
+        tol = torch.full((), (TOL * float(b.double().norm())) ** 2, device=dev)
+        nan_b = b.clone()
+        nan_b[n // 2] = float("nan")
+        half = label.startswith("2I")
+        for kernel, (fused, plain) in kernels.items():
+            row = {"phase": "kernel_check", "kernel": kernel, "matrix": label, "rows": n,
+                   "S": P32.S, "G": P32.G, "qidx": str(P32.qidx.dtype)}
+            for storage, P in (("f32", P32), ("bf16", P32.astype(torch.bfloat16))):
+                minv = (1.0 / P.extract_diagonal().values.float()).contiguous()
+                for what, rhs, mv, cap, imp in (
+                        ("identity", b, None, MAX_ITERS, False),
+                        ("jacobi", b, minv, MAX_ITERS, False),
+                        ("implicit", b, None, MAX_ITERS, True),
+                        ("0 iterations", b, minv, 0, False),
+                        ("1 iteration", b, None, 1, False),
+                        ("2 iterations", b, minv, 2, False),
+                        ("nan b", nan_b, minv, 7, False)):
+                    if half and what not in ("identity", "jacobi"):
+                        continue
+                    kw = dict(tol_sq_eff=tol, max_iters=cap, use_implicit=imp)
+                    got = fused(P, rhs, z, mv, **kw)
+                    again = fused(P, rhs, z, mv, **kw)
+                    want = plain(P, rhs, z, mv, **kw)
+                    _sync(dev)
+                    case = f"{kernel} {label} {storage} {what}"
+                    kit, pit = int(got[2]), int(want[2])
+                    check(kit == pit == int(again[2]) and bool(got[4]) == bool(want[4])
+                          == bool(again[4]),
+                          f"{case}: {kit} / {pit} iterations, converged {bool(got[4])} / "
+                          f"{bool(want[4])}")
+                    check(all(bit_equal(got[j], want[j]) and bit_equal(got[j], again[j])
+                              for j in (0, 1, 3)), f"{case}: x, r or the monitor differs")
+                    if what == "nan b":
+                        check(kit == cap and not bool(got[4]), f"{case}: stopped at {kit}")
+                    elif cap <= 2:
+                        check(kit == cap, f"{case}: {kit} iterations")
+                    else:
+                        check(bool(got[4]), f"{case}: not converged")
+                        if record_err is not None:
+                            record_err(kernel, got[0], want[0])
+                    if half:
+                        check(kit == 1, f"{case}: {kit} iterations, not the first half step")
+                    row[f"{storage} {what}"] = kit
+            rows.append(row)
+            emit(row)
     return rows
 
 
@@ -4591,6 +4668,8 @@ def main():
     stamp("K15/K18 edges")
     check_pell_ir_edges(gt, dev, rng, record_err)
     stamp("K21 edges")
+    check_pell_bicgstab_cgs_edges(gt, dev, rng, record_err)
+    stamp("K19/K20 edges")
 
     # -- 5e. main path 7: triangular solves and incomplete factorizations ----------------
     zero_counts()

@@ -1,7 +1,8 @@
-// Whole-solve right-preconditioned BiCGSTAB in one persistent cooperative
-// kernel, templated on its operator (coop.cuh GkDiaOp, pell.cuh GkPellOp):
-// kernel K12 of the PyTorch port on a Dia, K19 on a Pell, and the k-column
-// form K12m (below).
+// Whole-solve right-preconditioned BiCGSTAB in persistent cooperative
+// kernels: K12 of the PyTorch port on a Dia (the five-pass kernel
+// bicgstab_fused_kernel, templated on its operator, coop.cuh GkDiaOp, and
+// the ring route), the k-column form K12m, and K19 on a Pell (below, a
+// kernel of its own on K7's chunked rows).
 //
 // K12 replaces ginkgo_tpu/ops/pallas_bicgstab.py bicgstab_vmem_solve
 // (_bicgstab_kernel, :53-186).  A diagonal preconditioner M is folded into
@@ -14,13 +15,10 @@
 // memory; else the five-pass kernel of this header (bicgstab_fused_kernel).
 //
 // K19 replaces ginkgo_tpu/ops/pallas_pell_cg.py pell_bicgstab_vmem_solve
-// (_pell_bicgstab_kernel, :313): the same loop on a Pell.  PELL values have
-// no column fold, so M is applied explicitly, v = A (M p) and t = A (M s):
-// the operator's gather multiplies each gathered p or s by minv of its
-// column (GkPellOp cminv), the TPU kernel's staged w = M p rounded the same
-// way, with no pass of its own.  The x update is the same as K12's.  Per
-// iteration it moves the plan twice (values, lane indices, bases) and the
-// vectors as K12 does, plus minv gathered with p and s.
+// (_pell_bicgstab_kernel, :313): the same loop on a Pell, in the five-pass
+// kernel's order with one fold fewer an iteration, on K7's chunked rows
+// (pell_bicgstab_fused_kernel).  PELL values have no column fold, so M is
+// applied explicitly, staged as the TPU kernel stages it (y = M p, z = M s).
 //
 // What bounds it on the H100: bytes.  Per iteration five passes move
 // (2 nd sizeof(TD) + 72) n bytes, 80 n with minv: p = r + beta (p - omega
@@ -61,7 +59,7 @@ namespace cg = cooperative_groups;
 
 template <typename Op>
 struct BicgstabParams {
-  Op op;  // A M (Dia, folded), or A with M applied on the gather (Pell)
+  Op op;  // A M, a diagonal M folded into the Dia
   long long n;
   const float* r0;      // (n,), or (n, K) row-major in K12m
   const float* x0;
@@ -1062,43 +1060,281 @@ extern "C" int bicgstab_fused_solve(
   return (int)cudaErrorInvalidValue;
 }
 
-// K19: blocks of the Pell form's cooperative grid (6 doubles of partial
-// sums per block, as K12).
-extern "C" int pell_bicgstab_fused_grid(int v_dtype, int q_dtype, int* blocks) {
-  GK_PELL_VQ_DISPATCH(v_dtype, q_dtype,
-                      gk_coop_blocks(bicgstab_fused_kernel<GkPellOp<TV, TQ>>, blocks));
-}
+// ---------------------------------------------------------------------------
+// K19 on a Pell: five passes and five grid barriers an iteration, as the
+// five-pass kernel, on K7's chunked rows (pell.cuh GkPellChunks: chunks of
+// GK_PELL_CHUNK_ROWS rows a thread, 32-bit rows).  Every pass walks the
+// thread's own rows in the same chunk order, so p, s, v, t, r and x are
+// read back only by the thread that wrote them, with plain loads; the two
+// products gather p and s across rows with plain loads after the barrier
+// that follows their pass (grid.sync() invalidates L1), the tile's slot
+// range and bases read once for a thread's rows.  Pass 3's s.s partial is
+// folded with pass 4's t.s and t.t after pass 4's barrier (one fold where
+// two, as the ring route's pass B): the half step decides only omega,
+// which pass 5 first reads.
+//
+//   1: p = r + beta (p - omega v)
+//   2: v = A (M p); partial <rr, v>; fold -> alpha
+//   3: s = r - alpha v; partial s.s
+//   4: t = A (M s); partial t.s, t.t; fold of s.s, t.s, t.t -> omega
+//   5: x += alpha (M p) + omega (M s); r = s - omega t; partial <rr, r>,
+//      r.r; fold -> the next rho and the monitor
+//
+// M = diag(minv) is applied explicitly (PELL values have no column fold),
+// staged as the TPU kernel stages it: y = M p in pass 1 and z = M s in
+// pass 3, one float32 product an entry, which the products gather and pass
+// 5 adds to x.  Multiplying minv[col] into every gathered value instead
+// (no y or z) ran 21% slower an iteration with Jacobi on the H100 at the
+// same 3 blocks an SM (PERF.md section 6): it doubles the gathers.  Bytes
+// a row and iteration, the plan apart: 76 with the Identity (1: r, p, v
+// in, p out; 2: p gathered, rr in, v out; 3: r, v in, s out; 4: s
+// gathered, t out; 5: x, p, s, t, rr in, x, r out), 100 with Jacobi (minv
+// in passes 1 and 3, y and z out, gathered and read in pass 5).
+struct PellBicgstabParams {
+  const void* values;
+  const void* qidx;
+  const int* bases;
+  const int* tile_ptr;
+  int S;
+  int G;
+  int n;
+  const float* r0;
+  const float* x0;
+  const float* minv;    // nullptr: Identity
+  const float* tol_sq;  // device scalar
+  int max_iters;
+  int implicit;
+  float* x;
+  float* r;
+  float* rr;
+  float* v;
+  float* t;
+  float* p;
+  float* s;
+  float* y;  // M p and M s with Jacobi, else unused
+  float* z;
+  double* part;  // 6 * gridDim.x per-block partial sums
+  int* it_out;
+  float* mon_out;
+  int* conv_out;
+};
+
+using BcgChunks = GkPellChunks<GK_CG_THREADS>;
 
 template <typename TV, typename TQ>
-static int pell_bicgstab_launch(const void* values, const void* qidx, const int* bases,
-                                const int* tile_ptr, int S, int G, long long n,
-                                const float* r0, const float* x0, const float* minv,
-                                const float* tol_sq, int max_iters, int implicit, float* x,
-                                float* r, float* rr, float* v, float* t, float* p, float* s,
-                                double* part, int blocks, int* it_out, float* mon_out,
-                                int* conv_out, void* stream) {
-  return gk_coop_launch(
-      bicgstab_fused_kernel<GkPellOp<TV, TQ>>,
-      bicgstab_params(gk_pell_op<TV, TQ>(values, qidx, bases, tile_ptr, S, G, n, minv), n,
-                      r0, x0, minv, tol_sq, max_iters, implicit, x, r, rr, v, t, p, s, part,
-                      it_out, mon_out, conv_out, nullptr),
-      blocks, stream);
+__global__ void __launch_bounds__(GK_CG_THREADS, GK_PELL_KRYLOV_MIN_BLOCKS)
+    pell_bicgstab_fused_kernel(const PellBicgstabParams P) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ double sh1[1][GK_CG_WARPS];
+  __shared__ double sh2[2][GK_CG_WARPS];
+  __shared__ double sh3[3][GK_CG_WARPS];
+  __shared__ double bc1[1];
+  __shared__ double bc2[2];
+  __shared__ double bc3[3];
+
+  const TV* __restrict__ values = static_cast<const TV*>(P.values);
+  const TQ* __restrict__ qidx = static_cast<const TQ*>(P.qidx);
+  const int n = P.n;
+  const int B = gridDim.x;
+  const int chunks = (n + BcgChunks::kChunk - 1) / BcgChunks::kChunk;
+  double* part_rv = P.part;         // [B]     <rr, v>
+  double* part_st = P.part + B;     // [3][B]  s.s (pass 3), t.s, t.t (pass 4)
+  double* part_u = P.part + 4 * B;  // [2][B]  <rr, r>, r.r (and the init)
+  float* __restrict__ x = P.x;
+  float* __restrict__ r = P.r;
+  float* __restrict__ rr = P.rr;
+  float* __restrict__ v = P.v;
+  float* __restrict__ t = P.t;
+  float* p = P.p;
+  float* s = P.s;
+  float* y = P.y;
+  float* z = P.z;
+  const float* __restrict__ minv = P.minv;
+  const bool jac = minv != nullptr;
+  // what the products gather: M p and M s
+  const float* gp = jac ? y : p;
+  const float* gs = jac ? z : s;
+
+  // init: x = x0, r = rr = r0, p = v = 0; rho = <r0, r0>
+  {
+    double a[1] = {0.0};
+    BcgChunks::own_rows(n, [&](int i) {
+      const float ri = P.r0[i];
+      x[i] = P.x0[i];
+      r[i] = ri;
+      rr[i] = ri;
+      v[i] = 0.f;
+      p[i] = 0.f;
+      a[0] += (double)ri * ri;
+    });
+    block_partial_vm<1>(a, part_u, sh1);
+  }
+  grid.sync();
+  double tot1[1], tot2[2], tot3[3];
+  grid_total_batch<1, 4>(part_u, 1, B, 1, tot1, sh1, bc1);
+  float rho_new = (float)tot1[0];
+  float rho_old = 1.f, alpha = 1.f, omega = 1.f;
+
+  const float tol_sq = *P.tol_sq;
+  int it = 0;
+  float mon = CUDART_INF_F;
+  while (it < P.max_iters && !(mon <= tol_sq)) {
+    const float beta = gk_sdiv(rho_new * alpha, rho_old * omega);
+
+    // pass 1: p = r + beta (p - omega v); y = M p
+    BcgChunks::own_rows(n, [&](int i) {
+      const float pi = r[i] + beta * (p[i] - omega * v[i]);
+      p[i] = pi;
+      if (jac) y[i] = minv[i] * pi;
+    });
+    grid.sync();
+
+    // pass 2: v = A (M p); partial <rr, v>
+    {
+      double a[1] = {0.0};
+      for (int c = blockIdx.x; c < chunks; c += B) {
+        float av[GK_PELL_CHUNK_ROWS];
+        BcgChunks::spmv<TV, TQ>(values, qidx, P.bases, P.tile_ptr, P.S, P.G, n, gp, c, av);
+#pragma unroll
+        for (int q = 0; q < GK_PELL_CHUNK_ROWS; ++q) {
+          const int i = BcgChunks::row(c, q);
+          if (i < n) {
+            v[i] = av[q];
+            a[0] += (double)rr[i] * av[q];
+          }
+        }
+      }
+      block_partial_vm<1>(a, part_rv, sh1);
+    }
+    grid.sync();
+    grid_total_batch<1, 4>(part_rv, 1, B, 1, tot1, sh1, bc1);
+    const float alpha_new = gk_sdiv(rho_new, (float)tot1[0]);
+
+    // pass 3: s = r - alpha v; z = M s; partial s.s, folded after pass 4
+    {
+      double a[1] = {0.0};
+      BcgChunks::own_rows(n, [&](int i) {
+        const float si = r[i] - alpha_new * v[i];
+        s[i] = si;
+        if (jac) z[i] = minv[i] * si;
+        a[0] += (double)si * si;
+      });
+      block_partial_vm<1>(a, part_st, sh1);
+    }
+    grid.sync();
+
+    // pass 4: t = A (M s); partial t.s, t.t
+    {
+      double a[2] = {0.0, 0.0};
+      for (int c = blockIdx.x; c < chunks; c += B) {
+        float at[GK_PELL_CHUNK_ROWS];
+        BcgChunks::spmv<TV, TQ>(values, qidx, P.bases, P.tile_ptr, P.S, P.G, n, gs, c, at);
+#pragma unroll
+        for (int q = 0; q < GK_PELL_CHUNK_ROWS; ++q) {
+          const int i = BcgChunks::row(c, q);
+          if (i < n) {
+            t[i] = at[q];
+            const float si = s[i];
+            a[0] += (double)at[q] * si;
+            a[1] += (double)at[q] * at[q];
+          }
+        }
+      }
+      block_partial_vm<2>(a, part_st + B, sh2);
+    }
+    grid.sync();
+    grid_total_batch<3, 4>(part_st, 1, B, 3, tot3, sh3, bc3);
+    const bool half_done = (P.implicit ? fabsf(rho_new) : (float)tot3[0]) <= tol_sq;
+    const float omega_new = half_done ? 0.f : gk_sdiv((float)tot3[1], (float)tot3[2]);
+
+    // pass 5: x += alpha (M p) + omega (M s); r = s - omega t; partial
+    // <rr, r> (the next rho) and r.r
+    {
+      double a[2] = {0.0, 0.0};
+      BcgChunks::own_rows(n, [&](int i) {
+        const float si = s[i];
+        const float yi = jac ? y[i] : p[i];
+        const float zi = jac ? z[i] : si;
+        x[i] = x[i] + alpha_new * yi + omega_new * zi;
+        const float ri = si - omega_new * t[i];
+        r[i] = ri;
+        a[0] += (double)rr[i] * ri;
+        a[1] += (double)ri * ri;
+      });
+      block_partial_vm<2>(a, part_u, sh2);
+    }
+    grid.sync();
+    grid_total_batch<2, 4>(part_u, 1, B, 2, tot2, sh2, bc2);
+    mon = P.implicit ? fabsf(rho_new) : (float)tot2[1];
+    rho_old = rho_new;
+    alpha = alpha_new;
+    omega = half_done ? 1.f : omega_new;
+    rho_new = (float)tot2[0];
+    ++it;
+  }
+
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *P.it_out = it;
+    *P.mon_out = mon;
+    *P.conv_out = (mon <= tol_sq) ? 1 : 0;
+  }
+}
+
+// K19: blocks of the cooperative grid (6 doubles of partial sums a block).
+extern "C" int pell_bicgstab_fused_grid(int v_dtype, int q_dtype, int* blocks) {
+  GK_PELL_VQ_DISPATCH(v_dtype, q_dtype,
+                      gk_coop_blocks(pell_bicgstab_fused_kernel<TV, TQ>, blocks));
+}
+
+// K19's launch: out = {blocks of the cooperative grid, threads a block,
+// blocks an SM, registers a thread}.
+extern "C" int pell_bicgstab_fused_config(int v_dtype, int q_dtype, int* out) {
+  GK_PELL_VQ_DISPATCH(v_dtype, q_dtype,
+                      gk_coop_config(pell_bicgstab_fused_kernel<TV, TQ>, out));
 }
 
 // K19: BiCGSTAB on a square Pell (values float32/bfloat16, lane indices
-// int8/int32), M = diag(minv) applied explicitly (minv nullptr: Identity).
+// int8/int32), M = diag(minv) applied explicitly (minv nullptr: Identity;
+// y and z, M p and M s, are used only with minv).
 extern "C" int pell_bicgstab_fused_solve(
     const void* values, int v_dtype, const void* qidx, int q_dtype, const int* bases,
     const int* tile_ptr, int S, int G, long long n, const float* r0, const float* x0,
     const float* minv, const float* tol_sq, int max_iters, int implicit, float* x, float* r,
-    float* rr, float* v, float* t, float* p, float* s, double* part, int blocks,
-    int* it_out, float* mon_out, int* conv_out, void* stream) {
-  if (S < 1 || G < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
+    float* rr, float* v, float* t, float* p, float* s, float* y, float* z, double* part,
+    int blocks, int* it_out, float* mon_out, int* conv_out, void* stream) {
+  // rows are 32-bit, with room for a chunk past the last row
+  if (S < 1 || G < 1 || blocks < 1 || n < 0 || n > 0x7fffffffLL - BcgChunks::kChunk ||
+      (minv != nullptr && (y == nullptr || z == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  PellBicgstabParams P;
+  P.values = values;
+  P.qidx = qidx;
+  P.bases = bases;
+  P.tile_ptr = tile_ptr;
+  P.S = S;
+  P.G = G;
+  P.n = (int)n;
+  P.r0 = r0;
+  P.x0 = x0;
+  P.minv = minv;
+  P.tol_sq = tol_sq;
+  P.max_iters = max_iters;
+  P.implicit = implicit;
+  P.x = x;
+  P.r = r;
+  P.rr = rr;
+  P.v = v;
+  P.t = t;
+  P.p = p;
+  P.s = s;
+  P.y = y;
+  P.z = z;
+  P.part = part;
+  P.it_out = it_out;
+  P.mon_out = mon_out;
+  P.conv_out = conv_out;
   GK_PELL_VQ_DISPATCH(v_dtype, q_dtype,
-                      (pell_bicgstab_launch<TV, TQ>)(
-                          values, qidx, bases, tile_ptr, S, G, n, r0, x0, minv, tol_sq,
-                          max_iters, implicit, x, r, rr, v, t, p, s, part, blocks, it_out,
-                          mon_out, conv_out, stream));
+                      gk_coop_launch(pell_bicgstab_fused_kernel<TV, TQ>, P, blocks, stream));
 }
 
 template <int K>

@@ -1,15 +1,14 @@
 // Whole-solve CGS and BiCG in persistent cooperative kernels: kernels K13
 // (cgs_fused) and K14 (bicg_fused) of the PyTorch port, and K20
-// (pell_cgs_fused), K13's loop on a Pell.
+// (pell_cgs_fused), K13's loop on a Pell in a kernel of its own on K7's
+// chunked rows (below).
 //
 // Replaces ginkgo_tpu/ops/pallas_cgs.py cgs_vmem_solve (_cgs_kernel,
 // :61-178) and bicg_vmem_solve (_bicg_kernel, :266-390), and
 // ginkgo_tpu/ops/pallas_pell_cg.py pell_cgs_vmem_solve (_pell_cgs_kernel,
-// :559).  The CGS kernel is templated on its operator (coop.cuh GkDiaOp,
-// pell.cuh GkPellOp).  On a Pell, M is applied explicitly on the
-// operator's gather (v = A (M p), t = A (M w)), as the TPU kernel stages
-// it (PELL values have no column fold); the x update x += alpha (M w) is
-// K13's.
+// :559).  The Dia CGS kernel is templated on its operator (coop.cuh
+// GkDiaOp).  On a Pell, M is applied explicitly, staged as the TPU kernel
+// stages it (y = M p, w = M (u + q)): PELL values have no column fold.
 //
 // CGS is transpose-free.  As in K12 a diagonal preconditioner is folded
 // into the operator before the launch (solver/_fused_gate.fold_minv), and
@@ -49,7 +48,7 @@ namespace cg = cooperative_groups;
 
 template <typename Op>
 struct CgsParams {
-  Op op;  // A M (Dia, folded), or A with M applied on the gather (Pell)
+  Op op;  // A M, a diagonal M folded into the Dia
   long long n;
   const float* r0;
   const float* x0;
@@ -380,43 +379,248 @@ extern "C" int cgs_fused_solve(
   return (int)cudaErrorInvalidValue;
 }
 
-// K20: blocks of the Pell form's cooperative grid (3 doubles of partial
-// sums per block, as K13).
-extern "C" int pell_cgs_fused_grid(int v_dtype, int q_dtype, int* blocks) {
-  GK_PELL_VQ_DISPATCH(v_dtype, q_dtype,
-                      gk_coop_blocks(cgs_fused_kernel<GkPellOp<TV, TQ>>, blocks));
-}
+// ---------------------------------------------------------------------------
+// K20 on a Pell: K13's four passes and four grid barriers an iteration on
+// K7's chunked rows (pell.cuh GkPellChunks: chunks of GK_PELL_CHUNK_ROWS
+// rows a thread, 32-bit rows).  Every pass walks the thread's own rows in
+// the same chunk order, so u, p, q, w, x and r are read back only by the
+// thread that wrote them, with plain loads; the two products gather p and
+// M w across rows with plain loads after the barrier that follows their
+// pass (grid.sync() invalidates L1), the tile's slot range and bases read
+// once for a thread's rows.
+//
+//   1: u = r + beta q; p = u + beta (q + beta p)
+//   2: v = A (M p); partial <rr, v>; fold -> alpha
+//   3: q = u - alpha v; w = M (u + q); x += alpha w
+//   4: t = A w; r -= alpha t; partial <rr, r>, r.r; fold -> the next rho
+//      and the monitor
+//
+// M = diag(minv) is staged as in K19 (bicgstab_fused.cu): y = M p in pass
+// 1 and w = M (u + q) in pass 3, one float32 product an entry, gathered by
+// the products.  The x update runs in pass 3, where w is formed and alpha
+// known (the same products in the same order as in pass 4, where K13 runs
+// it; 0.2% faster on the H100, PERF.md section 6).  Bytes a row and
+// iteration, the plan apart: 72 with the Identity (1: r, q, p in, u, p
+// out; 2: p gathered, rr in, v out; 3: u, v, x in, q, w, x out; 4: w
+// gathered, r, rr in, r out), 84 with Jacobi (minv in passes 1 and 3, y
+// out and gathered).
+struct PellCgsParams {
+  const void* values;
+  const void* qidx;
+  const int* bases;
+  const int* tile_ptr;
+  int S;
+  int G;
+  int n;
+  const float* r0;
+  const float* x0;
+  const float* minv;    // nullptr: Identity
+  const float* tol_sq;  // device scalar
+  int max_iters;
+  int implicit;
+  float* x;
+  float* r;
+  float* rr;
+  float* q;
+  float* u;
+  float* v;
+  float* p;
+  float* w;  // M (u + q)
+  float* y;  // M p with Jacobi, else unused
+  double* part;  // 3 * gridDim.x per-block partial sums
+  int* it_out;
+  float* mon_out;
+  int* conv_out;
+};
+
+using CgsChunks = GkPellChunks<GK_CG_THREADS>;
 
 template <typename TV, typename TQ>
-static int pell_cgs_launch(const void* values, const void* qidx, const int* bases,
-                           const int* tile_ptr, int S, int G, long long n, const float* r0,
-                           const float* x0, const float* minv, const float* tol_sq,
-                           int max_iters, int implicit, float* x, float* r, float* rr,
-                           float* q, float* u, float* v, float* p, float* w, double* part,
-                           int blocks, int* it_out, float* mon_out, int* conv_out,
-                           void* stream) {
-  return gk_coop_launch(
-      cgs_fused_kernel<GkPellOp<TV, TQ>>,
-      cgs_params(gk_pell_op<TV, TQ>(values, qidx, bases, tile_ptr, S, G, n, minv), n, r0, x0,
-                 minv, tol_sq, max_iters, implicit, x, r, rr, q, u, v, p, w, part, it_out,
-                 mon_out, conv_out),
-      blocks, stream);
+__global__ void __launch_bounds__(GK_CG_THREADS, GK_PELL_KRYLOV_MIN_BLOCKS)
+    pell_cgs_fused_kernel(const PellCgsParams P) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ double sh1[1][GK_CG_WARPS];
+  __shared__ double sh2[2][GK_CG_WARPS];
+  __shared__ double bc1[1];
+  __shared__ double bc2[2];
+
+  const TV* __restrict__ values = static_cast<const TV*>(P.values);
+  const TQ* __restrict__ qidx = static_cast<const TQ*>(P.qidx);
+  const int n = P.n;
+  const int B = gridDim.x;
+  const int chunks = (n + CgsChunks::kChunk - 1) / CgsChunks::kChunk;
+  double* part_sg = P.part;     // [B]     sigma = <rr, v>
+  double* part_u = P.part + B;  // [2][B]  <rr, r>, r.r (and the init)
+  float* __restrict__ x = P.x;
+  float* __restrict__ r = P.r;
+  float* __restrict__ rr = P.rr;
+  float* __restrict__ q = P.q;
+  float* __restrict__ u = P.u;
+  float* __restrict__ v = P.v;
+  float* p = P.p;
+  float* w = P.w;
+  float* y = P.y;
+  const float* __restrict__ minv = P.minv;
+  const bool jac = minv != nullptr;
+  const float* gp = jac ? y : p;  // M p, which pass 2 gathers
+
+  // init: x = x0, r = rr = r0, q = p = 0; rho = <r0, r0>
+  {
+    double a[1] = {0.0};
+    CgsChunks::own_rows(n, [&](int i) {
+      const float ri = P.r0[i];
+      x[i] = P.x0[i];
+      r[i] = ri;
+      rr[i] = ri;
+      q[i] = 0.f;
+      p[i] = 0.f;
+      a[0] += (double)ri * ri;
+    });
+    block_partial_vm<1>(a, part_u, sh1);
+  }
+  grid.sync();
+  double tot1[1], tot2[2];
+  grid_total_batch<1, 4>(part_u, 1, B, 1, tot1, sh1, bc1);
+  float rho_new = (float)tot1[0];
+  float rho_old = 1.f;
+
+  const float tol_sq = *P.tol_sq;
+  int it = 0;
+  float mon = CUDART_INF_F;
+  while (it < P.max_iters && !(mon <= tol_sq)) {
+    const float beta = gk_sdiv(rho_new, rho_old);
+
+    // pass 1: u = r + beta q; p = u + beta (q + beta p); y = M p
+    CgsChunks::own_rows(n, [&](int i) {
+      const float qi = q[i];
+      const float ui = r[i] + beta * qi;
+      u[i] = ui;
+      const float pi = ui + beta * (qi + beta * p[i]);
+      p[i] = pi;
+      if (jac) y[i] = minv[i] * pi;
+    });
+    grid.sync();
+
+    // pass 2: v = A (M p); partial sigma = <rr, v>
+    {
+      double a[1] = {0.0};
+      for (int c = blockIdx.x; c < chunks; c += B) {
+        float av[GK_PELL_CHUNK_ROWS];
+        CgsChunks::spmv<TV, TQ>(values, qidx, P.bases, P.tile_ptr, P.S, P.G, n, gp, c, av);
+#pragma unroll
+        for (int k = 0; k < GK_PELL_CHUNK_ROWS; ++k) {
+          const int i = CgsChunks::row(c, k);
+          if (i < n) {
+            v[i] = av[k];
+            a[0] += (double)rr[i] * av[k];
+          }
+        }
+      }
+      block_partial_vm<1>(a, part_sg, sh1);
+    }
+    grid.sync();
+    grid_total_batch<1, 4>(part_sg, 1, B, 1, tot1, sh1, bc1);
+    const float alpha = gk_sdiv(rho_new, (float)tot1[0]);
+
+    // pass 3: q = u - alpha v; w = M (u + q); x += alpha w
+    CgsChunks::own_rows(n, [&](int i) {
+      const float ui = u[i];
+      const float qi = ui - alpha * v[i];
+      q[i] = qi;
+      const float wi = ui + qi;
+      const float mwi = jac ? minv[i] * wi : wi;
+      w[i] = mwi;
+      x[i] = x[i] + alpha * mwi;
+    });
+    grid.sync();
+
+    // pass 4: t = A w; r -= alpha t; partial <rr, r> (the next rho) and r.r
+    {
+      double a[2] = {0.0, 0.0};
+      for (int c = blockIdx.x; c < chunks; c += B) {
+        float at[GK_PELL_CHUNK_ROWS];
+        CgsChunks::spmv<TV, TQ>(values, qidx, P.bases, P.tile_ptr, P.S, P.G, n, w, c, at);
+#pragma unroll
+        for (int k = 0; k < GK_PELL_CHUNK_ROWS; ++k) {
+          const int i = CgsChunks::row(c, k);
+          if (i < n) {
+            const float ri = r[i] - alpha * at[k];
+            r[i] = ri;
+            a[0] += (double)rr[i] * ri;
+            a[1] += (double)ri * ri;
+          }
+        }
+      }
+      block_partial_vm<2>(a, part_u, sh2);
+    }
+    grid.sync();
+    grid_total_batch<2, 4>(part_u, 1, B, 2, tot2, sh2, bc2);
+    mon = P.implicit ? fabsf(rho_new) : (float)tot2[1];
+    rho_old = rho_new;
+    rho_new = (float)tot2[0];
+    ++it;
+  }
+
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *P.it_out = it;
+    *P.mon_out = mon;
+    *P.conv_out = (mon <= tol_sq) ? 1 : 0;
+  }
+}
+
+// K20: blocks of the cooperative grid (3 doubles of partial sums a block).
+extern "C" int pell_cgs_fused_grid(int v_dtype, int q_dtype, int* blocks) {
+  GK_PELL_VQ_DISPATCH(v_dtype, q_dtype, gk_coop_blocks(pell_cgs_fused_kernel<TV, TQ>, blocks));
+}
+
+// K20's launch: out = {blocks of the cooperative grid, threads a block,
+// blocks an SM, registers a thread}.
+extern "C" int pell_cgs_fused_config(int v_dtype, int q_dtype, int* out) {
+  GK_PELL_VQ_DISPATCH(v_dtype, q_dtype, gk_coop_config(pell_cgs_fused_kernel<TV, TQ>, out));
 }
 
 // K20: CGS on a square Pell (values float32/bfloat16, lane indices
-// int8/int32), M = diag(minv) applied explicitly (minv nullptr: Identity).
+// int8/int32), M = diag(minv) applied explicitly (minv nullptr: Identity;
+// y, M p, is used only with minv).
 extern "C" int pell_cgs_fused_solve(
     const void* values, int v_dtype, const void* qidx, int q_dtype, const int* bases,
     const int* tile_ptr, int S, int G, long long n, const float* r0, const float* x0,
     const float* minv, const float* tol_sq, int max_iters, int implicit, float* x, float* r,
-    float* rr, float* q, float* u, float* v, float* p, float* w, double* part, int blocks,
-    int* it_out, float* mon_out, int* conv_out, void* stream) {
-  if (S < 1 || G < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
+    float* rr, float* q, float* u, float* v, float* p, float* w, float* y, double* part,
+    int blocks, int* it_out, float* mon_out, int* conv_out, void* stream) {
+  // rows are 32-bit, with room for a chunk past the last row
+  if (S < 1 || G < 1 || blocks < 1 || n < 0 || n > 0x7fffffffLL - CgsChunks::kChunk ||
+      (minv != nullptr && y == nullptr))
+    return (int)cudaErrorInvalidValue;
+  PellCgsParams P;
+  P.values = values;
+  P.qidx = qidx;
+  P.bases = bases;
+  P.tile_ptr = tile_ptr;
+  P.S = S;
+  P.G = G;
+  P.n = (int)n;
+  P.r0 = r0;
+  P.x0 = x0;
+  P.minv = minv;
+  P.tol_sq = tol_sq;
+  P.max_iters = max_iters;
+  P.implicit = implicit;
+  P.x = x;
+  P.r = r;
+  P.rr = rr;
+  P.q = q;
+  P.u = u;
+  P.v = v;
+  P.p = p;
+  P.w = w;
+  P.y = y;
+  P.part = part;
+  P.it_out = it_out;
+  P.mon_out = mon_out;
+  P.conv_out = conv_out;
   GK_PELL_VQ_DISPATCH(v_dtype, q_dtype,
-                      (pell_cgs_launch<TV, TQ>)(
-                          values, qidx, bases, tile_ptr, S, G, n, r0, x0, minv, tol_sq,
-                          max_iters, implicit, x, r, rr, q, u, v, p, w, part, blocks, it_out,
-                          mon_out, conv_out, stream));
+                      gk_coop_launch(pell_cgs_fused_kernel<TV, TQ>, P, blocks, stream));
 }
 
 // Blocks of K14's cooperative grid for the dtypes of A and A^H (3 doubles

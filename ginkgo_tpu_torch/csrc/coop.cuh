@@ -351,6 +351,19 @@ static int gk_occupancy(Kernel kernel, long long smem, int threads, GkOccupancy*
                                                             (size_t)smem);
 }
 
+// A cooperative kernel's launch at GK_CG_THREADS threads and no dynamic
+// shared memory: out = {blocks of the grid, threads a block, blocks an SM,
+// registers a thread}.
+template <typename Kernel>
+static int gk_coop_config(Kernel kernel, int* out) {
+  GkOccupancy o;
+  const int st = gk_occupancy(kernel, 0, GK_CG_THREADS, &o);
+  if (st != 0) return st;
+  const int v[4] = {o.per_sm * o.sms, GK_CG_THREADS, o.per_sm, o.regs};
+  for (int i = 0; i < 4; ++i) out[i] = v[i];
+  return 0;
+}
+
 // Launch `kernel(params)` cooperatively on `blocks` blocks of `threads`
 // threads with `smem` bytes of dynamic shared memory.
 template <typename Kernel, typename Params>

@@ -1,6 +1,7 @@
 // The PELL slot sum of one output row, shared by K5 (pell_spmv.cu), K7
-// (pell_cg_fused.cu), K21 (ir_fused.cu) and the Pell forms of K12, K13 and
-// K15 (K18-K20); and the chunked row schedule of K7 and K21.
+// (pell_cg_fused.cu), K19 (bicgstab_fused.cu), K20 (cgs_fused.cu), K21
+// (ir_fused.cu) and K15's Pell form K18 (gmres_fused.cu); and the chunked
+// row schedule of K7 and K19-K21.
 //
 // Plan layout (ginkgo_tpu_torch/ops/pell.py PellPlan): values and qidx are
 // (slots, S, 128); bases is (slots,); tile_ptr (NT + 1) delimits the slots
@@ -61,16 +62,15 @@ __device__ __forceinline__ TA gk_pell_row(const TV* __restrict__ values,
                               [&](long long c) -> TA { return LDCG ? __ldcg(x + c) : x[c]; });
 }
 
-// A square Pell as the operator of a templated whole-solve kernel (see
-// coop.cuh GkDiaOp): row(i, src) gathers src with __ldcg (LDCG; else plain
-// loads, as coop.cuh gk_dia_row), widened to float32 (a bfloat16 GMRES
-// basis).  With `cminv` the gathered value is cminv[c] * src[c], one
-// float32 product, so the row is that of A M with M = diag(cminv) applied
-// explicitly: the same rounding as the TPU kernels' staged w = M p
-// (pallas_pell_cg.py, _pell_bicgstab_kernel and _pell_cgs_kernel), and no
-// pass or barrier of its own.  PELL values have no column fold, so
-// BiCGSTAB and CGS on a Pell take M this way.
-template <typename TV, typename TQ, bool LDCG = true>
+// A square Pell as the operator of K15's whole-solve kernel on a Pell, K18
+// (gmres_fused.cu; see coop.cuh GkDiaOp): row(i, src) gathers src with
+// __ldcg (LDCG; else plain loads, as coop.cuh gk_dia_row), widened to
+// float32 (a bfloat16 GMRES basis).  With `cminv` the gathered value is
+// cminv[c] * src[c], one float32 product, so the row is that of A M with
+// M = diag(cminv) applied explicitly.  K18 passes none; without the field
+// its kernels took other spills on the H100 (PERF.md section 6), so it
+// stays and K18 keeps its code.
+template <typename TV, typename TQ, bool LDCG>
 struct GkPellOp {
   const TV* values;
   const TQ* qidx;
@@ -92,7 +92,7 @@ struct GkPellOp {
   }
 };
 
-// Rows a thread takes of a chunk in K7 and K21, who walk the same chunks; a
+// Rows a thread takes of a chunk in K7 and K19-K21, who walk the same chunks; a
 // chunk is 256 * GK_PELL_CHUNK_ROWS rows, eight 128-row panels, so it lies
 // in one tile when S is a multiple of 8.  On the H100 (PERF.md section 6)
 // 4 rows a thread at 64 registers and 4 blocks an SM beat one row a thread
@@ -100,7 +100,13 @@ struct GkPellOp {
 // registers and 6 blocks an SM.
 #define GK_PELL_CHUNK_ROWS 4
 
-// The row schedule of K7 and K21 (GkPellChunks<THREADS>): the rows go in
+// Blocks an SM that K19's and K20's registers must leave room for (at most
+// 64 registers a thread, K7's and K21's occupancy).  Held to 1, nvcc took
+// 71 registers for K19 (3 blocks an SM), 17% slower an iteration on the
+// H100 (PERF.md section 6).
+#define GK_PELL_KRYLOV_MIN_BLOCKS 4
+
+// The row schedule of K7 and K19-K21 (GkPellChunks<THREADS>): the rows go in
 // chunks of THREADS * R rows (R = GK_PELL_CHUNK_ROWS), dealt to the blocks
 // in turn; a thread takes R rows of a chunk, THREADS apart (row), the same
 // rows in every pass, so a vector written at a row is only read back there
@@ -223,7 +229,7 @@ struct GkPellChunks {
   } while (0)
 
 // The Pell operator of the C entry points' plan arguments.
-template <typename TV, typename TQ, bool LDCG = true>
+template <typename TV, typename TQ, bool LDCG>
 static GkPellOp<TV, TQ, LDCG> gk_pell_op(const void* values, const void* qidx,
                                          const int* bases, const int* tile_ptr, int S, int G,
                                          long long n, const float* cminv) {

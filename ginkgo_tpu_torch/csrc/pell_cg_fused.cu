@@ -197,20 +197,10 @@ extern "C" int pell_cg_fused_grid(int v_dtype, int q_dtype, int* blocks) {
                       gk_coop_blocks(pell_cg_fused_kernel<TV, TQ>, blocks));
 }
 
-template <typename TV, typename TQ>
-static int pell_cg_config(int* out) {
-  GkOccupancy o;
-  const int st = gk_occupancy(pell_cg_fused_kernel<TV, TQ>, 0, GK_CG_THREADS, &o);
-  if (st != 0) return st;
-  const int v[4] = {o.per_sm * o.sms, GK_CG_THREADS, o.per_sm, o.regs};
-  for (int i = 0; i < 4; ++i) out[i] = v[i];
-  return 0;
-}
-
 // K7's launch on this device: out = {blocks of the cooperative grid,
 // threads a block, blocks an SM, registers a thread}.
 extern "C" int pell_cg_fused_config(int v_dtype, int q_dtype, int* out) {
-  GK_PELL_VQ_DISPATCH(v_dtype, q_dtype, (pell_cg_config<TV, TQ>)(out));
+  GK_PELL_VQ_DISPATCH(v_dtype, q_dtype, gk_coop_config(pell_cg_fused_kernel<TV, TQ>, out));
 }
 
 extern "C" int pell_cg_fused_solve(

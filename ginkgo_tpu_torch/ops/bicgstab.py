@@ -16,7 +16,7 @@ the ring route, three passes and three grid barriers an iteration, each
 block walking its own rows and a halo of w = max |offset| rows on each
 side through a ring of shared memory; or, where the ring does not fit a
 block (w above 6,656 rows with five float32 diagonals), the five-pass
-kernel that K19 shares in form.  Both give the plain version's
+kernel, whose pass order K19 keeps on a Pell.  Both give the plain version's
 bits; ``bicgstab_fused.routes`` counts the launches of each route.
 
 Semantics, shared by the kernel and :func:`bicgstab_solve_reference`:
@@ -240,17 +240,20 @@ def _lib():
             P, P, P, P, P,  # it_out, mon_out, conv_out, itc_out, stream
         ]
         lib.pell_bicgstab_fused_grid.argtypes = [I, I, blocks]
+        lib.pell_bicgstab_fused_config.argtypes = [I, I, blocks]
         lib.pell_bicgstab_fused_solve.argtypes = [
             P, I, P, I, P, P, I, I, L,  # values, qidx, bases, tile_ptr, S, G, n
             P, P, P, P,  # r0, x0, minv, tol_sq
             I, I,  # max_iters, implicit
             P, P, P, P, P, P, P,  # x, r, rr, v, t, p, s
+            P, P,  # y, z: M p and M s with Jacobi
             P, I,  # partials, blocks
             P, P, P, P,  # it_out, mon_out, conv_out, stream
         ]
         for fn in (lib.bicgstab_fused_grid, lib.bicgstab_ring_config, lib.bicgstab_fused_solve,
                    lib.bicgstab_fused_multi_grid, lib.bicgstab_fused_multi_solve,
-                   lib.pell_bicgstab_fused_grid, lib.pell_bicgstab_fused_solve):
+                   lib.pell_bicgstab_fused_grid, lib.pell_bicgstab_fused_config,
+                   lib.pell_bicgstab_fused_solve):
             fn.restype = I
         lib.gk_error_string.argtypes = [I]
         lib.gk_error_string.restype = ctypes.c_char_p

@@ -150,16 +150,18 @@ def _lib():
             P, P, P, P,  # it_out, mon_out, conv_out, stream
         ]
         lib.pell_cgs_fused_grid.argtypes = [I, I, blocks]
+        lib.pell_cgs_fused_config.argtypes = [I, I, blocks]
         lib.pell_cgs_fused_solve.argtypes = [
             P, I, P, I, P, P, I, I, L,  # values, qidx, bases, tile_ptr, S, G, n
             P, P, P, P,  # r0, x0, minv, tol_sq
             I, I,  # max_iters, implicit
-            P, P, P, P, P, P, P, P,  # x, r, rr, q, u, v, p, w
+            P, P, P, P, P, P, P, P, P,  # x, r, rr, q, u, v, p, w (M w), y (M p with Jacobi)
             P, I,  # partials, blocks
             P, P, P, P,  # it_out, mon_out, conv_out, stream
         ]
         for fn in (lib.cgs_fused_grid, lib.bicg_fused_grid, lib.cgs_fused_solve,
-                   lib.bicg_fused_solve, lib.pell_cgs_fused_grid, lib.pell_cgs_fused_solve):
+                   lib.bicg_fused_solve, lib.pell_cgs_fused_grid, lib.pell_cgs_fused_config,
+                   lib.pell_cgs_fused_solve):
             fn.restype = I
         lib.gk_error_string.argtypes = [I]
         lib.gk_error_string.restype = ctypes.c_char_p

@@ -8,18 +8,20 @@ TPU kernels: ``pell_cg_vmem_solve`` (``_pell_cg_kernel``),
 ``pell_ir_vmem_solve`` (``_pell_ir_kernel``, :794).  The Krylov loop of a
 general unstructured matrix, its slot SpMV, an Identity or
 inverse-diagonal preconditioner and the stop test run in one persistent
-cooperative CUDA kernel.  K7 is ``csrc/pell_cg_fused.cu``; K19 and K20 are
-the Dia kernels K12 and K13 instantiated on the Pell operator
-(``csrc/bicgstab_fused.cu``, ``cgs_fused.cu``, pell.cuh ``GkPellOp``), so
-each loop exists once; K21 is a kernel of its own in ``csrc/ir_fused.cu``
-(one pass and one grid barrier a sweep on K7's chunked rows, pell.cuh
-``GkPellChunks``).  The plain versions are the loops over an SpMV callable
-(``ops/bicgstab.bicgstab_loop_reference``, ``ops/cgs.cgs_loop_reference``,
-``ops/ir.ir_loop_reference``).
+cooperative CUDA kernel.  K7 is ``csrc/pell_cg_fused.cu``; K19, K20 and K21
+are kernels of their own beside the Dia kernels K12, K13 and K17
+(``csrc/bicgstab_fused.cu``, ``cgs_fused.cu``, ``ir_fused.cu``), all four
+on K7's chunked rows (pell.cuh ``GkPellChunks``: a thread's rows are the
+same in every pass, the tile's slot range is read once for them, and the
+gathers are plain loads).  K19 keeps K12's five passes with one fold fewer
+an iteration (s.s folded with t.s and t.t); K20 keeps K13's four; K21 runs
+one pass and one grid barrier a sweep.  The plain versions are the loops
+over an SpMV callable (``ops/bicgstab.bicgstab_loop_reference``,
+``ops/cgs.cgs_loop_reference``, ``ops/ir.ir_loop_reference``).
 
-K7 and K21 index rows in 32 bits, a chunk of :data:`CHUNK_ROWS` rows past
-the last: :func:`chunk_rows_fit` says whether a Pell of n rows fits, and
-the solvers' routes decline one that does not.
+The four kernels index rows in 32 bits, a chunk of :data:`CHUNK_ROWS` rows
+past the last: :func:`chunk_rows_fit` says whether a Pell of n rows fits,
+and the solvers' routes decline one that does not.
 
 What differs on a Pell, as in the TPU kernels:
 
@@ -56,15 +58,15 @@ from .ir import ir_loop_reference
 from .pell import INDEX_CODE, check_fused_pell, pell_plan_args, pell_spmv_reference
 
 
-#: rows of a chunk of K7 and K21 (256 threads x 4 rows; csrc/pell.cuh
+#: rows of a chunk of K7 and K19-K21 (256 threads x 4 rows; csrc/pell.cuh
 #: GK_PELL_CHUNK_ROWS)
 CHUNK_ROWS = 1024
-#: most rows K7 and K21 take: their rows are 32-bit, with a chunk past the last
+#: most rows K7 and K19-K21 take: their rows are 32-bit, with a chunk past the last
 MAX_CHUNKED_ROWS = 2**31 - 1 - CHUNK_ROWS
 
 
 def chunk_rows_fit(n: int) -> bool:
-    """Whether K7's and K21's 32-bit rows reach an n-row Pell."""
+    """Whether the 32-bit rows of K7 and K19-K21 reach an n-row Pell."""
     return n <= MAX_CHUNKED_ROWS
 
 
@@ -205,6 +207,39 @@ def pell_cg_fused(A, r0, x0, minv=None, *, tol_sq_eff, max_iters,
 pell_cg_fused.launches = 0
 
 
+def pell_krylov_launch(kernel, A, device):
+    """K19's (``kernel`` "pell_bicgstab_fused") or K20's
+    ("pell_cgs_fused") launch for the value and lane-index dtypes of the
+    Pell A on a CUDA device: the cooperative grid's blocks, threads a
+    block, blocks an SM and registers a thread."""
+    lib = (_bicgstab if kernel == "pell_bicgstab_fused" else _cgs)._lib()
+    out = (ctypes.c_int * len(LAUNCH_FIELDS))()
+    with torch.cuda.device(device):
+        status = getattr(lib, f"{kernel}_config")(
+            DTYPE_CODE[A.values.dtype], INDEX_CODE[A.qidx.dtype], out)
+    check_status(lib, status, f"{kernel}_config")
+    return dict(zip(LAUNCH_FIELDS, out))
+
+
+def _krylov_start(what, lib, A, r0, x0, minv, tol_sq_eff, n_vec, n_part):
+    """Check K19's or K20's operands; returns (n, tol, blocks, n_vec
+    vectors, n_part doubles of partials a block, the iterations and stop
+    flag, the monitor), the buffers on r0's device."""
+    dev = r0.device
+    n, codes, tol = _prepare(A, r0, tol_sq_eff, what)
+    check_solve_vectors(what, (n,), dev, (r0, x0), minv, tol, 1)
+    blocks = coop_grid_blocks(lib, f"{what}_grid", codes, dev)
+    vecs = [torch.empty_like(r0) for _ in range(n_vec)]
+    part = torch.empty(n_part * blocks, dtype=torch.float64, device=dev)
+    it_conv = torch.empty(2, dtype=torch.int32, device=dev)
+    mon = torch.empty(1, dtype=torch.float32, device=dev)
+    return n, tol, blocks, vecs, part, it_conv, mon
+
+
+def _ptr(a):
+    return None if a is None else a.data_ptr()
+
+
 def pell_bicgstab_fused(A, r0, x0, minv=None, *, tol_sq_eff, max_iters, use_implicit=False):
     """K19: run right-preconditioned BiCGSTAB (M applied explicitly) on a
     square Pell to the stop test in one kernel, with K12's semantics.
@@ -215,27 +250,21 @@ def pell_bicgstab_fused(A, r0, x0, minv=None, *, tol_sq_eff, max_iters, use_impl
     if on_cpu(r0):
         return pell_bicgstab_solve_reference(A, r0, x0, minv, tol_sq_eff=tol_sq_eff,
                                              max_iters=max_iters, use_implicit=use_implicit)
-    dev = r0.device
-    n, codes, tol = _prepare(A, r0, tol_sq_eff, "pell_bicgstab_fused")
-    check_solve_vectors("pell_bicgstab_fused", (n,), dev, (r0, x0), minv, tol, 1)
     lib = _bicgstab._lib()
-    blocks = coop_grid_blocks(lib, "pell_bicgstab_fused_grid", codes, dev)
-    x, r, rr, v, t, p, s = (torch.empty_like(r0) for _ in range(7))
-    part = torch.empty(6 * blocks, dtype=torch.float64, device=dev)
-    it_conv = torch.empty(2, dtype=torch.int32, device=dev)
-    mon = torch.empty(1, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    # x, r, rr, v, t, p, s, and y = M p, z = M s with Jacobi
+    n, tol, blocks, vecs, part, it_conv, mon = _krylov_start(
+        "pell_bicgstab_fused", lib, A, r0, x0, minv, tol_sq_eff, 7 + 2 * (minv is not None), 6)
+    with torch.cuda.device(r0.device):
         status = lib.pell_bicgstab_fused_solve(
-            *pell_plan_args(A), n, r0.data_ptr(), x0.data_ptr(),
-            None if minv is None else minv.data_ptr(), tol.data_ptr(),
+            *pell_plan_args(A), n, r0.data_ptr(), x0.data_ptr(), _ptr(minv), tol.data_ptr(),
             min(int(max_iters), 2**31 - 1), int(bool(use_implicit)),
-            x.data_ptr(), r.data_ptr(), rr.data_ptr(), v.data_ptr(), t.data_ptr(),
-            p.data_ptr(), s.data_ptr(), part.data_ptr(), blocks, it_conv.data_ptr(),
-            mon.data_ptr(), it_conv[1:].data_ptr(), torch.cuda.current_stream().cuda_stream,
+            *(v.data_ptr() for v in vecs[:7]), *(_ptr(v) for v in (vecs[7:] or [None, None])),
+            part.data_ptr(), blocks, it_conv.data_ptr(), mon.data_ptr(), it_conv[1:].data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     check_status(lib, status, "pell_bicgstab_fused")
     pell_bicgstab_fused.launches += 1
-    return (x, r, *_status(it_conv, mon))
+    return (vecs[0], vecs[1], *_status(it_conv, mon))
 
 
 pell_bicgstab_fused.launches = 0
@@ -249,22 +278,17 @@ def pell_cgs_fused(A, r0, x0, minv=None, *, tol_sq_eff, max_iters, use_implicit=
     if on_cpu(r0):
         return pell_cgs_solve_reference(A, r0, x0, minv, tol_sq_eff=tol_sq_eff,
                                         max_iters=max_iters, use_implicit=use_implicit)
-    dev = r0.device
-    n, codes, tol = _prepare(A, r0, tol_sq_eff, "pell_cgs_fused")
-    check_solve_vectors("pell_cgs_fused", (n,), dev, (r0, x0), minv, tol, 1)
     lib = _cgs._lib()
-    blocks = coop_grid_blocks(lib, "pell_cgs_fused_grid", codes, dev)
-    vecs = [torch.empty_like(r0) for _ in range(8)]  # x, r, rr, q, u, v, p, w
-    part = torch.empty(3 * blocks, dtype=torch.float64, device=dev)
-    it_conv = torch.empty(2, dtype=torch.int32, device=dev)
-    mon = torch.empty(1, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    # x, r, rr, q, u, v, p, w = M (u + q), and y = M p with Jacobi
+    n, tol, blocks, vecs, part, it_conv, mon = _krylov_start(
+        "pell_cgs_fused", lib, A, r0, x0, minv, tol_sq_eff, 8 + (minv is not None), 3)
+    with torch.cuda.device(r0.device):
         status = lib.pell_cgs_fused_solve(
-            *pell_plan_args(A), n, r0.data_ptr(), x0.data_ptr(),
-            None if minv is None else minv.data_ptr(), tol.data_ptr(),
+            *pell_plan_args(A), n, r0.data_ptr(), x0.data_ptr(), _ptr(minv), tol.data_ptr(),
             min(int(max_iters), 2**31 - 1), int(bool(use_implicit)),
-            *(v.data_ptr() for v in vecs), part.data_ptr(), blocks, it_conv.data_ptr(),
-            mon.data_ptr(), it_conv[1:].data_ptr(), torch.cuda.current_stream().cuda_stream,
+            *(v.data_ptr() for v in vecs[:8]), _ptr(vecs[8] if len(vecs) > 8 else None),
+            part.data_ptr(), blocks, it_conv.data_ptr(), mon.data_ptr(), it_conv[1:].data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     check_status(lib, status, "pell_cgs_fused")
     pell_cgs_fused.launches += 1

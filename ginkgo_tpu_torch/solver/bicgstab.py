@@ -13,7 +13,9 @@ route that accepts it, in the JAX package's order (solver/bicgstab.py:
 - one float32 column on a square S = 8 ``Pell`` under the same gate:
   BiCGSTAB's K19 (``ops/pell_cg.pell_bicgstab_fused``) or CGS's K20
   (``ops/pell_cg.pell_cgs_fused``), M applied explicitly (PELL values have
-  no column fold).  BiCG has no Pell kernel, in the JAX package either;
+  no column fold), where the Pell's rows fit the kernels' 32-bit rows
+  (``ops/pell_cg.chunk_rows_fit``; beyond them the streaming loop).  BiCG
+  has no Pell kernel, in the JAX package either;
 - BiCGSTAB with one float32 column on a ``Dia`` with an ``Ilu``
   preconditioner whose two triangular solvers run 0 to 8 'sweeps' on
   ``Dia`` triangles: K24 (``ops/cg_ilu.bicgstab_ilu_fused``), M applied
@@ -51,7 +53,7 @@ from ..ops.cg import MAX_FUSED_COLS
 from ..ops.cg_ilu import bicgstab_ilu_fused
 from ..ops.mg import mg_bicgstab_fused
 from ..ops.cgs import bicg_fused, cgs_fused
-from ..ops.pell_cg import pell_bicgstab_fused, pell_cgs_fused
+from ..ops.pell_cg import chunk_rows_fit, pell_bicgstab_fused, pell_cgs_fused
 from ._fused_gate import (
     fold_minv,
     fused_info,
@@ -99,10 +101,11 @@ def _solve_fused(solver, b, x0, run, fold, max_cols=1):
 
 def _solve_fused_pell(solver, b, x0, run):
     """(x, SolveInfo) from a whole-solve Pell kernel ``run`` taking (A, r0,
-    x0, minv) for one column, or None when the gate declines.  The kernel
-    applies M explicitly and takes minv for the x update too."""
+    x0, minv) for one column, or None when the gate declines or the Pell
+    lies beyond the kernels' 32-bit rows.  The kernel applies M explicitly
+    and takes minv for the x update too."""
     ctx = prepare_fused_pell(solver, b)
-    if ctx is None:
+    if ctx is None or not chunk_rows_fit(ctx["A"].shape[0]):
         return None
     r0, minv, tol = kernel_inputs(ctx, b, x0)
     x, _r, it, mon, conv = run(ctx["A"], r0[:, 0].contiguous(), x0[:, 0].contiguous(), minv,

@@ -19,7 +19,8 @@ Run from the repository root:
                                      trs_fused,cg_ilu_fused,bicgstab_fused,
                                      gmres_fused_multi,bicgstab_fused_multi,
                                      pell_cg_fused,gmres_fused,pell_gmres_fused,
-                                     mg_cg_fused,pell_ir_fused,idr_fused]
+                                     mg_cg_fused,pell_ir_fused,idr_fused,
+                                     pell_bicgstab_fused,pell_cgs_fused]
                           [--rows N] [--chunks 256,512] [--cg-columns 2,4,8]
                           [--bicgstab-columns 2,4,8] [--other DIR ...] [--check]
                           [--profile]
@@ -180,6 +181,27 @@ a bfloat16 basis:
   checkouts (K7: the solve to 1e-6; GMRES: 90 steps, and the solve to 1e-6
   on A2, K18 on A2 as a ``Pell``).
 
+For ``pell_bicgstab_fused`` (K19) and ``pell_cgs_fused`` (K20) on path
+2's 160^3 ``Pell`` (float32 and bfloat16 values, Jacobi), with
+``bench_solves``' method:
+
+- ``build``: ptxas's registers and spills of each one's kernels, this
+  checkout's and each ``--other``'s (a parent's Dia kernels on
+  ``GkPellOp`` under their own names), and whether every other kernel of
+  their sources (K12 on both routes, K12m, K13, K14; K18 where
+  ``pell_gmres_fused`` is built too) kept its ptxas line;
+- ``check`` (with ``--check``): ``chip_smoke.check_pell_bicgstab_cgs_edges``;
+- ``timing``, one row a case: microseconds an iteration by the slope
+  between solves of 200 and 1000 iterations in turns, beside the device
+  time by kernel name; the launch (blocks, blocks an SM, registers); the
+  bytes of the bound and of each checkout's design; x, r, the iterations
+  and the monitor against the plain version and the other checkouts on
+  300 capped iterations at 160^3 and on the solve to 1e-6 on path 4's A2
+  as a ``Pell``, and where this checkout parts from the plain bits, the
+  first iteration after which it does (by bisection on the cap), the
+  plain solve's monitor and true residual just before it, and both
+  solves' at the end.
+
 For ``pell_ir_fused`` (K21 on path 2's 160^3 ``Pell``: float32 and
 bfloat16 values with the Identity at relaxation 0.15, and Jacobi at 1.0)
 and ``idr_fused`` (K16 on path 1's ``poisson_2d(2048)`` ``Dia`` at s = 2
@@ -224,7 +246,8 @@ LIBRARY = {"well": "well_spmv", "pell_spmv": "pell_spmv", "bell_spmv": "bell_spm
            "gmres_fused_multi": "gmres_fused", "bicgstab_fused_multi": "bicgstab_fused",
            "gmres_fused": "gmres_fused", "pell_cg_fused": "pell_cg_fused",
            "pell_gmres_fused": "gmres_fused", "mg_cg_fused": "mg_fused",
-           "pell_ir_fused": "ir_fused", "idr_fused": "idr_fused"}
+           "pell_ir_fused": "ir_fused", "idr_fused": "idr_fused",
+           "pell_bicgstab_fused": "bicgstab_fused", "pell_cgs_fused": "cgs_fused"}
 #: the whole-solve kernels of --kernels: K4 runs one column, K4m --cg-columns
 CG_KERNELS = ("cg_fused", "cg_fused_multi")
 #: K22 and K23, the kernels of the sweep solve
@@ -234,9 +257,13 @@ TRS_KERNELS = ("trs_fused", "cg_ilu_fused")
 KRYLOV_KERNELS = ("bicgstab_fused", "gmres_fused_multi")
 #: K26 and the multigrid kernels that share its cycle (K25, K27, K28)
 MG_KERNELS = ("mg_cg_fused",)
-#: K7 (CG on a Pell) and the one-column GMRES kernel, K15 on a Dia and K18
-#: on a Pell, at their main paths' shapes
-SOLVE_KERNELS = ("pell_cg_fused", "gmres_fused", "pell_gmres_fused")
+#: K7 (CG on a Pell), the one-column GMRES kernel, K15 on a Dia and K18 on
+#: a Pell, and K19 (BiCGSTAB) and K20 (CGS) on a Pell, at their main paths'
+#: shapes
+SOLVE_KERNELS = ("pell_cg_fused", "gmres_fused", "pell_gmres_fused", "pell_bicgstab_fused",
+                 "pell_cgs_fused")
+#: K19 and K20 and the TPU sites they replace
+PELL_KRYLOV = {"pell_bicgstab_fused": "bicgstab", "pell_cgs_fused": "cgs"}
 #: K21 (IR on a Pell) and K16 (IDR(s) on a Dia), at path 6's and path 5's
 #: shapes
 SWEEP_KERNELS = ("pell_ir_fused", "idr_fused")
@@ -318,7 +345,8 @@ def main():
                          "cg_ilu_fused (K23), bicgstab_fused (K12), gmres_fused_multi (K15m), "
                          "bicgstab_fused_multi (K12m), pell_cg_fused (K7), gmres_fused (K15), "
                          "pell_gmres_fused (K18), mg_cg_fused (K26, with K25, K27, K28), "
-                         "pell_ir_fused (K21), idr_fused (K16)")
+                         "pell_ir_fused (K21), idr_fused (K16), pell_bicgstab_fused (K19), "
+                         "pell_cgs_fused (K20)")
     ap.add_argument("--rows", type=int, default=cs.POWERLAW_ROWS)
     ap.add_argument("--chunks", default="256", help="chunk lengths to time, comma-separated")
     ap.add_argument("--other", action="append", default=[],
@@ -402,6 +430,11 @@ def main():
         t0 = time.perf_counter()
         rows = cs.check_gmres_multi_edges(gt, dev, np.random.default_rng(5))
         cs.emit({"phase": "check", "kernels": ["gmres_fused_multi"], "edge_cases": len(rows),
+                 "all_bit_equal": True, "s": round(time.perf_counter() - t0, 2)})
+    if args.check and set(PELL_KRYLOV) & set(kernels):
+        t0 = time.perf_counter()
+        rows = cs.check_pell_bicgstab_cgs_edges(gt, dev, np.random.default_rng(5))
+        cs.emit({"phase": "check", "kernels": list(PELL_KRYLOV), "edge_cases": len(rows),
                  "all_bit_equal": True, "s": round(time.perf_counter() - t0, 2)})
     if args.check and "pell_ir_fused" in kernels:
         t0 = time.perf_counter()
@@ -1500,13 +1533,21 @@ def bench_solves(kernels, gt, dev, card, copy_gbs, others_pkg):
             for tag, pkg in pkgs.items()}
     tokens = {"pell_cg_fused": "pell_cg_fused_kernel",
               "gmres_fused": "gmres_fused_kernelI7GkDiaOp",
-              "pell_gmres_fused": "gmres_fused_kernelI8GkPellOp"}
-    cs.emit({"phase": "build", "kernels": kernels,
-             "ptxas": {tag: {k: line for kern in kernels
-                             for k, line in ptxas_registers(lg[LIBRARY[kern]]["ptxas"]).items()
-                             if tokens[kern] in k} for tag, lg in logs.items()},
+              "pell_gmres_fused": "gmres_fused_kernelI8GkPellOp",
+              "pell_bicgstab_fused": "pell_bicgstab_fused_kernel",
+              "pell_cgs_fused": "pell_cgs_fused_kernel"}
+    # K19 and K20 of a checkout that still runs the Dia kernels on GkPellOp
+    tokens_parent = {"pell_bicgstab_fused": "bicgstab_fused_kernelI8GkPellOp",
+                     "pell_cgs_fused": "cgs_fused_kernelI8GkPellOp"}
+    ptxas = {tag: {k: line for kern in kernels
+                   for k, line in ptxas_registers(lg[LIBRARY[kern]]["ptxas"]).items()
+                   if tokens[kern] in k or tokens_parent.get(kern, tokens[kern]) in k}
+             for tag, lg in logs.items()}
+    cs.emit({"phase": "build", "kernels": kernels, "ptxas": ptxas,
              "sass": {tag: sass_ops(lg["pell_cg_fused"]["path"], tokens["pell_cg_fused"])
                       for tag, lg in logs.items()} if "pell_cg_fused" in kernels else {}})
+    if set(PELL_KRYLOV) & set(kernels):
+        cs.emit(shared_source_ptxas(logs, kernels, tokens, tokens_parent))
     m = cs.KRYLOV_DIM
     t0 = time.perf_counter()
     C3 = gt.Csr.from_matrix_data(gt.generators.poisson_3d(cs.NSIDE3, dtype=np.float32),
@@ -1521,13 +1562,14 @@ def bench_solves(kernels, gt, dev, card, copy_gbs, others_pkg):
     b2 = torch.as_tensor(np.random.default_rng(cs.SEED + 7).uniform(0.5, 1.5, n2)
                          .astype(np.float32), device=dev)
     P2 = gt.Pell.from_csr(gt.Csr.from_matrix_data(data2, device=dev)) \
-        if "pell_gmres_fused" in kernels else None
+        if {"pell_gmres_fused", *PELL_KRYLOV} & set(kernels) else None
     cs.emit({"phase": "setup", "s": round(time.perf_counter() - t0, 2), "rows_160": n3,
              "rows_a2": n2, "plan_bytes": P3.storage_bytes()})
     never = torch.full((), -1.0, device=dev)
 
     def measure_all(call, lo, hi, token):
-        """The slope in turns, and the device slope by kernel name."""
+        """The slope in turns, and the device slope by kernel name (token:
+        one name, or one a checkout)."""
         us, dev_us = {}, {}
 
         def measure(tag):
@@ -1535,8 +1577,9 @@ def bench_solves(kernels, gt, dev, card, copy_gbs, others_pkg):
 
         in_turns(measure, others)
         for tag in mods:
-            t_lo = cs.device_ms(lambda: call(tag, lo), token, calls=2)
-            t_hi = cs.device_ms(lambda: call(tag, hi), token, calls=2)
+            name = token if isinstance(token, str) else token[tag]
+            t_lo = cs.device_ms(lambda: call(tag, lo), name, calls=2)
+            t_hi = cs.device_ms(lambda: call(tag, hi), name, calls=2)
             dev_us[tag] = 1e3 * (t_hi - t_lo) / (hi - lo)
         return us, dev_us
 
@@ -1583,6 +1626,13 @@ def bench_solves(kernels, gt, dev, card, copy_gbs, others_pkg):
             jac = mv is not None
             nbytes = {"bound": plan + (24 + 4 * jac) * n3, "design": plan + (44 + 8 * jac) * n3}
             emit_timing("pell_cg_fused", case, n3, us, dev_us, nbytes, launches, bits)
+
+    for kernel in (k for k in PELL_KRYLOV if k in kernels):
+        bench_pell_krylov(kernel, mods, others, P3, b3, P2, b2, measure_all, emit_timing, dev,
+                          token={tag: tokens[kernel] if hasattr(m["pell_cg_fused"],
+                                                                "pell_krylov_launch")
+                                 else tokens_parent[kernel].replace("I8GkPellOp", "<GkPellOp")
+                                 for tag, m in mods.items()})
 
     gm_cases = [(k, label, basis) for k in ("gmres_fused", "pell_gmres_fused") if k in kernels
                 for label, basis in (("f32", torch.float32), ("bf16", torch.bfloat16))]
@@ -1632,6 +1682,119 @@ def bench_solves(kernels, gt, dev, card, copy_gbs, others_pkg):
                for reads in (4, 3)]
         nbytes = {"bound": cycle, "design": own[0], "design_second_read_from_l2": own[1]}
         emit_timing(kernel, f"m30_{label}", n, us, dev_us, nbytes, launches, bits)
+
+
+def shared_source_ptxas(logs, kernels, tokens, tokens_parent):
+    """A ``build`` row: whether every other kernel of K19's and K20's
+    sources (K12 on both routes, K12m, K13, K14) and of K18's, where built,
+    has this checkout's ptxas line in each other checkout."""
+    skip = tuple(tokens[k] for k in PELL_KRYLOV) + tuple(tokens_parent.values())
+    libs = sorted({LIBRARY[k] for k in kernels if LIBRARY[k] in
+                   ("bicgstab_fused", "cgs_fused", "gmres_fused")})
+    lines = {tag: {k: v for lib in libs for k, v in ptxas_registers(lg[lib]["ptxas"]).items()
+                   if not any(t in k for t in skip)} for tag, lg in logs.items()}
+    this = lines["this"]
+    return {"phase": "build", "libraries": libs, "kernels_compared": len(this),
+            "ptxas_unchanged": {tag: lines[tag] == this for tag in lines if tag != "this"},
+            "ptxas_differs": {tag: sorted(k for k in set(this) | set(lines[tag])
+                                          if this.get(k) != lines[tag].get(k))
+                              for tag in lines if tag != "this"}}
+
+
+def parting(call, plain, A, b, minv, tol, its, got, want):
+    """Where this checkout's solve parts from the plain version's bits: the
+    fewest iterations (by bisection on the cap) after which x differs, and
+    both solves' monitors and true relative residuals after ``its``."""
+    bn = float(b.double().norm())
+
+    def relres(x):
+        return float((b.double() - A.apply(x).double()).norm()) / bn
+
+    lo, hi = 0, its  # x equal after lo iterations, different after hi
+    before = {"monitor": None, "true_relres": 1.0}
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        a = call("this", mid, tol, A, minv, b)
+        w = plain(A, b, torch.zeros_like(b), minv, tol_sq_eff=tol, max_iters=mid)
+        if cs.bit_equal(a[0], w[0]):
+            lo = mid
+            before = {"monitor": float(w[3]), "true_relres": relres(w[0])}
+        else:
+            hi = mid
+    return {"first_iteration_apart": hi, "plain_before": before,
+            "monitor": {"this": float(got[3]), "plain": float(want[3])},
+            "true_relres": {"this": relres(got[0]), "plain": relres(want[0])}}
+
+
+def bench_pell_krylov(kernel, mods, others, P3, b3, P2, b2, measure_all, emit_timing, dev,
+                      token):
+    """K19 or K20 on path 2's 160^3 ``Pell`` (float32 and bfloat16 values,
+    Jacobi): microseconds an iteration by the slope between solves of 200
+    and 1000 in turns, beside the device time by kernel name; the launch;
+    the bytes of the bound and of each checkout's design; x, r, the
+    iterations and the monitor against the plain version and the other
+    checkouts on the solve to 1e-6 on A2 as a ``Pell`` and on 300 capped
+    iterations at 160^3."""
+    from ginkgo_tpu_torch.ops import pell_cg as ops_pc
+
+    plain = (ops_pc.pell_bicgstab_solve_reference if kernel == "pell_bicgstab_fused"
+             else ops_pc.pell_cgs_solve_reference)
+    never = torch.full((), -1.0, device=dev)
+    n3 = P3.shape[0]
+    z3 = torch.zeros_like(b3)
+    minv3 = (1.0 / P3.extract_diagonal().values.float()).contiguous()
+    minv2 = (1.0 / P2.extract_diagonal().values.float()).contiguous()
+    tol2 = torch.full((), (cs.TOL * float(b2.norm())) ** 2, device=dev)
+
+    def same(a, b):
+        return (cs.bit_equal(a[0], b[0]) and cs.bit_equal(a[1], b[1]) and int(a[2]) == int(b[2])
+                and cs.bit_equal(a[3], b[3]) and bool(a[4]) == bool(b[4]))
+
+    for case, P, mv, mv2 in (("f32", P3, None, None), ("bf16", P3.reduce_storage(), None, None),
+                             ("jacobi", P3, minv3, minv2)):
+        def call(tag, its, tol=never, P=P, mv=mv, b=b3):
+            return getattr(mods[tag]["pell_cg_fused"], kernel)(
+                P, b, torch.zeros_like(b), mv, tol_sq_eff=tol, max_iters=its)
+
+        us, dev_us = measure_all(call, 200, 1000, token)
+        launches = {}
+        for tag, m in mods.items():
+            mod = m["pell_cg_fused"]
+            if hasattr(mod, "pell_krylov_launch"):
+                launches[tag] = mod.pell_krylov_launch(kernel, P, dev)
+        # the plain version's bits: 300 capped iterations at 160^3, and the
+        # solve to 1e-6 on A2 as a Pell (with A2's inverse diagonal for
+        # Jacobi)
+        P2c = P2 if case != "bf16" else P2.reduce_storage()
+        bits = {}
+        for what, args in (("capped_300_160", (P, b3, mv, never, 300)),
+                           ("solve_1e-6_a2", (P2c, b2, mv2, tol2, cs.MAX_ITERS))):
+            A, b, m_, tol, its = args
+            outs = {tag: call(tag, its, tol, A, m_, b) for tag in mods}
+            want = plain(A, b, torch.zeros_like(b), m_, tol_sq_eff=tol, max_iters=its)
+            bits[what] = {"iterations": {**{tag: int(o[2]) for tag, o in outs.items()},
+                                         "plain": int(want[2])},
+                          "bit_equal_plain": {tag: same(o, want) for tag, o in outs.items()},
+                          "x_bit_equal_this": {tag: cs.bit_equal(outs["this"][0], o[0])
+                                               for tag, o in outs.items() if tag != "this"}}
+            if not bits[what]["bit_equal_plain"]["this"]:
+                bits[what]["parting"] = parting(call, plain, A, b, m_, tol, its, outs["this"],
+                                                want)
+            del outs, want
+        # bytes an iteration: the bound's (time_path6: the plan once, rr in,
+        # x, r and two carried vectors in and out, minv in) and each
+        # checkout's design (the plan twice and its passes' vectors: K19 76
+        # B a row, 100 with M p and M s staged; K20 72, 84 with M p staged;
+        # a checkout that runs the Dia kernels on GkPellOp, five and four
+        # passes, 72 + 8 and 68 + 4)
+        plan, jac = P.storage_bytes(), mv is not None
+        design = {"pell_bicgstab_fused": (76 + 24 * jac, 72 + 8 * jac),
+                  "pell_cgs_fused": (72 + 12 * jac, 68 + 4 * jac)}[kernel]
+        per_tag = {tag: 2 * plan + design[not hasattr(m["pell_cg_fused"], "pell_krylov_launch")]
+                   * n3 for tag, m in mods.items()}
+        nbytes = {"bound": plan + (36 + 4 * jac) * n3, "design": per_tag["this"],
+                  "design_by_checkout": per_tag}
+        emit_timing(kernel, case, n3, us, dev_us, nbytes, launches, bits)
 
 
 def idr_vectors(s, jacobi, deferred):
