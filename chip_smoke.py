@@ -103,7 +103,11 @@ Phases, each of which raises on failure:
    their halo and longer than several chunks, n not a multiple of the
    chunk, a w past the ring's limit on the five-pass kernel, the half step,
    a NaN b, bfloat16 diagonals, Jacobi, implicit mode; x, r and the
-   monitor bit for bit);
+   monitor bit for bit); K14 on banded edge operators
+   (``check_bicg_edges``: 1 to 7 diagonals, n below one block and past the
+   grid's threads, offsets past a block's rows, bfloat16 diagonals, the
+   Identity, Jacobi, implicit mode, caps of 0 and 1, a NaN b; each case
+   twice, x, r and the monitor bit for bit);
 7. main path 5: on the operator of path 4, Bicgstab and Gmres(30) with
    four columns fused (K12m, K15m) with float32 and bfloat16 diagonals and
    with Jacobi, CbGmres "auto" (K15m with a bfloat16 basis) and both
@@ -123,7 +127,11 @@ Phases, each of which raises on failure:
    (``check_gmres_multi_edges``: 64^2 and 700^2, k = 2 to 4, m = 1, 2, 30
    and 50, a float32 and a bfloat16 basis, Jacobi, a column that stops
    inside a cycle, a NaN column; equal step counts and per-column stop
-   iterations, x bit for bit);
+   iterations, x bit for bit); K17 on ``check_bicg_edges``'s operators
+   (``check_ir_edges``: ``ir_fused`` with Jacobi and the Identity, caps of
+   0, 1 and 2, a start at the solution, a NaN b; ``ir_smooth`` from zero
+   and from x0, with and without the residual, 0 to 3 sweeps; float32 and
+   bfloat16 diagonals, each case twice, x, r and r.r bit for bit);
 8. main path 6: on path 4's operator as a ``Pell`` (S = 8, from the
    ``Csr``), Bicgstab, Cgs, Gmres(30) and Ir fused (K19, K20, K18, K21)
    with float32 and bfloat16 values and with Jacobi (IR: Jacobi with both
@@ -1218,7 +1226,8 @@ def check_path4_kernels(gt, dev, rng, p4, record_err, max_iters=MAX_ITERS):
     kernel and its plain version differ only in the order of their float64
     dot sums, so x is expected bit for bit; where a sum rounds to the
     neighbouring float32 (seen with a bfloat16 basis) the difference is
-    reported and must stay within 1e-5 of max |x|."""
+    reported and must stay within 1e-5 of max |x|; K14's x, r and monitor
+    must be bit for bit."""
     from ginkgo_tpu_torch.ops import bicgstab as ops_bicgstab
     from ginkgo_tpu_torch.ops import cgs as ops_cgs
     from ginkgo_tpu_torch.ops import gmres as ops_gmres
@@ -1263,13 +1272,15 @@ def check_path4_kernels(gt, dev, rng, p4, record_err, max_iters=MAX_ITERS):
             it, mon = (out[2], out[3]) if len(out) == 5 else (out[1], out[2])
             return x, int(it), float(mon)
         t0 = time.perf_counter()
-        k = norm(kern())
+        kout = kern()
+        k = norm(kout)
         _sync(dev)
         k_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        p = norm(plain())
+        pout = plain()
+        p = norm(pout)
         _sync(dev)
-        return k, p, k_s, time.perf_counter() - t0
+        return k, p, k_s, time.perf_counter() - t0, kout, pout
 
     tol = torch.full((), (TOL * float(b.norm())) ** 2, dtype=torch.float32, device=dev)
     for storage, Av in (("f32", A), ("bf16", A.reduce_storage())):
@@ -1278,10 +1289,13 @@ def check_path4_kernels(gt, dev, rng, p4, record_err, max_iters=MAX_ITERS):
                    "storage": storage, "preconditioner": pre_label}
             for key, (kern, plain) in cases(Av, pre, b, tol, max_iters).items():
                 name = key.split(":")[0]
-                (kx, kit, kmon), (px, pit, pmon), k_s, p_s = run(kern, plain)
+                (kx, kit, kmon), (px, pit, pmon), k_s, p_s, kout, pout = run(kern, plain)
                 err = record_err(name, kx, px)
                 what = f"{key} {storage} {pre_label}"
                 check(kit == pit, f"{what}: {kit} vs {pit} iterations")
+                if name == "bicg_fused":
+                    check(all(bit_equal(kout[j], pout[j]) for j in (0, 1, 3)),
+                          f"{what}: x, r or the monitor differs")
                 check(bool(torch.isfinite(kx).all()) and kmon <= float(tol),
                       f"{what}: not converged (monitor {kmon})")
                 check(err <= 1e-5 * float(px.abs().max()), f"{what}: x differs by {err}")
@@ -1293,7 +1307,7 @@ def check_path4_kernels(gt, dev, rng, p4, record_err, max_iters=MAX_ITERS):
     bn[5] = float("nan")
     row = {"phase": "kernel_check", "path": 4, "case": "nan_rhs_runs_to_cap", "cap": 25}
     for key, (kern, plain) in cases(A, None, bn, tol, 25).items():
-        (kx, kit, kmon), (px, pit, pmon), _, _ = run(kern, plain)
+        (kx, kit, kmon), (px, pit, pmon), *_ = run(kern, plain)
         check(kit == pit == 25 and np.isnan(kmon) and np.isnan(pmon),
               f"{key} with a NaN: {kit} / {pit} iterations, monitors {kmon} / {pmon}")
         row[key] = {"iters": kit, "plain_iters": pit}
@@ -1768,7 +1782,7 @@ def check_pell_ir_edges(gt, dev, rng, record_err=None):
             run("identity", b, z, None, 0.15, 10)
             run("0 sweeps", b, x0, minv, 1.0, 0)
             run("1 sweep", b, x0, None, 0.15, 1)
-            run("2 sweeps", b, x0, minv, 1.0, 2)
+            run("2 sweeps", b, x0, None, 0.3, 2)
             run("nan b", nan_b, z, minv, 1.0, 7)
         rows.append(row)
         emit(row)
@@ -1911,6 +1925,185 @@ def check_idr_edges(gt, dev, rng, record_err=None):
                 if record_err is not None and what != "nan b":
                     record_err("idr_fused", got[0], want[0])
                 row[f"s={sdim} {what}"] = kit
+        rows.append(row)
+        emit(row)
+    return rows
+
+
+#: K17 and K14 edge operators (``check_ir_edges``, ``check_bicg_edges``):
+#: label -> rows and offsets of ``dia_band``.  1 to 7 diagonals; n below one
+#: block of 256 rows; offsets past a block's rows; n not a multiple of 256,
+#: and at 300,001 more rows than the grid has threads.
+DIA_SWEEP_EDGES = {
+    "diagonal(777)": (777, (0,)),
+    "band2(1000)": (1000, (0, 1)),
+    "line(200)": (200, (-1, 0, 1)),
+    "band4(4099)": (4099, (-2, -1, 0, 3)),
+    "grid(300x20)": (6000, (-300, -1, 0, 1, 300)),
+    "band6(5001)": (5001, (-700, -5, -1, 0, 1, 5)),
+    "band7(300001)": (300001, (-4000, -300, -1, 0, 1, 300, 4000)),
+}
+
+
+def dia_band(n, offsets, seed=SEED + 17):
+    """A nonsymmetric band with the given offsets, strictly diagonally
+    dominant: -1.3 below the diagonal, -0.7 above it, the diagonal 1 + the
+    row's off-diagonal sum + a seeded [0, 0.5) jitter.  Returns COO parts."""
+    i = np.arange(n)
+    rows, cols, vals = [], [], []
+    off_sum = np.zeros(n)
+    for off in offsets:
+        if off == 0:
+            continue
+        keep = (i + off >= 0) & (i + off < n)
+        v = -1.3 if off < 0 else -0.7
+        rows.append(i[keep])
+        cols.append(i[keep] + off)
+        vals.append(np.full(int(keep.sum()), v))
+        off_sum[keep] += abs(v)
+    rows.append(i)
+    cols.append(i)
+    vals.append(1.0 + off_sum + np.random.default_rng(seed + n).uniform(0.0, 0.5, n))
+    return ((n, n), np.concatenate(rows), np.concatenate(cols),
+            np.concatenate(vals).astype(np.float32))
+
+
+def dia_sweep_edge_operators(gt, dev):
+    """``DIA_SWEEP_EDGES`` as float32 ``Dia``s."""
+    return {label: gt.Dia.from_matrix_data(gt.MatrixData.from_coo(*dia_band(n, offs)),
+                                           device=dev)
+            for label, (n, offs) in DIA_SWEEP_EDGES.items()}
+
+
+def check_ir_edges(gt, dev, rng, record_err=None):
+    """K17 against its plain versions on ``DIA_SWEEP_EDGES``, float32 and
+    bfloat16 diagonals.  ``ir_fused``: Jacobi (relaxation 1.0) to the
+    threshold, the Identity (0.3) under a cap of 10 sweeps, 0, 1 and 2
+    sweeps from a seeded x0, x0 the Jacobi solve's x (the first sweep runs
+    all the same) and a NaN in b (both run to the cap); the sweeps, the
+    stop flag, x, r and r.r bit for bit.  ``ir_smooth``: from zero and from
+    x0, with and without the residual, 0 to 3 sweeps; x and r bit for bit.
+    Every case twice.  Returns the rows it emitted."""
+    from ginkgo_tpu_torch.ops import ir as ops_ir
+
+    rows = []
+    for label, A32 in dia_sweep_edge_operators(gt, dev).items():
+        n = A32.shape[0]
+        b = torch.as_tensor(rng.uniform(0.5, 1.5, n).astype(np.float32), device=dev)
+        x0 = torch.as_tensor(rng.uniform(-0.1, 0.1, n).astype(np.float32), device=dev)
+        z = torch.zeros_like(b)
+        tol = torch.full((), (TOL * float(b.double().norm())) ** 2, device=dev)
+        nan_b = b.clone()
+        nan_b[n // 2] = float("nan")
+        row = {"phase": "kernel_check", "kernel": "ir_fused", "matrix": label, "rows": n,
+               "diagonals": len(A32.offsets)}
+        for storage, A in (("f32", A32), ("bf16", A32.reduce_storage())):
+            minv = (1.0 / A.extract_diagonal().values.float()).contiguous()
+
+            def run(what, rhs, start, mv, omega, cap, A=A, storage=storage):
+                kw = dict(omega=omega, tol_sq_eff=tol, max_iters=cap)
+                args = (A.diags, A.offsets, rhs, start, mv)
+                got = ops_ir.ir_fused(*args, **kw)
+                again = ops_ir.ir_fused(*args, **kw)
+                want = ops_ir.ir_solve_reference(*args, **kw)
+                _sync(dev)
+                case = f"ir_fused {label} {storage} {what}"
+                kit, pit = int(got[2]), int(want[2])
+                check(kit == pit == int(again[2]) and bool(got[4]) == bool(want[4]),
+                      f"{case}: {kit} / {pit} sweeps, converged {bool(got[4])} / "
+                      f"{bool(want[4])}")
+                check(all(bit_equal(got[j], want[j]) and bit_equal(got[j], again[j])
+                          for j in (0, 1, 3)), f"{case}: x, r or r.r differs")
+                if what == "nan b":
+                    check(kit == cap and not bool(got[4]), f"{case}: stopped at {kit}")
+                elif cap <= 10:
+                    check(kit == cap, f"{case}: {kit} sweeps")
+                if record_err is not None and what != "nan b":
+                    record_err("ir_fused", got[0], want[0])
+                row[f"{storage} {what}"] = kit
+                return got
+
+            got = run("jacobi", b, z, minv, 1.0, MAX_ITERS)
+            check(bool(got[4]) and int(got[2]) > 0, f"ir_fused {label} {storage}: not converged")
+            # the monitor starts at +inf: a sweep runs from an x0 that meets the threshold
+            got = run("from the solution", b, got[0], minv, 1.0, MAX_ITERS)
+            check(int(got[2]) >= 1 and bool(got[4]),
+                  f"ir_fused {label} {storage}: {int(got[2])} sweeps from the solution")
+            run("identity", b, z, None, 0.3, 10)
+            run("0 sweeps", b, x0, minv, 1.0, 0)
+            run("1 sweep", b, x0, None, 0.3, 1)
+            run("2 sweeps", b, x0, None, 0.3, 2)
+            run("nan b", nan_b, z, minv, 1.0, 7)
+            for start, xs in (("zero", None), ("x0", x0)):
+                for with_r in (False, True):
+                    for iters in (0, 1, 2, 3):
+                        kw = dict(omega=0.8, iters=iters, with_residual=with_r)
+                        args = (A.diags, A.offsets, b, xs, minv)
+                        got = ops_ir.ir_smooth(*args, **kw)
+                        again = ops_ir.ir_smooth(*args, **kw)
+                        want = ops_ir.ir_smooth_reference(*args, **kw)
+                        _sync(dev)
+                        check(all(bit_equal(got[j], want[j]) and bit_equal(got[j], again[j])
+                                  for j in (0, 1)),
+                              f"ir_smooth {label} {storage} from {start}, residual {with_r}, "
+                              f"{iters} sweeps: x or r differs")
+                        if record_err is not None:
+                            record_err("ir_smooth", got[0], want[0])
+            row[f"{storage} ir_smooth cases"] = 16
+        rows.append(row)
+        emit(row)
+    return rows
+
+
+def check_bicg_edges(gt, dev, rng, record_err=None):
+    """K14 against its plain version on ``DIA_SWEEP_EDGES``, float32 and
+    bfloat16 diagonals (A and A^H alike): the Identity and a seeded inverse
+    diagonal to the threshold, implicit mode, 0 and 1 iterations from a
+    seeded x0, and a NaN in b (both run to the cap).  Each case twice; the
+    iterations, the stop flag, x, r and the monitor bit for bit.  Returns
+    the rows it emitted."""
+    from ginkgo_tpu_torch.ops import cgs as ops_cgs
+
+    rows = []
+    for label, A32 in dia_sweep_edge_operators(gt, dev).items():
+        n = A32.shape[0]
+        b = torch.as_tensor(rng.uniform(0.5, 1.5, n).astype(np.float32), device=dev)
+        x0 = torch.as_tensor(rng.uniform(-0.1, 0.1, n).astype(np.float32), device=dev)
+        z = torch.zeros_like(b)
+        tol = torch.full((), (TOL * float(b.double().norm())) ** 2, device=dev)
+        minv = torch.as_tensor(rng.uniform(0.15, 0.3, n).astype(np.float32), device=dev)
+        nan_b = b.clone()
+        nan_b[n // 2] = float("nan")
+        row = {"phase": "kernel_check", "kernel": "bicg_fused", "matrix": label, "rows": n,
+               "diagonals": len(A32.offsets)}
+        for storage, A in (("f32", A32), ("bf16", A32.reduce_storage())):
+            At = A.conj_transpose()
+            for what, r0, start, mv, cap, imp in (
+                    ("identity", b, z, None, 500, False), ("jacobi", b, z, minv, 500, False),
+                    ("implicit", b, z, None, 500, True), ("0 iterations", b, x0, minv, 0, False),
+                    ("1 iteration", b, x0, None, 1, False), ("nan b", nan_b, z, None, 7, False)):
+                kw = dict(tol_sq_eff=tol, max_iters=cap, use_implicit=imp)
+                args = (A.diags, A.offsets, At.diags, At.offsets, r0, start, mv)
+                got = ops_cgs.bicg_fused(*args, **kw)
+                again = ops_cgs.bicg_fused(*args, **kw)
+                want = ops_cgs.bicg_solve_reference(*args, **kw)
+                _sync(dev)
+                case = f"bicg_fused {label} {storage} {what}"
+                kit, pit = int(got[2]), int(want[2])
+                check(kit == pit == int(again[2]) and bool(got[4]) == bool(want[4]),
+                      f"{case}: {kit} / {pit} iterations, converged {bool(got[4])} / "
+                      f"{bool(want[4])}")
+                check(all(bit_equal(got[j], want[j]) and bit_equal(got[j], again[j])
+                          for j in (0, 1, 3)), f"{case}: x, r or the monitor differs")
+                if what == "nan b":
+                    check(kit == cap and not bool(got[4]), f"{case}: stopped at {kit}")
+                elif cap <= 1:
+                    check(kit == cap, f"{case}: {kit} iterations")
+                else:
+                    check(bool(got[4]), f"{case}: not converged")
+                if record_err is not None and what != "nan b":
+                    record_err("bicg_fused", got[0], want[0])
+                row[f"{storage} {what}"] = kit
         rows.append(row)
         emit(row)
     return rows
@@ -2295,8 +2488,8 @@ def check_path5_kernels(gt, dev, rng, p4, p5, kernels, record_err):
 
     Every kernel runs twice and must equal itself bit for bit, and then its
     plain version: the same iteration and per-column stop counts and x bit
-    for bit.  (The plain versions' host-side square roots are correctly
-    rounded, as the kernels' sqrtf is: ops/cg._sqrt.)"""
+    for bit (K17: r and r.r too).  (The plain versions' host-side square
+    roots are correctly rounded, as the kernels' sqrtf is: ops/cg._sqrt.)"""
     from ginkgo_tpu_torch.ops import bicgstab as ops_bicgstab
     from ginkgo_tpu_torch.ops import gmres as ops_gmres
     from ginkgo_tpu_torch.ops import idr as ops_idr
@@ -2313,12 +2506,14 @@ def check_path5_kernels(gt, dev, rng, p4, p5, kernels, record_err):
 
     def compare(name, label, kern, plain, nan_col=None, cap=None):
         t0 = time.perf_counter()
-        kx, kit, kitc, kconv = outcome(name, kern())
+        kout = kern()
+        kx, kit, kitc, kconv = outcome(name, kout)
         _sync(dev)
         k_s = time.perf_counter() - t0
         kx2, kit2, kitc2, _ = outcome(name, kern())
         t0 = time.perf_counter()
-        px, pit, pitc, pconv = outcome(name, plain())
+        pout = plain()
+        px, pit, pitc, pconv = outcome(name, pout)
         _sync(dev)
         p_s = time.perf_counter() - t0
         what = f"{name} {label}"
@@ -2336,6 +2531,9 @@ def check_path5_kernels(gt, dev, rng, p4, p5, kernels, record_err):
         check(kit == pit and kitc == pitc and row["bit_equal"],
               f"{what}: {kit} / {pit} iterations, {kitc} / {pitc}, x differs by "
               f"{row['x_max_abs_err']}")
+        if name == "ir_fused":  # r and r.r too
+            check(bit_equal(kout[1], pout[1]) and bit_equal(kout[3], pout[3]),
+                  f"{what}: r or r.r differs")
         return row
 
     minv_big = torch.as_tensor(rng.uniform(0.15, 0.3, p4["A"].shape[0]).astype(np.float32),
@@ -2481,8 +2679,10 @@ def time_path5(gt, dev, p4, rec, timing):
     once per iteration: K12m (4 nd + 36 k) n bytes, (4 nd + 22) k n
     operations; K15m per step K15's cycle model with the vectors k wide;
     K16 (4 nd + 20 s + 20) n bytes (diagonals, P and b in; x, r, G and U
-    in and out); K17 and ir_smooth (4 nd + 24) n bytes a sweep (diagonals,
-    b, minv in; x and r in and out)."""
+    in and out); K17 and ir_smooth (4 nd + 16) n bytes a sweep (diagonals,
+    x_j, b and minv in, x_{j+1} out: r is used at once on the rows that
+    form it and is not stored in a sweep; counted with r in and out, as
+    the bound stood before the one-pass sweep, (4 nd + 24) n)."""
     from ginkgo_tpu_torch import stop
     from ginkgo_tpu_torch.ops import bicgstab as ops_bicgstab
     from ginkgo_tpu_torch.ops import gmres as ops_gmres
@@ -2563,7 +2763,7 @@ def time_path5(gt, dev, p4, rec, timing):
         out[f"idr_fused_s{sdim}"] = {"fused_us": f_ms * 1e3, "streaming_us": s_ms * 1e3,
                                      "plain_us": p_ms * 1e3, "GBps": nbytes / f_ms / 1e6}
     # K17 per sweep, and the smoother
-    nbytes = (4 * nd + 24) * n
+    nbytes = (4 * nd + 16) * n
     f_ms = iter_ms(fused("ir", b1))
     s_ms = iter_ms(streaming("ir", b1[:, None]), *STREAM_TRIPS)
     p_ms = iter_ms(lambda its: ops_ir.ir_solve_reference(
@@ -4632,6 +4832,8 @@ def main():
     stamp("check K12-K15")
     check_bicgstab_edges(gt, dev, rng, record_err)
     stamp("K12 edges")
+    check_bicg_edges(gt, dev, rng, record_err)
+    stamp("K14 edges")
 
     # -- 5c. main path 5: k columns, IDR and IR on a Dia -------------------------------
     zero_counts()
@@ -4649,6 +4851,8 @@ def main():
     stamp("K15m edges")
     check_idr_edges(gt, dev, rng, record_err)
     stamp("K16 edges")
+    check_ir_edges(gt, dev, rng, record_err)
+    stamp("K17 edges")
     del p5
 
     # -- 5d. main path 6: the Krylov solvers on a Pell (Csr -> Pell) -------------------

@@ -16,30 +16,49 @@
 // passes per iteration, two of them products with A M.
 //
 // BiCG carries A's diagonals and those of its conjugate transpose (offsets
-// negated, its own range of columns) and runs both products in one pass.
-// A real diagonal M is its own M^H, so z = M r and z2 = M r2 are one
-// multiply each, recomputed where they are needed.  Three passes per
-// iteration.
+// negated, its own range of columns).  A real diagonal M is its own M^H, so
+// z = M r and z2 = M r2 are one multiply each, recomputed where they are
+// needed.
 //
 // What bounds them on the H100: bytes.  Per iteration CGS moves
 // (2 nd sizeof(TD) + 68) n bytes (72 n with minv): u, p from r, q, p; v =
 // (A M) p with <rr, v>; q = u - alpha v and w = u + q; t = (A M) w with the
-// x and r updates and <rr, r>, r.r.  BiCG moves ((nd + nd_t) sizeof(TD) +
-// 64) n (76 n with minv): p, p2 from r, r2; q = A p and q2 = A^H p2 with
-// <p2, q>; x, r, r2 from p, q, q2 with <r2, M r> and r.r.
+// x and r updates and <rr, r>, r.r.  BiCG's bound is ((nd + nd_t)
+// sizeof(TD) + 40) n: the diagonals, r, r2, p, p2 and x in and out.
 //
-// What the design does about it: K4's and K12's.  The vectors that the
-// products read across rows (p and w; p and p2) are loaded with __ldcg;
-// dot products are float64 per-block partials that every block sums in
-// one fixed order; consecutive reductions with no barrier between them
-// write different partial buffers.
+// What the design does about it: K4's and K12's.  Dot products are float64
+// per-block partials that every block sums in one fixed order; consecutive
+// reductions with no barrier between them write different partial
+// buffers.  CGS loads the vectors its products read across rows (p and w)
+// with __ldcg.
+//
+// BiCG (K14) runs three passes and three grid barriers an iteration, each
+// row one thread's in every pass (grid-stride; a thread takes GK_BICG_ROWS
+// rows a trip and issues their loads together, coop.cuh GkStrideRows), so
+// a vector is read back at its own row only by the thread that wrote it,
+// and the products gather p and p2 with plain loads after the barrier that
+// follows their pass (grid.sync() invalidates L1):
+//   1: p = M r + beta p, p2 = M r2 + beta p2; x += alpha p of the previous
+//      iteration, deferred to the pass that reads p's own rows anyway (a
+//      last update runs on the own rows after the loop);
+//   2: q = A p, q2 = A^H p2; partial <p2, q> (p2's own row is a gathered
+//      line already); fold -> alpha;
+//   3: r -= alpha q, r2 -= alpha q2; partials <r2, M r> and r.r; fold.
+// Bytes a row and iteration, nd and nd_t diagonals of TD: (nd + nd_t)
+// sizeof(TD) + 72, 80 with minv.  The partials are value-major and each
+// fold loads them at once (coop.cuh grid_total_batch).
+// A two-pass form (K4m's pass A: p_new and p2_new formed at every column
+// the products read from r, r2, minv and p_old, p and p2 in two buffers
+// each; (nd + nd_t) sizeof(TD) + 64 bytes a row) lost to it on the H100,
+// since it gathers r and p_old where pass 2 gathers p alone (PERF.md
+// section 6).
 //
 // Semantics kept from the TPU kernels: shadow residual rr = r0 (BiCG: r2 =
 // r0), the first rho = <rr, r0> (BiCG: <r0, M r0>), p = q = 0 (BiCG: p =
-// p2 = 0), rho_old starts at 1; the loop runs while it < max_iters &&
-// !(mon <= tol_sq), so a NaN monitor keeps iterating; exact mode monitors
-// r.r after the update, implicit mode |rho| from before it; zero
-// denominators give 0.
+// p2 = 0, so the first direction is M r + beta 0), rho_old starts at 1;
+// the loop runs while it < max_iters && !(mon <= tol_sq), so a NaN monitor
+// keeps iterating; exact mode monitors r.r after the update, implicit mode
+// |rho| from before it; zero denominators give 0.
 
 #include "coop.cuh"
 #include "pell.cuh"
@@ -183,6 +202,13 @@ __global__ void __launch_bounds__(GK_CG_THREADS) cgs_fused_kernel(const CgsParam
   }
 }
 
+// K14's rows a thread takes a trip (GkStrideRows) and the blocks an SM its
+// registers must leave room for.  On the H100 4 rows at 4 blocks an SM (64
+// registers) beat 1 row, 2 rows at 4 and 5 blocks, and 4, 6 and 8 rows at 3
+// (80 registers, 6 and 8 rows with a stack frame; PERF.md section 6).
+#define GK_BICG_ROWS 4
+#define GK_BICG_MIN_BLOCKS 4
+
 struct BicgParams {
   const void* diags;    // (nd, n) of A
   const void* diags_t;  // (nd_t, n) of A^H
@@ -209,7 +235,9 @@ struct BicgParams {
 };
 
 template <typename TA, typename TT>
-__global__ void __launch_bounds__(GK_CG_THREADS) bicg_fused_kernel(const BicgParams P) {
+__global__ void __launch_bounds__(GK_CG_THREADS, GK_BICG_MIN_BLOCKS)
+    bicg_fused_kernel(const BicgParams P) {
+  constexpr int R = GK_BICG_ROWS;
   cg::grid_group grid = cg::this_grid();
   __shared__ double sh1[1][GK_CG_WARPS];
   __shared__ double sh2[2][GK_CG_WARPS];
@@ -222,20 +250,20 @@ __global__ void __launch_bounds__(GK_CG_THREADS) bicg_fused_kernel(const BicgPar
   const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
   const int G = gridDim.x;
-  double* part_pq = P.part;      // [G]     <p2, q>
-  double* part_u = P.part + G;   // [G][2]  <r2, M r>, r.r (and the init)
+  double* part_pq = P.part;     // [G]     <p2, q>
+  double* part_u = P.part + G;  // [2][G]  <r2, M r>, r.r (the init: <r0, M r0>)
   float* __restrict__ x = P.x;
   float* __restrict__ r = P.r;
   float* __restrict__ r2 = P.r2;
   float* __restrict__ q = P.q;
   float* __restrict__ q2 = P.q2;
-  float* p = P.p;
+  float* p = P.p;  // read across rows by pass 2
   float* p2 = P.p2;
   const float* __restrict__ minv = P.minv;
 
   // init: x = x0, r = r2 = r0, p = p2 = 0; rho = <r0, M r0>
   {
-    double acc[2] = {0.0, 0.0};
+    double acc[1] = {0.0};
     for (long long i = t0; i < n; i += stride) {
       const float ri = P.r0[i];
       x[i] = P.x0[i];
@@ -246,13 +274,14 @@ __global__ void __launch_bounds__(GK_CG_THREADS) bicg_fused_kernel(const BicgPar
       const float zi = minv ? minv[i] * ri : ri;
       acc[0] += (double)ri * zi;
     }
-    block_partial<2>(acc, part_u, sh2);
+    block_partial_vm<1>(acc, part_u, sh1);
   }
   grid.sync();
   double tot1[1], tot2[2];
-  grid_total<2>(part_u, tot2, sh2, bc2);
-  float rho_new = (float)tot2[0];
+  grid_total_batch<1, 4>(part_u, 1, G, 1, tot1, sh1, bc1);
+  float rho_new = (float)tot1[0];
   float rho_old = 1.f;
+  float alpha = 0.f;
 
   const float tol_sq = *P.tol_sq;
   int it = 0;
@@ -260,56 +289,104 @@ __global__ void __launch_bounds__(GK_CG_THREADS) bicg_fused_kernel(const BicgPar
   while (it < P.max_iters && !(mon <= tol_sq)) {
     const float beta = gk_sdiv(rho_new, rho_old);
 
-    // pass 1: p = M r + beta p; p2 = M r2 + beta p2
-    for (long long i = t0; i < n; i += stride) {
-      const float ri = r[i];
-      const float r2i = r2[i];
-      const float zi = minv ? minv[i] * ri : ri;
-      const float z2i = minv ? minv[i] * r2i : r2i;
-      p[i] = zi + beta * __ldcg(p + i);
-      p2[i] = z2i + beta * __ldcg(p2 + i);
+    // pass 1: p = M r + beta p; p2 = M r2 + beta p2; the previous
+    // iteration's x += alpha p, from p before its update
+    for (long long i0 = t0; i0 < n; i0 += R * stride) {
+      const GkStrideRows<R> rows(i0, stride, n);
+      float rv[R], r2v[R], mv[R], pv[R], p2v[R], xv[R];
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const long long i = rows.i[k];
+        const bool ok = rows.ok[k];
+        rv[k] = ok ? r[i] : 0.f;
+        r2v[k] = ok ? r2[i] : 0.f;
+        mv[k] = (ok && minv) ? minv[i] : 1.f;
+        pv[k] = ok ? p[i] : 0.f;
+        p2v[k] = ok ? p2[i] : 0.f;
+        xv[k] = (ok && it > 0) ? x[i] : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        if (!rows.ok[k]) continue;
+        const long long i = rows.i[k];
+        const float zi = minv ? mv[k] * rv[k] : rv[k];
+        const float z2i = minv ? mv[k] * r2v[k] : r2v[k];
+        if (it > 0) x[i] = xv[k] + alpha * pv[k];
+        p[i] = zi + beta * pv[k];
+        p2[i] = z2i + beta * p2v[k];
+      }
     }
     grid.sync();
 
-    // pass 2: q = A p, q2 = A^H p2; partial <p2, q>
+    // pass 2: q = A p, q2 = A^H p2 (plain gathers after the barrier);
+    // partial <p2, q>
     {
       double acc[1] = {0.0};
-      for (long long i = t0; i < n; i += stride) {
-        const float qi = gk_dia_row(D, P.offs, n, i, p);
-        q[i] = qi;
-        q2[i] = gk_dia_row(Dt, P.offs_t, n, i, p2);
-        acc[0] += (double)__ldcg(p2 + i) * qi;
+      for (long long i0 = t0; i0 < n; i0 += R * stride) {
+        const GkStrideRows<R> rows(i0, stride, n);
+        float qv[R], q2v[R], p2v[R];
+        gk_dia_rows<R>(D, P.offs, n, rows, p, qv);
+        gk_dia_rows<R>(Dt, P.offs_t, n, rows, p2, q2v);
+#pragma unroll
+        for (int k = 0; k < R; ++k) p2v[k] = rows.ok[k] ? p2[rows.i[k]] : 0.f;
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          if (!rows.ok[k]) continue;
+          q[rows.i[k]] = qv[k];
+          q2[rows.i[k]] = q2v[k];
+          acc[0] += (double)p2v[k] * qv[k];
+        }
       }
-      block_partial<1>(acc, part_pq, sh1);
+      block_partial_vm<1>(acc, part_pq, sh1);
     }
     grid.sync();
-    grid_total<1>(part_pq, tot1, sh1, bc1);
-    const float alpha = gk_sdiv(rho_new, (float)tot1[0]);
+    grid_total_batch<1, 4>(part_pq, 1, G, 1, tot1, sh1, bc1);
+    alpha = gk_sdiv(rho_new, (float)tot1[0]);
 
-    // pass 3: x += alpha p; r -= alpha q; r2 -= alpha q2; partial
-    // <r2, M r> (the next rho) and r.r
+    // pass 3: r -= alpha q; r2 -= alpha q2; partial <r2, M r> (the next
+    // rho) and r.r
     {
       double acc[2] = {0.0, 0.0};
-      for (long long i = t0; i < n; i += stride) {
-        x[i] = x[i] + alpha * __ldcg(p + i);
-        const float ri = r[i] - alpha * q[i];
-        r[i] = ri;
-        const float r2i = r2[i] - alpha * q2[i];
-        r2[i] = r2i;
-        const float zi = minv ? minv[i] * ri : ri;
-        acc[0] += (double)r2i * zi;
-        acc[1] += (double)ri * ri;
+      for (long long i0 = t0; i0 < n; i0 += R * stride) {
+        const GkStrideRows<R> rows(i0, stride, n);
+        float rv[R], r2v[R], qv[R], q2v[R], mv[R];
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          const long long i = rows.i[k];
+          const bool ok = rows.ok[k];
+          rv[k] = ok ? r[i] : 0.f;
+          qv[k] = ok ? q[i] : 0.f;
+          r2v[k] = ok ? r2[i] : 0.f;
+          q2v[k] = ok ? q2[i] : 0.f;
+          mv[k] = (ok && minv) ? minv[i] : 1.f;
+        }
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          if (!rows.ok[k]) continue;
+          const long long i = rows.i[k];
+          const float ri = rv[k] - alpha * qv[k];
+          r[i] = ri;
+          const float r2i = r2v[k] - alpha * q2v[k];
+          r2[i] = r2i;
+          const float zi = minv ? mv[k] * ri : ri;
+          acc[0] += (double)r2i * zi;
+          acc[1] += (double)ri * ri;
+        }
       }
-      block_partial<2>(acc, part_u, sh2);
+      block_partial_vm<2>(acc, part_u, sh2);
     }
     grid.sync();
-    grid_total<2>(part_u, tot2, sh2, bc2);
+    grid_total_batch<2, 4>(part_u, 1, G, 2, tot2, sh2, bc2);
     mon = P.implicit ? fabsf(rho_new) : (float)tot2[1];
     rho_old = rho_new;
     rho_new = (float)tot2[0];
     ++it;
   }
 
+  // the last iteration's x += alpha p, on this thread's own rows
+  if (it > 0) {
+    for (long long i = t0; i < n; i += stride) x[i] = x[i] + alpha * p[i];
+  }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     *P.it_out = it;
     *P.mon_out = mon;
@@ -623,27 +700,49 @@ extern "C" int pell_cgs_fused_solve(
                       gk_coop_launch(pell_cgs_fused_kernel<TV, TQ>, P, blocks, stream));
 }
 
+// K14's kernel bound to the dtypes of A and A^H as `kernel`; any other
+// pair returns cudaErrorInvalidValue.
+#define GK_BICG_DISPATCH(a_dtype, t_dtype, CALL)                       \
+  do {                                                                 \
+    if (a_dtype == GK_F32 && t_dtype == GK_F32) {                      \
+      auto kernel = bicg_fused_kernel<float, float>;                   \
+      return CALL;                                                     \
+    }                                                                  \
+    if (a_dtype == GK_F32 && t_dtype == GK_BF16) {                     \
+      auto kernel = bicg_fused_kernel<float, __nv_bfloat16>;           \
+      return CALL;                                                     \
+    }                                                                  \
+    if (a_dtype == GK_BF16 && t_dtype == GK_F32) {                     \
+      auto kernel = bicg_fused_kernel<__nv_bfloat16, float>;           \
+      return CALL;                                                     \
+    }                                                                  \
+    if (a_dtype == GK_BF16 && t_dtype == GK_BF16) {                    \
+      auto kernel = bicg_fused_kernel<__nv_bfloat16, __nv_bfloat16>;   \
+      return CALL;                                                     \
+    }                                                                  \
+    return (int)cudaErrorInvalidValue;                                 \
+  } while (0)
+
 // Blocks of K14's cooperative grid for the dtypes of A and A^H (3 doubles
 // of partial sums per block).
 extern "C" int bicg_fused_grid(int a_dtype, int t_dtype, int* blocks) {
-  if (a_dtype == GK_F32 && t_dtype == GK_F32)
-    return gk_coop_blocks(bicg_fused_kernel<float, float>, blocks);
-  if (a_dtype == GK_F32 && t_dtype == GK_BF16)
-    return gk_coop_blocks(bicg_fused_kernel<float, __nv_bfloat16>, blocks);
-  if (a_dtype == GK_BF16 && t_dtype == GK_F32)
-    return gk_coop_blocks(bicg_fused_kernel<__nv_bfloat16, float>, blocks);
-  if (a_dtype == GK_BF16 && t_dtype == GK_BF16)
-    return gk_coop_blocks(bicg_fused_kernel<__nv_bfloat16, __nv_bfloat16>, blocks);
-  return (int)cudaErrorInvalidValue;
+  GK_BICG_DISPATCH(a_dtype, t_dtype, gk_coop_blocks(kernel, blocks));
 }
 
+// K14's launch: out = {blocks of the cooperative grid, threads a block,
+// blocks an SM, registers a thread}.
+extern "C" int bicg_fused_config(int a_dtype, int t_dtype, int* out) {
+  GK_BICG_DISPATCH(a_dtype, t_dtype, gk_coop_config(kernel, out));
+}
+
+// K14: BiCG on A and its conjugate transpose (each float32 or bfloat16).
 extern "C" int bicg_fused_solve(
     const void* diags, int a_dtype, const long long* offsets, int nd,
     const void* diags_t, int t_dtype, const long long* offsets_t, int nd_t,
     long long n, const float* r0, const float* x0, const float* minv,
     const float* tol_sq, int max_iters, int implicit, float* x, float* r,
-    float* r2, float* q, float* q2, float* p, float* p2, double* part,
-    int blocks, int* it_out, float* mon_out, int* conv_out, void* stream) {
+    float* r2, float* q, float* q2, float* p, float* p2, double* part, int blocks,
+    int* it_out, float* mon_out, int* conv_out, void* stream) {
   if (nd < 1 || nd > GK_MAX_DIAGS || nd_t < 1 || nd_t > GK_MAX_DIAGS || blocks < 1)
     return (int)cudaErrorInvalidValue;
   BicgParams P;
@@ -669,14 +768,5 @@ extern "C" int bicg_fused_solve(
   P.it_out = it_out;
   P.mon_out = mon_out;
   P.conv_out = conv_out;
-  if (a_dtype == GK_F32 && t_dtype == GK_F32)
-    return gk_coop_launch(bicg_fused_kernel<float, float>, P, blocks, stream);
-  if (a_dtype == GK_F32 && t_dtype == GK_BF16)
-    return gk_coop_launch(bicg_fused_kernel<float, __nv_bfloat16>, P, blocks, stream);
-  if (a_dtype == GK_BF16 && t_dtype == GK_F32)
-    return gk_coop_launch(bicg_fused_kernel<__nv_bfloat16, float>, P, blocks, stream);
-  if (a_dtype == GK_BF16 && t_dtype == GK_BF16)
-    return gk_coop_launch(bicg_fused_kernel<__nv_bfloat16, __nv_bfloat16>, P, blocks,
-                          stream);
-  return (int)cudaErrorInvalidValue;
+  GK_BICG_DISPATCH(a_dtype, t_dtype, gk_coop_launch(kernel, P, blocks, stream));
 }

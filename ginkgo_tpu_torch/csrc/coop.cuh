@@ -169,6 +169,49 @@ __device__ __forceinline__ float gk_dia_row(const TD* __restrict__ D,
   return acc;
 }
 
+// R rows of a grid-stride schedule that a thread takes in one trip: rows
+// i0, i0 + stride, ..., i0 + (R - 1) stride, ok where below n (K14, K17).
+// The thread's rows and their order are those of a one-row loop, so its
+// float64 sums keep their order; the R rows' loads are issued together.
+template <int R>
+struct GkStrideRows {
+  long long i[R];
+  bool ok[R];
+  __device__ __forceinline__ GkStrideRows(long long i0, long long stride, long long n) {
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      i[q] = i0 + q * stride;
+      ok[q] = i[q] < n;
+    }
+  }
+};
+
+// gk_dia_row for the R rows of a trip with plain loads (src written before
+// the last grid barrier): each diagonal's values and gathers of the R rows
+// are loaded before they are summed, each row in gk_dia_row's order.
+template <int R, typename TD, typename TS>
+__device__ __forceinline__ void gk_dia_rows(const TD* __restrict__ D, const GkOffsets& offs,
+                                            long long n, const GkStrideRows<R>& rows,
+                                            const TS* src, float (&acc)[R]) {
+#pragma unroll
+  for (int q = 0; q < R; ++q) acc[q] = 0.f;
+  for (int d = 0; d < offs.nd; ++d) {
+    const long long off = offs.off[d];
+    float v[R], xv[R];
+    bool in[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const long long j = rows.i[q] + off;
+      in[q] = rows.ok[q] && j >= 0 && j < n;
+      v[q] = in[q] ? GkAcc<float>::load(D[d * n + rows.i[q]]) : 0.f;
+      xv[q] = in[q] ? gk_to_float(src[j]) : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < R; ++q)
+      if (in[q]) acc[q] += v[q] * xv[q];
+  }
+}
+
 // The operator of a whole-solve kernel that is templated on it (K12, K13,
 // K15, K17 and their Pell forms): row(i, src) is row i of the product with
 // a vector that other blocks may have written since the last grid barrier.

@@ -11,20 +11,35 @@
 //     with_residual it runs iters - 1 full sweeps and one last update, so
 //     r is left from before that update.
 //
-// What bounds it on the H100: bytes.  A sweep is two passes: the update
-// x += omega M r reads x, r (and minv) and writes x; the residual
-// r = b - A x reads the diagonals, x and b and writes r: (nd sizeof(TD) +
-// 20) n bytes a sweep, 24 n with an inverse diagonal.
+// What bounds it on the H100: bytes.  A sweep reads the diagonals, x_j, b
+// (and minv) and writes x_{j+1}: (nd sizeof(TD) + 12) n bytes, 16 n with
+// an inverse diagonal; r is used at once on the rows that form it and is
+// not stored in a sweep.
 //
-// What the design does about it: K4's (cg_fused.cu).  The grid is what the
-// SMs hold at once, launched cooperatively; each row belongs to one thread
-// in every pass.  The product reads x across rows (with __ldcg), so a
-// barrier separates it from the update on either side: in the solve the
-// stop test's reduction is the one after it; the smoother, which sums
-// nothing, pays a barrier of its own there.  The stop test sums r.r
-// in float64 per-block partials that every block adds in one fixed order
-// (coop.cuh), so every block takes the same branch.  r is recomputed from b
-// every sweep, never updated (ROADMAP, "IR sweep order").
+// What the design does about it: K21's schedule (below) on the Dia, one
+// pass and one grid barrier a sweep.  The grid is what the SMs hold at
+// once, launched cooperatively; each row belongs to one thread in every
+// pass (grid-stride; a thread takes GK_IR_ROWS rows a trip and issues
+// their loads together, coop.cuh GkStrideRows).  Pass j reads x_j
+// across rows with plain loads (every block wrote it before the last grid
+// barrier, and grid.sync() invalidates L1) and, on its own rows, forms
+// r_j = b - A x_j as gk_dia_row sums a row, writes x_{j+1} = x_j + omega
+// M r_j into the other of two x buffers and adds r_j.r_j to a float64
+// partial.  The solve then folds the partials (coop.cuh: every block in
+// one fixed order, so every block takes the same branch); with one barrier
+// a sweep a fast block writes sweep j + 1's partials while a slow one may
+// still fold sweep j's, so they alternate between two halves of the
+// buffer.  On exit the result is the x the last pass read (its r.r with
+// it), and that pass's x_{j+1} is discarded: each thread copies its rows
+// of the result into the output buffer where it is not there, and forms r
+// = b - A x there once, as the sweeps formed it.  The smoother sums
+// nothing and takes the same pass with no fold: its barrier orders the
+// pass that reads x_{j+1} across rows after the one that wrote it (and
+// the pass after, which writes x_j's buffer, after the reads of x_j).  It
+// stores r only on its last pass (iters - 1 sweeps and one last update:
+// r_{iters-1}), or with with_residual forms r = b - A x_iters in one more
+// pass with no update.  r is recomputed from b every sweep, never updated
+// (ROADMAP, "IR sweep order").
 //
 // Semantics kept from _ir_kernel: the monitor starts at +inf, so the first
 // sweep always runs; the loop runs while it < max_iters && !(rr <= tol_sq),
@@ -59,9 +74,16 @@
 
 namespace cg = cooperative_groups;
 
-template <typename Op>
+// Rows a thread takes a trip in K17's passes (GkStrideRows), and the blocks
+// an SM its registers must leave room for.  On the H100 4 rows at 5 blocks
+// an SM (48 registers) beat 1 row at 8 blocks (32 registers), 2 rows at 6,
+// 4, 6 and 8 rows at 4, and 8 rows at 2 (PERF.md section 6).
+#define GK_IR_ROWS 4
+#define GK_IR_MIN_BLOCKS 5
+
+template <typename TD>
 struct IrParams {
-  Op op;
+  GkDiaOp<TD, false> op;  // plain gathers: every source was written before the last barrier
   long long n;
   const float* b;
   const float* x0;      // ir_smooth: nullptr starts from zero
@@ -70,74 +92,90 @@ struct IrParams {
   float omega;
   int iters;  // ir_fused_solve: max_iters; ir_smooth: the sweep count
   int with_residual;
-  float* x;  // read across rows by the residual's product
+  float* x;   // the result; x_j for odd j in the solve
+  float* xb;  // the other x buffer
   float* r;
-  double* part;  // gridDim.x per-block partial sums
+  double* part;  // ir_fused_solve: 2 * gridDim.x per-block partial sums, used in turn
   int* it_out;
   float* rr_out;
   int* conv_out;
 };
 
-// x += omega M r over this thread's rows.
-template <typename Op>
-__device__ __forceinline__ void ir_update(const IrParams<Op>& P) {
-  const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+// One pass over this thread's rows: r_j = b - A x_j from src = x_j, read
+// across rows (ZERO: x_j = 0, so r_j = b and no product); with UPDATE
+// dst = x_{j+1} = x_j + omega M r_j, with STORE_R r_j into P.r; returns
+// this thread's part of r_j.r_j, its rows in order.
+template <bool ZERO, bool STORE_R, bool UPDATE, typename TD>
+__device__ __forceinline__ double ir_pass(const IrParams<TD>& P, const float* src, float* dst) {
+  constexpr int R = GK_IR_ROWS;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = t0; i < P.n; i += stride) {
-    const float ri = P.r[i];
-    const float di = P.minv ? P.minv[i] * ri : ri;
-    P.x[i] = P.x[i] + P.omega * di;
-  }
-}
-
-// r = b - A x over this thread's rows; returns this thread's part of r.r.
-template <typename Op>
-__device__ __forceinline__ double ir_residual(const IrParams<Op>& P) {
   const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
   double acc = 0.0;
-  for (long long i = t0; i < P.n; i += stride) {
-    const float ri = P.b[i] - P.op.row(i, P.x);
-    P.r[i] = ri;
-    acc += (double)ri * ri;
+  for (long long i0 = t0; i0 < P.n; i0 += R * stride) {
+    const GkStrideRows<R> rows(i0, stride, P.n);
+    float ax[R], bv[R], mv[R], sv[R];
+    if (!ZERO) gk_dia_rows<R>(P.op.diags, P.op.offs, P.n, rows, src, ax);
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const long long i = rows.i[q];
+      bv[q] = rows.ok[q] ? P.b[i] : 0.f;
+      mv[q] = (UPDATE && P.minv && rows.ok[q]) ? P.minv[i] : 1.f;
+      sv[q] = (UPDATE && !ZERO && rows.ok[q]) ? src[i] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      if (!rows.ok[q]) continue;
+      const long long i = rows.i[q];
+      const float ri = ZERO ? bv[q] : bv[q] - ax[q];
+      if (STORE_R) P.r[i] = ri;
+      if (UPDATE) dst[i] = sv[q] + P.omega * (P.minv ? mv[q] * ri : ri);
+      acc += (double)ri * ri;
+    }
   }
   return acc;
 }
 
-template <typename Op>
-__global__ void __launch_bounds__(GK_CG_THREADS) ir_fused_kernel(const IrParams<Op> P) {
+template <typename TD>
+__global__ void __launch_bounds__(GK_CG_THREADS, GK_IR_MIN_BLOCKS)
+    ir_fused_kernel(const IrParams<TD> P) {
   cg::grid_group grid = cg::this_grid();
   __shared__ double sh1[1][GK_CG_WARPS];
   __shared__ double bc1[1];
-  const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-
-  for (long long i = t0; i < P.n; i += stride) P.x[i] = P.x0[i];
-  grid.sync();
-  double acc[1] = {ir_residual(P)};
-  block_partial<1>(acc, P.part, sh1);
-  grid.sync();
-  double tot[1];
-  grid_total<1>(P.part, tot, sh1, bc1);
-  float rr = (float)tot[0];
-
   const float tol_sq = *P.tol_sq;
-  float mon = CUDART_INF_F;
+
+  // pass j reads src = x_j across rows and writes dst = x_{j+1}
+  const float* src = P.x0;
+  float* dst = P.x;
   int it = 0;
-  while (it < P.iters && !(mon <= tol_sq)) {
-    ir_update(P);
+  float rr;
+  for (;;) {
+    double s[1] = {ir_pass<false, false, true>(P, src, dst)};
+    // a fast block writes the next sweep's partials while a slow one may
+    // still fold these: the halves alternate
+    double* part = P.part + (it & 1) * gridDim.x;
+    block_partial_vm<1>(s, part, sh1);
     grid.sync();
-    acc[0] = ir_residual(P);
-    // a block writes these partials after the barrier above, which no
-    // block reaches before it has read the previous sweep's
-    block_partial<1>(acc, P.part, sh1);
-    grid.sync();
-    grid_total<1>(P.part, tot, sh1, bc1);
+    double tot[1];
+    grid_total_batch<1, 4>(part, 1, gridDim.x, 1, tot, sh1, bc1);
     rr = (float)tot[0];
-    mon = rr;
+    // the monitor starts at +inf: the first sweep always runs
+    const float mon = it == 0 ? CUDART_INF_F : rr;
+    if (!(it < P.iters && !(mon <= tol_sq))) break;
     ++it;
+    src = dst;
+    dst = (it & 1) ? P.xb : P.x;
   }
 
+  // the result is x_it, the last pass's source (x0, P.x for odd it, else
+  // P.xb), read before the barrier and written by no pass after it: each
+  // thread forms r = b - A x_it on its own rows as the sweeps formed it,
+  // and copies x_it into P.x where it is not there
+  ir_pass<false, true, false>(P, src, nullptr);
+  if (src != P.x) {
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < P.n; i += stride)
+      P.x[i] = src[i];
+  }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     *P.it_out = it;
     *P.rr_out = rr;
@@ -145,35 +183,51 @@ __global__ void __launch_bounds__(GK_CG_THREADS) ir_fused_kernel(const IrParams<
   }
 }
 
-template <typename Op>
-__global__ void __launch_bounds__(GK_CG_THREADS) ir_smooth_kernel(const IrParams<Op> P) {
-  cg::grid_group grid = cg::this_grid();
-  const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-
-  if (P.x0 == nullptr) {
-    // r0 = b: no product on an all-zero x
-    for (long long i = t0; i < P.n; i += stride) {
-      P.x[i] = 0.f;
-      P.r[i] = P.b[i];
-    }
+// A smoother's update pass from src (nullptr: zero), storing r_j where
+// store_r says.
+template <typename TD>
+__device__ __forceinline__ void ir_smooth_pass(const IrParams<TD>& P, const float* src,
+                                               float* dst, bool store_r) {
+  if (src == nullptr) {
+    if (store_r) ir_pass<true, true, true>(P, src, dst);
+    else ir_pass<true, false, true>(P, src, dst);
   } else {
-    for (long long i = t0; i < P.n; i += stride) P.x[i] = P.x0[i];
-    grid.sync();
-    ir_residual(P);
+    if (store_r) ir_pass<false, true, true>(P, src, dst);
+    else ir_pass<false, false, true>(P, src, dst);
   }
-  // The residual's product reads x across rows and, with no reduction
-  // here, nothing else orders it before the next update writes x: a
-  // barrier after each residual pass does.
-  const int sweeps = P.with_residual ? P.iters : (P.iters > 0 ? P.iters - 1 : 0);
-  for (int s = 0; s < sweeps; ++s) {
-    grid.sync();
-    ir_update(P);
-    grid.sync();
-    ir_residual(P);
+}
+
+template <typename TD>
+__global__ void __launch_bounds__(GK_CG_THREADS, GK_IR_MIN_BLOCKS)
+    ir_smooth_kernel(const IrParams<TD> P) {
+  cg::grid_group grid = cg::this_grid();
+  const int iters = P.iters;
+
+  // pass j reads src = x_j across rows (nullptr: zero) and writes x_{j+1}
+  // into the buffer that leaves x_iters in P.x
+  const float* src = P.x0;
+  for (int j = 0; j < iters; ++j) {
+    float* dst = ((iters - 1 - j) & 1) ? P.xb : P.x;
+    const bool last = j == iters - 1;
+    // without the residual the last pass stores r_{iters-1}: the plain
+    // version's iters - 1 sweeps and one last update
+    ir_smooth_pass(P, src, dst, last && !P.with_residual);
+    // the next pass reads dst across rows and writes src's buffer
+    if (!last || P.with_residual) grid.sync();
+    src = dst;
   }
-  if (!P.with_residual && P.iters > 0) grid.sync();
-  if (!P.with_residual && P.iters > 0) ir_update(P);
+  // r = b - A x of the result: with the residual, or with no sweep (the
+  // result is then x0, or zero, copied into P.x)
+  if (P.with_residual || iters == 0) {
+    if (src == nullptr) ir_pass<true, true, false>(P, src, nullptr);
+    else ir_pass<false, true, false>(P, src, nullptr);
+    if (src != P.x) {
+      const long long stride = (long long)gridDim.x * blockDim.x;
+      for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < P.n;
+           i += stride)
+        P.x[i] = src ? src[i] : 0.f;
+    }
+  }
 }
 
 // Blocks of the cooperative grid, the smaller of the two kernels' (both
@@ -181,11 +235,11 @@ __global__ void __launch_bounds__(GK_CG_THREADS) ir_smooth_kernel(const IrParams
 extern "C" int ir_fused_grid(int d_dtype, int* blocks) {
   int a = 0, b = 0, e = 0;
   if (d_dtype == GK_F32) {
-    if ((e = gk_coop_blocks(ir_fused_kernel<GkDiaOp<float>>, &a)) != 0) return e;
-    if ((e = gk_coop_blocks(ir_smooth_kernel<GkDiaOp<float>>, &b)) != 0) return e;
+    if ((e = gk_coop_blocks(ir_fused_kernel<float>, &a)) != 0) return e;
+    if ((e = gk_coop_blocks(ir_smooth_kernel<float>, &b)) != 0) return e;
   } else if (d_dtype == GK_BF16) {
-    if ((e = gk_coop_blocks(ir_fused_kernel<GkDiaOp<__nv_bfloat16>>, &a)) != 0) return e;
-    if ((e = gk_coop_blocks(ir_smooth_kernel<GkDiaOp<__nv_bfloat16>>, &b)) != 0) return e;
+    if ((e = gk_coop_blocks(ir_fused_kernel<__nv_bfloat16>, &a)) != 0) return e;
+    if ((e = gk_coop_blocks(ir_smooth_kernel<__nv_bfloat16>, &b)) != 0) return e;
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -193,11 +247,25 @@ extern "C" int ir_fused_grid(int d_dtype, int* blocks) {
   return 0;
 }
 
-template <typename Op>
-static IrParams<Op> ir_params(const Op& op, long long n, const float* b, const float* x0,
-                              const float* minv, float omega, int iters, float* x, float* r) {
-  IrParams<Op> P;
-  P.op = op;
+// K17's launch: out = {blocks of the cooperative grid, threads a block,
+// blocks an SM, registers a thread} of the solve (smooth = 0) or the
+// smoother's kernel.
+extern "C" int ir_fused_config(int d_dtype, int smooth, int* out) {
+  if (d_dtype == GK_F32)
+    return smooth ? gk_coop_config(ir_smooth_kernel<float>, out)
+                  : gk_coop_config(ir_fused_kernel<float>, out);
+  if (d_dtype == GK_BF16)
+    return smooth ? gk_coop_config(ir_smooth_kernel<__nv_bfloat16>, out)
+                  : gk_coop_config(ir_fused_kernel<__nv_bfloat16>, out);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename TD>
+static IrParams<TD> ir_params(const void* diags, const long long* offsets, int nd, long long n,
+                              const float* b, const float* x0, const float* minv, float omega,
+                              int iters, float* x, float* xb, float* r) {
+  IrParams<TD> P;
+  P.op = gk_dia_op<TD, false>(diags, offsets, nd, n);
   P.n = n;
   P.b = b;
   P.x0 = x0;
@@ -205,6 +273,7 @@ static IrParams<Op> ir_params(const Op& op, long long n, const float* b, const f
   P.omega = omega;
   P.iters = iters;
   P.x = x;
+  P.xb = xb;
   P.r = r;
   P.tol_sq = nullptr;
   P.with_residual = 0;
@@ -216,49 +285,55 @@ static IrParams<Op> ir_params(const Op& op, long long n, const float* b, const f
 }
 
 // K17's stop-test launch.
-template <typename Op>
-static int ir_solve_launch(const Op& op, long long n, const float* b, const float* x0,
-                           const float* minv, const float* tol_sq, float omega, int max_iters,
-                           float* x, float* r, double* part, int blocks, int* it_out,
-                           float* rr_out, int* conv_out, void* stream) {
-  IrParams<Op> P = ir_params(op, n, b, x0, minv, omega, max_iters, x, r);
+template <typename TD>
+static int ir_solve_launch(const void* diags, const long long* offsets, int nd, long long n,
+                           const float* b, const float* x0, const float* minv,
+                           const float* tol_sq, float omega, int max_iters, float* x, float* xb,
+                           float* r, double* part, int blocks, int* it_out, float* rr_out,
+                           int* conv_out, void* stream) {
+  IrParams<TD> P = ir_params<TD>(diags, offsets, nd, n, b, x0, minv, omega, max_iters, x, xb, r);
   P.tol_sq = tol_sq;
   P.part = part;
   P.it_out = it_out;
   P.rr_out = rr_out;
   P.conv_out = conv_out;
-  return gk_coop_launch(ir_fused_kernel<Op>, P, blocks, stream);
+  return gk_coop_launch(ir_fused_kernel<TD>, P, blocks, stream);
 }
 
+// K17: IR/Richardson sweeps on a Dia to the stop test; x and xb are the two
+// x buffers, x the result; r = b - A x; part holds 2 * blocks doubles.
 extern "C" int ir_fused_solve(const void* diags, int d_dtype, const long long* offsets,
                               int nd, long long n, const float* b, const float* x0,
                               const float* minv, const float* tol_sq, float omega,
-                              int max_iters, float* x, float* r, double* part, int blocks,
-                              int* it_out, float* rr_out, int* conv_out, void* stream) {
+                              int max_iters, float* x, float* xb, float* r, double* part,
+                              int blocks, int* it_out, float* rr_out, int* conv_out,
+                              void* stream) {
   if (nd < 1 || nd > GK_MAX_DIAGS || max_iters < 0 || blocks < 1 || x0 == nullptr)
     return (int)cudaErrorInvalidValue;
-#define GK_DIA_LAUNCH(TD)                                                                  \
-  ir_solve_launch<GkDiaOp<TD>>(gk_dia_op<TD>(diags, offsets, nd, n), n, b, x0, minv, tol_sq, \
-                               omega, max_iters, x, r, part, blocks, it_out, rr_out,        \
-                               conv_out, stream)
-  if (d_dtype == GK_F32) return GK_DIA_LAUNCH(float);
-  if (d_dtype == GK_BF16) return GK_DIA_LAUNCH(__nv_bfloat16);
-#undef GK_DIA_LAUNCH
+  if (d_dtype == GK_F32)
+    return ir_solve_launch<float>(diags, offsets, nd, n, b, x0, minv, tol_sq, omega, max_iters,
+                                  x, xb, r, part, blocks, it_out, rr_out, conv_out, stream);
+  if (d_dtype == GK_BF16)
+    return ir_solve_launch<__nv_bfloat16>(diags, offsets, nd, n, b, x0, minv, tol_sq, omega,
+                                          max_iters, x, xb, r, part, blocks, it_out, rr_out,
+                                          conv_out, stream);
   return (int)cudaErrorInvalidValue;
 }
 
+// K17's fixed-sweep launch: iters sweeps from x0 (nullptr: zero); x and xb
+// are the two x buffers, x the result.
 extern "C" int ir_smooth(const void* diags, int d_dtype, const long long* offsets, int nd,
                          long long n, const float* b, const float* x0, const float* minv,
-                         float omega, int iters, int with_residual, float* x, float* r,
-                         int blocks, void* stream) {
+                         float omega, int iters, int with_residual, float* x, float* xb,
+                         float* r, int blocks, void* stream) {
   if (nd < 1 || nd > GK_MAX_DIAGS || iters < 0 || blocks < 1)
     return (int)cudaErrorInvalidValue;
-#define GK_DIA_LAUNCH(TD)                                                                  \
-  do {                                                                                     \
-    IrParams<GkDiaOp<TD>> P =                                                              \
-        ir_params(gk_dia_op<TD>(diags, offsets, nd, n), n, b, x0, minv, omega, iters, x, r); \
-    P.with_residual = with_residual;                                                       \
-    return gk_coop_launch(ir_smooth_kernel<GkDiaOp<TD>>, P, blocks, stream);               \
+#define GK_DIA_LAUNCH(TD)                                                                   \
+  do {                                                                                      \
+    IrParams<TD> P =                                                                        \
+        ir_params<TD>(diags, offsets, nd, n, b, x0, minv, omega, iters, x, xb, r);          \
+    P.with_residual = with_residual;                                                        \
+    return gk_coop_launch(ir_smooth_kernel<TD>, P, blocks, stream);                         \
   } while (0)
   if (d_dtype == GK_F32) GK_DIA_LAUNCH(float);
   if (d_dtype == GK_BF16) GK_DIA_LAUNCH(__nv_bfloat16);

@@ -132,6 +132,7 @@ def _lib():
         offs, blocks = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)
         lib.cgs_fused_grid.argtypes = [I, blocks]
         lib.bicg_fused_grid.argtypes = [I, I, blocks]
+        lib.bicg_fused_config.argtypes = [I, I, blocks]
         lib.cgs_fused_solve.argtypes = [
             P, I, offs, I, L,  # diags, offsets, n
             P, P, P, P,  # r0, x0, minv, tol_sq
@@ -159,7 +160,8 @@ def _lib():
             P, I,  # partials, blocks
             P, P, P, P,  # it_out, mon_out, conv_out, stream
         ]
-        for fn in (lib.cgs_fused_grid, lib.bicg_fused_grid, lib.cgs_fused_solve,
+        for fn in (lib.cgs_fused_grid, lib.bicg_fused_grid, lib.bicg_fused_config,
+                   lib.cgs_fused_solve,
                    lib.bicg_fused_solve, lib.pell_cgs_fused_grid, lib.pell_cgs_fused_config,
                    lib.pell_cgs_fused_solve):
             fn.restype = I

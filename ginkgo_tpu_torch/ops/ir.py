@@ -10,17 +10,20 @@ with two entry points over shared passes:
 - :func:`ir_smooth` (``_smooth_kernel``, :91-147): a fixed number of
   sweeps, as multigrid's fixed smoother runs them.
 
-A sweep is the update pass x += omega M r (M: an inverse diagonal or the
-identity), then the residual pass r = b - A x; r is recomputed from b every
-sweep, never updated.  In ``ir_fused`` the monitor starts at +inf, so the
-first sweep always runs, and the loop runs while it < max_iters and
-``not (r.r <= tol_sq_eff)``, r.r of the residual after the sweep (a NaN
-keeps sweeping); the reported r.r is the last sweep's, or r0's when
-max_iters is 0.  The sweep loop exists once, :func:`ir_loop_reference`
-over an SpMV; K21's plain version (``ops/pell_cg.py``) runs it on a Pell,
-with the monitor starting at r0's r.r as the TPU Pell kernel's does.  K21
-is a kernel of its own in the same source (one pass a sweep, K7's rows);
-its entry points load with K17's library.
+A sweep is the update x += omega M r (M: an inverse diagonal or the
+identity) and the residual r = b - A x; r is recomputed from b every sweep,
+never updated.  The kernel takes both in one pass and one grid barrier a
+sweep: pass j forms r_j = b - A x_j and x_{j+1} = x_j + omega M r_j with
+r_j.r_j, x in two buffers (``csrc/ir_fused.cu``); the plain versions take
+them in the same order, so x, r and the sweeps agree bit for bit.  In
+``ir_fused`` the monitor starts at +inf, so the first sweep always runs,
+and the loop runs while it < max_iters and ``not (r.r <= tol_sq_eff)``,
+r.r of the residual after the sweep (a NaN keeps sweeping); the reported
+r.r is the last sweep's, or r0's when max_iters is 0.  The sweep loop
+exists once, :func:`ir_loop_reference` over an SpMV; K21's plain version
+(``ops/pell_cg.py``) runs it on a Pell, with the monitor starting at r0's
+r.r as the TPU Pell kernel's does.  K21 is a kernel of its own in the same
+source (K7's rows); its entry points load with K17's library.
 """
 
 from __future__ import annotations
@@ -112,16 +115,17 @@ def _lib():
         P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         offs, blocks = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)
         lib.ir_fused_grid.argtypes = [I, blocks]
+        lib.ir_fused_config.argtypes = [I, I, blocks]
         lib.ir_fused_solve.argtypes = [
             P, I, offs, I, L,  # diags, offsets, n
             P, P, P, P, F, I,  # b, x0, minv, tol_sq, omega, max_iters
-            P, P, P, I,  # x, r, partials, blocks
+            P, P, P, P, I,  # x, xb, r, partials, blocks
             P, P, P, P,  # it_out, rr_out, conv_out, stream
         ]
         lib.ir_smooth.argtypes = [
             P, I, offs, I, L,  # diags, offsets, n
             P, P, P, F, I, I,  # b, x0 (or null), minv, omega, iters, with_residual
-            P, P, I, P,  # x, r, blocks, stream
+            P, P, P, I, P,  # x, xb, r, blocks, stream
         ]
         lib.pell_ir_fused_grid.argtypes = [I, I, blocks]
         lib.pell_ir_fused_solve.argtypes = [
@@ -130,7 +134,7 @@ def _lib():
             P, P, P, P, I,  # x, xb, r, partials, blocks
             P, P, P, P,  # it_out, rr_out, conv_out, stream
         ]
-        for fn in (lib.ir_fused_grid, lib.ir_fused_solve, lib.ir_smooth,
+        for fn in (lib.ir_fused_grid, lib.ir_fused_config, lib.ir_fused_solve, lib.ir_smooth,
                    lib.pell_ir_fused_grid, lib.pell_ir_fused_solve):
             fn.restype = I
         lib.gk_error_string.argtypes = [I]
@@ -156,9 +160,8 @@ def ir_fused(diags, offsets, b, x0, minv=None, *, omega, tol_sq_eff, max_iters):
     check_solve_vectors("ir_fused", (n,), dev, (b, x0), minv, tol, 1)
     lib = _lib()
     blocks = coop_grid_blocks(lib, "ir_fused_grid", (DTYPE_CODE[diags.dtype],), dev)
-    x = torch.empty_like(b)
-    r = torch.empty_like(b)
-    part = torch.empty(blocks, dtype=torch.float64, device=dev)
+    x, xb, r = (torch.empty_like(b) for _ in range(3))
+    part = torch.empty(2 * blocks, dtype=torch.float64, device=dev)
     it_conv = torch.empty(2, dtype=torch.int32, device=dev)
     rr = torch.empty(1, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -166,8 +169,9 @@ def ir_fused(diags, offsets, b, x0, minv=None, *, omega, tol_sq_eff, max_iters):
             diags.data_ptr(), DTYPE_CODE[diags.dtype], offsets_array(offsets), len(offsets),
             n, b.data_ptr(), x0.data_ptr(), None if minv is None else minv.data_ptr(),
             tol.data_ptr(), float(omega), min(int(max_iters), 2**31 - 1),
-            x.data_ptr(), r.data_ptr(), part.data_ptr(), blocks, it_conv.data_ptr(),
-            rr.data_ptr(), it_conv[1:].data_ptr(), torch.cuda.current_stream().cuda_stream,
+            x.data_ptr(), xb.data_ptr(), r.data_ptr(), part.data_ptr(), blocks,
+            it_conv.data_ptr(), rr.data_ptr(), it_conv[1:].data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     check_status(lib, status, "ir_fused")
     ir_fused.launches += 1
@@ -182,10 +186,11 @@ def ir_smooth(diags, offsets, b, x0=None, minv=None, *, omega, iters, with_resid
     sweeps in one kernel.  x0: (n,) float32, or None to start from zero
     (then r0 = b and the first product is skipped).  Returns (x, r).
 
-    With ``with_residual`` r is b - A x of the returned x.  Without it the
-    kernel runs iters - 1 full sweeps and one last update only, so r is the
-    residual from before that update: its content is not the residual of x
-    and callers must not use it.  ``iters = 0`` returns x0 (or zeros)."""
+    With ``with_residual`` r is b - A x of the returned x.  Without it r is
+    the residual of the last sweep's source, from before its update (the
+    plain version's iters - 1 sweeps and one last update): it is not the
+    residual of x and callers must not use it.  ``iters = 0`` returns x0
+    (or zeros) and its residual."""
     if on_cpu(b):
         return ir_smooth_reference(diags, offsets, b, x0, minv, omega=omega, iters=iters,
                                    with_residual=with_residual)
@@ -199,14 +204,13 @@ def ir_smooth(diags, offsets, b, x0=None, minv=None, *, omega, iters, with_resid
                         torch.zeros(1, dtype=torch.float32, device=dev), 1)
     lib = _lib()
     blocks = coop_grid_blocks(lib, "ir_fused_grid", (DTYPE_CODE[diags.dtype],), dev)
-    x = torch.empty_like(b)
-    r = torch.empty_like(b)
+    x, xb, r = (torch.empty_like(b) for _ in range(3))
     with torch.cuda.device(dev):
         status = lib.ir_smooth(
             diags.data_ptr(), DTYPE_CODE[diags.dtype], offsets_array(offsets), len(offsets),
             n, b.data_ptr(), None if x0 is None else x0.data_ptr(),
             None if minv is None else minv.data_ptr(), float(omega), int(iters),
-            int(bool(with_residual)), x.data_ptr(), r.data_ptr(), blocks,
+            int(bool(with_residual)), x.data_ptr(), xb.data_ptr(), r.data_ptr(), blocks,
             torch.cuda.current_stream().cuda_stream,
         )
     check_status(lib, status, "ir_smooth")

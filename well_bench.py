@@ -20,7 +20,8 @@ Run from the repository root:
                                      gmres_fused_multi,bicgstab_fused_multi,
                                      pell_cg_fused,gmres_fused,pell_gmres_fused,
                                      mg_cg_fused,pell_ir_fused,idr_fused,
-                                     pell_bicgstab_fused,pell_cgs_fused]
+                                     pell_bicgstab_fused,pell_cgs_fused,
+                                     ir_fused,ir_smooth,bicg_fused]
                           [--rows N] [--chunks 256,512] [--cg-columns 2,4,8]
                           [--bicgstab-columns 2,4,8] [--other DIR ...] [--check]
                           [--profile]
@@ -220,12 +221,37 @@ and s = 4, ``chip_smoke.time_path5``'s shapes):
   against the plain version and the other checkouts: K21 300 sweeps on
   the 160^3 ``Pell``, K16 the solve to 1e-6 on path 4's A2.
 
+For ``ir_fused`` and ``ir_smooth`` (K17) and ``bicg_fused`` (K14) on path
+1's ``poisson_2d(2048)`` ``Dia`` (A1):
+
+- ``build``: ptxas's registers and spills of each of their kernels, this
+  checkout's and each ``--other``'s, and each one's launch with float32
+  and bfloat16 diagonals (blocks, blocks an SM, registers);
+- ``check`` (with ``--check``): ``chip_smoke.check_ir_edges`` and
+  ``check_bicg_edges``, bit for bit against the plain versions, each case
+  twice;
+- ``timing``, one row a case (float32 and bfloat16 diagonals with Jacobi,
+  float32 with the Identity; the smoother with and without the residual;
+  K14 float32, bfloat16 and Jacobi): microseconds a sweep or an iteration
+  by the slope between solves of 200 and 1000 (smoothings of 20 and 100
+  sweeps) in turns (others, this, this, others); the bytes of the bound,
+  of this design and of the design before it; x, r, the sweeps or
+  iterations and the monitor against the plain version and the other
+  checkouts: the solves to 1e-6 on path 4's A2, the smoother's 20 sweeps
+  on A1.
+
+A variant is a copy of the package under ``build/`` with one macro changed
+(``GK_IR_ROWS`` or ``GK_IR_MIN_BLOCKS`` in ``csrc/ir_fused.cu``,
+``GK_BICG_ROWS`` or ``GK_BICG_MIN_BLOCKS`` in ``csrc/cgs_fused.cu``),
+passed as another ``--other``.
+
 Without a CUDA device it fails.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import importlib.util
 import subprocess
 import sys
@@ -247,7 +273,8 @@ LIBRARY = {"well": "well_spmv", "pell_spmv": "pell_spmv", "bell_spmv": "bell_spm
            "gmres_fused": "gmres_fused", "pell_cg_fused": "pell_cg_fused",
            "pell_gmres_fused": "gmres_fused", "mg_cg_fused": "mg_fused",
            "pell_ir_fused": "ir_fused", "idr_fused": "idr_fused",
-           "pell_bicgstab_fused": "bicgstab_fused", "pell_cgs_fused": "cgs_fused"}
+           "pell_bicgstab_fused": "bicgstab_fused", "pell_cgs_fused": "cgs_fused",
+           "ir_fused": "ir_fused", "ir_smooth": "ir_fused", "bicg_fused": "cgs_fused"}
 #: the whole-solve kernels of --kernels: K4 runs one column, K4m --cg-columns
 CG_KERNELS = ("cg_fused", "cg_fused_multi")
 #: K22 and K23, the kernels of the sweep solve
@@ -267,6 +294,8 @@ PELL_KRYLOV = {"pell_bicgstab_fused": "bicgstab", "pell_cgs_fused": "cgs"}
 #: K21 (IR on a Pell) and K16 (IDR(s) on a Dia), at path 6's and path 5's
 #: shapes
 SWEEP_KERNELS = ("pell_ir_fused", "idr_fused")
+#: K17 (both entry points) and K14 on path 1's Dia
+DIA_SWEEP_KERNELS = ("ir_fused", "ir_smooth", "bicg_fused")
 
 
 def load_other(root: Path, tag: str):
@@ -346,7 +375,7 @@ def main():
                          "bicgstab_fused_multi (K12m), pell_cg_fused (K7), gmres_fused (K15), "
                          "pell_gmres_fused (K18), mg_cg_fused (K26, with K25, K27, K28), "
                          "pell_ir_fused (K21), idr_fused (K16), pell_bicgstab_fused (K19), "
-                         "pell_cgs_fused (K20)")
+                         "pell_cgs_fused (K20), ir_fused and ir_smooth (K17), bicg_fused (K14)")
     ap.add_argument("--rows", type=int, default=cs.POWERLAW_ROWS)
     ap.add_argument("--chunks", default="256", help="chunk lengths to time, comma-separated")
     ap.add_argument("--other", action="append", default=[],
@@ -446,6 +475,17 @@ def main():
         rows = cs.check_idr_edges(gt, dev, np.random.default_rng(5))
         cs.emit({"phase": "check", "kernels": ["idr_fused"], "edge_operators": len(rows),
                  "all_bit_equal": True, "s": round(time.perf_counter() - t0, 2)})
+    if args.check and {"ir_fused", "ir_smooth"} & set(kernels):
+        t0 = time.perf_counter()
+        rows = cs.check_ir_edges(gt, dev, np.random.default_rng(5))
+        cs.emit({"phase": "check", "kernels": ["ir_fused", "ir_smooth"],
+                 "edge_operators": len(rows), "all_bit_equal": True,
+                 "s": round(time.perf_counter() - t0, 2)})
+    if args.check and "bicg_fused" in kernels:
+        t0 = time.perf_counter()
+        rows = cs.check_bicg_edges(gt, dev, np.random.default_rng(5))
+        cs.emit({"phase": "check", "kernels": ["bicg_fused"], "edge_operators": len(rows),
+                 "all_bit_equal": True, "s": round(time.perf_counter() - t0, 2)})
     cg_kernels = [k for k in kernels if k in CG_KERNELS]
     if cg_kernels:
         bench_cg(cg_kernels, [int(k) for k in args.cg_columns.split(",")], gt, dev, card,
@@ -467,11 +507,14 @@ def main():
     sweep_kernels = [k for k in kernels if k in SWEEP_KERNELS]
     if sweep_kernels:
         bench_sweeps(sweep_kernels, gt, dev, card, copy_gbs, others_pkg)
+    dia_sweep_kernels = [k for k in kernels if k in DIA_SWEEP_KERNELS]
+    if dia_sweep_kernels:
+        bench_dia_sweeps(dia_sweep_kernels, gt, dev, card, copy_gbs, others_pkg)
     for k in kernels:
         if k == "well":
             bench_well(args, gt, dev, card, copy_gbs, others_pkg)
         elif k not in (CG_KERNELS + TRS_KERNELS + KRYLOV_KERNELS + SOLVE_KERNELS + MG_KERNELS
-                       + SWEEP_KERNELS + ("bicgstab_fused_multi",)):
+                       + SWEEP_KERNELS + DIA_SWEEP_KERNELS + ("bicgstab_fused_multi",)):
             bench_spmv(k, args, gt, dev, card, copy_gbs, others_pkg)
     print(card, flush=True)
 
@@ -1979,6 +2022,177 @@ def bench_sweeps(kernels, gt, dev, card, copy_gbs, others_pkg):
                       "this": diag + 4 * n * idr_vectors(sdim, False, True),
                       "parent_design": diag + 4 * n * idr_vectors(sdim, False, False)}
             timing_row("idr_fused", f"s{sdim}", n, us, nbytes, extra)
+
+
+def dia_sweep_launch(mod, kernel, dtype, dev):
+    """A checkout's K17 or K14 launch where it reports one (blocks,
+    threads, blocks an SM, registers), else its cooperative grid."""
+    lib = mod._lib()
+    code = mod.DTYPE_CODE[dtype]
+    out = (ctypes.c_int * 4)()
+    if kernel == "bicg_fused":
+        if not hasattr(lib, "bicg_fused_config"):
+            return {"blocks": mod.coop_grid_blocks(lib, "bicg_fused_grid", (code, code), dev)}
+        with torch.cuda.device(dev):
+            cs.check(lib.bicg_fused_config(code, code, out) == 0, "bicg_fused_config")
+    else:
+        if not hasattr(lib, "ir_fused_config"):
+            return {"blocks": mod.coop_grid_blocks(lib, "ir_fused_grid", (code,), dev)}
+        with torch.cuda.device(dev):
+            cs.check(lib.ir_fused_config(code, int(kernel == "ir_smooth"), out) == 0,
+                     "ir_fused_config")
+    return dict(zip(("blocks", "threads", "blocks_per_sm", "registers"), out))
+
+
+def bench_dia_sweeps(kernels, gt, dev, card, copy_gbs, others_pkg):
+    """K17 (``ir_fused`` a sweep, ``ir_smooth`` a sweep) and K14
+    (``bicg_fused`` an iteration) on path 1's ``poisson_2d(2048)`` ``Dia``
+    (A1): float32 and bfloat16 diagonals, Jacobi and the Identity; build
+    rows (ptxas, launches), then each case's microseconds by the slope in
+    turns (others, this, this, others): solves of 200 and 1000 (K17 and
+    K14), smoothings of 20 and 100 sweeps; the bytes of the bound and of
+    each design; and the bits against the plain version and the other
+    checkouts: the solves to 1e-6 on path 4's A2, the smoother's 20
+    sweeps on A1."""
+    pkgs = {"this": gt, **others_pkg}
+    mods = {tag: {"ir": importlib.import_module(f"{pkg.__name__}.ops.ir"),
+                  "cgs": importlib.import_module(f"{pkg.__name__}.ops.cgs")}
+            for tag, pkg in pkgs.items()}
+    others = [tag for tag in mods if tag != "this"]
+    logs = {tag: importlib.import_module(f"{pkg.__name__}._build").BUILD_LOG
+            for tag, pkg in pkgs.items()}
+
+    def ours(name):
+        return (("ir_fused_kernel" in name or "ir_smooth_kernel" in name or "bicg_fused_kernel"
+                 in name) and "pell" not in name)
+
+    A1 = gt.Dia.from_matrix_data(gt.generators.poisson_2d(cs.NSIDE, dtype=np.float32),
+                                 device=dev)
+    n, nd = A1.shape[0], len(A1.offsets)
+    A1t = A1.conj_transpose()
+    ndt = len(A1t.offsets)
+    b1, z1 = torch.ones(n, device=dev), torch.zeros(n, device=dev)
+    minv1 = (1.0 / A1.extract_diagonal().values.float()).contiguous()
+    data2 = gt.MatrixData.from_coo(*cs.convdiff_2d(cs.NSIDE))
+    A2 = gt.Dia.from_matrix_data(data2, device=dev)
+    A2t = A2.conj_transpose()
+    b2 = torch.as_tensor(np.random.default_rng(cs.SEED + 7).uniform(0.5, 1.5, n)
+                         .astype(np.float32), device=dev)
+    minv2 = (1.0 / A2.extract_diagonal().values.float()).contiguous()
+    tol2 = torch.full((), (cs.TOL * float(b2.norm())) ** 2, device=dev)
+    never = torch.full((), -1.0, device=dev)
+    cs.emit({"phase": "build", "kernels": kernels,
+             "ptxas": {tag: {k: line for lib in {LIBRARY[kern] for kern in kernels}
+                             for k, line in ptxas_registers(lg[lib]["ptxas"]).items() if ours(k)}
+                       for tag, lg in logs.items()},
+             "launch": {tag: {f"{kern} {str(dt)[6:]}": dia_sweep_launch(
+                 m["cgs" if kern == "bicg_fused" else "ir"], kern, dt, dev)
+                 for kern in kernels for dt in (torch.float32, torch.bfloat16)}
+                 for tag, m in mods.items()}})
+
+    def bits(a, b):
+        """x, r (and the count, the monitor and the stop flag of a solve)
+        bit for bit."""
+        if len(a) <= 2:
+            return all(cs.bit_equal(x, y) for x, y in zip(a, b))
+        return (all(cs.bit_equal(a[j], b[j]) for j in (0, 1, 3)) and int(a[2]) == int(b[2])
+                and bool(a[4]) == bool(b[4]))
+
+    def row(kernel, case, us, nbytes, extra):
+        best = {tag: min(v) for tag, v in us.items()}
+        cs.emit({"phase": "timing", "kernel": kernel, "case": case, "card": card, "rows": n,
+                 "copy_GBps": copy_gbs, "us": us, "bytes": nbytes,
+                 "bound_us": nbytes["bound"] / cs.PEAK_BYTES_S * 1e6,
+                 "frac_of_copy_bound_bytes": {
+                     tag: nbytes["bound"] / t / 1e3 / copy_gbs for tag, t in best.items()},
+                 "frac_of_copy_own_bytes": {
+                     tag: nbytes["this" if tag == "this" else "parent_design"] / t / 1e3 / copy_gbs
+                     for tag, t in best.items()}, **extra})
+
+    def timed(call, lo, hi):
+        us = {}
+
+        def measure(tag):
+            us.setdefault(tag, []).append(1e3 * cs.iter_ms(lambda its: call(tag, its), lo, hi))
+
+        in_turns(measure, others)
+        return us
+
+    cases = (("f32", A1, minv1, 1.0), ("bf16", A1.reduce_storage(), minv1, 1.0),
+             ("f32 identity", A1, None, 0.2))
+    if "ir_fused" in kernels:
+        for case, A, mv, omega in cases:
+            us = timed(lambda tag, its, A=A, mv=mv, omega=omega: mods[tag]["ir"].ir_fused(
+                A.diags, A.offsets, b1, z1, mv, omega=omega, tol_sq_eff=never, max_iters=its),
+                200, 1000)
+            A2c = A2 if case != "bf16" else A2.reduce_storage()
+            mv2 = None if mv is None else minv2
+            om2 = 1.0 if mv is not None else 0.2
+            outs = {tag: m["ir"].ir_fused(A2c.diags, A2c.offsets, b2, z1, mv2, omega=om2,
+                                          tol_sq_eff=tol2, max_iters=cs.MAX_ITERS)
+                    for tag, m in mods.items()}
+            plain = mods["this"]["ir"].ir_solve_reference(A2c.diags, A2c.offsets, b2, z1, mv2,
+                                                          omega=om2, tol_sq_eff=tol2,
+                                                          max_iters=cs.MAX_ITERS)
+            extra = {"sweeps_a2": {**{t: int(o[2]) for t, o in outs.items()},
+                                   "plain": int(plain[2])},
+                     "bit_equal_plain": {t: bits(o, plain) for t, o in outs.items()},
+                     "bit_equal_this": {t: bits(o, outs["this"]) for t, o in outs.items()}}
+            esz, jb = A.diags.element_size(), 4 * (mv is not None)
+            # a sweep: the diagonals, x_j, b (and minv) in, x_{j+1} out;
+            # the two-pass design: x and r in and out besides
+            nbytes = {"bound": (esz * nd + 12 + jb) * n, "this": (esz * nd + 12 + jb) * n,
+                      "parent_design": (esz * nd + 20 + jb) * n,
+                      "bound_counted_with_r": (esz * nd + 20 + jb) * n}
+            row("ir_fused", case, us, nbytes, extra)
+    if "ir_smooth" in kernels:
+        x0 = torch.ones_like(b1)
+        for case, A, mv, omega in cases[:2]:
+            for with_r in (True, False):
+                us = timed(lambda tag, its, A=A, with_r=with_r: mods[tag]["ir"].ir_smooth(
+                    A.diags, A.offsets, b1, x0, minv1, omega=1.0, iters=its,
+                    with_residual=with_r), 20, 100)
+                outs = {tag: m["ir"].ir_smooth(A.diags, A.offsets, b1, x0, minv1, omega=1.0,
+                                               iters=20, with_residual=with_r)
+                        for tag, m in mods.items()}
+                plain = mods["this"]["ir"].ir_smooth_reference(A.diags, A.offsets, b1, x0, minv1,
+                                                               omega=1.0, iters=20,
+                                                               with_residual=with_r)
+                keep = 2 if with_r else 1  # r of the smoother without the residual is scratch
+                extra = {"bit_equal_plain": {t: bits(o[:keep], plain[:keep])
+                                             for t, o in outs.items()},
+                         "with_residual": with_r}
+                esz = A.diags.element_size()
+                nbytes = {"bound": (esz * nd + 16) * n, "this": (esz * nd + 16) * n,
+                          "parent_design": (esz * nd + 24) * n}
+                row("ir_smooth", f"{case} residual={with_r}", us, nbytes, extra)
+    if "bicg_fused" in kernels:
+        for case, A, mv in (("f32", A1, None), ("bf16", A1.reduce_storage(), None),
+                            ("f32 jacobi", A1, minv1)):
+            At = A.conj_transpose()
+            us = timed(lambda tag, its, A=A, At=At, mv=mv: mods[tag]["cgs"].bicg_fused(
+                A.diags, A.offsets, At.diags, At.offsets, b1, z1, mv, tol_sq_eff=never,
+                max_iters=its), 200, 1000)
+            A2c = A2 if case != "bf16" else A2.reduce_storage()
+            A2ct = A2c.conj_transpose()
+            mv2 = None if mv is None else minv2
+            args = (A2c.diags, A2c.offsets, A2ct.diags, A2ct.offsets, b2, z1, mv2)
+            outs = {tag: m["cgs"].bicg_fused(*args, tol_sq_eff=tol2, max_iters=cs.MAX_ITERS)
+                    for tag, m in mods.items()}
+            plain = mods["this"]["cgs"].bicg_solve_reference(*args, tol_sq_eff=tol2,
+                                                             max_iters=cs.MAX_ITERS)
+            extra = {"iterations_a2": {**{t: int(o[2]) for t, o in outs.items()},
+                                       "plain": int(plain[2])},
+                     "bit_equal_plain": {t: bits(o, plain) for t, o in outs.items()},
+                     "bit_equal_this": {t: bits(o, outs["this"]) for t, o in outs.items()}}
+            esz, jb = A.diags.element_size(), 4 * (mv is not None)
+            diag = esz * (nd + ndt)
+            # the bound: the diagonals, r, r2, p, p2, x in and out; three
+            # passes (x deferred into pass 1); the design before (x in pass
+            # 3, p2 re-read)
+            nbytes = {"bound": (diag + 40) * n, "this": (diag + 72 + 2 * jb) * n,
+                      "parent_design": (diag + 76 + 2 * jb) * n}
+            row("bicg_fused", case, us, nbytes, extra)
 
 
 def profile_calls(calls):
