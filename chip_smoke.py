@@ -107,7 +107,9 @@ Phases, each of which raises on failure:
    (``check_bicg_edges``: 1 to 7 diagonals, n below one block and past the
    grid's threads, offsets past a block's rows, bfloat16 diagonals, the
    Identity, Jacobi, implicit mode, caps of 0 and 1, a NaN b; each case
-   twice, x, r and the monitor bit for bit);
+   twice, x, r and the monitor bit for bit); K13 on the same operators
+   (``check_cgs_edges``, the same cases, a seeded inverse diagonal folded
+   into A M; each case twice, x, r and the monitor bit for bit);
 7. main path 5: on the operator of path 4, Bicgstab and Gmres(30) with
    four columns fused (K12m, K15m) with float32 and bfloat16 diagonals and
    with Jacobi, CbGmres "auto" (K15m with a bfloat16 basis) and both
@@ -154,12 +156,15 @@ Phases, each of which raises on failure:
 9. main path 7: ``Dia.to_csr``, ParIc and ParIlu on A1 (two ParIlu runs
    bit-identical), the IC and ILU sweep preconditioners, ``Cg`` with each
    fused (K23) and streaming (K1 + K22), ``Bicgstab`` with A2's ILU fused
-   (K24) and streaming, ``Gmres(30)`` with it (K22), ``Cg`` with IC on the
+   (K24 on its walk route) and streaming, ``Gmres(30)`` with it (K22),
+   ``Cg`` with IC on the
    160^3 ``Csr`` (K5 + K22), one ``LowerTrs`` solve (K22), ``Direct`` and
    ``Isai`` + ``Gmres`` at 64^2, each held against a float64 solve; then
    K22-K24 against their plain versions at 24^2 and 64^2 (f32/bf16
    triangles and A, sweeps 0/1/3/8, equal iterations and x bit for bit, a
-   NaN case each) and at 2048^2 under a cap (K22 bit for bit); K22 and K23
+   NaN case each; K24 on both of its routes) and at 2048^2 under a cap
+   (K22 bit for bit); K24 on its walk with p in a pass of its own (a 3000 x
+   8 grid, bit for bit); K22 and K23
    on edge triangles that reach every branch of the walk
    (``check_trs_edges``: w = 1 to 2048, halos across many blocks, rings
    that wrap, odd n, ranges shorter than their halo and longer than
@@ -306,8 +311,8 @@ EPS32 = float(np.finfo(np.float32).eps)
 #: more than a figure needs: the plain versions (their times are no
 #: yardstick of a kernel: a short slope serves; GMRES steps apart) and the
 #: host-bound streaming routes
-PLAIN_TRIPS = (5, 25)
-PLAIN_GMRES_TRIPS = (15, 30)
+PLAIN_TRIPS = (3, 15)
+PLAIN_GMRES_TRIPS = (10, 20)
 STREAM_TRIPS = (25, 125)
 
 
@@ -1226,8 +1231,8 @@ def check_path4_kernels(gt, dev, rng, p4, record_err, max_iters=MAX_ITERS):
     kernel and its plain version differ only in the order of their float64
     dot sums, so x is expected bit for bit; where a sum rounds to the
     neighbouring float32 (seen with a bfloat16 basis) the difference is
-    reported and must stay within 1e-5 of max |x|; K14's x, r and monitor
-    must be bit for bit."""
+    reported and must stay within 1e-5 of max |x|; K13's and K14's x, r and
+    monitor must be bit for bit."""
     from ginkgo_tpu_torch.ops import bicgstab as ops_bicgstab
     from ginkgo_tpu_torch.ops import cgs as ops_cgs
     from ginkgo_tpu_torch.ops import gmres as ops_gmres
@@ -1293,7 +1298,7 @@ def check_path4_kernels(gt, dev, rng, p4, record_err, max_iters=MAX_ITERS):
                 err = record_err(name, kx, px)
                 what = f"{key} {storage} {pre_label}"
                 check(kit == pit, f"{what}: {kit} vs {pit} iterations")
-                if name == "bicg_fused":
+                if name in ("cgs_fused", "bicg_fused"):
                     check(all(bit_equal(kout[j], pout[j]) for j in (0, 1, 3)),
                           f"{what}: x, r or the monitor differs")
                 check(bool(torch.isfinite(kx).all()) and kmon <= float(tol),
@@ -2109,6 +2114,64 @@ def check_bicg_edges(gt, dev, rng, record_err=None):
     return rows
 
 
+
+def check_cgs_edges(gt, dev, rng, record_err=None):
+    """K13 against its plain version on ``DIA_SWEEP_EDGES``, float32 and
+    bfloat16 diagonals: the Identity and a seeded inverse diagonal (folded
+    into A M, applied in the x update) to the threshold, implicit mode, 0
+    and 1 iterations from a seeded x0, and a NaN in b (both run to the
+    cap).  Each case twice; the iterations, the stop flag, x, r and the
+    monitor bit for bit.  The float32 cases must converge; CGS diverges
+    from some right-hand sides on the bfloat16-rounded bands (band6's
+    Identity case, the plain version alike), which are held to the bits
+    alone.  Returns the rows it emitted."""
+    from ginkgo_tpu_torch.ops import cgs as ops_cgs
+    from ginkgo_tpu_torch.solver._fused_gate import fold_minv
+
+    rows = []
+    for label, A32 in dia_sweep_edge_operators(gt, dev).items():
+        n = A32.shape[0]
+        b = torch.as_tensor(rng.uniform(0.5, 1.5, n).astype(np.float32), device=dev)
+        x0 = torch.as_tensor(rng.uniform(-0.1, 0.1, n).astype(np.float32), device=dev)
+        z = torch.zeros_like(b)
+        tol = torch.full((), (TOL * float(b.double().norm())) ** 2, device=dev)
+        minv = torch.as_tensor(rng.uniform(0.15, 0.3, n).astype(np.float32), device=dev)
+        nan_b = b.clone()
+        nan_b[n // 2] = float("nan")
+        row = {"phase": "kernel_check", "kernel": "cgs_fused", "matrix": label, "rows": n,
+               "diagonals": len(A32.offsets)}
+        for storage, A in (("f32", A32), ("bf16", A32.reduce_storage())):
+            folded = fold_minv(A, minv)
+            for what, r0, start, mv, cap, imp in (
+                    ("identity", b, z, None, 500, False), ("minv", b, z, minv, 500, False),
+                    ("implicit", b, z, None, 500, True), ("0 iterations", b, x0, minv, 0, False),
+                    ("1 iteration", b, x0, None, 1, False), ("nan b", nan_b, z, None, 7, False)):
+                kw = dict(tol_sq_eff=tol, max_iters=cap, use_implicit=imp)
+                args = (A.diags if mv is None else folded, A.offsets, r0, start, mv)
+                got = ops_cgs.cgs_fused(*args, **kw)
+                again = ops_cgs.cgs_fused(*args, **kw)
+                want = ops_cgs.cgs_solve_reference(*args, **kw)
+                _sync(dev)
+                case = f"cgs_fused {label} {storage} {what}"
+                kit, pit = int(got[2]), int(want[2])
+                check(kit == pit == int(again[2]) and bool(got[4]) == bool(want[4]),
+                      f"{case}: {kit} / {pit} iterations, converged {bool(got[4])} / "
+                      f"{bool(want[4])}")
+                check(all(bit_equal(got[j], want[j]) and bit_equal(got[j], again[j])
+                          for j in (0, 1, 3)), f"{case}: x, r or the monitor differs")
+                if what == "nan b":
+                    check(kit == cap and not bool(got[4]), f"{case}: stopped at {kit}")
+                elif cap <= 1:
+                    check(kit == cap, f"{case}: {kit} iterations")
+                elif storage == "f32":
+                    check(bool(got[4]), f"{case}: not converged")
+                if record_err is not None and what != "nan b":
+                    record_err("cgs_fused", got[0], want[0])
+                row[f"{storage} {what}"] = kit if bool(got[4]) or cap <= 7 else "diverged"
+        rows.append(row)
+        emit(row)
+    return rows
+
 def check_gmres_edges(gt, dev, rng, record_err=None):
     """K15 and K18 against their plain versions at small sizes: K15 on A2's
     operator at 64^2 (fewer tiles than the grid has blocks) and 701^2
@@ -2195,7 +2258,7 @@ def time_path4(gt, dev, p4, rec, timing):
     """Per-iteration times on A1 (the 2048^2 Poisson matrix of path 1) by
     the slope between whole solves: K12-K14 fused between Iteration(200)
     and Iteration(1000), streaming between 25 and 125 (STREAM_TRIPS), their
-    plain versions between 5 and 25 (PLAIN_TRIPS); K15 per Arnoldi step
+    plain versions between 3 and 15 (PLAIN_TRIPS); K15 per Arnoldi step
     between Iteration(60) and Iteration(240) (the JAX bench's trip counts,
     two and eight restart cycles of 30) with a float32 and a bfloat16
     basis, streaming between 30 and 90, the plain version between 15 and
@@ -3199,7 +3262,8 @@ def main_path7(gt, dev, rng, crit, kernels, data1, x64_ones, p4, C3, P3, x64_3, 
     (ParIc, 5 iterations) and with ``Ilu`` (ParIlu), 3 sweeps a triangle,
     fused (K23) and streaming (K22 per triangle, K1); two ParIlu runs of
     one matrix must be bit-identical.  A2 (path 4's convection-diffusion
-    ``Dia``): ``Bicgstab`` with ``Ilu`` fused (K24) and streaming, and
+    ``Dia``): ``Bicgstab`` with ``Ilu`` fused (K24 on its walk route, seven
+    grid barriers an iteration; K23 on its walk too) and streaming, and
     ``Gmres(30)`` with the same preconditioner, which has no ILU kernel and
     streams (2 K22 launches per M apply).  Path 2's 160^3 Poisson: ``Ic``
     generated from the ``Csr``, ``Cg`` on its ``Pell`` (the triangles of the
@@ -3265,6 +3329,15 @@ def main_path7(gt, dev, rng, crit, kernels, data1, x64_ones, p4, C3, P3, x64_3, 
     C2, row["a2_to_csr_s"] = _timed(A2.to_csr, dev)
     M2, row["a2_ilu_s"] = _timed(lambda: ilu_factories(gt, "ilu").generate(C2), dev)
     emit(row)
+    # A2's ILU takes K24's walk for both M applies: seven grid barriers an
+    # iteration
+    launch = ops_cg_ilu.bicgstab_ilu_fused_launch(A2, M2.l_solver.off_csr, M2.u_solver.off_csr,
+                                                  SWEEPS7, SWEEPS7, dev)
+    check(launch["route"] == "pipelined" and launch["grid_barriers"] == 7 and launch["unrolled"],
+          f"path 7: K24 with A2's ilu takes the {launch['route']} route "
+          f"(unrolled {launch['unrolled']})")
+    emit({"phase": "launch", "path": 7, "kernel": "bicgstab_ilu_fused", "case": "a2_ilu",
+          **launch})
 
     out = {"A1": A1, "b1": b1, "M_ic": M_ic, "M_ilu": M_ilu, "A2": A2, "b2": b2, "M2": M2,
            "L1": filu.l_factor}
@@ -3284,12 +3357,11 @@ def main_path7(gt, dev, rng, crit, kernels, data1, x64_ones, p4, C3, P3, x64_3, 
         bounded = criteria is crit
         solver = cls.build(criteria=criteria, preconditioner=M).generate(A)
         before = {k: f.launches for k, f in kernels.items()}
-        k23_routes = dict(ops_cg_ilu.cg_ilu_fused.routes)
+        k_routes = dict(kernels[kname].routes)
         (x, info), solve_s = _timed(lambda: solver.solve(b), dev)
         check(kernels[kname].launches == before[kname] + 1, f"path 7: {label} did not run {kname}")
-        k23_routes = routes(ops_cg_ilu.cg_ilu_fused, k23_routes)
-        check(kname != "cg_ilu_fused" or k23_routes["pipelined"] == 1,
-              f"path 7: {label}: K23 took the routes {k23_routes}")
+        k_routes = routes(kernels[kname], k_routes)
+        check(k_routes["pipelined"] == 1, f"path 7: {label}: {kname} took the routes {k_routes}")
         check(kernels["trs_fused"].launches == before["trs_fused"],
               f"path 7: {label} ran trs_fused beside {kname}")
         check(bool(info.converged.all()) or not bounded, f"path 7: {label}: not converged")
@@ -3303,7 +3375,7 @@ def main_path7(gt, dev, rng, crit, kernels, data1, x64_ones, p4, C3, P3, x64_3, 
               "converged": bool(info.converged.all()),
               "residual_norm": float(info.residual_norm[0]),
               **accuracy(A, x, b, ref, norm_a, f"path 7: {label}", bounded=bounded),
-              "solve_s": solve_s, "cg_ilu_fused_routes": k23_routes})
+              "solve_s": solve_s, f"{kname}_routes": k_routes})
         before = {k: f.launches for k, f in kernels.items()}
         k22_routes = dict(ops_trs.trs_fused.routes)
         with torch.no_grad():
@@ -3580,19 +3652,12 @@ def check_trs_edges(gt, dev, rng, record_err=None):
     return rows
 
 
-def check_path7_kernels(gt, dev, rng, p7, record_err):
-    """K22-K24 against their plain versions on the card.  At 24^2 and 64^2
-    (the Poisson matrix with IC triangles for K22/K23 and with ILU ones for
-    K23, the convection-diffusion matrix with ILU triangles for K22/K24):
-    float32 and bfloat16 triangles, float32 and bfloat16 A, sweeps
-    0/1/3/8 (K23/K24 with the U side one more, mod 9): equal iterations and
-    x bit for bit; a NaN in b runs to the cap on both.  At 2048^2 (path 7's
-    preconditioners, float32 and bfloat16 triangles) K23 and K24 under a cap
-    of CAP6 iterations and K22 with 3 sweeps: equal counts, x within 1e-5
-    of its largest entry (K22 bit for bit), bit_equal reported; then path
-    7's own launches, K22 on both triangles and K23 with 3 sweeps in both,
-    on the kernels compiled for their shape and bit for bit.  Every kernel
-    runs twice and must equal itself.  Then ``check_trs_edges``."""
+def _ilu_checks(dev, record_err):
+    """compare(name, what, kern, plain, exact, cap=None), which runs a K22-K24
+    kernel twice and its plain version once and checks them, and cases(A,
+    M, b, tol, cap, sweeps, storage, solvers), the (kernel, plain version)
+    pairs of K22 on M's lower triangle and of the ILU solvers named, with
+    sweeps_l = sweeps and sweeps_u = sweeps + 1 mod 9."""
     from ginkgo_tpu_torch.ops import cg_ilu as ops_cg_ilu
     from ginkgo_tpu_torch.ops import trs as ops_trs
 
@@ -3645,7 +3710,27 @@ def check_path7_kernels(gt, dev, rng, p7, record_err):
                          lambda plain=plain: plain(A, Tl, Tu, invdl, invdu, b, z, **kw))
         return out
 
+    return compare, cases
+
+
+def check_ilu_small(gt, dev, rng, record_err):
+    """K22-K24 against their plain versions at 24^2 and 64^2 (the Poisson
+    matrix with IC triangles for K22/K23 and with ILU ones for K23, the
+    convection-diffusion matrix with ILU triangles for K22/K24): float32
+    and bfloat16 triangles, float32 and bfloat16 A, sweeps 0/1/3/8
+    (K23/K24 with the U side one more, mod 9): equal iterations and x bit
+    for bit; a NaN in b runs to the cap on both.  K24 must take both of its
+    routes (the walk at 1/2 and 3/4 sweeps, the barrier routine where a side
+    has 0).  Then K24 on the Laplacian of a 3000 x 8 grid (w = 3000, ILU) at
+    3 sweeps: with float32 triangles step 1's three staged vectors do not
+    fit a block and it takes its walk with p in a pass of its own, with
+    bfloat16 triangles the walk; bit for bit.  Every kernel runs twice and
+    must equal itself."""
+    from ginkgo_tpu_torch.ops import cg_ilu as ops_cg_ilu
+
+    compare, cases = _ilu_checks(dev, record_err)
     small_cap = 300
+    k24_routes = dict(ops_cg_ilu.bicgstab_ilu_fused.routes)
     for nside in (24, SMALL):
         systems = (
             ("poisson_ic", gt.generators.poisson_2d(nside, dtype=np.float32), "ic",
@@ -3680,7 +3765,57 @@ def check_path7_kernels(gt, dev, rng, p7, record_err):
                     row[f"{name} nan"] = compare(name, f"{name} {label}({nside}) nan", kern,
                                                  plain, exact=True, cap=25)
             emit(row)
+    k24_routes = {k: v - k24_routes[k] for k, v in ops_cg_ilu.bicgstab_ilu_fused.routes.items()}
+    check(k24_routes["pipelined"] > 0 and k24_routes["barrier"] > 0,
+          f"K24's checks at 24^2 and {SMALL}^2 did not take both routes: {k24_routes}")
 
+    # K24 where only the walk with p in a pass of its own fits a block
+    A = gt.Dia.from_matrix_data(gt.MatrixData.from_coo(*grid_laplacian((3000, 8, 1))),
+                                device=dev)
+    M = ilu_factories(gt, "ilu").generate(A)
+    b = torch.as_tensor(rng.uniform(0.5, 1.5, A.shape[0]).astype(np.float32), device=dev)
+    tol = torch.full((), (TOL * float(b.norm())) ** 2, dtype=torch.float32, device=dev)
+    Tl, Tu, invdl, invdu = _ilu_parts(M)
+    z = torch.zeros_like(b)
+    kw = dict(sweeps_l=SWEEPS7, sweeps_u=SWEEPS7, tol_sq_eff=tol, max_iters=small_cap)
+    row = {"phase": "kernel_check", "path": 7, "matrix": "laplacian(3000x8)"}
+    # bfloat16 triangles stage half the bytes: step 1's three vectors fit
+    for storage, route in ((torch.float32, "pipelined_p_pass"), (torch.bfloat16, "pipelined")):
+        L, U = Tl.astype(storage), Tu.astype(storage)
+        key = f"bicgstab_ilu_fused tri {str(storage)[6:]} sweeps {SWEEPS7}/{SWEEPS7}"
+        launch = ops_cg_ilu.bicgstab_ilu_fused_launch(A, L, U, SWEEPS7, SWEEPS7, dev)
+        check(launch["route"] == route
+              and launch["grid_barriers"] == (8 if route == "pipelined_p_pass" else 7),
+              f"{key} laplacian(3000x8): the {launch['route']} route")
+        before = ops_cg_ilu.bicgstab_ilu_fused.routes[route]
+        row[key] = compare(
+            "bicgstab_ilu_fused", f"{key} laplacian(3000x8)",
+            lambda L=L, U=U: ops_cg_ilu.bicgstab_ilu_fused(A, L, U, invdl, invdu, b, z, **kw),
+            lambda L=L, U=U: ops_cg_ilu.bicgstab_ilu_reference(A, L, U, invdl, invdu, b, z,
+                                                               **kw),
+            exact=True)
+        check(ops_cg_ilu.bicgstab_ilu_fused.routes[route] == before + 2,
+              f"{key} laplacian(3000x8): not the {route} route")
+        row[f"{key} launch"] = launch
+    emit(row)
+    del A, M
+
+
+
+def check_path7_kernels(gt, dev, rng, p7, record_err):
+    """K22-K24 against their plain versions on the card: ``check_ilu_small``,
+    then at 2048^2 (path 7's preconditioners, float32 and bfloat16
+    triangles) K23 and K24 under a cap of CAP6 iterations (the U side one
+    sweep more) and K22 with 3 sweeps: equal counts, x bit for bit; then
+    path 7's own launches, bit for bit: K22 on both triangles and K23 with
+    3 sweeps in both, and K24 with 3 sweeps in both on its walk, each on
+    the kernels compiled for its shape.  Every kernel runs twice and must
+    equal itself.  Then ``check_trs_edges``."""
+    from ginkgo_tpu_torch.ops import cg_ilu as ops_cg_ilu
+    from ginkgo_tpu_torch.ops import trs as ops_trs
+
+    compare, cases = _ilu_checks(dev, record_err)
+    check_ilu_small(gt, dev, rng, record_err)
     row = {"phase": "kernel_check", "path": 7, "nside": NSIDE, "cap": CAP6}
     for label, A, M, b, solvers in (("poisson_ic", p7["A1"], p7["M_ic"], p7["b1"],
                                      ("cg_ilu_fused",)),
@@ -3693,16 +3828,34 @@ def check_path7_kernels(gt, dev, rng, p7, record_err):
             for name, (kern, plain) in cases(A, M, b, tol, CAP6, SWEEPS7, storage,
                                              solvers).items():
                 key = f"{name} {label} tri {str(storage)[6:]}"
-                row[key] = compare(name, f"{key} {NSIDE}", kern, plain,
-                                   exact=name == "trs_fused")
-            if "cg_ilu_fused" not in solvers:
-                continue
-            # path 7's own launches: both triangles through K22 and K23 at
-            # SWEEPS7 in both, on the kernels compiled for their shape
+                row[key] = compare(name, f"{key} {NSIDE}", kern, plain, exact=True)
             Tl, Tu, invdl, invdu = _ilu_parts(M)
             L, U = Tl.astype(storage), Tu.astype(storage)
             z = torch.zeros_like(b)
             tag = f"{label} tri {str(storage)[6:]}"
+            kw = dict(sweeps_l=SWEEPS7, sweeps_u=SWEEPS7, tol_sq_eff=tol, max_iters=CAP6)
+            if "cg_ilu_fused" not in solvers:
+                # path 7's own launch of K24: SWEEPS7 in both, on the walk
+                # kernel compiled for its shape
+                launch = ops_cg_ilu.bicgstab_ilu_fused_launch(A, L, U, SWEEPS7, SWEEPS7, dev)
+                check(launch["route"] == "pipelined" and launch["grid_barriers"] == 7
+                      and launch["unrolled"]
+                      and all(w["interior_steps"] > 0 for w in launch["walks"]),
+                      f"bicgstab_ilu_fused {tag} {NSIDE}: not the walk compiled for its shape "
+                      f"({launch})")
+                before = ops_cg_ilu.bicgstab_ilu_fused.routes["pipelined"]
+                row[f"bicgstab_ilu_fused {tag} sweeps {SWEEPS7}/{SWEEPS7}"] = compare(
+                    "bicgstab_ilu_fused", f"bicgstab_ilu_fused {tag} {SWEEPS7}/{SWEEPS7} {NSIDE}",
+                    lambda L=L, U=U: ops_cg_ilu.bicgstab_ilu_fused(A, L, U, invdl, invdu, b, z,
+                                                                   **kw),
+                    lambda L=L, U=U: ops_cg_ilu.bicgstab_ilu_reference(A, L, U, invdl, invdu, b,
+                                                                       z, **kw),
+                    exact=True)
+                check(ops_cg_ilu.bicgstab_ilu_fused.routes["pipelined"] == before + 2,
+                      f"bicgstab_ilu_fused {tag} {NSIDE}: not the walk")
+                continue
+            # path 7's own launches: both triangles through K22 and K23 at
+            # SWEEPS7 in both, on the kernels compiled for their shape
             for side, T, invd in (("l", L, invdl), ("u", U, invdu)):
                 launch = ops_trs.trs_fused_launch(T, SWEEPS7, dev)
                 check(launch["route"] == "pipelined" and launch["unrolled"]
@@ -3719,7 +3872,6 @@ def check_path7_kernels(gt, dev, rng, p7, record_err):
                   and all(w["interior_steps"] > 0 for w in launch["walks"]),
                   f"cg_ilu_fused {tag} {NSIDE}: not the walks compiled for their shape "
                   f"({launch})")
-            kw = dict(sweeps_l=SWEEPS7, sweeps_u=SWEEPS7, tol_sq_eff=tol, max_iters=CAP6)
             row[f"cg_ilu_fused {tag} sweeps {SWEEPS7}/{SWEEPS7}"] = compare(
                 "cg_ilu_fused", f"cg_ilu_fused {tag} {SWEEPS7}/{SWEEPS7} {NSIDE}",
                 lambda L=L, U=U: ops_cg_ilu.cg_ilu_fused(A, L, U, invdl, invdu, b, z, **kw),
@@ -3734,7 +3886,7 @@ def time_path7(gt, dev, p7, rec, timing):
     Iteration-only criteria: K23 with path 7's IC on A1 and K24 with its
     ILU on A2, between Iteration(200) and Iteration(1000), each beside its
     streaming route (K1 + K22, between 25 and 125) and its plain version
-    (between 5 and 25);
+    (between 3 and 15);
     K22 per launch (3 sweeps on A1's IC lower triangle, slope of chained
     launches) beside its plain version.
 
@@ -3818,10 +3970,13 @@ def time_path7(gt, dev, p7, rec, timing):
         row["sweep_route"] = row.pop("route")
         return row
 
+    M2 = p7["M2"]
     out["launch"] = {
         "trs_fused": kernel_row(ops_trs.trs_fused_launch(Tl, s, dev)),
         "cg_ilu_fused": kernel_row(ops_cg_ilu.cg_ilu_fused_launch(p7["A1"], Tl, _ilu_parts(M)[1],
-                                                                  s, s, dev))}
+                                                                  s, s, dev)),
+        "bicgstab_ilu_fused": kernel_row(ops_cg_ilu.bicgstab_ilu_fused_launch(
+            p7["A2"], M2.l_solver.off_csr, M2.u_solver.off_csr, s, s, dev))}
     timing["slice7"] = out
 
 
@@ -4834,6 +4989,8 @@ def main():
     stamp("K12 edges")
     check_bicg_edges(gt, dev, rng, record_err)
     stamp("K14 edges")
+    check_cgs_edges(gt, dev, rng, record_err)
+    stamp("K13 edges")
 
     # -- 5c. main path 5: k columns, IDR and IR on a Dia -------------------------------
     zero_counts()

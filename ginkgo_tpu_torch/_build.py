@@ -36,11 +36,12 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 KERNELS = ("dia_spmv", "cg_fused", "pell_spmv", "pell_cg_fused", "well_spmv", "bell_spmv",
            "bicgstab_fused", "cgs_fused", "gmres_fused", "idr_fused", "ir_fused", "trs_fused",
            "mg_fused")
-#: sources compiled in parts, and their part counts: trs_fused.cu's 128
-#: kernels compiled for each walk shape (K22's and K23's) took 199 s in one
-#: nvcc process on the H100's host, beside 13 s without them; gmres_fused.cu
-#: holds K15's, K18's and K15m's 36 kernels, one part each
-PARTS = {"trs_fused": 6, "gmres_fused": 3}
+#: sources compiled in parts, and their part counts: trs_fused.cu's 192
+#: kernels compiled for each walk shape (K22's, K23's and K24's; the first
+#: 128 took 199 s in one nvcc process on the H100's host, beside 13 s
+#: without them); gmres_fused.cu holds K15's, K18's and K15m's 36 kernels,
+#: one part each
+PARTS = {"trs_fused": 10, "gmres_fused": 3}
 
 # -fmad=false: every multiply and add rounds on its own, as PyTorch's
 # elementwise ops do, so a kernel and its plain version differ only in the

@@ -6,31 +6,49 @@
 // Replaces ginkgo_tpu/ops/pallas_cgs.py cgs_vmem_solve (_cgs_kernel,
 // :61-178) and bicg_vmem_solve (_bicg_kernel, :266-390), and
 // ginkgo_tpu/ops/pallas_pell_cg.py pell_cgs_vmem_solve (_pell_cgs_kernel,
-// :559).  The Dia CGS kernel is templated on its operator (coop.cuh
-// GkDiaOp).  On a Pell, M is applied explicitly, staged as the TPU kernel
+// :559).  On a Pell, M is applied explicitly, staged as the TPU kernel
 // stages it (y = M p, w = M (u + q)): PELL values have no column fold.
 //
 // CGS is transpose-free.  As in K12 a diagonal preconditioner is folded
 // into the operator before the launch (solver/_fused_gate.fold_minv), and
-// minv is applied only in the x update, x += alpha minv (u + q).  Four
-// passes per iteration, two of them products with A M.
+// minv is applied only in the x update, x += alpha minv (u + q).  Two
+// products with A M an iteration.
 //
 // BiCG carries A's diagonals and those of its conjugate transpose (offsets
 // negated, its own range of columns).  A real diagonal M is its own M^H, so
 // z = M r and z2 = M r2 are one multiply each, recomputed where they are
 // needed.
 //
-// What bounds them on the H100: bytes.  Per iteration CGS moves
-// (2 nd sizeof(TD) + 68) n bytes (72 n with minv): u, p from r, q, p; v =
-// (A M) p with <rr, v>; q = u - alpha v and w = u + q; t = (A M) w with the
-// x and r updates and <rr, r>, r.r.  BiCG's bound is ((nd + nd_t)
-// sizeof(TD) + 40) n: the diagonals, r, r2, p, p2 and x in and out.
+// What bounds them on the H100: bytes.  CGS's bound is (nd sizeof(TD) +
+// 36) n (40 n with minv): the diagonals, rr and minv in, x, r, q and p in
+// and out.  BiCG's is ((nd + nd_t) sizeof(TD) + 40) n: the diagonals, r,
+// r2, p, p2 and x in and out.
 //
 // What the design does about it: K4's and K12's.  Dot products are float64
 // per-block partials that every block sums in one fixed order; consecutive
 // reductions with no barrier between them write different partial
-// buffers.  CGS loads the vectors its products read across rows (p and w)
-// with __ldcg.
+// buffers.
+//
+// CGS (K13) runs three passes and three grid barriers an iteration on
+// K14's footing: each row one thread's in every pass (grid-stride,
+// GK_CGS_ROWS rows a trip with their loads issued before any store,
+// GkStrideRows), so u, q, x and r are read back only by the thread that
+// wrote them, and the products gather with plain loads after the barrier
+// that follows the pass which wrote their source:
+//   1: u = r + beta q; p = u + beta (q + beta p);
+//   2: v = (A M) p; partial <rr, v>; fold -> alpha;
+//   3: t = (A M) w, w_j = u_j + (u_j - alpha v_j) formed at every gathered
+//      column from u and v, in the operations of q = u - alpha v and w =
+//      u + q (so with their bits); q = u - alpha v on the own rows;
+//      x += alpha (M w); r -= alpha t; partials <rr, r> and r.r; fold ->
+//      the next rho and the monitor.
+// Bytes a row and iteration: 2 nd sizeof(TD) + 64, 68 with minv (1: r, q,
+// p in, u, p out; 2: p gathered, rr in, v out; 3: u and v gathered, rr, x,
+// r in, q, x, r out).  The four-pass order (q and w stored in a pass of
+// their own, w gathered in a fourth: 2 nd sizeof(TD) + 72) ran 8% slower
+// on the H100, its extra barrier and fold costing more than the second
+// gathered vector (PERF.md section 6).  The partials are value-major and
+// each fold loads them at once (coop.cuh grid_total_batch).
 //
 // BiCG (K14) runs three passes and three grid barriers an iteration, each
 // row one thread's in every pass (grid-stride; a thread takes GK_BICG_ROWS
@@ -65,9 +83,14 @@
 
 namespace cg = cooperative_groups;
 
-template <typename Op>
+// K13's rows a thread takes a trip (GkStrideRows) and the blocks an SM its
+// registers must leave room for (PERF.md section 6).
+#define GK_CGS_ROWS 4
+#define GK_CGS_MIN_BLOCKS 4
+
+template <typename TD>
 struct CgsParams {
-  Op op;  // A M, a diagonal M folded into the Dia
+  GkDiaOp<TD> op;  // A M, a diagonal M folded into the Dia
   long long n;
   const float* r0;
   const float* x0;
@@ -82,40 +105,42 @@ struct CgsParams {
   float* u;
   float* v;
   float* p;
-  float* w;
   double* part;  // 3 * gridDim.x per-block partial sums
   int* it_out;
   float* mon_out;
   int* conv_out;
 };
 
-template <typename Op>
-__global__ void __launch_bounds__(GK_CG_THREADS) cgs_fused_kernel(const CgsParams<Op> P) {
+template <typename TD>
+__global__ void __launch_bounds__(GK_CG_THREADS, GK_CGS_MIN_BLOCKS)
+    cgs_fused_kernel(const CgsParams<TD> P) {
+  constexpr int R = GK_CGS_ROWS;
   cg::grid_group grid = cg::this_grid();
   __shared__ double sh1[1][GK_CG_WARPS];
   __shared__ double sh2[2][GK_CG_WARPS];
   __shared__ double bc1[1];
   __shared__ double bc2[2];
 
+  const TD* __restrict__ D = P.op.diags;
+  const GkOffsets& offs = P.op.offs;
   const long long n = P.n;
   const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
   const int G = gridDim.x;
-  double* part_sg = P.part;      // [G]     sigma = <rr, v>
-  double* part_u = P.part + G;   // [G][2]  <rr, r>, r.r (and the init)
+  double* part_sg = P.part;     // [G]     sigma = <rr, v>
+  double* part_u = P.part + G;  // [2][G]  <rr, r>, r.r (the init: <r0, r0>)
   float* __restrict__ x = P.x;
   float* __restrict__ r = P.r;
   float* __restrict__ rr = P.rr;
   float* __restrict__ q = P.q;
-  float* __restrict__ u = P.u;
-  float* __restrict__ v = P.v;
-  float* p = P.p;
-  float* w = P.w;
+  float* __restrict__ u = P.u;  // read across rows by pass 3
+  float* __restrict__ v = P.v;  // read across rows by pass 3
+  float* p = P.p;  // read across rows by pass 2
   const float* __restrict__ minv = P.minv;
 
   // init: x = x0, r = rr = r0, q = p = 0; rho = <r0, r0>
   {
-    double acc[2] = {0.0, 0.0};
+    double acc[1] = {0.0};
     for (long long i = t0; i < n; i += stride) {
       const float ri = P.r0[i];
       x[i] = P.x0[i];
@@ -125,12 +150,12 @@ __global__ void __launch_bounds__(GK_CG_THREADS) cgs_fused_kernel(const CgsParam
       p[i] = 0.f;
       acc[0] += (double)ri * ri;
     }
-    block_partial<2>(acc, part_u, sh2);
+    block_partial_vm<1>(acc, part_u, sh1);
   }
   grid.sync();
   double tot1[1], tot2[2];
-  grid_total<2>(part_u, tot2, sh2, bc2);
-  float rho_new = (float)tot2[0];
+  grid_total_batch<1, 4>(part_u, 1, G, 1, tot1, sh1, bc1);
+  float rho_new = (float)tot1[0];
   float rho_old = 1.f;
 
   const float tol_sq = *P.tol_sq;
@@ -140,55 +165,107 @@ __global__ void __launch_bounds__(GK_CG_THREADS) cgs_fused_kernel(const CgsParam
     const float beta = gk_sdiv(rho_new, rho_old);
 
     // pass 1: u = r + beta q; p = u + beta (q + beta p)
-    for (long long i = t0; i < n; i += stride) {
-      const float qi = q[i];
-      const float ui = r[i] + beta * qi;
-      u[i] = ui;
-      p[i] = ui + beta * (qi + beta * __ldcg(p + i));
+    for (long long i0 = t0; i0 < n; i0 += R * stride) {
+      const GkStrideRows<R> rows(i0, stride, n);
+      float rv[R], qv[R], pv[R];
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const long long i = rows.i[k];
+        const bool ok = rows.ok[k];
+        rv[k] = ok ? r[i] : 0.f;
+        qv[k] = ok ? q[i] : 0.f;
+        pv[k] = ok ? p[i] : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        if (!rows.ok[k]) continue;
+        const long long i = rows.i[k];
+        const float ui = rv[k] + beta * qv[k];
+        u[i] = ui;
+        p[i] = ui + beta * (qv[k] + beta * pv[k]);
+      }
     }
     grid.sync();
 
-    // pass 2: v = (A M) p; partial sigma = <rr, v>
+    // pass 2: v = (A M) p (plain gathers after the barrier); partial
+    // sigma = <rr, v>
     {
       double acc[1] = {0.0};
-      for (long long i = t0; i < n; i += stride) {
-        const float vi = P.op.row(i, p);
-        v[i] = vi;
-        acc[0] += (double)rr[i] * vi;
+      for (long long i0 = t0; i0 < n; i0 += R * stride) {
+        const GkStrideRows<R> rows(i0, stride, n);
+        float vv[R], rrv[R];
+        gk_dia_rows<R>(D, offs, n, rows, p, vv);
+#pragma unroll
+        for (int k = 0; k < R; ++k) rrv[k] = rows.ok[k] ? rr[rows.i[k]] : 0.f;
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          if (!rows.ok[k]) continue;
+          v[rows.i[k]] = vv[k];
+          acc[0] += (double)rrv[k] * vv[k];
+        }
       }
-      block_partial<1>(acc, part_sg, sh1);
+      block_partial_vm<1>(acc, part_sg, sh1);
     }
     grid.sync();
-    grid_total<1>(part_sg, tot1, sh1, bc1);
+    grid_total_batch<1, 4>(part_sg, 1, G, 1, tot1, sh1, bc1);
     const float alpha = gk_sdiv(rho_new, (float)tot1[0]);
 
-    // pass 3: q = u - alpha v; w = u + q
-    for (long long i = t0; i < n; i += stride) {
-      const float ui = u[i];
-      const float qi = ui - alpha * v[i];
-      q[i] = qi;
-      w[i] = ui + qi;
-    }
-    grid.sync();
-
-    // pass 4: t = (A M) w; x += alpha (M w); r -= alpha t; partial <rr, r>
-    // (the next rho) and r.r
+    // pass 3: t = (A M) w with w_j = u_j + (u_j - alpha v_j) formed at every
+    // gathered column, as q = u - alpha v and w = u + q; q on the own rows;
+    // x += alpha (M w); r -= alpha t; partials <rr, r> and r.r
     {
       double acc[2] = {0.0, 0.0};
-      for (long long i = t0; i < n; i += stride) {
-        const float ti = P.op.row(i, w);
-        const float wi = __ldcg(w + i);
-        const float mwi = minv ? minv[i] * wi : wi;
-        x[i] = x[i] + alpha * mwi;
-        const float ri = r[i] - alpha * ti;
-        r[i] = ri;
-        acc[0] += (double)rr[i] * ri;
-        acc[1] += (double)ri * ri;
+      for (long long i0 = t0; i0 < n; i0 += R * stride) {
+        const GkStrideRows<R> rows(i0, stride, n);
+        float tv[R], uv[R], vv[R], mv[R], xv[R], rv[R], rrv[R];
+#pragma unroll
+        for (int k = 0; k < R; ++k) tv[k] = 0.f;
+        for (int d = 0; d < offs.nd; ++d) {
+          const long long off = offs.off[d];
+          float dv[R], uj[R], vj[R];
+          bool in[R];
+#pragma unroll
+          for (int k = 0; k < R; ++k) {
+            const long long j = rows.i[k] + off;
+            in[k] = rows.ok[k] && j >= 0 && j < n;
+            dv[k] = in[k] ? GkAcc<float>::load(D[d * n + rows.i[k]]) : 0.f;
+            uj[k] = in[k] ? u[j] : 0.f;
+            vj[k] = in[k] ? v[j] : 0.f;
+          }
+#pragma unroll
+          for (int k = 0; k < R; ++k)
+            if (in[k]) tv[k] += dv[k] * (uj[k] + (uj[k] - alpha * vj[k]));
+        }
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          const long long i = rows.i[k];
+          const bool ok = rows.ok[k];
+          uv[k] = ok ? u[i] : 0.f;
+          vv[k] = ok ? v[i] : 0.f;
+          mv[k] = (ok && minv) ? minv[i] : 1.f;
+          xv[k] = ok ? x[i] : 0.f;
+          rv[k] = ok ? r[i] : 0.f;
+          rrv[k] = ok ? rr[i] : 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          if (!rows.ok[k]) continue;
+          const long long i = rows.i[k];
+          const float qi = uv[k] - alpha * vv[k];
+          q[i] = qi;
+          const float wi = uv[k] + qi;
+          const float mwi = minv ? mv[k] * wi : wi;
+          x[i] = xv[k] + alpha * mwi;
+          const float ri = rv[k] - alpha * tv[k];
+          r[i] = ri;
+          acc[0] += (double)rrv[k] * ri;
+          acc[1] += (double)ri * ri;
+        }
       }
-      block_partial<2>(acc, part_u, sh2);
+      block_partial_vm<2>(acc, part_u, sh2);
     }
     grid.sync();
-    grid_total<2>(part_u, tot2, sh2, bc2);
+    grid_total_batch<2, 4>(part_u, 1, G, 2, tot2, sh2, bc2);
     mon = P.implicit ? fabsf(rho_new) : (float)tot2[1];
     rho_old = rho_new;
     rho_new = (float)tot2[0];
@@ -399,14 +476,40 @@ static void copy_offsets(GkOffsets& dst, const long long* offsets, int nd) {
   for (int d = 0; d < nd; ++d) dst.off[d] = offsets[d];
 }
 
-template <typename Op>
-static CgsParams<Op> cgs_params(const Op& op, long long n, const float* r0, const float* x0,
-                                const float* minv, const float* tol_sq, int max_iters,
-                                int implicit, float* x, float* r, float* rr, float* q,
-                                float* u, float* v, float* p, float* w, double* part,
-                                int* it_out, float* mon_out, int* conv_out) {
-  CgsParams<Op> P;
-  P.op = op;
+// K13's kernel for diagonals of d_dtype as `kernel`; any other dtype
+// returns cudaErrorInvalidValue.
+#define GK_CGS_DISPATCH(d_dtype, CALL)                    \
+  do {                                                    \
+    if (d_dtype == GK_F32) {                              \
+      auto kernel = cgs_fused_kernel<float>;              \
+      return CALL;                                        \
+    }                                                     \
+    if (d_dtype == GK_BF16) {                             \
+      auto kernel = cgs_fused_kernel<__nv_bfloat16>;      \
+      return CALL;                                        \
+    }                                                     \
+    return (int)cudaErrorInvalidValue;                    \
+  } while (0)
+
+// Blocks of K13's cooperative grid (3 doubles of partial sums per block).
+extern "C" int cgs_fused_grid(int d_dtype, int* blocks) {
+  GK_CGS_DISPATCH(d_dtype, gk_coop_blocks(kernel, blocks));
+}
+
+// K13's launch: out = {blocks of the cooperative grid, threads a block,
+// blocks an SM, registers a thread}.
+extern "C" int cgs_fused_config(int d_dtype, int* out) {
+  GK_CGS_DISPATCH(d_dtype, gk_coop_config(kernel, out));
+}
+
+template <typename TD>
+static int cgs_launch(const void* diags, const long long* offsets, int nd, long long n,
+                      const float* r0, const float* x0, const float* minv, const float* tol_sq,
+                      int max_iters, int implicit, float* x, float* r, float* rr, float* q,
+                      float* u, float* v, float* p, double* part, int blocks,
+                      int* it_out, float* mon_out, int* conv_out, void* stream) {
+  CgsParams<TD> P;
+  P.op = gk_dia_op<TD>(diags, offsets, nd, n);
   P.n = n;
   P.r0 = r0;
   P.x0 = x0;
@@ -421,38 +524,26 @@ static CgsParams<Op> cgs_params(const Op& op, long long n, const float* r0, cons
   P.u = u;
   P.v = v;
   P.p = p;
-  P.w = w;
   P.part = part;
   P.it_out = it_out;
   P.mon_out = mon_out;
   P.conv_out = conv_out;
-  return P;
-}
-
-// Blocks of K13's cooperative grid (3 doubles of partial sums per block).
-extern "C" int cgs_fused_grid(int d_dtype, int* blocks) {
-  if (d_dtype == GK_F32) return gk_coop_blocks(cgs_fused_kernel<GkDiaOp<float>>, blocks);
-  if (d_dtype == GK_BF16)
-    return gk_coop_blocks(cgs_fused_kernel<GkDiaOp<__nv_bfloat16>>, blocks);
-  return (int)cudaErrorInvalidValue;
+  return gk_coop_launch(cgs_fused_kernel<TD>, P, blocks, stream);
 }
 
 extern "C" int cgs_fused_solve(
     const void* diags, int d_dtype, const long long* offsets, int nd, long long n,
     const float* r0, const float* x0, const float* minv, const float* tol_sq,
     int max_iters, int implicit, float* x, float* r, float* rr, float* q, float* u,
-    float* v, float* p, float* w, double* part, int blocks, int* it_out,
+    float* v, float* p, double* part, int blocks, int* it_out,
     float* mon_out, int* conv_out, void* stream) {
   if (nd < 1 || nd > GK_MAX_DIAGS || blocks < 1) return (int)cudaErrorInvalidValue;
-#define GK_DIA_LAUNCH(TD)                                                                   \
-  gk_coop_launch(cgs_fused_kernel<GkDiaOp<TD>>,                                             \
-                 cgs_params(gk_dia_op<TD>(diags, offsets, nd, n), n, r0, x0, minv, tol_sq,  \
-                            max_iters, implicit, x, r, rr, q, u, v, p, w, part, it_out,     \
-                            mon_out, conv_out),                                             \
-                 blocks, stream)
-  if (d_dtype == GK_F32) return GK_DIA_LAUNCH(float);
-  if (d_dtype == GK_BF16) return GK_DIA_LAUNCH(__nv_bfloat16);
-#undef GK_DIA_LAUNCH
+#define GK_CGS_LAUNCH(TD)                                                                     \
+  cgs_launch<TD>(diags, offsets, nd, n, r0, x0, minv, tol_sq, max_iters, implicit, x, r, rr, \
+                 q, u, v, p, part, blocks, it_out, mon_out, conv_out, stream)
+  if (d_dtype == GK_F32) return GK_CGS_LAUNCH(float);
+  if (d_dtype == GK_BF16) return GK_CGS_LAUNCH(__nv_bfloat16);
+#undef GK_CGS_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 

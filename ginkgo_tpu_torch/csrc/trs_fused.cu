@@ -1,9 +1,10 @@
 // Sweep triangular solves and ILU-preconditioned whole solves: kernels K22
 // (trs_fused), K23 (cg_ilu_fused) and K24 (bicgstab_ilu_fused) of the
 // PyTorch port.  Each triangular solve runs one of two routines: the
-// pipelined walk of tri_walk.cuh (K22 and K23, where the triangle's offsets
-// are one-signed and the walk's rings fit a block's shared memory) or the
-// barrier routine gk_tri_sweeps (K24 always; K22 and K23 otherwise).
+// pipelined walk of tri_walk.cuh (where the triangle's offsets are
+// one-signed and the walk's rings fit a block's shared memory; K24's only
+// where both sides sweep at least once) or the barrier routine
+// gk_tri_sweeps otherwise.
 //
 // Replaces:
 //   - K22: ginkgo_tpu/ops/pallas_trs.py trs_vmem_solve (_trs_kernel, :47):
@@ -31,7 +32,9 @@
 // into the L walk, which forms r_new on its halo rows from r and q itself
 // (another block may be writing r_new there, so r alternates between two
 // buffers); the U walk with the r.z partial; then x += alpha p and
-// p = z + beta p in one pass.
+// p = z + beta p in one pass.  K24 on the walk runs seven where the barrier
+// routine runs 5 + 2 (sweeps_l + sweeps_u): each of its two M applies an L
+// walk that forms its right-hand side (p, then s) itself and a U walk.
 //
 // The barrier routine is K4's design (cg_fused.cu): the grid is what the SMs
 // hold at once, launched cooperatively, and every pass is a loop over the
@@ -659,13 +662,295 @@ __global__ void __launch_bounds__(GK_CG_THREADS)
   }
 }
 
+// K24 on the walk: the same semantics in seven grid barriers an iteration
+// where the barrier routine runs 5 + 2 (sweeps_l + sweeps_u), in blocks of
+// GK_CG_ILU_WALK_THREADS threads, each triangle read once a walk
+// (tri_walk.cuh); L walks forward, U backward.  Block b owns the rows [b T, b T + T), T =
+// ceil(n / gridDim.x), in every walk and in every pass; the products gather
+// their source with plain loads after the barrier that follows the walk
+// which wrote it.  An iteration:
+//   1: the L walk forms p_new = r + beta (p_old - omega v) on every row it
+//      reads, halo included, from r, p_old and v staged in its ring, writes
+//      p_new and mid = L^{-1} p_new on the own rows;
+//   2: the U walk, y = U^{-1} mid;
+//   3: v = A y, partial rr.v; fold -> alpha;
+//   4: the L walk forms s = r - alpha v (K23's fusion), writes s and
+//      mid = L^{-1} s on the own rows and sums s.s;
+//   5: the U walk, z = U^{-1} mid;
+//   6: t = A z, partials t.s and t.t; fold with s.s -> omega (0 where the
+//      half step converged, and carried as 1);
+//   7: x = (x + alpha y) + omega z (the two updates of the barrier routine
+//      in one pass, the same two roundings), r = s - omega t, partials rr.r
+//      and r.r; fold -> the next rho and the monitor.
+// Another block's halo reads p_old while a block writes p_new, so p
+// alternates between p[0] and p[1]: iteration it reads p[it & 1].  r, v
+// and mid are written only in passes after the last walk that reads them
+// across rows.  Where step 1's three staged vectors do not fit a block's
+// shared memory and step 4's two do (PSPLIT, the generic kernel only), p_new
+// is formed in a pass of its own and the L walk stages it alone: eight
+// barriers an iteration.  A dot is a float64 sum of the block's own rows
+// (K23's order): each thread its rows in order, the block folded
+// (coop.cuh block_sum), the blocks in block order.
+
+template <typename TA, typename TT>
+struct BicgstabIluWalkParams {
+  GkDiaOp<TA> a;
+  GkDiaOp<TT> l;
+  GkDiaOp<TT> u;
+  GkWalkCfg wl;
+  GkWalkCfg wu;
+  const float* invdl;
+  const float* invdu;
+  long long n;
+  const float* r0;
+  const float* x0;
+  const float* tol_sq;
+  int max_iters;
+  int implicit;
+  float* x;
+  float* r;  // read across rows by the L walks
+  float* rr;
+  float* p[2];  // p_old read across rows by the L walk of step 1
+  float* v;     // read across rows by the L walks
+  float* s;
+  float* t;
+  float* y;    // M p, read across rows by A y
+  float* z;    // M s, read across rows by A z
+  float* mid;  // L^{-1} p or L^{-1} s, read across rows by the U walks
+  double* part;  // 7 * gridDim.x per-block partial sums
+  int* it_out;
+  float* mon_out;
+  int* conv_out;
+};
+
+// dst = A src on the block's rows [a, end), GK_WALK_ROWS rows a thread a
+// trip, each summed as gk_dia_row sums it, with plain gathers of src
+// (written before the last grid barrier); dot += other . dst and, with SQ,
+// sq += dst . dst, each thread over its rows in order.
+template <bool SQ, typename TA>
+__device__ __forceinline__ void gk_walk_product(const GkDiaOp<TA>& A, int a, int end,
+                                                const float* src, float* dst, const float* other,
+                                                double& dot, double& sq) {
+  constexpr int R = GK_WALK_ROWS;
+  for (int i0 = a + (int)threadIdx.x; i0 < end; i0 += R * (int)blockDim.x) {
+    const GkStrideRows<R> rows(i0, blockDim.x, end);
+    float av[R], ov[R];
+    gk_dia_rows<R>(A.diags, A.offs, A.n, rows, src, av);
+#pragma unroll
+    for (int k = 0; k < R; ++k) ov[k] = rows.ok[k] ? other[rows.i[k]] : 0.f;
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      if (!rows.ok[k]) continue;
+      dst[rows.i[k]] = av[k];
+      dot += (double)ov[k] * av[k];
+      if (SQ) sq += (double)av[k] * av[k];
+    }
+  }
+}
+
+template <typename TA, typename TT, int ND, int SW, bool PSPLIT>
+__global__ void __launch_bounds__(GK_CG_ILU_WALK_THREADS)
+    bicgstab_ilu_walk_kernel(const BicgstabIluWalkParams<TA, TT> P) {
+  constexpr int WT = GK_CG_ILU_WALK_THREADS;
+  constexpr int R = GK_WALK_ROWS;
+  cg::grid_group grid = cg::this_grid();
+  __shared__ double sh1[1][GK_CG_ILU_WALK_WARPS];
+  __shared__ double sh2[2][GK_CG_ILU_WALK_WARPS];
+  __shared__ double sh3[3][GK_CG_ILU_WALK_WARPS];
+  __shared__ double bc1[1];
+  __shared__ double bc2[2];
+  __shared__ double bc3[3];
+  char* smem = reinterpret_cast<char*>(gk_walk_shared);
+  const int n = (int)P.n;
+  const int G = (int)gridDim.x;
+  const int T = (n + G - 1) / G;
+  const int a = (int)blockIdx.x * T;
+  const int len = n - a < T ? (n - a > 0 ? n - a : 0) : T;
+  const int end = a + len;
+  double* part_a = P.part;          // [G]     r0.r0
+  double* part_b = P.part + G;      // [G]     rr.v
+  double* part_c = P.part + 2 * G;  // [G][3]  s.s, t.s, t.t
+  double* part_d = P.part + 5 * G;  // [G][2]  rr.r, r.r
+  float* __restrict__ x = P.x;
+  float* r = P.r;
+  float* __restrict__ rr = P.rr;
+  float* v = P.v;
+  float* s = P.s;
+  float* t = P.t;
+  float* y = P.y;
+  float* z = P.z;
+  float* mid = P.mid;
+  auto same = [](const float* vb, int, int e) { return vb[e]; };
+  auto none = [](int, float) {};
+  // one lambda type for every store, so that the two U walks are one
+  // instantiation of the walk
+  auto store = [](float* dst) { return [dst](int row, float val) { dst[row] = val; }; };
+
+  // x = x0, r = rr = r0, p = v = 0; rho = r0.r0
+  double tot1[1], tot2[2], tot3[3];
+  {
+    double acc[1] = {0.0};
+    for (int i = a + (int)threadIdx.x; i < end; i += WT) {
+      const float ri = P.r0[i];
+      x[i] = P.x0[i];
+      r[i] = ri;
+      rr[i] = ri;
+      v[i] = 0.f;
+      P.p[0][i] = 0.f;
+      acc[0] += (double)ri * ri;
+    }
+    block_partial<1>(acc, part_a, sh1);
+  }
+  grid.sync();
+  grid_total_batch<1, 4>(part_a, 1, 1, 1, tot1, sh1, bc1);
+  float rho_new = (float)tot1[0];
+  float rho_old = 1.f, alpha = 1.f, omega = 1.f;
+
+  const float tol_sq = *P.tol_sq;
+  int it = 0;
+  float mon = CUDART_INF_F;
+  while (it < P.max_iters && !(mon <= tol_sq)) {
+    const float beta = gk_sdiv(rho_new * alpha, rho_old * omega);
+    const float* p_old = P.p[it & 1];
+    float* p_new = P.p[(it + 1) & 1];
+
+    // 1: p_new = r + beta (p_old - omega v) and mid = L^{-1} p_new
+    if constexpr (PSPLIT) {
+      for (int i0 = a + (int)threadIdx.x; i0 < end; i0 += R * WT) {
+        const GkStrideRows<R> rows(i0, WT, end);
+        float rv[R], pv[R], vv[R];
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          const long long i = rows.i[k];
+          rv[k] = rows.ok[k] ? r[i] : 0.f;
+          pv[k] = rows.ok[k] ? p_old[i] : 0.f;
+          vv[k] = rows.ok[k] ? v[i] : 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < R; ++k)
+          if (rows.ok[k]) p_new[rows.i[k]] = rv[k] + beta * (pv[k] - omega * vv[k]);
+      }
+      grid.sync();
+      if (len > 0) {
+        const float* src[1] = {p_new};
+        gk_tri_walk<WT, TT, 1, ND, SW, 1>(P.l, P.wl, src, P.invdl, a, len, smem, same, none,
+                                          store(mid));
+      }
+    } else if (len > 0) {
+      const float* src[3] = {r, p_old, v};
+      gk_tri_walk<WT, TT, 1, ND, SW, 3>(
+          P.l, P.wl, src, P.invdl, a, len, smem,
+          [beta, omega](const float* vb, int C, int e) {
+            return vb[e] + beta * (vb[C + e] - omega * vb[2 * C + e]);
+          },
+          store(p_new), store(mid));
+    }
+    grid.sync();
+    // 2: y = U^{-1} mid
+    if (len > 0) {
+      const float* src[1] = {mid};
+      gk_tri_walk<WT, TT, -1, ND, SW, 1>(P.u, P.wu, src, P.invdu, a, len, smem, same, none,
+                                         store(y));
+    }
+    grid.sync();
+    // 3: v = A y, partial rr.v
+    {
+      double acc[1] = {0.0}, unused = 0.0;
+      gk_walk_product<false>(P.a, a, end, y, v, rr, acc[0], unused);
+      block_partial<1>(acc, part_b, sh1);
+    }
+    grid.sync();
+    grid_total_batch<1, 4>(part_b, 1, 1, 1, tot1, sh1, bc1);
+    const float alpha_new = gk_sdiv(rho_new, (float)tot1[0]);
+
+    // 4: s = r - alpha v, s.s and mid = L^{-1} s
+    double ss = 0.0;
+    if (len > 0) {
+      const float* src[2] = {r, v};
+      gk_tri_walk<WT, TT, 1, ND, SW, 2>(
+          P.l, P.wl, src, P.invdl, a, len, smem,
+          [alpha_new](const float* vb, int C, int e) { return vb[e] - alpha_new * vb[C + e]; },
+          [s, &ss](int row, float si) {
+            s[row] = si;
+            ss += (double)si * si;
+          },
+          store(mid));
+    }
+    grid.sync();
+    // 5: z = U^{-1} mid
+    if (len > 0) {
+      const float* src[1] = {mid};
+      gk_tri_walk<WT, TT, -1, ND, SW, 1>(P.u, P.wu, src, P.invdu, a, len, smem, same, none,
+                                         store(z));
+    }
+    grid.sync();
+    // 6: t = A z, partials s.s, t.s, t.t
+    {
+      double acc[3] = {ss, 0.0, 0.0};
+      gk_walk_product<true>(P.a, a, end, z, t, s, acc[1], acc[2]);
+      block_partial<3>(acc, part_c, sh3);
+    }
+    grid.sync();
+    grid_total_batch<3, 4>(part_c, 3, 1, 3, tot3, sh3, bc3);
+    const bool half_done = (P.implicit ? fabsf(rho_new) : (float)tot3[0]) <= tol_sq;
+    const float omega_new = half_done ? 0.f : gk_sdiv((float)tot3[1], (float)tot3[2]);
+
+    // 7: x = (x + alpha y) + omega z; r = s - omega t; partials rr.r, r.r
+    {
+      double acc[2] = {0.0, 0.0};
+      for (int i0 = a + (int)threadIdx.x; i0 < end; i0 += R * WT) {
+        const GkStrideRows<R> rows(i0, WT, end);
+        float xv[R], yv[R], zv[R], sv[R], tv[R], rrv[R];
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          const long long i = rows.i[k];
+          const bool ok = rows.ok[k];
+          xv[k] = ok ? x[i] : 0.f;
+          yv[k] = ok ? y[i] : 0.f;
+          zv[k] = ok ? z[i] : 0.f;
+          sv[k] = ok ? s[i] : 0.f;
+          tv[k] = ok ? t[i] : 0.f;
+          rrv[k] = ok ? rr[i] : 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          if (!rows.ok[k]) continue;
+          const long long i = rows.i[k];
+          const float xa = xv[k] + alpha_new * yv[k];
+          x[i] = xa + omega_new * zv[k];
+          const float ri = sv[k] - omega_new * tv[k];
+          r[i] = ri;
+          acc[0] += (double)rrv[k] * ri;
+          acc[1] += (double)ri * ri;
+        }
+      }
+      block_partial<2>(acc, part_d, sh2);
+    }
+    grid.sync();
+    grid_total_batch<2, 4>(part_d, 2, 1, 2, tot2, sh2, bc2);
+    mon = P.implicit ? fabsf(rho_new) : (float)tot2[1];
+    rho_old = rho_new;
+    alpha = alpha_new;
+    omega = half_done ? 1.f : omega_new;
+    rho_new = (float)tot2[0];
+    ++it;
+  }
+
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *P.it_out = it;
+    *P.mon_out = mon;
+    *P.conv_out = (mon <= tol_sq) ? 1 : 0;
+  }
+}
+
 // ---------------------------------------------------------------------------
-// The kernels compiled for each shape of gk_walk_unrolled, 128 of them, take
+// The kernels compiled for each shape of gk_walk_unrolled, 192 of them, take
 // most of the library's build, so nvcc compiles them in translation units of
 // their own, in parallel (ginkgo_tpu_torch/_build.py PARTS): GK_PART = 1 .. 4
 // K23's for one (A, T) dtype pair each (f32 f32, f32 bf16, bf16 f32, bf16
-// bf16), 5 K22's.  Such a part defines only the getter of its kernels; part
-// 0 holds every other kernel and every entry point.
+// bf16), 5 K22's, 6 .. 9 K24's for one dtype pair each, in the order of 1 ..
+// 4.  Such a part defines only the getter of its kernels; part 0 holds every
+// other kernel and every entry point.
 
 #ifndef GK_PART
 #define GK_PART 0
@@ -685,6 +970,11 @@ extern "C" const void* cg_ilu_walk_shape_kernel_1(int shape);
 extern "C" const void* cg_ilu_walk_shape_kernel_2(int shape);
 extern "C" const void* cg_ilu_walk_shape_kernel_3(int shape);
 extern "C" const void* cg_ilu_walk_shape_kernel_4(int shape);
+// K24's kernel compiled for the shape, for the dtype pair of part 6 .. 9.
+extern "C" const void* bicgstab_ilu_walk_shape_kernel_6(int shape);
+extern "C" const void* bicgstab_ilu_walk_shape_kernel_7(int shape);
+extern "C" const void* bicgstab_ilu_walk_shape_kernel_8(int shape);
+extern "C" const void* bicgstab_ilu_walk_shape_kernel_9(int shape);
 
 #if GK_PART != 0
 constexpr auto GK_WALK_SHAPES =
@@ -701,6 +991,13 @@ template <typename TA, typename TT, int... I>
 static const void* cg_ilu_walk_unrolled(int shape, std::integer_sequence<int, I...>) {
   static const void* const table[] = {(const void*)cg_ilu_walk_kernel<
       TA, TT, I / GK_WALK_MAX_SWEEPS + 1, I % GK_WALK_MAX_SWEEPS + 1>...};
+  return table[shape];
+}
+
+template <typename TA, typename TT, int... I>
+static const void* bicgstab_ilu_walk_unrolled(int shape, std::integer_sequence<int, I...>) {
+  static const void* const table[] = {(const void*)bicgstab_ilu_walk_kernel<
+      TA, TT, I / GK_WALK_MAX_SWEEPS + 1, I % GK_WALK_MAX_SWEEPS + 1, false>...};
   return table[shape];
 }
 #endif
@@ -720,6 +1017,14 @@ extern "C" const void* GK_CAT(cg_ilu_walk_shape_kernel_, GK_PART)(int shape) {
   using TA = std::conditional_t<GK_PART <= 2, float, __nv_bfloat16>;
   using TT = std::conditional_t<GK_PART % 2 == 1, float, __nv_bfloat16>;
   return cg_ilu_walk_unrolled<TA, TT>(shape, GK_WALK_SHAPES);
+}
+#elif GK_PART >= 6 && GK_PART <= 9
+#define GK_CAT2(a, b) a##b
+#define GK_CAT(a, b) GK_CAT2(a, b)
+extern "C" const void* GK_CAT(bicgstab_ilu_walk_shape_kernel_, GK_PART)(int shape) {
+  using TA = std::conditional_t<GK_PART <= 7, float, __nv_bfloat16>;
+  using TT = std::conditional_t<GK_PART % 2 == 0, float, __nv_bfloat16>;
+  return bicgstab_ilu_walk_unrolled<TA, TT>(shape, GK_WALK_SHAPES);
 }
 #endif
 
@@ -842,11 +1147,6 @@ extern "C" int cg_ilu_fused_solve(
                                          tol_sq, max_iters, sweeps_l, sweeps_u, implicit, x, r,
                                          p, q, z, w1, w2, part, blocks, it_out, mon_out,
                                          conv_out, stream));
-}
-
-// K24: blocks of the cooperative grid (7 doubles of partial sums a block).
-extern "C" int bicgstab_ilu_fused_grid(int a_dtype, int t_dtype, int* blocks) {
-  GK_AT_DISPATCH(a_dtype, t_dtype, (gk_coop_blocks(bicgstab_ilu_fused_kernel<TA, TT>, blocks)));
 }
 
 template <typename TA, typename TT>
@@ -1169,6 +1469,153 @@ extern "C" int cg_ilu_walk_solve(
                                               r0, x0, tol_sq, max_iters, implicit, sweeps_l,
                                               sweeps_u, vecs, part, blocks, it_out, mon_out,
                                               conv_out, stream));
+}
+
+// K24's walk kernel for the shapes of L and U: the one compiled for them
+// where both triangles have nd diagonals and one sweep count
+// (cg_ilu_unrolled), else the one with runtime counts; PSPLIT (p formed in
+// a pass of its own) only with runtime counts.
+template <typename TA, typename TT>
+static const void* bicgstab_ilu_walk_fn(int l_nd, int u_nd, int sweeps_l, int sweeps_u,
+                                        bool psplit) {
+  if (psplit) return (const void*)bicgstab_ilu_walk_kernel<TA, TT, 0, 0, true>;
+  if (!cg_ilu_unrolled(l_nd, u_nd, sweeps_l, sweeps_u))
+    return (const void*)bicgstab_ilu_walk_kernel<TA, TT, 0, 0, false>;
+  const int shape = gk_walk_shape(l_nd, sweeps_l);
+  if (std::is_same<TA, float>::value)
+    return std::is_same<TT, float>::value ? bicgstab_ilu_walk_shape_kernel_6(shape)
+                                          : bicgstab_ilu_walk_shape_kernel_7(shape);
+  return std::is_same<TT, float>::value ? bicgstab_ilu_walk_shape_kernel_8(shape)
+                                        : bicgstab_ilu_walk_shape_kernel_9(shape);
+}
+
+// K24's walks, where it takes them: both sides with at least one sweep, L's
+// offsets all negative and U's all positive.  smem: the shared memory of
+// the largest walk, with step 1 staging three vectors (r, p_old and v) or,
+// psplit, one (step 4 then stages the most, r and v).
+template <typename TT>
+static bool bicgstab_ilu_walks(const long long* l_offsets, int l_nd, const long long* u_offsets,
+                               int u_nd, long long n, int sweeps_l, int sweeps_u, bool psplit,
+                               GkWalkCfg* wl, GkWalkCfg* wu, long long* smem) {
+  if (sweeps_l < 1 || sweeps_u < 1 || !gk_walk_plan(l_offsets, l_nd, n, sweeps_l, wl) ||
+      !gk_walk_plan(u_offsets, u_nd, n, sweeps_u, wu) || wl->dir != 1 || wu->dir != -1)
+    return false;
+  const long long sl = gk_walk_smem(*wl, l_nd, (int)sizeof(TT), psplit ? 2 : 3);
+  const long long su = gk_walk_smem(*wu, u_nd, (int)sizeof(TT), 1);
+  *smem = sl > su ? sl : su;
+  return true;
+}
+
+// K24's plan: the walks where bicgstab_ilu_walks takes them and a block fits
+// an SM (seven grid barriers an iteration; eight where only the form with
+// p's own pass fits, route 2), else the barrier routine (5 + 2 (sweeps_l +
+// sweeps_u)).
+template <typename TA, typename TT>
+static int bicgstab_ilu_plan(const long long* l_offsets, int l_nd, const long long* u_offsets,
+                             int u_nd, long long n, int sweeps_l, int sweeps_u, long long* out) {
+  for (int psplit = 0; psplit <= 1; ++psplit) {
+    GkWalkCfg wl, wu;
+    long long smem = 0;
+    if (!bicgstab_ilu_walks<TT>(l_offsets, l_nd, u_offsets, u_nd, n, sweeps_l, sweeps_u,
+                                psplit != 0, &wl, &wu, &smem))
+      break;
+    GkOccupancy o;
+    const int e = gk_occupancy(
+        bicgstab_ilu_walk_fn<TA, TT>(l_nd, u_nd, sweeps_l, sweeps_u, psplit != 0), smem,
+        GK_CG_ILU_WALK_THREADS, &o);
+    if (e != 0) return e;
+    if (o.per_sm >= 1) {
+      const int blocks = o.per_sm * o.sms;
+      gk_plan_head(out, 1 + psplit, blocks, GK_CG_ILU_WALK_THREADS, smem, o, 7 + psplit,
+                   !psplit && cg_ilu_unrolled(l_nd, u_nd, sweeps_l, sweeps_u));
+      gk_plan_walk(out + GK_PLAN_HEAD, wl, n, blocks);
+      gk_plan_walk(out + GK_PLAN_HEAD + GK_PLAN_WALK, wu, n, blocks);
+      return 0;
+    }
+  }
+  return gk_barrier_plan(bicgstab_ilu_fused_kernel<TA, TT>, 5 + 2 * (sweeps_l + sweeps_u), 2,
+                         out);
+}
+
+extern "C" int bicgstab_ilu_fused_plan(int a_dtype, int t_dtype, const long long* l_offsets,
+                                       int l_nd, const long long* u_offsets, int u_nd,
+                                       long long n, int sweeps_l, int sweeps_u, long long* out) {
+  if (!gk_nd_ok(l_nd) || !gk_nd_ok(u_nd) || sweeps_l < 0 || sweeps_u < 0)
+    return (int)cudaErrorInvalidValue;
+  GK_AT_DISPATCH(a_dtype, t_dtype,
+                 (bicgstab_ilu_plan<TA, TT>)(l_offsets, l_nd, u_offsets, u_nd, n, sweeps_l,
+                                             sweeps_u, out));
+}
+
+template <typename TA, typename TT>
+static int bicgstab_ilu_walk_launch(const void* a_diags, const long long* a_offsets, int a_nd,
+                                    const void* l_diags, const long long* l_offsets, int l_nd,
+                                    const void* u_diags, const long long* u_offsets, int u_nd,
+                                    long long n, const float* invdl, const float* invdu,
+                                    const float* r0, const float* x0, const float* tol_sq,
+                                    int max_iters, int implicit, int sweeps_l, int sweeps_u,
+                                    int psplit, float* const* vecs, double* part, int blocks,
+                                    int* it_out, float* mon_out, int* conv_out, void* stream) {
+  GkWalkCfg wl, wu;
+  long long smem = 0;
+  if (!bicgstab_ilu_walks<TT>(l_offsets, l_nd, u_offsets, u_nd, n, sweeps_l, sweeps_u,
+                              psplit != 0, &wl, &wu, &smem))
+    return (int)cudaErrorInvalidValue;
+  BicgstabIluWalkParams<TA, TT> P;
+  P.a = gk_dia_op<TA>(a_diags, a_offsets, a_nd, n);
+  P.l = gk_dia_op<TT>(l_diags, l_offsets, l_nd, n);
+  P.u = gk_dia_op<TT>(u_diags, u_offsets, u_nd, n);
+  P.wl = wl;
+  P.wu = wu;
+  P.invdl = invdl;
+  P.invdu = invdu;
+  P.n = n;
+  P.r0 = r0;
+  P.x0 = x0;
+  P.tol_sq = tol_sq;
+  P.max_iters = max_iters;
+  P.implicit = implicit;
+  P.x = vecs[0];
+  P.r = vecs[1];
+  P.rr = vecs[2];
+  P.p[0] = vecs[3];
+  P.p[1] = vecs[4];
+  P.v = vecs[5];
+  P.s = vecs[6];
+  P.t = vecs[7];
+  P.y = vecs[8];
+  P.z = vecs[9];
+  P.mid = vecs[10];
+  P.part = part;
+  P.it_out = it_out;
+  P.mon_out = mon_out;
+  P.conv_out = conv_out;
+  const void* kernel = bicgstab_ilu_walk_fn<TA, TT>(l_nd, u_nd, sweeps_l, sweeps_u, psplit != 0);
+  const int e = gk_smem_optin(kernel, smem);
+  if (e != 0) return e;
+  return gk_coop_launch(kernel, P, blocks, stream, (size_t)smem, GK_CG_ILU_WALK_THREADS);
+}
+
+// K24 on the walk: ILU right-preconditioned BiCGSTAB on a square Dia A to
+// the stop test, where bicgstab_ilu_fused_plan chose the walks (psplit: its
+// route 2).  vecs: 11 float32 (n,) buffers x, r, rr, p, p', v, s, t, y, z,
+// mid, 16-byte aligned, as are invdl and invdu.
+extern "C" int bicgstab_ilu_walk_solve(
+    const void* a_diags, int a_dtype, const long long* a_offsets, int a_nd,
+    const void* l_diags, const long long* l_offsets, int l_nd, const void* u_diags,
+    const long long* u_offsets, int u_nd, int t_dtype, long long n, const float* invdl,
+    const float* invdu, const float* r0, const float* x0, const float* tol_sq, int max_iters,
+    int sweeps_l, int sweeps_u, int implicit, int psplit, float* const* vecs, double* part,
+    int blocks, int* it_out, float* mon_out, int* conv_out, void* stream) {
+  if (!gk_nd_ok(a_nd) || !gk_nd_ok(l_nd) || !gk_nd_ok(u_nd) || max_iters < 0 || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  GK_AT_DISPATCH(a_dtype, t_dtype,
+                 (bicgstab_ilu_walk_launch<TA, TT>)(a_diags, a_offsets, a_nd, l_diags,
+                                                    l_offsets, l_nd, u_diags, u_offsets, u_nd, n,
+                                                    invdl, invdu, r0, x0, tol_sq, max_iters,
+                                                    implicit, sweeps_l, sweeps_u, psplit, vecs,
+                                                    part, blocks, it_out, mon_out, conv_out,
+                                                    stream));
 }
 
 #endif  // GK_PART == 0

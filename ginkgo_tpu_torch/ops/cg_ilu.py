@@ -13,8 +13,12 @@ the stop test run in one persistent cooperative CUDA kernel
 (``csrc/trs_fused.cu``, which also holds K22).  K23 takes the pipelined
 walk (``csrc/tri_walk.cuh``, four grid barriers an iteration) where both
 triangles' shapes allow it (``ops/tri_walk.py``), the barrier routine (3 +
-sweeps_l + sweeps_u) otherwise; ``cg_ilu_fused.routes`` counts each.  K24
-always takes the barrier routine.
+sweeps_l + sweeps_u) otherwise; K24 takes the walk for both of its M
+applies (seven grid barriers an iteration; eight where p takes a pass of
+its own, "pipelined_p_pass") where both triangles sweep at least once and
+their shapes allow it, the barrier routine (5 + 2 (sweeps_l + sweeps_u))
+otherwise.  ``cg_ilu_fused.routes`` and ``bicgstab_ilu_fused.routes`` count
+each route's launches.
 
 Semantics, shared by the kernels and the plain versions:
 
@@ -39,7 +43,7 @@ import torch
 
 from .. import _build
 from . import tri_walk
-from .cg import _dots, _sdiv, check_fused_diags, coop_grid_blocks
+from .cg import _dots, _sdiv, check_fused_diags
 from .dia import DTYPE_CODE, check_status, dia_spmv_reference, offsets_array, on_cpu
 
 
@@ -147,9 +151,8 @@ def _lib():
     lib = _build.load("trs_fused")
     if not hasattr(lib, "gk_typed"):
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        offs, blocks = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)
+        offs = ctypes.POINTER(ctypes.c_longlong)
         vecs = ctypes.POINTER(ctypes.c_void_p)
-        lib.bicgstab_ilu_fused_grid.argtypes = [I, I, blocks]
         lib.trs_fused_solve.argtypes = [P, I, offs, I, L, P, P, I, P, P, I, P]
         three_ops = [P, I, offs, I, P, offs, I, P, offs, I, I, L]  # A, L, U, t_dtype, n
         lib.cg_ilu_fused_solve.argtypes = three_ops + [
@@ -171,10 +174,16 @@ def _lib():
             I, I, I, I,  # max_iters, sweeps_l, sweeps_u, implicit
             vecs, P, I, P, P, P, P,  # vecs, part, blocks, it_out, mon_out, conv_out, stream
         ]
-        for fn in (lib.bicgstab_ilu_fused_grid,
-                   lib.trs_fused_solve, lib.cg_ilu_fused_solve, lib.bicgstab_ilu_fused_solve,
+        lib.bicgstab_ilu_fused_plan.argtypes = [I, I, offs, I, offs, I, L, I, I, plan]
+        lib.bicgstab_ilu_walk_solve.argtypes = three_ops + [
+            P, P, P, P, P,  # invdl, invdu, r0, x0, tol_sq
+            I, I, I, I, I,  # max_iters, sweeps_l, sweeps_u, implicit, p in a pass of its own
+            vecs, P, I, P, P, P, P,  # vecs, part, blocks, it_out, mon_out, conv_out, stream
+        ]
+        for fn in (lib.trs_fused_solve, lib.cg_ilu_fused_solve, lib.bicgstab_ilu_fused_solve,
                    lib.trs_fused_plan, lib.cg_ilu_fused_plan, lib.trs_walk_solve,
-                   lib.cg_ilu_walk_solve):
+                   lib.cg_ilu_walk_solve, lib.bicgstab_ilu_fused_plan,
+                   lib.bicgstab_ilu_walk_solve):
             fn.restype = I
         lib.gk_error_string.argtypes = [I]
         lib.gk_error_string.restype = ctypes.c_char_p
@@ -217,15 +226,28 @@ def _ilu_operands(A, Tl, Tu, invdl, invdu, r0, x0, sweeps_l, sweeps_u, what):
     return dev, n, (DTYPE_CODE[A.diags.dtype], DTYPE_CODE[ld.dtype]), args, (ld, ud)
 
 
-def cg_ilu_fused_launch(A, Tl, Tu, sweeps_l, sweeps_u, device):
-    """K23's route and launch on a CUDA device (``ops/tri_walk.plan``):
-    "pipelined" where both triangles take the walk (four grid barriers an
-    iteration), else "barrier" (3 + sweeps_l + sweeps_u)."""
+def _launch(fn, A, Tl, Tu, sweeps_l, sweeps_u, device):
     ld, ud = Tl.diags, Tu.diags
     t_dtype = ld.dtype if ld.dtype == ud.dtype else torch.float32  # as _triangles widens
     args = (DTYPE_CODE[A.diags.dtype], DTYPE_CODE[t_dtype], tuple(Tl.offsets), len(Tl.offsets),
             tuple(Tu.offsets), len(Tu.offsets), A.shape[0], int(sweeps_l), int(sweeps_u))
-    return tri_walk.plan(_lib(), "cg_ilu_fused_plan", args, 2, device)
+    return tri_walk.plan(_lib(), fn, args, 2, device)
+
+
+def cg_ilu_fused_launch(A, Tl, Tu, sweeps_l, sweeps_u, device):
+    """K23's route and launch on a CUDA device (``ops/tri_walk.plan``):
+    "pipelined" where both triangles take the walk (four grid barriers an
+    iteration), else "barrier" (3 + sweeps_l + sweeps_u)."""
+    return _launch("cg_ilu_fused_plan", A, Tl, Tu, sweeps_l, sweeps_u, device)
+
+
+def bicgstab_ilu_fused_launch(A, Tl, Tu, sweeps_l, sweeps_u, device):
+    """K24's route and launch on a CUDA device (``ops/tri_walk.plan``):
+    "pipelined" where both triangles take the walk with at least one sweep
+    (seven grid barriers an iteration), "pipelined_p_pass" where only the
+    form with p in a pass of its own fits a block (eight), else "barrier"
+    (5 + 2 (sweeps_l + sweeps_u))."""
+    return _launch("bicgstab_ilu_fused_plan", A, Tl, Tu, sweeps_l, sweeps_u, device)
 
 
 def cg_ilu_fused(A, Tl, Tu, invdl, invdu, r0, x0, *, sweeps_l, sweeps_u, tol_sq_eff,
@@ -292,26 +314,40 @@ def bicgstab_ilu_fused(A, Tl, Tu, invdl, invdu, r0, x0, *, sweeps_l, sweeps_u, t
               max_iters=max_iters, use_implicit=use_implicit)
     if on_cpu(r0):
         return bicgstab_ilu_reference(A, Tl, Tu, invdl, invdu, r0, x0, **kw)
-    dev, n, codes, args, _keep = _ilu_operands(A, Tl, Tu, invdl, invdu, r0, x0, sweeps_l,
-                                               sweeps_u, "bicgstab_ilu_fused")
+    dev, n, _, args, _keep = _ilu_operands(A, Tl, Tu, invdl, invdu, r0, x0, sweeps_l,
+                                           sweeps_u, "bicgstab_ilu_fused")
     tol = torch.as_tensor(tol_sq_eff, dtype=torch.float32, device=dev).reshape(1).contiguous()
     lib = _lib()
-    blocks = coop_grid_blocks(lib, "bicgstab_ilu_fused_grid", codes, dev)
-    bufs = torch.empty((11, n), dtype=torch.float32, device=dev)  # x r rr p v s t y mid w1 w2
-    vecs = (ctypes.c_void_p * 11)(*(bufs[i].data_ptr() for i in range(11)))
+    launch = bicgstab_ilu_fused_launch(A, Tl, Tu, sweeps_l, sweeps_u, dev)
+    blocks = launch["blocks"]
+    # 11 buffers, 16-byte aligned each (the walks stage them): x r rr p p' v
+    # s t y z mid on the walk, x r rr p v s t y mid w1 w2 on the barrier route
+    bufs = [torch.empty_like(r0) for _ in range(11)]
+    vecs = (ctypes.c_void_p * 11)(*(t.data_ptr() for t in bufs))
     part = torch.empty(7 * blocks, dtype=torch.float64, device=dev)
     it_conv = torch.empty(2, dtype=torch.int32, device=dev)
     mon = torch.empty(1, dtype=torch.float32, device=dev)
+    head = (tol.data_ptr(), min(int(max_iters), 2**31 - 1), int(sweeps_l), int(sweeps_u),
+            int(bool(use_implicit)))
+    tail = (vecs, part.data_ptr(), blocks, it_conv.data_ptr(), mon.data_ptr(),
+            it_conv[1:].data_ptr())
     with torch.cuda.device(dev):
-        status = lib.bicgstab_ilu_fused_solve(
-            *args, tol.data_ptr(), min(int(max_iters), 2**31 - 1), int(sweeps_l),
-            int(sweeps_u), int(bool(use_implicit)), vecs, part.data_ptr(), blocks,
-            it_conv.data_ptr(), mon.data_ptr(), it_conv[1:].data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if launch["route"] == "barrier":
+            status = lib.bicgstab_ilu_fused_solve(*args, *head, *tail, stream)
+        else:
+            # the walks stage the triangles from 4-byte words, invdl and
+            # invdu 16 bytes at a time
+            staged = [tri_walk.aligned(t) for t in (*_keep, invdl, invdu)]
+            args[4], args[7] = staged[0].data_ptr(), staged[1].data_ptr()
+            args[12:14] = [t.data_ptr() for t in staged[2:]]
+            status = lib.bicgstab_ilu_walk_solve(
+                *args, *head, int(launch["route"] == "pipelined_p_pass"), *tail, stream)
     check_status(lib, status, "bicgstab_ilu_fused")
     bicgstab_ilu_fused.launches += 1
+    bicgstab_ilu_fused.routes[launch["route"]] += 1
     return bufs[0], bufs[1], it_conv[0], mon[0], it_conv[1] != 0
 
 
 bicgstab_ilu_fused.launches = 0
+bicgstab_ilu_fused.routes = {"pipelined": 0, "pipelined_p_pass": 0, "barrier": 0}

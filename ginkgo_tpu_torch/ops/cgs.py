@@ -41,7 +41,7 @@ def _start(r0, tol_sq_eff):
 
 def cgs_loop_reference(spmv, r0, x0, minv=None, *, tol_sq_eff, max_iters,
                        use_implicit=False):
-    """The whole CGS solve, pass by pass as K13 and K20, for any operator.
+    """The whole CGS solve in K13's and K20's operations, for any operator.
     spmv: (n,) -> (n,) float32, A M in either form (folded, or M applied
     before A); minv: (n,) or None, applied in the x update; r0, x0: (n,)
     float32.  Returns (x, r, iterations int32, monitored_sq float32,
@@ -131,13 +131,14 @@ def _lib():
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         offs, blocks = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)
         lib.cgs_fused_grid.argtypes = [I, blocks]
+        lib.cgs_fused_config.argtypes = [I, blocks]
         lib.bicg_fused_grid.argtypes = [I, I, blocks]
         lib.bicg_fused_config.argtypes = [I, I, blocks]
         lib.cgs_fused_solve.argtypes = [
             P, I, offs, I, L,  # diags, offsets, n
             P, P, P, P,  # r0, x0, minv, tol_sq
             I, I,  # max_iters, implicit
-            P, P, P, P, P, P, P, P,  # x, r, rr, q, u, v, p, w
+            P, P, P, P, P, P, P,  # x, r, rr, q, u, v, p
             P, I,  # partials, blocks
             P, P, P, P,  # it_out, mon_out, conv_out, stream
         ]
@@ -160,8 +161,8 @@ def _lib():
             P, I,  # partials, blocks
             P, P, P, P,  # it_out, mon_out, conv_out, stream
         ]
-        for fn in (lib.cgs_fused_grid, lib.bicg_fused_grid, lib.bicg_fused_config,
-                   lib.cgs_fused_solve,
+        for fn in (lib.cgs_fused_grid, lib.cgs_fused_config, lib.bicg_fused_grid,
+                   lib.bicg_fused_config, lib.cgs_fused_solve,
                    lib.bicg_fused_solve, lib.pell_cgs_fused_grid, lib.pell_cgs_fused_config,
                    lib.pell_cgs_fused_solve):
             fn.restype = I
@@ -199,7 +200,7 @@ def cgs_fused(diags, offsets, r0, x0, minv=None, *, tol_sq_eff, max_iters,
     lib = _lib()
     code = DTYPE_CODE[diags.dtype]
     blocks = coop_grid_blocks(lib, "cgs_fused_grid", (code,), dev)
-    vecs, part, it_conv, mon = _outputs(r0, blocks, 8)
+    vecs, part, it_conv, mon = _outputs(r0, blocks, 7)
     with torch.cuda.device(dev):
         status = lib.cgs_fused_solve(
             diags.data_ptr(), code, offsets_array(offsets), len(offsets), n,

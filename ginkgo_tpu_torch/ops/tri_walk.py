@@ -1,4 +1,4 @@
-"""The route and launch of K22 and K23 (``csrc/trs_fused.cu``'s plans).
+"""The route and launch of K22, K23 and K24 (``csrc/trs_fused.cu``'s plans).
 
 A sweep solve x ~ T^{-1} rhs (x0 = invd * rhs, then ``sweeps`` times
 x <- invd * (rhs - N x), N a strict triangle) can run as one walk over a
@@ -27,8 +27,8 @@ PLAN_FIELDS = ("route", "blocks", "threads", "chunk", "smem", "blocks_per_sm", "
 #: level ring, the chunks of the input ring and the interior steps of all
 #: blocks (the steps that run every level unrolled where "unrolled")
 WALK_FIELDS = ("direction", "width", "ring_rows", "stages", "interior_steps")
-#: the route codes
-ROUTES = ("barrier", "pipelined")
+#: the route codes: K24's third walks with p formed in a pass of its own
+ROUTES = ("barrier", "pipelined", "pipelined_p_pass")
 
 #: (plan function, its arguments, device index) -> the plan
 _PLANS: dict = {}
@@ -53,7 +53,7 @@ def plan(lib, fn: str, args: tuple, walks: int, device) -> dict:
         head["unrolled"] = bool(head["unrolled"])
         w = len(WALK_FIELDS)
         head["walks"] = ([dict(zip(WALK_FIELDS, out[len(PLAN_FIELDS) + i * w:][:w]))
-                          for i in range(walks)] if head["route"] == "pipelined" else [])
+                          for i in range(walks)] if head["route"] != "barrier" else [])
         _PLANS[key] = head
     return _PLANS[key]
 

@@ -41,7 +41,7 @@ from ginkgo_tpu.preconditioner.ilu import Ic as JIc, Ilu as JIlu
 from ginkgo_tpu.solver.triangular import LowerTrs as JLowerTrs, UpperTrs as JUpperTrs
 import ginkgo_tpu_torch
 from ginkgo_tpu_torch import interop
-from ginkgo_tpu_torch.ops.cg_ilu import _dot, cg_ilu_reference
+from ginkgo_tpu_torch.ops.cg_ilu import _dot, bicgstab_ilu_reference, cg_ilu_reference
 from ginkgo_tpu_torch.ops.cg import _sdiv
 from ginkgo_tpu_torch.ops.dia import dia_spmv_reference
 from ginkgo_tpu_torch.ops.trs import trs_reference
@@ -368,3 +368,209 @@ def test_cg_ilu_walk_nan_runs_to_the_cap():
     assert it == int(wit) == 7 and not conv and not bool(wconv)
     assert np.isnan(float(mon)) and np.isnan(float(wmon))
     assert np.array_equal(np.isnan(x), np.isnan(wx.numpy()))
+
+
+# -- K24 on the walk ------------------------------------------------------------------
+
+_SOURCE = (Path(ginkgo_tpu_torch.__file__).parent / "csrc" / "trs_fused.cu").read_text()
+#: shared memory a block may opt in to on the H100 (227 KB), less the static
+#: shared memory of K24's walk kernel (its block folds: 6 x 32 doubles and 6
+#: broadcasts)
+SMEM_LIMIT = 232448 - (6 * 32 + 6) * 8
+
+
+def bicgstab_ilu_route(Tl, Tu, sweeps_l, sweeps_u, tri_size=4):
+    """K24's route as ``csrc/trs_fused.cu`` ``bicgstab_ilu_plan`` chooses it:
+    the walks where both sides sweep at least once, L's offsets are all
+    negative and U's all positive and step 1's walk, which stages r, p_old
+    and v, fits a block ("pipelined"); where only the form with p in a pass
+    of its own fits, whose largest walk is step 4's staging r and v
+    ("pipelined_p_pass"); else "barrier"."""
+    pl, pu = walk_plan(Tl.offsets, sweeps_l), walk_plan(Tu.offsets, sweeps_u)
+    if (sweeps_l < 1 or sweeps_u < 1 or pl is None or pu is None or pl.direction != 1
+            or pu.direction != -1):
+        return "barrier", 0
+    su = pu.smem(sweeps_u, len(Tu.offsets), tri_size, 1)
+    for route, nv in (("pipelined", 3), ("pipelined_p_pass", 2)):
+        smem = max(pl.smem(sweeps_l, len(Tl.offsets), tri_size, nv), su)
+        if smem <= SMEM_LIMIT:
+            return route, smem
+    return "barrier", 0
+
+
+def test_bicgstab_ilu_route_by_shape():
+    """The plan's rules as the source states them; path 7's A2 (w = 2048,
+    3 sweeps) takes the walk at 196,800 B a block; 0 sweeps on either side,
+    offsets of both signs and rings past a block take the barrier routine;
+    a shape that K23's walk fits and step 1's three vectors do not takes
+    the walk with p in a pass of its own."""
+    walks = _SOURCE[_SOURCE.index("static bool bicgstab_ilu_walks("):]
+    walks = walks[:walks.index("\n}\n")]
+    assert "sweeps_l < 1 || sweeps_u < 1" in walks and "psplit ? 2 : 3" in walks
+    assert "wl->dir != 1 || wu->dir != -1" in walks
+
+    class Tri:
+        def __init__(self, offsets):
+            self.offsets = offsets
+
+    L, U = Tri([-2048, -1]), Tri([1, 2048])
+    assert bicgstab_ilu_route(L, U, 3, 3) == ("pipelined", 196800)
+    assert bicgstab_ilu_route(L, U, 3, 3, 2)[0] == "pipelined"
+    assert bicgstab_ilu_route(L, U, 0, 3)[0] == "barrier"
+    assert bicgstab_ilu_route(L, U, 3, 0)[0] == "barrier"
+    assert bicgstab_ilu_route(L, U, 8, 8)[0] == "barrier"  # 8 sweeps: 11 stages, 8 rings
+    assert bicgstab_ilu_route(Tri([-1, 1]), U, 3, 3)[0] == "barrier"
+    assert bicgstab_ilu_route(U, L, 3, 3)[0] == "barrier"
+    wide_l, wide_u = Tri([-3000, -1]), Tri([1, 3000])
+    assert bicgstab_ilu_route(wide_l, wide_u, 3, 3) == ("pipelined_p_pass", 221376)
+    assert bicgstab_ilu_route(wide_l, wide_u, 3, 3, 2)[0] == "pipelined"  # bfloat16
+    # K23's walks, whose L walk stages r and q, fit the same shape
+    assert walk_plan(wide_l.offsets, 3).smem(3, 2, 4, 2) <= SMEM_LIMIT
+    assert bicgstab_ilu_route(Tri([-40000, -1]), Tri([1, 40000]), 3, 3)[0] == "barrier"
+
+
+def bicgstab_ilu_walk(A, Tl, Tu, invdl, invdu, r0, x0, *, sweeps_l, sweeps_u, tol_sq_eff,
+                      max_iters, use_implicit, blocks, p_pass=False):
+    """K24's pass order on the walk route, seven barriers an iteration (eight
+    with ``p_pass``: p_new formed in a pass of its own before an L walk that
+    stages it alone).  Returns what bicgstab_ilu_reference does and the
+    iterations whose half step converged."""
+    n = A.shape[0]
+    pl, pu = walk_plan(Tl.offsets, sweeps_l), walk_plan(Tu.offsets, sweeps_u)
+    assert sweeps_l >= 1 and sweeps_u >= 1 and pl.direction == 1 and pu.direction == -1
+    tol = torch.as_tensor(tol_sq_eff, dtype=torch.float32)
+    t_ = torch.from_numpy
+    one = torch.ones((), dtype=torch.float32)
+    x, r = x0.numpy().copy(), r0.numpy().copy()
+    rr = r.copy()
+    v = np.zeros(n, F32)
+    pbuf = [np.zeros(n, F32), np.full(n, np.nan, F32)]
+    rho_new = _dot(r0, r0)
+    rho_old, alpha, omega = one, one, one
+    mon = torch.full((), float("inf"), dtype=torch.float32)
+    it, halves = 0, []
+
+    def product(src):
+        return dia_spmv_reference(A.diags, A.offsets, t_(src), n).numpy()
+
+    def own(dst):
+        def keep(rows, vals):
+            dst[rows] = vals
+        return keep
+
+    while it < max_iters and not bool(mon <= tol):
+        beta = _sdiv(rho_new * alpha, rho_old * omega)
+        bf, of = F32(beta.item()), F32(omega.item())
+        p_old, p_new = pbuf[it & 1], pbuf[(it + 1) & 1]
+        p_new[:] = np.nan
+        # 1: the L walk on p_new = r + beta (p_old - omega v), formed on
+        # every row it reads (or in a pass of its own), mid = L^-1 p_new
+        if p_pass:
+            p_new[:] = r + bf * (p_old - of * v)
+            mid = walk_solve(Tl, invdl, lambda rows, p=p_new: p[rows], sweeps_l, pl, blocks)
+        else:
+            def rhs(rows, p=p_old, r=r, v=v):
+                return r[rows] + bf * (p[rows] - of * v[rows])
+
+            mid = walk_solve(Tl, invdl, rhs, sweeps_l, pl, blocks, own(p_new))
+            assert not np.isnan(p_new).any() or np.isnan(r).any()
+        # 2: y = U^-1 mid; 3: v = A y, alpha
+        y = walk_solve(Tu, invdu, lambda rows, m=mid: m[rows], sweeps_u, pu, blocks)
+        v = product(y)
+        alpha_new = _sdiv(rho_new, _dot(t_(rr), t_(v)))
+        af = F32(alpha_new.item())
+        # 4: the L walk on s = r - alpha v, mid = L^-1 s; 5: z = U^-1 mid
+        s = np.full(n, np.nan, F32)
+        mid = walk_solve(Tl, invdl, lambda rows, r=r, v=v: r[rows] - af * v[rows], sweeps_l, pl,
+                         blocks, own(s))
+        z = walk_solve(Tu, invdu, lambda rows, m=mid: m[rows], sweeps_u, pu, blocks)
+        # 6: t = A z, omega (0 where the half step converged, carried as 1)
+        t = product(z)
+        st, tt = t_(s), t_(t)
+        half_done = bool((torch.abs(rho_new) if use_implicit else _dot(st, st)) <= tol)
+        omega_new = (torch.zeros((), dtype=torch.float32) if half_done
+                     else _sdiv(_dot(tt, st), _dot(tt, tt)))
+        wf = F32(omega_new.item())
+        # 7: x = (x + alpha y) + omega z; r = s - omega t
+        x = (x + af * y) + wf * z
+        r = s - wf * t
+        rt = t_(r)
+        rho_next = _dot(t_(rr), rt)
+        mon = torch.abs(rho_new) if use_implicit else _dot(rt, rt)
+        rho_old, alpha = rho_new, alpha_new
+        omega = one if half_done else omega_new
+        rho_new = rho_next
+        halves += [it] if half_done else []
+        it += 1
+    return x, r, it, mon, bool(mon <= tol), halves
+
+
+BICGSTAB_CASES = [
+    # (grid, sweeps_l, sweeps_u, blocks, storage, implicit, cap, p in a pass of its own)
+    ((31, 40), 3, 3, 6, "f32", False, 300, False),  # w = 31
+    ((31, 40), 1, 8, 13, "bf16", False, 300, False),
+    ((31, 40), 8, 3, 3, "f32", True, 300, False),
+    ((31, 40), 3, 3, 4, "f32", False, 300, True),
+    ((999, 1), 1, 1, 5, "f32", False, 5, False),  # w = 1
+    ((2048, 3), 3, 3, 5, "f32", False, 4, False),  # w = 2048: ring wrap
+    ((2048, 3), 3, 1, 48, "bf16", False, 3, False),  # w larger than a range (128 rows)
+    ((2047, 5), 3, 3, 6, "bf16", False, 3, False),  # odd n: a bfloat16 chunk mid-word
+]
+
+
+@pytest.mark.parametrize("grid,sweeps_l,sweeps_u,blocks,storage,implicit,cap,p_pass",
+                         BICGSTAB_CASES)
+def test_bicgstab_ilu_walk_matches_plain_version(grid, sweeps_l, sweeps_u, blocks, storage,
+                                                 implicit, cap, p_pass):
+    A, Tl, Tu, invdl, invdu = factors(grid, "ilu")
+    if storage == "bf16":
+        A, Tl, Tu = (M.astype(torch.bfloat16) for M in (A, Tl, Tu))
+    n = A.shape[0]
+    b = torch.from_numpy(rhs_vector(n, False, seed=13))
+    tol = F32((1e-6 * float(b.norm())) ** 2)
+    kw = dict(sweeps_l=sweeps_l, sweeps_u=sweeps_u, tol_sq_eff=tol, max_iters=cap,
+              use_implicit=implicit)
+    x, r, it, mon, conv, _ = bicgstab_ilu_walk(A, Tl, Tu, invdl, invdu, b, torch.zeros(n),
+                                               blocks=blocks, p_pass=p_pass, **kw)
+    wx, wr, wit, wmon, wconv = bicgstab_ilu_reference(A, Tl, Tu, invdl, invdu, b,
+                                                      torch.zeros(n), **kw)
+    assert it == int(wit) and conv == bool(wconv)
+    assert cap < 10 and it == cap or conv
+    assert same_bits(float(mon), float(wmon))
+    assert same_bits(x, wx.numpy()) and same_bits(r, wr.numpy())
+
+
+def test_bicgstab_ilu_walk_half_step_exit():
+    """A threshold the first half step meets (s.s is about b.b here):
+    omega = 0, so x = x + alpha y + 0 z and r = s, and the solve stops
+    after one iteration in both."""
+    A, Tl, Tu, invdl, invdu = factors((31, 40), "ilu")
+    n = A.shape[0]
+    b = torch.from_numpy(rhs_vector(n, False, seed=13))
+    kw = dict(sweeps_l=3, sweeps_u=3, tol_sq_eff=F32(100 * float(b.norm()) ** 2), max_iters=50,
+              use_implicit=False)
+    x, r, it, mon, conv, halves = bicgstab_ilu_walk(A, Tl, Tu, invdl, invdu, b, torch.zeros(n),
+                                                    blocks=4, **kw)
+    wx, wr, wit, wmon, wconv = bicgstab_ilu_reference(A, Tl, Tu, invdl, invdu, b,
+                                                      torch.zeros(n), **kw)
+    assert halves == [0] and it == int(wit) == 1 and conv and bool(wconv)
+    assert same_bits(float(mon), float(wmon))
+    assert same_bits(x, wx.numpy()) and same_bits(r, wr.numpy())
+
+
+def test_bicgstab_ilu_walk_nan_runs_to_the_cap():
+    """A NaN in b reaches the monitor of both orders, which then run to the
+    cap; with implicit mode too."""
+    A, Tl, Tu, invdl, invdu = factors((31, 40), "ilu")
+    n = A.shape[0]
+    b = torch.from_numpy(rhs_vector(n, True, seed=13))
+    for implicit in (False, True):
+        kw = dict(sweeps_l=3, sweeps_u=3, tol_sq_eff=F32(1e-6), max_iters=7,
+                  use_implicit=implicit)
+        x, r, it, mon, conv, _ = bicgstab_ilu_walk(A, Tl, Tu, invdl, invdu, b, torch.zeros(n),
+                                                   blocks=4, **kw)
+        wx, wr, wit, wmon, wconv = bicgstab_ilu_reference(A, Tl, Tu, invdl, invdu, b,
+                                                          torch.zeros(n), **kw)
+        assert it == int(wit) == 7 and not conv and not bool(wconv)
+        assert np.isnan(float(mon)) and np.isnan(float(wmon))
+        assert np.array_equal(np.isnan(x), np.isnan(wx.numpy()))

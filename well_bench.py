@@ -21,7 +21,8 @@ Run from the repository root:
                                      pell_cg_fused,gmres_fused,pell_gmres_fused,
                                      mg_cg_fused,pell_ir_fused,idr_fused,
                                      pell_bicgstab_fused,pell_cgs_fused,
-                                     ir_fused,ir_smooth,bicg_fused]
+                                     ir_fused,ir_smooth,bicg_fused,cgs_fused,
+                                     bicgstab_ilu_fused]
                           [--rows N] [--chunks 256,512] [--cg-columns 2,4,8]
                           [--bicgstab-columns 2,4,8] [--other DIR ...] [--check]
                           [--profile]
@@ -245,6 +246,30 @@ A variant is a copy of the package under ``build/`` with one macro changed
 ``GK_BICG_ROWS`` or ``GK_BICG_MIN_BLOCKS`` in ``csrc/cgs_fused.cu``),
 passed as another ``--other``.
 
+For ``cgs_fused`` (K13) on path 1's ``poisson_2d(2048)`` ``Dia`` (A1) and
+``bicgstab_ilu_fused`` (K24) on path 7's ILU (3 sweeps a triangle) of path
+4's ``convdiff_2d(2048)`` ``Dia`` (A2):
+
+- ``build``: ptxas's registers and spills of their kernels, this
+  checkout's and each ``--other``'s, and each one's launch (K13 with
+  float32 and bfloat16 diagonals: blocks, blocks an SM, registers; K24 on
+  each timed case: its route, grid barriers, shared memory and walks);
+- ``check`` (with ``--check``): ``chip_smoke.check_cgs_edges`` and
+  ``check_ilu_small`` (K22-K24 at 24^2 and 64^2, both of K24's routes and
+  its walk with p in a pass of its own), bit for bit against the plain
+  versions, each case twice;
+- ``timing``, one row a case (K13: float32 and bfloat16 diagonals, Jacobi
+  folded into A M; K24: path 7's float32 ILU, bfloat16 triangles, and
+  bfloat16 A and triangles): microseconds an iteration by the slope
+  between solves of 200 and 1000 in turns (others, this, this, others);
+  the bytes of the bound, of this design and of the barrier routine's; x,
+  r, the iterations and the monitor against the plain version and the
+  other checkouts on the solve to 1e-6 (K13 on A2, K24 on A2 with its
+  ILU).
+
+A K13 variant is a copy of the package under ``build/`` with one macro
+changed (``GK_CGS_ROWS`` or ``GK_CGS_MIN_BLOCKS`` in ``csrc/cgs_fused.cu``).
+
 Without a CUDA device it fails.
 """
 
@@ -274,7 +299,8 @@ LIBRARY = {"well": "well_spmv", "pell_spmv": "pell_spmv", "bell_spmv": "bell_spm
            "pell_gmres_fused": "gmres_fused", "mg_cg_fused": "mg_fused",
            "pell_ir_fused": "ir_fused", "idr_fused": "idr_fused",
            "pell_bicgstab_fused": "bicgstab_fused", "pell_cgs_fused": "cgs_fused",
-           "ir_fused": "ir_fused", "ir_smooth": "ir_fused", "bicg_fused": "cgs_fused"}
+           "ir_fused": "ir_fused", "ir_smooth": "ir_fused", "bicg_fused": "cgs_fused",
+           "cgs_fused": "cgs_fused", "bicgstab_ilu_fused": "trs_fused"}
 #: the whole-solve kernels of --kernels: K4 runs one column, K4m --cg-columns
 CG_KERNELS = ("cg_fused", "cg_fused_multi")
 #: K22 and K23, the kernels of the sweep solve
@@ -296,6 +322,13 @@ PELL_KRYLOV = {"pell_bicgstab_fused": "bicgstab", "pell_cgs_fused": "cgs"}
 SWEEP_KERNELS = ("pell_ir_fused", "idr_fused")
 #: K17 (both entry points) and K14 on path 1's Dia
 DIA_SWEEP_KERNELS = ("ir_fused", "ir_smooth", "bicg_fused")
+#: K13 on path 1's Dia and K24 on path 7's ILU of path 4's Dia
+CGS_ILU_KERNELS = ("cgs_fused", "bicgstab_ilu_fused")
+
+
+def max_abs_err(name, got, want):
+    """The largest |got - want| (the record_err of chip_smoke's checks)."""
+    return float((got.double() - want.double()).abs().max())
 
 
 def load_other(root: Path, tag: str):
@@ -375,7 +408,8 @@ def main():
                          "bicgstab_fused_multi (K12m), pell_cg_fused (K7), gmres_fused (K15), "
                          "pell_gmres_fused (K18), mg_cg_fused (K26, with K25, K27, K28), "
                          "pell_ir_fused (K21), idr_fused (K16), pell_bicgstab_fused (K19), "
-                         "pell_cgs_fused (K20), ir_fused and ir_smooth (K17), bicg_fused (K14)")
+                         "pell_cgs_fused (K20), ir_fused and ir_smooth (K17), bicg_fused (K14), "
+                         "cgs_fused (K13), bicgstab_ilu_fused (K24)")
     ap.add_argument("--rows", type=int, default=cs.POWERLAW_ROWS)
     ap.add_argument("--chunks", default="256", help="chunk lengths to time, comma-separated")
     ap.add_argument("--other", action="append", default=[],
@@ -486,6 +520,16 @@ def main():
         rows = cs.check_bicg_edges(gt, dev, np.random.default_rng(5))
         cs.emit({"phase": "check", "kernels": ["bicg_fused"], "edge_operators": len(rows),
                  "all_bit_equal": True, "s": round(time.perf_counter() - t0, 2)})
+    if args.check and "cgs_fused" in kernels:
+        t0 = time.perf_counter()
+        rows = cs.check_cgs_edges(gt, dev, np.random.default_rng(5))
+        cs.emit({"phase": "check", "kernels": ["cgs_fused"], "edge_operators": len(rows),
+                 "all_bit_equal": True, "s": round(time.perf_counter() - t0, 2)})
+    if args.check and "bicgstab_ilu_fused" in kernels:
+        t0 = time.perf_counter()
+        cs.check_ilu_small(gt, dev, np.random.default_rng(5), max_abs_err)
+        cs.emit({"phase": "check", "kernels": ["trs_fused", "cg_ilu_fused", "bicgstab_ilu_fused"],
+                 "all_bit_equal": True, "s": round(time.perf_counter() - t0, 2)})
     cg_kernels = [k for k in kernels if k in CG_KERNELS]
     if cg_kernels:
         bench_cg(cg_kernels, [int(k) for k in args.cg_columns.split(",")], gt, dev, card,
@@ -510,11 +554,15 @@ def main():
     dia_sweep_kernels = [k for k in kernels if k in DIA_SWEEP_KERNELS]
     if dia_sweep_kernels:
         bench_dia_sweeps(dia_sweep_kernels, gt, dev, card, copy_gbs, others_pkg)
+    cgs_ilu_kernels = [k for k in kernels if k in CGS_ILU_KERNELS]
+    if cgs_ilu_kernels:
+        bench_cgs_ilu(cgs_ilu_kernels, gt, dev, card, copy_gbs, others_pkg)
     for k in kernels:
         if k == "well":
             bench_well(args, gt, dev, card, copy_gbs, others_pkg)
         elif k not in (CG_KERNELS + TRS_KERNELS + KRYLOV_KERNELS + SOLVE_KERNELS + MG_KERNELS
-                       + SWEEP_KERNELS + DIA_SWEEP_KERNELS + ("bicgstab_fused_multi",)):
+                       + SWEEP_KERNELS + DIA_SWEEP_KERNELS + CGS_ILU_KERNELS
+                       + ("bicgstab_fused_multi",)):
             bench_spmv(k, args, gt, dev, card, copy_gbs, others_pkg)
     print(card, flush=True)
 
@@ -2194,6 +2242,177 @@ def bench_dia_sweeps(kernels, gt, dev, card, copy_gbs, others_pkg):
                       "parent_design": (diag + 76 + 2 * jb) * n}
             row("bicg_fused", case, us, nbytes, extra)
 
+
+
+def cgs_ilu_launch(mods, tag, kernel, dev, logs, args):
+    """A checkout's K13 launch (diagonals of the given dtype) or K24 launch
+    (``args`` = (A, L, U)): its own report where it has one, else its
+    cooperative grid and ptxas's registers."""
+    lib = mods[tag][kernel]._lib()
+    mod = mods[tag][kernel]
+    if kernel == "cgs":
+        code = mod.DTYPE_CODE[args]
+        if hasattr(lib, "cgs_fused_config"):
+            out = (ctypes.c_int * 4)()
+            with torch.cuda.device(dev):
+                cs.check(lib.cgs_fused_config(code, out) == 0, "cgs_fused_config")
+            return dict(zip(("blocks", "threads", "blocks_per_sm", "registers"), out))
+        return {"blocks": mod.coop_grid_blocks(lib, "cgs_fused_grid", (code,), dev)}
+    A, L, U = args
+    if hasattr(mod, "bicgstab_ilu_fused_launch"):
+        return mod.bicgstab_ilu_fused_launch(A, L, U, cs.SWEEPS7, cs.SWEEPS7, dev)
+    codes = (mod.DTYPE_CODE[A.diags.dtype], mod.DTYPE_CODE[L.diags.dtype])
+    token = ("bicgstab_ilu_fused_kernelI" + ("f" if A.diags.dtype == torch.float32 else "13")
+             + ("f" if L.diags.dtype == torch.float32 else "13"))
+    regs = [line for name, line in ptxas_registers(logs[tag]["trs_fused"]["ptxas"]).items()
+            if token in name]
+    return {"route": "barrier",
+            "blocks": mod.coop_grid_blocks(lib, "bicgstab_ilu_fused_grid", codes, dev),
+            "registers": regs[0].split()[1] if regs else None,
+            "grid_barriers": 5 + 4 * cs.SWEEPS7}
+
+
+def bench_cgs_ilu(kernels, gt, dev, card, copy_gbs, others_pkg):
+    """K13 (``cgs_fused`` an iteration) on path 1's ``poisson_2d(2048)``
+    ``Dia`` (A1): float32 and bfloat16 diagonals, Jacobi folded into A M;
+    K24 (``bicgstab_ilu_fused`` an iteration) on path 7's ILU of path 4's
+    A2 at 3 sweeps a triangle: float32, bfloat16 triangles, bfloat16 A and
+    triangles.  Build rows (ptxas, launches), then each case's microseconds
+    by the slope between solves of 200 and 1000 in turns (others, this,
+    this, others), the bytes of the bound and of each design, and the bits
+    against the plain version and the other checkouts on the solve to 1e-6
+    (K13 on A2, K24 on A2 with its ILU)."""
+    from ginkgo_tpu_torch.solver._fused_gate import fold_minv
+
+    pkgs = {"this": gt, **others_pkg}
+    mods = {tag: {"cgs": importlib.import_module(f"{pkg.__name__}.ops.cgs"),
+                  "ilu": importlib.import_module(f"{pkg.__name__}.ops.cg_ilu")}
+            for tag, pkg in pkgs.items()}
+    others = [tag for tag in mods if tag != "this"]
+    logs = {tag: importlib.import_module(f"{pkg.__name__}._build").BUILD_LOG
+            for tag, pkg in pkgs.items()}
+    s7 = cs.SWEEPS7
+
+    def ours(name):
+        return (("cgs_fused_kernel" in name and "pell" not in name)
+                or "bicgstab_ilu" in name)
+
+    t0 = time.perf_counter()
+    A1 = gt.Dia.from_matrix_data(gt.generators.poisson_2d(cs.NSIDE, dtype=np.float32),
+                                 device=dev)
+    n, nd = A1.shape[0], len(A1.offsets)
+    b1, z1 = torch.ones(n, device=dev), torch.zeros(n, device=dev)
+    minv1 = (1.0 / A1.extract_diagonal().values.float()).contiguous()
+    A2 = gt.Dia.from_matrix_data(gt.MatrixData.from_coo(*cs.convdiff_2d(cs.NSIDE)), device=dev)
+    b2 = torch.as_tensor(np.random.default_rng(cs.SEED + 7).uniform(0.5, 1.5, n)
+                         .astype(np.float32), device=dev)
+    minv2 = (1.0 / A2.extract_diagonal().values.float()).contiguous()
+    tol2 = torch.full((), (cs.TOL * float(b2.norm())) ** 2, device=dev)
+    never = torch.full((), -1.0, device=dev)
+    k24_cases = ()
+    if "bicgstab_ilu_fused" in kernels:
+        M2 = cs.ilu_factories(gt, "ilu").generate(A2.to_csr())
+        Tl, Tu, invdl, invdu = cs._ilu_parts(M2)
+        bf = torch.bfloat16
+        k24_cases = (("f32", A2, Tl, Tu), ("bf16 triangles", A2, Tl.astype(bf), Tu.astype(bf)),
+                     ("bf16", A2.reduce_storage(), Tl.astype(bf), Tu.astype(bf)))
+    cs.emit({"phase": "setup", "rows": n, "setup_s": round(time.perf_counter() - t0, 2)})
+    launch = {tag: {} for tag in mods}
+    for tag in mods:
+        if "cgs_fused" in kernels:
+            for dt in (torch.float32, torch.bfloat16):
+                launch[tag][f"cgs_fused {str(dt)[6:]}"] = cgs_ilu_launch(
+                    mods, tag, "cgs", dev, logs, dt)
+        for case, A, L, U in k24_cases:
+            launch[tag][f"bicgstab_ilu_fused {case}"] = cgs_ilu_launch(
+                mods, tag, "ilu", dev, logs, (A, L, U))
+    cs.emit({"phase": "build", "kernels": kernels,
+             "ptxas": {tag: {k: line for lib in {LIBRARY[kern] for kern in kernels}
+                             for k, line in ptxas_registers(lg[lib]["ptxas"]).items() if ours(k)}
+                       for tag, lg in logs.items()},
+             "launch": launch})
+
+    def bits(a, b):
+        """x, r, the iterations, the monitor and the stop flag bit for bit."""
+        return (all(cs.bit_equal(a[j], b[j]) for j in (0, 1, 3)) and int(a[2]) == int(b[2])
+                and bool(a[4]) == bool(b[4]))
+
+    def row(kernel, case, us, nbytes, extra):
+        best = {tag: min(v) for tag, v in us.items()}
+        cs.emit({"phase": "timing", "kernel": kernel, "case": case, "card": card, "rows": n,
+                 "copy_GBps": copy_gbs, "us": us, "bytes": nbytes,
+                 "bytes_per_row": {k: v / n for k, v in nbytes.items()},
+                 "bound_us": nbytes["bound"] / cs.PEAK_BYTES_S * 1e6,
+                 "frac_of_copy_bound_bytes": {
+                     tag: nbytes["bound"] / t / 1e3 / copy_gbs for tag, t in best.items()},
+                 **extra})
+
+    def timed(call):
+        us = {}
+
+        def measure(tag):
+            us.setdefault(tag, []).append(1e3 * cs.iter_ms(lambda its: call(tag, its), 200, 1000))
+
+        in_turns(measure, others)
+        return us
+
+    def solves(run, plain):
+        outs = {tag: run(tag) for tag in mods}
+        want = plain()
+        return {"iterations_a2": {**{t: int(o[2]) for t, o in outs.items()}, "plain": int(want[2])},
+                "bit_equal_plain": {t: bits(o, want) for t, o in outs.items()},
+                "bit_equal_this": {t: bits(o, outs["this"]) for t, o in outs.items()}}
+
+    if "cgs_fused" in kernels:
+        for case, A, mv in (("f32", A1, None), ("bf16", A1.reduce_storage(), None),
+                            ("f32 jacobi", A1, minv1)):
+            D = A.diags if mv is None else fold_minv(A, mv)
+            us = timed(lambda tag, its, D=D, A=A, mv=mv: mods[tag]["cgs"].cgs_fused(
+                D, A.offsets, b1, z1, mv, tol_sq_eff=never, max_iters=its))
+            A2c = A2 if case != "bf16" else A2.reduce_storage()
+            mv2 = None if mv is None else minv2
+            args = (A2c.diags if mv2 is None else fold_minv(A2c, mv2), A2c.offsets, b2, z1, mv2)
+            extra = solves(lambda tag: mods[tag]["cgs"].cgs_fused(
+                *args, tol_sq_eff=tol2, max_iters=cs.MAX_ITERS),
+                lambda: mods["this"]["cgs"].cgs_solve_reference(
+                    *args, tol_sq_eff=tol2, max_iters=cs.MAX_ITERS))
+            esz, jb = A.diags.element_size(), 4 * (mv is not None)
+            # the bound: the diagonals, rr (and minv) in, x, r, q, p in and
+            # out; three passes: p gathered, u and v stored and gathered; the
+            # four passes before (q and w stored in a pass of their own, w
+            # gathered in a fourth)
+            nbytes = {"bound": (esz * nd + 36 + jb) * n, "this": (2 * esz * nd + 64 + jb) * n,
+                      "four_pass_design": (2 * esz * nd + 72 + jb) * n}
+            row("cgs_fused", case, us, nbytes, extra)
+    for case, A, L, U in k24_cases:
+        us = timed(lambda tag, its, A=A, L=L, U=U: mods[tag]["ilu"].bicgstab_ilu_fused(
+            A, L, U, invdl, invdu, b2, z1, sweeps_l=s7, sweeps_u=s7, tol_sq_eff=never,
+            max_iters=its))
+        kw = dict(sweeps_l=s7, sweeps_u=s7, tol_sq_eff=tol2, max_iters=cs.MAX_ITERS)
+        extra = solves(
+            lambda tag: mods[tag]["ilu"].bicgstab_ilu_fused(A, L, U, invdl, invdu, b2, z1, **kw),
+            lambda: mods["this"]["ilu"].bicgstab_ilu_reference(A, L, U, invdl, invdu, b2, z1,
+                                                               **kw))
+        ea, et = A.diags.element_size(), L.diags.element_size()
+        nda, ndl, ndu = len(A.offsets), len(L.offsets), len(U.offsets)
+        walk = launch["this"][f"bicgstab_ilu_fused {case}"]
+        # the bound: the three operators' diagonals, x, r, p and v in and
+        # out, rr in; the walk: four walks (step 1 stages r, p and v and
+        # writes p, step 4 stages r and v and writes s), two products (the
+        # diagonals, the gathered source, rr or s, the product out) and the
+        # update (x in and out, y, z, s, t, rr in, r out); the barrier
+        # routine: the p pass, 1 + sweeps passes a triangular solve, the two
+        # products and the x and s pass and the update
+        nbytes = {"bound": (ea * nda + et * (ndl + ndu) + 44) * n,
+                  "barrier_routine": (16 + 2 * (24 + s7 * (et * ndl + 16) + s7 * (et * ndu + 16))
+                                      + 2 * (ea * nda + 12) + 24 + 28) * n}
+        if walk.get("route") == "pipelined":
+            wl, wu = walk["walks"]
+            blocks = walk["blocks"]
+            nbytes["this"] = (walk_bytes(L, wl, s7, blocks, 3) + walk_bytes(U, wu, s7, blocks, 1)
+                              + walk_bytes(L, wl, s7, blocks, 2) + walk_bytes(U, wu, s7, blocks, 1)
+                              + (8 + 2 * (ea * nda + 12) + 32) * n)
+        row("bicgstab_ilu_fused", case, us, nbytes, extra)
 
 def profile_calls(calls):
     """Device microseconds per call of each kernel that ten calls of each
