@@ -60,17 +60,18 @@ Phases, each of which raises on failure:
    iterations, frozen columns bit for bit),
    the PELL SpMV/SpMM K5/K6 on poisson_3d(160) (S = 8, float32 and
    bfloat16/int8) and on an unstructured local-scatter pattern of 2^20
-   rows (S = "auto" and S = 8), K5 bit for bit; K5 and K10 bit for bit
-   and each twice on small plans and Bells that reach every branch of
+   rows (S = "auto" and S = 8), K5 bit for bit; K5, K10 and K11 bit for
+   bit and each twice on small plans and Bells that reach every branch of
    their rings (``check_spmv_edges``: several steps a tile and none, rows
    past the last tile's end, int32 lane indices, S = 16/32, bfloat16 and
    float64 values, float64 vectors; BR = 8 to 128, K = 1 to 20, x cut
    inside a panel, not 16-byte aligned, NaN in x[0:128] with padding
-   panels); the Pell whole-solve K7 at 24^3 and 160^3 (iterations, x, r
-   and the monitor bit for bit) and on small Pells that reach every
-   branch of its chunks (``check_pell_cg_edges``: S = 1, 3, 8 and 16, G =
-   4, n not a multiple of a chunk or a tile, 63 chunks, bfloat16 values,
-   int32 lane indices, Jacobi, FCG, implicit mode, a NaN b; bit for bit);
+   panels; K11 at 2, 3, 4, 8 and 9 columns); the Pell whole-solve K7 at
+   24^3 and 160^3 (iterations, x, r and the monitor bit for bit) and on
+   small Pells that reach every branch of its chunks
+   (``check_pell_cg_edges``: S = 1, 3, 8 and 16, G = 4, n not a multiple
+   of a chunk or a tile, 63 chunks, bfloat16 values, int32 lane indices,
+   Jacobi, FCG, implicit mode, a NaN b; bit for bit);
 3. main path 1: fused CG (K4) with float32 and bfloat16 diagonals and with
    Jacobi, the streaming CG route (K1), a 4-column solve (K4m) and an
    explicit streaming 4-column solve (K3), each checked against a float64
@@ -90,7 +91,8 @@ Phases, each of which raises on failure:
    and four (K11) with float32 and bfloat16 panels and checked against a
    float64 product; then K8-K11 against their plain versions on the plans
    of the path (K8/K9 at the chosen T, at T = 1 and on the 2^17 plan cut
-   into one-step chunks, each called twice for the same bits), with each
+   into one-step chunks, K10/K11 bit for bit, each called twice for the
+   same bits), with each
    plan's chunks, split supertiles and scratch bytes;
 6. main path 4: the four solvers fused (K12-K15) with float32 and
    bfloat16 diagonals and with Jacobi, and streaming, each checked against
@@ -409,6 +411,30 @@ def device_ms(fn, kernel, calls=10):
     return us / calls / 1e3
 
 
+def graph_ms(fn, calls=20, reps=5):
+    """ms per call of ``fn`` replayed from a CUDA graph of ``calls`` calls
+    (the best of ``reps`` replays, CUDA events): the card's time without the
+    host's, which a wrapper call can exceed."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / calls)
+    del graph
+    return best
+
+
 def host_us(fn, calls=200):
     """Host microseconds a call takes to return (wrapper and launch)."""
     fn()
@@ -720,8 +746,8 @@ def check_path3_kernels(gt, dev, rng, p3, record_err):
     split), each called twice; K10/K11 with float32 and bfloat16 panels,
     each called twice.  Kernel and plain version walk the same work list in
     the same order: equal bit for bit is expected, 1e-5 (float32) or 1e-12
-    (float64) relative is required (K10: the same bits), and two calls must
-    give the same bits."""
+    (float64) relative is required (K10 and K11: the same bits), and two
+    calls must give the same bits."""
     from ginkgo_tpu_torch.ops import bell as ops_bell
     from ginkgo_tpu_torch.ops import well as ops_well
 
@@ -738,8 +764,9 @@ def check_path3_kernels(gt, dev, rng, p3, record_err):
             k_s = time.perf_counter() - t0
             want = plain(A, v)
             err = record_err(name, got, want)
-            # K10 keeps its plain version's summation order: the same bits
-            same = bit_equal(got, want) if name == "bell_spmv" else torch.allclose(
+            # K10 and K11 keep their plain versions' summation order: the
+            # same bits
+            same = bit_equal(got, want) if name.startswith("bell_") else torch.allclose(
                 got, want, rtol=tol, atol=tol)
             check(same, f"{name} differs from its plain version ({label}, {A.dtype}, {vec}): {err}")
             row[name + "_max_abs_err"] = err
@@ -884,24 +911,33 @@ def bell_edge_operators(gt, dev):
     return out
 
 
+#: the column counts K11 is checked at on the edge Bells: one launch of
+#: 2, 3, 4 (16-byte rows) and 8 columns, and 9 in two launches (8 and 1)
+BELL_EDGE_COLUMNS = (2, 3, 4, 8, 9)
+
+
 def check_spmv_edges(gt, dev, rng, record_err=None):
-    """K5 and K10 against their plain versions, bit for bit, on the plans
-    and Bells of ``pell_edge_plans`` and ``bell_edge_operators``: K5 with
-    float32, bfloat16 and float64 values and float32 and float64 vectors,
-    K10 with float32 and bfloat16 panels and an x that is 16-byte aligned
-    and one that is not; x holds NaN, Inf and -0.0 (K10: a NaN in x[0:128]
-    too, which reaches every padding panel).  Each kernel is called twice
-    and must give the same bits.  Returns the rows it emitted."""
+    """K5, K10 and K11 against their plain versions, bit for bit, on the
+    plans and Bells of ``pell_edge_plans`` and ``bell_edge_operators``: K5
+    with float32, bfloat16 and float64 values and float32 and float64
+    vectors, K10 and K11 (at ``BELL_EDGE_COLUMNS``) with float32 and
+    bfloat16 panels and an x or X that is 16-byte aligned and one that
+    starts a float past an aligned start; x and X hold NaN, Inf and -0.0
+    (and in the unaligned case a NaN in row 3, which reaches every padding
+    panel).  Each kernel is called twice and must give the same bits.
+    Returns the rows it emitted."""
     from ginkgo_tpu_torch.ops import bell as ops_bell
     from ginkgo_tpu_torch.ops import pell as ops_pell
 
-    def vector(n, dtype, offset=0):
-        base = torch.empty(n + offset, dtype=dtype, device=dev)
-        x = base[offset:]
-        x.copy_(torch.as_tensor(rng.standard_normal(n), dtype=dtype))
-        x[torch.as_tensor(rng.integers(0, n, 3), device=dev)] = float("nan")
-        x[torch.as_tensor(rng.integers(0, n, 2), device=dev)] = float("-inf")
-        x[torch.as_tensor(rng.integers(0, n, 3), device=dev)] = -0.0
+    def vector(n, dtype, offset=0, k=None, gen=rng):
+        shape = (n,) if k is None else (n, k)
+        base = torch.empty(n * (k or 1) + offset, dtype=dtype, device=dev)
+        x = base[offset:].view(shape)
+        x.copy_(torch.as_tensor(gen.standard_normal(shape), dtype=dtype))
+        flat, m = x.view(-1), x.numel()
+        flat[torch.as_tensor(gen.integers(0, m, 3), device=dev)] = float("nan")
+        flat[torch.as_tensor(gen.integers(0, m, 2), device=dev)] = float("-inf")
+        flat[torch.as_tensor(gen.integers(0, m, 3), device=dev)] = -0.0
         return x
 
     def run(name, kern, plain, A, x, label):
@@ -929,21 +965,29 @@ def check_spmv_edges(gt, dev, rng, record_err=None):
                      "empty_tiles": int((tiles == 0).sum()), "cases": n_cases,
                      "bit_equal": True, "repeat_bit_equal": True})
         emit(rows[-1])
+    # K11's X from a generator of its own, so that the caller's draws stay
+    # as they were before K11 was checked here
+    gen_k11 = np.random.default_rng(SEED + 20)
     for label, B in bell_edge_operators(gt, dev).items():
-        n_cases = 0
+        n_cases = {"bell_spmv": 0, "bell_spmm": 0}
         for Bv in (B, B.reduce_storage()):
             for offset in (0, 1):  # a view one float past an aligned start
-                x = vector(B.shape[1], torch.float32, offset)
-                if offset:
-                    x[3] = float("nan")  # every padding panel reads it
-                run("bell_spmv", ops_bell.bell_spmv, ops_bell.bell_spmv_reference, Bv, x,
-                    f"{label}, {Bv.values.dtype}, x offset {offset}")
-                n_cases += 1
-        rows.append({"phase": "kernel_check", "kernel": "bell_spmv", "matrix": label,
-                     "shape": list(B.shape), "BR": B.block_rows, "K": B.values.shape[1],
-                     "padding_panels": int((B.panel_valid == 0).sum()), "cases": n_cases,
-                     "bit_equal": True, "repeat_bit_equal": True})
-        emit(rows[-1])
+                for k in (None,) + BELL_EDGE_COLUMNS:
+                    x = vector(B.shape[1], torch.float32, offset, k, rng if k is None else gen_k11)
+                    if offset:
+                        x[3] = float("nan")  # every padding panel reads it
+                    name = "bell_spmv" if k is None else "bell_spmm"
+                    run(name, getattr(ops_bell, name), getattr(ops_bell, name + "_reference"),
+                        Bv, x, f"{label}, {Bv.values.dtype}, x offset {offset}, k = {k or 1}")
+                    n_cases[name] += 1
+        for name, n in n_cases.items():
+            rows.append({"phase": "kernel_check", "kernel": name, "matrix": label,
+                         "shape": list(B.shape), "BR": B.block_rows, "K": B.values.shape[1],
+                         "padding_panels": int((B.panel_valid == 0).sum()), "cases": n,
+                         "bit_equal": True, "repeat_bit_equal": True})
+            if name == "bell_spmm":
+                rows[-1]["columns"] = list(BELL_EDGE_COLUMNS)
+            emit(rows[-1])
     return rows
 
 
@@ -4762,9 +4806,10 @@ def main():
     stamp("check K5-K7 at 160^3, K5/K6 on local_scatter")
     t0 = time.perf_counter()
     edges = check_spmv_edges(gt, dev, rng, record_err)
-    emit({"phase": "kernel_check", "kernels": ["pell_spmv", "bell_spmv"], "edge_cases": len(edges),
+    emit({"phase": "kernel_check", "kernels": ["pell_spmv", "bell_spmv", "bell_spmm"],
+          "edge_cases": len(edges),
           "s": round(time.perf_counter() - t0, 3)})
-    stamp("K5/K10 edges")
+    stamp("K5/K10/K11 edges")
 
     crit = [stop.Iteration(max_iters=MAX_ITERS), stop.ResidualNorm(tolerance=TOL)]
 
@@ -5170,11 +5215,16 @@ def main():
             })
         for name, (kern, plain, lib, nbytes, flops) in cases.items():
             k_ms = slope_ms(kern, 5, 25)
+            extra = {}
+            if name == "bell_spmm":
+                # a call's host time exceeds K11's time on the card, so the
+                # slope measures the host: K11's ms is a CUDA graph's
+                extra["slope_ms"], k_ms = k_ms, graph_ms(kern)
             p_ms = slope_ms(plain, 1, 2, 1)
             gbs = nbytes / k_ms / 1e6
             timing[f"{name}_{storage}"] = {"ms": k_ms, "plain_ms": p_ms, "GBps": gbs,
-                                           "frac_of_copy": gbs / copy_gbs}
-            if name == "bell_spmv":
+                                           "frac_of_copy": gbs / copy_gbs, **extra}
+            if name in ("bell_spmv", "bell_spmm"):
                 timing[f"{name}_{storage}"].update(
                     device_ms=device_ms(kern, name), host_us_per_call=host_us(kern))
             if storage == "f32":
@@ -5265,9 +5315,10 @@ def main():
         stamp(step)
     timing["t_s"] = elapsed()
     emit(timing)
-    # the launches of K5 and K10 on the main path's operators (float32), and
-    # their device time by kernel name
-    launch_info = {"pell_spmv": ops_pell.spmv_launch(P), "bell_spmv": ops_bell.spmv_launch(Bop)}
+    # the launches of K5, K10 and K11 (k = 4) on the main path's operators
+    # (float32), and their device time by kernel name
+    launch_info = {"pell_spmv": ops_pell.spmv_launch(P), "bell_spmv": ops_bell.spmv_launch(Bop),
+                   "bell_spmm": ops_bell.spmm_launch(Bop, X_b.shape[1])}
     for name in launch_info:
         launch_info[name]["device_ms"] = timing[f"{name}_f32"]["device_ms"]
     # K4's and K4m's (k = 4) cooperative grids with float32 diagonals

@@ -1,6 +1,6 @@
 // Asynchronous copies from device memory into shared memory (cp.async,
 // sm_80 and later), shared by the kernels that stream a plan through a ring
-// of shared memory: K8/K9 (well_spmv.cu), K10 (bell_spmv.cu) and the
+// of shared memory: K8/K9 (well_spmv.cu), K10 and K11 (bell_spmv.cu) and the
 // pipelined sweep solves of K22/K23 (tri_walk.cuh).  Each
 // thread copies 16 or 4 bytes; a thread commits its copies into groups and
 // waits until at most N groups are still in flight, and a block barrier then
@@ -64,3 +64,43 @@ template <int N>
 __device__ __forceinline__ void gk_cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+
+// -- mbarriers (K11: a producer warp's copies signal the consumer warps) -----------
+
+__device__ __forceinline__ void gk_mbar_init(unsigned long long* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(gk_smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// One arrival of the executing thread.
+__device__ __forceinline__ void gk_mbar_arrive(unsigned long long* bar) {
+  asm volatile(
+      "{\n"
+      ".reg .b64 state;\n"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n"
+      "}\n" ::"r"(gk_smem_addr(bar))
+      : "memory");
+}
+
+// One arrival once every cp.async the executing thread issued before has
+// landed (the barrier's count includes it).
+__device__ __forceinline__ void gk_cp_mbar_arrive(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(gk_smem_addr(bar))
+               : "memory");
+}
+
+// Wait until the phase of the given parity has completed.
+__device__ __forceinline__ void gk_mbar_wait(unsigned long long* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "GK_MBAR_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra GK_MBAR_WAIT;\n"
+      "}\n" ::"r"(gk_smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void gk_cp_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+

@@ -62,15 +62,45 @@
 //    that card (PERF.md).  The plan's copies carry no L2 hint: with one,
 //    nvcc 12.9's code for the unrolled prologue stopped on an illegal
 //    instruction in every block with a second stage.
-// K11 reads each panel once for up to GK_BELL_COLS right-hand sides, one
-// thread a row.  No tensor cores.
+//
+// K11's design.  One thread a row (256-thread blocks, 128 of them on that
+// Bell) read X's row for every lane from device memory, 8 predicated column
+// slots at a time, and each panel again for every further group of 8
+// columns: 254 us at k = 4, 0.40 TB/s.  Now K10's stream at k columns:
+//  - Persistent blocks, each a run of whole row blocks, stream the panel
+//    rows through a ring of shared memory, a stage at a time.  Warp 0 is a
+//    producer: it issues a stage's cp.async copies (the panel ids loaded a
+//    stage ahead), and a stage's full mbarrier completes when they land;
+//    the consumer warps sum the stage and release it through its empty
+//    mbarrier.  Sums and copies overlap across warps, where K10's threads
+//    do both in turn: with every thread issuing its copies and summing, a
+//    stage's copies took a third of a block's time on that card.
+//  - A stage's x panels arrive k columns wide, laid out [lane][column]: in
+//    row-major X the 128 rows of a panel are one run of 512 k bytes, copied
+//    16 bytes at a time when X is 16-byte aligned (the piece that straddles
+//    n_cols copies its bytes inside X and zero-fills the rest), 4 bytes at a
+//    time otherwise.  Four lanes' columns are 16 k bytes at a 16-byte
+//    boundary, so a thread reads them with k vector loads; the 8 threads of
+//    a quarter warp read one panel (BR is a multiple of 8), one address.
+//  - One consumer thread a staged panel row keeps k lane sums, each from 0
+//    over l = 0..127 in order; then one thread a (row, column) pair adds the
+//    panel sums in panel order: column j is K10 on column j, bit for bit.
+//    No tensor cores: they would not keep the order, and the 8 flops a cell
+//    are a few us of CUDA-core issue.
+//  - Columns go in groups of GK_BELL_COLS, a launch a group; each launch
+//    reads the panels once.  A group narrower than X stages each lane's
+//    columns, 16 bytes at a time where X, k and the group allow it.
+//  - The x panels add k / BR of the panels' bytes in L2-to-SM traffic (half
+//    at k = 4, BR = 8), and the copies reached about 3.3 TB/s from L2 and
+//    device memory together on that card: 43 us at k = 4 in float32, 30 us
+//    with bfloat16 panels (PERF.md, with the shapes that lost).
 
 #include <stdint.h>
 
 #include "async.cuh"
 #include "common.cuh"
 
-#define GK_BELL_THREADS 256
+// K11: columns a launch
 #define GK_BELL_COLS 8
 // K10: threads a block, panel rows a stage (one lane sum a thread) and
 // stages in the ring
@@ -273,48 +303,263 @@ __global__ void __launch_bounds__(GK_BELL_RING_THREADS)
   }
 }
 
-template <typename TV>
-__global__ void __launch_bounds__(GK_BELL_THREADS)
-    bell_spmm_kernel(const TV* __restrict__ values, const int* __restrict__ pids,
-                     int K, int BR, const float* __restrict__ X,
-                     float* __restrict__ Y, long long n_rows, long long n_cols,
-                     int k) {
-  const long long row = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (row >= n_rows) return;
-  const long long rb = row / BR;
-  const int r = (int)(row % BR);
-  const int cb = blockIdx.y * GK_BELL_COLS;
-  const int kc = min(GK_BELL_COLS, k - cb);
-  float total[GK_BELL_COLS];
+// -- K11 ----------------------------------------------------------------------------
+
+// K11's shape for float32 or bfloat16 panels at KC columns: consumer warps a
+// block (one panel row a thread), stages in the ring, panel rows a stage,
+// threads a block (one producer warp besides) and the x panels a stage can
+// touch at most (BR a multiple of 8).  Two consumer warps and two stages
+// where two such blocks fit an SM at BR = 8 (113 KB a block), else one
+// consumer warp and three stages (float32 panels at 6 columns or more): on
+// that card each lost 10-27% where the other was chosen (PERF.md).
+template <typename TV, int KC>
+struct GkBellmShape {
+  static constexpr int WC =
+      2 * (16 + 64 * gk_bell_row_bytes<TV>() + 8 * GK_LANES * KC * 4) + (2 * 64 + 8) * KC * 4 <=
+              113 * 1024
+          ? 2
+          : 1;
+  static constexpr int NS = WC == 1 ? 3 : 2;
+  static constexpr int R = 32 * WC;
+  static constexpr int T = 32 * (WC + 1);
+  static constexpr int XP = R / 8 + 2;
+};
+
+// How a column group of X reaches shared memory: the panel's run of 512 k
+// bytes in 16-byte pieces (the group is all of X, X 16-byte aligned), each
+// lane's columns in 16-byte pieces (X aligned, k and the group multiples of
+// 4), or 4 bytes at a time.
+enum GkBellXMode : int { GK_BELLX_RUN = 0, GK_BELLX_LANE16 = 1, GK_BELLX_LANE4 = 2 };
+
+template <typename TV, int KC>
+__host__ __device__ inline int gk_bellm_stage_bytes(int BR) {
+  using S = GkBellmShape<TV, KC>;
+  return S::R * gk_bell_row_bytes<TV>() + gk_bell_xpanels(S::R, BR) * GK_LANES * KC * 4;
+}
+
+// The ring's full and empty barriers (16 bytes a stage), the ring, KC lane
+// sums a staged row twice over (consecutive stages alternate) and KC running
+// totals a row of the row block.
+template <typename TV, int KC>
+static size_t gk_bellm_block_bytes(int BR) {
+  using S = GkBellmShape<TV, KC>;
+  return (size_t)S::NS * (16 + gk_bellm_stage_bytes<TV, KC>(BR)) +
+         (size_t)(2 * S::R + BR) * KC * sizeof(float);
+}
+
+// The panel ids of the x panels that panel rows [q0, q0 + n) read, loaded a
+// stage before the copies that need them.
+template <int XP>
+__device__ __forceinline__ void gk_bellm_stage_pids(int* pid, const int* __restrict__ pids, int q0,
+                                                    int n, int BR) {
+  const int p0 = q0 / BR;
+  const int np = (q0 + n - 1) / BR - p0 + 1;
 #pragma unroll
-  for (int c = 0; c < GK_BELL_COLS; ++c) total[c] = 0.0f;
-  for (int p = 0; p < K; ++p) {
-    const long long c0 = (long long)pids[rb * K + p] * GK_LANES;
-    const TV* v = values + ((rb * K + p) * BR + r) * GK_LANES;
-    float lane_sum[GK_BELL_COLS];
+  for (int u = 0; u < XP; ++u) pid[u] = u < np ? pids[p0 + u] : 0;
+}
+
+// The producer warp's copies of panel rows [q0, q0 + n) and of the x panels
+// they read, columns [cb, cb + KC) of X, into a stage; lane `lane` takes its
+// share.  The trip counts are the compiler's, so that a copy of a panel row
+// is one instruction at a fixed offset.
+template <typename TV, int KC>
+__device__ __forceinline__ void gk_bellm_stage_load(unsigned char* st,
+                                                    const TV* __restrict__ values, const int* pid,
+                                                    int q0, int n, int BR,
+                                                    const float* __restrict__ X, long long n_cols,
+                                                    int k, int cb, int xmode, int lane) {
+  using S = GkBellmShape<TV, KC>;
+  constexpr int RB = gk_bell_row_bytes<TV>();
+  constexpr int VP = GK_LANES * (int)sizeof(TV) / 16;  // 16-byte pieces a panel row
+  static_assert(32 % VP == 0 && S::R % (32 / VP) == 0, "a lane copies one piece of whole rows");
+  constexpr int TR = 32 / VP;  // rows a pass of the warp copies
+  const int row0 = lane / VP, piece = lane % VP;
+  unsigned char* dst = st + row0 * RB + piece * 16;
+  const unsigned char* src =
+      reinterpret_cast<const unsigned char*>(values + ((long long)q0 + row0) * GK_LANES) + piece * 16;
 #pragma unroll
-    for (int c = 0; c < GK_BELL_COLS; ++c) lane_sum[c] = 0.0f;
-    for (int l0 = 0; l0 < GK_LANES; l0 += 8) {
-      float vv[8];
-      gk_bell_load8(v + l0, vv);
+  for (int j = 0; j < S::R / TR; ++j) {
+    if (row0 + j * TR < n) gk_cp16(dst + j * TR * RB, src + (long long)j * TR * GK_LANES * sizeof(TV));
+  }
+  float* xs = reinterpret_cast<float*>(st + S::R * RB);
+  const int np = (q0 + n - 1) / BR - q0 / BR + 1;
+  constexpr int XQ = GK_LANES * KC / 4;  // 16-byte pieces of a panel's run of X
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const long long col = c0 + l0 + j;
-        const bool in = col < n_cols;
-        const float* xr = X + (in ? col : 0) * k + cb;
+  for (int u = 0; u < S::XP; ++u) {
+    if (u >= np) break;
+    float* dx = xs + u * GK_LANES * KC;
+    const long long r0 = (long long)pid[u] * GK_LANES;  // the panel's first row of X
+    if (xmode == GK_BELLX_RUN) {
+      // k == KC: rows [r0, r0 + 128) of X are KC * 128 floats in a row
+      const float* run = X + r0 * KC;
+      const long long left = (n_cols - r0) * KC;  // floats of the run inside X
+      if (left >= GK_LANES * KC) {
 #pragma unroll
-        for (int c = 0; c < GK_BELL_COLS; ++c) {
-          if (c < kc) lane_sum[c] += vv[j] * (in ? xr[c] : 0.0f);
+        for (int m = 0; m < (XQ + 31) / 32; ++m) {
+          const int j = lane + m * 32;
+          if (XQ % 32 == 0 || j < XQ) gk_cp16(dx + 4 * j, run + 4 * j);
+        }
+      } else {  // X's last panel: its bytes inside X, zeros past n_cols
+        for (int j = lane; j < XQ; j += 32) {
+          const long long e = 4LL * j;
+          const int bytes = left - e >= 4 ? 16 : (left > e ? (int)(left - e) * 4 : 0);
+          gk_cp16_n(dx + 4 * j, bytes ? run + e : X, bytes);
         }
       }
+    } else if (KC % 4 == 0 && xmode == GK_BELLX_LANE16) {
+      constexpr int LP = KC / 4 > 0 ? KC / 4 : 1;  // 16-byte pieces a lane
+      for (int j = lane; j < GK_LANES * LP; j += 32) {
+        const int l = j / LP, part = j % LP;
+        const bool in = r0 + l < n_cols;
+        gk_cp16_n(dx + l * KC + 4 * part, in ? X + (r0 + l) * k + cb + 4 * part : X, in ? 16 : 0);
+      }
+    } else {
+      for (int j = lane; j < GK_LANES * KC; j += 32) {
+        const int l = j / KC, c = j % KC;
+        const bool in = r0 + l < n_cols;
+        gk_cp4_n(dx + j, in ? X + (r0 + l) * k + cb + c : X, in ? 4 : 0);
+      }
     }
-#pragma unroll
-    for (int c = 0; c < GK_BELL_COLS; ++c) total[c] += lane_sum[c];
   }
-  float* yr = Y + row * k + cb;
+}
+
+// Y[:, cb:cb + KC] = A X[:, cb:cb + KC] for row-major X (n_cols, k) and Y
+// (n_rows, k).  Warp 0 is the producer: it fills the ring's stages by
+// cp.async, and each stage's full barrier completes once its copies have
+// landed.  The consumer warps take one panel row a thread, release the
+// stage through its empty barrier, and add the panel sums.  Panel rows are
+// counted in int, as in K10.
+template <typename TV, int KC>
+__global__ void __launch_bounds__(GkBellmShape<TV, KC>::T)
+    bell_spmm_kernel(const TV* __restrict__ values, const int* __restrict__ pids, int K, int BR,
+                     const float* __restrict__ X, float* __restrict__ Y, long long n_rows,
+                     long long n_cols, int k, int cb, int nrb, int xmode) {
+  using S = GkBellmShape<TV, KC>;
+  constexpr int R = S::R, NS = S::NS, XP = S::XP, NC = 32 * S::WC;  // NC: consumer threads
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(gk_bell_smem);
+  unsigned long long* empty = full + NS;
+  unsigned char* ring = gk_bell_smem + 16 * NS;
+  const int stage_bytes = gk_bellm_stage_bytes<TV, KC>(BR);
+  float* psum = reinterpret_cast<float*>(ring + NS * stage_bytes);  // (2, R, KC)
+  float* tot = psum + 2 * R * KC;                                   // (BR, KC)
+  const int rows_rb = K * BR;
+  const int rb_begin = (int)((long long)nrb * blockIdx.x / gridDim.x);
+  const int q_begin = rb_begin * rows_rb;
+  const int q_end = (int)((long long)nrb * (blockIdx.x + 1) / gridDim.x) * rows_rb;
+  const int ng = (q_end - q_begin + R - 1) / R;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      gk_mbar_init(full + s, 32);
+      gk_mbar_init(empty + s, NC);
+    }
+  }
+  for (int t = threadIdx.x; t < BR * KC; t += S::T) tot[t] = 0.0f;
+  __syncthreads();
+  if (threadIdx.x < 32) {  // the producer warp
+    const int lane = threadIdx.x;
+    int pid[XP];
+    if (ng > 0) gk_bellm_stage_pids<XP>(pid, pids, q_begin, min(R, q_end - q_begin), BR);
+    for (int g = 0; g < ng; ++g) {
+      const int s = g % NS;
+      if (g >= NS) gk_mbar_wait(empty + s, (g / NS - 1) & 1);  // the consumers are done with it
+      const int q0 = q_begin + g * R;
+      gk_bellm_stage_load<TV, KC>(ring + s * stage_bytes, values, pid, q0, min(R, q_end - q0), BR,
+                                  X, n_cols, k, cb, xmode, lane);
+      gk_cp_mbar_arrive(full + s);
+      if (g + 1 < ng) gk_bellm_stage_pids<XP>(pid, pids, q0 + R, min(R, q_end - q0 - R), BR);
+    }
+    gk_cp_wait_all();
+    return;
+  }
+  // a consumer thread's panel row of a stage; the 8 rows of a quarter warp
+  // lie in one panel (BR and the stage's start are multiples of 8)
+  const int i = threadIdx.x - 32;
+  // where the stage starts in the stream: q0 % BR, and its first panel's
+  // place in its row block and that row block
+  int q_mod = 0, p_k = 0, p_rb = rb_begin;
+  for (int g = 0; g < ng; ++g) {
+    const int s = g % NS;
+    gk_mbar_wait(full + s, (g / NS) & 1);
+    const unsigned char* st = ring + s * stage_bytes;
+    const float* xs = reinterpret_cast<const float*>(st + R * gk_bell_row_bytes<TV>());
+    float* ps = psum + (g & 1) * R * KC;
+    const int n = min(R, q_end - q_begin - g * R);
+    // KC lane sums of the row, lanes in order
+    if (i < n) {
+      const TV* v = reinterpret_cast<const TV*>(st + i * gk_bell_row_bytes<TV>());
+      const float* xr = xs + ((q_mod + i) / BR) * GK_LANES * KC;
+      float acc[KC];
 #pragma unroll
-  for (int c = 0; c < GK_BELL_COLS; ++c) {
-    if (c < kc) yr[c] = total[c];
+      for (int c = 0; c < KC; ++c) acc[c] = 0.0f;
+#pragma unroll 2
+      for (int l0 = 0; l0 < GK_LANES; l0 += 8) {
+        float w[8];
+        gk_bell_load8(v + l0, w);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // lanes l0 + 4h .. l0 + 4h + 3, KC columns each: KC aligned float4s
+          float xv[4 * KC];
+          const float4* xq = reinterpret_cast<const float4*>(xr + (l0 + 4 * h) * KC);
+#pragma unroll
+          for (int m = 0; m < KC; ++m) {
+            const float4 q = xq[m];
+            xv[4 * m] = q.x; xv[4 * m + 1] = q.y; xv[4 * m + 2] = q.z; xv[4 * m + 3] = q.w;
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+#pragma unroll
+            for (int c = 0; c < KC; ++c) acc[c] += w[4 * h + j] * xv[j * KC + c];
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < KC; ++c) ps[i * KC + c] = acc[c];
+    }
+    gk_mbar_arrive(empty + s);  // this thread is done with the stage
+    asm volatile("bar.sync 1, %0;\n" ::"n"(NC) : "memory");  // the stage's lane sums are in
+    // one thread a (row, column) pair: its panel sums in panel order into
+    // its total; row r of the stage's panels sits at i = first, first + BR,
+    // ... (at most XP of them, BR >= 8), loaded before they are added
+    for (int t = i; t < BR * KC; t += NC) {
+      const int r = t / KC, c = t % KC;
+      const bool next = r < q_mod;  // row r's first panel here is the stage's second
+      const int first = next ? r - q_mod + BR : r - q_mod;
+      int kk = p_k + next, rb = p_rb;
+      if (kk == K) {
+        kk = 0;
+        ++rb;
+      }
+      float pv[XP];
+#pragma unroll
+      for (int j = 0; j < XP; ++j) {
+        const int ii = first + j * BR;
+        pv[j] = ii < n ? ps[ii * KC + c] : 0.0f;
+      }
+      float tt = tot[t];
+#pragma unroll
+      for (int j = 0; j < XP; ++j) {
+        if (first + j * BR < n) {
+          tt += pv[j];
+          if (++kk == K) {
+            const long long row = (long long)rb * BR + r;
+            if (row < n_rows) Y[row * k + cb + c] = tt;
+            tt = 0.0f;
+            kk = 0;
+            ++rb;
+          }
+        }
+      }
+      tot[t] = tt;
+    }
+    // the next stage starts R rows on
+    q_mod += R;
+    while (q_mod >= BR) {
+      q_mod -= BR;
+      if (++p_k == K) {
+        p_k = 0;
+        ++p_rb;
+      }
+    }
   }
 }
 
@@ -382,16 +627,69 @@ static int launch_spmv(const void* values, const int* pids, int K, int BR,
   return (int)cudaGetLastError();
 }
 
-template <typename TV>
-static int launch_spmm(const void* values, const int* pids, int K, int BR,
-                       const float* X, float* Y, long long n_rows,
-                       long long n_cols, int k, cudaStream_t stream) {
-  const long long bx = (n_rows + GK_BELL_THREADS - 1) / GK_BELL_THREADS;
-  const int by = (k + GK_BELL_COLS - 1) / GK_BELL_COLS;
-  bell_spmm_kernel<TV><<<dim3((unsigned)bx, (unsigned)by), GK_BELL_THREADS, 0,
-                         stream>>>((const TV*)values, pids, K, BR, X, Y,
-                                   n_rows, n_cols, k);
+// K11's persistent grid for one column group of KC columns.
+template <typename TV, int KC>
+static int gk_bell_spmm_plan(int K, int BR, long long n_rows, bool want_regs, GkRingLaunch* L,
+                             int* nrb) {
+  const long long blocks = (n_rows + BR - 1) / BR;
+  if (BR % 8 || blocks * K * BR > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  *nrb = (int)blocks;
+  return gk_ring_launch(bell_spmm_kernel<TV, KC>, GkBellmShape<TV, KC>::T,
+                        gk_bellm_block_bytes<TV, KC>(BR), blocks, want_regs, L);
+}
+
+// Plan (and, when `launch`, launch) the group of columns [cb, cb + KC);
+// shape = {panel rows a stage, stages, dynamic shared bytes a block}.
+template <typename TV, int KC>
+static int gk_bell_spmm_group(const void* values, const int* pids, int K, int BR, const float* X,
+                              float* Y, long long n_rows, long long n_cols, int k, int cb,
+                              bool launch, cudaStream_t stream, GkRingLaunch* L, int* shape) {
+  shape[0] = GkBellmShape<TV, KC>::R;
+  shape[1] = GkBellmShape<TV, KC>::NS;
+  shape[2] = (int)gk_bellm_block_bytes<TV, KC>(BR);
+  int nrb;
+  const int status = gk_bell_spmm_plan<TV, KC>(K, BR, n_rows, !launch, L, &nrb);
+  if (status || !launch) return status;
+  const bool aligned = (reinterpret_cast<uintptr_t>(X) & 15) == 0;
+  const int xmode = aligned && KC == k ? GK_BELLX_RUN
+                    : aligned && k % 4 == 0 && KC % 4 == 0 ? GK_BELLX_LANE16
+                                                           : GK_BELLX_LANE4;
+  bell_spmm_kernel<TV, KC><<<L->grid, L->threads, L->smem, stream>>>(
+      (const TV*)values, pids, K, BR, X, Y, n_rows, n_cols, k, cb, nrb, xmode);
   return (int)cudaGetLastError();
+}
+
+template <typename TV>
+static int gk_bell_spmm_cols(int kc, const void* values, const int* pids, int K, int BR,
+                             const float* X, float* Y, long long n_rows, long long n_cols, int k,
+                             int cb, bool launch, cudaStream_t stream, GkRingLaunch* L,
+                             int* shape) {
+#define GK_BELLM_CASE(N)                                                                  \
+  case N:                                                                                \
+    return gk_bell_spmm_group<TV, N>(values, pids, K, BR, X, Y, n_rows, n_cols, k, cb,    \
+                                     launch, stream, L, shape);
+  switch (kc) {
+    GK_BELLM_CASE(1) GK_BELLM_CASE(2) GK_BELLM_CASE(3) GK_BELLM_CASE(4)
+    GK_BELLM_CASE(5) GK_BELLM_CASE(6) GK_BELLM_CASE(7) GK_BELLM_CASE(8)
+  }
+#undef GK_BELLM_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// One launch a group of GK_BELL_COLS columns (the last one narrower).
+template <typename TV>
+static int launch_spmm(const void* values, const int* pids, int K, int BR, const float* X,
+                       float* Y, long long n_rows, long long n_cols, int k,
+                       cudaStream_t stream) {
+  for (int cb = 0; cb < k; cb += GK_BELL_COLS) {
+    GkRingLaunch L;
+    int shape[3];
+    const int kc = k - cb < GK_BELL_COLS ? k - cb : GK_BELL_COLS;
+    const int status = gk_bell_spmm_cols<TV>(kc, values, pids, K, BR, X, Y, n_rows, n_cols, k,
+                                             cb, true, stream, &L, shape);
+    if (status) return status;
+  }
+  return 0;
 }
 
 // values: float32 or bfloat16, 16-byte aligned; vectors float32.
@@ -443,5 +741,33 @@ extern "C" int bell_spmv_config(int v_dtype, int K, int BR, long long n_rows, in
   const int v[7] = {L.grid, L.threads, L.smem, L.per_sm, L.regs, GK_BELL_STAGE_ROWS,
                     GK_BELL_STAGES};
   for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
+}
+
+// K11's launch on this device for a Bell of K panels and BR rows a block at
+// k columns: out = {blocks, threads a block, dynamic shared bytes a block,
+// blocks an SM, registers a thread, panel rows a stage, stages, launches
+// (column groups)}, of the first column group (the widest).  out[2] holds
+// the shared bytes a block asks for even when they do not fit the card.
+extern "C" int bell_spmm_config(int v_dtype, int K, int BR, long long n_rows, int k, int* out) {
+  if (K < 1 || BR < 1 || k < 1) return (int)cudaErrorInvalidValue;
+  const int kc = k < GK_BELL_COLS ? k : GK_BELL_COLS;
+  GkRingLaunch L;
+  int shape[3];
+  int status;
+  if (v_dtype == GK_F32) {
+    status = gk_bell_spmm_cols<float>(kc, nullptr, nullptr, K, BR, nullptr, nullptr, n_rows, 0,
+                                      k, 0, false, 0, &L, shape);
+  } else if (v_dtype == GK_BF16) {
+    status = gk_bell_spmm_cols<__nv_bfloat16>(kc, nullptr, nullptr, K, BR, nullptr, nullptr,
+                                              n_rows, 0, k, 0, false, 0, &L, shape);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  out[2] = shape[2];
+  if (status) return status;
+  const int v[8] = {L.grid, L.threads, L.smem, L.per_sm, L.regs, shape[0], shape[1],
+                    (k + GK_BELL_COLS - 1) / GK_BELL_COLS};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
   return 0;
 }

@@ -14,7 +14,9 @@ JAX package's XLA-path arithmetic for every other type.  The sums run in a
 fixed order, kept by kernel and plain version alike: per panel a lane sum
 over l = 0..127 from 0, then the panel sums in panel order.  K10 streams
 the panel rows and the x panels they read through a ring of shared memory
-in persistent blocks; :func:`spmv_launch` reports its launch.  A wrapper
+in persistent blocks; K11 streams them the same way with X's panels k
+columns wide, a launch for every group of 8 columns.
+:func:`spmv_launch` and :func:`spmm_launch` report their launches.  A wrapper
 takes the plain version only for a tensor on the CPU; on a CUDA tensor it
 launches the kernel or raises, and counts its launches in ``launches``.
 The operator argument ``A`` is anything with ``values, panel_ids, shape``.
@@ -45,6 +47,8 @@ def _lib():
         lib.bell_spmm.restype = I
         lib.bell_spmv_config.argtypes = [I, I, I, L, P]
         lib.bell_spmv_config.restype = I
+        lib.bell_spmm_config.argtypes = [I, I, I, L, I, P]
+        lib.bell_spmm_config.restype = I
         lib.gk_error_string.argtypes = [I]
         lib.gk_error_string.restype = ctypes.c_char_p
         lib.gk_typed = True
@@ -123,6 +127,12 @@ def _panel_args(A):
 #: the fields of :func:`spmv_launch`, in the C entry point's order
 LAUNCH_FIELDS = ("blocks", "threads", "smem_bytes", "blocks_per_sm", "registers", "stage_rows",
                  "stages")
+#: the fields of :func:`spmm_launch`: K10's and the launches a call makes
+SPMM_LAUNCH_FIELDS = LAUNCH_FIELDS + ("column_groups",)
+#: columns a K11 launch takes (``GK_BELL_COLS``)
+COLUMN_GROUP = 8
+#: cudaErrorInvalidConfiguration, the status of a ring that does not fit
+_NO_FIT = 9
 
 
 def spmv_launch(A):
@@ -135,6 +145,23 @@ def spmv_launch(A):
                                   A.values.shape[2], A.shape[0], out)
     check_status(lib, status, "bell_spmv_config")
     return dict(zip(LAUNCH_FIELDS, out))
+
+
+def _spmm_config(lib, A, k):
+    out = (ctypes.c_int * len(SPMM_LAUNCH_FIELDS))()
+    status = lib.bell_spmm_config(DTYPE_CODE[A.values.dtype], A.values.shape[1],
+                                  A.values.shape[2], A.shape[0], k, out)
+    return status, out
+
+
+def spmm_launch(A, k):
+    """K11's launch on the current CUDA device for ``A``'s panels at ``k``
+    columns: as :func:`spmv_launch` for the first (widest) column group,
+    and the launches a call makes, one for every group of 8 columns."""
+    lib = _lib()
+    status, out = _spmm_config(lib, A, k)
+    check_status(lib, status, "bell_spmm_config")
+    return dict(zip(SPMM_LAUNCH_FIELDS, out))
 
 
 def bell_spmv(A, x):
@@ -159,7 +186,8 @@ bell_spmv.launches = 0
 
 def bell_spmm(A, X):
     """K11: Y = A X for float32 X of shape (n_cols, k), row-major; each panel
-    is read once for every group of 8 columns."""
+    is read once for every group of 8 columns.  A Bell whose ring does not
+    fit a block's shared memory at these columns raises."""
     if on_cpu(X):
         return bell_spmm_reference(A, X)
     _check_operands(A, X, "bell_spmm")
@@ -171,6 +199,12 @@ def bell_spmm(A, X):
     with torch.cuda.device(X.device):
         status = lib.bell_spmm(*_panel_args(A), X.data_ptr(), Y.data_ptr(), A.shape[0],
                                A.shape[1], k, torch.cuda.current_stream().cuda_stream)
+        if status == _NO_FIT:
+            _, out = _spmm_config(lib, A, k)
+            raise RuntimeError(
+                f"bell_spmm: the ring of {A.values.shape[2]}-row blocks at "
+                f"{min(k, COLUMN_GROUP)} columns needs {out[2]} bytes of shared memory a "
+                "block, more than this card gives one")
     check_status(lib, status, "bell_spmm")
     bell_spmm.launches += 1
     return Y

@@ -6,14 +6,20 @@
 - K10/K11's plain versions (bell_spmv_reference, bell_spmm_reference) run
   on the JAX Bell's own arrays, carried across by interop.bell_from_arrays,
   against bell_spmv_pallas / bell_spmm_pallas in Pallas interpret mode, in
-  float32.  The two sum a row's 128 * K products in different orders (the
+  float32; K11 at 2, 3 and 9 columns.  The two sum a row's 128 * K products in different orders (the
   plain version lane by lane in order, the Pallas kernels by the
   interpreter's reduction), so the bound is the worst case of two
   summation orders: |got - want| <= 2 * 128 * K * eps32 * (|A| |x|).
+- The ctypes bindings of csrc/bell_spmv.cu declare every C entry point's
+  arguments, and ops.bell.spmm_launch reads K11's launch through
+  bell_spmm_config; a CPU bell_spmm launches nothing.
 - Every other type takes the JAX package's XLA-path arithmetic: float64 to
   1e-12 relative.  Structure ops move values without arithmetic and must
   agree exactly.
 """
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -115,25 +121,33 @@ def test_plain_versions_match_pallas(pattern, panels):
     npc = -(-m // LANES)
     xp = np.zeros(npc * LANES, np.float32)
     xp[:m] = x
-    Xp = np.zeros((npc * LANES, 3), np.float32)
-    Xp[:m] = X
     want = np.asarray(bell_spmv_pallas(JB.values, JB.panel_ids, JB.panel_valid,
                                        jnp.asarray(xp.reshape(npc, LANES)), interpret=True))[:n]
     got = ops_bell.bell_spmv(B, torch.from_numpy(x))
     assert got.dtype == torch.float32 and got.shape == (n,)
     assert (np.abs(got.numpy() - want) <= _bound(B, x)).all()
-    Want = np.asarray(bell_spmm_pallas(JB.values, JB.panel_ids, jnp.asarray(Xp.T),
-                                       interpret=True))[:n]
-    Got = ops_bell.bell_spmm(B, torch.from_numpy(X)).numpy()
-    for j in range(3):
-        assert (np.abs(Got[:, j] - Want[:, j]) <= _bound(B, X[:, j])).all()
-    # the k-column order is the one-column order, column by column
-    torch.testing.assert_close(torch.from_numpy(Got[:, 1]),
-                               ops_bell.bell_spmv(B, torch.from_numpy(X[:, 1].copy())),
-                               rtol=0, atol=0)
+    # K11 at 3 columns (one launch on the card), 2 and 9 (a launch of 8
+    # columns and one of 1)
+    for k in (3, 2, 9):
+        Xk = X if k == 3 else rng.standard_normal((m, k)).astype(np.float32)
+        Xp = np.zeros((npc * LANES, k), np.float32)
+        Xp[:m] = Xk
+        Want = np.asarray(bell_spmm_pallas(JB.values, JB.panel_ids, jnp.asarray(Xp.T),
+                                           interpret=True))[:n]
+        Got = ops_bell.bell_spmm(B, torch.from_numpy(Xk)).numpy()
+        assert Got.shape == (n, k)
+        for j in range(k):
+            assert (np.abs(Got[:, j] - Want[:, j]) <= _bound(B, Xk[:, j])).all()
+        # the k-column order is the one-column order, column by column
+        for j in (0, k - 1):
+            torch.testing.assert_close(torch.from_numpy(Got[:, j]),
+                                       ops_bell.bell_spmv(B, torch.from_numpy(Xk[:, j].copy())),
+                                       rtol=0, atol=0)
+        if k == 3:
+            Got3 = Got
     # Bell.apply routes float32 vectors to the kernels' plain versions
     torch.testing.assert_close(B.apply(torch.from_numpy(x)), got, rtol=0, atol=0)
-    torch.testing.assert_close(B.apply(torch.from_numpy(X)), torch.from_numpy(Got),
+    torch.testing.assert_close(B.apply(torch.from_numpy(X)), torch.from_numpy(Got3),
                                rtol=0, atol=0)
 
 
@@ -220,3 +234,57 @@ def test_other_types_take_the_xla_arithmetic():
             np.testing.assert_array_equal(getattr(bm, f).numpy(), np.asarray(getattr(jm, f)))
     np.testing.assert_array_equal(B.to_dense().values.numpy(), np.asarray(JB.to_dense().values))
     np.testing.assert_array_equal(B.to_csr().to_dense().values.numpy(), pd.sum_duplicates().to_dense())
+
+
+class _FakeEntry:
+    """A C entry point of the kernel library as ctypes would see it:
+    argtypes, restype, and a call that fills an out array."""
+
+    def __init__(self, name):
+        self.name, self.calls = name, []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        out = args[-1]
+        for i in range(len(out)):
+            out[i] = 10 + i
+        return 0
+
+
+class _FakeLib:
+    def __init__(self):
+        self.entries = {}
+
+    def __getattr__(self, name):
+        if name.startswith("__") or name == "gk_typed":  # set once the bindings are typed
+            raise AttributeError(name)
+        return self.entries.setdefault(name, _FakeEntry(name))
+
+
+def test_spmm_launch_binding_is_declared(monkeypatch):
+    src = (Path(ops_bell.__file__).resolve().parent.parent / "csrc" / "bell_spmv.cu").read_text()
+    params = {name: len(args.split(","))
+              for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src)}
+    assert set(params) >= {"bell_spmv", "bell_spmm", "bell_spmv_config", "bell_spmm_config"}
+    lib = _FakeLib()
+    monkeypatch.setattr(ops_bell._build, "load", lambda name: lib)
+    assert ops_bell._lib() is lib
+    for name, n in params.items():
+        assert len(getattr(lib, name).argtypes) == n, name
+        assert getattr(lib, name).restype is not None, name
+    rows, cols, vals, shape = PATTERNS["blocks"]()
+    B = gt.Bell.from_matrix_data(_pair(rows, cols, vals, shape)[1], block_rows=16, device="cpu")
+    got = ops_bell.spmm_launch(B, 9)
+    assert list(got) == list(ops_bell.SPMM_LAUNCH_FIELDS)
+    assert list(got.values()) == list(range(10, 10 + len(ops_bell.SPMM_LAUNCH_FIELDS)))
+    (call,) = lib.bell_spmm_config.calls
+    assert call[:5] == (ops_bell.DTYPE_CODE[torch.float32], B.values.shape[1], 16, shape[0], 9)
+    assert ops_bell.SPMM_LAUNCH_FIELDS[:len(ops_bell.LAUNCH_FIELDS)] == ops_bell.LAUNCH_FIELDS
+    assert ops_bell.SPMM_LAUNCH_FIELDS[-1] == "column_groups"
+    # a CPU bell_spmm takes its plain version and launches nothing
+    before = ops_bell.bell_spmm.launches
+    X = torch.from_numpy(np.random.default_rng(2).standard_normal((shape[1], 4)).astype(np.float32))
+    torch.testing.assert_close(ops_bell.bell_spmm(B, X), ops_bell.bell_spmm_reference(B, X),
+                               rtol=0, atol=0)
+    assert ops_bell.bell_spmm.launches == before
+    assert not lib.bell_spmm.calls

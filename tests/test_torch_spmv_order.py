@@ -11,14 +11,18 @@ bit on the card:
 - K10: per row and panel, a lane sum from 0 over l = 0..127 in order, then
   the panel sums add into the row's total in panel order; x's last panel is
   cut at n_cols and padding panels are multiplied.
+- K11: K10's order for each column of X.
 
 An independent numpy loop of each order, float32 throughout, must equal
-``pell_spmv_reference`` and ``bell_spmv_reference`` bit for bit, on plans
-and Bells built by the JAX package and carried across by ``interop``:
-Pell tiles with 0, 1 and 3 or more steps, rows past the last tile's end,
-int8 and int32 lane indices, float32 and bfloat16 values, columns outside
-[0, n_cols), NaN and Inf in x; Bells with BR = 8, 16 and 32, K = 1 and 6,
-x's last panel cut inside a panel, NaN in x[0:128] with padding panels.
+``pell_spmv_reference``, ``bell_spmv_reference`` and ``bell_spmm_reference``
+bit for bit, on plans and Bells built by the JAX package and carried across
+by ``interop``: Pell tiles with 0, 1 and 3 or more steps, rows past the
+last tile's end, int8 and int32 lane indices, float32 and bfloat16 values,
+columns outside [0, n_cols), NaN and Inf in x; Bells with BR = 8, 16 and
+32, K = 1 and 6, x's last panel cut inside a panel, NaN in x[0:128] with
+padding panels; K11 at 2, 3 and 9 columns (one launch of 2 and of 3, and
+on the card two launches, 8 columns and 1), each column also equal to
+``bell_spmv_reference`` of that column.
 """
 
 import jax.numpy as jnp
@@ -193,9 +197,9 @@ BELL_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(BELL_CASES))
-@pytest.mark.parametrize("panels", ["f32", "bf16"])
-def test_bell_reference_is_the_declared_order(case, panels):
+def _bell_case(case, panels):
+    """The JAX package's Bell of a BELL_CASES entry carried across, its
+    shape and whether it has padding panels."""
     NRB, gBR, K, NPC, cut, n_cols, BR, pad = BELL_CASES[case]
     rows, cols, vals = block_structured(NRB, gBR, K, NPC)
     shape = (NRB * gBR - cut, n_cols or NPC * LANES)
@@ -216,7 +220,15 @@ def test_bell_reference_is_the_declared_order(case, panels):
                                  nnz_stored=JB.nnz_stored, device="cpu")
     assert B.values.shape[1:3] == (K + pad, BR)
     assert (B.panel_valid.numpy() == 0).any() == pad
-    x = _x(shape[1], seed=NRB)
+    return B, shape, pad
+
+
+@pytest.mark.parametrize("case", sorted(BELL_CASES))
+@pytest.mark.parametrize("panels", ["f32", "bf16"])
+def test_bell_reference_is_the_declared_order(case, panels):
+    B, shape, pad = _bell_case(case, panels)
+    BR = B.block_rows
+    x = _x(shape[1], seed=BELL_CASES[case][0])
     if pad:
         x[3] = np.nan  # every padding panel reads it
     want = bell_loop(B.values.float().numpy(), B.panel_ids.numpy(), shape[0], shape[1], x)
@@ -227,3 +239,53 @@ def test_bell_reference_is_the_declared_order(case, panels):
         padded_rows = np.repeat(padded_blocks, BR)[:shape[0]]
         assert np.isnan(want[padded_rows]).all()
     assert _bits_equal(ops_bell.bell_spmv(B, torch.from_numpy(x)).numpy(), want)
+
+
+# -- K11: Bell, k columns -------------------------------------------------------------
+
+
+@np.errstate(invalid="ignore")
+def bell_mm_loop(values, panel_ids, n_rows, n_cols, X):
+    """K11's declared order in numpy float32, every column at once: per
+    panel a lane sum over l = 0..127 from 0, then the panel sums in panel
+    order."""
+    vals = np.asarray(values, F32)
+    NRB, K, BR, _ = vals.shape
+    k = X.shape[1]
+    Xp = np.zeros((-(-n_cols // LANES) * LANES, k), F32)
+    Xp[:n_cols] = X
+    total = np.zeros((NRB, BR, k), F32)
+    for p in range(K):
+        xk = Xp.reshape(-1, LANES, k)[panel_ids[:, p]]  # (NRB, 128, k)
+        lane = np.zeros((NRB, BR, k), F32)
+        for l in range(LANES):
+            lane = lane + vals[:, p, :, l][:, :, None] * xk[:, None, l, :]
+        total = total + lane
+    return total.reshape(-1, k)[:n_rows]
+
+
+@pytest.mark.parametrize("case", sorted(BELL_CASES))
+@pytest.mark.parametrize("panels", ["f32", "bf16"])
+@pytest.mark.parametrize("k", [2, 3, 9])
+def test_bell_spmm_reference_is_the_declared_order(case, panels, k):
+    B, shape, pad = _bell_case(case, panels)
+    rng = np.random.default_rng(BELL_CASES[case][0] + k)
+    X = rng.standard_normal((shape[1], k)).astype(F32)
+    for value, count in ((np.nan, 3), (np.inf, 2), (-np.inf, 2), (-0.0, 3)):
+        X.reshape(-1)[rng.integers(0, X.size, count)] = value
+    if pad:
+        X[3] = np.nan  # every padding panel reads it, in every column
+    want = bell_mm_loop(B.values.float().numpy(), B.panel_ids.numpy(), shape[0], shape[1], X)
+    got = ops_bell.bell_spmm_reference(B, torch.from_numpy(X))
+    assert got.shape == (shape[0], k)
+    assert _bits_equal(got.numpy(), want)
+    for j in range(k):  # column j is K10's order on column j
+        col = ops_bell.bell_spmv_reference(B, torch.from_numpy(X[:, j].copy()))
+        assert _bits_equal(col.numpy(), want[:, j])
+    assert np.isnan(want).any()
+    if pad:
+        padded_blocks = (B.panel_valid.numpy() == 0).any(axis=1)
+        padded_rows = np.repeat(padded_blocks, B.block_rows)[:shape[0]]
+        assert np.isnan(want[padded_rows]).all()
+    # the kernel's wrapper takes this plain version for a CPU tensor
+    assert _bits_equal(ops_bell.bell_spmm(B, torch.from_numpy(X)).numpy(), want)

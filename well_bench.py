@@ -4,8 +4,9 @@
 path 3a (the power-law Laplacian handed over as a ``Csr`` and planned as a
 WELL, T and G by the planner), K5 ``pell_spmv`` on path 2's plan
 (``poisson_3d(160)`` as a ``Csr`` -> ``Pell.from_csr``, S = 8) and K10
-``bell_spmv`` on path 3b's ``Bell`` (``choose_format`` on
-``block_structured(2048, 16, 6, 256)``); the whole-solve K4
+``bell_spmv`` and K11 ``bell_spmm`` on path 3b's ``Bell``
+(``choose_format`` on ``block_structured(2048, 16, 6, 256)``); the
+whole-solve K4
 ``cg_fused`` and K4m ``cg_fused_multi`` (k = 4) on path 1's
 ``poisson_2d(2048)`` ``Dia``; K22 ``trs_fused`` and K23
 ``cg_ilu_fused`` on path 7's IC and ILU of that ``Dia``; K12, K15m and K12m
@@ -15,7 +16,7 @@ multigrid kernels K25-K28 on path 8's hierarchies.
 
 Run from the repository root:
 
-    python3 well_bench.py [--kernels well,pell_spmv,bell_spmv,cg_fused,cg_fused_multi,
+    python3 well_bench.py [--kernels well,pell_spmv,bell_spmv,bell_spmm,cg_fused,cg_fused_multi,
                                      trs_fused,cg_ilu_fused,bicgstab_fused,
                                      gmres_fused_multi,bicgstab_fused_multi,
                                      pell_cg_fused,gmres_fused,pell_gmres_fused,
@@ -24,8 +25,8 @@ Run from the repository root:
                                      ir_fused,ir_smooth,bicg_fused,cgs_fused,
                                      bicgstab_ilu_fused]
                           [--rows N] [--chunks 256,512] [--cg-columns 2,4,8]
-                          [--bicgstab-columns 2,4,8] [--other DIR ...] [--check]
-                          [--profile]
+                          [--bicgstab-columns 2,4,8] [--bell-columns 2,4,8]
+                          [--other DIR ...] [--check] [--profile]
 
 ``--kernels`` chooses what runs (default ``well``, K8/K9).  For ``well`` it
 prints JSON lines:
@@ -63,7 +64,8 @@ For ``pell_spmv`` and ``bell_spmv``:
   K10 bit for bit against their plain versions on small plans and Bells
   that reach every branch of their rings, each called twice;
 - ``timing``: ms per call (CUDA events, the slope between 5 and 25 chained
-  calls) with float32 and bfloat16 values, of this checkout's kernel and
+  calls, and ``chip_smoke.graph_ms``, a CUDA graph's) with float32 and
+  bfloat16 values, of this checkout's kernel and
   of each ``--other``'s on the same operator and x, in turns (others,
   this, this, others), and of ``torch.mv`` on the same ``Csr``; the bytes
   a call must move, the bound and the share of the copy rate; whether the
@@ -71,6 +73,30 @@ For ``pell_spmv`` and ``bell_spmv``:
   a call takes to return, each checkout's;
 - ``profile`` (with ``--profile``): the device time of each kernel that ten
   calls launch, this checkout's and each ``--other``'s, by kernel name.
+
+For ``bell_spmm`` (K11), at each column count of ``--bell-columns``
+(2, 4 and 8 by default):
+
+- ``build`` and ``launch``: ptxas's report of each kernel of
+  ``csrc/bell_spmv.cu``, this checkout's and each ``--other``'s, and K11's
+  launch on path 3b's ``Bell`` at each column count, float32 and bfloat16
+  panels, where a checkout reports it;
+- ``check`` (with ``--check``): as for ``bell_spmv``, which holds K11 at
+  2, 3, 4, 8 and 9 columns too;
+- ``timing``, one row a column count: ms per call (``chip_smoke.graph_ms``:
+  CUDA events around a CUDA graph of 20 calls, the card's time alone; and the
+  slope between 5 and 25 chained calls, which a call's host time bounds
+  from below) with float32 and bfloat16 panels, of this
+  checkout's kernel and of each ``--other``'s on the same ``Bell`` and X,
+  in turns (others, this, this, others), and of ``torch.sparse.mm`` on the
+  same ``Csr``; the bytes a call must move, the bound and the share of the
+  copy rate (by the graph's time); whether each checkout's Y equals the
+  plain version's bit for
+  bit, and this checkout's column j K10's on column j; the host
+  microseconds a call takes to return;
+- ``profile`` (with ``--profile``): the device time of each kernel that ten
+  calls launch at each column count, each checkout's, by kernel name (a
+  call's host time exceeds K11's device time, so the slope overstates it).
 
 For ``cg_fused`` and ``cg_fused_multi``:
 
@@ -292,6 +318,7 @@ import chip_smoke as cs
 
 #: the kernel library each choice of --kernels builds
 LIBRARY = {"well": "well_spmv", "pell_spmv": "pell_spmv", "bell_spmv": "bell_spmv",
+           "bell_spmm": "bell_spmv",
            "cg_fused": "cg_fused", "cg_fused_multi": "cg_fused", "trs_fused": "trs_fused",
            "cg_ilu_fused": "trs_fused", "bicgstab_fused": "bicgstab_fused",
            "gmres_fused_multi": "gmres_fused", "bicgstab_fused_multi": "bicgstab_fused",
@@ -403,6 +430,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", default="well",
                     help="comma-separated: well (K8/K9), pell_spmv (K5), bell_spmv (K10), "
+                         "bell_spmm (K11), "
                          "cg_fused (K4), cg_fused_multi (K4m), trs_fused (K22), "
                          "cg_ilu_fused (K23), bicgstab_fused (K12), gmres_fused_multi (K15m), "
                          "bicgstab_fused_multi (K12m), pell_cg_fused (K7), gmres_fused (K15), "
@@ -420,6 +448,8 @@ def main():
                     help="cg_fused_multi: the column counts to time, comma-separated (2 to 8)")
     ap.add_argument("--bicgstab-columns", default="2,4,8",
                     help="bicgstab_fused_multi: the column counts to time, comma-separated")
+    ap.add_argument("--bell-columns", default="2,4,8",
+                    help="bell_spmm: the column counts to time, comma-separated")
     args = ap.parse_args()
     kernels = args.kernels.split(",")
     if not set(kernels) <= set(LIBRARY):
@@ -446,10 +476,11 @@ def main():
     dst = torch.empty_like(src)
     copy_gbs = 2 * src.numel() / cs.slope_ms(lambda: dst.copy_(src)) / 1e6
     del src, dst
-    if args.check and {"pell_spmv", "bell_spmv"} & set(kernels):
+    if args.check and {"pell_spmv", "bell_spmv", "bell_spmm"} & set(kernels):
         t0 = time.perf_counter()
         rows = cs.check_spmv_edges(gt, dev, np.random.default_rng(5))
-        cs.emit({"phase": "check", "kernels": ["pell_spmv", "bell_spmv"], "edge_cases": len(rows),
+        cs.emit({"phase": "check", "kernels": ["pell_spmv", "bell_spmv", "bell_spmm"],
+                 "edge_cases": len(rows),
                  "all_bit_equal": True, "s": round(time.perf_counter() - t0, 2)})
     if args.check and set(CG_KERNELS) & set(kernels):
         t0 = time.perf_counter()
@@ -560,6 +591,9 @@ def main():
     for k in kernels:
         if k == "well":
             bench_well(args, gt, dev, card, copy_gbs, others_pkg)
+        elif k == "bell_spmm":
+            bench_spmm([int(c) for c in args.bell_columns.split(",")], args, gt, dev, card,
+                       copy_gbs, others_pkg)
         elif k not in (CG_KERNELS + TRS_KERNELS + KRYLOV_KERNELS + SOLVE_KERNELS + MG_KERNELS
                        + SWEEP_KERNELS + DIA_SWEEP_KERNELS + CGS_ILU_KERNELS
                        + ("bicgstab_fused_multi",)):
@@ -682,7 +716,7 @@ def bench_spmv(kernel, args, gt, dev, card, copy_gbs, others_pkg):
     x = torch.as_tensor(rng.standard_normal(A.shape[1]).astype(np.float32), device=dev)
     lib = cs.library_csr(C)
     fn = getattr(ops, kernel)
-    times, bit_equal, nbytes = {}, {}, {}
+    times, graph, bit_equal, nbytes = {}, {}, {}, {}
     for storage, Av in (("f32", A), ("bf16", A.reduce_storage())):
         # bytes a call must move: the stored plan or panels, x read once, y
         # written once
@@ -697,11 +731,16 @@ def bench_spmv(kernel, args, gt, dev, card, copy_gbs, others_pkg):
                 for tag, mod in order:
                     times.setdefault(f"{storage}_{tag}", []).append(
                         cs.slope_ms(lambda: getattr(mod, kernel)(Av, x), 5, 25))
+                    graph.setdefault(f"{storage}_{tag}", []).append(
+                        cs.graph_ms(lambda: getattr(mod, kernel)(Av, x)))
             times.setdefault(f"{storage}_this", []).append(cs.slope_ms(lambda: fn(Av, x), 5, 25))
+            graph.setdefault(f"{storage}_this", []).append(cs.graph_ms(lambda: fn(Av, x)))
             if turn == 1:
                 for tag, mod in reversed(order):
                     times[f"{storage}_{tag}"].append(
                         cs.slope_ms(lambda: getattr(mod, kernel)(Av, x), 5, 25))
+                    graph[f"{storage}_{tag}"].append(
+                        cs.graph_ms(lambda: getattr(mod, kernel)(Av, x)))
     times["torch_mv"] = [cs.slope_ms(lambda: torch.mv(lib, x), 5, 25)]
     host = {"this": cs.host_us(lambda: fn(A, x))}
     for tag, mod in others.items():
@@ -709,7 +748,8 @@ def bench_spmv(kernel, args, gt, dev, card, copy_gbs, others_pkg):
     bound = {k: v / cs.PEAK_BYTES_S * 1e3 for k, v in nbytes.items()}
     cs.emit({"phase": "timing", "kernel": kernel, "matrix": label, "card": card,
              "shape": list(A.shape), "setup_s": round(setup_s, 2), "copy_GBps": copy_gbs,
-             "bit_equal": bit_equal, "ms": times, "host_us_per_call": host, "bytes": nbytes,
+             "bit_equal": bit_equal, "ms": times, "graph_ms": graph, "host_us_per_call": host,
+             "bytes": nbytes,
              "bound_ms": bound,
              "frac_of_copy": {k: nbytes[k.split("_")[0]] / min(v) / 1e6 / copy_gbs
                               for k, v in times.items() if k.split("_")[0] in nbytes}})
@@ -720,6 +760,68 @@ def bench_spmv(kernel, args, gt, dev, card, copy_gbs, others_pkg):
             calls[tag] = lambda mod=mod: getattr(mod, kernel)(A, x)
             calls[tag + "_bf16"] = lambda mod=mod: getattr(mod, kernel)(A_bf16, x)
         cs.emit({"phase": "profile", "kernel": kernel, **profile_calls(calls)})
+
+
+def bench_spmm(columns, args, gt, dev, card, copy_gbs, others_pkg):
+    """K11 on path 3b's ``Bell`` at each column count: build, launch, timing
+    and profile rows, against each other checkout's kernel in turns."""
+    from ginkgo_tpu_torch import _build
+
+    ops = ops_of(gt, "bell_spmm")
+    others = {tag: ops_of(pkg, "bell_spmm") for tag, pkg in others_pkg.items()}
+    t0 = time.perf_counter()
+    A, C, label = main_path_operator(gt, "bell_spmm", dev)
+    setup_s = time.perf_counter() - t0
+    A_bf16 = A.reduce_storage()
+    mods = {"this": ops, **others}
+    cs.emit({"phase": "build", "kernel": "bell_spmm",
+             "ptxas": _build.BUILD_LOG["bell_spmv"]["ptxas"].splitlines(),
+             "ptxas_other": {tag: importlib.import_module(f"gt_{tag}._build")
+                             .BUILD_LOG["bell_spmv"]["ptxas"].splitlines() for tag in others},
+             "launch": {tag: {f"{storage}_k{k}": mod.spmm_launch(Av, k)
+                              for k in columns for storage, Av in (("f32", A), ("bf16", A_bf16))}
+                        for tag, mod in mods.items() if hasattr(mod, "spmm_launch")}})
+    rng = np.random.default_rng(cs.SEED)
+    lib = cs.library_csr(C)
+    n, m = A.shape
+    for k in columns:
+        X = torch.as_tensor(rng.standard_normal((m, k)).astype(np.float32), device=dev)
+        times, graph, bits, by_column, nbytes = {}, {}, {}, {}, {}
+        for storage, Av in (("f32", A), ("bf16", A_bf16)):
+            # bytes a call must move: the panels and their ids, X read once
+            # and Y written once
+            nbytes[storage] = (Av.values.numel() * Av.values.element_size()
+                               + Av.panel_ids.numel() * 4 + 4 * k * (m + n))
+            want = ops.bell_spmm_reference(Av, X)
+            for tag, mod in mods.items():
+                bits[f"{storage}_{tag}"] = cs.bit_equal(mod.bell_spmm(Av, X), want)
+            Y = ops.bell_spmm(Av, X)
+            by_column[storage] = all(
+                cs.bit_equal(Y[:, j], ops.bell_spmv(Av, X[:, j].contiguous())) for j in range(k))
+            del want, Y
+
+            def measure(tag, Av=Av, storage=storage):
+                call = lambda: mods[tag].bell_spmm(Av, X)  # noqa: E731
+                times.setdefault(f"{storage}_{tag}", []).append(cs.slope_ms(call, 5, 25))
+                graph.setdefault(f"{storage}_{tag}", []).append(cs.graph_ms(call))
+
+            in_turns(measure, others)
+        times["torch_sparse_mm"] = [cs.slope_ms(lambda: torch.sparse.mm(lib, X), 5, 25)]
+        host = {tag: cs.host_us(lambda mod=mod: mod.bell_spmm(A, X)) for tag, mod in mods.items()}
+        cs.emit({"phase": "timing", "kernel": "bell_spmm", "matrix": label, "card": card,
+                 "columns": k, "shape": list(A.shape), "setup_s": round(setup_s, 2),
+                 "copy_GBps": copy_gbs, "bit_equal": bits, "columns_equal_k10": by_column,
+                 "ms": times, "graph_ms": graph, "host_us_per_call": host, "bytes": nbytes,
+                 "bound_ms": {s_: v / cs.PEAK_BYTES_S * 1e3 for s_, v in nbytes.items()},
+                 "frac_of_copy": {key: nbytes[key.split("_")[0]] / min(v) / 1e6 / copy_gbs
+                                  for key, v in graph.items() if key.split("_")[0] in nbytes}})
+        if args.profile:
+            calls = {}
+            for tag, mod in mods.items():
+                calls[tag] = lambda mod=mod: mod.bell_spmm(A, X)
+                calls[tag + "_bf16"] = lambda mod=mod: mod.bell_spmm(A_bf16, X)
+            cs.emit({"phase": "profile", "kernel": "bell_spmm", "columns": k,
+                     **profile_calls(calls)})
 
 
 def ptxas_registers(text):
