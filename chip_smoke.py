@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``ginkgo_tpu_torch/csrc`` (one
-``nvcc`` per source, all started together) and drives the eight paths of
+``nvcc`` per source, all started together) and drives the nine paths of
 the port that users call:
 
 - path 1 (slice 1): a 2-D Poisson matrix on a 2048 x 2048 grid (4,194,304
@@ -43,7 +43,18 @@ the port that users call:
   ``Cg``/``Fcg`` + MG (the whole-solve kernel K26) and ``Multigrid.solve``
   (K27), each also through the streaming cycle (K1, K17 ``ir_smooth``), and
   on path 4's ``Dia`` -> ``Bicgstab`` + MG (K28) and ``Gmres(30)`` + MG
-  (one K25 cycle per M apply).
+  (one K25 cycle per M apply);
+- path 9 (slice 9): the streaming formats through their one route (the
+  CSR view's PELL or WELL plan): path 2's 160^3 matrix as a ``Coo`` ->
+  ``Cg`` (K5) and a 4-column apply (K6), in float32 and with bfloat16
+  values, each apply bit for bit with the ``Csr`` "pallas" apply; path
+  3a's power-law
+  matrix as a ``Hybrid`` -> ``Cg`` (K8 on the WELL plan the route picks)
+  and a 4-column apply (K9); ``Ell``, ``Sellp``, ``SparsityCsr``,
+  ``Fbcsr``, ``Csr`` "sellp" and a bfloat16 ``Coo`` at 64^3 (and an
+  ``Fbcsr`` of path 3b's pattern), each against its own product and
+  ``Cg`` where SPD; a pattern
+  the route declines; SpGEMM and SpGEAM against scipy.
 
 Phases, each of which raises on failure:
 
@@ -183,7 +194,17 @@ Phases, each of which raises on failure:
    cycles, the four mid_case values, float32/bfloat16 diagonals and pass
    lists that fuse in part (``check_mg_edges``; equal iterations and x bit
    for bit, a NaN case each) and at 2048^2 under a cap, bit for bit too;
-11. timings, printed and not checked: each kernel, its plain version and
+11. main path 9, as above, every product against a float64 one, every
+   solve against a float64 solve, one plan build a format, the route's
+   apply timed by CUDA graph beside the ``Csr`` "pallas" apply and
+   torch.sparse (the applies and K5 alone on each plan, by graph, in both
+   orders); then K5/K6 and K8/K9 against their plain versions on the plans
+   the route built (twice each; K5, K8 and K9 bit for bit, K6 within
+   1e-5);
+   ``check_spmv_edges`` also holds K10 and K11 on Bells of wide row blocks
+   (``BELL_WIDE``), with the form each launch must take (row totals in
+   shared memory or in y);
+12. timings, printed and not checked: each kernel, its plain version and
    the one PyTorch call that computes the same function, by the slope
    between two trip counts (CUDA events); CG, BiCGSTAB, CGS and BiCG time
    per iteration and GMRES(30) time per Arnoldi step, fused and
@@ -311,10 +332,11 @@ CAP6 = 20
 EPS32 = float(np.finfo(np.float32).eps)
 #: the timings' trip counts where the default's 200 and 1000 iterations are
 #: more than a figure needs: the plain versions (their times are no
-#: yardstick of a kernel: a short slope serves; GMRES steps apart) and the
-#: host-bound streaming routes
-PLAIN_TRIPS = (3, 15)
-PLAIN_GMRES_TRIPS = (10, 20)
+#: yardstick of a kernel: a short slope serves; GMRES steps apart; 3 and 15,
+#: 10 and 20 until path 9 needed the time) and the host-bound streaming
+#: routes
+PLAIN_TRIPS = (2, 8)
+PLAIN_GMRES_TRIPS = (5, 10)
 STREAM_TRIPS = (25, 125)
 
 
@@ -433,6 +455,15 @@ def graph_ms(fn, calls=20, reps=5):
         best = min(best, start.elapsed_time(end) / calls)
     del graph
     return best
+
+
+def sm_clock_mhz():
+    """The card's SM clock now, in MHz (NVML through torch), or None where
+    NVML cannot be read."""
+    try:
+        return torch.cuda.clock_rate()
+    except Exception:  # no pynvml, or NVML refused: the figure is optional
+        return None
 
 
 def host_us(fn, calls=200):
@@ -914,6 +945,80 @@ def bell_edge_operators(gt, dev):
 #: the column counts K11 is checked at on the edge Bells: one launch of
 #: 2, 3, 4 (16-byte rows) and 8 columns, and 9 in two launches (8 and 1)
 BELL_EDGE_COLUMNS = (2, 3, 4, 8, 9)
+#: wide row blocks, whose running totals do not all fit a block's shared
+#: memory beside the ring: (row blocks, block_rows, panels a row block,
+#: column panels, the cases checked: (column count, None for K10; 1 where
+#: the totals must live in y (Y) with float32 panels; the same with
+#: bfloat16 panels)).  The shared totals' form takes (2 R + BR) KC floats
+#: beside K11's ring and (64 + BR) floats beside K10's (a 102,960-byte ring
+#: in float32, 53,808 in bfloat16), against 232,448 bytes a block: K11 at 8
+#: columns keeps its totals in Y from 8192 rows in both dtypes, K10 in y
+#: from 32,768 rows in float32 and from 49,152 in bfloat16.  Few row
+#: blocks keep the panels under 1 GB
+BELL_WIDE = ((3, 8192, 4, 16, ((None, 0, 0), (4, 0, 0), (8, 1, 1), (9, 1, 1))),
+             (2, 32768, 2, 8, ((None, 1, 0),)),
+             (2, 49152, 2, 8, ((None, 1, 1),)))
+
+
+def bell_wide_operators(gt, dev):
+    """Bells at the block_rows of ``BELL_WIDE``, n_rows 5 short of whole
+    row blocks and a padding panel in every row block but the first."""
+    out = {}
+    for NRB, BR, K, NPC, cols in BELL_WIDE:
+        shape, r, c, v = block_structured(NRB, BR, K, NPC, seed=11)
+        keep = r < NRB * BR - 5
+        r, c, v = r[keep], c[keep], v[keep]
+        # one more panel in row block 0, one entry a row
+        extra = min(set(range(NPC)) - set((c[r < BR] // 128).tolist()))
+        pr = np.arange(BR)
+        r, c = np.concatenate([r, pr]), np.concatenate([c, extra * 128 + pr % 128])
+        v = np.concatenate([v, np.ones(BR, np.float32)])
+        shape = (NRB * BR - 5, shape[1])
+        out[f"block_structured({NRB}, {BR}, {K}, {NPC}), padding panels"] = (
+            gt.Bell.from_matrix_data(gt.MatrixData.from_coo(shape, r, c, v).sum_duplicates(),
+                                     block_rows=BR, device=dev), cols)
+    return out
+
+
+def check_bell_wide(gt, dev, record_err=None):
+    """K10 and K11 on ``bell_wide_operators`` against their plain versions,
+    bit for bit and twice each, float32 and bfloat16 panels, with each
+    launch's shared bytes a block and where its row totals live, which must
+    be where ``BELL_WIDE`` says.  Returns the rows it emitted."""
+    from ginkgo_tpu_torch.ops import bell as ops_bell
+
+    gen = np.random.default_rng(SEED + 21)
+    rows = []
+    for label, (B, columns) in bell_wide_operators(gt, dev).items():
+        for j, Bv in enumerate((B, B.reduce_storage())):
+            for k, *forms in columns:
+                shape = (B.shape[1],) if k is None else (B.shape[1], k)
+                x = torch.as_tensor(gen.standard_normal(shape).astype(np.float32), device=dev)
+                name = "bell_spmv" if k is None else "bell_spmm"
+                kern = getattr(ops_bell, name)
+                got, again = kern(Bv, x), kern(Bv, x)
+                want = getattr(ops_bell, name + "_reference")(Bv, x)
+                _sync(dev)
+                if record_err is not None:
+                    record_err(name, got, want)
+                what = f"{name} on {label}, BR = {B.block_rows}, {Bv.values.dtype}, k = {k or 1}"
+                check(bit_equal(got, want), f"{what}: differs from its plain version")
+                check(bit_equal(got, again), f"{what}: two calls gave different bits")
+                launch = (ops_bell.spmv_launch(Bv) if k is None
+                          else ops_bell.spmm_launch(Bv, k))
+                check(launch["global_totals"] == forms[j],
+                      f"{what}: the launch keeps its totals in "
+                      f"{'y' if launch['global_totals'] else 'shared memory'}")
+                rows.append({"phase": "kernel_check", "kernel": name, "matrix": label,
+                             "shape": list(B.shape), "BR": B.block_rows,
+                             "K": B.values.shape[1], "values": str(Bv.values.dtype),
+                             "columns": k or 1, "smem_bytes": launch["smem_bytes"],
+                             "global_totals": launch["global_totals"],
+                             "blocks": launch["blocks"], "bit_equal": True,
+                             "repeat_bit_equal": True})
+                emit(rows[-1])
+        del B
+    return rows
 
 
 def check_spmv_edges(gt, dev, rng, record_err=None):
@@ -924,8 +1029,9 @@ def check_spmv_edges(gt, dev, rng, record_err=None):
     bfloat16 panels and an x or X that is 16-byte aligned and one that
     starts a float past an aligned start; x and X hold NaN, Inf and -0.0
     (and in the unaligned case a NaN in row 3, which reaches every padding
-    panel).  Each kernel is called twice and must give the same bits.
-    Returns the rows it emitted."""
+    panel).  Each kernel is called twice and must give the same bits.  Then
+    ``check_bell_wide``: K10 and K11 on Bells of wide row blocks.  Returns
+    the rows it emitted."""
     from ginkgo_tpu_torch.ops import bell as ops_bell
     from ginkgo_tpu_torch.ops import pell as ops_pell
 
@@ -988,7 +1094,7 @@ def check_spmv_edges(gt, dev, rng, record_err=None):
             if name == "bell_spmm":
                 rows[-1]["columns"] = list(BELL_EDGE_COLUMNS)
             emit(rows[-1])
-    return rows
+    return rows + check_bell_wide(gt, dev, record_err)
 
 
 def cg_edge_operators(dev):
@@ -2302,7 +2408,7 @@ def time_path4(gt, dev, p4, rec, timing):
     """Per-iteration times on A1 (the 2048^2 Poisson matrix of path 1) by
     the slope between whole solves: K12-K14 fused between Iteration(200)
     and Iteration(1000), streaming between 25 and 125 (STREAM_TRIPS), their
-    plain versions between 3 and 15 (PLAIN_TRIPS); K15 per Arnoldi step
+    plain versions between PLAIN_TRIPS; K15 per Arnoldi step
     between Iteration(60) and Iteration(240) (the JAX bench's trip counts,
     two and eight restart cycles of 30) with a float32 and a bfloat16
     basis, streaming between 30 and 90, the plain version between 15 and
@@ -3930,7 +4036,7 @@ def time_path7(gt, dev, p7, rec, timing):
     Iteration-only criteria: K23 with path 7's IC on A1 and K24 with its
     ILU on A2, between Iteration(200) and Iteration(1000), each beside its
     streaming route (K1 + K22, between 25 and 125) and its plain version
-    (between 3 and 15);
+    (between PLAIN_TRIPS);
     K22 per launch (3 sweeps on A1's IC lower triangle, slope of chained
     launches) beside its plain version.
 
@@ -4483,7 +4589,7 @@ def time_path8(gt, dev, p8, rec, timing):
         def plain(its, A=A, h=h, b=b, z=z, fn=plain_fn):
             fn(A, h, b, z, tol_sq_eff=-1.0, max_iters=its)
 
-        f_ms, pl_ms = iter_ms(fused, 20, 100), iter_ms(plain, 5, 25)
+        f_ms, pl_ms = iter_ms(fused, 20, 100), iter_ms(plain, *PLAIN_TRIPS)
         rec[kname] = (f_ms, pl_ms, None, nbytes, nflops)
         out[kname] = {"us_per_iteration": f_ms * 1e3, "plain_us": pl_ms * 1e3, "bytes": nbytes,
                       "bound_ms_per_pass": bound(nbytes_pp, nflops)[0],
@@ -4506,6 +4612,426 @@ def time_path8(gt, dev, p8, rec, timing):
                              "bound_ms_per_pass": bound(per_pass_x0 + (4 * nd1 + 8) * n,
                                                         nflops)[0]}
     timing["slice8"] = out
+
+
+# -- path 9: the streaming formats, SpGEMM and SpGEAM ------------------------------------
+
+#: the kernels path 9 runs whatever the route picks; the WELL kernels join
+#: them where the power-law Hybrid's plan is a WELL
+PATH9 = ("pell_spmv", "pell_spmm")
+#: path 9's small formats: the 7-point Poisson matrix on a 64^3 grid
+SMALL9 = 64
+#: SpGEMM: the 2-D Poisson matrix on a 512^2 grid, and the power-law
+#: Laplacian at 2^14 rows (path 9 prints the products its square at path
+#: 3a's 2^18 rows would form, a bound of that square's nonzeros, which is
+#: left out); SpGEAM at path 3a's 2^18 rows
+SPGEMM_GRID = 512
+SPGEMM_POWERLAW = 1 << 14
+#: a pattern the route declines: 2^17 rows of two entries at random columns
+#: of 2^24 (no plan passes both the inflation gate and the 256 MiB one)
+DECLINE_SHAPE = (1 << 17, 1 << 24)
+
+
+@contextlib.contextmanager
+def no_route():
+    """The formats' own products: the streaming route declines every
+    apply while this is active (the JAX package's products off a TPU)."""
+    from ginkgo_tpu_torch.ops import spmv as spmv_ops
+
+    saved = spmv_ops.try_streaming
+    spmv_ops.try_streaming = lambda op, arr: None
+    try:
+        yield
+    finally:
+        spmv_ops.try_streaming = saved
+
+
+def product_bound(lib64, abs64, row_nnz, v):
+    """The float64 product of a CSR with v, and the float32 error bound of
+    any summation order of its rows: 2 * nnz(row) * eps32 * (|A| |v|)."""
+    v = v.double()
+    v2 = v if v.dim() == 2 else v[:, None]
+    want = lib64 @ v2
+    slack = 2 * row_nnz[:, None] * EPS32 * (abs64 @ v2.abs())
+    return (want, slack) if v.dim() == 2 else (want[:, 0], slack[:, 0])
+
+
+def csr64(C, dtype=None):
+    """torch.sparse CSR tensors of C's values (as ``dtype`` stores them) and
+    their absolute values in float64, and C's row lengths: a check only."""
+    vals = (C.values if dtype is None else C.values.to(dtype)).double()
+    lib = torch.sparse_csr_tensor(C.row_ptrs, C.col_idxs, vals, size=C.shape)
+    absl = torch.sparse_csr_tensor(C.row_ptrs, C.col_idxs, vals.abs(), size=C.shape)
+    return lib, absl, C.row_ptrs.diff().double()
+
+
+def check_product(label, got, want, slack):
+    err = (got.double() - want).abs()
+    check(bool(torch.isfinite(got).all()) and bool((err <= slack).all()),
+          f"{label}: differs from the float64 product by {float(err.max())}")
+    return float(err.max())
+
+
+def main_path9(gt, dev, rng, crit, data3, C3, x64_3, norm3, p3):
+    """Main path 9 through the entry points a user calls; every check
+    raises.  Returns the kind of plan ("Pell" or "Well") the route took for
+    the power-law Hybrid, and the plans of the 160^3 Coo and the Hybrid."""
+    from ginkgo_tpu_torch import stop
+    from ginkgo_tpu_torch.ops import pell as ops_pell
+    from ginkgo_tpu_torch.ops import spmv as spmv_ops
+    from ginkgo_tpu_torch.ops import well as ops_well
+
+    declines = ops_pell.linop_streaming_spmv.declines
+
+    # 9a: the 160^3 Poisson matrix handed over as a Coo, K5 through the route
+    n3 = data3.shape[0]
+    t0 = time.perf_counter()
+    Co = gt.Coo.from_matrix_data(data3, device=dev)
+    _sync(dev)
+    coo_s = time.perf_counter() - t0
+    x = torch.as_tensor(rng.standard_normal(n3).astype(np.float32), device=dev)
+    X = torch.as_tensor(rng.standard_normal((n3, 4)).astype(np.float32), device=dev)
+    builds = ops_pell.streaming_plan.builds
+    t0 = time.perf_counter()
+    y = Co.apply(x)
+    _sync(dev)
+    first_s = time.perf_counter() - t0
+    P = ops_pell.streaming_plan(Co)
+    check(isinstance(P, gt.Pell), f"path 9: the 160^3 Coo's plan is a {type(P).__name__}")
+    # the Csr "pallas" apply of the same pattern: the same PELL plan (path 2
+    # built it into the plan cache), the same kernel, the same bits
+    Cp = C3.with_strategy("pallas")
+    csr_builds = ops_pell.plan_for.builds
+    check(bit_equal(y, Cp.apply(x)), "path 9: the Coo apply differs from the Csr 'pallas' apply")
+    lib, absl, row_nnz = csr64(C3)
+    want, slack = product_bound(lib, absl, row_nnz, x)
+    err1 = check_product("path 9: the Coo apply", y, want, slack)
+    b3 = torch.ones(n3, device=dev)
+    k5 = ops_pell.pell_spmv.launches
+    t0 = time.perf_counter()
+    xs, info = gt.Cg.build(criteria=crit).generate(Co).solve(b3)
+    _sync(dev)
+    solve_s = time.perf_counter() - t0
+    k5 = ops_pell.pell_spmv.launches - k5
+    check(bool(info.converged.all()), "path 9: Cg on the Coo: not converged")
+    check(k5 >= info.num_iterations, f"path 9: Cg on the Coo ran pell_spmv {k5} times")
+    acc = accuracy(Co, xs, b3, x64_3, norm3, "path 9: Cg on the Coo")
+    k6 = ops_pell.pell_spmm.launches
+    Y = Co.apply(X)
+    check(ops_pell.pell_spmm.launches == k6 + 1, "path 9: the 4-column Coo apply did not run pell_spmm")
+    check(bit_equal(Y, Cp.apply(X)), "path 9: the 4-column Coo apply differs from the Csr's")
+    want, slack = product_bound(lib, absl, row_nnz, X)
+    err4 = check_product("path 9: the 4-column Coo apply", Y, want, slack)
+    coo_builds = ops_pell.streaming_plan.builds - builds
+    check(coo_builds == 1, "path 9: the Coo's applies and its Cg did not build one plan")
+    csr_builds = ops_pell.plan_for.builds - csr_builds
+    lib32 = library_csr(C3)
+
+    def route1():
+        return Co.apply(x)
+
+    def csr1():
+        return Cp.apply(x)
+
+    # K5 through the route beside K5 through the Csr "pallas" apply, on
+    # plans of the same arrays, each by CUDA graph in the order route, Csr,
+    # Csr, route: the applies, then K5 alone on each plan (the kernel's own
+    # time, no wrapper), so that a gap shows whether it follows the timing
+    # order or the route's copy of the plan; the SM clock after each
+    Pc = ops_pell.plan_for(C3.row_ptrs, C3.col_idxs, C3.values, C3.shape)
+    order = {"applies": (route1, csr1), "k5": (lambda: ops_pell.pell_spmv(P, x),
+                                               lambda: ops_pell.pell_spmv(Pc, x))}
+    order_us, clocks = {}, []
+    for what, (r, c) in order.items():
+        order_us[what] = []
+        for f in (r, c, c, r):
+            order_us[what].append(graph_ms(f) * 1e3)
+            clocks.append(sm_clock_mhz())
+    coo_us = {
+        "route_us": order_us["applies"][0], "csr_pallas_us": order_us["applies"][1],
+        "graph_us_route_csr_csr_route": order_us, "sm_clock_mhz_after_each": clocks,
+        "plan_offsets_in_2MiB": {
+            name: [t.data_ptr() % (1 << 21) for t in (A.values, A.qidx, A.bases)]
+            for name, A in (("route", P), ("csr", Pc))},
+        "torch_sparse_us": slope_ms(lambda: torch.mv(lib32, x), 5, 25) * 1e3,
+        "route_k4_us": graph_ms(lambda: Co.apply(X)) * 1e3,
+        "csr_pallas_k4_us": graph_ms(lambda: Cp.apply(X)) * 1e3,
+        "torch_sparse_k4_us": slope_ms(lambda: torch.sparse.mm(lib32, X), 5, 25) * 1e3,
+        "route_host_us_per_call": host_us(route1, 50),
+        "csr_host_us_per_call": host_us(csr1, 50)}
+    del Pc
+    # bfloat16 values on the same pattern: the route and the Csr plan them
+    # at 2 bytes a value, each apply bit for bit with the Csr "pallas" apply
+    Co16 = Co.astype(torch.bfloat16)
+    Cp16 = C3.astype(torch.bfloat16).with_strategy("pallas")
+    builds, csr16_builds = ops_pell.streaming_plan.builds, ops_pell.plan_for.builds
+    t0 = time.perf_counter()
+    y16 = Co16.apply(x)
+    _sync(dev)
+    first16_s = time.perf_counter() - t0
+    P16 = ops_pell.streaming_plan(Co16)
+    check(isinstance(P16, gt.Pell) and P16.values.dtype == torch.bfloat16,
+          "path 9: the bfloat16 Coo's plan is no bfloat16 Pell")
+    check(bit_equal(y16, Cp16.apply(x)),
+          "path 9: the bfloat16 Coo apply differs from the Csr 'pallas' apply")
+    k6 = ops_pell.pell_spmm.launches
+    Y16 = Co16.apply(X)
+    check(ops_pell.pell_spmm.launches == k6 + 1,
+          "path 9: the 4-column bfloat16 Coo apply did not run pell_spmm")
+    check(bit_equal(Y16, Cp16.apply(X)),
+          "path 9: the 4-column bfloat16 Coo apply differs from the Csr's")
+    check(ops_pell.streaming_plan.builds == builds + 1,
+          "path 9: the bfloat16 Coo's applies did not build one plan")
+    csr16_builds = ops_pell.plan_for.builds - csr16_builds
+    lib, absl, row_nnz = csr64(C3, torch.bfloat16)
+    want, slack = product_bound(lib, absl, row_nnz, x)
+    err16 = check_product("path 9: the bfloat16 Coo apply", y16, want, slack)
+    want, slack = product_bound(lib, absl, row_nnz, X)
+    err16_4 = check_product("path 9: the 4-column bfloat16 Coo apply", Y16, want, slack)
+    P16_8 = ops_pell._streaming_spmm_plan(Co16, P16)
+    emit({"phase": "main_path", "path": 9, "case": "coo_160", "rows": n3, "nnz": Co.nnz,
+          "coo_s": round(coo_s, 3), "first_apply_s_with_plan_build": round(first_s, 3),
+          "plan": "Pell", "S": P.S, "G": P.G, "inflation": P.inflation,
+          "csr_plan_builds": {"f32": csr_builds, "bf16": csr16_builds},
+          "max_abs_err_vs_f64": {"k1": err1, "k4": err4, "bf16_k1": err16, "bf16_k4": err16_4},
+          "bf16_first_apply_s_with_plan_build": round(first16_s, 3),
+          "bf16_plan": {"S": P16.S, "G": P16.G, "k4_S": P16_8.S},
+          "cg_iterations": info.num_iterations, "cg_solve_s": round(solve_s, 4),
+          "pell_spmv_launches": k5, "plan_builds": coo_builds,
+          **acc, **coo_us})
+    plans = {"160^3 Coo": P, "160^3 Coo, S = 8": ops_pell._streaming_spmm_plan(Co, P),
+             "160^3 bfloat16 Coo": P16, "160^3 bfloat16 Coo, S = 8": P16_8}
+    del lib, absl, lib32, Y, Y16, Co16, Cp16
+
+    # 9b: path 3a's power-law Laplacian handed over as a Hybrid
+    Cpl, bpl = p3["C"], p3["b"]
+    n = Cpl.shape[0]
+    t0 = time.perf_counter()
+    H = gt.Hybrid.from_csr(Cpl)
+    _sync(dev)
+    hyb_s = time.perf_counter() - t0
+    builds = ops_pell.streaming_plan.builds
+    t0 = time.perf_counter()
+    Hp = ops_pell.streaming_plan(H)
+    plan_s = time.perf_counter() - t0
+    check(Hp is not None, "path 9: the route declined the power-law Hybrid")
+    kind = type(Hp).__name__
+    spmv_k, spmm_k = ((ops_well.well_spmv, ops_well.well_spmm) if kind == "Well"
+                      else (ops_pell.pell_spmv, ops_pell.pell_spmm))
+    W64 = p3["W"].astype(torch.float64)
+    x64, info64 = gt.Cg.build(criteria=[stop.Iteration(max_iters=MAX_ITERS),
+                                        stop.ResidualNorm(tolerance=1e-10)]
+                              ).generate(W64).solve(bpl.double())
+    check(bool(info64.converged.all()), "path 9: float64 reference solve: not converged")
+    del W64
+    k = spmv_k.launches
+    t0 = time.perf_counter()
+    xh, info = gt.Cg.build(criteria=crit).generate(H).solve(bpl)
+    _sync(dev)
+    solve_s = time.perf_counter() - t0
+    k = spmv_k.launches - k
+    check(bool(info.converged.all()), "path 9: Cg on the Hybrid: not converged")
+    check(k >= info.num_iterations, f"path 9: Cg on the Hybrid ran {spmv_k.__name__} {k} times "
+          f"for its {kind} plan")
+    acc = accuracy(H, xh, bpl, x64, inf_norm(p3["data"]), "path 9: Cg on the Hybrid")
+    Xh = torch.as_tensor(rng.standard_normal((n, 4)).astype(np.float32), device=dev)
+    k4 = spmm_k.launches
+    Yh = H.apply(Xh)
+    check(spmm_k.launches == k4 + 1, f"path 9: the 4-column Hybrid apply did not run {spmm_k.__name__}")
+    lib, absl, row_nnz = csr64(Cpl)
+    want, slack = product_bound(lib, absl, row_nnz, Xh)
+    errh = check_product("path 9: the 4-column Hybrid apply", Yh, want, slack)
+    check(ops_pell.streaming_plan.builds == builds + 1,
+          "path 9: the Hybrid's applies and its Cg did not build one plan")
+    xr = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=dev)
+    lib32 = library_csr(Cpl)
+    Cplp = Cpl.with_strategy("pallas")
+    hybrid_us = {
+        "route_us": graph_ms(lambda: H.apply(xr)) * 1e3,
+        "csr_pallas_us": graph_ms(lambda: Cplp.apply(xr)) * 1e3,
+        "torch_sparse_us": slope_ms(lambda: torch.mv(lib32, xr), 5, 25) * 1e3,
+        "route_k4_us": graph_ms(lambda: H.apply(Xh)) * 1e3,
+        "torch_sparse_k4_us": slope_ms(lambda: torch.sparse.mm(lib32, Xh), 5, 25) * 1e3}
+    emit({"phase": "main_path", "path": 9, "case": "hybrid_powerlaw", "rows": n,
+          "nnz": H.nnz, "ell_width": H.ell.max_nnz_per_row, "coo_tail": H.coo.nnz,
+          "hybrid_s": round(hyb_s, 3), "plan_s": round(plan_s, 3), "plan": kind,
+          "T": getattr(Hp, "T", None), "S": getattr(Hp, "S", None), "G": Hp.G,
+          "inflation": Hp.inflation, "cg_iterations": info.num_iterations,
+          "cg_solve_s": round(solve_s, 4), f"{spmv_k.__name__}_launches": k,
+          "k4_max_abs_err_vs_f64": errh, **acc, **hybrid_us})
+    plans[f"powerlaw_laplacian({n}) Hybrid"] = Hp
+    del H, Yh, lib, absl, lib32
+
+    # 9c: the small formats at 64^3 against their own products, Cg where SPD
+    data64 = gt.generators.poisson_3d(SMALL9, dtype=np.float32)
+    C64 = gt.Csr.from_matrix_data(data64, device=dev)
+    n64 = C64.shape[0]
+    b64 = torch.ones(n64, device=dev)
+    x64_64, _ = gt.Cg.build(criteria=[stop.Iteration(max_iters=MAX_ITERS),
+                                      stop.ResidualNorm(tolerance=1e-10)]
+                            ).generate(C64.astype(torch.float64).with_strategy("classical")
+                                       ).solve(b64.double())
+    # path 3b's block-structured pattern at 1/64 of its row blocks
+    Cb = gt.Csr.from_matrix_data(gt.MatrixData.from_coo(
+        *block_structured(BELL_BLOCKS[0] // 64, *BELL_BLOCKS[1:])).sum_duplicates(), device=dev)
+    formats = {
+        # label: (the format, the Csr of its values, SPD)
+        "ell": (lambda: gt.Ell.from_csr(C64), C64, True),
+        "sellp": (lambda: gt.Sellp.from_csr(C64), C64, True),
+        "sparsity_csr": (lambda: C64.to_sparsity_csr(), C64, False),
+        "fbcsr2": (lambda: gt.Fbcsr.from_csr(C64, 2), C64, True),
+        "fbcsr4_block_structured": (lambda: gt.Fbcsr.from_csr(Cb, 4), Cb, False),
+        "csr_sellp": (lambda: C64.with_strategy("sellp"), C64, True),
+        "coo_bf16": (lambda: C64.to_coo().astype(torch.bfloat16),
+                     C64.astype(torch.bfloat16), True),
+    }
+    for label, (make, Cref, spd) in formats.items():
+        t0 = time.perf_counter()
+        A = make()
+        _sync(dev)
+        make_s = time.perf_counter() - t0
+        m = A.shape[1]
+        xa = torch.as_tensor(rng.standard_normal((m, 4)).astype(np.float32), device=dev)
+        builds, dec = ops_pell.streaming_plan.builds, ops_pell.linop_streaming_spmv.declines
+        t0 = time.perf_counter()
+        ya = A.apply(xa)
+        _sync(dev)
+        first_s = time.perf_counter() - t0
+        with no_route():
+            own = A.apply(xa)
+        check(ops_pell.linop_streaming_spmv.declines == dec,
+              f"path 9: the route declined the {label}")
+        check(torch.allclose(ya, own, rtol=1e-5, atol=1e-5 * float(own.abs().max())),
+              f"path 9: the {label}'s route and own products differ")
+        if label == "sparsity_csr":
+            Cref = Cref.replace(values=torch.ones_like(Cref.values))
+        lib, absl, row_nnz = csr64(Cref)
+        want, slack = product_bound(lib, absl, row_nnz, xa)
+        err = check_product(f"path 9: the {label} apply", ya, want, slack)
+        row = {"phase": "main_path", "path": 9, "case": label, "shape": list(A.shape),
+               "make_s": round(make_s, 3), "first_apply_s_with_plan_build": round(first_s, 3),
+               "plan": type(ops_pell.streaming_plan(
+                   A._sellp() if label == "csr_sellp" else A)).__name__,
+               "max_abs_err_vs_f64": err}
+        if spd:
+            t0 = time.perf_counter()
+            xs, info = gt.Cg.build(criteria=crit).generate(A).solve(b64)
+            _sync(dev)
+            check(bool(info.converged.all()), f"path 9: Cg on the {label}: not converged")
+            row.update(cg_iterations=info.num_iterations,
+                       cg_solve_s=round(time.perf_counter() - t0, 4),
+                       **accuracy(A, xs, b64, x64_64[:, 0] if x64_64.dim() == 2 else x64_64,
+                                  inf_norm(data64), f"path 9: Cg on the {label}"))
+        row["plan_builds"] = ops_pell.streaming_plan.builds - builds
+        check(row["plan_builds"] == 1, f"path 9: the {label} built {row['plan_builds']} plans")
+        emit(row)
+    # a pattern the route declines: its own product (coo_spmv), no kernel
+    gen = np.random.default_rng(SEED + 9)
+    nd, md = DECLINE_SHAPE
+    Cd = gt.Coo.from_matrix_data(gt.MatrixData.from_coo(
+        (nd, md), np.repeat(np.arange(nd), 2), np.sort(gen.integers(0, md, (nd, 2))).ravel(),
+        gen.standard_normal(2 * nd).astype(np.float32)).sum_duplicates(), device=dev)
+    xd = torch.as_tensor(gen.standard_normal(md).astype(np.float32), device=dev)
+    dec = ops_pell.linop_streaming_spmv.declines
+    before = [f.launches for f in (ops_pell.pell_spmv, ops_well.well_spmv)]
+    t0 = time.perf_counter()
+    yd = Cd.apply(xd)
+    _sync(dev)
+    decline_s = time.perf_counter() - t0
+    check(ops_pell.linop_streaming_spmv.declines == dec + 1, "path 9: the route did not decline")
+    check([f.launches for f in (ops_pell.pell_spmv, ops_well.well_spmv)] == before,
+          "path 9: a declined apply launched a kernel")
+    want = spmv_ops.coo_spmv(Cd.rows, Cd.cols, Cd.values.double(), xd.double(), nd)
+    slack = 4 * EPS32 * spmv_ops.coo_spmv(Cd.rows, Cd.cols, Cd.values.double().abs(),
+                                          xd.double().abs(), nd)
+    check_product("path 9: the declined Coo's own product", yd, want, slack)
+    emit({"phase": "main_path", "path": 9, "case": "declined_scatter", "shape": [nd, md],
+          "route": "coo_spmv", "declines": ops_pell.linop_streaming_spmv.declines - declines,
+          "apply_s_with_plan_choice": round(decline_s, 3)})
+    del Cd, xd, yd, C64
+
+    # 9d: SpGEMM and SpGEAM against scipy, each twice for the same bits
+    import scipy.sparse as sps
+
+    def sp_of(C):
+        host = gt.types.to_host
+        m = sps.csr_matrix((host(C.values).astype(np.float64), host(C.col_idxs),
+                            host(C.row_ptrs)), shape=C.shape)
+        m.sort_indices()
+        return m
+
+    def spgemm_check(label, run, want, **extra):
+        t0 = time.perf_counter()
+        got = run()
+        _sync(dev)
+        first_s = time.perf_counter() - t0
+        again = run()
+        _sync(dev)
+        check(bit_equal(got.values, again.values), f"path 9: {label}: two calls gave other bits")
+        g = sp_of(got)
+        w = want.tocsr()
+        w.sort_indices()
+        check(np.array_equal(g.indptr, w.indptr) and np.array_equal(g.indices, w.indices),
+              f"path 9: {label}: the pattern differs from scipy's")
+        err = np.abs(g.data - w.data)
+        check(bool((err <= 1e-5 * (1 + np.abs(w.data))).all()),
+              f"path 9: {label}: values differ from the float64 product by {err.max()}")
+        emit({"phase": "main_path", "path": 9, "case": label, "shape": list(got.shape),
+              "nnz": got.nnz, "first_s": round(first_s, 3), "max_abs_err_vs_f64": float(err.max()),
+              "repeat_bit_equal": True, **extra})
+
+    A2d = gt.Csr.from_matrix_data(gt.generators.poisson_2d(SPGEMM_GRID, dtype=np.float32),
+                                  device=dev)
+    Apl = gt.Csr.from_matrix_data(gt.MatrixData.from_coo(*powerlaw_laplacian(SPGEMM_POWERLAW)
+                                                         ).sum_duplicates(), device=dev)
+    def products(A):
+        # the products A A forms before they are summed: per inner index k,
+        # column k's entries times row k's (a bound of A A's nonzeros)
+        cols = torch.bincount(A.col_idxs.to(torch.int64), minlength=A.shape[0])
+        return int((cols * A.row_ptrs.diff().to(torch.int64)).sum())
+
+    for name, A in ((f"poisson_2d({SPGEMM_GRID})", A2d),
+                    (f"powerlaw_laplacian({SPGEMM_POWERLAW})", Apl)):
+        s = sp_of(A)
+        spgemm_check(f"spgemm {name}", lambda: A.apply(A), s @ s, products=products(A))
+    # path 3a's matrix squared is left out: the products it would form
+    emit({"phase": "main_path", "path": 9, "case": f"spgemm powerlaw_laplacian({n}) left out",
+          "nnz": Cpl.nnz, "products": products(Cpl)})
+    for name, A in ((f"poisson_2d({SPGEMM_GRID})", A2d), (f"powerlaw_laplacian({n})", Cpl)):
+        s = sp_of(A)
+        spgemm_check(f"spgeam {name}", lambda: A.spgeam(1.0, A.transpose(), 1.0), s + s.T)
+    return {"hybrid_plan": kind, "plans": plans}
+
+
+def check_path9_kernels(gt, dev, rng, p9, record_err):
+    """K5/K6 or K8/K9 against their plain versions on the plans path 9's
+    route built (the 160^3 Coo's S = "auto" plan and its S = 8 sibling, of
+    float32 and of bfloat16 values, and the power-law Hybrid's), each
+    called twice: the same bits twice; K5, K8 and K9 the plain version's
+    bits, K6 within 1e-5 of it (the bound the other K6 checks hold: its
+    plain version sums a slot's rows in another order)."""
+    from ginkgo_tpu_torch.ops import pell as ops_pell
+    from ginkgo_tpu_torch.ops import well as ops_well
+
+    for label, A in p9["plans"].items():
+        x = torch.as_tensor(rng.standard_normal(A.shape[1]).astype(np.float32), device=dev)
+        X = torch.as_tensor(rng.standard_normal((A.shape[1], 4)).astype(np.float32), device=dev)
+        mod = ops_well if isinstance(A, gt.Well) else ops_pell
+        kind = "well" if mod is ops_well else "pell"
+        row = {"phase": "kernel_check", "path": 9, "matrix": label, "plan": type(A).__name__,
+               "values": str(A.values.dtype)}
+        for name, v in ((f"{kind}_spmv", x), (f"{kind}_spmm", X)):
+            kern, plain = getattr(mod, name), getattr(mod, name + "_reference")
+            got, again = kern(A, v), kern(A, v)
+            want = plain(A, v)
+            _sync(dev)
+            err = record_err(name, got, want)
+            check(bit_equal(got, again), f"path 9: {name} on {label}: two calls gave other bits")
+            same = bit_equal(got, want) if name != "pell_spmm" else torch.allclose(
+                got, want, rtol=1e-5, atol=1e-5)
+            check(same, f"path 9: {name} differs from its plain version on {label}: {err}")
+            row[name + "_max_abs_err"] = err
+        emit(row)
 
 
 def main():
@@ -4954,7 +5480,8 @@ def main():
           "iterations": info.num_iterations, "pell_spmv_launches": k5_runs,
           **accuracy(C, x, b3, X64[:, 0], norm_a3, "Cg on the Csr"),
           "solve_s_with_plan_build": round(solve_s, 4)})
-    ops_pell._PLAN_CACHE.clear()
+    # the plan stays cached: path 9's Coo of the same pattern is held
+    # against this Csr's "pallas" applies
 
     for label, A, pre, cls in (("pell_f32", P, None, gt.Cg),
                                ("pell_bf16", P.reduce_storage(), None, gt.Cg),
@@ -5088,7 +5615,6 @@ def main():
     check_path7_kernels(gt, dev, rng, p7, record_err)
     stamp("check K22-K24")
     emit({"phase": "kernel_check", "path": 7, "done": True, "t_s": elapsed()})
-    del x64_3
 
     # -- 5f. main path 8: algebraic multigrid -------------------------------------------
     zero_counts()
@@ -5097,12 +5623,25 @@ def main():
     check(all(launches8[k] > 0 for k in PATH8), f"a kernel of path 8 never ran: {launches8}")
     emit({"phase": "main_path", "path": 8, "launches": launches8, "t_s": elapsed()})
     stamp("path 8")
-    launches = {k: launches1[k] + launches2[k] + launches3[k] + launches4[k] + launches5[k]
-                + launches6[k] + launches7[k] + launches8[k] for k in kernels}
     check_path8_kernels(gt, dev, rng, p8, record_err)
     emit({"phase": "kernel_check", "path": 8, "done": True, "t_s": elapsed()})
     stamp("check K25-K28")
     del x64_ones
+
+    # -- 5g. main path 9: the streaming formats, SpGEMM and SpGEAM ------------------------
+    zero_counts()
+    p9 = main_path9(gt, dev, rng, crit, data3, C, x64_3, norm_a3, p3)
+    launches9 = {k: f.launches for k, f in kernels.items()}
+    path9 = PATH9 + (("well_spmv", "well_spmm") if p9["hybrid_plan"] == "Well" else ())
+    check(all(launches9[k] > 0 for k in path9), f"a kernel of path 9 never ran: {launches9}")
+    emit({"phase": "main_path", "path": 9, "launches": launches9, "kernels": list(path9),
+          "t_s": elapsed()})
+    stamp("path 9")
+    check_path9_kernels(gt, dev, rng, p9, record_err)
+    stamp("check K5/K6, K8/K9 on path 9's plans")
+    del x64_3, p9
+    launches = {k: launches1[k] + launches2[k] + launches3[k] + launches4[k] + launches5[k]
+                + launches6[k] + launches7[k] + launches8[k] + launches9[k] for k in kernels}
 
     # -- 6. timings (printed, not checked) -------------------------------------------
     src = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)

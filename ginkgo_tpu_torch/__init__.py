@@ -38,7 +38,14 @@ Ported so far:
   the coarsest level) as a solver and as a preconditioner, with
   whole-cycle and whole-solve kernels on an all-``Dia`` hierarchy (one
   cycle; cycles to the stop test; ``Cg``/``Fcg`` and ``Bicgstab`` with the
-  cycle as M).
+  cycle as M);
+- slice 9: the streaming formats ``Coo``, ``Ell``, ``Sellp``,
+  ``Hybrid``, ``SparsityCsr`` and ``Fbcsr``, each served on a CUDA tensor
+  by one route (the CSR view's PELL or WELL plan, kernels K5/K6/K8/K9)
+  with its own gather product where the route declines; ``Csr``'s "sellp"
+  strategy, SpGEMM (``Csr.apply(Csr)``, ``spgemm``) and SpGEAM
+  (``spgeam``), ``create_submatrix`` with ``IndexSet``; the rest of
+  ``Dense``; ``Permutation``, ``RowGatherer`` and ``IdentityFactory``.
 """
 
 __version__ = "0.1.0"
@@ -48,12 +55,18 @@ from .base import exceptions, types
 from .base.linop import Combination, Composition, LinOp, Perturbation
 from .base.matrix_data import DeviceMatrixData, MatrixData
 from .matrix.auto import choose_format
+from .base.index_set import IndexSet
 from .matrix.bell import Bell
+from .matrix.coo import Coo
 from .matrix.csr import Csr
 from .matrix.dense import Dense
 from .matrix.dia import Dia
-from .matrix.diagonal import Diagonal, Identity
+from .matrix.diagonal import Diagonal, Identity, IdentityFactory, Permutation, RowGatherer
+from .matrix.ell import Ell, Sellp
+from .matrix.fbcsr import Fbcsr
+from .matrix.hybrid import Hybrid
 from .matrix.pell import Pell
+from .matrix.sparsity_csr import SparsityCsr
 from .matrix.well import Well
 from .preconditioner.jacobi import Jacobi
 from .solver.bicgstab import Bicg, Bicgstab, Cgs
@@ -75,17 +88,23 @@ __all__ = [
     "Cgs",
     "Combination",
     "Composition",
+    "Coo",
     "Csr",
     "Dense",
     "DeviceMatrixData",
     "Dia",
     "Diagonal",
     "Direct",
+    "Ell",
+    "Fbcsr",
     "Fcg",
     "FixedSmoother",
     "Gmres",
+    "Hybrid",
     "Identity",
+    "IdentityFactory",
     "Idr",
+    "IndexSet",
     "Ir",
     "Jacobi",
     "LinOp",
@@ -93,9 +112,13 @@ __all__ = [
     "Multigrid",
     "MultigridFactory",
     "Pell",
+    "Permutation",
     "Perturbation",
     "Richardson",
+    "RowGatherer",
+    "Sellp",
     "SolveInfo",
+    "SparsityCsr",
     "Well",
     "choose_format",
     "exceptions",

@@ -40,6 +40,17 @@ def real_dtype(dtype) -> torch.dtype:
     return d.to_real() if d.is_complex else d
 
 
+def complex_dtype(dtype) -> torch.dtype:
+    """to_complex<T> analog: float32 and the storage types give complex64,
+    float64 complex128; other dtypes stay."""
+    d = to_torch_dtype(dtype)
+    if d in (torch.float32,) + STORAGE_TYPES:
+        return torch.complex64
+    if d == torch.float64:
+        return torch.complex128
+    return d
+
+
 def arithmetic_dtype(dtype) -> torch.dtype:
     """The dtype arithmetic runs in for values stored as ``dtype``:
     reduced storage (bf16/f16) computes in float32."""

@@ -94,6 +94,20 @@
 //    at k = 4, BR = 8), and the copies reached about 3.3 TB/s from L2 and
 //    device memory together on that card: 43 us at k = 4 in float32, 30 us
 //    with bfloat16 panels (PERF.md, with the shapes that lost).
+//
+// Wide row blocks.  A row's running total lives in shared memory while its
+// row block streams past, BR floats a block for K10 and BR * KC for K11.
+// Where they would not fit a block's shared memory beside the ring (K10
+// from about 32,000 rows a block, K11 at 8 columns from about 5,200), the
+// launcher takes the kernels' TG form: the totals live in y (Y) itself.
+// One thread a staged panel row (K10) or a (staged row, column) pair (K11)
+// adds its panel sum into the row's y: 0 before the row block's first
+// panel, y after it.  A block owns its row blocks, the stage's rows are
+// distinct (BR >= the rows a stage), and the stages are ordered by the
+// block's barriers, so the same adds run in the same order: the same bits
+// as the shared totals, with no atomics.  The rows a stage of K10 and K11
+// are both at most 64, and the JAX package's Bell takes BR = 8 to any
+// multiple of 8, so every Bell it accepts gets one of the two forms.
 
 #include <stdint.h>
 
@@ -146,12 +160,12 @@ __host__ __device__ inline int gk_bell_stage_bytes(int BR) {
          gk_bell_xpanels(GK_BELL_STAGE_ROWS, BR) * GK_BELL_XROW * 4;
 }
 
-// The ring, then a lane sum a staged row and a running total a row of the
-// row block.
-template <typename TV>
+// The ring, then a lane sum a staged row and (TG false) a running total a
+// row of the row block.
+template <typename TV, bool TG>
 static size_t gk_bell_block_bytes(int BR) {
   return (size_t)GK_BELL_STAGES * gk_bell_stage_bytes<TV>(BR) +
-         (size_t)(GK_BELL_STAGE_ROWS + BR) * sizeof(float);
+         (size_t)(GK_BELL_STAGE_ROWS + (TG ? 0 : BR)) * sizeof(float);
 }
 
 extern __shared__ __align__(16) unsigned char gk_bell_smem[];
@@ -213,8 +227,9 @@ __device__ __forceinline__ void gk_bell_stage_load(unsigned char* st, const TV* 
 }
 
 // Panel rows are counted in int: the launcher declines a Bell of 2^31 or
-// more (256 GB of float32 panels).
-template <typename TV>
+// more (256 GB of float32 panels).  TG: the running totals live in y (BR
+// at least the rows a stage).
+template <typename TV, bool TG>
 __global__ void __launch_bounds__(GK_BELL_RING_THREADS)
     bell_spmv_kernel(const TV* __restrict__ values, const int* __restrict__ pids, int K,
                      int BR, const float* __restrict__ x, float* __restrict__ y,
@@ -229,7 +244,8 @@ __global__ void __launch_bounds__(GK_BELL_RING_THREADS)
   const int q_end = (int)((long long)nrb * (blockIdx.x + 1) / gridDim.x) * rows_rb;
   const int ng = (q_end - q_begin + R - 1) / R;
   const bool x_aligned = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  for (int r = threadIdx.x; r < BR; r += GK_BELL_RING_THREADS) tot[r] = 0.0f;
+  if (!TG)
+    for (int r = threadIdx.x; r < BR; r += GK_BELL_RING_THREADS) tot[r] = 0.0f;
   int pid[GK_BELL_XPT];
 #pragma unroll
   for (int g = 0; g < NS - 1; ++g) {
@@ -280,6 +296,21 @@ __global__ void __launch_bounds__(GK_BELL_RING_THREADS)
       psum[i] = lane_sum;
     }
     __syncthreads();
+    if (TG) {
+      // one thread a staged panel row: its panel sum into its row's total
+      // in y, 0 before the row block's first panel; a row appears once a
+      // stage, and the stages are ordered by the barriers above
+      for (int i = threadIdx.x; i < n; i += GK_BELL_RING_THREADS) {
+        const int panel = (q0 + i) / BR;
+        const long long row = (long long)(panel / K) * BR + (q0 + i - panel * BR);
+        if (row < n_rows) {
+          float t = panel % K == 0 ? 0.0f : y[row];
+          t += psum[i];
+          y[row] = t;
+        }
+      }
+      continue;
+    }
     // one thread a row: its panel sums in panel order into its total; row r
     // of the stage's panels sits at q = q0 + i, i = first, first + BR, ...
     for (int r = threadIdx.x; r < BR; r += GK_BELL_RING_THREADS) {
@@ -338,13 +369,13 @@ __host__ __device__ inline int gk_bellm_stage_bytes(int BR) {
 }
 
 // The ring's full and empty barriers (16 bytes a stage), the ring, KC lane
-// sums a staged row twice over (consecutive stages alternate) and KC running
-// totals a row of the row block.
-template <typename TV, int KC>
+// sums a staged row twice over (consecutive stages alternate) and (TG
+// false) KC running totals a row of the row block.
+template <typename TV, int KC, bool TG>
 static size_t gk_bellm_block_bytes(int BR) {
   using S = GkBellmShape<TV, KC>;
   return (size_t)S::NS * (16 + gk_bellm_stage_bytes<TV, KC>(BR)) +
-         (size_t)(2 * S::R + BR) * KC * sizeof(float);
+         (size_t)(2 * S::R + (TG ? 0 : BR)) * KC * sizeof(float);
 }
 
 // The panel ids of the x panels that panel rows [q0, q0 + n) read, loaded a
@@ -428,8 +459,8 @@ __device__ __forceinline__ void gk_bellm_stage_load(unsigned char* st,
 // cp.async, and each stage's full barrier completes once its copies have
 // landed.  The consumer warps take one panel row a thread, release the
 // stage through its empty barrier, and add the panel sums.  Panel rows are
-// counted in int, as in K10.
-template <typename TV, int KC>
+// counted in int, as in K10.  TG: the running totals live in Y.
+template <typename TV, int KC, bool TG>
 __global__ void __launch_bounds__(GkBellmShape<TV, KC>::T)
     bell_spmm_kernel(const TV* __restrict__ values, const int* __restrict__ pids, int K, int BR,
                      const float* __restrict__ X, float* __restrict__ Y, long long n_rows,
@@ -453,7 +484,8 @@ __global__ void __launch_bounds__(GkBellmShape<TV, KC>::T)
       gk_mbar_init(empty + s, NC);
     }
   }
-  for (int t = threadIdx.x; t < BR * KC; t += S::T) tot[t] = 0.0f;
+  if (!TG)
+    for (int t = threadIdx.x; t < BR * KC; t += S::T) tot[t] = 0.0f;
   __syncthreads();
   if (threadIdx.x < 32) {  // the producer warp
     const int lane = threadIdx.x;
@@ -517,10 +549,27 @@ __global__ void __launch_bounds__(GkBellmShape<TV, KC>::T)
     }
     gk_mbar_arrive(empty + s);  // this thread is done with the stage
     asm volatile("bar.sync 1, %0;\n" ::"n"(NC) : "memory");  // the stage's lane sums are in
+    if (TG) {
+      // one thread a (staged row, column) pair: its panel sum into the
+      // row's total in Y, 0 before the row block's first panel; a row
+      // appears once a stage, and the stages are ordered by the barrier
+      const int q0 = q_begin + g * R;
+      for (int t = i; t < n * KC; t += NC) {
+        const int ii = t / KC, c = t % KC;
+        const int panel = (q0 + ii) / BR;
+        const long long row = (long long)(panel / K) * BR + (q0 + ii - panel * BR);
+        if (row < n_rows) {
+          float* yp = Y + row * k + cb + c;
+          float tt = panel % K == 0 ? 0.0f : *yp;
+          tt += ps[ii * KC + c];
+          *yp = tt;
+        }
+      }
+    }
     // one thread a (row, column) pair: its panel sums in panel order into
     // its total; row r of the stage's panels sits at i = first, first + BR,
     // ... (at most XP of them, BR >= 8), loaded before they are added
-    for (int t = i; t < BR * KC; t += NC) {
+    for (int t = i; !TG && t < BR * KC; t += NC) {
       const int r = t / KC, c = t % KC;
       const bool next = r < q_mod;  // row r's first panel here is the stage's second
       const int first = next ? r - q_mod + BR : r - q_mod;
@@ -603,15 +652,22 @@ static int gk_ring_launch(Kernel kernel, int threads, size_t smem, long long wor
   return 0;
 }
 
-// K10's persistent grid on this device; nrb: the row blocks that hold rows.
+// K10's persistent grid on this device; nrb: the row blocks that hold rows;
+// tg: the totals live in y (the form whose shared memory does not grow with
+// BR), where the shared totals do not fit.
 template <typename TV>
 static int gk_bell_spmv_plan(int K, int BR, long long n_rows, bool want_regs, GkRingLaunch* L,
-                             int* nrb) {
+                             int* nrb, int* tg) {
   const long long blocks = (n_rows + BR - 1) / BR;
   if (BR % 8 || blocks * K * BR > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   *nrb = (int)blocks;
-  return gk_ring_launch(bell_spmv_kernel<TV>, GK_BELL_RING_THREADS, gk_bell_block_bytes<TV>(BR),
-                        blocks, want_regs, L);
+  *tg = 0;
+  const int status = gk_ring_launch(bell_spmv_kernel<TV, false>, GK_BELL_RING_THREADS,
+                                    gk_bell_block_bytes<TV, false>(BR), blocks, want_regs, L);
+  if (status != (int)cudaErrorInvalidConfiguration || BR < GK_BELL_STAGE_ROWS) return status;
+  *tg = 1;
+  return gk_ring_launch(bell_spmv_kernel<TV, true>, GK_BELL_RING_THREADS,
+                        gk_bell_block_bytes<TV, true>(BR), blocks, want_regs, L);
 }
 
 template <typename TV>
@@ -619,43 +675,57 @@ static int launch_spmv(const void* values, const int* pids, int K, int BR,
                        const float* x, float* y, long long n_rows,
                        long long n_cols, cudaStream_t stream) {
   GkRingLaunch L;
-  int nrb;
-  const int status = gk_bell_spmv_plan<TV>(K, BR, n_rows, false, &L, &nrb);
+  int nrb, tg;
+  const int status = gk_bell_spmv_plan<TV>(K, BR, n_rows, false, &L, &nrb, &tg);
   if (status) return status;
-  bell_spmv_kernel<TV><<<L.grid, L.threads, L.smem, stream>>>(
-      (const TV*)values, pids, K, BR, x, y, n_rows, n_cols, nrb);
+  if (tg)
+    bell_spmv_kernel<TV, true><<<L.grid, L.threads, L.smem, stream>>>(
+        (const TV*)values, pids, K, BR, x, y, n_rows, n_cols, nrb);
+  else
+    bell_spmv_kernel<TV, false><<<L.grid, L.threads, L.smem, stream>>>(
+        (const TV*)values, pids, K, BR, x, y, n_rows, n_cols, nrb);
   return (int)cudaGetLastError();
 }
 
-// K11's persistent grid for one column group of KC columns.
+// K11's persistent grid for one column group of KC columns; tg as for K10.
 template <typename TV, int KC>
 static int gk_bell_spmm_plan(int K, int BR, long long n_rows, bool want_regs, GkRingLaunch* L,
-                             int* nrb) {
+                             int* nrb, int* tg) {
   const long long blocks = (n_rows + BR - 1) / BR;
   if (BR % 8 || blocks * K * BR > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   *nrb = (int)blocks;
-  return gk_ring_launch(bell_spmm_kernel<TV, KC>, GkBellmShape<TV, KC>::T,
-                        gk_bellm_block_bytes<TV, KC>(BR), blocks, want_regs, L);
+  *tg = 0;
+  const int status = gk_ring_launch(bell_spmm_kernel<TV, KC, false>, GkBellmShape<TV, KC>::T,
+                                    gk_bellm_block_bytes<TV, KC, false>(BR), blocks, want_regs, L);
+  if (status != (int)cudaErrorInvalidConfiguration || BR < GkBellmShape<TV, KC>::R) return status;
+  *tg = 1;
+  return gk_ring_launch(bell_spmm_kernel<TV, KC, true>, GkBellmShape<TV, KC>::T,
+                        gk_bellm_block_bytes<TV, KC, true>(BR), blocks, want_regs, L);
 }
 
 // Plan (and, when `launch`, launch) the group of columns [cb, cb + KC);
-// shape = {panel rows a stage, stages, dynamic shared bytes a block}.
+// shape = {panel rows a stage, stages, dynamic shared bytes a block of the
+// shared totals' form, totals in Y}.
 template <typename TV, int KC>
 static int gk_bell_spmm_group(const void* values, const int* pids, int K, int BR, const float* X,
                               float* Y, long long n_rows, long long n_cols, int k, int cb,
                               bool launch, cudaStream_t stream, GkRingLaunch* L, int* shape) {
   shape[0] = GkBellmShape<TV, KC>::R;
   shape[1] = GkBellmShape<TV, KC>::NS;
-  shape[2] = (int)gk_bellm_block_bytes<TV, KC>(BR);
+  shape[2] = (int)gk_bellm_block_bytes<TV, KC, false>(BR);
   int nrb;
-  const int status = gk_bell_spmm_plan<TV, KC>(K, BR, n_rows, !launch, L, &nrb);
+  const int status = gk_bell_spmm_plan<TV, KC>(K, BR, n_rows, !launch, L, &nrb, &shape[3]);
   if (status || !launch) return status;
   const bool aligned = (reinterpret_cast<uintptr_t>(X) & 15) == 0;
   const int xmode = aligned && KC == k ? GK_BELLX_RUN
                     : aligned && k % 4 == 0 && KC % 4 == 0 ? GK_BELLX_LANE16
                                                            : GK_BELLX_LANE4;
-  bell_spmm_kernel<TV, KC><<<L->grid, L->threads, L->smem, stream>>>(
-      (const TV*)values, pids, K, BR, X, Y, n_rows, n_cols, k, cb, nrb, xmode);
+  if (shape[3])
+    bell_spmm_kernel<TV, KC, true><<<L->grid, L->threads, L->smem, stream>>>(
+        (const TV*)values, pids, K, BR, X, Y, n_rows, n_cols, k, cb, nrb, xmode);
+  else
+    bell_spmm_kernel<TV, KC, false><<<L->grid, L->threads, L->smem, stream>>>(
+        (const TV*)values, pids, K, BR, X, Y, n_rows, n_cols, k, cb, nrb, xmode);
   return (int)cudaGetLastError();
 }
 
@@ -683,7 +753,7 @@ static int launch_spmm(const void* values, const int* pids, int K, int BR, const
                        cudaStream_t stream) {
   for (int cb = 0; cb < k; cb += GK_BELL_COLS) {
     GkRingLaunch L;
-    int shape[3];
+    int shape[4];
     const int kc = k - cb < GK_BELL_COLS ? k - cb : GK_BELL_COLS;
     const int status = gk_bell_spmm_cols<TV>(kc, values, pids, K, BR, X, Y, n_rows, n_cols, k,
                                              cb, true, stream, &L, shape);
@@ -724,36 +794,37 @@ extern "C" int bell_spmm(const void* values, int v_dtype, const int* pids,
 
 // K10's launch on this device for a Bell of K panels and BR rows a block: out = {blocks,
 // threads a block, dynamic shared bytes a block, blocks an SM, registers a
-// thread, panel rows a stage, stages}.
+// thread, panel rows a stage, stages, 1 where the totals live in y}.
 extern "C" int bell_spmv_config(int v_dtype, int K, int BR, long long n_rows, int* out) {
   if (K < 1 || BR < 1) return (int)cudaErrorInvalidValue;
   GkRingLaunch L;
-  int nrb;
+  int nrb, tg;
   int status;
   if (v_dtype == GK_F32) {
-    status = gk_bell_spmv_plan<float>(K, BR, n_rows, true, &L, &nrb);
+    status = gk_bell_spmv_plan<float>(K, BR, n_rows, true, &L, &nrb, &tg);
   } else if (v_dtype == GK_BF16) {
-    status = gk_bell_spmv_plan<__nv_bfloat16>(K, BR, n_rows, true, &L, &nrb);
+    status = gk_bell_spmv_plan<__nv_bfloat16>(K, BR, n_rows, true, &L, &nrb, &tg);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   if (status) return status;
-  const int v[7] = {L.grid, L.threads, L.smem, L.per_sm, L.regs, GK_BELL_STAGE_ROWS,
-                    GK_BELL_STAGES};
-  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  const int v[8] = {L.grid, L.threads, L.smem, L.per_sm, L.regs, GK_BELL_STAGE_ROWS,
+                    GK_BELL_STAGES, tg};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
   return 0;
 }
 
 // K11's launch on this device for a Bell of K panels and BR rows a block at
 // k columns: out = {blocks, threads a block, dynamic shared bytes a block,
-// blocks an SM, registers a thread, panel rows a stage, stages, launches
-// (column groups)}, of the first column group (the widest).  out[2] holds
-// the shared bytes a block asks for even when they do not fit the card.
+// blocks an SM, registers a thread, panel rows a stage, stages, 1 where the
+// totals live in Y, launches (column groups)}, of the first column group
+// (the widest).  Where no form fits the card, out[2] holds the bytes the
+// shared totals' form asks for.
 extern "C" int bell_spmm_config(int v_dtype, int K, int BR, long long n_rows, int k, int* out) {
   if (K < 1 || BR < 1 || k < 1) return (int)cudaErrorInvalidValue;
   const int kc = k < GK_BELL_COLS ? k : GK_BELL_COLS;
   GkRingLaunch L;
-  int shape[3];
+  int shape[4];
   int status;
   if (v_dtype == GK_F32) {
     status = gk_bell_spmm_cols<float>(kc, nullptr, nullptr, K, BR, nullptr, nullptr, n_rows, 0,
@@ -766,8 +837,8 @@ extern "C" int bell_spmm_config(int v_dtype, int K, int BR, long long n_rows, in
   }
   out[2] = shape[2];
   if (status) return status;
-  const int v[8] = {L.grid, L.threads, L.smem, L.per_sm, L.regs, shape[0], shape[1],
+  const int v[9] = {L.grid, L.threads, L.smem, L.per_sm, L.regs, shape[0], shape[1], shape[3],
                     (k + GK_BELL_COLS - 1) / GK_BELL_COLS};
-  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
   return 0;
 }

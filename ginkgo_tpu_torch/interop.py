@@ -12,9 +12,14 @@ import torch
 
 from .base.matrix_data import MatrixData
 from .matrix.bell import Bell
+from .matrix.coo import Coo
 from .matrix.csr import Csr
 from .matrix.dia import Dia
+from .matrix.ell import Ell, Sellp
+from .matrix.fbcsr import Fbcsr
+from .matrix.hybrid import Hybrid
 from .matrix.pell import Pell
+from .matrix.sparsity_csr import SparsityCsr
 from .matrix.well import Well
 from .ops.pell import tile_ptr_from_steps
 from .multigrid.pgm import (
@@ -73,6 +78,48 @@ def csr_from_arrays(row_ptrs, col_idxs, values, shape, *, device,
         shape=tuple(int(s) for s in shape),
         strategy=strategy,
     )
+
+
+def coo_from_arrays(rows, cols, values, shape, *, device) -> Coo:
+    """A ``Coo`` from a JAX Coo's rows / cols / values."""
+    return Coo(rows=_tensor(rows, device), cols=_tensor(cols, device),
+               values=_tensor(values, device), shape=tuple(int(s) for s in shape))
+
+
+def ell_from_arrays(col_idxs, values, shape, *, device) -> Ell:
+    """An ``Ell`` from a JAX Ell's (n, K) col_idxs / values."""
+    return Ell(col_idxs=_tensor(col_idxs, device), values=_tensor(values, device),
+               shape=tuple(int(s) for s in shape))
+
+
+def sellp_from_arrays(slice_sets, col_idxs, values, shape, slice_size, *, device) -> Sellp:
+    """A ``Sellp`` from a JAX Sellp's slice_sets / col_idxs / values."""
+    return Sellp(slice_sets=_tensor(slice_sets, device), col_idxs=_tensor(col_idxs, device),
+                 values=_tensor(values, device), shape=tuple(int(s) for s in shape),
+                 slice_size=int(slice_size))
+
+
+def hybrid_from_arrays(ell, coo, shape, *, device) -> Hybrid:
+    """A ``Hybrid`` from a JAX Hybrid's parts: ``ell`` (col_idxs, values)
+    and ``coo`` (rows, cols, values)."""
+    shape = tuple(int(s) for s in shape)
+    return Hybrid(ell=ell_from_arrays(*ell, shape, device=device),
+                  coo=coo_from_arrays(*coo, shape, device=device), shape=shape)
+
+
+def sparsity_csr_from_arrays(row_ptrs, col_idxs, value, shape, *, device) -> SparsityCsr:
+    """A ``SparsityCsr`` from a JAX SparsityCsr's pattern and 0-d value."""
+    return SparsityCsr(row_ptrs=_tensor(row_ptrs, device), col_idxs=_tensor(col_idxs, device),
+                       value=_tensor(value, device).reshape(()),
+                       shape=tuple(int(s) for s in shape))
+
+
+def fbcsr_from_arrays(block_row_ptrs, block_cols, blocks, shape, block_size, *,
+                      device) -> Fbcsr:
+    """An ``Fbcsr`` from a JAX Fbcsr's block pattern and (nb, bs, bs) blocks."""
+    return Fbcsr(block_row_ptrs=_tensor(block_row_ptrs, device),
+                 block_cols=_tensor(block_cols, device), blocks=_tensor(blocks, device),
+                 shape=tuple(int(s) for s in shape), block_size=int(block_size))
 
 
 def pell_from_arrays(values, qidx, bases, tile_of_step, *, shape, n_steps,

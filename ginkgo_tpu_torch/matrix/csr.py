@@ -16,10 +16,13 @@ the SpMV; the names are the JAX package's, so user code carries over:
                  HARD_PAD_BYTES; 'classical' otherwise.  On a CPU tensor
                  its host branch, 'merge_path' for skewed rows and
                  'classical' otherwise
-  'sellp'        not ported yet (the Ell/Sellp formats come with queue A
-                 item 2's streaming formats)
+  'sellp'        the matrix as a ``Sellp`` (slices of 64 rows), built once
+                 and kept on the instance, and its apply: on a CUDA tensor
+                 the streaming route of its CSR view (one plan for a
+                 whole solve), else SELL-P's gather product
 
-Structure ops run as tensor ops on the matrix's device; permutations and
+``apply`` of a ``Csr`` is SpGEMM (``ops/spgemm.py``).  Structure ops run as
+tensor ops on the matrix's device; permutations, ``create_submatrix`` and
 ``to_scipy`` are host set-up paths, as in the JAX package.
 """
 
@@ -31,9 +34,8 @@ import numpy as np
 import torch
 
 from ..base import types
-from ..base.exceptions import NotImplementedError_
 from ..base.linop import LinOp, _scalar, as_2d, restore_1d
-from ..base.matrix_data import MatrixData
+from ..base.matrix_data import DeviceMatrixData, MatrixData
 from ..ops import pell as ops_pell
 from ..ops import spmv as spmv_ops
 from ..ops import well as ops_well
@@ -77,6 +79,16 @@ class Csr(LinOp):
         )
 
     read = from_matrix_data
+
+    @staticmethod
+    def from_device_data(data: DeviceMatrixData, strategy="auto") -> "Csr":
+        """From sorted-or-not COO triples already on a device; duplicates
+        are kept, as in the JAX package."""
+        d = data.sort_row_major()
+        counts = torch.bincount(d.rows.to(torch.int64), minlength=d.shape[0])
+        row_ptrs = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+        return Csr(row_ptrs=row_ptrs.to(d.rows.dtype), col_idxs=d.cols, values=d.values,
+                   shape=tuple(d.shape), strategy=strategy)
 
     @staticmethod
     def from_scipy(sp, *, device, strategy="auto") -> "Csr":
@@ -146,9 +158,21 @@ class Csr(LinOp):
                 return "pallas"
         return "classical"
 
+    def _sellp(self):
+        """The 'sellp' strategy's Sellp, built once and kept on the instance
+        (keyed on the storage's version counters): the JAX package builds it
+        anew on every apply, so a solve there builds one streaming plan an
+        iteration, and here one."""
+        key = tuple(t._version for t in (self.row_ptrs, self.col_idxs, self.values))
+        cached = getattr(self, "_sellp_memo", None)
+        if cached is None or cached[0] != key:
+            cached = (key, self.to_sellp())
+            self._sellp_memo = cached
+        return cached[1]
+
     def apply(self, b):
-        if isinstance(b, Csr):
-            raise NotImplementedError_("Csr x Csr (SpGEMM) is not ported yet")
+        if isinstance(b, Csr):  # apply doubles as SpGEMM (csr.cpp:188-191)
+            return self.spgemm(b)
         arr, was_1d = as_2d(b)
         strat = self._resolve_strategy()
         if strat == "classical":
@@ -163,9 +187,7 @@ class Csr(LinOp):
             out = ops_pell.csr_spmv(
                 self.row_ptrs, self.col_idxs, self.values, arr, self.shape[0])
         elif strat == "sellp":
-            raise NotImplementedError_(
-                "strategy 'sellp' needs the Ell/Sellp formats, which are not "
-                "ported yet (queue A item 2, the unstructured streaming formats)")
+            out = self._sellp().apply(arr)
         else:
             raise ValueError(f"unknown strategy {strat!r}")
         return restore_1d(out, was_1d)
@@ -209,6 +231,22 @@ class Csr(LinOp):
     def conj_transpose(self) -> "Csr":
         t = self.transpose()
         return t.replace(values=torch.conj(t.values))
+
+    def is_sorted_by_column_index(self) -> bool:
+        """Whether every row's columns ascend (host check; construction
+        sorts)."""
+        rp = types.to_host(self.row_ptrs)
+        ci = types.to_host(self.col_idxs)
+        starts = np.zeros(len(ci), bool)
+        starts[rp[:-1][rp[:-1] < len(ci)]] = True
+        return bool(np.all(starts[1:] | (np.diff(ci) >= 0)))
+
+    def sort_by_column_index(self) -> "Csr":
+        """The same matrix with each row's columns ascending."""
+        if self.is_sorted_by_column_index():
+            return self
+        return Csr.from_matrix_data(self.to_matrix_data(), device=self.device,
+                                    strategy=self.strategy).astype(self.dtype)
 
     def scale(self, alpha) -> "Csr":
         return self.replace(values=self.values * _scalar(alpha))
@@ -255,6 +293,36 @@ class Csr(LinOp):
     def inverse_column_permute(self, perm) -> "Csr":
         return self.column_permute(_inverse(np.asarray(perm)))
 
+    # -- algebra ------------------------------------------------------------
+
+    def spgemm(self, other: "Csr") -> "Csr":
+        from ..ops import spgemm as spgemm_ops
+
+        return spgemm_ops.spgemm(self, other)
+
+    def spgeam(self, alpha, other: "Csr", beta=1.0) -> "Csr":
+        """alpha self + beta other."""
+        from ..ops import spgemm as spgemm_ops
+
+        return spgemm_ops.spgeam(alpha, self, beta, other)
+
+    def create_submatrix(self, row_set, col_set) -> "Csr":
+        """The rows and columns of an ``IndexSet``, a slice or an index list
+        (host set-up path)."""
+        from ..base.index_set import IndexSet
+
+        def to_indices(s, size):
+            if isinstance(s, IndexSet):
+                return s.to_global_indices()
+            if isinstance(s, slice):
+                return np.arange(*s.indices(size))
+            return np.asarray(s, dtype=np.int64)
+
+        rows = to_indices(row_set, self.shape[0])
+        cols = to_indices(col_set, self.shape[1])
+        sp = self.to_scipy().tocsr()[rows][:, cols]
+        return Csr.from_scipy(sp.tocsr(), device=self.device).astype(self.dtype)
+
     # -- entry lookup (csr_lookup.hpp analog) -----------------------------------
 
     def lookup(self, rows, cols):
@@ -298,6 +366,39 @@ class Csr(LinOp):
 
     def to_csr(self):
         return self
+
+    def to_coo(self):
+        from .coo import Coo
+
+        return Coo(rows=self.row_ids(), cols=self.col_idxs, values=self.values,
+                   shape=self.shape)
+
+    def to_ell(self, max_nnz_per_row: int | None = None):
+        from .ell import Ell
+
+        return Ell.from_csr(self, max_nnz_per_row)
+
+    def to_sellp(self, slice_size: int = 64, stride_factor: int = 1):
+        from .ell import Sellp
+
+        return Sellp.from_csr(self, slice_size, stride_factor)
+
+    def to_hybrid(self, **kw):
+        from .hybrid import Hybrid
+
+        return Hybrid.from_csr(self, **kw)
+
+    def to_fbcsr(self, block_size: int):
+        from .fbcsr import Fbcsr
+
+        return Fbcsr.from_csr(self, block_size)
+
+    def to_sparsity_csr(self):
+        from .sparsity_csr import SparsityCsr
+
+        return SparsityCsr(row_ptrs=self.row_ptrs, col_idxs=self.col_idxs,
+                           value=torch.ones((), dtype=self.dtype, device=self.device),
+                           shape=self.shape)
 
     # The host triples of bfloat16 values are float32 (types.to_host); the
     # conversions keep the values' dtype, as the JAX package's do.

@@ -2,7 +2,8 @@
 
 Counterpart of ``ginkgo_tpu/matrix/dense.py`` (reference
 include/ginkgo/core/matrix/dense.hpp): doubles as the multivector type,
-with the column-wise BLAS-1 surface.  Apply is a plain dense product.
+with the column-wise BLAS-1 surface.  Apply is a plain dense product;
+permutes and row gathers are index ops on the device.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from ..base import types
-from ..base.linop import LinOp, _values_of, as_2d, restore_1d
+from ..base.linop import LinOp, _scalar, _values_of, as_2d, restore_1d
 from ..base.matrix_data import MatrixData
 
 
@@ -93,6 +94,9 @@ class Dense(LinOp):
     def compute_norm1(self) -> torch.Tensor:
         return torch.sum(torch.abs(self.values), dim=0)
 
+    def compute_mean(self) -> torch.Tensor:
+        return torch.mean(self.values, dim=0)
+
     def scale(self, alpha) -> "Dense":
         return Dense(values=self.values * _col_scalar(alpha, self.values))
 
@@ -115,6 +119,32 @@ class Dense(LinOp):
     def conj_transpose(self) -> "Dense":
         return Dense(values=torch.conj(self.values).T.contiguous())
 
+    # row i of a row permute is row perm[i] (the reference's permute semantics)
+    def row_gather(self, indices) -> "Dense":
+        return Dense(values=self.values[self._index(indices)])
+
+    row_permute = row_gather
+
+    def inverse_row_permute(self, perm) -> "Dense":
+        out = torch.zeros_like(self.values)
+        out[self._index(perm)] = self.values
+        return Dense(values=out)
+
+    def column_permute(self, perm) -> "Dense":
+        return Dense(values=self.values[:, self._index(perm)])
+
+    def inverse_column_permute(self, perm) -> "Dense":
+        out = torch.zeros_like(self.values)
+        out[:, self._index(perm)] = self.values
+        return Dense(values=out)
+
+    def symm_permute(self, perm) -> "Dense":
+        p = self._index(perm)
+        return Dense(values=self.values[p][:, p])
+
+    def _index(self, idx):
+        return torch.as_tensor(idx, device=self.device).to(torch.int64)
+
     def extract_diagonal(self):
         from .diagonal import Diagonal
 
@@ -123,8 +153,33 @@ class Dense(LinOp):
     def compute_absolute(self) -> "Dense":
         return Dense(values=torch.abs(self.values))
 
+    def make_complex(self) -> "Dense":
+        return Dense(values=self.values.to(types.complex_dtype(self.dtype)))
+
+    def get_real(self) -> "Dense":
+        return Dense(values=torch.real(self.values).contiguous())
+
+    def get_imag(self) -> "Dense":
+        if self.values.is_complex():
+            return Dense(values=torch.imag(self.values).contiguous())
+        return Dense(values=torch.zeros_like(self.values))
+
+    def fill(self, value) -> "Dense":
+        return Dense(values=torch.full_like(self.values, value))
+
+    def add_scaled_identity(self, alpha, beta) -> "Dense":
+        """alpha I + beta self (ScaledIdentityAddable, lin_op.hpp:823)."""
+        n = min(self.shape)
+        eye = torch.zeros_like(self.values)
+        idx = torch.arange(n, device=self.device)
+        eye[idx, idx] = 1
+        return Dense(values=_scalar(alpha) * eye + _scalar(beta) * self.values)
+
     def astype(self, dtype) -> "Dense":
         return Dense(values=self.values.to(dtype))
+
+    def create_submatrix(self, rows: slice, cols: slice) -> "Dense":
+        return Dense(values=self.values[rows, cols])
 
     def column(self, j) -> "Dense":
         return Dense(values=self.values[:, j:j + 1])
@@ -138,6 +193,20 @@ class Dense(LinOp):
 
     def to_dense(self) -> "Dense":
         return self
+
+    # The host triples of bfloat16 values are float32 (types.to_host); the
+    # conversions keep the values' dtype, as the JAX package's do.
+    def to_csr(self, **kw):
+        from .csr import Csr
+
+        return Csr.from_matrix_data(self.to_matrix_data(), device=self.device,
+                                    **kw).astype(self.dtype)
+
+    def to_coo(self, **kw):
+        from .coo import Coo
+
+        return Coo.from_matrix_data(self.to_matrix_data(), device=self.device,
+                                    **kw).astype(self.dtype)
 
     def __getitem__(self, idx):
         return self.values[idx]

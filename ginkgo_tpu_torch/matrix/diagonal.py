@@ -1,7 +1,8 @@
-"""Diagonal and Identity — small structural LinOps.
+"""Diagonal, Identity, Permutation and RowGatherer: small structural LinOps.
 
-Counterpart of the Diagonal/Identity part of ``ginkgo_tpu/matrix/diagonal.py``
-(reference include/ginkgo/core/matrix/diagonal.hpp:270, identity.hpp:131).
+Counterpart of ``ginkgo_tpu/matrix/diagonal.py`` (reference
+include/ginkgo/core/matrix/diagonal.hpp:270, identity.hpp:131/166,
+permutation.hpp:271, row_gatherer.hpp:176).
 """
 
 from __future__ import annotations
@@ -70,6 +71,14 @@ class Diagonal(LinOp):
     def inverse(self):
         return Diagonal(values=1.0 / self.values)
 
+    def to_csr(self, strategy="auto"):
+        from .csr import Csr
+
+        n = self.shape[0]
+        idx = torch.arange(n + 1, dtype=torch.int32, device=self.values.device)
+        return Csr(row_ptrs=idx, col_idxs=idx[:n], values=self.values, shape=self.shape,
+                   strategy=strategy)
+
     def to_dense(self):
         from .dense import Dense
 
@@ -113,3 +122,78 @@ class Identity(LinOp):
 
     conj_transpose = transpose
 
+
+class IdentityFactory:
+    """Factory of the Identity (identity.hpp:166): generate(A) is the
+    Identity of A's rows."""
+
+    def __init__(self, dtype=torch.float32):
+        self.dtype = dtype
+
+    def generate(self, A):
+        return Identity.create(A.shape[0], self.dtype)
+
+
+@dataclasses.dataclass(eq=False)
+class Permutation(LinOp):
+    """Permutation LinOp (permutation.hpp:271): apply(b) = b[perm]."""
+
+    permutation: torch.Tensor  # (n,) int32
+
+    @staticmethod
+    def create(perm, *, device):
+        return Permutation(permutation=torch.as_tensor(perm, device=device).to(torch.int32))
+
+    @property
+    def shape(self):
+        n = self.permutation.shape[0]
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return self.permutation.dtype
+
+    def apply(self, b):
+        arr, was_1d = as_2d(b)
+        return restore_1d(arr[self.permutation.to(torch.int64)], was_1d)
+
+    def inverse_apply(self, b):
+        arr, was_1d = as_2d(b)
+        out = torch.zeros_like(arr)
+        out[self.permutation.to(torch.int64)] = arr
+        return restore_1d(out, was_1d)
+
+    def transpose(self):
+        inv = torch.empty_like(self.permutation)
+        inv[self.permutation.to(torch.int64)] = torch.arange(
+            self.permutation.shape[0], dtype=self.permutation.dtype,
+            device=self.permutation.device)
+        return Permutation(permutation=inv)
+
+    def to_host(self) -> np.ndarray:
+        return types.to_host(self.permutation)
+
+
+@dataclasses.dataclass(eq=False)
+class RowGatherer(LinOp):
+    """Rows of b as a LinOp (row_gatherer.hpp:176); rectangular (k, n)."""
+
+    row_idxs: torch.Tensor  # (k,) int32
+    n_cols: int = 0
+
+    @staticmethod
+    def create(row_idxs, n_cols, *, device):
+        return RowGatherer(row_idxs=torch.as_tensor(row_idxs, device=device).to(torch.int32),
+                           n_cols=int(n_cols))
+
+    @property
+    def shape(self):
+        return (self.row_idxs.shape[0], self.n_cols)
+
+    @property
+    def dtype(self):
+        return self.row_idxs.dtype
+
+    def apply(self, b):
+        arr, was_1d = as_2d(b)
+        return restore_1d(arr[self.row_idxs.to(torch.int64)], was_1d)

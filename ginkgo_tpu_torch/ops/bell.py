@@ -15,7 +15,11 @@ fixed order, kept by kernel and plain version alike: per panel a lane sum
 over l = 0..127 from 0, then the panel sums in panel order.  K10 streams
 the panel rows and the x panels they read through a ring of shared memory
 in persistent blocks; K11 streams them the same way with X's panels k
-columns wide, a launch for every group of 8 columns.
+columns wide, a launch for every group of 8 columns.  A row's running total
+lives in shared memory while its row block streams past; where a block's
+totals do not fit (wide row blocks: K10 from about 32,000 rows, K11 at 8
+columns from about 5,200), they live in y itself, with the same adds in the
+same order (``global_totals`` in the launch).
 :func:`spmv_launch` and :func:`spmm_launch` report their launches.  A wrapper
 takes the plain version only for a tensor on the CPU; on a CUDA tensor it
 launches the kernel or raises, and counts its launches in ``launches``.
@@ -126,7 +130,7 @@ def _panel_args(A):
 
 #: the fields of :func:`spmv_launch`, in the C entry point's order
 LAUNCH_FIELDS = ("blocks", "threads", "smem_bytes", "blocks_per_sm", "registers", "stage_rows",
-                 "stages")
+                 "stages", "global_totals")
 #: the fields of :func:`spmm_launch`: K10's and the launches a call makes
 SPMM_LAUNCH_FIELDS = LAUNCH_FIELDS + ("column_groups",)
 #: columns a K11 launch takes (``GK_BELL_COLS``)
@@ -138,7 +142,8 @@ _NO_FIT = 9
 def spmv_launch(A):
     """K10's launch on the current CUDA device for ``A``'s panels: the
     persistent grid, threads and dynamic shared memory a block, blocks an
-    SM, registers a thread, panel rows a stage and stages of the ring."""
+    SM, registers a thread, panel rows a stage, stages of the ring and 1
+    where the row totals live in y."""
     lib = _lib()
     out = (ctypes.c_int * len(LAUNCH_FIELDS))()
     status = lib.bell_spmv_config(DTYPE_CODE[A.values.dtype], A.values.shape[1],
@@ -187,7 +192,8 @@ bell_spmv.launches = 0
 def bell_spmm(A, X):
     """K11: Y = A X for float32 X of shape (n_cols, k), row-major; each panel
     is read once for every group of 8 columns.  A Bell whose ring does not
-    fit a block's shared memory at these columns raises."""
+    fit a block's shared memory at these columns raises (none that the
+    planner accepts: the ring's bytes do not grow with the row blocks)."""
     if on_cpu(X):
         return bell_spmm_reference(A, X)
     _check_operands(A, X, "bell_spmm")

@@ -27,6 +27,7 @@ is anything with ``values, qidx, bases, tile_ptr, S, G, shape``
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -50,7 +51,8 @@ _S_CANDIDATES = (8, 16, 32)
 #: Ceiling on the padded slot bytes of a plan the Csr "pallas" strategy
 #: builds (8 bytes a cell, as the JAX package counts them).
 HARD_PAD_BYTES = 2 << 30
-#: Budget of the Csr plan cache, in slot bytes.
+#: Budget of the plan cache (the Csr plans, the route's, and their S = 8
+#: siblings), in slot bytes.
 PLAN_CACHE_BYTES = 2 << 30
 
 #: index dtype codes of csrc/common.cuh (GkDtype)
@@ -107,8 +109,13 @@ class PellPlan:
                 c = (p.n_steps * _G_STEP_SECONDS
                      + p.total_cells * bytes_per_cell / _G_HBM_BYTES_PER_S)
                 if best is None or c < best[0]:
-                    best = (c, s_c)
+                    best = (c, s_c, p)
             S = best[1]
+            if not materialize:
+                # the chosen probe is this statistics pass already
+                self.__dict__.update(best[2].__dict__)
+                self.too_large = max_cells is not None and self.total_cells > max_cells
+                return
         self.G = _G_CANDIDATES[0] if auto_g else int(G)
         G = self.G
         self.S = int(S)
@@ -141,7 +148,12 @@ class PellPlan:
         # shared across the S sublanes (the diagonal-base alignment)
         NB = NP + 2 * self.pad + 1
         K = (t * NB + base) * 128 + occ
-        uniqK, slot_inv = np.unique(K, return_inverse=True)
+        # each entry's slot (the inverse) only where the arrays are built: a
+        # statistics pass takes the sorted keys alone, at a third of the cost
+        if materialize:
+            uniqK, slot_inv = np.unique(K, return_inverse=True)
+        else:
+            uniqK = np.unique(K)
         u_t = uniqK // (np.int64(NB) * 128)
         u_base = (uniqK // 128) % NB
         t_change = np.ones(len(uniqK), bool)
@@ -432,35 +444,43 @@ class _ByteLRU:
 _PLAN_CACHE = _ByteLRU(PLAN_CACHE_BYTES)
 
 
-def _cache_key(row_ptrs, col_idxs, values, shape):
-    return tuple((id(t), t._version) for t in (row_ptrs, col_idxs, values)) + (tuple(shape),)
+def _cache_key(leaves, shape, tag=()):
+    """A plan's key in the cache: a tag, then the identities and version
+    counters of the storage tensors it was built from, then the shape.
+    Unlike JAX arrays, a tensor can change in place, and a changed tensor
+    gets a new plan."""
+    return tuple(tag) + tuple((id(t), t._version) for t in leaves) + (tuple(shape),)
 
 
-def _cached(key, row_ptrs, col_idxs, values):
+def _cached(key, leaves):
+    """(True, the cached plan, None for a cached decline) or (False, None).
+    An entry holds its storage tensors, so their ids stay valid while it
+    lives; a hit must hold these very tensors."""
     hit = _PLAN_CACHE.get(key)
-    if (hit is not None and hit[0] is row_ptrs and hit[1] is col_idxs
-            and hit[2] is values):
-        return hit[3]
-    return None
+    if hit is not None and len(hit[0]) == len(leaves) and all(
+            a is b for a, b in zip(hit[0], leaves)):
+        return True, hit[1]
+    return False, None
+
+
+def _cache_put(key, leaves, A):
+    _PLAN_CACHE.put(key, (tuple(leaves), A), 0 if A is None else A.storage_bytes())
 
 
 def plan_for(row_ptrs, col_idxs, values, shape):
     """The plan operator of a Csr's storage, a ``Pell`` or a ``Well``,
-    built once and cached on the identity of its three tensors (the cache
-    entry holds them, so their ids stay valid) and on their version
-    counters: unlike JAX arrays, a tensor can change in place, and a
-    changed tensor gets a new plan.  The plan is the cheaper of PELL (S =
-    "auto", int8 lane indices) and WELL by the JAX package's cost model
-    (``ops/well.choose_unstructured_plan``).  Raises MemoryError when
-    neither plan's padded slots fit HARD_PAD_BYTES."""
-    from ..matrix.pell import Pell
-    from ..matrix.well import Well
-    from .well import WellPlan, choose_unstructured_plan
+    built once and cached on its three tensors (``_cache_key``).  The plan
+    is the cheaper of PELL (S = "auto", int8 lane indices) and WELL by the
+    JAX package's cost model (``ops/well.choose_unstructured_plan``).
+    Raises MemoryError when neither plan's padded slots fit
+    HARD_PAD_BYTES."""
+    from .well import choose_unstructured_plan
 
-    key = _cache_key(row_ptrs, col_idxs, values, shape)
-    hit = _cached(key, row_ptrs, col_idxs, values)
-    if hit is not None:
-        return hit
+    leaves = (row_ptrs, col_idxs, values)
+    key = _cache_key(leaves, shape)
+    hit, A = _cached(key, leaves)
+    if hit:
+        return A
     plan = choose_unstructured_plan(
         types.to_host(row_ptrs), types.to_host(col_idxs), types.to_host(values),
         shape, q_dtype=np.int8, max_cells=HARD_PAD_BYTES // 8,
@@ -473,9 +493,8 @@ def plan_for(row_ptrs, col_idxs, values, shape):
             f"(inflation {plan.inflation:.0f}x); use the classical or "
             "merge_path strategy, or reorder the matrix to improve column locality"
         )
-    cls = Well if isinstance(plan, WellPlan) else Pell
-    A = cls.from_plan(plan, device=values.device, dtype=values.dtype)
-    _PLAN_CACHE.put(key, (row_ptrs, col_idxs, values, A), A.storage_bytes())
+    A = _plan_operator(plan, values)
+    _cache_put(key, leaves, A)
     plan_for.builds += 1
     return A
 
@@ -483,34 +502,51 @@ def plan_for(row_ptrs, col_idxs, values, shape):
 plan_for.builds = 0
 
 
-def _spmm_plan(A, row_ptrs, col_idxs, values, shape):
+def _sibling8(A, key, leaves, csr_of):
     """The plan operator a k-column product runs, as the JAX package picks
-    it: a Pell with S != 8 gets an S = 8 sibling, built once and cached
-    under a tagged key (the JAX package measured its SpMM kernel faster at
-    S = 8); a Well (8 sublanes by construction) or a Pell with S = 8 is its
-    own.  When the S = 8 plan would pass HARD_PAD_BYTES, ``A`` stays."""
-    from ..matrix.pell import Pell
-
+    it: a Pell with S != 8 gets an S = 8 sibling, built once from the CSR
+    arrays ``csr_of()`` gives and cached under ``key`` tagged "spmm8" (the
+    JAX package measured its SpMM kernel faster at S = 8); a Well (8
+    sublanes by construction) or a Pell with S = 8 is its own.  When the S
+    = 8 plan would pass HARD_PAD_BYTES, ``A`` stays."""
     if hasattr(A, "rt") or A.S == SUBLANES:
         return A
-    key = ("spmm8",) + _cache_key(row_ptrs, col_idxs, values, shape)
-    hit = _cached(key, row_ptrs, col_idxs, values)
-    if hit is not None:
-        return hit
+    key = ("spmm8",) + key
+    hit, A8 = _cached(key, leaves)
+    if hit:
+        return A8
+    row_ptrs, col_idxs, values = csr_of()
     p8 = PellPlan(
         types.to_host(row_ptrs), types.to_host(col_idxs), types.to_host(values),
-        shape, S=SUBLANES, q_dtype=np.int8, max_cells=HARD_PAD_BYTES // 8,
+        tuple(A.shape), S=SUBLANES, q_dtype=np.int8, max_cells=HARD_PAD_BYTES // 8,
         value_itemsize=values.element_size(),
     )
     if p8.too_large:
         return A
-    A8 = Pell.from_plan(p8, device=values.device, dtype=values.dtype)
-    _PLAN_CACHE.put(key, (row_ptrs, col_idxs, values, A8), A8.storage_bytes())
-    _spmm_plan.builds += 1
+    A8 = _plan_operator(p8, values)
+    _cache_put(key, leaves, A8)
+    _sibling8.builds += 1
     return A8
 
 
-_spmm_plan.builds = 0
+_sibling8.builds = 0
+
+
+def _spmm_plan(A, row_ptrs, col_idxs, values, shape):
+    """The S = 8 sibling (``_sibling8``) of a Csr's plan ``A``."""
+    leaves = (row_ptrs, col_idxs, values)
+    return _sibling8(A, _cache_key(leaves, shape), leaves, lambda: leaves)
+
+
+def _plan_operator(plan, values):
+    """A host plan as the operator its kernels take, on ``values``'
+    device and in their dtype."""
+    from ..matrix.pell import Pell
+    from ..matrix.well import Well
+    from .well import WellPlan
+
+    cls = Well if isinstance(plan, WellPlan) else Pell
+    return cls.from_plan(plan, device=values.device, dtype=values.dtype)
 
 
 def csr_spmv(row_ptrs, col_idxs, values, arr, n_rows):
@@ -524,3 +560,141 @@ def csr_spmv(row_ptrs, col_idxs, values, arr, n_rows):
         A = _spmm_plan(A, row_ptrs, col_idxs, values, shape)
         return plan_spmm(A, arr.contiguous())
     return plan_spmv(A, arr[:, 0].contiguous())[:, None]
+
+
+# -- the streaming route of the unstructured formats ------------------------------------
+
+#: the route's padding gates (the JAX package's ``linop_streaming_spmv``
+#: defaults): a plan is taken at inflation <= 16 or padded slot bytes <=
+#: 256 MiB, and never past HARD_PAD_BYTES
+STREAM_MAX_INFLATION = 16.0
+STREAM_MAX_PAD_BYTES = 256 << 20
+
+def streaming_plan_choice(indptr, indices, values, shape, *, value_itemsize=None):
+    """The host plan the streaming route takes for a CSR pattern, chosen as
+    the JAX package's ``linop_streaming_spmv`` chooses it (not as
+    ``plan_for`` does): statistics of the S = "auto" PELL plan, of the WELL
+    plan only where PELL's inflation passes 4; each admitted at inflation <=
+    STREAM_MAX_INFLATION or padded bytes <= STREAM_MAX_PAD_BYTES, and under
+    HARD_PAD_BYTES; the cheaper admitted one by the cost model,
+    materialized.  Returns a ``PellPlan``, a ``WellPlan`` or None (the route
+    declines: an empty pattern or padding past the gates).
+    ``value_itemsize`` is the stored values' width (bfloat16 values reach
+    the planner widened to float32)."""
+    from .well import _SLOT_BASE_SECONDS, WellPlan, _plan_cost
+
+    if value_itemsize is None:
+        value_itemsize = np.asarray(values).dtype.itemsize
+    pell_s = PellPlan(indptr, indices, values, shape, q_dtype=np.int8, S="auto",
+                      materialize=False, value_itemsize=value_itemsize)
+    well_s = None
+    if pell_s.inflation > 4.0 and pell_s.nnz > 0:
+        well_s = WellPlan(indptr, indices, values, shape, materialize=False,
+                          value_itemsize=value_itemsize)
+
+    def admitted(stats, bpc):
+        pad = stats.total_cells * bpc
+        return (stats.nnz > 0 and (stats.inflation <= STREAM_MAX_INFLATION
+                                   or pad <= STREAM_MAX_PAD_BYTES)
+                and pad <= HARD_PAD_BYTES)
+
+    bpc_p = value_itemsize + 1  # int8 lane indices
+    cands = []
+    if admitted(pell_s, bpc_p):
+        cands.append((_plan_cost(pell_s.n_steps, pell_s.total_cells, bpc_p)
+                      + pell_s.n_steps * pell_s.G * _SLOT_BASE_SECONDS, "pell"))
+    if well_s is not None and admitted(well_s, well_s.bytes_per_cell):
+        cands.append((well_s.modeled_seconds, "well"))
+    if not cands:
+        return None
+    if min(cands)[1] == "pell":
+        # the S that S = "auto" picked for the statistics: the same plan as
+        # the JAX route's S = "auto" build, without its three probes again
+        return PellPlan(indptr, indices, values, shape, q_dtype=np.int8, S=pell_s.S,
+                        value_itemsize=value_itemsize)
+    return WellPlan(indptr, indices, values, shape, T=well_s.T, value_itemsize=value_itemsize)
+
+
+def _storage_leaves(op):
+    """The storage tensors of a format, in field order, those of its parts
+    (a Hybrid's Ell and Coo) included."""
+    out = []
+    for f in dataclasses.fields(op):
+        v = getattr(op, f.name)
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif dataclasses.is_dataclass(v):
+            out.extend(_storage_leaves(v))
+    return out
+
+
+def _route_key(op):
+    """The route's cache key of format ``op`` and its storage tensors."""
+    leaves = _storage_leaves(op)
+    return _cache_key(leaves, op.shape, ("route", type(op).__name__)), leaves
+
+
+def streaming_plan(op):
+    """The plan operator (a ``Pell`` or a ``Well`` on the format's device)
+    that the streaming route runs for format ``op``, or None where the route
+    declines: :func:`streaming_plan_choice` on ``op.to_csr()``, built once
+    and cached on the format's storage tensors (``_cache_key``, in the one
+    cache and budget that the Csr plans use).  A decline is cached too.  The
+    CSR view is the format's own: Ell, Sellp, Hybrid and Fbcsr drop stored
+    zeros on the way, as the JAX package's do."""
+    key, leaves = _route_key(op)
+    hit, A = _cached(key, leaves)
+    if hit:
+        return A
+    csr = op.to_csr()
+    values = csr.values
+    plan = streaming_plan_choice(
+        types.to_host(csr.row_ptrs), types.to_host(csr.col_idxs), types.to_host(values),
+        tuple(op.shape), value_itemsize=values.element_size())
+    A = None if plan is None else _plan_operator(plan, values)
+    _cache_put(key, leaves, A)
+    if A is not None:
+        streaming_plan.builds += 1
+    return A
+
+
+streaming_plan.builds = 0
+
+
+def _streaming_spmm_plan(op, A):
+    """The S = 8 sibling (``_sibling8``) of the route's plan ``A`` of
+    format ``op``, built from the format's CSR view."""
+    def csr_of():
+        csr = op.to_csr()
+        return csr.row_ptrs, csr.col_idxs, csr.values
+
+    key, leaves = _route_key(op)
+    return _sibling8(A, key, leaves, csr_of)
+
+
+def linop_streaming_spmv(op, arr):
+    """The streaming route of the unstructured formats (Coo, Ell, Sellp,
+    Hybrid, SparsityCsr, Fbcsr): arr (m, k) through ``op``'s cached plan;
+    one column runs K5 or K8, k columns K6 (on the S = 8 plan) or K9.
+    Returns the product in arr's dtype, or None where the route declines
+    (counted in ``declines``).  On a CPU tensor the kernels' plain versions
+    run; formats call it through ``ops/spmv.try_streaming``, which takes it
+    on a CUDA tensor only, as the JAX package takes it on a TPU only.  A
+    kernel that fails to build or launch raises."""
+    from .well import plan_spmm, plan_spmv
+
+    A = streaming_plan(op)
+    if A is None:
+        linop_streaming_spmv.declines += 1
+        return None
+    # the kernels take float32 or float64 vectors; a bfloat16 vector widens
+    # exactly and the product comes back in its dtype
+    x = arr if arr.dtype in VECTOR_DTYPES else arr.to(torch.float32)
+    if arr.shape[1] > 1:
+        out = plan_spmm(_streaming_spmm_plan(op, A), x.contiguous())
+    else:
+        out = plan_spmv(A, x[:, 0].contiguous())[:, None]
+    return out.to(arr.dtype)
+
+
+linop_streaming_spmv.declines = 0

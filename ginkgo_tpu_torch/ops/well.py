@@ -171,13 +171,13 @@ class WellPlan:
             layer_ = _assign_layers(t_, w, s, q, rows, cols, NW)
             nlay_ = np.int64(layer_.max() + 1 if nnz else 1)
             K_ = (t_ * NW + w) * nlay_ + layer_
-            uniqK_, slot_inv_ = np.unique(K_, return_inverse=True)
+            uniqK_ = np.unique(K_)  # the entries' slots only once a plan is built
             u_t_ = uniqK_ // (np.int64(NW) * nlay_)
             NST_ = max(-(-NT // T_), 1)
             K_t_ = np.zeros(NST_, np.int64)
             if len(uniqK_):
                 np.add.at(K_t_, u_t_, 1)
-            return t_, layer_, nlay_, K_, uniqK_, slot_inv_, u_t_, NST_, K_t_
+            return t_, layer_, nlay_, K_, uniqK_, u_t_, NST_, K_t_
 
         def model_cost(K_t_, g, T_):
             st = int(np.maximum(-(-K_t_ // g), 1).sum())
@@ -214,7 +214,7 @@ class WellPlan:
                         best = (c, g)
                 G = best[1]
         self.T = T = int(T)
-        t, layer, nlay, K, uniqK, slot_inv, u_t, NST, K_t = stats
+        t, layer, nlay, K, uniqK, u_t, NST, K_t = stats
         self.NST = NST
         self.bytes_per_cell = vbpc(T)
         self.modeled_seconds = model_cost(K_t, int(G), T)
@@ -248,7 +248,7 @@ class WellPlan:
             g_start = np.nonzero(t_change)[0][g_id]
             slot_in_t = np.arange(len(uniqK), dtype=np.int64) - g_start
             slot_of_pair = slot_off[u_t] + slot_in_t
-            gslot = slot_of_pair[slot_inv]
+            gslot = slot_of_pair[np.unique(K, return_inverse=True)[1]]
             vals_arr[gslot, s, lane] = values
             q_arr[gslot, s, lane] = q
             # the routing entry lives at lane q; entries of one column
@@ -283,7 +283,9 @@ def choose_unstructured_plan(indptr, indices, values, shape, *, q_dtype=np.int8,
     (locality-free) for this pattern, materialized; or a statistics-only
     plan with ``too_large`` set when neither fits ``max_cells``.  PELL is
     taken at once when its inflation is at most 4 (the WELL statistics pass
-    costs host seconds and cannot win there)."""
+    costs host seconds and cannot win there).  A PELL plan is built at the S
+    that its S = "auto" statistics chose: the plan the JAX package's S =
+    "auto" build makes, without its three probes again."""
     if value_itemsize is None:
         value_itemsize = np.asarray(values).dtype.itemsize
     kw = dict(value_itemsize=value_itemsize)
@@ -291,7 +293,7 @@ def choose_unstructured_plan(indptr, indices, values, shape, *, q_dtype=np.int8,
     pell = PellPlan(indptr, indices, values, shape, q_dtype=q_dtype, S="auto",
                     materialize=False, **kw)
     if pell.inflation <= 4.0:
-        return PellPlan(indptr, indices, values, shape, q_dtype=q_dtype, S="auto",
+        return PellPlan(indptr, indices, values, shape, q_dtype=q_dtype, S=pell.S,
                         max_cells=max_cells, **kw)
     well = WellPlan(indptr, indices, values, shape, materialize=False, **kw)
     # the same per-slot base charge on both sides, so that the deep-T mask
@@ -299,7 +301,7 @@ def choose_unstructured_plan(indptr, indices, values, shape, *, q_dtype=np.int8,
     pell_cost = (_plan_cost(pell.n_steps, pell.total_cells, pell_bpc)
                  + pell.n_steps * pell.G * _SLOT_BASE_SECONDS)
     if pell_cost <= well.modeled_seconds:
-        plan = PellPlan(indptr, indices, values, shape, q_dtype=q_dtype, S="auto",
+        plan = PellPlan(indptr, indices, values, shape, q_dtype=q_dtype, S=pell.S,
                         max_cells=max_cells, **kw)
         if not plan.too_large:
             return plan
@@ -310,7 +312,7 @@ def choose_unstructured_plan(indptr, indices, values, shape, *, q_dtype=np.int8,
                     max_cells=max_cells, **kw)
     if not plan.too_large:
         return plan
-    alt = PellPlan(indptr, indices, values, shape, q_dtype=q_dtype, S="auto",
+    alt = PellPlan(indptr, indices, values, shape, q_dtype=q_dtype, S=pell.S,
                    max_cells=max_cells, **kw)
     return plan if alt.too_large else alt
 

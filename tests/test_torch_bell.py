@@ -288,3 +288,38 @@ def test_spmm_launch_binding_is_declared(monkeypatch):
                                rtol=0, atol=0)
     assert ops_bell.bell_spmm.launches == before
     assert not lib.bell_spmm.calls
+
+
+@pytest.mark.parametrize("panels", ["f32", "bf16"])
+def test_wide_row_blocks_match_jax(panels):
+    """Bells of 8192-row blocks (K11 at 8 columns keeps its row totals in Y
+    there on the card, the totals no longer fitting a block's shared
+    memory): the arrays equal the JAX Bell's, and the plain versions equal
+    the JAX Bell's product within two summation orders' bound, at 1, 4, 8
+    and 9 columns."""
+    import scipy.sparse as sps
+
+    rows, cols, vals, shape = block_structured(3, 8192, 2, 4, density=0.05, seed=5)
+    keep = rows < 3 * 8192 - 5
+    rows, cols, vals, shape = rows[keep], cols[keep], vals[keep], (3 * 8192 - 5, shape[1])
+    jd, pd = _pair(rows, cols, vals, shape)
+    JB = jbell.Bell.from_matrix_data(jd, block_rows=8192)
+    B = gt.Bell.from_matrix_data(pd, block_rows=8192, device="cpu")
+    for f in ("values", "panel_ids", "panel_valid", "ent_flat"):
+        np.testing.assert_array_equal(getattr(B, f).numpy(), np.asarray(getattr(JB, f)))
+    if panels == "bf16":
+        JB, B = JB.reduce_storage(), B.reduce_storage()
+    # |A| as stored (the entries row-major, as ent_flat holds their slots)
+    d = pd.sum_duplicates()
+    stored = B.values.double().numpy().reshape(-1)[B.ent_flat.numpy()]
+    absA = sps.csr_matrix((np.abs(stored), (d.rows, d.cols)), shape=shape)
+    rng = np.random.default_rng(9)
+    K = B.values.shape[1]
+    for k in (None, 4, 8, 9):
+        x = rng.standard_normal((shape[1],) if k is None else (shape[1], k)).astype(np.float32)
+        want = np.asarray(JB.apply(jnp.asarray(x)), np.float64)
+        got = (ops_bell.bell_spmv_reference(B, torch.from_numpy(x)) if k is None
+               else ops_bell.bell_spmm_reference(B, torch.from_numpy(x))).numpy()
+        assert got.shape == want.shape and got.dtype == np.float32
+        bound = 2 * LANES * K * EPS32 * (absA @ np.abs(x.astype(np.float64)))
+        assert (np.abs(got - want) <= bound).all(), k

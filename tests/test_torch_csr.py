@@ -20,7 +20,7 @@ import ginkgo_tpu_torch as gt
 from ginkgo_tpu.base.matrix_data import MatrixData as JMatrixData
 from ginkgo_tpu.matrix.csr import Csr as JCsr
 from ginkgo_tpu_torch import interop
-from ginkgo_tpu_torch.base.exceptions import NotImplementedError_
+from ginkgo_tpu_torch.ops import pell as ops_pell
 
 
 def _pattern(m=40, n=50, seed=3, skewed=True, square_diag=False):
@@ -88,10 +88,31 @@ def test_auto_host_branch_matches_jax(skewed):
     np.testing.assert_array_equal(A.host_row_lengths(), JA.host_row_lengths())
 
 
-def test_sellp_strategy_is_not_ported_yet():
-    _, A = _pair(strategy="sellp")
-    with pytest.raises(NotImplementedError_, match="Ell/Sellp"):
-        A.apply(torch.ones(50, dtype=torch.float64))
+@pytest.mark.parametrize("dtype,k", [(np.float64, 1), (np.float32, 3)])
+def test_sellp_strategy_matches_jax(dtype, k):
+    """The "sellp" strategy applies the matrix as a Sellp, as the JAX
+    package's does; the port builds that Sellp once and keeps it on the
+    instance (the JAX package builds it on every apply), so the streaming
+    route plans it once, and anew after an in-place change."""
+    JA, A = _pair(dtype, strategy="sellp")
+    x = np.random.default_rng(4).standard_normal((50, k)).astype(dtype)
+    if k == 1:
+        x = x[:, 0]
+    got = A.apply(torch.from_numpy(x)).numpy()
+    want = np.asarray(JA.apply(jnp.asarray(x)))
+    assert got.shape == want.shape and got.dtype == want.dtype
+    tol = 1e-12 if dtype == np.float64 else 1e-5
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    S = A._sellp()
+    for f in ("slice_sets", "col_idxs", "values"):
+        np.testing.assert_array_equal(getattr(S, f).numpy(), np.asarray(getattr(JA.to_sellp(), f)))
+    assert A._sellp() is S
+    builds = ops_pell.streaming_plan.builds
+    for _ in range(3):
+        ops_pell.linop_streaming_spmv(A._sellp(), torch.ones(50, 1, dtype=A.dtype))
+    assert ops_pell.streaming_plan.builds == builds + 1
+    A.values.mul_(2.0)
+    assert A._sellp() is not S
     with pytest.raises(ValueError):
         A.with_strategy("fastest")
 

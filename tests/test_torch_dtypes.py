@@ -254,3 +254,102 @@ def test_multigrid_apply_and_solve_dtypes_match_jax(values, vector):
     for got, want in ((y, jy), (x, jx)):
         w = np.asarray(want, np.float64)
         np.testing.assert_allclose(got.double().numpy(), w, rtol=0, atol=tol * np.abs(w).max())
+
+
+# -- slice 9: the streaming formats, their conversions and the route ----------------
+
+
+def _slice9_operators(name, values):
+    """(the JAX operator, the port's) of a slice-9 format or conversion with
+    ``values`` stored ("f32", "bf16", "f64")."""
+    data, jd = _data()
+    jdt, tdt = DTYPES[values]
+    J = gko.matrix
+    JC = J.csr.Csr.from_matrix_data(jd).astype(jdt)
+    C = gt.Csr.from_matrix_data(data, device="cpu").astype(tdt)
+    JDn = J.dense.Dense.from_matrix_data(jd).astype(jdt)
+    Dn = gt.Dense.from_matrix_data(data, device="cpu").astype(tdt)
+    builds = {
+        "coo": lambda: (J.coo.Coo.from_matrix_data(jd).astype(jdt),
+                        gt.Coo.from_matrix_data(data, device="cpu").astype(tdt)),
+        "ell": lambda: (J.ell.Ell.from_matrix_data(jd).astype(jdt),
+                        gt.Ell.from_matrix_data(data, device="cpu").astype(tdt)),
+        "sellp": lambda: (J.ell.Sellp.from_matrix_data(jd).astype(jdt),
+                          gt.Sellp.from_matrix_data(data, device="cpu").astype(tdt)),
+        "hybrid": lambda: (J.hybrid.Hybrid.from_matrix_data(jd).astype(jdt),
+                           gt.Hybrid.from_matrix_data(data, device="cpu").astype(tdt)),
+        "sparsity_csr": lambda: (
+            J.sparsity_csr.SparsityCsr.from_matrix_data(jd).astype(jdt),
+            gt.SparsityCsr.from_matrix_data(data, device="cpu").astype(tdt)),
+        "fbcsr": lambda: (J.fbcsr.Fbcsr.from_matrix_data(jd, 4).astype(jdt),
+                          gt.Fbcsr.from_matrix_data(data, 4, device="cpu").astype(tdt)),
+        "csr.to_coo": lambda: (JC.to_coo(), C.to_coo()),
+        "csr.to_ell": lambda: (JC.to_ell(), C.to_ell()),
+        "csr.to_sellp": lambda: (JC.to_sellp(), C.to_sellp()),
+        "csr.to_hybrid": lambda: (JC.to_hybrid(), C.to_hybrid()),
+        "csr.to_fbcsr": lambda: (JC.to_fbcsr(2), C.to_fbcsr(2)),
+        "csr.to_sparsity_csr": lambda: (JC.to_sparsity_csr(), C.to_sparsity_csr()),
+        "csr.sellp": lambda: (JC.with_strategy("sellp"), C.with_strategy("sellp")),
+        "csr.spgemm": lambda: (JC.apply(JC), C.apply(C)),
+        "csr.submatrix": lambda: (JC.create_submatrix(slice(0, 100), slice(20, 144)),
+                                  C.create_submatrix(slice(0, 100), slice(20, 144))),
+        "ell.to_csr": lambda: (J.ell.Ell.from_csr(JC).to_csr(), gt.Ell.from_csr(C).to_csr()),
+        "fbcsr.to_csr": lambda: (J.fbcsr.Fbcsr.from_csr(JC, 3).to_csr(),
+                                 gt.Fbcsr.from_csr(C, 3).to_csr()),
+        "dense.to_csr": lambda: (JDn.to_csr(), Dn.to_csr()),
+        "dense.to_coo": lambda: (JDn.to_coo(), Dn.to_coo()),
+        "diagonal.to_csr": lambda: (JC.extract_diagonal().to_csr(),
+                                    C.extract_diagonal().to_csr()),
+    }
+    return builds[name]()
+
+
+SLICE9 = ("coo", "ell", "sellp", "hybrid", "sparsity_csr", "fbcsr", "csr.to_coo", "csr.to_ell",
+          "csr.to_sellp", "csr.to_hybrid", "csr.to_fbcsr", "csr.to_sparsity_csr", "csr.sellp",
+          "csr.spgemm", "csr.submatrix", "ell.to_csr", "fbcsr.to_csr", "dense.to_csr",
+          "dense.to_coo", "diagonal.to_csr")
+
+
+@pytest.mark.parametrize("vector", ["f32", "f64"])
+@pytest.mark.parametrize("values", sorted(DTYPES))
+@pytest.mark.parametrize("fmt", SLICE9)
+def test_slice9_apply_dtype_matches_jax(fmt, values, vector):
+    """Each slice-9 format and conversion keeps the JAX package's value
+    dtype, bfloat16 included; its product (the format's own on the CPU)
+    has the JAX package's dtype and values."""
+    JA, A = _slice9_operators(fmt, values)
+    assert str(A.dtype).split(".")[-1] == str(JA.dtype)
+    jdt, tdt = DTYPES[vector]
+    x = np.random.default_rng(3).uniform(0.5, 1.5, (A.shape[1], 2)).astype(np.float32)
+    jy = JA.apply(jnp.asarray(x).astype(jdt))
+    y = A.apply(torch.from_numpy(x).to(tdt))
+    assert str(y.dtype).split(".")[-1] == str(jy.dtype) and y.shape == tuple(jy.shape)
+    tol = 1e-2 if "bfloat16" in str(jy.dtype) else 1e-5
+    np.testing.assert_allclose(y.double().numpy(), np.asarray(jy, np.float64), rtol=tol,
+                               atol=tol)
+
+
+ROUTE9 = ("coo", "ell", "sellp", "hybrid", "sparsity_csr", "fbcsr")
+
+
+@pytest.mark.parametrize("vector", ["f32", "f64"])
+@pytest.mark.parametrize("values", sorted(DTYPES))
+@pytest.mark.parametrize("fmt", ROUTE9)
+def test_slice9_route_dtype_matches_jax(fmt, values, vector, monkeypatch):
+    """The streaming route's product (the kernels' plain versions on CPU
+    tensors) in the JAX route's dtype, the vector's, against the JAX route
+    forced on the CPU (its Pallas kernels in interpret mode)."""
+    from ginkgo_tpu.ops import spmv_pallas
+    from ginkgo_tpu_torch.ops import pell as ops_pell
+
+    monkeypatch.setenv("GINKGO_TPU_FORCE_STREAMING", "1")
+    JA, A = _slice9_operators(fmt, values)
+    jdt, tdt = DTYPES[vector]
+    x = np.random.default_rng(4).uniform(0.5, 1.5, (A.shape[1], 1)).astype(np.float32)
+    jy = spmv_pallas.linop_streaming_spmv(JA, jnp.asarray(x).astype(jdt))
+    y = ops_pell.linop_streaming_spmv(A, torch.from_numpy(x).to(tdt))
+    assert jy is not None and y is not None
+    assert str(y.dtype).split(".")[-1] == str(jy.dtype) and y.shape == tuple(jy.shape)
+    tol = 1e-2 if values == "bf16" else 1e-5
+    np.testing.assert_allclose(y.double().numpy(), np.asarray(jy, np.float64), rtol=tol,
+                               atol=tol)

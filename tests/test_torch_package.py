@@ -59,6 +59,11 @@ def test_import_leaves_no_jax_in_sys_modules():
         "import ginkgo_tpu_torch.ops.pell, ginkgo_tpu_torch.ops.pell_cg\n"
         "import ginkgo_tpu_torch.ops.well, ginkgo_tpu_torch.ops.bell\n"
         "import ginkgo_tpu_torch.matrix.auto\n"
+        "import ginkgo_tpu_torch.matrix.coo, ginkgo_tpu_torch.matrix.ell\n"
+        "import ginkgo_tpu_torch.matrix.hybrid, ginkgo_tpu_torch.matrix.sparsity_csr\n"
+        "import ginkgo_tpu_torch.matrix.fbcsr, ginkgo_tpu_torch.base.index_set\n"
+        "import ginkgo_tpu_torch.ops.spgemm, ginkgo_tpu_torch.ops.components\n"
+        "import ginkgo_tpu_torch.ops.spmv\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
         "    if m.split('.')[0] in ('jax', 'jaxlib', 'ginkgo_tpu'))))\n"
     )

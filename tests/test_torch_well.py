@@ -242,7 +242,7 @@ def test_plan_cache_holds_the_well_plan():
     for f in ("values", "qidx", "rt", "tsb", "bases"):
         np.testing.assert_array_equal(getattr(W, f).numpy(), np.asarray(getattr(jp, f)))
     assert ops_pell._PLAN_CACHE.get(
-        ops_pell._cache_key(A.row_ptrs, A.col_idxs, A.values, A.shape))[3] is W
+        ops_pell._cache_key((A.row_ptrs, A.col_idxs, A.values), A.shape))[1] is W
 
 
 def test_k_columns_run_the_s8_sibling_plan():
@@ -254,12 +254,12 @@ def test_k_columns_run_the_s8_sibling_plan():
     A = interop.csr_from_arrays(sp.indptr, sp.indices, sp.data, sp.shape, device="cpu",
                                 strategy="pallas")
     X = np.random.default_rng(5).standard_normal((4096, 4)).astype(np.float32)
-    builds = ops_pell._spmm_plan.builds
+    builds = ops_pell._sibling8.builds
     got = A.apply(torch.from_numpy(X)).numpy()
-    assert ops_pell._spmm_plan.builds == builds + 1
+    assert ops_pell._sibling8.builds == builds + 1
     P = ops_pell.plan_for(A.row_ptrs, A.col_idxs, A.values, A.shape)
     P8 = ops_pell._spmm_plan(P, A.row_ptrs, A.col_idxs, A.values, A.shape)
-    assert ops_pell._spmm_plan.builds == builds + 1  # cached
+    assert ops_pell._sibling8.builds == builds + 1  # cached
     jshape = tuple(JA.shape)
     jp = jsp._plan_for(JA.row_ptrs, JA.col_idxs, JA.values, jshape)
     jp8 = jsp._spmm_plan(jp, JA.row_ptrs, JA.col_idxs, JA.values, jshape)
