@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``ginkgo_tpu_torch/csrc`` (one
-``nvcc`` per source, all started together) and drives the nine paths of
+``nvcc`` per source, all started together) and drives the ten paths of
 the port that users call:
 
 - path 1 (slice 1): a 2-D Poisson matrix on a 2048 x 2048 grid (4,194,304
@@ -15,8 +15,8 @@ the port that users call:
   (4,096,000 rows, 28,518,400 nonzeros) handed over as a ``Csr`` ->
   ``Pell`` -> ``Cg``/``Fcg``;
 - path 3 (slice 3): a locality-free SPD system, the JAX bench's power-law
-  pattern at 2^18 rows made symmetric (a shifted graph Laplacian L + I,
-  about 2.82M nonzeros), handed over as a ``Csr`` whose "auto" strategy
+  pattern at 2^17 rows made symmetric (a shifted graph Laplacian L + I,
+  1,411,214 nonzeros), handed over as a ``Csr`` whose "auto" strategy
   takes the WELL plan -> ``Cg``; ``choose_format`` -> ``Well`` at 2^17;
   and a 32768^2 block-structured matrix -> ``choose_format`` -> ``Bell``;
 - path 4 (slice 4): a nonsymmetric convection-diffusion operator on the
@@ -54,7 +54,19 @@ the port that users call:
   ``Fbcsr``, ``Csr`` "sellp" and a bfloat16 ``Coo`` at 64^3 (and an
   ``Fbcsr`` of path 3b's pattern), each against its own product and
   ``Cg`` where SPD; a pattern
-  the route declines; SpGEMM and SpGEAM against scipy.
+  the route declines; SpGEMM and SpGEAM against scipy;
+- path 10 (slice 10): the reorderings, Cholesky, block Jacobi and the
+  solver plumbing: ``poisson_2d(512)`` in float64 as a ``Csr`` ->
+  ``Cholesky`` with the ``NestedDissection`` ordering, on the native
+  up-looking kernel (``native/cholesky.cpp``, built by the host C++
+  compiler at first use) -> ``Direct``, and ``Lu`` with the RCM ordering ->
+  ``Direct`` at 64^2; path 1's ``Dia`` -> ``Cg`` and path 4's -> ``Gmres(30)``
+  with ``Jacobi(max_block_size=8)`` (float32 and bfloat16 blocks), which
+  stream through K1; ``solve_chunked`` on path 1's ``Dia`` (chunks of 500,
+  and a ``Time`` limit), ``solve(loggers=[Record()])`` on the K4 route with
+  a global ``Counters`` logger, ``ProfilerRange`` under ``torch.profiler``;
+  ``convdiff_2d(256)`` under a seeded symmetric permutation ->
+  ``ScaledReordered(Gmres(30) + Ilu, reordering=Rcm)``.
 
 Phases, each of which raises on failure:
 
@@ -204,7 +216,16 @@ Phases, each of which raises on failure:
    ``check_spmv_edges`` also holds K10 and K11 on Bells of wide row blocks
    (``BELL_WIDE``), with the form each launch must take (row totals in
    shared memory or in y);
-12. timings, printed and not checked: each kernel, its plain version and
+12. main path 10, as above: the native Cholesky route asserted, the
+   direct solves within 1e-10 of a scipy float64 solve, the block Jacobi
+   solves streaming (K1 launches, no whole-solve kernel) beside scalar
+   Jacobi's iterations and held against path 1's and path 4's float64
+   solves, the chunked solve with the one-shot streaming solve's
+   iterations and x within 1e-6, the ``Time`` limit stopping at the first
+   chunk boundary past it, the logged events and kernel counts, the
+   profiler's range names, and ScaledReordered within 1e-4 of a scipy
+   float64 solve, with the bandwidth before and after RCM;
+13. timings, printed and not checked: each kernel, its plain version and
    the one PyTorch call that computes the same function, by the slope
    between two trip counts (CUDA events); CG, BiCGSTAB, CGS and BiCG time
    per iteration and GMRES(30) time per Arnoldi step, fused and
@@ -248,10 +269,11 @@ SCATTER_ROWS = 1 << 20
 #: the power-law system at the size of the JAX package's multi-million-row
 #: WELL figure (``well_bench.py`` times K8/K9 there), path 3a's size, and
 #: the JAX bench's own size (path 3's ``choose_format``).  Path 3a runs at
-#: 2^18 rows: at 2^20 its host set-up (the "auto" statistics and the WELL
-#: plan) took about 143 s of the run's 900 s budget.
+#: 2^17 rows: at 2^20 its host set-up (the "auto" statistics and the WELL
+#: plan) took about 143 s of the run's 900 s budget, and 2^18 gave way to
+#: path 10's time (path 9's Hybrid is this matrix too).
 POWERLAW_ROWS = 1 << 20
-PATH3_ROWS = 1 << 18
+PATH3_ROWS = 1 << 17
 POWERLAW_SMALL = 1 << 17
 #: path 3: row blocks, rows per block, panels per block and column panels
 #: of the JAX package's BELL figure (32768^2, 7.55M nonzeros)
@@ -333,10 +355,12 @@ EPS32 = float(np.finfo(np.float32).eps)
 #: the timings' trip counts where the default's 200 and 1000 iterations are
 #: more than a figure needs: the plain versions (their times are no
 #: yardstick of a kernel: a short slope serves; GMRES steps apart; 3 and 15,
-#: 10 and 20 until path 9 needed the time) and the host-bound streaming
-#: routes
-PLAIN_TRIPS = (2, 8)
-PLAIN_GMRES_TRIPS = (5, 10)
+#: 10 and 20 until path 9 needed the time, 2 and 8, 5 and 10 until path 10
+#: did) and the host-bound streaming routes; PLAIN_SLOPE: the plain SpMV
+#: and SpMM versions' calls
+PLAIN_TRIPS = (1, 3)
+PLAIN_GMRES_TRIPS = (2, 4)
+PLAIN_SLOPE = (1, 3, 1)
 STREAM_TRIPS = (25, 125)
 
 
@@ -771,7 +795,7 @@ def main_path3(gt, dev, rng, crit, n_big=PATH3_ROWS, n_small=POWERLAW_SMALL,
 
 def check_path3_kernels(gt, dev, rng, p3, record_err):
     """K8-K11 against their plain versions on the plans of path 3: K8/K9 at
-    the chosen T (2^18 rows, float32 and float64 vectors, the hub row's
+    the chosen T (path 3a's rows, float32 and float64 vectors, the hub row's
     supertile split into chunks; 2^17 rows), at T = 1 (2^17 rows, forced)
     and on the 2^17 plan with one G-slot step a chunk (every supertile
     split), each called twice; K10/K11 with float32 and bfloat16 panels,
@@ -4623,8 +4647,8 @@ PATH9 = ("pell_spmv", "pell_spmm")
 SMALL9 = 64
 #: SpGEMM: the 2-D Poisson matrix on a 512^2 grid, and the power-law
 #: Laplacian at 2^14 rows (path 9 prints the products its square at path
-#: 3a's 2^18 rows would form, a bound of that square's nonzeros, which is
-#: left out); SpGEAM at path 3a's 2^18 rows
+#: 3a's rows would form, a bound of that square's nonzeros, which is
+#: left out); SpGEAM at path 3a's rows
 SPGEMM_GRID = 512
 SPGEMM_POWERLAW = 1 << 14
 #: a pattern the route declines: 2^17 rows of two entries at random columns
@@ -5034,6 +5058,250 @@ def check_path9_kernels(gt, dev, rng, p9, record_err):
         emit(row)
 
 
+#: path 10: the direct solve's grid (262,144 rows; nested dissection keeps
+#: nnz(L) near 10.1M), the reordered LU's grid, the block Jacobi's block
+#: size (the JAX bench's solver row), the chunked solve's chunk and time
+#: limit, and ScaledReordered's convection-diffusion grid
+DIRECT_GRID = 512
+LU_GRID = 64
+JACOBI_BLOCK = 8
+CHUNK10 = 500
+TIME10 = 0.2
+SR_GRID = 256
+#: the kernels path 10 must launch: the block Jacobi solves stream through
+#: K1, the logged one-shot solve takes K4
+PATH10 = ("dia_spmv", "cg_fused")
+
+
+class _Stamps:
+    """A logger that notes the host clock at each ``iteration_complete``."""
+
+    def __init__(self, log):
+        self.enabled_events = {log.Event.iteration_complete}
+        self.at = []
+
+    def on(self, event, **data):
+        self.at.append((time.perf_counter(), data["iteration"]))
+
+
+def main_path10(gt, dev, rng, crit, kernels, data1, x64_ones, p4, stream1):
+    """Main path 10 (slice 10) through the entry points a user calls; every
+    check raises.  (a) ``poisson_2d(DIRECT_GRID)`` in float64 as a ``Csr``
+    -> ``Cholesky`` with the ``NestedDissection`` ordering (the native
+    route, asserted) -> ``Direct``, against a scipy float64 solve; ``Lu``
+    with the RCM ordering -> ``Direct`` at ``LU_GRID``^2.  (b) A1 -> ``Cg``
+    and A2 -> ``Gmres(30)`` with ``Jacobi(max_block_size=8)``, float32 and
+    bfloat16 block storage, beside scalar Jacobi: the streaming route (K1,
+    no whole-solve kernel).  (c) ``solve_chunked`` on A1 (the one-shot
+    streaming solve's iterations and x; a ``Time`` limit), ``solve(loggers=
+    [Record()])`` on K4 with a global ``Counters``, ``ProfilerRange`` under
+    ``torch.profiler``.  (d) ``convdiff_2d(SR_GRID)`` under a seeded
+    symmetric permutation -> ``ScaledReordered(Gmres(30) + Ilu,
+    reordering=Rcm)``, against a scipy float64 solve."""
+    import scipy.sparse.linalg as spla
+
+    from ginkgo_tpu_torch import _native, log, reorder, stop
+    from ginkgo_tpu_torch.factorization import Cholesky, Lu
+    from ginkgo_tpu_torch.solver import Direct
+
+    # -- (a) the direct solvers -------------------------------------------------
+    t0 = time.perf_counter()
+    lib_was_built = _native.is_built()
+    check(_native.load() is not None, "path 10: no C++ compiler for native/cholesky.cpp")
+    native_s = time.perf_counter() - t0
+    data = gt.generators.poisson_2d(DIRECT_GRID, dtype=np.float64)
+    C = gt.Csr.from_matrix_data(data, device=dev)
+    n = C.shape[0]
+    t0 = time.perf_counter()
+    perm = reorder.NestedDissection.build().generate(C)
+    order_s = time.perf_counter() - t0
+    native_before = Cholesky.routes["native"]
+    t0 = time.perf_counter()
+    fact = Cholesky(reorder=perm).generate(C)
+    _sync(dev)
+    factor_s = time.perf_counter() - t0
+    check(Cholesky.routes["native"] == native_before + 1, "path 10: Cholesky left the native route")
+    check(fact.l_factor.values.device == dev, "path 10: the factor is not on the card")
+    t0 = time.perf_counter()
+    direct = Direct.build().generate(fact)
+    _sync(dev)
+    trs_s = time.perf_counter() - t0
+    b = torch.as_tensor(rng.standard_normal(n), device=dev)
+    t0 = time.perf_counter()
+    x, info = direct.solve(b)
+    _sync(dev)
+    solve_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = spla.spsolve(C.to_scipy().tocsc(), b.cpu().numpy())
+    ref_s = time.perf_counter() - t0
+    err = float(np.linalg.norm(x.cpu().numpy() - ref) / np.linalg.norm(ref))
+    check(x.device == dev and bool(torch.isfinite(x).all()), "path 10: Direct x is not finite")
+    check(err <= 1e-10, f"path 10: Cholesky + Direct relative error {err}")
+    emit({"phase": "main_path", "path": 10, "case": "cholesky_nd_direct",
+          "matrix": f"poisson_2d({DIRECT_GRID})", "rows": n, "nnz": data.nnz,
+          "nnz_L": fact.l_factor.nnz, "native_library_was_built": lib_was_built,
+          "native_load_s": round(native_s, 3), "ordering_s": round(order_s, 3),
+          "factor_s": round(factor_s, 3), "triangular_build_s": round(trs_s, 3),
+          "solve_s": round(solve_s, 4), "scipy_solve_s": round(ref_s, 3),
+          "rel_error_vs_scipy": err, "routes": dict(Cholesky.routes)})
+    del fact, direct, C, x, perm
+
+    data = gt.generators.poisson_2d(LU_GRID, dtype=np.float64)
+    C = gt.Csr.from_matrix_data(data, device=dev)
+    t0 = time.perf_counter()
+    direct = Direct.build(factorization=Lu(reorder="rcm")).generate(C)
+    gen_s = time.perf_counter() - t0
+    b = torch.as_tensor(rng.standard_normal(C.shape[0]), device=dev)
+    x, _ = direct.solve(b)
+    ref = spla.spsolve(C.to_scipy().tocsc(), b.cpu().numpy())
+    err = float(np.linalg.norm(x.cpu().numpy() - ref) / np.linalg.norm(ref))
+    check(err <= 1e-10, f"path 10: Lu(rcm) + Direct relative error {err}")
+    check(direct.col_perm is not None, "path 10: Lu(rcm) carries no permutation")
+    emit({"phase": "main_path", "path": 10, "case": "lu_rcm_direct",
+          "matrix": f"poisson_2d({LU_GRID})", "generate_s": round(gen_s, 3),
+          "rel_error_vs_scipy": err})
+    stamp("path 10a: Cholesky and LU with reorderings")
+
+    # -- (b) block Jacobi ---------------------------------------------------------
+    from ginkgo_tpu_torch.base.types import precision_reduction
+
+    runs = (("A1", gt.Cg, {}, p4["A1"], p4["b1"], x64_ones, inf_norm(data1), "cg_fused"),
+            ("A2", gt.Gmres, {"krylov_dim": KRYLOV_DIM}, p4["A"], p4["b"], p4["refs"]["f32"],
+             p4["norm_a"], "gmres_fused"))
+    for label, cls, params, A, rhs, x_ref, norm_a, fused_name in runs:
+        solver = cls.build(criteria=crit, preconditioner=gt.Jacobi.build(), **params).generate(A)
+        x, info = solver.solve(rhs)
+        scalar_iters = info.num_iterations
+        for storage, so in (("f32", None), ("bf16", precision_reduction(0, 1))):
+            t0 = time.perf_counter()
+            M = gt.Jacobi.build(max_block_size=JACOBI_BLOCK, storage_optimization=so).generate(A)
+            _sync(dev)
+            gen_s = time.perf_counter() - t0
+            want = torch.float32 if storage == "f32" else torch.bfloat16
+            check(M.inv_blocks.dtype == want and M.inv_blocks.device == dev,
+                  f"path 10: block Jacobi {label} {storage}: blocks {M.inv_blocks.dtype} on "
+                  f"{M.inv_blocks.device}")
+            check(M.apply(rhs).device == dev, "path 10: the block apply left the card")
+            solver = cls.build(criteria=crit, preconditioner=M, **params).generate(A)
+            k1, fused = kernels["dia_spmv"].launches, kernels[fused_name].launches
+            t0 = time.perf_counter()
+            x, info = solver.solve(rhs)
+            _sync(dev)
+            solve_s = time.perf_counter() - t0
+            what = f"path 10: {cls.__name__} + block Jacobi on {label} ({storage})"
+            check(kernels[fused_name].launches == fused, f"{what} ran {fused_name}")
+            check(kernels["dia_spmv"].launches - k1 >= info.num_iterations,
+                  f"{what} did not stream through dia_spmv")
+            check(bool(info.converged.all()), f"{what}: not converged")
+            emit({"phase": "main_path", "path": 10, "case": f"block_jacobi_{storage}",
+                  "matrix": label, "solver": cls.__name__, "blocks": M.num_blocks,
+                  "iterations": info.num_iterations, "scalar_jacobi_iterations": scalar_iters,
+                  "generate_s": round(gen_s, 3), "solve_s": round(solve_s, 4),
+                  **accuracy(A, x, rhs, x_ref, norm_a, what)})
+            del M, solver
+    stamp("path 10b: block Jacobi")
+
+    # -- (c) solve_chunked, loggers, profiler ranges -----------------------------------
+    A1, b1 = p4["A1"], p4["b1"]
+    solver = gt.Cg.build(criteria=crit).generate(A1)
+    k4 = kernels["cg_fused"].launches
+    t0 = time.perf_counter()
+    xc, cinfo = solver.solve_chunked(b1, chunk=CHUNK10)
+    _sync(dev)
+    chunked_s = time.perf_counter() - t0
+    check(kernels["cg_fused"].launches == k4, "path 10: solve_chunked ran cg_fused")
+    check(cinfo.num_iterations == stream1["iterations"],
+          f"path 10: solve_chunked took {cinfo.num_iterations} iterations, the one-shot "
+          f"streaming solve {stream1['iterations']}")
+    rel = float((xc - stream1["x"]).norm() / stream1["x"].norm())
+    check(rel <= 1e-6, f"path 10: solve_chunked x differs by {rel} relative")
+    timed = gt.Cg.build(criteria=crit + [stop.Time(time_limit_sec=TIME10)]).generate(A1)
+    stamps = _Stamps(log)
+    t0 = time.perf_counter()
+    _, tinfo = timed.solve_chunked(b1, chunk=CHUNK10, loggers=[stamps])
+    wall = time.perf_counter() - t0
+    ends = [t - t0 for t, _ in stamps.at]
+    # it stops at the first chunk boundary past the limit
+    check(not bool(tinfo.converged.all()) and ends[-1] > TIME10
+          and (len(ends) == 1 or ends[-2] <= TIME10),
+          f"path 10: Time({TIME10}) stopped at {ends}")
+    emit({"phase": "main_path", "path": 10, "case": "solve_chunked", "chunk": CHUNK10,
+          "iterations": cinfo.num_iterations, "streaming_iterations": stream1["iterations"],
+          "x_rel_diff": rel, "solve_s": round(chunked_s, 4),
+          "time_limit_s": TIME10, "time_iterations": tinfo.num_iterations,
+          "time_chunk_ends_s": [round(e, 4) for e in ends], "time_wall_s": round(wall, 4)})
+
+    rec, counters = log.Record(), log.add_global_logger(log.Counters())
+    try:
+        x, info = solver.solve(b1, loggers=[rec])
+        _sync(dev)
+    finally:
+        log.remove_global_logger(counters)
+    kinds = [e.value for e, _ in rec.history]
+    check(kinds == ["linop_apply_started", "iteration_complete", "linop_apply_completed"],
+          f"path 10: the fused solve's events {kinds}")
+    check(rec.history[1][1]["iteration"] == info.num_iterations and bool(info.converged.all()),
+          "path 10: the replayed iteration_complete")
+    check(counters.kernel_counts["cg_fused"] == 1 and counters.counts["operation_launched"] >= 1,
+          f"path 10: Counters saw {dict(counters.kernel_counts)}")
+    emit({"phase": "main_path", "path": 10, "case": "loggers_fused", "events": kinds,
+          "iterations": info.num_iterations, "kernel_counts": dict(counters.kernel_counts),
+          "counts": dict(counters.counts)})
+
+    short = gt.Cg.build(criteria=[stop.Iteration(max_iters=20)]).generate(A1)
+    ranges = log.ProfilerRange(device=dev)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        log.add_global_logger(ranges)
+        try:
+            with log.profile_region("path10_chunked", device=dev):
+                short.solve_chunked(b1, chunk=10)
+            _sync(dev)
+        finally:
+            log.remove_global_logger(ranges)
+            ranges.close()
+    names = sorted({e.key for e in prof.key_averages()} & {
+        "path10_chunked", "dia_spmv", "iteration_10", "iteration_20", "criterion_check"})
+    check(len(names) == 5, f"path 10: profiler ranges {names}")
+    emit({"phase": "main_path", "path": 10, "case": "profiler_ranges", "ranges": names})
+    stamp("path 10c: solve_chunked, loggers, profiler ranges")
+
+    # -- (d) ScaledReordered ------------------------------------------------------------
+    shape, r, c, v = convdiff_2d(SR_GRID)
+    scramble = np.random.default_rng(SEED + 10).permutation(shape[0])
+    inv = np.empty_like(scramble)
+    inv[scramble] = np.arange(shape[0])
+    data = gt.MatrixData.from_coo(shape, inv[r], inv[c], v)
+    C = gt.Csr.from_matrix_data(data, device=dev)
+    t0 = time.perf_counter()
+    p = reorder.rcm_permutation(C)
+    rcm_s = time.perf_counter() - t0
+    bw = (reorder.bandwidth(C), reorder.bandwidth(C.symm_permute(p)))
+    t0 = time.perf_counter()
+    S = reorder.ScaledReorderedFactory(
+        gt.Gmres.build(criteria=crit, krylov_dim=KRYLOV_DIM,
+                       preconditioner=gt.preconditioner.Ilu.build()),
+        reordering=reorder.Rcm.build()).generate(C)
+    _sync(dev)
+    gen_s = time.perf_counter() - t0
+    check(np.array_equal(S.permutation.to_host(), p), "path 10: ScaledReordered's permutation")
+    rhs = torch.as_tensor(rng.uniform(0.5, 1.5, shape[0]).astype(np.float32), device=dev)
+    before = {k: f.launches for k, f in kernels.items()}
+    t0 = time.perf_counter()
+    x = S.apply(rhs)
+    _sync(dev)
+    solve_s = time.perf_counter() - t0
+    launched = {k: f.launches - before[k] for k, f in kernels.items() if f.launches > before[k]}
+    ref = spla.spsolve(C.to_scipy().astype(np.float64).tocsc(), rhs.double().cpu().numpy())
+    err = float(np.linalg.norm(x.double().cpu().numpy() - ref) / np.linalg.norm(ref))
+    check(x.device == dev and err <= 1e-4, f"path 10: ScaledReordered relative error {err}")
+    emit({"phase": "main_path", "path": 10, "case": "scaled_reordered",
+          "matrix": f"convdiff_2d({SR_GRID}), scrambled", "bandwidth_before": bw[0],
+          "bandwidth_after_rcm": bw[1], "rcm_s": round(rcm_s, 3), "generate_s": round(gen_s, 3),
+          "solve_s": round(solve_s, 4), "inner_launches": launched,
+          "rel_error_vs_scipy": err})
+    stamp("path 10d: ScaledReordered")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check needs a GPU")
@@ -5399,6 +5667,8 @@ def main():
           "iterations": sinfo.num_iterations,
           **accuracy(A32, xs[:, 0], b, X64[:, 0], norm_a, "streaming route"),
           "dia_spmv_launches": k1_runs, "solve_s": round(solve_s, 4)})
+    # path 10's chunked solve must take this solve's iterations and x
+    stream1 = {"iterations": sinfo.num_iterations, "x": xs[:, 0]}
 
     k4m_before = ops_cg.cg_fused_multi.launches
     t0 = time.perf_counter()
@@ -5626,7 +5896,6 @@ def main():
     check_path8_kernels(gt, dev, rng, p8, record_err)
     emit({"phase": "kernel_check", "path": 8, "done": True, "t_s": elapsed()})
     stamp("check K25-K28")
-    del x64_ones
 
     # -- 5g. main path 9: the streaming formats, SpGEMM and SpGEAM ------------------------
     zero_counts()
@@ -5640,8 +5909,18 @@ def main():
     check_path9_kernels(gt, dev, rng, p9, record_err)
     stamp("check K5/K6, K8/K9 on path 9's plans")
     del x64_3, p9
+
+    # -- 5h. main path 10: reorderings, Cholesky, block Jacobi, solver plumbing ------------
+    zero_counts()
+    main_path10(gt, dev, rng, crit, kernels, data, x64_ones, p4, stream1)
+    launches10 = {k: f.launches for k, f in kernels.items()}
+    check(all(launches10[k] > 0 for k in PATH10), f"a kernel of path 10 never ran: {launches10}")
+    emit({"phase": "main_path", "path": 10, "launches": launches10, "kernels": list(PATH10),
+          "t_s": elapsed()})
+    del x64_ones, stream1
     launches = {k: launches1[k] + launches2[k] + launches3[k] + launches4[k] + launches5[k]
-                + launches6[k] + launches7[k] + launches8[k] + launches9[k] for k in kernels}
+                + launches6[k] + launches7[k] + launches8[k] + launches9[k] + launches10[k]
+                for k in kernels}
 
     # -- 6. timings (printed, not checked) -------------------------------------------
     src = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
@@ -5680,7 +5959,7 @@ def main():
         }
         for name, (kern, plain, nbytes, flops) in cases.items():
             k_ms = slope_ms(kern)
-            p_ms = slope_ms(plain)
+            p_ms = slope_ms(plain, *PLAIN_SLOPE)
             gbs = nbytes / k_ms / 1e6
             timing[f"{name}_{storage}"] = {"ms": k_ms, "plain_ms": p_ms, "GBps": gbs,
                                            "frac_of_copy": gbs / copy_gbs}
@@ -5704,7 +5983,7 @@ def main():
         }
         for name, (kern, plain, lib, nbytes, flops) in cases.items():
             k_ms = slope_ms(kern)
-            p_ms = slope_ms(plain, 2, 7, 2)
+            p_ms = slope_ms(plain, *PLAIN_SLOPE)
             gbs = nbytes / k_ms / 1e6
             timing[f"{name}_{storage}"] = {"ms": k_ms, "plain_ms": p_ms, "GBps": gbs,
                                            "frac_of_copy": gbs / copy_gbs}
@@ -5759,7 +6038,7 @@ def main():
                 # a call's host time exceeds K11's time on the card, so the
                 # slope measures the host: K11's ms is a CUDA graph's
                 extra["slope_ms"], k_ms = k_ms, graph_ms(kern)
-            p_ms = slope_ms(plain, 1, 2, 1)
+            p_ms = slope_ms(plain, *PLAIN_SLOPE)
             gbs = nbytes / k_ms / 1e6
             timing[f"{name}_{storage}"] = {"ms": k_ms, "plain_ms": p_ms, "GBps": gbs,
                                            "frac_of_copy": gbs / copy_gbs, **extra}

@@ -45,13 +45,31 @@ Ported so far:
   with its own gather product where the route declines; ``Csr``'s "sellp"
   strategy, SpGEMM (``Csr.apply(Csr)``, ``spgemm``) and SpGEAM
   (``spgeam``), ``create_submatrix`` with ``IndexSet``; the rest of
-  ``Dense``; ``Permutation``, ``RowGatherer`` and ``IdentityFactory``.
+  ``Dense``; ``Permutation``, ``RowGatherer`` and ``IdentityFactory``;
+- slice 10: the reorderings ``reorder.Rcm``, ``NestedDissection`` and
+  ``ScaledReordered``, ``factorization.Cholesky`` on the native up-looking
+  kernel (``native/cholesky.cpp``, built by ``_native``) and the named
+  reorderings of ``Lu``, block and adaptive-storage ``Jacobi``, the
+  loggers (``log``), ``stop.Time`` and ``solve_chunked``, and
+  ``precision_dispatch``, the accessors, the executors and
+  ``version_info`` in ``base``.
 """
 
 __version__ = "0.1.0"
 
-from . import factorization, multigrid, preconditioner, solver, stop
-from .base import exceptions, types
+from . import factorization, log, multigrid, preconditioner, reorder, solver, stop
+from .base import accessor, exceptions, types
+from .base.executor import (
+    CudaExecutor,
+    Executor,
+    OmpExecutor,
+    ReferenceExecutor,
+    TpuExecutor,
+    default_executor,
+)
+from .base.precision_dispatch import precision_dispatch, precision_dispatch_advanced
+from .base.types import precision_reduction
+from .base.version import version_info
 from .base.linop import Combination, Composition, LinOp, Perturbation
 from .base.matrix_data import DeviceMatrixData, MatrixData
 from .matrix.auto import choose_format
@@ -68,7 +86,7 @@ from .matrix.hybrid import Hybrid
 from .matrix.pell import Pell
 from .matrix.sparsity_csr import SparsityCsr
 from .matrix.well import Well
-from .preconditioner.jacobi import Jacobi
+from .preconditioner.jacobi import Jacobi, JacobiFactory
 from .solver.bicgstab import Bicg, Bicgstab, Cgs
 from .solver.cg import Cg, Fcg
 from .solver.direct import Direct
@@ -90,12 +108,14 @@ __all__ = [
     "Composition",
     "Coo",
     "Csr",
+    "CudaExecutor",
     "Dense",
     "DeviceMatrixData",
     "Dia",
     "Diagonal",
     "Direct",
     "Ell",
+    "Executor",
     "Fbcsr",
     "Fcg",
     "FixedSmoother",
@@ -107,26 +127,38 @@ __all__ = [
     "IndexSet",
     "Ir",
     "Jacobi",
+    "JacobiFactory",
     "LinOp",
     "MatrixData",
     "Multigrid",
     "MultigridFactory",
+    "OmpExecutor",
     "Pell",
     "Permutation",
     "Perturbation",
+    "ReferenceExecutor",
     "Richardson",
     "RowGatherer",
     "Sellp",
     "SolveInfo",
     "SparsityCsr",
+    "TpuExecutor",
     "Well",
+    "accessor",
     "choose_format",
+    "default_executor",
     "exceptions",
     "factorization",
     "generators",
+    "log",
     "multigrid",
+    "precision_dispatch",
+    "precision_dispatch_advanced",
+    "precision_reduction",
     "preconditioner",
+    "reorder",
     "solver",
     "stop",
     "types",
+    "version_info",
 ]

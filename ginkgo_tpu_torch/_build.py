@@ -164,3 +164,10 @@ def load(name: str) -> ctypes.CDLL:
     """Return the loaded library built from ``csrc/<name>.cu``, compiling
     it first when no library for the current source exists."""
     return build([name])[name]
+
+
+def is_built(name: str) -> bool:
+    """Whether a library of the current ``csrc/<name>.cu`` is loaded or on
+    disk (nothing is compiled)."""
+    return name in _LIBS or (
+        BUILD_DIR / f"lib{name}-{_source_hash(CSRC / f'{name}.cu')}.so").exists()

@@ -21,6 +21,7 @@ _NP_TO_TORCH = {
     np.dtype(np.float64): torch.float64,
     np.dtype(np.complex64): torch.complex64,
     np.dtype(np.complex128): torch.complex128,
+    np.dtype(np.int8): torch.int8,
     np.dtype(np.int32): torch.int32,
     np.dtype(np.int64): torch.int64,
     np.dtype(np.bool_): torch.bool,
@@ -67,3 +68,44 @@ def to_host(x) -> np.ndarray:
             x = x.float()
         return x.cpu().numpy()
     return np.asarray(x)
+
+
+def reduce_precision(dtype) -> torch.dtype:
+    """One step of storage-precision reduction (reference
+    core/base/extended_float.hpp ``reduce_precision``): float64 -> float32
+    -> bfloat16, complex128 -> complex64; bfloat16, float16 and complex64
+    have no further step."""
+    d = to_torch_dtype(dtype)
+    return {torch.float64: torch.float32, torch.float32: torch.bfloat16,
+            torch.complex128: torch.complex64}.get(d, d)
+
+
+class precision_reduction:
+    """Encoded (preserving, nonpreserving) precision-reduction pair (reference
+    ``precision_reduction``, types.hpp), the ``storage_optimization`` of the
+    adaptive block Jacobi."""
+
+    __slots__ = ("preserving", "nonpreserving")
+
+    def __init__(self, preserving: int = 0, nonpreserving: int = 0):
+        self.preserving = int(preserving)
+        self.nonpreserving = int(nonpreserving)
+
+    def storage_dtype(self, arithmetic_dtype) -> torch.dtype:
+        d = to_torch_dtype(arithmetic_dtype)
+        for _ in range(self.nonpreserving):
+            d = reduce_precision(d)
+        return d
+
+    def __eq__(self, other):
+        return (self.preserving, self.nonpreserving) == (other.preserving, other.nonpreserving)
+
+    def __hash__(self):
+        return hash((self.preserving, self.nonpreserving))
+
+    def __repr__(self):
+        return f"precision_reduction({self.preserving},{self.nonpreserving})"
+
+    @staticmethod
+    def autodetect():
+        return precision_reduction(-1, -1)

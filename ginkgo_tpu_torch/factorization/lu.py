@@ -1,16 +1,25 @@
-"""Direct LU factorization with symbolic analysis.
+"""Direct LU and Cholesky factorizations with symbolic analysis.
 
-Counterpart of the Lu half of ``ginkgo_tpu/factorization/lu.py``
-(reference core/factorization/lu.cpp, symbolic.cpp and
+Counterpart of ``ginkgo_tpu/factorization/lu.py`` (reference
+core/factorization/lu.cpp, cholesky.cpp, symbolic.cpp and
 elimination_forest.cpp): the elimination forest and the symbolic Cholesky
-fill pattern are host numpy (copies of the JAX package's); the numeric LU
-is a set-up computation on the host, SuperLU without pivoting in natural
-order (the vendor-library analog), whose factors come back as ``Csr``
-operators on the matrix's device for the triangular solvers.
+fill pattern are host numpy (copies of the JAX package's); the numeric
+factorizations are set-up computations on the host whose factors come back
+as ``Csr`` operators on the matrix's device for the triangular solvers:
 
-Not ported yet (ROADMAP queue A): the fill-reducing reorderings ('rcm',
-'nd', 'auto', which need ``reorder/``) and ``CholeskyFactory`` with its
-native kernel.  ``reorder=None`` and an explicit permutation work.
+- ``Lu``: SuperLU without pivoting in natural order (the vendor-library
+  analog);
+- ``Cholesky``: the up-looking sparse LL^T of ``native/cholesky.cpp``,
+  built and loaded by the port's own ``_native`` loader, O(nnz(L)) memory.
+  A complex Hermitian matrix takes a dense LL^H (the native kernel is
+  real), up to 8192 rows; with no C++ compiler at all, a real matrix takes
+  the same bounded dense factor, as in the JAX package.  A compiler that
+  refuses the source raises.  ``CholeskyFactory.routes`` counts the route
+  each factorization took.
+
+Both take a fill-reducing ``reorder``: 'rcm', 'nd', 'auto' (nested
+dissection above 2048 rows, else RCM), a ``Permutation`` or an index array;
+P A P^T is factored and the permutations ride the ``Factorization``.
 """
 
 from __future__ import annotations
@@ -20,7 +29,8 @@ import scipy.sparse as sps
 import scipy.sparse.linalg as spla
 import torch
 
-from ..base.exceptions import NotImplementedError_
+from ..base import types
+from .. import _native
 from ..matrix.csr import Csr
 from .factorization import Factorization
 
@@ -75,18 +85,28 @@ def symbolic_cholesky(pattern):
     return sps.csr_matrix((np.ones(len(rows)), (rows, cols)), shape=a.shape)
 
 
-def _resolve_reorder(reorder) -> np.ndarray | None:
-    """None, or an explicit forward permutation p (row i of the permuted
-    system is row p[i] of A; an object with a ``permutation`` attribute or
-    an index array).  The named reorderings wait for their port."""
+def _resolve_reorder(reorder, csr) -> np.ndarray | None:
+    """Fill-reducing reorder parameter: None | 'rcm' | 'nd' | 'auto' |
+    Permutation | index array -> forward permutation p (row i of the
+    permuted system is row p[i] of A), or None.  'auto' picks nested
+    dissection above 2048 rows (a profile ordering like RCM still fills
+    about n * bandwidth; ND is O(n log n) on grid and planar graphs)."""
     if reorder is None:
         return None
     if isinstance(reorder, str):
-        raise NotImplementedError_(
-            f"reorder={reorder!r}: the fill-reducing reorderings (reorder/rcm.py, nd.py, "
-            "scaled_reordered.py) are not ported yet (ROADMAP queue A, the direct-solver "
-            "item after slice 8); pass reorder=None or an explicit permutation")
-    return np.asarray(getattr(reorder, "permutation", reorder), dtype=np.int64)
+        if reorder == "auto":
+            reorder = "nd" if csr.shape[0] > 2048 else "rcm"
+        if reorder == "rcm":
+            from ..reorder.rcm import rcm_permutation
+
+            return rcm_permutation(csr)
+        if reorder == "nd":
+            from ..reorder.nd import nd_permutation
+
+            return nd_permutation(csr)
+        raise ValueError(f"unknown reorder {reorder!r} (use 'rcm', 'nd', 'auto')")
+    perm = getattr(reorder, "permutation", reorder)
+    return np.asarray(types.to_host(perm), dtype=np.int64)
 
 
 def _inv_perm(p: np.ndarray) -> np.ndarray:
@@ -109,7 +129,7 @@ class LuFactory:
     def generate(self, A) -> Factorization:
         csr = A.to_csr() if hasattr(A, "to_csr") else A
         dev = csr.device
-        p = _resolve_reorder(self.reorder)
+        p = _resolve_reorder(self.reorder, csr)
         if p is not None:
             csr = csr.symm_permute(p)
         a = csr.to_scipy().tocsc()
@@ -142,4 +162,84 @@ class LuFactory:
         )
 
 
+#: the bounded dense fallback's limit (n^2 float64 <= 512 MB)
+_DENSE_FALLBACK_MAX_N = 8192
+
+
+def _dense_cholesky(a: sps.csr_matrix) -> sps.csr_matrix:
+    """Dense LL^T (LL^H) on the host, bounded to sizes where forming the
+    dense matrix is harmless."""
+    n = a.shape[0]
+    if n > _DENSE_FALLBACK_MAX_N:
+        raise RuntimeError(
+            "sparse Cholesky requires the native kernel (native/cholesky.cpp) for n > "
+            f"{_DENSE_FALLBACK_MAX_N}; no C++ compiler was found to build it")
+    return sps.csr_matrix(np.linalg.cholesky(a.toarray()))
+
+
+class CholeskyFactory:
+    """factorization::Cholesky (reference core/factorization/
+    cholesky_kernels.hpp, symbolic.cpp): P A P^T = L L^H by the native
+    up-looking kernel, no densification.  ``reorder`` defaults to 'auto'
+    (nested dissection beyond 2048 rows, which is what makes a 2-D Poisson
+    matrix of a million rows factorable at all); the permutation rides the
+    Factorization and ``Direct`` applies it.  ``reorder=None`` factors A
+    itself.  A breakdown raises ``numpy.linalg.LinAlgError``."""
+
+    #: factorizations by route: the native kernel, the dense fallback for a
+    #: real matrix (no C++ compiler), the dense LL^H of a complex one
+    routes = {"native": 0, "dense": 0, "complex_dense": 0}
+
+    def __init__(self, skip_sorting=False, reorder="auto"):
+        self.reorder = reorder
+
+    def generate(self, A) -> Factorization:
+        csr = A.to_csr() if hasattr(A, "to_csr") else A
+        dev = csr.device
+        dt = csr.dtype
+        p = _resolve_reorder(self.reorder, csr)
+        if p is not None:
+            csr = csr.symm_permute(p)
+
+        def perm(v):
+            return None if v is None else torch.as_tensor(v.astype(np.int32), device=dev)
+
+        perms = dict(row_perm=perm(p), col_perm=perm(None if p is None else _inv_perm(p)))
+        a = csr.to_scipy().tocsr()
+        a.sum_duplicates()
+        a.sort_indices()
+        if np.iscomplexobj(a):
+            # Hermitian LL^H: the native kernel is real float64 only, and U
+            # is the conjugate transpose of L
+            if a.shape[0] > _DENSE_FALLBACK_MAX_N:
+                raise NotImplementedError(
+                    f"complex sparse Cholesky beyond n={_DENSE_FALLBACK_MAX_N} is not "
+                    "supported (the native kernel is real-valued)")
+            Ls = _dense_cholesky(a)
+            CholeskyFactory.routes["complex_dense"] += 1
+            return Factorization(
+                l_factor=Csr.from_scipy(Ls, device=dev).astype(dt),
+                u_factor=Csr.from_scipy(Ls.conj().T.tocsr(), device=dev).astype(dt),
+                shape=tuple(a.shape), **perms)
+        try:
+            out = _native.sparse_cholesky(a.indptr, a.indices, a.data)
+        except _native.NotPositiveDefinite as e:
+            raise np.linalg.LinAlgError(str(e)) from e
+        if out is not None:
+            col_ptr, row_idx, val = out
+            # the CSC of L is the CSR of U = L^T
+            U = sps.csr_matrix((val, row_idx, col_ptr), shape=a.shape)
+            Ls = U.T.tocsr()
+            CholeskyFactory.routes["native"] += 1
+        else:  # no C++ compiler: the bounded dense fallback
+            Ls = _dense_cholesky(a)
+            U = Ls.T.tocsr()
+            CholeskyFactory.routes["dense"] += 1
+        return Factorization(
+            l_factor=Csr.from_scipy(Ls.tocsr(), device=dev).astype(dt),
+            u_factor=Csr.from_scipy(U, device=dev).astype(dt),
+            shape=tuple(a.shape), **perms)
+
+
 Lu = LuFactory
+Cholesky = CholeskyFactory

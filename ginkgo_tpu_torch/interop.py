@@ -63,9 +63,23 @@ def matrix_data_from_arrays(shape, rows, cols, values) -> MatrixData:
     return MatrixData.from_coo(tuple(int(s) for s in shape), rows, cols, values)
 
 
-def jacobi_from_arrays(inv_diag, *, device) -> Jacobi:
-    inv = _tensor(inv_diag, device)
-    return Jacobi(inv_diag=inv, n=int(inv.shape[0]), max_block_size=1)
+def jacobi_from_arrays(inv_diag=None, *, device, inv_blocks=None, block_scales=None,
+                       row_block=None, row_local=None, block_starts=None, n=None,
+                       max_block_size=1) -> Jacobi:
+    """A scalar Jacobi from its inverted diagonal, or a block Jacobi from a
+    JAX Jacobi's ``inv_blocks``, ``block_scales``, ``row_block``,
+    ``row_local`` and ``block_starts`` (the stored blocks bit for bit)."""
+    if inv_diag is not None:
+        inv = _tensor(inv_diag, device)
+        return Jacobi(inv_diag=inv, n=int(inv.shape[0]), max_block_size=1)
+
+    def idx(a):
+        return _tensor(a, device).to(torch.int64)
+
+    return Jacobi(inv_diag=None, inv_blocks=_tensor(inv_blocks, device),
+                  block_scales=_tensor(block_scales, device).to(torch.float32),
+                  row_block=idx(row_block), row_local=idx(row_local),
+                  block_starts=idx(block_starts), n=int(n), max_block_size=int(max_block_size))
 
 
 def csr_from_arrays(row_ptrs, col_idxs, values, shape, *, device,
@@ -187,16 +201,26 @@ def triangular_solver_from_arrays(diag, *, n, block, lower, unit_diag, algorithm
     """A ``TriangularSolver`` from a JAX one's arrays, carried bit for bit:
     'sweeps' takes the strict triangle ``off_op``, already carried over
     (:func:`dia_from_arrays` or :func:`csr_from_arrays`); 'block_scan' the
-    inverted diagonal blocks and the per-block panels."""
+    inverted diagonal blocks and the per-block panels (nb, W)."""
     def opt(a, dtype=None):
         if a is None:
             return None
         return _tensor(a if dtype is None else np.asarray(a, dtype), device)
 
+    def flat(a, dtype=None):
+        return None if a is None else opt(np.asarray(a).reshape(-1), dtype)
+
+    # the JAX package's panels pad each block row to the widest, W: carried
+    # as block rows of W entries each, the padding's zeros included
+    off_ptr = None
+    if off_cols is not None:
+        nb, W = np.asarray(off_cols).shape
+        off_ptr = np.arange(nb + 1, dtype=np.int64) * W
     return TriangularSolver(
         inv_diag_blocks=opt(inv_diag_blocks), off_csr=off_op, diag=_tensor(diag, device),
-        off_cols=opt(off_cols, np.int64), off_vals=opt(off_vals),
-        off_lrow=opt(off_lrow, np.int64), n=int(n), block=int(block), lower=bool(lower),
+        off_cols=flat(off_cols, np.int64), off_vals=flat(off_vals),
+        off_lrow=flat(off_lrow, np.int64), off_ptr=off_ptr, n=int(n), block=int(block),
+        lower=bool(lower),
         unit_diag=bool(unit_diag), algorithm=str(algorithm), sweeps=int(sweeps),
     )
 

@@ -33,6 +33,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..log.logger import logged_kernel
 from .dia import DTYPE_CODE, check_status, on_cpu
 
 LANES = 128
@@ -169,6 +170,7 @@ def spmm_launch(A, k):
     return dict(zip(SPMM_LAUNCH_FIELDS, out))
 
 
+@logged_kernel
 def bell_spmv(A, x):
     """K10: y = A x for one float32 right-hand side x of shape (n_cols,)."""
     if on_cpu(x):
@@ -189,6 +191,7 @@ def bell_spmv(A, x):
 bell_spmv.launches = 0
 
 
+@logged_kernel
 def bell_spmm(A, X):
     """K11: Y = A X for float32 X of shape (n_cols, k), row-major; each panel
     is read once for every group of 8 columns.  A Bell whose ring does not

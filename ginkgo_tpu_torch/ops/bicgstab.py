@@ -50,6 +50,7 @@ from dataclasses import dataclass
 import torch
 
 from .. import _build
+from ..log.logger import logged_kernel
 from .cg import (
     MAX_FUSED_COLS,
     _dots,
@@ -293,6 +294,7 @@ def bicgstab_fused_launch(diags, offsets, device):
     return _LAUNCHES[key]
 
 
+@logged_kernel
 def bicgstab_fused(diags, offsets, r0, x0, minv=None, *, tol_sq_eff, max_iters,
                    use_implicit=False):
     """K12: run BiCGSTAB to the stop test in one kernel.  diags: (nd, n)
@@ -345,6 +347,7 @@ bicgstab_fused.launches = 0
 bicgstab_fused.routes = {"ring": 0, "barrier": 0}
 
 
+@logged_kernel
 def bicgstab_fused_multi(diags, offsets, r0, x0, minv=None, *, tol_sq_eff, max_iters,
                          use_implicit=False):
     """K12m: BiCGSTAB on 2 to 8 right-hand sides in one kernel, with

@@ -30,6 +30,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..log.logger import logged_kernel
 from .dia import (
     DTYPE_CODE,
     MAX_DIAGS,
@@ -250,6 +251,7 @@ def _launch(diags, offsets, r0, x0, minv, tol, max_iters, use_implicit, flexible
     return x, r, ints[0], mon, ints[1:1 + k] != 0, ints[1 + k:]
 
 
+@logged_kernel
 def cg_fused(diags, offsets, r0, x0, minv=None, *, tol_sq_eff, max_iters,
              use_implicit=False, flexible=False):
     """K4: run CG (FCG with ``flexible=True``) to the stop test in one
@@ -277,6 +279,7 @@ def cg_fused(diags, offsets, r0, x0, minv=None, *, tol_sq_eff, max_iters,
 cg_fused.launches = 0
 
 
+@logged_kernel
 def cg_fused_multi(diags, offsets, r0, x0, minv=None, *, tol_sq_eff, max_iters,
                    use_implicit=False, flexible=False):
     """K4m: CG/FCG on 2 to 8 right-hand sides in one kernel, with per-column

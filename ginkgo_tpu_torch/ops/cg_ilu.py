@@ -42,6 +42,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..log.logger import logged_kernel
 from . import tri_walk
 from .cg import _dots, _sdiv, check_fused_diags
 from .dia import DTYPE_CODE, check_status, dia_spmv_reference, offsets_array, on_cpu
@@ -250,6 +251,7 @@ def bicgstab_ilu_fused_launch(A, Tl, Tu, sweeps_l, sweeps_u, device):
     return _launch("bicgstab_ilu_fused_plan", A, Tl, Tu, sweeps_l, sweeps_u, device)
 
 
+@logged_kernel
 def cg_ilu_fused(A, Tl, Tu, invdl, invdu, r0, x0, *, sweeps_l, sweeps_u, tol_sq_eff,
                  max_iters, use_implicit=False):
     """K23: ILU-preconditioned CG to the stop test in one kernel.  A: square
@@ -306,6 +308,7 @@ cg_ilu_fused.launches = 0
 cg_ilu_fused.routes = {"pipelined": 0, "barrier": 0}
 
 
+@logged_kernel
 def bicgstab_ilu_fused(A, Tl, Tu, invdl, invdu, r0, x0, *, sweeps_l, sweeps_u, tol_sq_eff,
                        max_iters, use_implicit=False):
     """K24: ILU right-preconditioned BiCGSTAB to the stop test in one kernel;

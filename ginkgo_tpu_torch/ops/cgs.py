@@ -28,6 +28,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..log.logger import logged_kernel
 from .cg import _dots, _sdiv, check_fused_diags, check_solve_vectors, coop_grid_blocks
 from .dia import DTYPE_CODE, check_status, dia_spmv_reference, offsets_array, on_cpu
 
@@ -181,6 +182,7 @@ def _outputs(r0, blocks, n_vec):
     return vecs, part, it_conv, mon
 
 
+@logged_kernel
 def cgs_fused(diags, offsets, r0, x0, minv=None, *, tol_sq_eff, max_iters,
               use_implicit=False):
     """K13: run CGS to the stop test in one kernel.  diags: (nd, n)
@@ -218,6 +220,7 @@ def cgs_fused(diags, offsets, r0, x0, minv=None, *, tol_sq_eff, max_iters,
 cgs_fused.launches = 0
 
 
+@logged_kernel
 def bicg_fused(diags, offsets, diags_t, offsets_t, r0, x0, minv=None, *, tol_sq_eff,
                max_iters, use_implicit=False):
     """K14: run BiCG to the stop test in one kernel.  diags/offsets: A;

@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..log.logger import logged_kernel
 
 #: Most diagonals a kernel takes (csrc/common.cuh GK_MAX_DIAGS); a DIA
 #: operator beyond it is not worth the format (matrix/dia.suitable_for_dia).
@@ -118,6 +119,7 @@ def dia_spmm_reference(diags, offsets, X, n_cols):
 # -- kernel wrappers -------------------------------------------------------------
 
 
+@logged_kernel
 def dia_spmv(diags, offsets, x, n_cols):
     """K1: y = A x for one right-hand side x of shape (n_cols,)."""
     if on_cpu(x):
@@ -141,6 +143,7 @@ def dia_spmv(diags, offsets, x, n_cols):
 dia_spmv.launches = 0
 
 
+@logged_kernel
 def dia_spmv_advanced(diags, offsets, x, alpha, beta, y, n_cols):
     """K2: alpha * A x + beta * y in one pass.  alpha and beta are
     1-element tensors on x's device, read by the kernel from device memory
@@ -173,6 +176,7 @@ def dia_spmv_advanced(diags, offsets, x, alpha, beta, y, n_cols):
 dia_spmv_advanced.launches = 0
 
 
+@logged_kernel
 def dia_spmm(diags, offsets, X, n_cols):
     """K3: Y = A X for X of shape (n_cols, k), row-major."""
     if on_cpu(X):

@@ -60,6 +60,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..log.logger import logged_kernel
 from .cg import _dots, _sqrt, check_fused_diags, check_solve_vectors, coop_grid_blocks
 from .dia import DTYPE_CODE, check_status, dia_spmv_reference, offsets_array, on_cpu
 from .pell import INDEX_CODE, check_fused_pell, pell_plan_args, pell_spmv_reference
@@ -369,6 +370,7 @@ def _basis_and_u(m, n, basis_dtype, dev):
             torch.empty(n4, dtype=torch.float32, device=dev))
 
 
+@logged_kernel
 def gmres_fused(diags, offsets, b, x0, minv=None, *, m, tol_sq_eff, max_iters,
                 basis_dtype=torch.float32):
     """K15: run restarted GMRES(m) to the stop test in one kernel.  diags:
@@ -415,6 +417,7 @@ def gmres_fused(diags, offsets, b, x0, minv=None, *, m, tol_sq_eff, max_iters,
 gmres_fused.launches = 0
 
 
+@logged_kernel
 def pell_gmres_fused(A, b, x0, minv=None, *, m, tol_sq_eff, max_iters,
                      basis_dtype=torch.float32):
     """K18: run restarted GMRES(m) to the stop test in one kernel on a
@@ -458,6 +461,7 @@ def pell_gmres_fused(A, b, x0, minv=None, *, m, tol_sq_eff, max_iters,
 pell_gmres_fused.launches = 0
 
 
+@logged_kernel
 def gmres_fused_multi(diags, offsets, b, x0, minv=None, *, m, tol_sq_eff, max_iters,
                       basis_dtype=torch.float32):
     """K15m: restarted GMRES(m) on 2 to 4 right-hand sides in one kernel,

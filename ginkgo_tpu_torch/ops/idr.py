@@ -41,6 +41,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..log.logger import logged_kernel
 from .cg import _dots, _sdiv, _sqrt, check_fused_diags, check_solve_vectors, coop_grid_blocks
 from .dia import DTYPE_CODE, check_status, dia_spmv_reference, offsets_array, on_cpu
 
@@ -149,6 +150,7 @@ def _lib():
     return lib
 
 
+@logged_kernel
 def idr_fused(diags, offsets, P, r0, x0, b, minv=None, *, kappa, tol_sq_eff, max_iters):
     """K16: run IDR(s) to the stop test in one kernel.  diags: (nd, n)
     float32/bfloat16; P: (s, n) float32, 1 <= s <= MAX_FUSED_IDR_S; r0, x0,

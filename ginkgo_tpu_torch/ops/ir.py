@@ -33,6 +33,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..log.logger import logged_kernel
 from .cg import _dots, check_fused_diags, check_solve_vectors, coop_grid_blocks
 from .dia import DTYPE_CODE, check_status, dia_spmv_reference, offsets_array, on_cpu
 
@@ -143,6 +144,7 @@ def _lib():
     return lib
 
 
+@logged_kernel
 def ir_fused(diags, offsets, b, x0, minv=None, *, omega, tol_sq_eff, max_iters):
     """K17: run IR/Richardson sweeps to the stop test in one kernel.  diags:
     (nd, n) float32/bfloat16; b, x0, minv: (n,) float32; omega: the
@@ -181,6 +183,7 @@ def ir_fused(diags, offsets, b, x0, minv=None, *, omega, tol_sq_eff, max_iters):
 ir_fused.launches = 0
 
 
+@logged_kernel
 def ir_smooth(diags, offsets, b, x0=None, minv=None, *, omega, iters, with_residual=False):
     """K17's fixed-sweep entry point: ``iters`` damped Richardson/Jacobi
     sweeps in one kernel.  x0: (n,) float32, or None to start from zero

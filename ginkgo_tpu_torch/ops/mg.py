@@ -67,6 +67,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..log.logger import logged_kernel
 from .cg import _dots, _sdiv, check_fused_diags, coop_grid_blocks
 from .dia import DTYPE_CODE, check_status, dia_spmv_reference, offsets_array, on_cpu
 
@@ -656,6 +657,7 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
+@logged_kernel
 def mg_vcycle(h: MgHierarchy, b, x0=None):
     """K25: one multigrid cycle (the plan's V/W/F/K) in one kernel.  b, x0:
     (n0,) float32 on the hierarchy's device; x0 None starts from zero.
@@ -684,6 +686,7 @@ def mg_vcycle(h: MgHierarchy, b, x0=None):
 mg_vcycle.launches = 0
 
 
+@logged_kernel
 def mg_solve_fused(h: MgHierarchy, b, x0, *, tol_sq_eff, max_iters):
     """K27: cycles from x0 to the stop test on the true residual, in one
     kernel.  tol_sq_eff: squared absolute threshold on r.r (negative: run
@@ -729,6 +732,7 @@ def _solver_operands(A, h, r0, x0, what):
                         offsets_array(A.offsets), len(A.offsets), n]
 
 
+@logged_kernel
 def mg_cg_fused(A, h: MgHierarchy, r0, x0, *, tol_sq_eff, max_iters, use_implicit=False,
                 flexible=False):
     """K26: CG (FCG with ``flexible``) preconditioned by one cycle from
@@ -763,6 +767,7 @@ def mg_cg_fused(A, h: MgHierarchy, r0, x0, *, tol_sq_eff, max_iters, use_implici
 mg_cg_fused.launches = 0
 
 
+@logged_kernel
 def mg_bicgstab_fused(A, h: MgHierarchy, r0, x0, *, tol_sq_eff, max_iters,
                       use_implicit=False):
     """K28: BiCGSTAB right-preconditioned by one cycle from zero, to the

@@ -34,6 +34,7 @@ import torch
 
 from .. import _build
 from ..base import types
+from ..log.logger import logged_kernel
 from .dia import DTYPE_CODE, VECTOR_DTYPES, check_status, on_cpu
 
 LANES = 128
@@ -357,6 +358,7 @@ def spmv_launch(A, vec_dtype=torch.float32):
     return dict(zip(LAUNCH_FIELDS, out))
 
 
+@logged_kernel
 def pell_spmv(A, x):
     """K5: y = A x for one right-hand side x of shape (n_cols,)."""
     if on_cpu(x):
@@ -379,6 +381,7 @@ def pell_spmv(A, x):
 pell_spmv.launches = 0
 
 
+@logged_kernel
 def pell_spmm(A, X):
     """K6: Y = A X for X of shape (n_cols, k), row-major; the plan is read
     once for up to 8 columns."""

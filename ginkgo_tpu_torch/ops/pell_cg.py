@@ -47,6 +47,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..log.logger import logged_kernel
 from . import bicgstab as _bicgstab
 from . import cgs as _cgs
 from . import ir as _ir
@@ -168,6 +169,7 @@ def _status(it_conv, mon):
     return it_conv[0], mon[0], it_conv[1] != 0
 
 
+@logged_kernel
 def pell_cg_fused(A, r0, x0, minv=None, *, tol_sq_eff, max_iters,
                   use_implicit=False, flexible=False):
     """K7: run CG (FCG with ``flexible=True``) on a square Pell to the stop
@@ -240,6 +242,7 @@ def _ptr(a):
     return None if a is None else a.data_ptr()
 
 
+@logged_kernel
 def pell_bicgstab_fused(A, r0, x0, minv=None, *, tol_sq_eff, max_iters, use_implicit=False):
     """K19: run right-preconditioned BiCGSTAB (M applied explicitly) on a
     square Pell to the stop test in one kernel, with K12's semantics.
@@ -270,6 +273,7 @@ def pell_bicgstab_fused(A, r0, x0, minv=None, *, tol_sq_eff, max_iters, use_impl
 pell_bicgstab_fused.launches = 0
 
 
+@logged_kernel
 def pell_cgs_fused(A, r0, x0, minv=None, *, tol_sq_eff, max_iters, use_implicit=False):
     """K20: run CGS (M applied explicitly) on a square Pell to the stop test
     in one kernel, with K13's semantics.  Operands as K19's.  Returns (x,
@@ -298,6 +302,7 @@ def pell_cgs_fused(A, r0, x0, minv=None, *, tol_sq_eff, max_iters, use_implicit=
 pell_cgs_fused.launches = 0
 
 
+@logged_kernel
 def pell_ir_fused(A, b, x0, minv=None, *, omega, tol_sq_eff, max_iters, with_residual=False):
     """K21: run IR/Richardson sweeps on a square Pell to the stop test in
     one kernel, the monitor starting at r0's r.r (no sweep when r0 meets

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from ..log.logger import logged_kernel
 from . import tri_walk
 from .cg import check_fused_diags
 from .cg_ilu import _lib, _tri_sweeps, check_vector
@@ -43,6 +44,7 @@ def trs_fused_launch(T, sweeps, device):
     return tri_walk.plan(_lib(), "trs_fused_plan", args, 1, device)
 
 
+@logged_kernel
 def trs_fused(T, invd, b, *, sweeps):
     """K22: x ~ T^{-1} b by ``sweeps`` sweeps in one kernel.  T: square
     ``Dia`` strict triangle with 1 to 64 float32/bfloat16 diagonals; invd,

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..log.logger import logged_kernel
 from .dia import DTYPE_CODE, VECTOR_DTYPES, check_status, on_cpu
 from .pell import (
     LANES,
@@ -568,6 +569,7 @@ def _scratch(A, chunks, x, k=1):
     return torch.empty(chunks.n_parts * A.T * TILE_ROWS * k, dtype=x.dtype, device=x.device)
 
 
+@logged_kernel
 def well_spmv(A, x, chunk_slots: int = CHUNK_SLOTS):
     """K8: y = A x for one right-hand side x of shape (n_cols,).
     ``chunk_slots`` sets the work list's chunks (tests force small ones)."""
@@ -593,6 +595,7 @@ def well_spmv(A, x, chunk_slots: int = CHUNK_SLOTS):
 well_spmv.launches = 0
 
 
+@logged_kernel
 def well_spmm(A, X, chunk_slots: int = CHUNK_SLOTS):
     """K9: Y = A X for X of shape (n_cols, k), row-major; the plan is read
     once for every group of up to 4 columns that fits a block's shared

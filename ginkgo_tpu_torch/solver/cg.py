@@ -120,16 +120,28 @@ class Cg(IterativeSolverMixin, LinOp):
         return fast if fast is not None else self._solve_streaming(b, x0)
 
     def _solve_streaming(self, b, x0):
-        """One iteration per loop trip, step for step as ginkgo_tpu's
-        Cg._solve_with_state (solver/cg.py:349-415).  b, x0: (n, k)."""
+        """One iteration per loop trip.  b, x0: (n, k)."""
+        x, info, _ = self._solve_with_state(b, x0, None)
+        return x, info
+
+    def _solve_with_state(self, b, x0, resume):
+        """The streaming loop, step for step as ginkgo_tpu's
+        Cg._solve_with_state (solver/cg.py:349-415).  ``resume`` carries
+        (r, p, rho_prev, fresh) from the previous chunk of ``solve_chunked``
+        so that chunking does not restart the recurrence; the third return
+        value is that state."""
         A, M = self.A, self.preconditioner
         cap = extract_max_iters(self.criterion)
         k = b.shape[1]
         dev = b.device
 
-        r = b - A.apply(x0)  # cg.cpp:142
-        p = torch.zeros_like(b)
-        rho_prev = torch.ones(k, dtype=b.dtype, device=dev)
+        if resume is None:
+            r = b - A.apply(x0)  # cg.cpp:142
+            p = torch.zeros_like(b)
+            rho_prev = torch.ones(k, dtype=b.dtype, device=dev)
+            fresh = True
+        else:
+            r, p, rho_prev, fresh = resume
         baselines = self._baselines(b, r)
         hist = (
             torch.zeros((cap, k), dtype=types.real_dtype(b.dtype), device=dev)
@@ -146,7 +158,7 @@ class Cg(IterativeSolverMixin, LinOp):
             rho = vdot(r, z)  # cg.cpp:161
             # step_1: p = z + beta p with beta = rho/rho_prev (cg.cpp:177)
             beta = safe_div(rho, rho_prev)
-            p_new = z if it == 0 else z + beta[None, :] * p
+            p_new = z if it == 0 and fresh else z + beta[None, :] * p
             p_new = masked_cols(p_new, p, stopped)
             q = A.apply(p_new)  # cg.cpp:181
             pq = vdot(p_new, q)  # cg.cpp:183
@@ -167,7 +179,7 @@ class Cg(IterativeSolverMixin, LinOp):
             converged=stopped,
             history=hist,
         )
-        return x, info
+        return x, info, (r, p, rho_prev, False)
 
 
 @dataclasses.dataclass(eq=False)

@@ -6,11 +6,17 @@ dataclass holding the system operator, the generated preconditioner and a
 combined stopping criterion.  Solves run eagerly under
 ``torch.no_grad()``; per-column stop masks freeze converged columns as the
 reference's stopping_status-masked step kernels do.
+
+``solve(b, x0, loggers=)`` brackets a solve with ``linop_apply`` events and
+replays ``iteration_complete`` from its ``SolveInfo`` (a whole-solve kernel
+has no per-iteration hook); ``solve_chunked`` runs fixed-size chunks with a
+host check between them, which is where a ``Time`` criterion stops a solve.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time as _time
 from typing import Any
 
 import torch
@@ -18,7 +24,16 @@ import torch
 from ..base.linop import as_2d, restore_1d
 from ..base import types
 from ..matrix.diagonal import Identity
-from ..stop.criterion import Combined, Criterion, Iteration, combine, default_criteria
+from ..log.logger import Event, fanout, global_log, global_loggers
+from ..stop.criterion import (
+    Combined,
+    Criterion,
+    Iteration,
+    Time,
+    combine,
+    default_criteria,
+    freeze_initial_baseline,
+)
 
 HARD_ITER_CAP = 10_000
 
@@ -86,6 +101,20 @@ def extract_max_iters(criterion: Criterion, default: int = HARD_ITER_CAP) -> int
     return min(found) if found else default
 
 
+def extract_time_limit(criterion: Criterion):
+    found = []
+
+    def walk(c):
+        if isinstance(c, Time):
+            found.append(c.time_limit_sec)
+        elif isinstance(c, Combined):
+            for ch in c.criteria:
+                walk(ch)
+
+    walk(criterion)
+    return min(found) if found else None
+
+
 # -- factory (GKO_ENABLE_LIN_OP_FACTORY analog, lin_op.hpp:1038) ----------------
 
 
@@ -107,19 +136,31 @@ class SolverFactory:
         self.preconditioner = factory
         return self
 
+    def on(self, exec=None):
+        """Executor placement: a no-op, as in the JAX package; the solver
+        lives on its operator's device."""
+        return self
+
     def generate(self, A):
+        global_log(Event.linop_factory_generate_started, factory=self.solver_cls.__name__)
         crit = combine(self.criteria) if self.criteria is not None else (
             default_criteria()
         )
         if self.preconditioner is None:
             M = Identity.create(A.shape[0], A.dtype)
         elif hasattr(self.preconditioner, "generate"):
+            pname = type(self.preconditioner).__name__
+            global_log(Event.linop_factory_generate_started, factory=pname)
             M = self.preconditioner.generate(A)
+            global_log(Event.linop_factory_generate_completed, factory=pname)
         else:
             M = self.preconditioner  # already a LinOp
-        return self.solver_cls.create(
+        solver = self.solver_cls.create(
             A=A, preconditioner=M, criterion=crit, **self.params
         )
+        global_log(Event.linop_factory_generate_completed, factory=self.solver_cls.__name__,
+                   solver=solver)
+        return solver
 
 
 class IterativeSolverMixin:
@@ -151,14 +192,21 @@ class IterativeSolverMixin:
         x, _ = self.solve(b, x0)
         return x
 
-    def solve(self, b, x0=None):
+    def solve(self, b, x0=None, loggers=()):
         """Returns (x, SolveInfo).
 
         The solve runs in the OPERATOR's precision and x comes back in the
         caller's (precision_dispatch, core/base/precision_dispatch.hpp).
         Reduced-storage operators (bf16/f16 via ``reduce_storage``) are a
         storage format with float32 arithmetic, not a solve precision: the
-        solve never drops below the caller's float32/float64."""
+        solve never drops below the caller's float32/float64.
+
+        Logging (logger.hpp:336-481): ``linop_apply`` events bracket the
+        solve, and ``iteration_complete`` is replayed from the SolveInfo
+        afterwards, once a recorded history row when the solver tracks
+        history, then once with the final state.  Events go to ``loggers``
+        and to the global registry; with neither the solve reads nothing
+        back for them."""
         from ..base.exceptions import assert_conformant
 
         barr, was_1d = as_2d(b)
@@ -181,11 +229,90 @@ class IterativeSolverMixin:
             xarr, _ = as_2d(x0)
             if convert:
                 xarr = xarr.to(op_dtype)
+        emit = bool(loggers) or bool(global_loggers())
+        if emit:
+            fanout(loggers, Event.linop_apply_started, solver=self)
         with torch.no_grad():
             x, info = self._solve_impl(barr, xarr)
+        if emit:
+            self._replay_iterations(loggers, info)
+            fanout(loggers, Event.linop_apply_completed, solver=self)
         if convert:
             x = x.to(caller_dtype)
         return restore_1d(x, was_1d), info
+
+    def _replay_iterations(self, loggers, info):
+        if info.history is not None:
+            hist = types.to_host(info.history)
+            for i in range(min(int(info.iterations), hist.shape[0])):
+                fanout(loggers, Event.iteration_complete, solver=self, iteration=i + 1,
+                       residual_norm=hist[i])
+        fanout(loggers, Event.iteration_complete, solver=self,
+               iteration=int(info.iterations), residual_norm=info.residual_norm,
+               converged=bool(torch.all(info.converged)))
+
+    def solve_chunked(self, b, x0=None, chunk: int = 50, loggers=()):
+        """A host-driven solve in chunks of at most ``chunk`` iterations,
+        with ``iteration_complete`` and the criterion events sent to
+        ``loggers`` after each chunk, and a ``Time`` criterion checked there
+        (the host check of the reference's per-iteration loop).
+
+        A solver with ``_solve_with_state`` (Cg) carries its recurrence
+        across the chunk boundary; the others restart at it.  Residual
+        baselines are not re-taken: a criterion against
+        ``initial_resnorm`` is frozen to the original initial residual
+        first, which also makes the whole-solve kernels decline, so a
+        resumable solver's chunks run the streaming loop."""
+        limit = extract_time_limit(self.criterion)
+        max_iters = extract_max_iters(self.criterion)
+        barr, was_1d = as_2d(b)
+        with torch.no_grad():
+            x = torch.zeros_like(barr) if x0 is None else as_2d(x0)[0]
+            frozen = freeze_initial_baseline(self.criterion, norm2(barr - self.A.apply(x)))
+            solver = self if frozen is self.criterion else self.replace(criterion=frozen)
+            start = _time.perf_counter()
+            done_iters = 0
+            info = None
+            chunk_solver = None
+            resumable = hasattr(solver, "_solve_with_state")
+            state = None
+            while done_iters < max_iters:
+                n_now = min(chunk, max_iters - done_iters)
+                if chunk_solver is None or n_now != chunk:
+                    chunk_solver = solver._replace_iteration_cap(n_now)
+                if resumable:
+                    x, info, state = chunk_solver._solve_with_state(barr, x, state)
+                else:
+                    x, info = chunk_solver._solve_impl(barr, x)
+                done_iters += int(info.iterations)
+                conv_now = bool(torch.all(info.converged))
+                fanout(loggers, Event.iteration_complete, solver=solver, iteration=done_iters,
+                       residual_norm=info.residual_norm, converged=conv_now)
+                fanout(loggers, Event.criterion_check_started, solver=solver,
+                       iteration=done_iters)
+                fanout(loggers, Event.criterion_check_completed, solver=solver,
+                       iteration=done_iters, converged=conv_now)
+                if conv_now:
+                    break
+                if limit is not None and _time.perf_counter() - start > limit:
+                    break
+        info = SolveInfo(
+            iterations=torch.tensor(done_iters, dtype=torch.int32, device=barr.device),
+            residual_norm=info.residual_norm, converged=info.converged, history=None)
+        return restore_1d(x, was_1d), info
+
+    def _replace_iteration_cap(self, n):
+        def swap(c):
+            if isinstance(c, Iteration):
+                return Iteration(max_iters=n)
+            if isinstance(c, Combined):
+                return Combined(criteria=tuple(swap(ch) for ch in c.criteria))
+            return c
+
+        newc = swap(self.criterion)
+        if extract_max_iters(newc, default=-1) == -1:
+            newc = Combined(criteria=(Iteration(max_iters=n), newc))
+        return self.replace(criterion=newc)
 
     # -- criterion evaluation inside the loop --------------------------------
 

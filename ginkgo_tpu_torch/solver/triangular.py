@@ -6,7 +6,10 @@ package's:
 
 - 'block_scan' (exact, the default): at generate time the factor is packed
   into dense diagonal blocks, inverted (``torch.linalg.inv``, batched), and
-  per-block panels of the entries off the block diagonal.  A solve walks the
+  the entries off the block diagonal are kept block row by block row (the
+  JAX package pads each block row to the widest; a nested-dissection
+  Cholesky factor's last block rows are about 70 times wider than the
+  mean, so the port does not).  A solve walks the
   block columns in order, x_b = invD_b (rhs_b - offdiag_b x), a Python loop
   of PyTorch ops: the sequential depth drops from n to n / B.
 - 'sweeps' (iterative): Jacobi-Richardson sweeps x <- D^{-1}(b - N x), N
@@ -61,11 +64,13 @@ class TriangularSolver(LinOp):
     inv_diag_blocks: Any  # (nb, B, B) inverted diagonal blocks
     off_csr: Any  # 'sweeps': the strict triangle (choose_format's operator)
     diag: Any  # (n,) diagonal
-    #: block_scan per-block panels: the entries of block row bi padded to
-    #: the largest per-block count W, so step bi touches only its own
-    off_cols: Any = None  # (nb, W) column of each entry
-    off_vals: Any = None  # (nb, W) values (0 padding)
-    off_lrow: Any = None  # (nb, W) row within the block
+    #: block_scan: the entries off the block diagonal, block row by block
+    #: row; block row bi's are [off_ptr[bi], off_ptr[bi + 1]), so step bi
+    #: touches only its own and no block row pads to the widest one
+    off_cols: Any = None  # (nnz_off,) column of each entry
+    off_vals: Any = None  # (nnz_off,) values
+    off_lrow: Any = None  # (nnz_off,) row within the block
+    off_ptr: Any = None  # (nb + 1,) host int64 offsets of each block row
     n: int = 0
     block: int = 64
     lower: bool = True
@@ -130,15 +135,19 @@ class TriangularSolver(LinOp):
         inv = self.inv_diag_blocks.to(arr.dtype)
         vals = self.off_vals.to(arr.dtype)
         rows = torch.arange(B, device=arr.device)[:, None]
+        ptr = self.off_ptr
         x = arr.new_zeros((npad, k))
         order = range(nb) if self.lower else range(nb - 1, -1, -1)
         for bi in order:
-            # block bi's off-diagonal entries, summed into their rows by a
-            # one-hot product (no atomics: the same sum on every run)
-            terms = vals[bi][:, None] * x[self.off_cols[bi]]
-            onehot = (self.off_lrow[bi][None, :] == rows).to(arr.dtype)
-            seg = onehot @ terms
-            x[bi * B:(bi + 1) * B] = inv[bi] @ (rhs[bi * B:(bi + 1) * B] - seg)
+            rhs_b = rhs[bi * B:(bi + 1) * B]
+            lo, hi = int(ptr[bi]), int(ptr[bi + 1])
+            if hi > lo:
+                # block bi's off-diagonal entries, summed into their rows by
+                # a one-hot product (no atomics: the same sum on every run)
+                terms = vals[lo:hi, None] * x[self.off_cols[lo:hi]]
+                onehot = (self.off_lrow[lo:hi][None, :] == rows).to(arr.dtype)
+                rhs_b = rhs_b - onehot @ terms
+            x[bi * B:(bi + 1) * B] = inv[bi] @ rhs_b
         return x[:self.n]
 
 
@@ -188,24 +197,17 @@ def _build(csr_mat, lower: bool, unit_diag: bool, algorithm: str, block: int, sw
     fix = (g >= n) | (blocks[:, lane, lane] == 0)
     blocks[:, lane, lane] = np.where(fix, 1.0, blocks[:, lane, lane])
     inv_blocks = torch.linalg.inv(torch.as_tensor(blocks, device=dev))
-    # the off-block part as per-block padded panels
+    # the off-block part block row by block row, each in the factor's order
     orows, ocols, ovals = rows[~in_blk], cols[~in_blk], vals[~in_blk]
     blk_of = orows // B
-    counts = np.bincount(blk_of, minlength=nb)
-    W = max(int(counts.max()) if len(counts) else 0, 1)
-    off_cols = np.zeros((nb, W), np.int64)
-    off_vals = np.zeros((nb, W), vals.dtype)
-    off_lrow = np.zeros((nb, W), np.int64)
     order = np.argsort(blk_of, kind="stable")
-    slot = np.arange(len(orows)) - np.concatenate([[0], np.cumsum(counts)])[blk_of[order]]
-    off_cols[blk_of[order], slot] = ocols[order]
-    off_vals[blk_of[order], slot] = ovals[order]
-    off_lrow[blk_of[order], slot] = orows[order] % B
+    off_ptr = np.concatenate([[0], np.cumsum(np.bincount(blk_of, minlength=nb))])
     return TriangularSolver(
         inv_diag_blocks=inv_blocks, off_csr=None,
-        off_cols=torch.as_tensor(off_cols, device=dev),
-        off_vals=torch.as_tensor(off_vals, device=dev),
-        off_lrow=torch.as_tensor(off_lrow, device=dev),
+        off_cols=torch.as_tensor(ocols[order].astype(np.int64), device=dev),
+        off_vals=torch.as_tensor(ovals[order], device=dev),
+        off_lrow=torch.as_tensor(orows[order] % B, device=dev),
+        off_ptr=off_ptr.astype(np.int64),
         diag=torch.as_tensor(dense_diag, device=dev), n=n, block=B, lower=lower,
         unit_diag=unit_diag, algorithm="block_scan", sweeps=0)
 

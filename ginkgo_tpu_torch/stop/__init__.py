@@ -4,9 +4,12 @@ from .criterion import (
     ResidualNorm,
     ImplicitResidualNorm,
     Combined,
+    Time,
+    FrozenBaselineResidualNorm,
     analyze_simple_residual,
     combine,
     default_criteria,
+    freeze_initial_baseline,
 )
 
 __all__ = [
@@ -15,7 +18,10 @@ __all__ = [
     "ResidualNorm",
     "ImplicitResidualNorm",
     "Combined",
+    "Time",
+    "FrozenBaselineResidualNorm",
     "analyze_simple_residual",
     "combine",
     "default_criteria",
+    "freeze_initial_baseline",
 ]

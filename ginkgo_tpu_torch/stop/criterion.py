@@ -12,6 +12,10 @@ solve's device; ``ctx`` is a dict the solver fills with what it tracks:
   rhs_norm, initial_resnorm    (k,) baselines captured at solve start
   num_cols, device             k and the device of the masks
 
+``Time`` is inert inside a solve: ``solve_chunked`` checks it between
+chunks, against a ``FrozenBaselineResidualNorm`` that keeps the original
+initial residual as the baseline.
+
 The whole-solve kernel evaluates the same criteria on the device through
 :func:`analyze_simple_residual`.
 """
@@ -132,11 +136,65 @@ class Combined(Criterion):
         return mask
 
 
+@dataclasses.dataclass(eq=False)
+class Time(Criterion):
+    """Wall-clock limit (time.hpp:52).  Checked on the host between the
+    chunks of ``solve_chunked``; inert inside a solve's loop."""
+
+    time_limit_sec: float = float("inf")
+    is_convergence = False
+
+    def check(self, ctx):
+        return _no_stop(ctx)
+
+
+@dataclasses.dataclass(eq=False)
+class FrozenBaselineResidualNorm(Criterion):
+    """ResidualNorm against a per-column baseline captured beforehand: the
+    chunked driver's ``initial_resnorm`` stays the ORIGINAL initial residual
+    instead of each chunk's restart residual."""
+
+    tolerance: float = 1e-8
+    baseline_vals: torch.Tensor = None  # (k,)
+
+    needs_residual_norm = True
+
+    def check(self, ctx):
+        return ctx["residual_norm"] <= self.tolerance * self.baseline_vals
+
+
+def freeze_initial_baseline(criterion, initial_resnorm):
+    """Replace every ResidualNorm/ImplicitResidualNorm with
+    ``baseline='initial_resnorm'`` by a frozen-baseline equivalent; the same
+    object back when there is none."""
+
+    def walk(c):
+        if isinstance(c, (ResidualNorm, ImplicitResidualNorm)) and (
+                c.baseline == "initial_resnorm"):
+            return FrozenBaselineResidualNorm(tolerance=c.tolerance,
+                                              baseline_vals=initial_resnorm)
+        if isinstance(c, Combined):
+            return Combined(criteria=tuple(walk(ch) for ch in c.criteria))
+        return c
+
+    new = walk(criterion)
+    return new if _tree_differs(new, criterion) else criterion
+
+
+def _tree_differs(a, b) -> bool:
+    if a is b:
+        return False
+    if isinstance(a, Combined) and isinstance(b, Combined):
+        return any(_tree_differs(x, y) for x, y in zip(a.criteria, b.criteria))
+    return type(a) is not type(b)
+
+
 def analyze_simple_residual(criterion):
     """Decompose a criterion tree into (tolerance, baseline, implicit,
-    has_residual_criterion) when it is a plain Iteration/residual-norm
+    has_residual_criterion) when it is a plain Iteration/Time/residual-norm
     combination — the shape the whole-solve kernel evaluates on the device.
-    Returns None for custom criteria or more than one residual criterion."""
+    Returns None for custom criteria, a frozen baseline or more than one
+    residual criterion."""
     found = []
     ok = [True]
 
@@ -144,8 +202,8 @@ def analyze_simple_residual(criterion):
         if isinstance(c, Combined):
             for ch in c.criteria:
                 walk(ch)
-        elif isinstance(c, Iteration):
-            pass  # the kernel's max_iters
+        elif isinstance(c, (Iteration, Time)):
+            pass  # the kernel's max_iters; Time is inert inside a solve
         elif isinstance(c, ResidualNorm):
             found.append((c.tolerance, c.baseline, False))
         elif isinstance(c, ImplicitResidualNorm):

@@ -14,7 +14,8 @@
   within 1e-10 relative (batched dense solves through LAPACK in both).
 - LU (SuperLU, natural order) and Direct: the factors, the row
   permutation and the solution against the JAX package's; an explicit
-  symmetric permutation; the named reorderings raise NotImplementedError_.
+  symmetric permutation; the named reorderings ('rcm', 'nd', 'auto') give
+  the JAX package's permutations, and an unknown name raises ValueError.
 """
 
 import numpy as np
@@ -40,7 +41,6 @@ from ginkgo_tpu.matrix.dia import Dia as JDia
 from ginkgo_tpu.preconditioner.isai import IsaiFactory as JIsai
 from ginkgo_tpu.solver.direct import Direct as JDirect
 from ginkgo_tpu_torch import factorization as fz
-from ginkgo_tpu_torch.base.exceptions import NotImplementedError_
 from ginkgo_tpu_torch.preconditioner import Ilu, IsaiFactory
 from ginkgo_tpu_torch.solver import Direct
 from tests.test_torch_bicgstab import convdiff_2d
@@ -174,9 +174,26 @@ def test_lu_and_direct_match_jax():
 
 @pytest.mark.parametrize("reorder", ["rcm", "nd", "auto"])
 def test_lu_reorder_strings_raise(reorder):
-    _, C = _csr_pair("poisson16")
-    with pytest.raises(NotImplementedError_, match="ROADMAP"):
-        fz.LuFactory(reorder=reorder).generate(C)
+    """The named reorderings: the JAX package's row and column permutations
+    element for element, its factors and solution within 1e-12; a name
+    neither package knows raises ValueError in both."""
+    JC, C = _csr_pair("poisson16")
+    f = fz.LuFactory(reorder=reorder).generate(C)
+    g = JLu(reorder=reorder).generate(JC)
+    np.testing.assert_array_equal(f.row_perm.numpy(), np.asarray(g.row_perm))
+    np.testing.assert_array_equal(f.col_perm.numpy(), np.asarray(g.col_perm))
+    for a, b in ((f.l_factor, g.l_factor), (f.u_factor, g.u_factor)):
+        np.testing.assert_allclose(a.to_scipy().toarray(), b.to_scipy().toarray(),
+                                   rtol=1e-12, atol=1e-12)
+    b = np.random.default_rng(12).standard_normal(C.shape[0])
+    x, _ = Direct.build(factorization=fz.LuFactory(reorder=reorder)).generate(C).solve(
+        torch.from_numpy(b))
+    jx, _ = JDirect.build(factorization=JLu(reorder=reorder)).generate(JC).solve(jnp.asarray(b))
+    np.testing.assert_allclose(x.numpy(), np.asarray(jx), rtol=1e-12, atol=1e-12)
+    with pytest.raises(ValueError, match="unknown reorder"):
+        fz.LuFactory(reorder=reorder + "_x").generate(C)
+    with pytest.raises(ValueError, match="unknown reorder"):
+        JLu(reorder=reorder + "_x").generate(JC)
 
 
 def test_symbolic_analysis_matches_jax():

@@ -64,6 +64,14 @@ def test_import_leaves_no_jax_in_sys_modules():
         "import ginkgo_tpu_torch.matrix.fbcsr, ginkgo_tpu_torch.base.index_set\n"
         "import ginkgo_tpu_torch.ops.spgemm, ginkgo_tpu_torch.ops.components\n"
         "import ginkgo_tpu_torch.ops.spmv\n"
+        "import ginkgo_tpu_torch.reorder, ginkgo_tpu_torch.reorder.rcm\n"
+        "import ginkgo_tpu_torch.reorder.nd, ginkgo_tpu_torch.reorder.scaled_reordered\n"
+        "import ginkgo_tpu_torch.log, ginkgo_tpu_torch.log.logger, ginkgo_tpu_torch.log.profiler\n"
+        "import ginkgo_tpu_torch.base.precision_dispatch, ginkgo_tpu_torch.base.accessor\n"
+        "import ginkgo_tpu_torch.base.executor, ginkgo_tpu_torch.base.version\n"
+        "import ginkgo_tpu_torch._native, ginkgo_tpu_torch.factorization.lu\n"
+        "import ginkgo_tpu_torch.preconditioner.jacobi\n"
+        "ginkgo_tpu_torch.base.version.version_info()\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
         "    if m.split('.')[0] in ('jax', 'jaxlib', 'ginkgo_tpu'))))\n"
     )

@@ -190,8 +190,17 @@ def test_jacobi_from_jax_arrays_matches_generated():
     pj = gt.Jacobi.build(max_block_size=1).generate(A)
     carried = interop.jacobi_from_arrays(np.asarray(jj.inv_diag), device="cpu")
     assert torch.equal(carried.inv_diag, pj.inv_diag)
-    with pytest.raises(NotImplementedError):
-        gt.Jacobi.build(max_block_size=4).generate(A)
+    # block Jacobi (slice 10): the JAX package's stored blocks, carried
+    # across, apply as the generated ones do
+    jb = JJacobi.build(max_block_size=4).generate(JA)
+    pb = gt.Jacobi.build(max_block_size=4).generate(A)
+    carried = interop.jacobi_from_arrays(
+        device="cpu", inv_blocks=np.asarray(jb.inv_blocks), block_scales=np.asarray(jb.block_scales),
+        row_block=np.asarray(jb.row_block), row_local=np.asarray(jb.row_local),
+        block_starts=np.asarray(jb.block_starts), n=jb.n, max_block_size=4)
+    assert torch.equal(carried.block_starts, pb.block_starts)
+    b = torch.ones(A.shape[0])
+    torch.testing.assert_close(carried.apply(b), pb.apply(b), rtol=1e-6, atol=1e-6)
 
 
 def test_gate_declines_what_the_kernel_does_not_take():
